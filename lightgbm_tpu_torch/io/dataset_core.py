@@ -1,0 +1,168 @@
+"""Binned dataset: row-major bin matrix + metadata.
+
+Port of the dense path of ``lightgbm_tpu/io/dataset_core.py`` (ref:
+include/LightGBM/dataset.h:492 Dataset, dataset.h:49 Metadata,
+src/io/dataset_loader.cpp:601 ConstructFromSampleData).
+
+The JAX package stores ``bins`` feature-major ``[F, R]``; the port stores
+the ROW-major ``[R, F]`` matrix, the layout the compact grower gathers
+leaf rows from and the histogram kernel reads. Bin finding (row sampling,
+per-feature ``BinMapper.find_bin``) follows the JAX package line for line
+so the boundaries and the binned values are bit-identical.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from ..config import Config
+from ..utils import log
+from .binning import BIN_NUMERICAL, BinMapper
+
+
+class Metadata:
+    """label / weight / init_score storage (ref: dataset.h:49)."""
+
+    def __init__(self, num_data: int):
+        self.num_data = num_data
+        self.label: Optional[np.ndarray] = None          # f32 [N]
+        self.weight: Optional[np.ndarray] = None         # f32 [N]
+        self.init_score: Optional[np.ndarray] = None     # f64 [N]
+
+    def set_label(self, label: Sequence[float]) -> None:
+        label = np.ascontiguousarray(label, dtype=np.float32).reshape(-1)
+        if len(label) != self.num_data:
+            log.fatal(f"Length of label ({len(label)}) != num_data "
+                      f"({self.num_data})")
+        self.label = label
+
+    def set_weight(self, weight: Optional[Sequence[float]]) -> None:
+        if weight is None:
+            self.weight = None
+            return
+        weight = np.ascontiguousarray(weight, dtype=np.float32).reshape(-1)
+        if len(weight) != self.num_data:
+            log.fatal(f"Length of weight ({len(weight)}) != num_data "
+                      f"({self.num_data})")
+        self.weight = weight
+
+    def set_init_score(self, init_score: Optional[Sequence[float]]) -> None:
+        if init_score is None:
+            self.init_score = None
+            return
+        init_score = np.ascontiguousarray(init_score,
+                                          dtype=np.float64).reshape(-1)
+        if len(init_score) != self.num_data:
+            log.fatal("Length of init_score must equal num_data (one "
+                      "model per iteration)")
+        self.init_score = init_score
+
+
+class BinnedDataset:
+    """Quantized training data.
+
+    Attributes
+    ----------
+    bins : np.ndarray uint8 [num_data, num_used_features]
+        Row-major bin indices; trivial (constant / pre-filtered) features
+        are excluded.
+    bin_mappers : per ORIGINAL feature BinMapper (len == num_total_features).
+    used_feature_map : original feature index for each column of ``bins``.
+    """
+
+    def __init__(self) -> None:
+        self.bins: Optional[np.ndarray] = None
+        self.bin_mappers: List[BinMapper] = []
+        self.used_feature_map: np.ndarray = np.zeros(0, dtype=np.int32)
+        self.num_data: int = 0
+        self.num_total_features: int = 0
+        self.metadata: Optional[Metadata] = None
+        self.feature_names: List[str] = []
+
+    @classmethod
+    def from_matrix(cls, data: np.ndarray, config: Config,
+                    label: Optional[Sequence[float]] = None,
+                    weight: Optional[Sequence[float]] = None,
+                    init_score: Optional[Sequence[float]] = None,
+                    feature_names: Optional[List[str]] = None,
+                    ) -> "BinnedDataset":
+        """Build from a dense [N, F] float matrix (ref:
+        DatasetLoader::ConstructFromSampleData dataset_loader.cpp:601)."""
+        data = np.asarray(data)
+        if data.ndim != 2:
+            log.fatal("data must be 2-dimensional")
+        num_data, num_features = data.shape
+        self = cls()
+        self.num_data = num_data
+        self.num_total_features = num_features
+        self.feature_names = (list(feature_names) if feature_names else
+                              [f"Column_{i}" for i in range(num_features)])
+        self.bin_mappers = cls._find_bin_mappers(data, config)
+        self.used_feature_map = np.asarray(
+            [i for i, m in enumerate(self.bin_mappers) if not m.is_trivial],
+            dtype=np.int32)
+        self.bins = _quantize_rowmajor(data, self.bin_mappers,
+                                       self.used_feature_map)
+        meta = Metadata(num_data)
+        if label is not None:
+            meta.set_label(label)
+        meta.set_weight(weight)
+        meta.set_init_score(init_score)
+        self.metadata = meta
+        return self
+
+    @staticmethod
+    def _find_bin_mappers(data: np.ndarray,
+                          config: Config) -> List[BinMapper]:
+        """Sample rows and find per-feature bin boundaries (ref:
+        dataset_loader.cpp:1080 ConstructBinMappersFromTextData)."""
+        num_data, num_features = data.shape
+        sample_cnt = min(config.bin_construct_sample_cnt, num_data)
+        if sample_cnt < num_data:
+            rng = np.random.default_rng(config.data_random_seed)
+            sample_indices = np.sort(rng.choice(num_data, size=sample_cnt,
+                                                replace=False))
+        else:
+            sample_indices = np.arange(num_data)
+        # pre-filter needs the split constraint (ref: dataset_loader.cpp
+        # filter_cnt computation)
+        filter_cnt = int(max(
+            config.min_data_in_leaf * len(sample_indices)
+            / max(num_data, 1), config.min_data_in_bin))
+        max_bin_by_feature = config.max_bin_by_feature
+        mappers = []
+        for f in range(num_features):
+            col = np.asarray(data[sample_indices, f], dtype=np.float64)
+            mb = (max_bin_by_feature[f] if f < len(max_bin_by_feature)
+                  else config.max_bin)
+            mappers.append(BinMapper.find_bin(
+                col, len(sample_indices), mb, config.min_data_in_bin,
+                filter_cnt, pre_filter=config.feature_pre_filter,
+                bin_type=BIN_NUMERICAL, use_missing=config.use_missing,
+                zero_as_missing=config.zero_as_missing))
+        n_trivial = sum(m.is_trivial for m in mappers)
+        if n_trivial:
+            log.info(f"{n_trivial} trivial feature(s) removed")
+        return mappers
+
+    def used_bin_mappers(self) -> List[BinMapper]:
+        return [self.bin_mappers[i] for i in self.used_feature_map]
+
+    def feature_infos(self) -> List[str]:
+        return [m.feature_info() for m in self.bin_mappers]
+
+
+def _quantize_rowmajor(data: np.ndarray, bin_mappers: List[BinMapper],
+                       used_feature_map: np.ndarray) -> np.ndarray:
+    """Per-feature ``value_to_bin`` into the row-major u8 matrix."""
+    max_num_bin = max((bin_mappers[i].num_bin for i in used_feature_map),
+                      default=2)
+    if max_num_bin > 256:
+        log.fatal(f"max_bin gives {max_num_bin} bins; the port's histogram "
+                  "kernel takes uint8 bins (at most 256 per feature)")
+    bins = np.empty((data.shape[0], len(used_feature_map)), np.uint8)
+    for out_i, feat_i in enumerate(used_feature_map):
+        bins[:, out_i] = bin_mappers[feat_i].value_to_bin(
+            np.asarray(data[:, feat_i], dtype=np.float64))
+    return bins

@@ -1,0 +1,63 @@
+"""The PyTorch port stands apart from the JAX package: no file of
+``lightgbm_tpu_torch/`` and not ``chip_smoke.py`` imports jax, jaxlib or
+``lightgbm_tpu`` (a static scan), and importing the port loads none of
+them (a fresh interpreter)."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "lightgbm_tpu")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for base, dirs, files in os.walk(os.path.join(REPO,
+                                                  "lightgbm_tpu_torch")):
+        dirs.sort()
+        out += [os.path.join(base, f) for f in sorted(files)
+                if f.endswith(".py")]
+    return out
+
+
+def _imported_modules(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_sources_exist():
+    sources = _port_sources()
+    assert os.path.isfile(sources[0])
+    assert len(sources) > 10
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_import(path):
+    for mod in _imported_modules(path):
+        top = str(mod).split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_import_loads_no_jax():
+    code = ("import sys; import lightgbm_tpu_torch; "
+            "import lightgbm_tpu_torch.convert; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
