@@ -7,22 +7,33 @@ Phases, each reported on its own line:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: every kernel under lightgbm_tpu_torch/csrc, one nvcc each, in
    parallel;
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes the training path gives it, with its time, the plain version's
-   time, one PyTorch library call's time and its bound on the card;
+3. each kernel in each of its modes against its plain PyTorch version on
+   the card, at the shapes the training paths give it, with its time, the
+   plain version's time, one PyTorch library call's time and its bound
+   on the card: K1 (hist_rowmajor) in f32, int8 and bf16 at leaf sizes
+   from 1M rows down to 1; K2 (hist_level) in f32, int8 and bf16 over
+   1M rows at 1 to 512 nodes with skewed segments, with empty nodes, and
+   with every row out of the level. Two launches on the same input must
+   give the same bits;
 4. the main path at full width: ``Booster`` training of a Higgs-shaped
-   binary GBDT (1,000,000 x 28, 255 leaves, 255 bins) for one warm-up and
-   a few timed iterations, then ``predict``; the kernel launch counts of
-   this run show that training went through the kernels; with
-   ``--profile``, two more iterations under ``torch.profiler`` show where
-   an iteration's time goes (device busy share, top ops on the device and
-   on the host, launches per iteration);
-5. the same small training on cuda and on the CPU (plain versions),
-   which must agree.
+   binary GBDT (1,000,000 x 28, 255 leaves, 255 bins) on the compact
+   grower for one warm-up and a few timed iterations, then ``predict``;
+   the kernel launch counts of this run show that training went through
+   K1;
+5. the same configuration under each of the slice's other paths, on the
+   phase-4 dataset: quantized gradients, bf16 histograms, level
+   scheduling (the hybrid grower at 255 leaves and unbounded depth) and
+   level with each of the two; each run's launch counts must show its
+   kernel mode, and the hybrid's first tree must equal the compact one;
+   with ``--profile``, two more iterations of the compact and of the
+   level path under ``torch.profiler`` show where an iteration's time
+   goes (device busy share, top ops, launches and device-to-host reads);
+6. small trainings on cuda and on the CPU (plain versions), compact,
+   quantized and level, which must agree.
 
 Any failure raises and exits non-zero. The last three lines are the
-card's name and power limit, one JSON object describing every kernel,
-and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+card's name and power limit, one JSON object describing every kernel
+mode, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 import json
 import statistics
@@ -41,8 +52,23 @@ F32_FLOPS = 67e12
 N_ROWS, N_FEATURES = 1_000_000, 28
 NUM_LEAVES, MAX_BIN = 255, 255
 TIMED_ITERS = 5
+MODE_ITERS = 3
 KERNEL_SHAPES = (1_000_000, 65_536, 4_097, 1)
+LEVEL_NODES = (1, 8, 64, 512)
 TIMING_REPS = 20
+PLAIN_REPS = 5
+GH_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+MODES = ("f32", "int8", "bf16")
+# training paths of phase 5: name -> (params, the kernel mode it must run)
+PATHS = {
+    "quantized": (dict(use_quantized_grad=True), "hist_rowmajor_int8"),
+    "bf16": (dict(tpu_hist_dtype="bfloat16"), "hist_rowmajor_bf16"),
+    "level": (dict(tpu_row_scheduling="level"), "hist_level_f32"),
+    "level_quantized": (dict(tpu_row_scheduling="level",
+                             use_quantized_grad=True), "hist_level_int8"),
+    "level_bf16": (dict(tpu_row_scheduling="level",
+                        tpu_hist_dtype="bfloat16"), "hist_level_bf16"),
+}
 
 
 def log(msg):
@@ -67,6 +93,24 @@ def synth_higgs(n, f, seed=0):
     return X, y
 
 
+def wrappers():
+    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_rm
+    from lightgbm_tpu_torch.ops.hist_level_cuda import hist_level_cuda
+    return {"hist_rowmajor": hist_cuda_rm, "hist_level": hist_level_cuda}
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        for mode in fn.launches:
+            fn.launches[mode] = 0
+
+
+def read_counts():
+    """Launches per kernel mode, e.g. ``hist_level_int8``."""
+    return {f"{name}_{mode}": n for name, fn in wrappers().items()
+            for mode, n in fn.launches.items()}
+
+
 def cuda_ms(fn, reps=TIMING_REPS, before=None):
     """Median device time of ``fn()`` in ms over ``reps`` calls, each
     bracketed by CUDA events; ``before()`` runs outside the brackets."""
@@ -86,79 +130,191 @@ def cuda_ms(fn, reps=TIMING_REPS, before=None):
     return statistics.median(times)
 
 
-def phase_kernels(dev):
-    """K1 against its plain version at the path's shapes; timings."""
+def bound(bytes_moved, adds):
+    """Least time in ms: the bytes at the memory rate or the adds at the
+    f32 rate, whichever is longer, and which one it is."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = adds / F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def make_gh(mode, shape, gen, dev, dyadic=False):
+    """gh of a kernel mode: int8 over the full range; else normal values,
+    or dyadic ones (k / 8, |k| <= 64) that bf16 and f32 hold exactly."""
+    if mode == "int8":
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+    if dyadic:
+        g = torch.randint(-64, 65, shape, generator=gen, device=dev,
+                          dtype=torch.int32).float() / 8
+    else:
+        g = torch.randn(shape, generator=gen, device=dev)
+    return g.to(torch.bfloat16) if mode == "bf16" else g
+
+
+def check_against_plain(mode, out, ref, what):
+    """int8 bit for bit; f32 and bf16 (f32 sums) at rtol=1e-5, atol=1e-4:
+    sums of up to 1M values of magnitude ~1 in another order."""
+    if mode == "int8":
+        assert torch.equal(out, ref), f"{what}: int8 differs from plain"
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4,
+                                   msg=f"{what}: differs from plain")
+    return float((out.double() - ref.double()).abs().max())
+
+
+def phase_k1(dev, flush):
+    """K1 in each mode against its plain version at the leaf sizes."""
     from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_rm
     from lightgbm_tpu_torch.ops.histogram import hist_rowmajor
     F, B = N_FEATURES, MAX_BIN
     gen = torch.Generator(device=dev).manual_seed(0)
-    # a buffer larger than the 50 MB L2, rewritten before each timed call
-    # so that every call reads its inputs from device memory
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     rows = {}
-    max_err = 0.0
-    for S in KERNEL_SHAPES:
-        bins = torch.randint(0, B, (S, F), generator=gen, device=dev,
-                             dtype=torch.int32).to(torch.uint8)
-        dyadic = torch.randint(-64, 65, (S, 3), generator=gen, device=dev,
-                               dtype=torch.int32).float() / 8
-        out = hist_cuda_rm(bins, dyadic, B)
-        ref = hist_rowmajor(bins, dyadic, B)
-        torch.cuda.synchronize()
-        assert torch.equal(out, ref), f"S={S}: dyadic gh differs"
-        gh = torch.randn((S, 3), generator=gen, device=dev)
-        out = hist_cuda_rm(bins, gh, B)
-        again = hist_cuda_rm(bins, gh, B)
-        ref = hist_rowmajor(bins, gh, B)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
-        err = float((out - ref).abs().max())
-        max_err = max(max_err, err)
-        same_bits = bool(torch.equal(out, again))
+    for mode in MODES:
+        max_err = 0.0
+        for S in KERNEL_SHAPES:
+            bins = torch.randint(0, B, (S, F), generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.uint8)
+            dyadic = make_gh(mode, (S, 3), gen, dev, dyadic=True)
+            assert torch.equal(hist_cuda_rm(bins, dyadic, B),
+                               hist_rowmajor(bins, dyadic, B)), \
+                f"K1 {mode} S={S}: exact gh differ"
+            gh = make_gh(mode, (S, 3), gen, dev)
+            out = hist_cuda_rm(bins, gh, B)
+            again = hist_cuda_rm(bins, gh, B)
+            ref = hist_rowmajor(bins, gh, B)
+            torch.cuda.synchronize()
+            err = check_against_plain(mode, out, ref, f"K1 {mode} S={S}")
+            max_err = max(max_err, err)
+            same_bits = bool(torch.equal(out, again))
+            assert same_bits, f"K1 {mode} S={S}: two launches differ"
 
-        ms = cuda_ms(lambda: hist_cuda_rm(bins, gh, B), before=flush.zero_)
-        plain_ms = cuda_ms(lambda: hist_rowmajor(bins, gh, B),
-                           before=flush.zero_)
-        # yardstick: one index_add_ over the flat (feature, bin) slot, the
-        # per-cell expansion of gh made outside the timed call
-        slot = (bins.long() + torch.arange(F, device=dev) * B).reshape(-1)
-        vals = gh.repeat_interleave(F, dim=0)
-        acc = torch.zeros(F * B, 3, device=dev)
-        library_ms = cuda_ms(lambda: acc.index_add_(0, slot, vals),
-                             before=lambda: (flush.zero_(), acc.zero_()))
-        del slot, vals
-        # least time: each input byte read once, the output written once,
-        # or 3 f32 adds per cell at the f32 rate, whichever is longer
-        bytes_ms = (S * F + 12 * S + 12 * F * B) / HBM_BYTES_PER_S * 1e3
-        ops_ms = 3 * S * F / F32_FLOPS * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        rows[S] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, max_abs_err=err,
-                       bound_by="bytes" if bytes_ms >= ops_ms
-                       else "operations", same_bits=same_bits)
-        log(f"phase 3 hist_rowmajor S={S} F={F} B={B}: max_abs_err={err!r} "
-            f"same_bits_two_launches={same_bits} kernel_ms={ms!r} "
-            f"plain_ms={plain_ms!r} index_add_ms={library_ms!r} "
-            f"bound_us={bound_ms * 1e3!r}")
-    return rows, max_err
+            ms = cuda_ms(lambda: hist_cuda_rm(bins, gh, B),
+                         before=flush.zero_)
+            plain_ms = cuda_ms(lambda: hist_rowmajor(bins, gh, B),
+                               reps=PLAIN_REPS, before=flush.zero_)
+            # yardstick: one index_add_ over the flat (feature, bin) slot,
+            # the per-cell expansion of gh (widened) made outside the call
+            slot = (bins.long() + torch.arange(F, device=dev) * B).reshape(-1)
+            vals = gh.to(out.dtype).repeat_interleave(F, dim=0)
+            acc = torch.zeros(F * B, 3, dtype=out.dtype, device=dev)
+            library_ms = cuda_ms(lambda: acc.index_add_(0, slot, vals),
+                                 before=lambda: (flush.zero_(), acc.zero_()))
+            del slot, vals, acc
+            # each input byte read once, the output written once; or 3
+            # adds per cell
+            bound_ms, bound_by = bound(
+                S * F + 3 * S * GH_BYTES[gh.dtype] + 12 * F * B, 3 * S * F)
+            rows[(mode, S)] = dict(ms=ms, plain_ms=plain_ms,
+                                   library_ms=library_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, max_abs_err=max_err)
+            log(f"phase 3 hist_rowmajor mode={mode} S={S} F={F} B={B}: "
+                f"max_abs_err={err!r} same_bits_two_launches={same_bits} "
+                f"kernel_ms={ms!r} plain_ms={plain_ms!r} "
+                f"index_add_ms={library_ms!r} bound_us={bound_ms * 1e3!r} "
+                f"bound_by={bound_by}")
+    return rows
 
 
-def phase_main_path(dev):
-    """Full-width training through the user entry points."""
+def level_cases(gen, dev):
+    """(label, n_nodes, local, in_lvl) over N_ROWS rows: skewed segments
+    (node = floor(n * u^3), so low nodes hold most rows) at each node
+    count, then every odd node empty, then no row in the level."""
+    R = N_ROWS
+    skew = lambda n: (torch.rand(R, generator=gen, device=dev) ** 3
+                      * n).long().clamp(max=n - 1)
+    part = lambda: torch.rand(R, generator=gen, device=dev) < 0.9
+    for n in LEVEL_NODES:
+        yield f"skewed n={n}", n, skew(n), part()
+    yield "odd nodes empty n=64", 64, skew(64) // 2 * 2, part()
+    yield "no row in the level n=8", 8, skew(8), torch.zeros(
+        R, dtype=torch.bool, device=dev)
+
+
+def phase_k2(dev, flush):
+    """K2 in each mode against its plain version over 1M rows."""
+    from lightgbm_tpu_torch.ops.hist_level import hist_level
+    from lightgbm_tpu_torch.ops.hist_level_cuda import hist_level_cuda
+    R, F, B = N_ROWS, N_FEATURES, MAX_BIN
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bins = torch.randint(0, B, (R, F), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    rows = {}
+    for label, n, local, in_lvl in level_cases(gen, dev):
+        in_rows = int(in_lvl.sum())
+        for mode in MODES:
+            what = f"K2 {mode} {label}"
+            dyadic = make_gh(mode, (R, 3), gen, dev, dyadic=True)
+            assert torch.equal(
+                hist_level_cuda(bins, dyadic, local, in_lvl, n, B),
+                hist_level(bins, dyadic, local, in_lvl, n, B)), \
+                f"{what}: exact gh differ"
+            gh = make_gh(mode, (R, 3), gen, dev)
+            out = hist_level_cuda(bins, gh, local, in_lvl, n, B)
+            again = hist_level_cuda(bins, gh, local, in_lvl, n, B)
+            ref = hist_level(bins, gh, local, in_lvl, n, B)
+            torch.cuda.synchronize()
+            err = check_against_plain(mode, out, ref, what)
+            same_bits = bool(torch.equal(out, again))
+            assert same_bits, f"{what}: two launches differ"
+            if label.startswith("odd"):
+                assert not out[1::2].any(), f"{what}: empty nodes not zero"
+            if in_rows == 0:
+                assert not out.any(), f"{what}: no rows but nonzero sums"
+
+            ms = cuda_ms(lambda: hist_level_cuda(bins, gh, local, in_lvl, n,
+                                                 B), before=flush.zero_)
+            plain_ms = cuda_ms(
+                lambda: hist_level(bins, gh, local, in_lvl, n, B),
+                reps=PLAIN_REPS, before=flush.zero_)
+            # yardstick: one index_add_ over the flat (node, feature, bin)
+            # slot, rows out of the level in a dump node
+            key = torch.where(in_lvl, local, n)
+            slot = ((key * F)[:, None] + torch.arange(F, device=dev)) * B \
+                + bins.long()
+            vals = gh.to(out.dtype).repeat_interleave(F, dim=0)
+            acc = torch.zeros((n + 1) * F * B, 3, dtype=out.dtype,
+                              device=dev)
+            library_ms = cuda_ms(
+                lambda: acc.index_add_(0, slot.reshape(-1), vals),
+                before=lambda: (flush.zero_(), acc.zero_()))
+            del key, slot, vals, acc
+            # the function's inputs read once (bins, gh, int64 local,
+            # bool in_lvl) and its output written once; or 3 adds per
+            # cell of the rows in the level
+            bound_ms, bound_by = bound(
+                R * F + 3 * R * GH_BYTES[gh.dtype] + 8 * R + R
+                + 12 * n * F * B, 3 * in_rows * F)
+            rows[(mode, label)] = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=library_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       max_abs_err=err)
+            log(f"phase 3 hist_level mode={mode} {label} R={R} F={F} B={B} "
+                f"rows_in_level={in_rows}: max_abs_err={err!r} "
+                f"same_bits_two_launches={same_bits} kernel_ms={ms!r} "
+                f"plain_ms={plain_ms!r} index_add_ms={library_ms!r} "
+                f"bound_us={bound_ms * 1e3!r} bound_by={bound_by}")
+    return rows
+
+
+def bench_params(**extra):
+    p = {"objective": "binary", "num_leaves": NUM_LEAVES,
+         "learning_rate": 0.1, "max_bin": MAX_BIN, "min_data_in_leaf": 20,
+         "metric": ["binary_logloss", "auc"], "verbose": -1,
+         "device_type": "cuda", "use_quantized_grad": False,
+         "tpu_hist_dtype": "float32", "tpu_row_scheduling": "compact"}
+    p.update(extra)
+    return p
+
+
+def train_timed(ds, params, iters):
+    """Warm-up plus ``iters`` timed iterations with the launch counts
+    zeroed just before and read just after."""
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_rm
-    t0 = time.perf_counter()
-    X, y = synth_higgs(N_ROWS, N_FEATURES)
-    params = {"objective": "binary", "num_leaves": NUM_LEAVES,
-              "learning_rate": 0.1, "max_bin": MAX_BIN,
-              "min_data_in_leaf": 20, "metric": ["binary_logloss", "auc"],
-              "verbose": -1, "device_type": "cuda"}
-    ds = lgt.Dataset(X, label=y).construct()
-    log(f"phase 4 data+binning_s={time.perf_counter() - t0!r} "
-        f"shape={X.shape}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    hist_cuda_rm.launches = 0
+    reset_counts()
     bst = lgt.Booster(params, ds)
     t = time.perf_counter()
     assert not bst.update()
@@ -166,23 +322,39 @@ def phase_main_path(dev):
     warm_s = time.perf_counter() - t
     first = dict((m, v) for _, m, v, _ in bst.eval_train())
     iter_s = []
-    for _ in range(TIMED_ITERS):
+    for _ in range(iters):
         t = time.perf_counter()
         assert not bst.update()
         torch.cuda.synchronize()
         iter_s.append(time.perf_counter() - t)
-    launches = hist_cuda_rm.launches
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     last = dict((m, v) for _, m, v, _ in bst.eval_train())
-    leaves = [t.num_leaves for t in bst._engine.models]
-    log(f"phase 4 warmup_s={warm_s!r} iter_s={iter_s!r} "
-        f"median_iter_s={statistics.median(iter_s)!r} "
-        f"hist_launches={launches} leaves_per_tree={leaves} "
-        f"max_memory_allocated={peak} logloss_first={first} "
-        f"logloss_last={last}")
-    assert launches > 0 and launches == sum(leaves), (launches, leaves)
-    assert last["binary_logloss"] < first["binary_logloss"]
+    assert last["binary_logloss"] < first["binary_logloss"], (first, last)
     assert last["auc"] > 0.7, last
+    return bst, dict(warm_s=warm_s, iter_s=iter_s,
+                     median_iter_s=statistics.median(iter_s), counts=counts,
+                     max_memory_allocated=peak, first=first, last=last)
+
+
+def phase_main_path():
+    """Full-width training through the user entry points."""
+    import lightgbm_tpu_torch as lgt
+    t0 = time.perf_counter()
+    X, y = synth_higgs(N_ROWS, N_FEATURES)
+    ds = lgt.Dataset(X, label=y).construct()
+    log(f"phase 4 data+binning_s={time.perf_counter() - t0!r} "
+        f"shape={X.shape}")
+    bst, r = train_timed(ds, bench_params(), TIMED_ITERS)
+    leaves = [t.num_leaves for t in bst._engine.models]
+    log(f"phase 4 warmup_s={r['warm_s']!r} iter_s={r['iter_s']!r} "
+        f"median_iter_s={r['median_iter_s']!r} launches={r['counts']} "
+        f"leaves_per_tree={leaves} "
+        f"max_memory_allocated={r['max_memory_allocated']} "
+        f"logloss_first={r['first']} logloss_last={r['last']}")
+    launches = r["counts"]["hist_rowmajor_f32"]
+    assert launches > 0 and launches == sum(leaves), (launches, leaves)
+    assert sum(r["counts"].values()) == launches, r["counts"]
     # predictions: finite, right shape, and equal to the training score
     Xp = X[:20000]
     raw = bst.predict(Xp, raw_score=True)
@@ -192,14 +364,60 @@ def phase_main_path(dev):
     train_raw = bst._engine.score[0, :len(Xp)].cpu().numpy()
     np.testing.assert_allclose(raw, train_raw, rtol=0, atol=1e-4)
     log("phase 4 predict ok: host walk equals the training score")
-    return launches, bst
+    return r["counts"], bst, ds
 
 
-def phase_profile(bst, iters=2):
+TREE_FIELDS = ("split_feature", "threshold_bin", "default_left",
+               "left_child", "right_child", "internal_count", "leaf_count",
+               "leaf_value")
+
+
+def phase_paths(ds, compact_first):
+    """The slice's other paths on the phase-4 dataset; returns each
+    path's launch counts and its booster."""
+    out = {}
+    for name, (extra, must) in PATHS.items():
+        bst, r = train_timed(ds, bench_params(**extra), MODE_ITERS)
+        trees = bst._engine.models
+        c = r["counts"]
+        log(f"phase 5 path={name} warmup_s={r['warm_s']!r} "
+            f"iter_s={r['iter_s']!r} median_iter_s={r['median_iter_s']!r} "
+            f"launches={c} leaves_per_tree={[t.num_leaves for t in trees]} "
+            f"max_memory_allocated={r['max_memory_allocated']} "
+            f"logloss_first={r['first']} logloss_last={r['last']}")
+        assert c[must] > 0, (name, c)
+        if name.startswith("level"):
+            # every split not committed by the level phase is a tail split
+            # with one K1 launch (the smaller child)
+            tail = sum(n for k, n in c.items()
+                       if k.startswith("hist_rowmajor"))
+            splits = sum(t.num_leaves - 1 for t in trees)
+            log(f"phase 5 path={name} splits_per_tree={splits / len(trees)!r}"
+                f" committed_by_level_phase_per_tree="
+                f"{(splits - tail) / len(trees)!r}")
+            # the hybrid scans depths 0..D0 (D0 = 9 at 255 leaves): one
+            # level launch each per tree
+            from lightgbm_tpu_torch.core.hybrid_grower import \
+                auto_handoff_depth
+            d0 = auto_handoff_depth(bst._engine.config.num_leaves)
+            assert c[must] >= (d0 + 1) * len(trees), (name, c)
+        if name == "level":
+            first = trees[0]
+            for f in TREE_FIELDS:
+                np.testing.assert_array_equal(
+                    getattr(first, f), getattr(compact_first, f),
+                    err_msg=f"hybrid first tree differs in {f}")
+            log("phase 5 hybrid first tree equals the compact first tree: "
+                f"{first.num_leaves} leaves, depth {first.max_depth}")
+        out[name] = (c, bst)
+    return out
+
+
+def phase_profile(bst, label, iters=2):
     """Where an iteration's time goes: ``torch.profiler`` over ``iters``
     more boosting iterations; prints the device's busy share of the wall
     time, the ops with the most device time and the most host time, and
-    the number of kernel launches per iteration."""
+    the kernel launches and device-to-host copies per iteration."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -221,41 +439,64 @@ def phase_profile(bst, iters=2):
                                 "cuLaunchKernelEx", "cudaLaunchKernelExC"))
     syncs = sum(e.count for e in events
                 if e.key in ("cudaStreamSynchronize", "cudaMemcpyAsync"))
-    log(f"phase profile iters={iters} wall_s={wall_s!r} "
+    d2h = sum(e.count for e in on_device if "DtoH" in e.key)
+    log(f"phase profile {label} iters={iters} wall_s={wall_s!r} "
         f"device_busy_s={busy_s!r} device_busy_share={busy_s / wall_s!r} "
         f"kernel_launches_per_iter={launches / iters!r} "
-        f"memcpy_or_sync_calls_per_iter={syncs / iters!r}")
+        f"memcpy_or_sync_calls_per_iter={syncs / iters!r} "
+        f"device_to_host_copies_per_iter={d2h / iters!r}")
     for e in sorted(on_device, key=dev_us, reverse=True)[:10]:
-        log(f"phase profile device {e.key[:90]!r} count={e.count} "
+        log(f"phase profile {label} device {e.key[:90]!r} count={e.count} "
             f"device_ms={dev_us(e) / 1e3!r}")
-    ops = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
-    for e in sorted(ops, key=dev_us, reverse=True)[:10]:
-        log(f"phase profile device-by-op {e.key[:70]!r} count={e.count} "
-            f"self_device_ms={dev_us(e) / 1e3!r}")
     for e in sorted(events, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:12]:
-        log(f"phase profile host {e.key[:70]!r} count={e.count} "
+                    reverse=True)[:8]:
+        log(f"phase profile {label} host {e.key[:70]!r} count={e.count} "
             f"self_cpu_ms={e.self_cpu_time_total / 1e3!r}")
 
 
 def phase_cross_check():
-    """cuda against cpu on a small run."""
+    """cuda against cpu on small runs of the compact, quantized and level
+    paths (without stochastic rounding: a CUDA and a CPU generator draw
+    different numbers)."""
     import lightgbm_tpu_torch as lgt
     X, y = synth_higgs(20_000, N_FEATURES, seed=1)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        params = {"objective": "binary", "num_leaves": 31,
-                  "max_bin": MAX_BIN, "verbose": -1, "device_type": dev}
-        bst = lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=3,
-                        valid_sets=None)
-        t0 = bst._engine.models[0]
-        loss = dict((m, v) for _, m, v, _ in bst.eval_train())
-        out[dev] = (int(t0.split_feature[0]), float(t0.threshold_real[0]),
-                    int(t0.decision_type[0]), loss["binary_logloss"])
-    log(f"phase 5 root_split_and_logloss cuda={out['cuda']} "
-        f"cpu={out['cpu']}")
-    assert out["cuda"][:3] == out["cpu"][:3]
-    np.testing.assert_allclose(out["cuda"][3], out["cpu"][3], rtol=1e-4)
+    for name, extra in (("compact", {}),
+                        ("quantized", {"use_quantized_grad": True,
+                                       "stochastic_rounding": False}),
+                        ("level", {"tpu_row_scheduling": "level",
+                                   "max_depth": -1})):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = {"objective": "binary", "num_leaves": 31,
+                      "max_bin": MAX_BIN, "verbose": -1, "device_type": dev,
+                      **extra}
+            bst = lgt.train(params, lgt.Dataset(X, label=y),
+                            num_boost_round=3, valid_sets=None)
+            t0 = bst._engine.models[0]
+            loss = dict((m, v) for _, m, v, _ in bst.eval_train())
+            out[dev] = (int(t0.split_feature[0]), float(t0.threshold_real[0]),
+                        int(t0.decision_type[0]), loss["binary_logloss"])
+        log(f"phase 6 {name} root_split_and_logloss cuda={out['cuda']} "
+            f"cpu={out['cpu']}")
+        assert out["cuda"][:3] == out["cpu"][:3], name
+        np.testing.assert_allclose(out["cuda"][3], out["cpu"][3], rtol=1e-4)
+
+
+SOURCES = {
+    "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
+                      "lightgbm_tpu/ops/hist_pallas.py:52"),
+    "hist_level": ("lightgbm_tpu_torch/csrc/hist_level.cu",
+                   "lightgbm_tpu/ops/hist_level_pallas.py:83"),
+}
+
+
+def kernel_entry(name, mode, launches, row):
+    source, replaces = SOURCES[name]
+    return {"name": f"{name}_{mode}", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
 
 def main():
@@ -278,22 +519,34 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"phase 2 {name}: {line.strip()}")
 
-    rows, max_err = phase_kernels(dev)
-    launches, bst = phase_main_path(dev)
+    # a buffer larger than the 50 MB L2, rewritten before each timed call
+    # so that every call reads its inputs from device memory
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    k1 = phase_k1(dev, flush)
+    k2 = phase_k2(dev, flush)
+    del flush
+    compact_counts, bst, ds = phase_main_path()
+    paths = phase_paths(ds, bst._engine.models[0])
     if "--profile" in sys.argv[1:]:
-        phase_profile(bst)
-    del bst
+        phase_profile(bst, "compact")
+        phase_profile(paths["level"][1], "level")
+    # each mode's launches from the run of the path that carries it
+    runs = {"hist_rowmajor_f32": compact_counts}
+    for name, (_, must) in PATHS.items():
+        runs[must] = paths[name][0]
+    del bst, paths
     phase_cross_check()
 
-    big = rows[N_ROWS]
-    kernels = [{
-        "name": "hist_rowmajor", "route": "cuda",
-        "source": "lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
-        "replaces": "lightgbm_tpu/ops/hist_pallas.py:52",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": big["ms"], "plain_ms": big["plain_ms"],
-        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-        "library_ms": big["library_ms"]}]
+    kernels = []
+    for mode in MODES:
+        key = f"hist_rowmajor_{mode}"
+        kernels.append(kernel_entry("hist_rowmajor", mode, runs[key][key],
+                                    k1[(mode, N_ROWS)]))
+    for mode in MODES:
+        key = f"hist_level_{mode}"
+        kernels.append(kernel_entry("hist_level", mode, runs[key][key],
+                                    k2[(mode, f"skewed n={LEVEL_NODES[-1]}")]))
+    assert all(k["launches"] > 0 for k in kernels), kernels
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with
 ``nvcc`` alone into ``_build/lib<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source rebuilds), loaded with
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header rebuilds), loaded with
 ``ctypes``. No PyTorch headers and no ``ninja`` are involved, which keeps
 a build at seconds. Kernels build at first use; ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
@@ -39,8 +40,11 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[str, str]:
     src = os.path.join(SRC_DIR, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(SRC_DIR, h) for h in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

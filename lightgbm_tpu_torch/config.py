@@ -9,9 +9,11 @@ src/io/config.cpp, python-package lightgbm/basic.py:513 _ConfigAliases.
 
 Differences from the JAX package's copy: ``device_type`` defaults to
 ``"cuda"`` and accepts ``"cuda"`` or ``"cpu"``; the ``tpu_*`` names stay
-registered so one params dict drives both packages, and the port reads
-none of them except ``tpu_row_scheduling`` and ``tpu_hist_dtype``, which
-it checks (see ``unsupported_settings``).
+registered so one params dict drives both packages. The port reads
+``tpu_row_scheduling`` (compact or level), ``tpu_hist_dtype``,
+``tpu_level_handoff_depth`` and ``tpu_hist_kernel`` (every value runs the
+port's hand kernels, see models/gbdt.py), and refuses the settings it
+cannot honour yet (see ``unsupported_settings``).
 """
 from __future__ import annotations
 
@@ -439,31 +441,29 @@ def _parse_list(value: Any, elem_type: Any) -> List[Any]:
     return [elem_type(v) for v in value]
 
 
-# What the port's first slice implements is the dense numerical
-# ``gbdt`` path. A setting that needs anything else maps to a predicate
-# that is True for the unsupported value; training refuses it instead of
-# ignoring it.
-_UNSUPPORTED_WHEN: Dict[str, Any] = {
-    "boosting": lambda v: str(v).lower() != "gbdt",
-    "data_sample_strategy": lambda v: str(v).lower() != "bagging",
-    "tree_learner": lambda v: str(v).lower() != "serial",
-    "bagging_freq": lambda v: v > 0,
-    "feature_fraction": lambda v: v < 1.0,
-    "feature_fraction_bynode": lambda v: v < 1.0,
-    "extra_trees": bool,
-    "monotone_constraints": lambda v: any(int(x) != 0 for x in v),
-    "interaction_constraints": bool,
-    "forcedsplits_filename": bool,
-    "forcedbins_filename": bool,
-    "categorical_feature": bool,
-    "feature_contri": lambda v: any(float(x) != 1.0 for x in v),
-    "cegb_penalty_split": lambda v: v > 0.0,
-    "cegb_penalty_feature_lazy": bool,
-    "cegb_penalty_feature_coupled": bool,
-    "linear_tree": bool,
-    "use_quantized_grad": bool,
-    "tpu_row_scheduling": lambda v: v != "compact",
-    "tpu_hist_dtype": lambda v: v != "float32",
+# What the port implements is the dense numerical ``gbdt`` path with the
+# compact, level and hybrid growers. A setting that needs anything else
+# maps to a predicate that is True for the unsupported value and to the
+# ROADMAP item that ports it; training refuses it instead of ignoring it.
+_UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {
+    "boosting": (lambda v: str(v).lower() != "gbdt", "A12"),
+    "data_sample_strategy": (lambda v: str(v).lower() != "bagging", "A12"),
+    "tree_learner": (lambda v: str(v).lower() != "serial", "A13"),
+    "bagging_freq": (lambda v: v > 0, "A12"),
+    "feature_fraction": (lambda v: v < 1.0, "A12"),
+    "feature_fraction_bynode": (lambda v: v < 1.0, "A12"),
+    "extra_trees": (bool, "A12"),
+    "monotone_constraints": (lambda v: any(int(x) != 0 for x in v), "A12"),
+    "interaction_constraints": (bool, "A12"),
+    "forcedsplits_filename": (bool, "A12"),
+    "forcedbins_filename": (bool, "A12"),
+    "categorical_feature": (bool, "A12"),
+    "feature_contri": (lambda v: any(float(x) != 1.0 for x in v), "A12"),
+    "cegb_penalty_split": (lambda v: v > 0.0, "A12"),
+    "cegb_penalty_feature_lazy": (bool, "A12"),
+    "cegb_penalty_feature_coupled": (bool, "A12"),
+    "linear_tree": (bool, "A12"),
+    "tpu_row_scheduling": (lambda v: v in ("full", "leaf"), "A11"),
 }
 
 
@@ -569,9 +569,10 @@ class Config:
         return "\n".join(lines)
 
     def unsupported_settings(self) -> List[str]:
-        """``name=value`` for every setting the port cannot honour yet."""
-        return [f"{name}={self._values[name]!r}"
-                for name, bad in _UNSUPPORTED_WHEN.items()
+        """``name=value (ROADMAP item)`` for every setting the port cannot
+        honour yet."""
+        return [f"{name}={self._values[name]!r} (ROADMAP {item})"
+                for name, (bad, item) in _UNSUPPORTED_WHEN.items()
                 if bad(self._values[name])]
 
     # -- internals -------------------------------------------------------

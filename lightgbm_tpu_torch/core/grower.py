@@ -3,7 +3,8 @@
 Port of ``lightgbm_tpu/core/grower.py`` ``make_tree_grower`` for
 ``row_sched="compact"`` and ``hist_pool="full"`` (ref:
 src/treelearner/serial_tree_learner.cpp:183-249 main split loop, :344
-smaller/larger leaf logic, :770 SplitInner; data_partition.hpp:22).
+smaller/larger leaf logic, :770 SplitInner; data_partition.hpp:22), with
+its quantized-gradient and bf16 histogram modes.
 
 The JAX grower is one jitted ``fori_loop`` whose static shapes force
 pow2 segment buckets, ``lax.switch`` over them and a latched ``done``
@@ -23,11 +24,26 @@ splits:
   f32 tensors. The host reads one packed row per split (which leaf to
   split and where) and the size of the left child: those are control
   decisions. All gain and output arithmetic stays in f32 tensors.
+
+Histogram modes (``hist_inputs``), as in the JAX grower:
+
+- quantized (``use_quantized_grad``): gh is quantized once per tree to
+  int8 (``quantize_gradients``); the pool and the root sums are int32,
+  sibling subtraction is exact, and every histogram and sum goes through
+  ``conv`` (the per-tree scales) right before the split scan;
+- bf16 (``tpu_hist_dtype=bfloat16``): gh is rounded to bf16 once per tree
+  for the histograms only; root sums come from the f32 gh, and the pool
+  is f32.
+
+``grow.resume`` is the counterpart of the JAX grower's ``init=(state,
+k0)`` seam: it continues the split loop at step ``k0`` from a
+``GrowState`` that another phase (the hybrid grower's level phase)
+committed.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -42,11 +58,17 @@ from .tree import TreeArrays
 @dataclasses.dataclass(frozen=True)
 class GrowerConfig:
     """Knobs of the grower (the compact, full-pool subset of the JAX
-    package's GrowerConfig)."""
+    package's GrowerConfig, and its histogram modes)."""
     num_leaves: int = 31
     max_depth: int = -1
     num_bin: int = 256          # B: max bins over used features
     hparams: SplitHyperParams = SplitHyperParams()
+    # histogram input dtype: float32 | bfloat16 (ignored when quantized)
+    hist_dtype: str = "float32"
+    # quantized-gradient training (ref: gradient_discretizer.{hpp,cpp})
+    quantized: bool = False
+    quant_bins: int = 4          # ref: num_grad_quant_bins
+    stochastic_rounding: bool = True
 
 
 # per-leaf stats columns (f32 [L, NS]), as in the JAX grower
@@ -60,6 +82,71 @@ NB = 12
 # tree internal-node columns (f32 [L-1, NN], host side)
 N_FEAT, N_THR, N_DL, N_GAIN, N_IVAL, N_IWT, N_ICNT, N_LC, N_RC = range(9)
 NN = 9
+
+
+def quantize_gradients(gh: torch.Tensor, quant_bins: int, ug, uh
+                       ) -> Tuple[torch.Tensor, Callable]:
+    """int8 gradient discretization (ref: GradientDiscretizer::
+    DiscretizeGradients, gradient_discretizer.cpp:71-162; port of the JAX
+    grower's ``quantize_gradients``): grad is scaled to
+    ``[-quant_bins/2, quant_bins/2]`` and hess to ``[0, quant_bins]``
+    and rounded ``trunc(x / scale ± u)``; the mask channel stays exact.
+
+    ``ug`` and ``uh`` are the uniform [0, 1) draws of stochastic rounding
+    (f32 tensors [R]), or 0.5 each for round-to-nearest. Returns
+    ``(gh_int8 [R, 3], conv)``; ``conv`` maps raw int32 sums back to f32
+    through the per-tree scales ``(g_scale, h_scale, 1)``."""
+    g, h, m = gh[:, 0], gh[:, 1], gh[:, 2]
+    kq = max(quant_bins // 2, 1)
+    g_scale = torch.clamp(g.abs().max(), min=1e-30) / kq
+    h_scale = torch.clamp(h.max(), min=1e-30) / quant_bins
+    ug = torch.as_tensor(ug, dtype=torch.float32, device=gh.device)
+    uh = torch.as_tensor(uh, dtype=torch.float32, device=gh.device)
+    gq = torch.trunc(g / g_scale + torch.where(g >= 0, ug, -ug))
+    hq = torch.trunc(h / h_scale + uh)
+    gh_q = torch.stack([gq, hq, m], dim=1).to(torch.int8)
+    scale3 = torch.stack([g_scale, h_scale, torch.ones_like(g_scale)])
+    return gh_q, (lambda hh: hh.to(torch.float32) * scale3)
+
+
+def hist_inputs(cfg: GrowerConfig, gh: torch.Tensor, uniforms=None
+                ) -> Tuple[torch.Tensor, Callable]:
+    """The histogram kernels' gh for one tree and the ``conv`` that turns
+    their raw sums into the split scan's f32: int8 when quantized (with
+    ``uniforms = (ug, uh)``, or 0.5 each without stochastic rounding),
+    bf16 in the bf16 mode, else ``gh`` itself."""
+    if cfg.quantized:
+        ug, uh = (uniforms if cfg.stochastic_rounding else (0.5, 0.5))
+        return quantize_gradients(gh, cfg.quant_bins, ug, uh)
+    if cfg.hist_dtype in ("bfloat16", "bf16"):
+        return gh.to(torch.bfloat16), (lambda hh: hh)
+    return gh, (lambda hh: hh)
+
+
+def root_sums(cfg: GrowerConfig, gh: torch.Tensor, gh_hist: torch.Tensor,
+              conv: Callable) -> torch.Tensor:
+    """f32 [3] (grad, hess, count) of all rows: from the int8 rows under
+    quantization (exact int32, converted), else from the f32 gh."""
+    if cfg.quantized:
+        return conv(gh_hist.sum(dim=0, dtype=torch.int32))
+    return gh.sum(dim=0)
+
+
+@dataclasses.dataclass
+class GrowState:
+    """What the split loop carries between steps. Device tensors: the
+    histogram pool ``hist`` [L, F, B, 3] (int32 under quantization, else
+    f32), ``stats`` [L, NS], ``best`` [L, NB] and ``order`` [R]. Host
+    values: the internal-node rows ``node`` [L-1, NN], each leaf's
+    segment ``seg_start``/``seg_rows``, and ``num_leaves``."""
+    hist: torch.Tensor
+    stats: torch.Tensor
+    best: torch.Tensor
+    order: torch.Tensor
+    node: np.ndarray
+    seg_start: List[int]
+    seg_rows: List[int]
+    num_leaves: int
 
 
 def _go_left(col: torch.Tensor, thr: int, default_left: bool, num_bin: int,
@@ -78,13 +165,18 @@ def _go_left(col: torch.Tensor, thr: int, default_left: bool, num_bin: int,
 
 def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                      hist_fn: Callable = hist_cuda_rm):
-    """Build ``grow(bins_rm, gh) -> (TreeArrays, leaf_id)``.
+    """Build ``grow(bins_rm, gh, uniforms=None) -> (TreeArrays, leaf_id)``.
 
     ``bins_rm`` is uint8 ``[R, F]`` row-major, ``gh`` f32 ``[R, 3]`` =
-    (grad, hess, 1); both on the training device. ``hist_fn(bins, gh,
-    num_bin)`` builds one histogram (kernel K1 by default: the card's
-    kernel for CUDA tensors, its plain version for CPU tensors).
-    ``leaf_id`` (int64 ``[R]``, on the device) is each row's leaf.
+    (grad, hess, 1); both on the training device. ``uniforms`` are the
+    stochastic-rounding draws ``(ug, uh)`` of a quantized tree.
+    ``hist_fn(bins, gh, num_bin)`` builds one histogram (kernel K1 by
+    default: the card's kernel for CUDA tensors, its plain version for
+    CPU tensors). ``leaf_id`` (int64 ``[R]``, on the device) is each
+    row's leaf.
+
+    ``grow.resume(bins_rm, gh_hist, conv, state, k0)`` runs the split
+    loop from step ``k0`` over a committed ``GrowState``.
     """
     hp = cfg.hparams
     L = cfg.num_leaves
@@ -93,23 +185,21 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     miss_h = meta.missing_type.tolist()
     dflt_h = meta.default_bin.tolist()
 
-    def grow(bins_rm: torch.Tensor, gh: torch.Tensor
-             ) -> Tuple[TreeArrays, torch.Tensor]:
+    def root_state(bins_rm, gh, gh_hist, conv) -> GrowState:
+        """ref: LeafSplits::Init + the first FindBestSplits."""
         dev = gh.device
         R, F = bins_rm.shape
         f32 = dict(dtype=torch.float32, device=dev)
-
-        # ---- root (ref: LeafSplits::Init + first FindBestSplits) --------
-        sums = gh.sum(dim=0)
+        sums = root_sums(cfg, gh, gh_hist, conv)
         root_g, root_h, root_c = sums[0], sums[1], sums[2]
         root_out = calculate_splitted_leaf_output(
             root_g, root_h + 2 * K_EPSILON, hp, root_c,
             torch.zeros((), **f32))
-        hist_root = hist_fn(bins_rm, gh, B)
-        best_root = best_split_for_leaf(hist_root, root_g, root_h, root_c,
-                                        root_out, meta, hp)
+        hist_root = hist_fn(bins_rm, gh_hist, B)
+        best_root = best_split_for_leaf(conv(hist_root), root_g, root_h,
+                                        root_c, root_out, meta, hp)
 
-        hist = torch.zeros((L, F, B, 3), **f32)
+        hist = torch.zeros((L, F, B, 3), dtype=hist_root.dtype, device=dev)
         hist[0] = hist_root
         stats = torch.zeros((L, NS), **f32)
         stats[:, S_LMIN] = -np.inf
@@ -122,15 +212,23 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         best[:, B_FEAT] = -1.0
         best[:, B_DL] = 1.0
         best[0] = pack_record_rows(best_root)
-
-        node = np.zeros((max(L - 1, 0), NN), np.float32)
-        order = torch.arange(R, device=dev)
-        seg_start = [0] * L
         seg_rows = [0] * L
         seg_rows[0] = R
-        num_leaves = 1
+        return GrowState(hist=hist, stats=stats, best=best,
+                         order=torch.arange(R, device=dev),
+                         node=np.zeros((max(L - 1, 0), NN), np.float32),
+                         seg_start=[0] * L, seg_rows=seg_rows, num_leaves=1)
 
-        for i in range(L - 1):
+    def resume(bins_rm: torch.Tensor, gh_hist: torch.Tensor, conv: Callable,
+               st: GrowState, k0: int) -> Tuple[TreeArrays, torch.Tensor]:
+        dev = gh_hist.device
+        R = bins_rm.shape[0]
+        hist, stats, best, order, node = (st.hist, st.stats, st.best,
+                                          st.order, st.node)
+        seg_start, seg_rows = st.seg_start, st.seg_rows
+        num_leaves = st.num_leaves
+
+        for i in range(k0, L - 1):
             # ---- pick the best leaf (ref: serial_tree_learner.cpp:229) ---
             cand = best[:num_leaves, B_GAIN]
             if cfg.max_depth > 0:
@@ -175,7 +273,7 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             s_rows = n_left if left_smaller else n_right
             idx = order[s_start:s_start + s_rows]
             hist_small = hist_fn(bins_rm.index_select(0, idx),
-                                 gh.index_select(0, idx), B)
+                                 gh_hist.index_select(0, idx), B)
             hist_large = hist[l] - hist_small
             if left_smaller:
                 hist[l], hist[new_leaf] = hist_small, hist_large
@@ -194,7 +292,7 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             pair = [l, new_leaf]
             stats[pair] = child
             rec2 = best_split_for_leaf(
-                hist[pair], child[:, S_SG], child[:, S_SH],
+                conv(hist[pair]), child[:, S_SG], child[:, S_SH],
                 child[:, S_CNT], child[:, S_VAL], meta, hp)
             best[pair] = pack_record_rows(rec2)
             num_leaves = new_leaf + 1
@@ -228,4 +326,11 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         leaf_id[order] = pos2leaf
         return tree, leaf_id
 
+    def grow(bins_rm: torch.Tensor, gh: torch.Tensor, uniforms=None
+             ) -> Tuple[TreeArrays, torch.Tensor]:
+        gh_hist, conv = hist_inputs(cfg, gh, uniforms)
+        state = root_state(bins_rm, gh, gh_hist, conv)
+        return resume(bins_rm, gh_hist, conv, state, 0)
+
+    grow.resume = resume
     return grow

@@ -1,14 +1,15 @@
 """Kernel K1: the row-major histogram, hand-written in CUDA for Hopper.
 
 Port of ``lightgbm_tpu/ops/hist_pallas.py`` ``hist_pallas_rm`` (the
-Pallas kernel ``_hist_kernel`` in its f32 mode). The kernel source is
-``csrc/hist_rowmajor.cu``; its note gives the bound and the design.
+Pallas kernel ``_hist_kernel`` in its f32, bf16 and int8 modes). The
+kernel source is ``csrc/hist_rowmajor.cu`` (its body is shared with K2 in
+``csrc/hist_common.cuh``); its note gives the bound and the design.
 
-``hist_cuda_rm`` takes K1's f32 contract: uint8 bins ``[S, F]``
-(contiguous, ``num_bin <= 256``), f32 gh ``[S, 3]`` (contiguous), f32
-output ``[F, num_bin, 3]``. A CPU tensor runs the plain version
-(``ops/histogram.hist_rowmajor``); a CUDA tensor launches the kernel or
-raises — there is no fallback.
+``hist_cuda_rm`` takes K1's contract: uint8 bins ``[S, F]`` (contiguous,
+``num_bin <= 256``), gh ``[S, 3]`` (contiguous) in float32, bfloat16 or
+int8, and returns ``[F, num_bin, 3]`` in float32 (int32 for int8 gh). A
+CPU tensor runs the plain version (``ops/histogram.hist_rowmajor``); a
+CUDA tensor launches the kernel or raises — there is no fallback.
 """
 from __future__ import annotations
 
@@ -21,64 +22,110 @@ from .histogram import hist_rowmajor
 
 KERNEL = "hist_rowmajor"
 
+# gh dtype -> (the kernel's mode number, launch-count key, output dtype)
+MODES = {torch.float32: (0, "f32", torch.float32),
+         torch.bfloat16: (1, "bf16", torch.float32),
+         torch.int8: (2, "int8", torch.int32)}
+TILE_FEATURES = 32      # features per block (one warp, lane = feature)
+MIN_ROWS_PER_BLOCK = 256  # a block's fixed cost (zero, write) needs rows
 
-def _kernel_fn():
-    lib = _build.load(KERNEL)
-    fn = lib.lgbm_hist_rowmajor_f32
+_resident: dict = {}
+
+
+def resident_blocks(lib, kernel: str, device: torch.device, num_bin: int,
+                    mode: int) -> int:
+    """Blocks of ``kernel`` in ``mode`` resident on ``device`` at once at
+    ``num_bin`` bins, asked of the library once per key."""
+    key = (kernel, device.index, num_bin, mode)
+    if key not in _resident:
+        n = ctypes.c_longlong(0)
+        raise_on(lib, getattr(lib, f"lgbm_{kernel}_resident")(
+            num_bin, mode, ctypes.byref(n)), kernel)
+        _resident[key] = n.value
+    return _resident[key]
+
+
+def load_kernel(kernel: str, launch_args: list):
+    """The kernel's library with the C signatures of its launch function
+    (``launch_args``) and of its resident-blocks query set."""
+    lib = _build.load(kernel)
+    fn = getattr(lib, f"lgbm_{kernel}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        query = getattr(lib, f"lgbm_{kernel}_resident")
+        query.argtypes = [ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_longlong)]
+        query.restype = ctypes.c_int
+        fn.argtypes = launch_args
         fn.restype = ctypes.c_int
         lib.lgbm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.lgbm_cuda_error_string.restype = ctypes.c_char_p
     return lib, fn
 
 
-def _check(bins_rm: torch.Tensor, gh: torch.Tensor, num_bin: int) -> None:
+def check_gh(gh: torch.Tensor, rows: int) -> None:
+    """gh must be a contiguous [rows, 3] tensor of a kernel mode."""
+    if gh.dtype not in MODES or gh.dim() != 2 or gh.shape[1] != 3:
+        raise ValueError(f"gh must be float32, bfloat16 or int8 [S, 3]; "
+                         f"got {gh.dtype} {tuple(gh.shape)}")
+    if gh.shape[0] != rows:
+        raise ValueError(f"bins has {rows} rows, gh {gh.shape[0]}")
+    if not gh.is_contiguous():
+        raise ValueError("gh must be contiguous")
+
+
+def check_bins(bins_rm: torch.Tensor, num_bin: int) -> None:
     if bins_rm.dtype != torch.uint8 or bins_rm.dim() != 2:
         raise ValueError(f"bins must be uint8 [S, F]; got {bins_rm.dtype} "
                          f"{tuple(bins_rm.shape)}")
-    if gh.dtype != torch.float32 or gh.dim() != 2 or gh.shape[1] != 3:
-        raise ValueError(f"gh must be float32 [S, 3]; got {gh.dtype} "
-                         f"{tuple(gh.shape)}")
-    if gh.shape[0] != bins_rm.shape[0]:
-        raise ValueError(f"bins has {bins_rm.shape[0]} rows, gh "
-                         f"{gh.shape[0]}")
     if not (1 <= int(num_bin) <= 256):
         raise ValueError(f"num_bin={num_bin} outside [1, 256]")
-    if not (bins_rm.is_contiguous() and gh.is_contiguous()):
-        raise ValueError("bins and gh must be contiguous")
-    if bins_rm.device != gh.device:
-        raise ValueError(f"bins on {bins_rm.device}, gh on {gh.device}")
+    if not bins_rm.is_contiguous():
+        raise ValueError("bins must be contiguous")
+
+
+def raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.lgbm_cuda_error_string(rc).decode())
 
 
 def hist_cuda_rm(bins_rm: torch.Tensor, gh: torch.Tensor,
                  num_bin: int) -> torch.Tensor:
-    """f32 [F, num_bin, 3] histogram of a row-major leaf block.
+    """[F, num_bin, 3] histogram of a row-major leaf block.
 
-    ``hist_cuda_rm.launches`` counts kernel launches (never the plain
-    version's calls)."""
-    _check(bins_rm, gh, num_bin)
+    ``hist_cuda_rm.launches[mode]`` counts kernel launches per gh mode
+    (``f32``, ``bf16``, ``int8``), never the plain version's calls."""
+    check_bins(bins_rm, num_bin)
+    check_gh(gh, bins_rm.shape[0])
+    if bins_rm.device != gh.device:
+        raise ValueError(f"bins on {bins_rm.device}, gh on {gh.device}")
     if bins_rm.device.type == "cpu":
         return hist_rowmajor(bins_rm, gh, num_bin)
     if bins_rm.device.type != "cuda":
         raise ValueError(f"unsupported device {bins_rm.device}")
+    mode, key, out_dtype = MODES[gh.dtype]
     S, F = bins_rm.shape
-    out = torch.zeros(F, num_bin, 3, dtype=torch.float32,
-                      device=bins_rm.device)
+    dev = bins_rm.device
     if S == 0:
-        return out
-    lib, fn = _kernel_fn()
-    with torch.cuda.device(bins_rm.device):
+        return torch.zeros(F, num_bin, 3, dtype=out_dtype, device=dev)
+    lib, fn = load_kernel(KERNEL, [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p])
+    n_tiles = -(-F // TILE_FEATURES)
+    with torch.cuda.device(dev):
+        # at least MIN_ROWS_PER_BLOCK rows a block, at most one wave
+        cap = resident_blocks(lib, KERNEL, dev, int(num_bin), mode) // n_tiles
+        blocks = max(1, min(-(-S // MIN_ROWS_PER_BLOCK), cap))
+        out = torch.empty(F, num_bin, 3, dtype=out_dtype, device=dev)
+        partials = torch.empty(
+            blocks * n_tiles * 3 * num_bin * TILE_FEATURES if blocks > 1
+            else 0, dtype=out_dtype, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(bins_rm.data_ptr(), gh.data_ptr(), out.data_ptr(), S, F,
-                int(num_bin), stream)
-    if rc != 0:
-        raise RuntimeError("hist_rowmajor kernel launch failed: "
-                           + lib.lgbm_cuda_error_string(rc).decode())
-    hist_cuda_rm.launches += 1
+        raise_on(lib, fn(bins_rm.data_ptr(), gh.data_ptr(), out.data_ptr(),
+                         partials.data_ptr(), S, F, int(num_bin), mode,
+                         blocks, stream), KERNEL)
+    hist_cuda_rm.launches[key] += 1
     return out
 
 
-hist_cuda_rm.launches = 0
+hist_cuda_rm.launches = {key: 0 for _, key, _ in MODES.values()}

@@ -7,6 +7,11 @@ leaf's rows, gathered contiguously by the compact grower. This is the
 contract of kernel K1 (``ops/hist_cuda.py``); the function here is its
 plain version, which serves CPU tensors and is what the card's kernel is
 held against.
+
+The mode follows gh's dtype, as in the JAX package: float32 gh give an
+f32 histogram; bfloat16 gh (the ``tpu_hist_dtype=bfloat16`` path, gh
+rounded to bf16 once) are widened to f32, exactly, and summed as f32;
+int8 gh (quantized gradients) are summed exactly into int32.
 """
 from __future__ import annotations
 
@@ -23,19 +28,27 @@ def hist_rowmajor(bins_rm: torch.Tensor, gh: torch.Tensor,
     Parameters
     ----------
     bins_rm : uint8 [S, F] row-major bin indices (< num_bin).
-    gh : f32 [S, C] per-row values, typically (grad, hess, count).
+    gh : [S, C] per-row values, typically (grad, hess, count): float32,
+        bfloat16 or int8.
     num_bin : B, the histogram width.
 
-    Returns f32 [F, num_bin, C], accumulated in f32: a scatter-add of
-    each chunk of ``CHUNK_ROWS`` rows into its own partial histogram,
-    then a sum over the partials. A single scatter over a million rows
-    adds thousands of values into each slot one after another, and its
+    Returns [F, num_bin, C]: int32 for int8 gh (an exact integer
+    scatter), else f32, accumulated in f32: a scatter-add of each chunk
+    of ``CHUNK_ROWS`` rows into its own partial histogram, then a sum
+    over the partials. A single scatter over a million rows adds
+    thousands of values into each slot one after another, and its
     rounding error grows with them; the two-level sum keeps the error at
     a few ulp, so the plain version is a sound yardstick for the kernel.
     """
     S, F = bins_rm.shape
     C = gh.shape[1]
     dev = bins_rm.device
+    if gh.dtype == torch.int8:
+        slot = bins_rm.long() + torch.arange(F, device=dev) * num_bin
+        out = torch.zeros(F * num_bin, C, dtype=torch.int32, device=dev)
+        out.index_add_(0, slot.reshape(-1),
+                       gh.to(torch.int32).repeat_interleave(F, dim=0))
+        return out.reshape(F, num_bin, C)
     n_chunks = max(-(-S // CHUNK_ROWS), 1)
     # flat (chunk, feature, bin) slot of every cell, then one scatter-add
     # over the [n_chunks * F * B, C] accumulator

@@ -158,6 +158,42 @@ def split_gain(lg, lh, rg, rh, hp: SplitHyperParams, lcnt=None, rcnt=None,
 # The vectorized two-direction scan
 # ---------------------------------------------------------------------------
 
+# XLA on the CPU evaluates a cumulative sum as a scan over tiles of this
+# many elements (its ReduceWindowRewriter): each tile summed left to
+# right, the tiles' totals scanned the same way, then each tile's
+# exclusive prefix added to its elements.
+XLA_SCAN_TILE = 16
+
+
+def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
+    out = [x[..., 0]]
+    for k in range(1, x.shape[-1]):
+        out.append(out[-1] + x[..., k])
+    return torch.stack(out, dim=-1)
+
+
+def _xla_cpu_cumsum(x: torch.Tensor) -> torch.Tensor:
+    n = x.shape[-1]
+    if n <= XLA_SCAN_TILE:
+        return _sequential_cumsum(x)
+    xp = torch.nn.functional.pad(x, (0, -n % XLA_SCAN_TILE))
+    inner = _sequential_cumsum(xp.reshape(*x.shape[:-1], -1, XLA_SCAN_TILE))
+    outer = _xla_cpu_cumsum(inner[..., -1])
+    excl = torch.nn.functional.pad(outer[..., :-1], (1, 0))
+    return (inner + excl[..., None]).reshape(xp.shape)[..., :n]
+
+
+def bin_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum over the last (bin) axis. On the CPU it
+    adds in the order the JAX package's ``jnp.cumsum`` adds there (XLA's
+    tiled scan), so the CPU port reproduces the reference's f32 side sums
+    bit for bit wherever the histograms agree bit for bit (quantized and
+    dyadic gradients); on the card it is ``torch.cumsum``, one launch."""
+    if x.device.type == "cpu":
+        return _xla_cpu_cumsum(x)
+    return torch.cumsum(x, dim=-1)
+
+
 def best_split_for_leaf(hist: torch.Tensor, sum_gradient, sum_hessian,
                         num_data, parent_output, meta: FeatureMeta,
                         hp: SplitHyperParams) -> SplitRecord:
@@ -238,7 +274,7 @@ def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
     # right side at threshold t accumulates bins t+1..hi: a SUFFIX sum in
     # the reference's high-to-low order, evaluated in iteration index
     # space u = t + 1 (right side = sfx[u])
-    sfx = torch.cumsum((ghc * rev_mask).flip(-1), dim=-1).flip(-1)
+    sfx = bin_cumsum((ghc * rev_mask).flip(-1)).flip(-1)
     rg_u = sfx[0]
     rh_u = sfx[1] + K_EPSILON
     rc_u = sfx[2]
@@ -269,7 +305,7 @@ def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
 
     # ---------------- FORWARD scan: left side accumulates 0..t -------------
     fwd_mask = (acc_mask & (bin_idx <= nbin - 2)).to(hist.dtype)
-    pfx = torch.cumsum(ghc * fwd_mask, dim=-1)
+    pfx = bin_cumsum(ghc * fwd_mask)
     lg_acc = pfx[0]
     lh_acc = pfx[1] + K_EPSILON
     lc_acc = pfx[2]

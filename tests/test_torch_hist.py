@@ -4,9 +4,10 @@ The port's ``hist_rowmajor`` is the plain version of the hand-written
 CUDA kernel (``lightgbm_tpu_torch/csrc/hist_rowmajor.cu``); the wrapper
 ``hist_cuda_rm`` runs it for CPU tensors. Both are held against the JAX
 package's Pallas kernel ``hist_pallas_rm`` (run in interpret mode, as
-tests/test_hist_pallas.py runs it) and its ``hist_scatter``. The kernel
-itself runs only on the card and is held against the plain version by
-chip_smoke.py.
+tests/test_hist_pallas.py runs it) and its ``hist_scatter``, in the
+kernel's three modes: f32, int8 (exact int32 sums, so bit for bit) and
+bf16 (gh rounded to bf16 once, f32 sums). The kernel itself runs only on
+the card and is held against the plain version by chip_smoke.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from lightgbm_tpu.ops.hist_pallas import hist_pallas_rm
+from lightgbm_tpu.ops.histogram import hist_rowmajor as jax_hist_rowmajor
 from lightgbm_tpu.ops.histogram import hist_scatter
 from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_rm
 from lightgbm_tpu_torch.ops.histogram import CHUNK_ROWS, hist_rowmajor
@@ -86,18 +88,61 @@ def test_zero_mass_rows_are_invisible(rng):
     np.testing.assert_array_equal(out[:, :, 2], ref[:, :, 2])
 
 
+@pytest.mark.parametrize("S,F,B", SHAPES)
+def test_plain_int8_matches_jax_pallas_bit_for_bit(rng, S, F, B):
+    """Quantized gh: exact int32 sums, so any order gives these bits."""
+    bins = rng.integers(0, B, size=(S, F)).astype(np.uint8)
+    ghq = rng.integers(-128, 128, size=(S, 3)).astype(np.int8)
+    out = hist_rowmajor(torch.from_numpy(bins), torch.from_numpy(ghq),
+                        B).numpy()
+    assert out.shape == (F, B, 3) and out.dtype == np.int32
+    pallas, scatter = _jax_refs(bins, ghq, B)
+    assert pallas.dtype == np.int32
+    np.testing.assert_array_equal(out, pallas)
+    np.testing.assert_array_equal(out, scatter)
+
+
+@pytest.mark.parametrize("dyadic", [True, False], ids=["dyadic", "normal"])
+def test_plain_bf16_matches_jax_bf16_mode(rng, dyadic):
+    """bf16 mode: the port rounds gh to bf16 once (torch's
+    round-to-nearest-even, as jnp's astype) and sums in f32; the JAX
+    package's ``hist_rowmajor(dtype="bfloat16")`` does the same on its
+    einsum path. Dyadic gh with few bits are exact in bf16 and their sums
+    exact in f32, so those agree bit for bit; normal gh agree within f32
+    reassociation (rtol=1e-5, atol=1e-4, sums of up to 4,096 values of
+    magnitude ~1)."""
+    S, F, B = 4096, 8, 64
+    bins, gh = _inputs(rng, S, F, B, dyadic)
+    out = hist_rowmajor(torch.from_numpy(bins),
+                        torch.from_numpy(gh).to(torch.bfloat16), B).numpy()
+    assert out.dtype == np.float32
+    ref = np.asarray(jax_hist_rowmajor(jnp.asarray(bins), jnp.asarray(gh), B,
+                                       dtype="bfloat16", backend="einsum"))
+    if dyadic:
+        np.testing.assert_array_equal(out, ref)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-4)
+        # and it is not the f32 histogram: the rounding happened
+        f32 = hist_rowmajor(torch.from_numpy(bins), torch.from_numpy(gh),
+                            B).numpy()
+        assert np.abs(out - f32).max() > 1e-3
+
+
 def test_wrapper_on_cpu_runs_the_plain_version(rng):
     bins, gh = _inputs(rng, 1000, 6, 40, dyadic=False)
-    before = hist_cuda_rm.launches
-    out = hist_cuda_rm(torch.from_numpy(bins), torch.from_numpy(gh), 40)
-    ref = hist_rowmajor(torch.from_numpy(bins), torch.from_numpy(gh), 40)
-    assert torch.equal(out, ref)
+    before = dict(hist_cuda_rm.launches)
+    for g in (torch.from_numpy(gh), torch.from_numpy(gh).to(torch.bfloat16),
+              torch.from_numpy(gh * 8).to(torch.int8)):
+        out = hist_cuda_rm(torch.from_numpy(bins), g, 40)
+        ref = hist_rowmajor(torch.from_numpy(bins), g, 40)
+        assert torch.equal(out, ref)
     assert hist_cuda_rm.launches == before   # no kernel launched
 
 
 @pytest.mark.parametrize("case", [
     "u16_bins", "num_bin_over_256", "num_bin_zero", "f64_gh",
-    "gh_channels", "row_mismatch", "non_contiguous", "bins_1d"])
+    "gh_channels", "row_mismatch", "non_contiguous", "bins_1d", "i16_gh",
+    "gh_non_contiguous"])
 def test_wrapper_rejects_unsupported_input(case):
     S, F = 64, 4
     bins = torch.zeros((S, F), dtype=torch.uint8)
@@ -119,5 +164,9 @@ def test_wrapper_rejects_unsupported_input(case):
         bins = torch.zeros((F, S), dtype=torch.uint8).T
     elif case == "bins_1d":
         bins = torch.zeros(S, dtype=torch.uint8)
+    elif case == "i16_gh":
+        gh = gh.to(torch.int16)
+    elif case == "gh_non_contiguous":
+        gh = torch.zeros((3, S), dtype=torch.int8).T
     with pytest.raises(ValueError):
         hist_cuda_rm(bins, gh, num_bin)

@@ -156,7 +156,7 @@ def test_cuda_without_a_card_raises(rng, monkeypatch):
 def test_unported_settings_are_refused(rng):
     X, y = _data(rng, "regression")
     for extra in ({"bagging_freq": 1, "bagging_fraction": 0.5},
-                  {"tpu_row_scheduling": "level"},
+                  {"tpu_row_scheduling": "full"},
                   {"objective": "multiclass", "num_class": 3}):
         params = {"objective": "regression", "device_type": "cpu",
                   "verbosity": -1, **extra}
