@@ -13,8 +13,10 @@ Phases, each reported on its own line:
    on the card: K1 (hist_rowmajor) in f32, int8 and bf16 at leaf sizes
    from 1M rows down to 1; K2 (hist_level) in f32, int8 and bf16 over
    1M rows at 1 to 512 nodes with skewed segments, with empty nodes, and
-   with every row out of the level. Two launches on the same input must
-   give the same bits;
+   with every row out of the level; B2 (hist_featmajor) in f32 and int8
+   over 1M feature-major rows with gh masked to leaves of 1M rows down to
+   1, and once over a ragged row count. Two launches on the same input
+   must give the same bits;
 4. the main path at full width: ``Booster`` training of a Higgs-shaped
    binary GBDT (1,000,000 x 28, 255 leaves, 255 bins) on the compact
    grower for one warm-up and a few timed iterations, then ``predict``;
@@ -23,13 +25,21 @@ Phases, each reported on its own line:
 5. the same configuration under each of the slice's other paths, on the
    phase-4 dataset: quantized gradients, bf16 histograms, level
    scheduling (the hybrid grower at 255 leaves and unbounded depth) and
-   level with each of the two; each run's launch counts must show its
-   kernel mode, and the hybrid's first tree must equal the compact one;
-   with ``--profile``, two more iterations of the compact and of the
-   level path under ``torch.profiler`` show where an iteration's time
-   goes (device busy share, top ops, launches and device-to-host reads);
+   level with each of the two, full row scheduling and full with
+   quantized gradients; each run's launch counts must show its kernel
+   mode (full: B2 once per leaf of every tree, and no K1 or K2), the
+   hybrid's first tree must equal the compact one, and full+quantized's
+   first tree the compact quantized one; with ``--profile``, two more
+   iterations of the compact, level and full paths under
+   ``torch.profiler`` show where an iteration's time goes (device busy
+   share, top ops, launches and device-to-host reads);
 6. small trainings on cuda and on the CPU (plain versions), compact,
-   quantized and level, which must agree.
+   quantized, level and full, which must agree;
+7. prediction on the card: ``predict(device=True)`` of the phase-4 model
+   over 200,000 rows by the binned route, and by the raw route for a
+   booster of the same trees without the training bin mappers, against
+   the host walk (scores within 1e-5, every tree's leaf equal), with
+   rows/s of each route and of the host walk.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -59,6 +69,8 @@ TIMING_REPS = 20
 PLAIN_REPS = 5
 GH_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 MODES = ("f32", "int8", "bf16")
+FM_MODES = ("f32", "int8")       # B2: the full path builds no bf16 hists
+PREDICT_ROWS = 200_000
 # training paths of phase 5: name -> (params, the kernel mode it must run)
 PATHS = {
     "quantized": (dict(use_quantized_grad=True), "hist_rowmajor_int8"),
@@ -68,6 +80,9 @@ PATHS = {
                              use_quantized_grad=True), "hist_level_int8"),
     "level_bf16": (dict(tpu_row_scheduling="level",
                         tpu_hist_dtype="bfloat16"), "hist_level_bf16"),
+    "full": (dict(tpu_row_scheduling="full"), "hist_featmajor_f32"),
+    "full_quantized": (dict(tpu_row_scheduling="full",
+                            use_quantized_grad=True), "hist_featmajor_int8"),
 }
 
 
@@ -94,9 +109,10 @@ def synth_higgs(n, f, seed=0):
 
 
 def wrappers():
-    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_rm
+    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_fm, hist_cuda_rm
     from lightgbm_tpu_torch.ops.hist_level_cuda import hist_level_cuda
-    return {"hist_rowmajor": hist_cuda_rm, "hist_level": hist_level_cuda}
+    return {"hist_rowmajor": hist_cuda_rm, "hist_level": hist_level_cuda,
+            "hist_featmajor": hist_cuda_fm}
 
 
 def reset_counts():
@@ -298,6 +314,78 @@ def phase_k2(dev, flush):
     return rows
 
 
+def phase_b2(dev, flush):
+    """B2 in each mode against its plain version over 1M feature-major
+    rows, gh masked to leaves of each size; then a ragged row count whose
+    rows are not 16-byte aligned (the kernel's byte-load path)."""
+    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_fm
+    from lightgbm_tpu_torch.ops.histogram import hist_featmajor
+    R, F, B = N_ROWS, N_FEATURES, MAX_BIN
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bins = torch.randint(0, B, (F, R), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    rows = {}
+    for mode in FM_MODES:
+        for S in KERNEL_SHAPES:
+            what = f"B2 {mode} leaf rows={S}"
+            keep = torch.zeros(R, dtype=torch.bool, device=dev)
+            keep[torch.randperm(R, generator=gen, device=dev)[:S]] = True
+            mask = keep[:, None]
+            dyadic = make_gh(mode, (R, 3), gen, dev, dyadic=True)
+            dyadic = dyadic * mask.to(dyadic.dtype)
+            assert torch.equal(hist_cuda_fm(bins, dyadic, B),
+                               hist_featmajor(bins, dyadic, B)), \
+                f"{what}: exact gh differ"
+            gh = make_gh(mode, (R, 3), gen, dev)
+            gh = gh * mask.to(gh.dtype)
+            out = hist_cuda_fm(bins, gh, B)
+            again = hist_cuda_fm(bins, gh, B)
+            ref = hist_featmajor(bins, gh, B)
+            torch.cuda.synchronize()
+            err = check_against_plain(mode, out, ref, what)
+            same_bits = bool(torch.equal(out, again))
+            assert same_bits, f"{what}: two launches differ"
+
+            ms = cuda_ms(lambda: hist_cuda_fm(bins, gh, B),
+                         before=flush.zero_)
+            plain_ms = cuda_ms(lambda: hist_featmajor(bins, gh, B),
+                               reps=PLAIN_REPS, before=flush.zero_)
+            # yardstick: one index_add_ over the flat (feature, bin) slot
+            # of every cell, the per-cell gh (widened) made outside the call
+            slot = (bins.long() + (torch.arange(F, device=dev)
+                                   * B)[:, None]).reshape(-1)
+            vals = gh.to(out.dtype).repeat(F, 1)
+            acc = torch.zeros(F * B, 3, dtype=out.dtype, device=dev)
+            library_ms = cuda_ms(lambda: acc.index_add_(0, slot, vals),
+                                 before=lambda: (flush.zero_(), acc.zero_()))
+            del slot, vals, acc
+            # every input byte read once (all R rows: the function is a
+            # full pass), the output written once; or 3 adds per cell of
+            # the leaf's rows
+            bound_ms, bound_by = bound(
+                R * F + 3 * R * GH_BYTES[gh.dtype] + 12 * F * B, 3 * S * F)
+            rows[(mode, S)] = dict(ms=ms, plain_ms=plain_ms,
+                                   library_ms=library_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, max_abs_err=err)
+            log(f"phase 3 hist_featmajor mode={mode} R={R} leaf_rows={S} "
+                f"F={F} B={B}: max_abs_err={err!r} "
+                f"same_bits_two_launches={same_bits} kernel_ms={ms!r} "
+                f"plain_ms={plain_ms!r} index_add_ms={library_ms!r} "
+                f"bound_us={bound_ms * 1e3!r} bound_by={bound_by}")
+        # ragged: R' = 100,003 rows, a row stride that breaks alignment
+        Rr = 100_003
+        sub = bins[:, :Rr].contiguous()
+        gh = make_gh(mode, (Rr, 3), gen, dev)
+        out = hist_cuda_fm(sub, gh, B)
+        err = check_against_plain(mode, out, hist_featmajor(sub, gh, B),
+                                  f"B2 {mode} ragged R={Rr}")
+        assert torch.equal(out, hist_cuda_fm(sub, gh, B)), \
+            f"B2 {mode} ragged R={Rr}: two launches differ"
+        log(f"phase 3 hist_featmajor mode={mode} ragged R={Rr} F={F} B={B}: "
+            f"max_abs_err={err!r} same_bits_two_launches=True")
+    return rows
+
+
 def bench_params(**extra):
     p = {"objective": "binary", "num_leaves": NUM_LEAVES,
          "learning_rate": 0.1, "max_bin": MAX_BIN, "min_data_in_leaf": 20,
@@ -310,9 +398,12 @@ def bench_params(**extra):
 
 def train_timed(ds, params, iters):
     """Warm-up plus ``iters`` timed iterations with the launch counts
-    zeroed just before and read just after."""
+    zeroed just before and read just after; the peak device memory of
+    the run is counted above what was allocated when it started (earlier
+    phases' boosters stay alive)."""
     import lightgbm_tpu_torch as lgt
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     bst = lgt.Booster(params, ds)
@@ -328,13 +419,13 @@ def train_timed(ds, params, iters):
         torch.cuda.synchronize()
         iter_s.append(time.perf_counter() - t)
     counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     last = dict((m, v) for _, m, v, _ in bst.eval_train())
     assert last["binary_logloss"] < first["binary_logloss"], (first, last)
     assert last["auc"] > 0.7, last
     return bst, dict(warm_s=warm_s, iter_s=iter_s,
                      median_iter_s=statistics.median(iter_s), counts=counts,
-                     max_memory_allocated=peak, first=first, last=last)
+                     peak_bytes=peak, first=first, last=last)
 
 
 def phase_main_path():
@@ -350,7 +441,7 @@ def phase_main_path():
     log(f"phase 4 warmup_s={r['warm_s']!r} iter_s={r['iter_s']!r} "
         f"median_iter_s={r['median_iter_s']!r} launches={r['counts']} "
         f"leaves_per_tree={leaves} "
-        f"max_memory_allocated={r['max_memory_allocated']} "
+        f"peak_bytes_above_start={r['peak_bytes']} "
         f"logloss_first={r['first']} logloss_last={r['last']}")
     launches = r["counts"]["hist_rowmajor_f32"]
     assert launches > 0 and launches == sum(leaves), (launches, leaves)
@@ -364,7 +455,7 @@ def phase_main_path():
     train_raw = bst._engine.score[0, :len(Xp)].cpu().numpy()
     np.testing.assert_allclose(raw, train_raw, rtol=0, atol=1e-4)
     log("phase 4 predict ok: host walk equals the training score")
-    return r["counts"], bst, ds
+    return r["counts"], bst, ds, X
 
 
 TREE_FIELDS = ("split_feature", "threshold_bin", "default_left",
@@ -383,7 +474,7 @@ def phase_paths(ds, compact_first):
         log(f"phase 5 path={name} warmup_s={r['warm_s']!r} "
             f"iter_s={r['iter_s']!r} median_iter_s={r['median_iter_s']!r} "
             f"launches={c} leaves_per_tree={[t.num_leaves for t in trees]} "
-            f"max_memory_allocated={r['max_memory_allocated']} "
+            f"peak_bytes_above_start={r['peak_bytes']} "
             f"logloss_first={r['first']} logloss_last={r['last']}")
         assert c[must] > 0, (name, c)
         if name.startswith("level"):
@@ -401,13 +492,21 @@ def phase_paths(ds, compact_first):
                 auto_handoff_depth
             d0 = auto_handoff_depth(bst._engine.config.num_leaves)
             assert c[must] >= (d0 + 1) * len(trees), (name, c)
-        if name == "level":
+        if name.startswith("full"):
+            # a masked full pass for the root and for the smaller child
+            # of every split: one per leaf; and nothing of K1 or K2
+            assert c[must] == sum(t.num_leaves for t in trees), (name, c)
+            assert sum(c.values()) == c[must], (name, c)
+        if name in ("level", "full_quantized"):
+            like = "quantized" if name == "full_quantized" else "compact"
+            ref = (out[like][1]._engine.models[0] if like in out
+                   else compact_first)
             first = trees[0]
             for f in TREE_FIELDS:
                 np.testing.assert_array_equal(
-                    getattr(first, f), getattr(compact_first, f),
-                    err_msg=f"hybrid first tree differs in {f}")
-            log("phase 5 hybrid first tree equals the compact first tree: "
+                    getattr(first, f), getattr(ref, f),
+                    err_msg=f"{name} first tree differs in {f}")
+            log(f"phase 5 {name} first tree equals the {like} first tree: "
                 f"{first.num_leaves} leaves, depth {first.max_depth}")
         out[name] = (c, bst)
     return out
@@ -455,8 +554,8 @@ def phase_profile(bst, label, iters=2):
 
 
 def phase_cross_check():
-    """cuda against cpu on small runs of the compact, quantized and level
-    paths (without stochastic rounding: a CUDA and a CPU generator draw
+    """cuda against cpu on small runs of the compact, quantized, level and
+    full paths (without stochastic rounding: a CUDA and a CPU generator draw
     different numbers)."""
     import lightgbm_tpu_torch as lgt
     X, y = synth_higgs(20_000, N_FEATURES, seed=1)
@@ -464,7 +563,8 @@ def phase_cross_check():
                         ("quantized", {"use_quantized_grad": True,
                                        "stochastic_rounding": False}),
                         ("level", {"tpu_row_scheduling": "level",
-                                   "max_depth": -1})):
+                                   "max_depth": -1}),
+                        ("full", {"tpu_row_scheduling": "full"})):
         out = {}
         for dev in ("cuda", "cpu"):
             params = {"objective": "binary", "num_leaves": 31,
@@ -482,11 +582,60 @@ def phase_cross_check():
         np.testing.assert_allclose(out["cuda"][3], out["cpu"][3], rtol=1e-4)
 
 
+def phase_predict(bst, ds, X):
+    """Device prediction of the phase-4 model: the binned route, and the
+    raw route of a booster over the same trees without the training bin
+    mappers, against the host walk; rows/s of each."""
+    from lightgbm_tpu_torch.convert import TREE_FIELDS as CARRY, \
+        booster_from_arrays
+    from lightgbm_tpu_torch.ops.forest import snapshot_leaves
+    eng = bst._engine
+    binned = ds.binned
+    raw_bst = booster_from_arrays(
+        bench_params(), [{f: getattr(t, f) for f in CARRY}
+                         for t in eng.models],
+        binned.bin_mappers, binned.used_feature_map)
+    Xp = np.asarray(X[:PREDICT_ROWS], np.float64)
+    n_trees = len(eng.models)
+    timed = {}
+    for name, b, dev_route in (("host_walk", bst, False),
+                               ("binned", bst, True),
+                               ("raw", raw_bst, True)):
+        b.predict(Xp[:1000], device=dev_route, raw_score=True)   # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        timed[name] = b.predict(Xp, device=dev_route, raw_score=True)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        log(f"phase 7 predict route={name} rows={len(Xp)} trees={n_trees} "
+            f"seconds={sec!r} rows_per_s={len(Xp) / sec!r}")
+    host_leaf = np.stack([t.predict_leaf(Xp) for t in eng.models])
+    for name, b in (("binned", bst), ("raw", raw_bst)):
+        e = b._engine
+        pack = e._serving.raw_pack if name == "raw" else e._serving.pack
+        assert pack.count == n_trees, (name, pack.count)
+        assert e._serving.device.type == "cuda"
+        np.testing.assert_allclose(timed[name], timed["host_walk"], rtol=0,
+                                   atol=1e-5, err_msg=name)
+        mappers = (e._serving_mappers if name == "binned" else None)
+        snap = e._serving.snapshot(
+            e.models, e._model_gen, 0, n_trees, mappers,
+            binned.used_feature_map if mappers is not None else None)
+        np.testing.assert_array_equal(snapshot_leaves(snap, Xp), host_leaf,
+                                      err_msg=f"{name} leaves")
+        log(f"phase 7 predict route={name}: scores within 1e-5 of the host "
+            f"walk (max_abs_diff="
+            f"{float(np.abs(timed[name] - timed['host_walk']).max())!r}), "
+            "every leaf equal")
+
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
     "hist_level": ("lightgbm_tpu_torch/csrc/hist_level.cu",
                    "lightgbm_tpu/ops/hist_level_pallas.py:83"),
+    "hist_featmajor": ("lightgbm_tpu_torch/csrc/hist_featmajor.cu",
+                       "lightgbm_tpu/ops/hist_pallas.py:214"),
 }
 
 
@@ -524,17 +673,21 @@ def main():
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     k1 = phase_k1(dev, flush)
     k2 = phase_k2(dev, flush)
+    b2 = phase_b2(dev, flush)
     del flush
-    compact_counts, bst, ds = phase_main_path()
+    compact_counts, bst, ds, X = phase_main_path()
     paths = phase_paths(ds, bst._engine.models[0])
     if "--profile" in sys.argv[1:]:
         phase_profile(bst, "compact")
         phase_profile(paths["level"][1], "level")
+        phase_profile(paths["full"][1], "full")
     # each mode's launches from the run of the path that carries it
     runs = {"hist_rowmajor_f32": compact_counts}
     for name, (_, must) in PATHS.items():
         runs[must] = paths[name][0]
-    del bst, paths
+    del paths
+    phase_predict(bst, ds, X)
+    del bst, ds, X
     phase_cross_check()
 
     kernels = []
@@ -546,6 +699,10 @@ def main():
         key = f"hist_level_{mode}"
         kernels.append(kernel_entry("hist_level", mode, runs[key][key],
                                     k2[(mode, f"skewed n={LEVEL_NODES[-1]}")]))
+    for mode in FM_MODES:
+        key = f"hist_featmajor_{mode}"
+        kernels.append(kernel_entry("hist_featmajor", mode, runs[key][key],
+                                    b2[(mode, N_ROWS)]))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -3,9 +3,9 @@
 Port of the first slice of ``lightgbm_tpu/basic.py`` (ref:
 python-package/lightgbm/basic.py Dataset / Booster): a ``Dataset`` over
 a dense numeric matrix, and a ``Booster`` that trains (``update``),
-evaluates on its training rows, predicts by the host walk and writes
-the model text. Prediction on the device (``ops/forest.py``) is not
-ported yet.
+evaluates on its training rows, predicts by the host walk or on the
+device (``predict(..., device=True)``, the packed forest of
+``ops/forest.py``) and writes the model text.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from .core.metrics import metrics_for_config
 from .core.objective import create_objective
 from .io.dataset_core import BinnedDataset
 from .models.gbdt import GBDT
+from .utils import log
 from .utils.log import LightGBMError
 
 
@@ -117,9 +118,15 @@ class Booster:
     # -- prediction -----------------------------------------------------
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
-                raw_score: bool = False, pred_leaf: bool = False
-                ) -> np.ndarray:
-        """Host-walk prediction over raw feature values (ref: predictor.hpp)."""
+                raw_score: bool = False, pred_leaf: bool = False,
+                device: Optional[bool] = None) -> np.ndarray:
+        """Prediction over raw feature values: the host walk (ref:
+        predictor.hpp), or with ``device`` (default: the
+        ``tpu_predict_device`` parameter) the packed-forest engine on the
+        training device, whose scores are f32 sums. Where the device
+        route cannot serve (an empty tree range, f64-only values on the
+        raw route) it warns and the host walk answers; any other error
+        propagates."""
         X = _to_2d_numpy(data).astype(np.float64, copy=False)
         eng = self._engine
         n_feat = eng.max_feature_idx + 1
@@ -139,9 +146,19 @@ class Booster:
         if pred_leaf:
             return np.stack([t.predict_leaf(X) for t in trees], axis=1) \
                 if trees else np.zeros((X.shape[0], 0), np.int64)
-        raw = np.zeros((X.shape[0], K), dtype=np.float64)
-        for i, t in enumerate(trees):
-            raw[:, i % K] += t.predict(X)
+        raw = None
+        use_device = (self.config.tpu_predict_device if device is None
+                      else device)
+        if use_device:
+            try:
+                raw = eng.predict_device(X, start_iteration, end_iteration)
+            except ValueError as e:
+                log.warning(f"device prediction unavailable ({e}); "
+                            "using the host path")
+        if raw is None:
+            raw = np.zeros((X.shape[0], K), dtype=np.float64)
+            for i, t in enumerate(trees):
+                raw[:, i % K] += t.predict(X)
         if not raw_score and eng.objective is not None:
             raw[:, 0] = np.asarray(eng.objective.convert_output(raw[:, 0]))
         return raw[:, 0] if K == 1 else raw

@@ -10,10 +10,12 @@ src/io/config.cpp, python-package lightgbm/basic.py:513 _ConfigAliases.
 Differences from the JAX package's copy: ``device_type`` defaults to
 ``"cuda"`` and accepts ``"cuda"`` or ``"cpu"``; the ``tpu_*`` names stay
 registered so one params dict drives both packages. The port reads
-``tpu_row_scheduling`` (compact or level), ``tpu_hist_dtype``,
-``tpu_level_handoff_depth`` and ``tpu_hist_kernel`` (every value runs the
-port's hand kernels, see models/gbdt.py), and refuses the settings it
-cannot honour yet (see ``unsupported_settings``).
+``tpu_row_scheduling`` (compact, full, leaf or level), ``tpu_hist_dtype``,
+``tpu_level_handoff_depth``, ``tpu_predict_device``,
+``tpu_predict_buckets``, and ``tpu_hist_kernel``, ``tpu_use_pallas`` and
+``tpu_rows_per_block`` (every value runs the port's hand kernels, see
+models/gbdt.py), and refuses the settings it cannot honour yet (see
+``unsupported_settings``).
 """
 from __future__ import annotations
 
@@ -442,7 +444,7 @@ def _parse_list(value: Any, elem_type: Any) -> List[Any]:
 
 
 # What the port implements is the dense numerical ``gbdt`` path with the
-# compact, level and hybrid growers. A setting that needs anything else
+# compact, full/leaf, level and hybrid growers. A setting that needs anything else
 # maps to a predicate that is True for the unsupported value and to the
 # ROADMAP item that ports it; training refuses it instead of ignoring it.
 _UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {
@@ -463,7 +465,6 @@ _UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {
     "cegb_penalty_feature_lazy": (bool, "A12"),
     "cegb_penalty_feature_coupled": (bool, "A12"),
     "linear_tree": (bool, "A12"),
-    "tpu_row_scheduling": (lambda v: v in ("full", "leaf"), "A11"),
 }
 
 

@@ -1,5 +1,6 @@
 // Shared body of the port's histogram kernels (K1 hist_rowmajor.cu, K2
-// hist_level.cu) for Hopper (sm_90a).
+// hist_level.cu; B2 hist_featmajor.cu shares all of it but the row
+// loads of fetch/accumulate) for Hopper (sm_90a).
 //
 // One block is one warp. Its 32 lanes own the features of a feature tile
 // (lane l <-> feature f0 + l, at most 32 per tile), and the block keeps

@@ -1,15 +1,22 @@
-"""Kernel K1: the row-major histogram, hand-written in CUDA for Hopper.
+"""Kernels K1 and B2: the row-major and the feature-major histogram,
+hand-written in CUDA for Hopper.
 
-Port of ``lightgbm_tpu/ops/hist_pallas.py`` ``hist_pallas_rm`` (the
-Pallas kernel ``_hist_kernel`` in its f32, bf16 and int8 modes). The
-kernel source is ``csrc/hist_rowmajor.cu`` (its body is shared with K2 in
-``csrc/hist_common.cuh``); its note gives the bound and the design.
+K1 ports ``lightgbm_tpu/ops/hist_pallas.py`` ``hist_pallas_rm`` (the
+Pallas kernel ``_hist_kernel`` in its f32, bf16 and int8 modes); its
+source is ``csrc/hist_rowmajor.cu``. B2 ports ``hist_pallas`` (the same
+Pallas kernel over feature-major bins, the full/leaf scheduler's pass) in
+its f32 and int8 modes; its source is ``csrc/hist_featmajor.cu``. Both
+share their block body with K2 (``csrc/hist_common.cuh``); each source's
+note gives the bound and the design.
 
 ``hist_cuda_rm`` takes K1's contract: uint8 bins ``[S, F]`` (contiguous,
 ``num_bin <= 256``), gh ``[S, 3]`` (contiguous) in float32, bfloat16 or
-int8, and returns ``[F, num_bin, 3]`` in float32 (int32 for int8 gh). A
-CPU tensor runs the plain version (``ops/histogram.hist_rowmajor``); a
-CUDA tensor launches the kernel or raises — there is no fallback.
+int8, and returns ``[F, num_bin, 3]`` in float32 (int32 for int8 gh).
+``hist_cuda_fm`` takes B2's: uint8 bins ``[F, R]`` (unit column stride,
+any row stride), gh ``[R, 3]`` in float32 or int8, masked to the leaf by
+the caller. A CPU tensor runs the plain version
+(``ops/histogram.hist_rowmajor`` / ``hist_featmajor``); a CUDA tensor
+launches the kernel or raises — there is no fallback.
 """
 from __future__ import annotations
 
@@ -18,9 +25,10 @@ import ctypes
 import torch
 
 from .. import _build
-from .histogram import hist_rowmajor
+from .histogram import hist_featmajor, hist_rowmajor
 
 KERNEL = "hist_rowmajor"
+KERNEL_FM = "hist_featmajor"
 
 # gh dtype -> (the kernel's mode number, launch-count key, output dtype)
 MODES = {torch.float32: (0, "f32", torch.float32),
@@ -28,6 +36,7 @@ MODES = {torch.float32: (0, "f32", torch.float32),
          torch.int8: (2, "int8", torch.int32)}
 TILE_FEATURES = 32      # features per block (one warp, lane = feature)
 MIN_ROWS_PER_BLOCK = 256  # a block's fixed cost (zero, write) needs rows
+BATCH_ROWS = 32         # B2's rows per step; a block's rows are a multiple
 
 _resident: dict = {}
 
@@ -129,3 +138,65 @@ def hist_cuda_rm(bins_rm: torch.Tensor, gh: torch.Tensor,
 
 
 hist_cuda_rm.launches = {key: 0 for _, key, _ in MODES.values()}
+
+
+def hist_cuda_fm(bins_fm: torch.Tensor, gh: torch.Tensor,
+                 num_bin: int) -> torch.Tensor:
+    """[F, num_bin, 3] histogram over all rows of feature-major bins, gh
+    masked to one leaf (zeros elsewhere).
+
+    ``hist_cuda_fm.launches[mode]`` counts kernel launches per gh mode
+    (``f32``, ``int8``), never the plain version's calls."""
+    if bins_fm.dtype != torch.uint8 or bins_fm.dim() != 2:
+        raise ValueError(f"bins must be uint8 [F, R]; got {bins_fm.dtype} "
+                         f"{tuple(bins_fm.shape)}")
+    if not (1 <= int(num_bin) <= 256):
+        raise ValueError(f"num_bin={num_bin} outside [1, 256]")
+    F, R = bins_fm.shape
+    if (R > 1 and bins_fm.stride(1) != 1) or \
+            (F > 1 and bins_fm.stride(0) < R):
+        raise ValueError("bins must have unit column stride and a row "
+                         f"stride >= R; got strides {bins_fm.stride()}")
+    check_gh(gh, R)
+    if gh.dtype == torch.bfloat16:
+        raise ValueError("the feature-major histogram takes float32 or "
+                         "int8 gh (the full path builds no bf16 "
+                         "histograms)")
+    if bins_fm.device != gh.device:
+        raise ValueError(f"bins on {bins_fm.device}, gh on {gh.device}")
+    if bins_fm.device.type == "cpu":
+        return hist_featmajor(bins_fm, gh, num_bin)
+    if bins_fm.device.type != "cuda":
+        raise ValueError(f"unsupported device {bins_fm.device}")
+    mode, key, out_dtype = MODES[gh.dtype]
+    dev = bins_fm.device
+    if R == 0:
+        return torch.zeros(F, num_bin, 3, dtype=out_dtype, device=dev)
+    lib, fn = load_kernel(KERNEL_FM, [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p])
+    n_tiles = -(-F // TILE_FEATURES)
+    with torch.cuda.device(dev):
+        # at least MIN_ROWS_PER_BLOCK rows a block, at most one wave; a
+        # block's rows a whole number of 32-row batches
+        cap = resident_blocks(lib, KERNEL_FM, dev, int(num_bin),
+                              mode) // n_tiles
+        blocks = max(1, min(-(-R // MIN_ROWS_PER_BLOCK), cap))
+        rpb = -(-R // blocks)
+        rpb = -(-rpb // BATCH_ROWS) * BATCH_ROWS
+        blocks = -(-R // rpb)
+        out = torch.empty(F, num_bin, 3, dtype=out_dtype, device=dev)
+        partials = torch.empty(
+            blocks * n_tiles * 3 * num_bin * TILE_FEATURES if blocks > 1
+            else 0, dtype=out_dtype, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        raise_on(lib, fn(bins_fm.data_ptr(), gh.data_ptr(), out.data_ptr(),
+                         partials.data_ptr(), R, max(bins_fm.stride(0), R),
+                         F, int(num_bin), mode, blocks, rpb, stream),
+                 KERNEL_FM)
+    hist_cuda_fm.launches[key] += 1
+    return out
+
+
+hist_cuda_fm.launches = {"f32": 0, "int8": 0}

@@ -1,7 +1,7 @@
 """Settings the PyTorch port cannot honour yet are refused, by name and
-with the ROADMAP item that ports them; the settings this slice ported
-(quantized gradients, bf16 histograms, level scheduling and every
-``tpu_hist_kernel`` value) train."""
+with the ROADMAP item that ports them; the settings the port has ported
+(quantized gradients, bf16 histograms, level, full and leaf scheduling,
+and every ``tpu_hist_kernel`` value) train."""
 import numpy as np
 import pytest
 
@@ -10,8 +10,8 @@ from lightgbm_tpu_torch.config import _UNSUPPORTED_WHEN
 
 F = 4
 REFUSED = [
-    ("tpu_row_scheduling", "full", "A11"),
-    ("tpu_row_scheduling", "leaf", "A11"),
+    ("boosting", "rf", "A12"),
+    ("tree_learner", "voting", "A13"),
     ("boosting", "dart", "A12"),
     ("data_sample_strategy", "goss", "A12"),
     ("tree_learner", "data", "A13"),
@@ -62,9 +62,12 @@ def test_unported_setting_is_refused_with_its_roadmap_item(name, value,
     {"tpu_hist_dtype": "bf16"},
     {"tpu_row_scheduling": "level", "tpu_level_handoff_depth": 2},
     {"tpu_hist_kernel": "einsum"}, {"tpu_hist_kernel": "scatter"},
-    {"tpu_hist_kernel": "pallas"}, {"tpu_hist_kernel": "pallas_level"}],
+    {"tpu_hist_kernel": "pallas"}, {"tpu_hist_kernel": "pallas_level"},
+    {"tpu_row_scheduling": "full", "tpu_use_pallas": True,
+     "tpu_rows_per_block": 512},
+    {"tpu_row_scheduling": "leaf", "use_quantized_grad": True}],
     ids=["quantized", "bf16", "level", "einsum", "scatter", "pallas",
-         "pallas_level"])
+         "pallas_level", "full", "leaf"])
 def test_ported_settings_train(extra):
     X, y = _data()
     params = {"objective": "binary", "device_type": "cpu", "verbosity": -1,

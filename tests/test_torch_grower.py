@@ -81,6 +81,13 @@ def test_tree_matches_jax(rng, kind, max_depth):
     bins, jm, tm = _data(rng, R, F)
     gh = _gradients(rng, R, kind)
     jt, jleaf, tt, tleaf = _grow_both(bins, gh, jm, tm, L, max_depth)
+    assert_tree_matches(kind, gh, jt, jleaf, tt, tleaf)
+
+
+def assert_tree_matches(kind, gh, jt, jleaf, tt, tleaf):
+    """The port's tree and leaf ids against the JAX package's: identical
+    for dyadic gradients, identical structure and floats within the
+    bounds of the module docstring otherwise."""
     n = int(jt.num_leaves)
     assert tt.num_leaves == n > 1
     for f in STRUCTURE:

@@ -76,9 +76,20 @@ def _rows_at_nodes(tree, X):
 
 @pytest.mark.parametrize("objective", ["binary", "regression"])
 def test_train_matches_jax(rng, objective):
+    _train_and_compare(rng, objective, {})
+
+
+@pytest.mark.parametrize("objective", ["binary", "regression"])
+def test_full_scheduling_matches_jax(rng, objective):
+    """tpu_row_scheduling=full: the port's full grower (its B2 plain
+    version on the CPU) against the JAX package's full grower."""
+    _train_and_compare(rng, objective, {"tpu_row_scheduling": "full"})
+
+
+def _train_and_compare(rng, objective, extra):
     X, y = _data(rng, objective)
     params = {"objective": objective, "num_leaves": 15,
-              "device_type": "cpu", "verbosity": -1}
+              "device_type": "cpu", "verbosity": -1, **extra}
     jds = lgb.Dataset(X, label=y)
     tds = lgt.Dataset(X, label=y)
     jb = lgb.train(params, jds, num_boost_round=5, valid_sets=[jds],
@@ -156,7 +167,7 @@ def test_cuda_without_a_card_raises(rng, monkeypatch):
 def test_unported_settings_are_refused(rng):
     X, y = _data(rng, "regression")
     for extra in ({"bagging_freq": 1, "bagging_fraction": 0.5},
-                  {"tpu_row_scheduling": "full"},
+                  {"extra_trees": True},
                   {"objective": "multiclass", "num_class": 3}):
         params = {"objective": "regression", "device_type": "cpu",
                   "verbosity": -1, **extra}
