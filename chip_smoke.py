@@ -15,8 +15,8 @@ Phases, each reported on its own line:
    1M rows at 1 to 512 nodes with skewed segments, with empty nodes, and
    with every row out of the level; B2 (hist_featmajor) in f32 and int8
    over 1M feature-major rows with gh masked to leaves of 1M rows down to
-   1, and once over a ragged row count. Two launches on the same input
-   must give the same bits;
+   1, and over a ragged row count with and without the engine's 16-byte
+   row padding. Two launches on the same input must give the same bits;
 4. the main path at full width: ``Booster`` training of a Higgs-shaped
    binary GBDT (1,000,000 x 28, 255 leaves, 255 bins) on the compact
    grower for one warm-up and a few timed iterations, then ``predict``;
@@ -39,7 +39,8 @@ Phases, each reported on its own line:
    over 200,000 rows by the binned route, and by the raw route for a
    booster of the same trees without the training bin mappers, against
    the host walk (scores within 1e-5, every tree's leaf equal), with
-   rows/s of each route and of the host walk.
+   rows/s of each route and of the host walk; each route's answer must be
+   the engine's device scores bit for bit, so no fallback went unseen.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -316,9 +317,10 @@ def phase_k2(dev, flush):
 
 def phase_b2(dev, flush):
     """B2 in each mode against its plain version over 1M feature-major
-    rows, gh masked to leaves of each size; then a ragged row count whose
-    rows are not 16-byte aligned (the kernel's byte-load path)."""
-    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_fm
+    rows, gh masked to leaves of each size; then a ragged row count, with
+    and without the engine's 16-byte row padding."""
+    from lightgbm_tpu_torch.ops.hist_cuda import (feature_major_bins,
+                                                  hist_cuda_fm)
     from lightgbm_tpu_torch.ops.histogram import hist_featmajor
     R, F, B = N_ROWS, N_FEATURES, MAX_BIN
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -351,14 +353,24 @@ def phase_b2(dev, flush):
             plain_ms = cuda_ms(lambda: hist_featmajor(bins, gh, B),
                                reps=PLAIN_REPS, before=flush.zero_)
             # yardstick: one index_add_ over the flat (feature, bin) slot
-            # of every cell, the per-cell gh (widened) made outside the call
-            slot = (bins.long() + (torch.arange(F, device=dev)
-                                   * B)[:, None]).reshape(-1)
-            vals = gh.to(out.dtype).repeat(F, 1)
-            acc = torch.zeros(F * B, 3, dtype=out.dtype, device=dev)
-            library_ms = cuda_ms(lambda: acc.index_add_(0, slot, vals),
-                                 before=lambda: (flush.zero_(), acc.zero_()))
-            del slot, vals, acc
+            # of every cell, the per-cell gh (widened) made outside the
+            # call, with the cells in feature-major and in row-major order
+            # (K1's); the faster of the two is the library's time
+            index_add_ms = {}
+            for order in ("feature_major", "row_major"):
+                cells = bins.T if order == "row_major" else bins
+                off = torch.arange(F, device=dev) * B
+                slot = (cells.long() + (off if order == "row_major"
+                                        else off[:, None])).reshape(-1)
+                vals = (gh.to(out.dtype).repeat_interleave(F, dim=0)
+                        if order == "row_major"
+                        else gh.to(out.dtype).repeat(F, 1))
+                acc = torch.zeros(F * B, 3, dtype=out.dtype, device=dev)
+                index_add_ms[order] = cuda_ms(
+                    lambda: acc.index_add_(0, slot, vals),
+                    before=lambda: (flush.zero_(), acc.zero_()))
+                del cells, slot, vals, acc
+            library_ms = min(index_add_ms.values())
             # every input byte read once (all R rows: the function is a
             # full pass), the output written once; or 3 adds per cell of
             # the leaf's rows
@@ -370,19 +382,32 @@ def phase_b2(dev, flush):
             log(f"phase 3 hist_featmajor mode={mode} R={R} leaf_rows={S} "
                 f"F={F} B={B}: max_abs_err={err!r} "
                 f"same_bits_two_launches={same_bits} kernel_ms={ms!r} "
-                f"plain_ms={plain_ms!r} index_add_ms={library_ms!r} "
+                f"plain_ms={plain_ms!r} "
+                f"index_add_ms_feature_major={index_add_ms['feature_major']!r} "
+                f"index_add_ms_row_major={index_add_ms['row_major']!r} "
                 f"bound_us={bound_ms * 1e3!r} bound_by={bound_by}")
-        # ragged: R' = 100,003 rows, a row stride that breaks alignment
+        # ragged: R' = 100,003 rows, once with the row stride R' (byte
+        # loads throughout) and once in the engine's padded device copy
+        # (row stride 100,016: vector loads, byte loads at each row's tail)
         Rr = 100_003
         sub = bins[:, :Rr].contiguous()
-        gh = make_gh(mode, (Rr, 3), gen, dev)
-        out = hist_cuda_fm(sub, gh, B)
-        err = check_against_plain(mode, out, hist_featmajor(sub, gh, B),
-                                  f"B2 {mode} ragged R={Rr}")
-        assert torch.equal(out, hist_cuda_fm(sub, gh, B)), \
-            f"B2 {mode} ragged R={Rr}: two launches differ"
-        log(f"phase 3 hist_featmajor mode={mode} ragged R={Rr} F={F} B={B}: "
-            f"max_abs_err={err!r} same_bits_two_launches=True")
+        padded = feature_major_bins(sub.T.cpu().numpy(), dev)
+        assert padded.stride(0) == 100_016 and torch.equal(padded, sub)
+        for layout, b in (("unpadded", sub), ("padded", padded)):
+            what = f"B2 {mode} ragged R={Rr} {layout} ld={b.stride(0)}"
+            dyadic = make_gh(mode, (Rr, 3), gen, dev, dyadic=True)
+            assert torch.equal(hist_cuda_fm(b, dyadic, B),
+                               hist_featmajor(sub, dyadic, B)), \
+                f"{what}: exact gh differ"
+            gh = make_gh(mode, (Rr, 3), gen, dev)
+            out = hist_cuda_fm(b, gh, B)
+            err = check_against_plain(mode, out, hist_featmajor(sub, gh, B),
+                                      what)
+            assert torch.equal(out, hist_cuda_fm(b, gh, B)), \
+                f"{what}: two launches differ"
+            log(f"phase 3 hist_featmajor mode={mode} ragged R={Rr} "
+                f"{layout} ld={b.stride(0)} F={F} B={B}: max_abs_err={err!r} "
+                "exact_gh_bit_for_bit=True same_bits_two_launches=True")
     return rows
 
 
@@ -558,7 +583,9 @@ def phase_cross_check():
     full paths (without stochastic rounding: a CUDA and a CPU generator draw
     different numbers)."""
     import lightgbm_tpu_torch as lgt
-    X, y = synth_higgs(20_000, N_FEATURES, seed=1)
+    # a row count that is not a multiple of 16: the full path's device
+    # bins are padded (feature_major_bins)
+    X, y = synth_higgs(20_003, N_FEATURES, seed=1)
     for name, extra in (("compact", {}),
                         ("quantized", {"use_quantized_grad": True,
                                        "stochastic_rounding": False}),
@@ -615,6 +642,12 @@ def phase_predict(bst, ds, X):
         pack = e._serving.raw_pack if name == "raw" else e._serving.pack
         assert pack.count == n_trees, (name, pack.count)
         assert e._serving.device.type == "cuda"
+        # the device route answered the Booster (it falls back to the host
+        # walk only on DeviceRouteUnavailable, which the engine's own call
+        # would raise here): the same bits as the engine's device scores
+        np.testing.assert_array_equal(
+            timed[name], e.predict_device(Xp, 0, n_trees)[:, 0],
+            err_msg=f"{name}: the Booster did not use the device route")
         np.testing.assert_allclose(timed[name], timed["host_walk"], rtol=0,
                                    atol=1e-5, err_msg=name)
         mappers = (e._serving_mappers if name == "binned" else None)

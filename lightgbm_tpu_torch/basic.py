@@ -19,6 +19,7 @@ from .core.metrics import metrics_for_config
 from .core.objective import create_objective
 from .io.dataset_core import BinnedDataset
 from .models.gbdt import GBDT
+from .ops.forest import DeviceRouteUnavailable
 from .utils import log
 from .utils.log import LightGBMError
 
@@ -152,7 +153,7 @@ class Booster:
         if use_device:
             try:
                 raw = eng.predict_device(X, start_iteration, end_iteration)
-            except ValueError as e:
+            except DeviceRouteUnavailable as e:
                 log.warning(f"device prediction unavailable ({e}); "
                             "using the host path")
         if raw is None:

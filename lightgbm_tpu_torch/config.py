@@ -11,10 +11,10 @@ Differences from the JAX package's copy: ``device_type`` defaults to
 ``"cuda"`` and accepts ``"cuda"`` or ``"cpu"``; the ``tpu_*`` names stay
 registered so one params dict drives both packages. The port reads
 ``tpu_row_scheduling`` (compact, full, leaf or level), ``tpu_hist_dtype``,
-``tpu_level_handoff_depth``, ``tpu_predict_device``,
-``tpu_predict_buckets``, and ``tpu_hist_kernel``, ``tpu_use_pallas`` and
-``tpu_rows_per_block`` (every value runs the port's hand kernels, see
-models/gbdt.py), and refuses the settings it cannot honour yet (see
+``tpu_level_handoff_depth`` and ``tpu_predict_device``; it accepts and
+ignores ``tpu_hist_kernel``, ``tpu_use_pallas`` and ``tpu_rows_per_block``
+(every value runs the port's hand kernels) and ``tpu_predict_buckets``
+(it pads no request; see models/gbdt.py), and refuses the settings it cannot honour yet (see
 ``unsupported_settings``).
 """
 from __future__ import annotations

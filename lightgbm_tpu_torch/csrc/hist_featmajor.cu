@@ -33,8 +33,9 @@
 // 32 bytes of a 32-row batch are contiguous, so each lane reads them as
 // two 16-byte vectors instead of 32 strided bytes; this needs bins + f*ld
 // + base 16-byte aligned, which holds when the pointer is, ld % 16 == 0
-// (the engine pads the device copy's row stride to 16; the padding is
-// never read) and base % 32 == 0 (rows_per_block is a multiple of 32).
+// (feature_major_bins in ops/hist_cuda.py pads the device copy's row
+// stride to 16; the padding is never read) and base % 32 == 0
+// (rows_per_block is a multiple of 32).
 // Otherwise, and for the ragged last batch of a block, the lane reads
 // byte by byte within its rows. The next batch's loads are in flight
 // while a batch is added.

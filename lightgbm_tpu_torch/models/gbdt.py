@@ -40,14 +40,10 @@ from ..core.metrics import Metric
 from ..core.objective import ObjectiveFunction
 from ..core.tree import HostTree
 from ..io.dataset_core import BinnedDataset
-from ..ops.forest import ServingEngine
+from ..ops.forest import DeviceRouteUnavailable, ServingEngine
+from ..ops.hist_cuda import feature_major_bins
 from ..ops.split import K_EPSILON, FeatureMeta, SplitHyperParams
 from ..utils import log
-
-# rows of the device copy of feature-major bins are padded to a multiple
-# of this many bytes, so kernel B2 reads each row's batches as aligned
-# 16-byte vectors (the padding is never read)
-FM_ROW_ALIGN = 16
 
 
 def resolve_device(config: Config) -> torch.device:
@@ -85,17 +81,6 @@ def _bumping(name):
 for _name in ("insert", "pop", "remove", "clear", "reverse", "sort",
               "__setitem__", "__delitem__"):
     setattr(_ModelList, _name, _bumping(_name))
-
-
-def feature_major_bins(bins_rm: np.ndarray,
-                       device: torch.device) -> torch.Tensor:
-    """The feature-major ``[F, R]`` device copy of row-major bins, each
-    row's storage padded to a multiple of ``FM_ROW_ALIGN`` bytes."""
-    R, F = bins_rm.shape
-    ld = -(-max(R, 1) // FM_ROW_ALIGN) * FM_ROW_ALIGN
-    buf = torch.zeros((F, ld), dtype=torch.uint8, device=device)
-    buf[:, :R] = torch.from_numpy(np.ascontiguousarray(bins_rm.T))
-    return buf[:, :R]
 
 
 class GBDT:
@@ -382,21 +367,26 @@ class GBDT:
         compares integer bins (exact: a split's real threshold is its
         left bin's upper bound); without them (trees carried across from
         another model) the raw-threshold route serves. Scores are f32
-        sums; ValueError for what the device route cannot serve."""
+        sums; ``DeviceRouteUnavailable`` for what the device route cannot
+        serve."""
         K = self.num_tree_per_iteration
         models = self.models
         lo, hi = start_iteration * K, end_iteration * K
         window = models[lo:hi]
         if not window:
-            raise ValueError("device prediction needs a non-empty tree "
-                             "range")
-        bucket = bool(self.config.tpu_predict_buckets)
+            raise DeviceRouteUnavailable("device prediction needs a "
+                                         "non-empty tree range")
+        log.info_once(
+            f"tpu_predict_buckets={self.config.tpu_predict_buckets}: device "
+            "prediction scores each batch at its own row count whatever it "
+            "says; row buckets bound the shapes the JAX package compiles, "
+            "and this package compiles nothing")
         srv = self._serving
-        if srv is None or srv.bucket != bucket:
+        if srv is None:
             dev = self.device if self.device is not None else \
                 resolve_device(self.config)
-            srv = self._serving = ServingEngine(
-                self.config.num_leaves, K, dev, bucket=bucket)
+            srv = self._serving = ServingEngine(self.config.num_leaves, K,
+                                                dev)
         if self.train_set is not None and self.train_set.bin_mappers:
             if self._serving_mappers is None:
                 # pin one list so the binner and pack caches hold

@@ -7,15 +7,18 @@ once into a stacked structure-of-arrays forest on the device and kept in
 sync incrementally (new trees are appended, a destructive change of the
 model list repacks), request rows are binned on the device with the
 training BinMapper bounds (one batched ``torch.searchsorted``), and the
-traversal runs depth-bounded (``ops/predict.py``). Batches are padded to
-a small family of row counts (``bucket_rows``), as in the JAX package.
+traversal runs depth-bounded (``ops/predict.py``). Each batch is scored
+at its own row count: the JAX package pads batches to a small family of
+row counts (``bucket_rows``) to bound the shapes it compiles, and this
+eager package compiles nothing.
 
 Exactness: the device compares in f32 against ``f32_floor`` of the f64
 training bounds and thresholds, which decides exactly as the host f64
 mapper and walk do for every f32-representable value (NaN and ±inf
 included). Values that only f64 holds are never misrouted: the binned
 route bins those COLUMNS with the host mapper, the raw route refuses
-them (ValueError, and the Booster falls back to the host walk).
+them (``DeviceRouteUnavailable``, and the Booster falls back to the host
+walk).
 
 Scores accumulate in f32 per (row, output) sequentially in iteration
 order, from exact zeros (``_accumulate_iters``), so they are the JAX
@@ -39,9 +42,17 @@ ROW_BUCKET_MIN = 256
 WALK_ELEMS = 1 << 24
 
 
+class DeviceRouteUnavailable(ValueError):
+    """The device route cannot serve this request (an empty tree range,
+    or f64-only values on the raw route); the Booster answers it by the
+    host walk. Nothing else is caught."""
+
+
 def bucket_rows(r: int) -> int:
-    """Padded row count for a request batch: the next power of two up to
-    4096, then steps of 1/8 octave (at most ~12% padding)."""
+    """The JAX package's padded row count for a request batch (the next
+    power of two up to 4096, then steps of 1/8 octave, at most ~12%
+    padding), which bounds the shapes it compiles. This package scores
+    every batch at its own row count."""
     if r <= ROW_BUCKET_MIN:
         return ROW_BUCKET_MIN
     p = 1 << int(r - 1).bit_length()          # next pow2 >= r
@@ -103,17 +114,12 @@ class DeviceBinner:
         self.num_bin_dev = torch.as_tensor(nb, device=self.device)
         self.nan_miss_dev = torch.as_tensor(nan_miss, device=self.device)
 
-    def bins(self, X: np.ndarray, rows: Optional[int] = None
-             ) -> torch.Tensor:
-        """[R, C] raw request matrix -> [F, rows] int32 device bins;
-        ``rows`` >= R pads with 0.0 (whose bins nobody reads)."""
-        r = X.shape[0]
-        rows = r if rows is None else rows
+    def bins(self, X: np.ndarray) -> torch.Tensor:
+        """[R, C] raw request matrix -> [F, R] int32 device bins."""
         cols = X[:, self.used].T                  # [F, R] f64 view
-        x_t = np.zeros((len(self.used), rows), np.float32)
-        x_t[:, :r] = cols
+        x_t = np.ascontiguousarray(cols, np.float32)
         with np.errstate(invalid="ignore"):
-            f32_ok = (x_t[:, :r].astype(np.float64) == cols) | np.isnan(cols)
+            f32_ok = (x_t.astype(np.float64) == cols) | np.isnan(cols)
         host_cols = sorted(set(np.nonzero(~f32_ok.all(axis=1))[0].tolist())
                            | set(self.cat_idx))
         x = torch.as_tensor(x_t, device=self.device)
@@ -125,9 +131,9 @@ class DeviceBinner:
                           (self.num_bin_dev[:, None] - 1).to(torch.int32),
                           out)
         if host_cols:
-            hb = np.zeros((len(host_cols), rows), np.int32)
+            hb = np.zeros((len(host_cols), X.shape[0]), np.int32)
             for j, i in enumerate(host_cols):
-                hb[j, :r] = self.mappers[i].value_to_bin(
+                hb[j] = self.mappers[i].value_to_bin(
                     np.asarray(cols[i], np.float64))
             out[torch.as_tensor(host_cols, device=self.device)] = \
                 torch.as_tensor(hb, device=self.device)
@@ -369,36 +375,32 @@ class ForestSnapshot(NamedTuple):
     steps: int                    # traversal step bound
     k: int                        # trees per iteration (output channels)
     n_trees: int                  # trees inside the window
-    bucket: bool                  # pad requests to bucket_rows shapes
     binner: Optional[DeviceBinner]  # binned route only
     device: torch.device
 
 
 def snapshot_scores(snap: ForestSnapshot, X: np.ndarray) -> np.ndarray:
     """[K, R] f64 raw scores (f32 sums) for one frozen snapshot."""
-    r = X.shape[0]
-    rows = bucket_rows(r) if snap.bucket else r
     if snap.kind == "binned":
-        bins = snap.binner.bins(X, rows=rows)
+        bins = snap.binner.bins(X)
         out = _forest_scores_binned(snap.steps, snap.k, snap.win, bins)
     else:
-        x = np.zeros((rows, X.shape[1]), np.float32)
-        x[:r] = X
+        x = X.astype(np.float32)
         with np.errstate(invalid="ignore"):
-            f32_ok = (x[:r].astype(np.float64) == X) | np.isnan(X)
+            f32_ok = (x.astype(np.float64) == X) | np.isnan(X)
         if not f32_ok.all():
-            raise ValueError(
+            raise DeviceRouteUnavailable(
                 "raw device serving needs float32-representable requests "
                 f"({int((~f32_ok).sum())} value(s) are f64-only and could "
                 "cross a split threshold under f32 rounding)")
         out = _forest_scores_raw(snap.steps, snap.k, snap.win,
                                  torch.as_tensor(x, device=snap.device))
-    return out.cpu().numpy().astype(np.float64)[:, :r]
+    return out.cpu().numpy().astype(np.float64)
 
 
 def snapshot_leaves(snap: ForestSnapshot, X: np.ndarray) -> np.ndarray:
     """[T, R] int64 leaf index of every row in every tree of the window,
-    by the same device walk as ``snapshot_scores`` (no bucketing)."""
+    by the same device walk as ``snapshot_scores``."""
     if snap.kind == "binned":
         bins = snap.binner.bins(X)
         leaf = forest_leaf_bins(snap.win, bins, num_steps=snap.steps)
@@ -414,10 +416,8 @@ class ServingEngine:
     keyed by the model-generation counter of the owning engine
     (models/gbdt.py)."""
 
-    def __init__(self, max_leaves: int, k_per_iter: int, device,
-                 bucket: bool = True):
+    def __init__(self, max_leaves: int, k_per_iter: int, device):
         self.k = max(int(k_per_iter), 1)
-        self.bucket = bool(bucket)
         self.device = torch.device(device)
         self.pack = ForestPack(max_leaves, self.device)
         self.raw_pack = RawForestPack(max_leaves, self.device)
@@ -429,8 +429,8 @@ class ServingEngine:
         """Sync the right pack and freeze the [lo, hi) window: with
         ``mappers`` the binned route, without them the raw route."""
         if not models[lo:hi]:
-            raise ValueError("serving snapshot needs a non-empty tree "
-                             "range")
+            raise DeviceRouteUnavailable("serving snapshot needs a "
+                                         "non-empty tree range")
         if mappers is not None:
             self.pack.sync(models, gen, mappers)
             if self.binner is None or self._binner_src is not mappers:
@@ -443,8 +443,8 @@ class ServingEngine:
             self.raw_pack.sync(models, gen)
             win, steps = self.raw_pack.window(lo, hi)
             kind, binner = "raw", None
-        return ForestSnapshot(kind, win, steps, self.k, hi - lo,
-                              self.bucket, binner, self.device)
+        return ForestSnapshot(kind, win, steps, self.k, hi - lo, binner,
+                              self.device)
 
     def predict_binned(self, models, gen, X: np.ndarray, lo: int, hi: int,
                        mappers, used_feature_map) -> np.ndarray:
@@ -455,5 +455,5 @@ class ServingEngine:
     def predict_raw(self, models, gen, X: np.ndarray, lo: int,
                     hi: int) -> np.ndarray:
         """[K, R] f32-accumulated raw scores over the raw-threshold route;
-        f64-only request values are refused (ValueError)."""
+        f64-only request values are refused (DeviceRouteUnavailable)."""
         return snapshot_scores(self.snapshot(models, gen, lo, hi), X)

@@ -14,7 +14,8 @@ note gives the bound and the design.
 int8, and returns ``[F, num_bin, 3]`` in float32 (int32 for int8 gh).
 ``hist_cuda_fm`` takes B2's: uint8 bins ``[F, R]`` (unit column stride,
 any row stride), gh ``[R, 3]`` in float32 or int8, masked to the leaf by
-the caller. A CPU tensor runs the plain version
+the caller; ``feature_major_bins`` makes the device copy whose row stride
+lets B2 use vector loads. A CPU tensor runs the plain version
 (``ops/histogram.hist_rowmajor`` / ``hist_featmajor``); a CUDA tensor
 launches the kernel or raises — there is no fallback.
 """
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -37,6 +39,10 @@ MODES = {torch.float32: (0, "f32", torch.float32),
 TILE_FEATURES = 32      # features per block (one warp, lane = feature)
 MIN_ROWS_PER_BLOCK = 256  # a block's fixed cost (zero, write) needs rows
 BATCH_ROWS = 32         # B2's rows per step; a block's rows are a multiple
+# B2 reads a lane's 32 bins of a batch as two 16-byte vectors where a
+# feature's row starts 16-byte aligned: the device copy of feature-major
+# bins pads each row to a multiple of this many bytes (never read)
+FM_ROW_ALIGN = 16
 
 _resident: dict = {}
 
@@ -138,6 +144,17 @@ def hist_cuda_rm(bins_rm: torch.Tensor, gh: torch.Tensor,
 
 
 hist_cuda_rm.launches = {key: 0 for _, key, _ in MODES.values()}
+
+
+def feature_major_bins(bins_rm: np.ndarray,
+                       device: torch.device) -> torch.Tensor:
+    """The feature-major ``[F, R]`` device copy of row-major bins, each
+    row's storage padded to a multiple of ``FM_ROW_ALIGN`` bytes."""
+    R, F = bins_rm.shape
+    ld = -(-max(R, 1) // FM_ROW_ALIGN) * FM_ROW_ALIGN
+    buf = torch.zeros((F, ld), dtype=torch.uint8, device=device)
+    buf[:, :R] = torch.from_numpy(np.ascontiguousarray(bins_rm.T))
+    return buf[:, :R]
 
 
 def hist_cuda_fm(bins_fm: torch.Tensor, gh: torch.Tensor,

@@ -17,8 +17,8 @@ import torch
 
 from lightgbm_tpu.ops.hist_pallas import hist_pallas
 from lightgbm_tpu.ops.histogram import hist_xla
-from lightgbm_tpu_torch.models.gbdt import feature_major_bins
-from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_fm, hist_cuda_rm
+from lightgbm_tpu_torch.ops.hist_cuda import (feature_major_bins,
+                                              hist_cuda_fm, hist_cuda_rm)
 from lightgbm_tpu_torch.ops.histogram import hist_featmajor, hist_rowmajor
 
 # (F, R, B): the shapes of tests/test_hist_pallas.py, and a ragged R at

@@ -89,8 +89,8 @@ def test_device_binner_matches_host_mapper_and_jax(rng):
     assert np.float32(np.nextafter(b, np.inf)) <= np.float32(b)
     used_m = [mappers[i] for i in used]
     binner = tforest.DeviceBinner(used_m, used, CPU)
-    dev = binner.bins(Xq, rows=tforest.bucket_rows(len(Xq))).numpy()
-    assert dev.dtype == np.int32 and dev.shape[1] >= len(Xq)
+    dev = binner.bins(Xq).numpy()
+    assert dev.dtype == np.int32 and dev.shape == (len(used), len(Xq))
     for i, (fi, m) in enumerate(zip(used, used_m)):
         np.testing.assert_array_equal(
             dev[i, :len(Xq)], m.value_to_bin(np.asarray(Xq[:, fi])),
@@ -294,3 +294,42 @@ def test_fallbacks_to_the_host_walk(rng, monkeypatch):
     np.testing.assert_array_equal(raw_bst.predict(X32, device=True),
                                   bst.predict(X32, device=True))
     assert raw_bst._engine._serving.raw_pack.count == 3
+
+
+def test_only_an_unservable_request_falls_back(rng, monkeypatch):
+    """The host walk answers only ``DeviceRouteUnavailable``; any other
+    error of the device route, a ValueError included, propagates."""
+    bst, X, _ = _port_booster(rng)
+    assert issubclass(tforest.DeviceRouteUnavailable, ValueError)
+    for exc in (ValueError("shape bug"), RuntimeError("launch failed")):
+        def broken(*a, exc=exc):
+            raise exc
+        monkeypatch.setattr(bst._engine, "predict_device", broken)
+        with pytest.raises(type(exc), match=str(exc)):
+            bst.predict(X, device=True)
+
+    def unservable(*a):
+        raise tforest.DeviceRouteUnavailable("empty")
+    monkeypatch.setattr(bst._engine, "predict_device", unservable)
+    np.testing.assert_array_equal(bst.predict(X, device=True),
+                                  bst.predict(X))
+
+
+@pytest.mark.parametrize("buckets", [True, False])
+def test_batches_are_scored_at_their_own_row_count(rng, buckets):
+    """``tpu_predict_buckets`` is accepted and ignored: no batch is padded,
+    and a row scores the same bits alone, in a ragged batch and in the
+    whole request."""
+    bst, X, _ = _port_booster(rng, tpu_predict_buckets=buckets)
+    whole = bst.predict(X, device=True, raw_score=True)
+    for n in (1, 257, 333):
+        np.testing.assert_array_equal(
+            bst.predict(X[:n], device=True, raw_score=True), whole[:n])
+    eng = bst._engine
+    binner = tforest.DeviceBinner(eng._serving_mappers,
+                                  eng.train_set.used_feature_map, CPU)
+    assert binner.bins(X[:257]).shape[1] == 257
+    snap = eng._serving.snapshot(eng.models, eng._model_gen, 0, 3,
+                                 eng._serving_mappers,
+                                 eng.train_set.used_feature_map)
+    assert tforest.snapshot_scores(snap, X[:257]).shape == (1, 257)
