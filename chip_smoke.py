@@ -8,15 +8,24 @@ Phases, each reported on its own line:
 2. build: every kernel under lightgbm_tpu_torch/csrc, one nvcc each, in
    parallel;
 3. each kernel in each of its modes against its plain PyTorch version on
-   the card, at the shapes the training paths give it, with its time, the
-   plain version's time, one PyTorch library call's time and its bound
-   on the card: K1 (hist_rowmajor) in f32, int8 and bf16 at leaf sizes
-   from 1M rows down to 1; K2 (hist_level) in f32, int8 and bf16 over
-   1M rows at 1 to 512 nodes with skewed segments, with empty nodes, and
-   with every row out of the level; B2 (hist_featmajor) in f32 and int8
-   over 1M feature-major rows with gh masked to leaves of 1M rows down to
-   1, and over a ragged row count with and without the engine's 16-byte
-   row padding. Two launches on the same input must give the same bits;
+   the card, at the shapes the training paths give it, with its time
+   (CUDA events around each call on an idle stream: the host's issuing of
+   the call counts), its device time (every call queued behind a device
+   sleep, so the host's issuing is hidden), the plain version's time, one
+   PyTorch library call's time and its bound on the card: K1
+   (hist_rowmajor) in f32, int8
+   and bf16 at leaf sizes from 1M rows down to 1; the level partition
+   (the node order carried from one level to the next) against its plain
+   version and the stable sort, and K2 (hist_level) in f32, int8 and bf16
+   over 1M rows at 1 to 512 nodes with skewed segments, with empty nodes,
+   and with every row out of the level, fed the carried order, timed per
+   level (partition included) beside index_add_; B2 (hist_featmajor) in
+   f32 and int8 over 1M feature-major rows, adding only the rows of
+   leaves of 1M rows down to 1 (the fused form, which reads each row's
+   leaf id) beside the unfused form (gh masked by torch, then a pass over
+   every row), and over a ragged row count with and without the engine's
+   16-byte row padding. Two launches on the same input must give the
+   same bits;
 4. the main path at full width: ``Booster`` training of a Higgs-shaped
    binary GBDT (1,000,000 x 28, 255 leaves, 255 bins) on the compact
    grower for one warm-up and a few timed iterations, then ``predict``;
@@ -27,12 +36,15 @@ Phases, each reported on its own line:
    scheduling (the hybrid grower at 255 leaves and unbounded depth) and
    level with each of the two, full row scheduling and full with
    quantized gradients; each run's launch counts must show its kernel
-   mode (full: B2 once per leaf of every tree, and no K1 or K2), the
-   hybrid's first tree must equal the compact one, and full+quantized's
-   first tree the compact quantized one; with ``--profile``, two more
-   iterations of the compact, level and full paths under
-   ``torch.profiler`` show where an iteration's time goes (device busy
-   share, top ops, launches and device-to-host reads);
+   mode (level: K2 and the partition at every level; full: B2 once per
+   leaf of every tree, and no K1 or K2), the hybrid's first tree must
+   hold the compact one's splits and give its outputs (its node numbering
+   follows the JAX package's e-ranking), and full+quantized's first tree
+   must equal the quantized one; with ``--profile``, two more iterations
+   of the compact, level and full paths under ``torch.profiler`` show
+   where an iteration's time goes (device busy share, K1's, K2's and B2's
+   device time per iteration, top ops, launches and device-to-host
+   reads);
 6. small trainings on cuda and on the CPU (plain versions), compact,
    quantized, level and full, which must agree;
 7. prediction on the card: ``predict(device=True)`` of the phase-4 model
@@ -68,6 +80,9 @@ KERNEL_SHAPES = (1_000_000, 65_536, 4_097, 1)
 LEVEL_NODES = (1, 8, 64, 512)
 TIMING_REPS = 20
 PLAIN_REPS = 5
+# device clock cycles of sleep per timed call queued behind it (~3 ms at
+# the H100's clock: longer than the host takes to issue any one call)
+SLEEP_CYCLES_PER_REP = 5_000_000
 GH_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 MODES = ("f32", "int8", "bf16")
 FM_MODES = ("f32", "int8")       # B2: the full path builds no bf16 hists
@@ -111,26 +126,39 @@ def synth_higgs(n, f, seed=0):
 
 def wrappers():
     from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_fm, hist_cuda_rm
-    from lightgbm_tpu_torch.ops.hist_level_cuda import hist_level_cuda
+    from lightgbm_tpu_torch.ops.hist_level_cuda import (carry_order_cuda,
+                                                        hist_level_cuda)
     return {"hist_rowmajor": hist_cuda_rm, "hist_level": hist_level_cuda,
-            "hist_featmajor": hist_cuda_fm}
+            "hist_featmajor": hist_cuda_fm,
+            "level_partition": carry_order_cuda}
 
 
 def reset_counts():
     for fn in wrappers().values():
+        if isinstance(fn.launches, int):
+            fn.launches = 0
+            continue
         for mode in fn.launches:
             fn.launches[mode] = 0
 
 
 def read_counts():
-    """Launches per kernel mode, e.g. ``hist_level_int8``."""
-    return {f"{name}_{mode}": n for name, fn in wrappers().items()
-            for mode, n in fn.launches.items()}
+    """Launches per kernel mode, e.g. ``hist_level_int8`` (a kernel with
+    one mode under its own name, ``level_partition``)."""
+    counts = {}
+    for name, fn in wrappers().items():
+        if isinstance(fn.launches, int):
+            counts[name] = fn.launches
+            continue
+        counts.update({f"{name}_{mode}": n
+                       for mode, n in fn.launches.items()})
+    return counts
 
 
 def cuda_ms(fn, reps=TIMING_REPS, before=None):
-    """Median device time of ``fn()`` in ms over ``reps`` calls, each
-    bracketed by CUDA events; ``before()`` runs outside the brackets."""
+    """Median time of ``fn()`` in ms over ``reps`` calls, each bracketed
+    by CUDA events on an idle stream, so the host's time to issue the
+    call's launches counts too; ``before()`` runs outside the brackets."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -144,6 +172,44 @@ def cuda_ms(fn, reps=TIMING_REPS, before=None):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps=TIMING_REPS, before=None):
+    """Median device time of ``fn()`` in ms over ``reps`` calls, each
+    bracketed by CUDA events; every call is enqueued behind a sleep on the
+    device that outlasts the host's issuing of all of them, so the time
+    between the events is the device's alone. ``before()`` runs outside
+    the brackets."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    torch.cuda._sleep(SLEEP_CYCLES_PER_REP * reps)
+    for _ in range(reps):
+        if before is not None:
+            before()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_ms(fn, reps=TIMING_REPS):
+    """Median host time in ms to issue ``fn()``, the device held busy by a
+    sleep meanwhile so that no call waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES_PER_REP * reps)
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -209,6 +275,8 @@ def phase_k1(dev, flush):
 
             ms = cuda_ms(lambda: hist_cuda_rm(bins, gh, B),
                          before=flush.zero_)
+            dev_ms = device_ms(lambda: hist_cuda_rm(bins, gh, B),
+                               before=flush.zero_)
             plain_ms = cuda_ms(lambda: hist_rowmajor(bins, gh, B),
                                reps=PLAIN_REPS, before=flush.zero_)
             # yardstick: one index_add_ over the flat (feature, bin) slot,
@@ -223,53 +291,137 @@ def phase_k1(dev, flush):
             # adds per cell
             bound_ms, bound_by = bound(
                 S * F + 3 * S * GH_BYTES[gh.dtype] + 12 * F * B, 3 * S * F)
-            rows[(mode, S)] = dict(ms=ms, plain_ms=plain_ms,
+            rows[(mode, S)] = dict(ms=ms, device_ms=dev_ms,
+                                   plain_ms=plain_ms,
                                    library_ms=library_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, max_abs_err=max_err)
             log(f"phase 3 hist_rowmajor mode={mode} S={S} F={F} B={B}: "
                 f"max_abs_err={err!r} same_bits_two_launches={same_bits} "
-                f"kernel_ms={ms!r} plain_ms={plain_ms!r} "
+                f"kernel_ms={ms!r} kernel_device_ms={dev_ms!r} "
+                f"plain_ms={plain_ms!r} "
                 f"index_add_ms={library_ms!r} bound_us={bound_ms * 1e3!r} "
                 f"bound_by={bound_by}")
     return rows
 
 
 def level_cases(gen, dev):
-    """(label, n_nodes, local, in_lvl) over N_ROWS rows: skewed segments
-    (node = floor(n * u^3), so low nodes hold most rows) at each node
-    count, then every odd node empty, then no row in the level."""
+    """(label, n_nodes, local, in_lvl, parent) over N_ROWS rows: skewed
+    segments (node = floor(n * u^3), so low nodes hold most rows) at each
+    node count, then every odd node empty, then no row in the level.
+    ``parent`` is the level above as the level grower holds it (``local``
+    and ``in_lvl`` of the parent level, its carried ``order``/``seg``,
+    and each row's ``go_left``/``descend``), from which the carried order
+    of this level is made; None for the root level (every row in it, in
+    row order: nothing to partition)."""
+    from lightgbm_tpu_torch.ops.hist_level import node_order
     R = N_ROWS
     skew = lambda n: (torch.rand(R, generator=gen, device=dev) ** 3
                       * n).long().clamp(max=n - 1)
     part = lambda: torch.rand(R, generator=gen, device=dev) < 0.9
+
+    def with_parent(label, n, local, in_lvl):
+        if n == 1:
+            return label, n, local, in_lvl, None
+        n_p = n // 2
+        # rows out of this level: half of them sat in the parent level at
+        # a node that did not split, half were out of it already
+        stay = torch.rand(R, generator=gen, device=dev) < 0.5
+        p_local = torch.where(in_lvl, local // 2,
+                              torch.randint(0, n_p, (R,), generator=gen,
+                                            device=dev))
+        p_in = in_lvl | stay
+        p_order, p_seg = node_order(p_local, p_in, n_p)
+        return label, n, local, in_lvl, dict(
+            local=p_local, order=p_order, seg=p_seg,
+            go_left=local % 2 == 0, descend=in_lvl)
+
     for n in LEVEL_NODES:
-        yield f"skewed n={n}", n, skew(n), part()
-    yield "odd nodes empty n=64", 64, skew(64) // 2 * 2, part()
-    yield "no row in the level n=8", 8, skew(8), torch.zeros(
-        R, dtype=torch.bool, device=dev)
+        yield with_parent(f"skewed n={n}", n, skew(n), part())
+    yield with_parent("odd nodes empty n=64", 64, skew(64) // 2 * 2, part())
+    yield with_parent("no row in the level n=8", 8, skew(8),
+                      torch.zeros(R, dtype=torch.bool, device=dev))
 
 
 def phase_k2(dev, flush):
-    """K2 in each mode against its plain version over 1M rows."""
-    from lightgbm_tpu_torch.ops.hist_level import hist_level
-    from lightgbm_tpu_torch.ops.hist_level_cuda import hist_level_cuda
+    """K2 in each mode against its plain version over 1M rows, fed the
+    node order that the card's partition (``carry_order_cuda``) carries
+    from the parent level; the per-level time counts the partition too.
+    The partition itself is held against its plain version and the
+    stable sort."""
+    from lightgbm_tpu_torch.ops.hist_level import (carry_order, hist_level,
+                                                   level_keys, node_order)
+    from lightgbm_tpu_torch.ops.hist_level_cuda import (carry_order_cuda,
+                                                        hist_level_cuda)
     R, F, B = N_ROWS, N_FEATURES, MAX_BIN
     gen = torch.Generator(device=dev).manual_seed(1)
     bins = torch.randint(0, B, (R, F), generator=gen, device=dev,
                          dtype=torch.int32).to(torch.uint8)
     rows = {}
-    for label, n, local, in_lvl in level_cases(gen, dev):
+    for label, n, local, in_lvl, parent in level_cases(gen, dev):
         in_rows = int(in_lvl.sum())
+        ref_order, ref_seg = node_order(local, in_lvl, n)
+        if parent is None:
+            level = lambda: (ref_order, ref_seg)
+        else:
+            args = (parent["order"], parent["seg"], parent["local"],
+                    parent["go_left"], parent["descend"])
+            level = lambda: carry_order_cuda(*args)
+            order, seg = level()
+            again = level()
+            plain = carry_order(*args)
+            assert torch.equal(order, ref_order) and \
+                torch.equal(seg, ref_seg), \
+                f"partition {label}: not the stable sort"
+            # the largest difference from the stable sort, order or bounds
+            part_err = float(max((order - ref_order).abs().max(),
+                                 (seg - ref_seg).abs().max()))
+            assert torch.equal(order, plain[0]) and \
+                torch.equal(seg, plain[1]), f"partition {label}: not plain"
+            assert torch.equal(order, again[0]) and \
+                torch.equal(seg, again[1]), f"partition {label}: two launches"
+            part_ms = cuda_ms(level, before=flush.zero_)
+            part_dev_ms = device_ms(level, before=flush.zero_)
+            part_plain_ms = cuda_ms(lambda: carry_order(*args),
+                                    reps=PLAIN_REPS, before=flush.zero_)
+            # yardstick: one stable torch.sort of the level's node keys
+            # (made outside the call), the permutation the JAX package
+            # computes
+            keys = level_keys(local, in_lvl, n)
+            sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True),
+                              before=flush.zero_)
+            del keys
+            # read once: the parent's order, each row's int64 node and
+            # two bools, the parent's bounds; written once: the order and
+            # the bounds. Its work is a scan and a scatter, no arithmetic
+            # to speak of
+            part_bound, part_by = bound(8 * R + 8 * R + 2 * R + 8 * R
+                                        + 8 * (n // 2 + 1) + 8 * (n + 1), 0)
+            rows[("partition", label)] = dict(
+                ms=part_ms, device_ms=part_dev_ms, plain_ms=part_plain_ms,
+                library_ms=sort_ms, bound_ms=part_bound, bound_by=part_by,
+                max_abs_err=part_err)
+            log(f"phase 3 level_partition {label} R={R}: equals_stable_sort"
+                f"=True equals_plain=True same_bits_two_launches=True "
+                f"max_abs_err={part_err!r} "
+                f"kernel_ms={part_ms!r} kernel_device_ms={part_dev_ms!r} "
+                f"plain_ms={part_plain_ms!r} "
+                f"torch_sort_ms={sort_ms!r} bound_us={part_bound * 1e3!r} "
+                f"bound_by={part_by}")
+        order, seg = level()
         for mode in MODES:
             what = f"K2 {mode} {label}"
+            call = lambda g, **kw: hist_level_cuda(bins, g, local, in_lvl, n,
+                                                   B, order=order, seg=seg,
+                                                   **kw)
             dyadic = make_gh(mode, (R, 3), gen, dev, dyadic=True)
+            ref = hist_level(bins, dyadic, local, in_lvl, n, B)
+            assert torch.equal(call(dyadic), ref), f"{what}: exact gh differ"
             assert torch.equal(
-                hist_level_cuda(bins, dyadic, local, in_lvl, n, B),
-                hist_level(bins, dyadic, local, in_lvl, n, B)), \
-                f"{what}: exact gh differ"
+                hist_level_cuda(bins, dyadic, local, in_lvl, n, B), ref), \
+                f"{what}: exact gh differ without the carried order"
             gh = make_gh(mode, (R, 3), gen, dev)
-            out = hist_level_cuda(bins, gh, local, in_lvl, n, B)
-            again = hist_level_cuda(bins, gh, local, in_lvl, n, B)
+            out = call(gh)
+            again = call(gh)
             ref = hist_level(bins, gh, local, in_lvl, n, B)
             torch.cuda.synchronize()
             err = check_against_plain(mode, out, ref, what)
@@ -280,8 +432,16 @@ def phase_k2(dev, flush):
             if in_rows == 0:
                 assert not out.any(), f"{what}: no rows but nonzero sums"
 
-            ms = cuda_ms(lambda: hist_level_cuda(bins, gh, local, in_lvl, n,
-                                                 B), before=flush.zero_)
+            def per_level():
+                o, sg = level()
+                return hist_level_cuda(bins, gh, local, in_lvl, n, B,
+                                       order=o, seg=sg)
+
+            ms = cuda_ms(per_level, before=flush.zero_)
+            dev_ms = device_ms(per_level, before=flush.zero_)
+            issue_ms = host_ms(per_level)
+            kernel_ms = cuda_ms(lambda: call(gh), before=flush.zero_)
+            kernel_dev_ms = device_ms(lambda: call(gh), before=flush.zero_)
             plain_ms = cuda_ms(
                 lambda: hist_level(bins, gh, local, in_lvl, n, B),
                 reps=PLAIN_REPS, before=flush.zero_)
@@ -293,32 +453,47 @@ def phase_k2(dev, flush):
             vals = gh.to(out.dtype).repeat_interleave(F, dim=0)
             acc = torch.zeros((n + 1) * F * B, 3, dtype=out.dtype,
                               device=dev)
-            library_ms = cuda_ms(
-                lambda: acc.index_add_(0, slot.reshape(-1), vals),
-                before=lambda: (flush.zero_(), acc.zero_()))
-            del key, slot, vals, acc
-            # the function's inputs read once (bins, gh, int64 local,
-            # bool in_lvl) and its output written once; or 3 adds per
-            # cell of the rows in the level
+            add = lambda: acc.index_add_(0, slot.reshape(-1), vals)
+            library_ms = cuda_ms(add, before=lambda: (flush.zero_(),
+                                                      acc.zero_()))
+            library_dev_ms = device_ms(add, before=lambda: (flush.zero_(),
+                                                            acc.zero_()))
+            del key, slot, vals, acc, add
+            # the per-level function's inputs read once (bins, gh, int64
+            # local and the parent's int64 order, bool go_left and
+            # descend; at the root int64 local and bool in_lvl) and its
+            # output written once; or 3 adds per cell of the level's rows
+            in_bytes = 8 * R + (8 * R + 2 * R if parent is not None else R)
             bound_ms, bound_by = bound(
-                R * F + 3 * R * GH_BYTES[gh.dtype] + 8 * R + R
+                R * F + 3 * R * GH_BYTES[gh.dtype] + in_bytes
                 + 12 * n * F * B, 3 * in_rows * F)
-            rows[(mode, label)] = dict(ms=ms, plain_ms=plain_ms,
+            rows[(mode, label)] = dict(ms=ms, device_ms=dev_ms,
+                                       plain_ms=plain_ms,
                                        library_ms=library_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
                                        max_abs_err=err)
             log(f"phase 3 hist_level mode={mode} {label} R={R} F={F} B={B} "
                 f"rows_in_level={in_rows}: max_abs_err={err!r} "
-                f"same_bits_two_launches={same_bits} kernel_ms={ms!r} "
+                f"same_bits_two_launches={same_bits} "
+                f"per_level_ms={ms!r} per_level_device_ms={dev_ms!r} "
+                f"per_level_host_issue_ms={issue_ms!r} "
+                f"kernel_call_ms={kernel_ms!r} "
+                f"kernel_call_device_ms={kernel_dev_ms!r} "
                 f"plain_ms={plain_ms!r} index_add_ms={library_ms!r} "
+                f"index_add_device_ms={library_dev_ms!r} "
+                f"per_level_over_index_add={ms / library_ms!r} "
+                f"per_level_over_index_add_device="
+                f"{dev_ms / library_dev_ms!r} "
                 f"bound_us={bound_ms * 1e3!r} bound_by={bound_by}")
     return rows
 
 
 def phase_b2(dev, flush):
     """B2 in each mode against its plain version over 1M feature-major
-    rows, gh masked to leaves of each size; then a ragged row count, with
-    and without the engine's 16-byte row padding."""
+    rows: the fused form (each row's leaf id read by the kernel, only the
+    leaf's rows added) for leaves of each size, timed beside the unfused
+    form (gh masked by two torch ops, then a pass over every row); then a
+    ragged row count, with and without the engine's 16-byte row padding."""
     from lightgbm_tpu_torch.ops.hist_cuda import (feature_major_bins,
                                                   hist_cuda_fm)
     from lightgbm_tpu_torch.ops.histogram import hist_featmajor
@@ -326,62 +501,90 @@ def phase_b2(dev, flush):
     gen = torch.Generator(device=dev).manual_seed(2)
     bins = torch.randint(0, B, (F, R), generator=gen, device=dev,
                          dtype=torch.int32).to(torch.uint8)
+
+    def leaf_ids(n, S):
+        """int64 leaf ids of n rows, S of them in leaf 0, the rest in
+        leaves 1..8."""
+        ids = torch.randint(1, 9, (n,), generator=gen, device=dev)
+        ids[torch.randperm(n, generator=gen, device=dev)[:S]] = 0
+        return ids
+
+    def masked(gh, ids):
+        return gh * (ids == 0)[:, None].to(gh.dtype)
+
     rows = {}
     for mode in FM_MODES:
         for S in KERNEL_SHAPES:
             what = f"B2 {mode} leaf rows={S}"
-            keep = torch.zeros(R, dtype=torch.bool, device=dev)
-            keep[torch.randperm(R, generator=gen, device=dev)[:S]] = True
-            mask = keep[:, None]
+            ids = leaf_ids(R, S)
+            fused = lambda g: hist_cuda_fm(bins, g, B, leaf_id=ids, leaf=0)
+            unfused = lambda g: hist_cuda_fm(bins, masked(g, ids), B)
             dyadic = make_gh(mode, (R, 3), gen, dev, dyadic=True)
-            dyadic = dyadic * mask.to(dyadic.dtype)
-            assert torch.equal(hist_cuda_fm(bins, dyadic, B),
-                               hist_featmajor(bins, dyadic, B)), \
-                f"{what}: exact gh differ"
+            ref = hist_featmajor(bins, masked(dyadic, ids), B)
+            assert torch.equal(fused(dyadic), ref), f"{what}: exact gh differ"
+            assert torch.equal(unfused(dyadic), ref), \
+                f"{what}: exact gh differ, unfused"
             gh = make_gh(mode, (R, 3), gen, dev)
-            gh = gh * mask.to(gh.dtype)
-            out = hist_cuda_fm(bins, gh, B)
-            again = hist_cuda_fm(bins, gh, B)
-            ref = hist_featmajor(bins, gh, B)
+            out = fused(gh)
+            again = fused(gh)
+            ref = hist_featmajor(bins, masked(gh, ids), B)
             torch.cuda.synchronize()
             err = check_against_plain(mode, out, ref, what)
+            check_against_plain(mode, unfused(gh), ref, what + " unfused")
             same_bits = bool(torch.equal(out, again))
             assert same_bits, f"{what}: two launches differ"
 
-            ms = cuda_ms(lambda: hist_cuda_fm(bins, gh, B),
-                         before=flush.zero_)
-            plain_ms = cuda_ms(lambda: hist_featmajor(bins, gh, B),
-                               reps=PLAIN_REPS, before=flush.zero_)
+            ms = cuda_ms(lambda: fused(gh), before=flush.zero_)
+            dev_ms = device_ms(lambda: fused(gh), before=flush.zero_)
+            issue_ms = host_ms(lambda: fused(gh))
+            unfused_ms = cuda_ms(lambda: unfused(gh), before=flush.zero_)
+            unfused_dev_ms = device_ms(lambda: unfused(gh),
+                                       before=flush.zero_)
+            gh_m = masked(gh, ids)
+            pass_ms = device_ms(lambda: hist_cuda_fm(bins, gh_m, B),
+                                before=flush.zero_)
+            plain_ms = cuda_ms(
+                lambda: hist_featmajor(bins, masked(gh, ids), B),
+                reps=PLAIN_REPS, before=flush.zero_)
             # yardstick: one index_add_ over the flat (feature, bin) slot
-            # of every cell, the per-cell gh (widened) made outside the
-            # call, with the cells in feature-major and in row-major order
-            # (K1's); the faster of the two is the library's time
+            # of every cell, the per-cell gh (masked, widened) made outside
+            # the call, with the cells in feature-major and in row-major
+            # order (K1's); the faster of the two is the library's time
             index_add_ms = {}
             for order in ("feature_major", "row_major"):
                 cells = bins.T if order == "row_major" else bins
                 off = torch.arange(F, device=dev) * B
                 slot = (cells.long() + (off if order == "row_major"
                                         else off[:, None])).reshape(-1)
-                vals = (gh.to(out.dtype).repeat_interleave(F, dim=0)
+                vals = (gh_m.to(out.dtype).repeat_interleave(F, dim=0)
                         if order == "row_major"
-                        else gh.to(out.dtype).repeat(F, 1))
+                        else gh_m.to(out.dtype).repeat(F, 1))
                 acc = torch.zeros(F * B, 3, dtype=out.dtype, device=dev)
                 index_add_ms[order] = cuda_ms(
                     lambda: acc.index_add_(0, slot, vals),
                     before=lambda: (flush.zero_(), acc.zero_()))
                 del cells, slot, vals, acc
             library_ms = min(index_add_ms.values())
-            # every input byte read once (all R rows: the function is a
-            # full pass), the output written once; or 3 adds per cell of
-            # the leaf's rows
+            # the bytes the fused function must move: every row's int64
+            # leaf id, the leaf's S rows (bins and gh) and the output; or
+            # 3 adds per cell of the leaf's rows
             bound_ms, bound_by = bound(
-                R * F + 3 * R * GH_BYTES[gh.dtype] + 12 * F * B, 3 * S * F)
-            rows[(mode, S)] = dict(ms=ms, plain_ms=plain_ms,
-                                   library_ms=library_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, max_abs_err=err)
+                8 * R + S * (F + 3 * GH_BYTES[gh.dtype]) + 12 * F * B,
+                3 * S * F)
+            rows[(mode, S)] = dict(ms=ms, device_ms=dev_ms,
+                                   plain_ms=plain_ms, library_ms=library_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   max_abs_err=err)
             log(f"phase 3 hist_featmajor mode={mode} R={R} leaf_rows={S} "
                 f"F={F} B={B}: max_abs_err={err!r} "
-                f"same_bits_two_launches={same_bits} kernel_ms={ms!r} "
+                f"same_bits_two_launches={same_bits} fused_ms={ms!r} "
+                f"fused_device_ms={dev_ms!r} "
+                f"fused_host_issue_ms={issue_ms!r} "
+                f"unfused_ms={unfused_ms!r} "
+                f"unfused_device_ms={unfused_dev_ms!r} "
+                f"masked_pass_device_ms={pass_ms!r} "
+                f"fused_over_unfused={ms / unfused_ms!r} "
+                f"fused_over_unfused_device={dev_ms / unfused_dev_ms!r} "
                 f"plain_ms={plain_ms!r} "
                 f"index_add_ms_feature_major={index_add_ms['feature_major']!r} "
                 f"index_add_ms_row_major={index_add_ms['row_major']!r} "
@@ -393,21 +596,28 @@ def phase_b2(dev, flush):
         sub = bins[:, :Rr].contiguous()
         padded = feature_major_bins(sub.T.cpu().numpy(), dev)
         assert padded.stride(0) == 100_016 and torch.equal(padded, sub)
+        ids = leaf_ids(Rr, 40_000)
         for layout, b in (("unpadded", sub), ("padded", padded)):
             what = f"B2 {mode} ragged R={Rr} {layout} ld={b.stride(0)}"
             dyadic = make_gh(mode, (Rr, 3), gen, dev, dyadic=True)
             assert torch.equal(hist_cuda_fm(b, dyadic, B),
                                hist_featmajor(sub, dyadic, B)), \
                 f"{what}: exact gh differ"
+            assert torch.equal(
+                hist_cuda_fm(b, dyadic, B, leaf_id=ids, leaf=0),
+                hist_featmajor(sub, masked(dyadic, ids), B)), \
+                f"{what}: exact gh differ, fused"
             gh = make_gh(mode, (Rr, 3), gen, dev)
-            out = hist_cuda_fm(b, gh, B)
-            err = check_against_plain(mode, out, hist_featmajor(sub, gh, B),
-                                      what)
-            assert torch.equal(out, hist_cuda_fm(b, gh, B)), \
+            out = hist_cuda_fm(b, gh, B, leaf_id=ids, leaf=0)
+            err = check_against_plain(
+                mode, out, hist_featmajor(sub, masked(gh, ids), B), what)
+            assert torch.equal(out, hist_cuda_fm(b, gh, B, leaf_id=ids,
+                                                 leaf=0)), \
                 f"{what}: two launches differ"
             log(f"phase 3 hist_featmajor mode={mode} ragged R={Rr} "
-                f"{layout} ld={b.stride(0)} F={F} B={B}: max_abs_err={err!r} "
-                "exact_gh_bit_for_bit=True same_bits_two_launches=True")
+                f"{layout} ld={b.stride(0)} F={F} B={B} leaf_rows=40000: "
+                f"max_abs_err={err!r} exact_gh_bit_for_bit=True "
+                "same_bits_two_launches=True")
     return rows
 
 
@@ -488,7 +698,7 @@ TREE_FIELDS = ("split_feature", "threshold_bin", "default_left",
                "leaf_value")
 
 
-def phase_paths(ds, compact_first):
+def phase_paths(ds, X, compact_first):
     """The slice's other paths on the phase-4 dataset; returns each
     path's launch counts and its booster."""
     out = {}
@@ -517,22 +727,39 @@ def phase_paths(ds, compact_first):
                 auto_handoff_depth
             d0 = auto_handoff_depth(bst._engine.config.num_leaves)
             assert c[must] >= (d0 + 1) * len(trees), (name, c)
+            # the node order carried from each level to the next
+            assert c["level_partition"] >= d0 * len(trees), (name, c)
         if name.startswith("full"):
             # a masked full pass for the root and for the smaller child
             # of every split: one per leaf; and nothing of K1 or K2
             assert c[must] == sum(t.num_leaves for t in trees), (name, c)
             assert sum(c.values()) == c[must], (name, c)
-        if name in ("level", "full_quantized"):
-            like = "quantized" if name == "full_quantized" else "compact"
-            ref = (out[like][1]._engine.models[0] if like in out
-                   else compact_first)
+        if name == "level":
+            # the hybrid ranks its level phase's splits as the JAX package
+            # does, so its node numbering may differ from the compact
+            # tree's: the same splits, and the same output on every row
+            first = trees[0]
+            split_set = lambda t: sorted(zip(t.split_feature.tolist(),
+                                             t.threshold_real.tolist()))
+            assert split_set(first) == split_set(compact_first), \
+                "level first tree's splits differ from the compact one's"
+            Xs = np.asarray(X[:PREDICT_ROWS], np.float64)
+            np.testing.assert_array_equal(
+                first.leaf_value[first.predict_leaf(Xs)],
+                compact_first.leaf_value[compact_first.predict_leaf(Xs)],
+                err_msg="level first tree's outputs differ")
+            log(f"phase 5 level first tree holds the compact first tree's "
+                f"{first.num_leaves - 1} splits and gives its output on "
+                f"{len(Xs)} rows")
+        if name == "full_quantized":
+            ref = out["quantized"][1]._engine.models[0]
             first = trees[0]
             for f in TREE_FIELDS:
                 np.testing.assert_array_equal(
                     getattr(first, f), getattr(ref, f),
                     err_msg=f"{name} first tree differs in {f}")
-            log(f"phase 5 {name} first tree equals the {like} first tree: "
-                f"{first.num_leaves} leaves, depth {first.max_depth}")
+            log(f"phase 5 {name} first tree equals the quantized first "
+                f"tree: {first.num_leaves} leaves, depth {first.max_depth}")
         out[name] = (c, bst)
     return out
 
@@ -569,6 +796,20 @@ def phase_profile(bst, label, iters=2):
         f"kernel_launches_per_iter={launches / iters!r} "
         f"memcpy_or_sync_calls_per_iter={syncs / iters!r} "
         f"device_to_host_copies_per_iter={d2h / iters!r}")
+    # the histogram kernels' own device time: K1's and K2's without the
+    # reduction they share (reduce_partials), B2's with its mask pass,
+    # its reduction and its sparse pass (these start by programmatic
+    # dependent launch, so a kernel's span may include its wait for the
+    # one before: B2's sum is an upper bound)
+    for kname, keys in (("K1", ("hist_rowmajor_kernel",)),
+                        ("K2", ("hist_level_kernel",)),
+                        ("B2", ("batch_masks", "hist_featmajor_kernel",
+                                "hist_sparse_kernel", "reduce_flagged"))):
+        hits = [e for e in on_device if any(k in e.key for k in keys)]
+        if hits:
+            log(f"phase profile {label} {kname}_device_ms_per_iter="
+                f"{sum(dev_us(e) for e in hits) / 1e3 / iters!r} "
+                f"launches_per_iter={sum(e.count for e in hits) / iters!r}")
     for e in sorted(on_device, key=dev_us, reverse=True)[:10]:
         log(f"phase profile {label} device {e.key[:90]!r} count={e.count} "
             f"device_ms={dev_us(e) / 1e3!r}")
@@ -669,14 +910,19 @@ SOURCES = {
                    "lightgbm_tpu/ops/hist_level_pallas.py:83"),
     "hist_featmajor": ("lightgbm_tpu_torch/csrc/hist_featmajor.cu",
                        "lightgbm_tpu/ops/hist_pallas.py:214"),
+    # the stable sort by node that feeds the TPU kernel K2 replaces
+    "level_partition": ("lightgbm_tpu_torch/csrc/hist_level.cu",
+                        "lightgbm_tpu/ops/hist_level_pallas.py:242"),
 }
 
 
 def kernel_entry(name, mode, launches, row):
     source, replaces = SOURCES[name]
-    return {"name": f"{name}_{mode}", "route": "cuda", "source": source,
+    return {"name": name if mode is None else f"{name}_{mode}",
+            "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
@@ -709,7 +955,7 @@ def main():
     b2 = phase_b2(dev, flush)
     del flush
     compact_counts, bst, ds, X = phase_main_path()
-    paths = phase_paths(ds, bst._engine.models[0])
+    paths = phase_paths(ds, X, bst._engine.models[0])
     if "--profile" in sys.argv[1:]:
         phase_profile(bst, "compact")
         phase_profile(paths["level"][1], "level")
@@ -736,6 +982,9 @@ def main():
         key = f"hist_featmajor_{mode}"
         kernels.append(kernel_entry("hist_featmajor", mode, runs[key][key],
                                     b2[(mode, N_ROWS)]))
+    kernels.append(kernel_entry(
+        "level_partition", None, runs["hist_level_f32"]["level_partition"],
+        k2[("partition", f"skewed n={LEVEL_NODES[-1]}")]))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -31,9 +31,11 @@ it, as the JAX package does) keeps no row order: bins are FEATURE-major
 ``leaf_id`` of its leaf's right-going rows from the split feature's bin
 column (one contiguous row of the bins), and the smaller child — chosen
 by the split record's counts, already on the host — gets its histogram
-from a masked pass over ALL rows, ``hist_fn(bins, gh * (leaf_id ==
-small))`` (kernel B2). The two modes share the root state, the leaf
-pick, the children's scan, the sibling subtraction and the tree.
+from one pass that reads every row's leaf id and adds the child's rows,
+``hist_fn(bins, gh, B, leaf_id=leaf_id, leaf=small)`` (kernel B2, with
+the JAX package's mask ``gh * (leaf_id == small)`` fused into it). The
+two modes share the root state, the leaf pick, the children's scan, the
+sibling subtraction and the tree.
 
 Histogram modes (``hist_inputs``), as in the JAX grower:
 
@@ -63,7 +65,8 @@ import torch
 from ..ops.hist_cuda import hist_cuda_fm, hist_cuda_rm
 from ..ops.split import (MISSING_ENUM, K_EPSILON, K_MIN_SCORE, FeatureMeta,
                          SplitHyperParams, best_split_for_leaf,
-                         calculate_splitted_leaf_output, pack_record_rows)
+                         calculate_splitted_leaf_output, column_sum,
+                         pack_record_rows)
 from .tree import TreeArrays
 
 
@@ -146,7 +149,7 @@ def root_sums(cfg: GrowerConfig, gh: torch.Tensor, gh_hist: torch.Tensor,
     quantization (exact int32, converted), else from the f32 gh."""
     if cfg.quantized:
         return conv(gh_hist.sum(dim=0, dtype=torch.int32))
-    return gh.sum(dim=0)
+    return column_sum(gh)
 
 
 @dataclasses.dataclass
@@ -192,8 +195,10 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     stochastic-rounding draws ``(ug, uh)`` of a quantized tree.
     ``hist_fn(bins, gh, num_bin)`` builds one histogram (by default kernel
     K1 for compact and B2 for full scheduling: the card's kernel for CUDA
-    tensors, its plain version for CPU tensors). ``leaf_id`` (int64
-    ``[R]``, on the device) is each row's leaf.
+    tensors, its plain version for CPU tensors); under full scheduling it
+    also takes ``leaf_id=`` and ``leaf=`` keywords and adds only that
+    leaf's rows (``ops/hist_cuda.hist_cuda_fm``'s contract). ``leaf_id``
+    (int64 ``[R]``, on the device) is each row's leaf.
 
     ``grow.resume(bins, gh_hist, conv, state, k0)`` runs the split loop
     from step ``k0`` over a committed ``GrowState``.
@@ -270,16 +275,15 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     def partition_full(bins_fm, gh_hist, st, l, new_leaf, f, thr, dl,
                        left_smaller):
         """Leaf ``l``'s right-going rows move to ``new_leaf`` (ref:
-        core/grower.py:1045-1060); the smaller child's histogram is a
-        masked pass over all rows (``leaf_hist``, :601-603). Returns
-        hist_small."""
+        core/grower.py:1045-1060); the smaller child's histogram is one
+        pass over all rows that adds the child's (``leaf_hist``,
+        :601-603, the mask fused into the kernel). Returns hist_small."""
         go_left = _go_left(bins_fm[f], thr, dl, nbin_h[f], miss_h[f],
                            dflt_h[f])
         st.leaf_id = torch.where((st.leaf_id == l) & ~go_left, new_leaf,
                                  st.leaf_id)
-        mask = (st.leaf_id == (l if left_smaller else new_leaf))
-        return hist_fn(bins_fm, gh_hist * mask[:, None].to(gh_hist.dtype),
-                       B)
+        return hist_fn(bins_fm, gh_hist, B, leaf_id=st.leaf_id,
+                       leaf=l if left_smaller else new_leaf)
 
     def resume(bins: torch.Tensor, gh_hist: torch.Tensor, conv: Callable,
                st: GrowState, k0: int) -> Tuple[TreeArrays, torch.Tensor]:

@@ -4,8 +4,9 @@ Port of ``lightgbm_tpu/core/level_grower.py`` for dense numerical
 features: the tree grows level by level, with one histogram launch
 (kernel K2, ``ops/hist_level_cuda.py``), one batched split scan and one
 partition pass per DEPTH instead of per split. With every candidate's
-gain known, the leaf-wise best-first order is replayed on the host
-(``rank_and_slots``), so the tree is the compact grower's, node for node.
+gain known, the candidates are ranked on the host as the JAX package
+ranks them (``rank_and_slots``), so the tree is the JAX level tree node
+for node, with the compact tree's splits.
 
 ``make_level_phase`` is the per-level loop shared by the pure grower
 (``make_level_grower``, ``1 <= max_depth <= MAX_LEVEL_DEPTH``) and the
@@ -28,7 +29,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..ops.hist_level_cuda import hist_level_cuda
+from ..ops.hist_level_cuda import carry_order_cuda, hist_level_cuda
 from ..ops.split import (MISSING_ENUM, K_EPSILON, FeatureMeta,
                          best_split_for_leaf, calculate_splitted_leaf_output,
                          pack_record_rows)
@@ -67,6 +68,11 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
     levels 0..depth (``T = 2^(depth+1) - 1``); without ``scan_last`` the
     last level is a filler that never splits (gain -inf).
 
+    The rows' node order is carried from level to level
+    (``ops/hist_level_cuda.carry_order_cuda``: each parent's rows
+    partitioned stably into its children's, no sort) and handed to
+    ``hist_fn`` as ``order``/``seg``.
+
     Returns ``phase(bins_rm, gh, gh_hist, conv) -> dict``: ``heap``
     (int64 [R], each row's final heap node), ``host`` (f32 [T, NB + 4]
     on the device: the packed split row of every heap node, then its
@@ -87,6 +93,9 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
             sums[0], sums[1] + 2 * K_EPSILON, hp, sums[2],
             torch.zeros((), dtype=torch.float32, device=dev))
         heap = torch.zeros(R, dtype=torch.long, device=dev)
+        # every row in the root, in row order
+        order = torch.arange(R, device=dev)
+        seg = torch.tensor([0, R], device=dev)
         node_d = torch.stack([sums[0], sums[1], sums[2], root_out])[None]
         rows_l, node_l, hist_l = [], [node_d], []
 
@@ -96,7 +105,8 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
             in_lvl = (local >= 0) & (local < n_d)
             lsafe = torch.where(in_lvl, local, 0)
             # ---- every level-d node's histogram, one launch ------------
-            hist_raw = hist_fn(bins_rm, gh_hist, local, in_lvl, n_d, B)
+            hist_raw = hist_fn(bins_rm, gh_hist, local, in_lvl, n_d, B,
+                               order=order, seg=seg)
             if collect_hists:
                 hist_l.append(hist_raw)
             # ---- the split scan, batched over the level's nodes --------
@@ -124,6 +134,9 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
             descend = in_lvl & (recs.gain > 0.0)[lsafe]
             heap = torch.where(descend, 2 * heap + 1 + (~go_left).long(),
                                heap)
+            if d + 1 < n_scan:
+                order, seg = carry_order_cuda(order, seg, local, go_left,
+                                              descend)
 
         if not scan_last:
             # depth-D nodes are never scanned: they never split
@@ -144,43 +157,39 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
 
 def rank_and_slots(gain_h: np.ndarray, L: int, depth: int,
                    cut_depth: Optional[int] = None):
-    """The compact grower's expansion order over the heap candidates, and
-    the leaf slots it gives them (ref: level_grower.py:528).
+    """Rank the heap candidates and give them leaf slots, as the JAX
+    package does (ref: level_grower.py:528 rank_and_slots).
 
-    The split sequence is replayed as the compact grower makes it: at
-    each step the leaf with the largest gain splits, ties going to the
-    smallest leaf slot; the left child keeps the parent's slot and the
-    right child takes slot ``step + 1``. The JAX package ranks nodes by
-    ``e`` (the least gain on the root path) with ties in heap order
-    instead, which gives the same set of splits but numbers them
-    differently where two candidates share an ``e`` (a split whose two
-    children both out-gain it): ROADMAP C2. ``cut_depth`` (the hybrid's
-    D0) stops the sequence at the first step that would split a node of
-    that depth, whose children were not scanned. ``eff[v]`` is the final
-    leaf slot of rows whose node is v.
+    A node's ``e`` is the least gain on its root path (``-inf`` below a
+    node that cannot split, or where its own gain is not positive); nodes
+    are ranked by ``e``, descending, ties in heap order (a stable sort),
+    and the first ``k = min(L - 1, #{e > 0})`` split. Where a split's two
+    children both gain more than it does, they share its ``e`` and the
+    left child goes first, where the compact grower would take the larger
+    gain first: the set of splits is the compact grower's, the numbering
+    can differ (ROADMAP C2: the port follows the reference here).
+    ``cut_depth`` (the hybrid's D0) stops the prefix at the first rank
+    held by a node of that depth, whose children were not scanned. The
+    left child keeps its parent's leaf slot and the right child takes
+    ``rank(parent) + 1``; ``eff[v]`` is the final leaf slot of rows whose
+    node is v.
 
     Returns numpy ``(rank, k, selected, slot, eff)`` over the T heap
-    nodes (``rank`` is T for nodes that never split)."""
+    nodes."""
     T = gain_h.shape[0]
-    rank = np.full(T, T, np.int64)
-    cand = np.full(max(L, 1), -np.inf, np.float32)   # gain by leaf slot
-    node_at = np.zeros(max(L, 1), np.int64)
-    cand[0] = gain_h[0]
-    k = 0
-    for i in range(L - 1):
-        j = int(np.argmax(cand[:i + 1]))
-        v = int(node_at[j])
-        if not cand[j] > 0.0:
-            break
-        if cut_depth is not None and (v + 1).bit_length() - 1 == cut_depth:
-            break
-        rank[v] = i
-        k = i + 1
-        # children at the last level never split without a cut
-        last = cut_depth is None and (v + 2).bit_length() - 1 == depth
-        for slot_c, c in ((j, 2 * v + 1), (i + 1, 2 * v + 2)):
-            node_at[slot_c] = c
-            cand[slot_c] = -np.inf if last else gain_h[c]
+    gain = np.asarray(gain_h, np.float32)
+    e = np.where(gain > 0.0, gain, np.float32(-np.inf))
+    for d in range(1, depth + 1):
+        ids = (1 << d) - 1 + np.arange(1 << d)
+        e[ids] = np.where(gain[ids] > 0.0,
+                          np.minimum(gain[ids], e[(ids - 1) // 2]), -np.inf)
+    order = np.argsort(-e, kind="stable")
+    rank = np.empty(T, np.int64)
+    rank[order] = np.arange(T)
+    k = min(L - 1, int((e > 0.0).sum()))
+    if cut_depth is not None:
+        deep = np.floor(np.log2(np.arange(T) + 1)) == cut_depth
+        k = min(k, int(np.argmax(deep[order])))
     selected = rank < k
     slot = np.full(T, -1, np.int64)
     slot[0] = 0

@@ -1,5 +1,5 @@
 // Kernel K2 for Hopper (sm_90a): the histograms of every node of one
-// tree level in one launch, over rows sorted by node.
+// tree level in one launch, over rows in node order.
 //
 // Replaces: lightgbm_tpu/ops/hist_level_pallas.py::_hist_level_kernel,
 // reached through hist_level (:208) and _hist_level_impl (pallas_call at
@@ -12,44 +12,73 @@
 // segment offsets itself, and scatters into shared memory.
 //
 //   out[v, f, b, c] = sum over rows r of node v of gh[r, c] * [bins[r, f] == b]
-//   bins:  uint8 [R, F] contiguous (the training matrix, not gathered)
-//   gh:    [R, 3] contiguous, f32 / bf16 / int8
-//   order: int64 [R], row ids sorted by node (stable); rows of no node
-//          sort after node n_nodes - 1 and are never read
-//   seg:   int64 [n_nodes + 1], node v's rows are order[seg[v]:seg[v+1]]
+//   bins:  uint8 [R, F], gh: [R, 3] (f32 / bf16 / int8), both gathered
+//          into node order (position p holds the p-th row of the order),
+//          16-byte aligned, each buffer readable up to the next multiple
+//          of 16 bytes
+//   seg:   int64 [n_nodes + 1], node v's rows are at positions
+//          seg[v] .. seg[v + 1] - 1
 //   first: int64 [n_nodes + 1], node v owns blocks [first[v], first[v+1]),
 //          ceil((seg[v+1] - seg[v]) / rows_per_block) of them
 //   out:   [n_nodes, F, num_bin, 3], f32 (int32 for int8 gh); empty nodes
 //          are exact zeros
 //
 // Bound on an H100 SXM (3.35 TB/s): R*F bin bytes, R*3*sizeof(gh), the
-// 8*R bytes of the sort order and 12*n_nodes*F*num_bin of output. At R =
-// 1M, F = 28, num_bin = 255, 512 nodes: about 28 + 12 + 8 + 44 = 92 MB
-// in f32, about 27 us. The adds are far below the card's rate.
+// 8*R bytes of the node order and 12*n_nodes*F*num_bin of output. At R =
+// 1M, F = 28, num_bin = 255, 512 nodes: about 28 + 12 + 8 + 44 = 92 MB in
+// f32, about 27 us. The adds are far below the card's rate.
 //
-// Design (hist_common.cuh): one warp per block, lane = feature, a private
-// [3][num_bin][32] shared histogram (98,304 B at num_bin = 256: two
-// blocks per SM), rows in sorted order within a block. Each block owns at
-// most rows_per_block rows of ONE node (the wrapper, ops/hist_level_cuda.py,
-// sets rows_per_block so that a level whose rows sit in one node fills one
-// wave of resident blocks). A
-// node with one block gets its histogram straight from that block; the
-// blocks of a larger node write partials that reduce_partials sums in
-// block order; a node with no rows gets zeros from reduce_partials. The
-// grid is sized by the bound R / rows_per_block + n_nodes, so the host
-// never waits for the device to learn the block count: blocks past the
-// last node's exit at once. No float atomics: f32 and bf16 results do
-// not depend on scheduling.
-#include "hist_common.cuh"
+// Design. The node order is carried from level to level (no sort): after
+// each level's split the level grower partitions each parent's segment
+// stably into its children's (pack_flags and place_rows below: positions
+// from one cumulative sum over packed left/right flags, then one
+// scatter), and the wrapper (ops/hist_level_cuda.py) gathers bins and gh
+// into that order once per level, so that a node's rows are consecutive
+// 28-byte rows. The block body is hist_grouped.cuh: one warp, lane =
+// feature, a private [num_bin][32][3] shared histogram; a batch of 32
+// rows (its bins and gh bytes, whole 16-byte chunks) is copied into a
+// shared-memory ring with cp.async, kStages batches ahead of the one
+// being added, and the rows are added four at a time, their slots
+// loaded together and sums of the same slot forwarded in row order
+// (lane l reads byte l of each staged row, every lane the row's gh).
+// Reading the rows through the order instead of gathering them was
+// tried and dropped: rows at random positions cannot be copied 16 bytes
+// at a time, and their byte loads bound the kernel as they bound K1.
+// Each block owns
+// at most rows_per_block rows of ONE node (sized so that a level whose
+// rows sit in one node fills one wave of resident blocks). A node with
+// one block gets its histogram straight from that block; the blocks of a
+// larger node write partials that reduce_nodes sums in block order; a
+// node with no rows gets zeros from reduce_nodes. The grid is sized by
+// the bound R / rows_per_block + n_nodes, so the host never waits for the
+// device to learn the block count: blocks past the last node's exit at
+// once. No float atomics: f32 and bf16 results do not depend on
+// scheduling.
+#include "hist_grouped.cuh"
 
 namespace {
 
 using namespace lgbm;
 
+// Bytes of a batch's staging slot: its rows' bins (32 * F) and gh, each
+// widened to whole 16-byte chunks at either end.
+__host__ __device__ inline int bins_slot_bytes(int F) {
+  return (kBatch * F + 32 + 15) / 16 * 16;
+}
+template <typename G>
+__host__ __device__ inline int gh_slot_bytes() {
+  return (kBatch * kChannels * static_cast<int>(sizeof(G)) + 32 + 15) / 16 *
+         16;
+}
+template <typename G>
+inline int level_shared_bytes(int num_bin, int F) {
+  return hist_bytes(num_bin) +
+         kStages * (bins_slot_bytes(F) + gh_slot_bytes<G>());
+}
+
 template <typename G>
 __global__ void __launch_bounds__(kLanes)
 hist_level_kernel(const uint8_t* __restrict__ bins, const G* __restrict__ gh,
-                  const long long* __restrict__ order,
                   const long long* __restrict__ seg,
                   const long long* __restrict__ first,
                   typename Gh<G>::Acc* __restrict__ out,
@@ -70,46 +99,180 @@ hist_level_kernel(const uint8_t* __restrict__ bins, const G* __restrict__ gh,
   const long long k = g - first[v];
   const long long p0 = seg[v] + k * rows_per_block;
   const long long p1 = min(seg[v + 1], p0 + rows_per_block);
+  const int lane = threadIdx.x;
   const int f0 = blockIdx.y * ft;
   const int ftl = min(ft, F - f0);
-  zero_hist(hist, num_bin);
-  accumulate<G>(bins, gh, order, p0, p1, F, f0, ftl, num_bin, hist);
+  // inactive lanes read feature f0's bytes and add nothing
+  const int lane_bins = lane < ftl ? num_bin : 0;
+  const int lf = lane < ftl ? lane : 0;
+  zero_hist_vec(hist, num_bin);
+
+  unsigned char* ring = smem_raw + hist_bytes(num_bin);
+  const int bslot = bins_slot_bytes(F);
+  const int slot = bslot + gh_slot_bytes<G>();
+  const long long gh_row = kChannels * static_cast<long long>(sizeof(G));
+  const unsigned char* gh_bytes = reinterpret_cast<const unsigned char*>(gh);
+  const long long n_batches = (p1 - p0 + kBatch - 1) / kBatch;
+
+  // copy batch i's whole 16-byte chunks of bins and gh into its slot
+  auto stage = [&](long long i) {
+    unsigned char* sl = ring + (i % kStages) * slot;
+    const long long base = p0 + i * kBatch;
+    const long long end = min(base + kBatch, p1);
+    const long long b0 = base * F / 16, b1 = (end * F + 15) / 16;
+    for (long long c = b0 + lane; c < b1; c += kLanes) {
+      cp_async16(sl + (c - b0) * 16, bins + c * 16);
+    }
+    const long long g0 = base * gh_row / 16;
+    const long long g1 = (end * gh_row + 15) / 16;
+    for (long long c = g0 + lane; c < g1; c += kLanes) {
+      cp_async16(sl + bslot + (c - g0) * 16, gh_bytes + c * 16);
+    }
+  };
+  for (int i = 0; i + 1 < kStages; ++i) {
+    if (i < n_batches) stage(i);
+    cp_async_commit();
+  }
+  for (long long i = 0; i < n_batches; ++i) {
+    if (i + kStages - 1 < n_batches) stage(i + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const unsigned char* sl = ring + (i % kStages) * slot;
+    const long long base = p0 + i * kBatch;
+    const int rows = static_cast<int>(min(static_cast<long long>(kBatch),
+                                          p1 - base));
+    // row j's byte of feature f0 + lane, and its gh
+    const uint8_t* sb = sl + (base * F - base * F / 16 * 16) + f0 + lf;
+    const G* sg = reinterpret_cast<const G*>(
+        sl + bslot + (base * gh_row - base * gh_row / 16 * 16));
+#pragma unroll
+    for (int j0 = 0; j0 < kBatch; j0 += kGroup) {
+      add_group(hist, lane, lane_bins, j0,
+                [&](int j) {
+                  return j < rows ? static_cast<int>(sb[j * F]) : num_bin;
+                },
+                [&](int j, int c) {
+                  return GhShared<G>::load(sg + j * kChannels + c);
+                });
+    }
+    __syncwarp();
+  }
   if (first[v + 1] - first[v] == 1) {
-    write_out(hist, out + static_cast<long long>(v) * F * num_bin * kChannels,
-              f0, ftl, num_bin);
+    write_out_slots(hist,
+                    out + static_cast<long long>(v) * F * num_bin * kChannels,
+                    f0, ftl, num_bin);
   } else {
     const long long part = g * gridDim.y + blockIdx.y;
-    write_partial(hist, partials + part * tile_slots(num_bin), num_bin);
+    write_partial_vec(hist, partials + part * tile_slots(num_bin), num_bin);
   }
 }
 
-bool g_shared_ok[3][kMaxDevices];   // per mode, per device
+// The partition of one level's rows into the next level's node order
+// (the plain version is ops/hist_level.carry_order). Position p of this
+// level's order holds row order[p]; a row that descends goes to child 2v
+// (go_left) or 2v + 1 of its node v. pack_flags writes, by position, 2^32
+// for a row going left, 1 for one going right, 0 otherwise, and, by row
+// id, 1 for a row leaving the level; the caller takes the inclusive
+// cumulative sums cum (of the packed flags: left count in the high 32
+// bits, right count in the low ones) and cum_out (of the leaving rows).
+constexpr long long kLeft = 1LL << 32;
+constexpr long long kLow = kLeft - 1;
+
+__global__ void pack_flags(const long long* __restrict__ order,
+                           const bool* __restrict__ go_left,
+                           const bool* __restrict__ descend,
+                           long long* __restrict__ packed,
+                           long long* __restrict__ leaving, long long R) {
+  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       p < R; p += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = order[p];
+    packed[p] = descend[r] ? (go_left[r] ? kLeft : 1) : 0;
+    leaving[p] = descend[p] ? 0 : 1;
+  }
+}
+
+// Exclusive prefix of the packed flags at position x.
+__device__ __forceinline__ long long prefix_at(const long long* cum,
+                                               long long x) {
+  return x > 0 ? cum[x - 1] : 0;
+}
+
+// Writes the next level's order nxt [R] (left rows of each parent, then
+// its right rows, parents in node order; then the leaving rows in row-id
+// order) and its segment bounds new_seg [2n + 1].
+__global__ void place_rows(const long long* __restrict__ order,
+                           const long long* __restrict__ seg,
+                           const long long* __restrict__ local,
+                           const bool* __restrict__ descend,
+                           const long long* __restrict__ packed,
+                           const long long* __restrict__ cum,
+                           const long long* __restrict__ cum_out,
+                           long long* __restrict__ nxt,
+                           long long* __restrict__ new_seg, long long R,
+                           int n) {
+  const long long last = cum[R - 1];
+  const long long total = (last >> 32) + (last & kLow);  // rows descending
+  const long long end = max(R, static_cast<long long>(n) + 1);
+  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       p < end; p += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long pk = p < R ? packed[p] : 0;
+    if (pk != 0) {
+      const long long r = order[p];
+      const long long excl = cum[p] - pk;
+      const int v = static_cast<int>(min(max(local[r], 0LL),
+                                         static_cast<long long>(n - 1)));
+      // left: the descending rows of the parents before v, then v's left
+      // rows before p; right: every left row up to v's end, then the
+      // right rows before p
+      nxt[pk == kLeft ? (excl >> 32) + (prefix_at(cum, seg[v]) & kLow)
+                      : (prefix_at(cum, seg[v + 1]) >> 32) + (excl & kLow)] =
+          r;
+    }
+    if (p < R && !descend[p]) nxt[total + cum_out[p] - 1] = p;
+    if (p <= n) {
+      if (p == n) {
+        new_seg[2 * n] = total;
+      } else {
+        const long long ps = prefix_at(cum, seg[p]);
+        const long long pe = prefix_at(cum, seg[p + 1]);
+        new_seg[2 * p] = (ps >> 32) + (ps & kLow);
+        new_seg[2 * p + 1] = (pe >> 32) + (ps & kLow);
+      }
+    }
+  }
+}
+
+int g_shared_set[3][kMaxDevices];   // per mode, per device
 
 template <typename G>
-int resident(int num_bin, int mode, long long* blocks) {
-  return static_cast<int>(resident_blocks(hist_level_kernel<G>,
-                                          g_shared_ok[mode], num_bin,
-                                          blocks));
+int resident(int num_bin, int F, int mode, long long* blocks) {
+  return static_cast<int>(resident_with(hist_level_kernel<G>,
+                                        g_shared_set[mode],
+                                        level_shared_bytes<G>(num_bin, F),
+                                        blocks));
 }
 
 template <typename G>
-int launch(const void* bins, const void* gh, const void* order,
-           const void* seg, const void* first, void* out, void* partials,
-           int F, int num_bin, int n_nodes, int mode,
-           long long rows_per_block, long long max_blocks,
-           cudaStream_t stream) {
+int launch(const void* bins, const void* gh, const void* seg,
+           const void* first, void* out, void* partials, int F, int num_bin,
+           int n_nodes, int mode, long long rows_per_block,
+           long long max_blocks, cudaStream_t stream) {
   using Acc = typename Gh<G>::Acc;
   int ft = 0, n_ftiles = 0;
   feature_tiles(F, &ft, &n_ftiles);
-  cudaError_t err = allow_shared(hist_level_kernel<G>, g_shared_ok[mode]);
+  const int smem = level_shared_bytes<G>(num_bin, F);
+  cudaError_t err = allow_bytes(hist_level_kernel<G>, g_shared_set[mode],
+                                smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long* first_p = static_cast<const long long*>(first);
   if (max_blocks > 0) {
     dim3 grid(static_cast<unsigned>(max_blocks),
               static_cast<unsigned>(n_ftiles));
-    hist_level_kernel<G><<<grid, kLanes, shared_bytes(num_bin), stream>>>(
+    hist_level_kernel<G><<<grid, kLanes, smem, stream>>>(
         static_cast<const uint8_t*>(bins), static_cast<const G*>(gh),
-        static_cast<const long long*>(order),
         static_cast<const long long*>(seg), first_p, static_cast<Acc*>(out),
         static_cast<Acc*>(partials), F, ft, num_bin, n_nodes,
         rows_per_block);
@@ -118,10 +281,11 @@ int launch(const void* bins, const void* gh, const void* order,
   }
   constexpr int kReduceThreads = 256;
   dim3 rgrid((tile_slots(num_bin) + kReduceThreads - 1) / kReduceThreads,
-             static_cast<unsigned>(n_ftiles), static_cast<unsigned>(n_nodes));
-  reduce_partials<Acc><<<rgrid, kReduceThreads, 0, stream>>>(
-      static_cast<const Acc*>(partials), static_cast<Acc*>(out), first_p, 0,
-      F, ft, n_ftiles, num_bin);
+             static_cast<unsigned>(n_ftiles),
+             static_cast<unsigned>(min(n_nodes, 64)));
+  reduce_nodes<Acc><<<rgrid, kReduceThreads, 0, stream>>>(
+      static_cast<const Acc*>(partials), static_cast<Acc*>(out), first_p,
+      n_nodes, F, ft, n_ftiles, num_bin);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -129,50 +293,95 @@ bool valid_bins(int num_bin, int mode) {
   return num_bin >= 1 && num_bin <= 256 && mode >= kF32 && mode <= kInt8;
 }
 
+int grid_for(long long R) {
+  return static_cast<int>(min((R + 255) / 256, 4096LL));
+}
+
 }  // namespace
 
 extern "C" {
 
 // Blocks of the kernel in `mode` resident on the current device at once,
-// at num_bin bins (written to *blocks); the caller sizes rows_per_block
-// with it. Returns a cudaError_t.
-int lgbm_hist_level_resident(int num_bin, int mode, long long* blocks) {
-  if (!valid_bins(num_bin, mode)) return (int)cudaErrorInvalidValue;
+// at num_bin bins and F features (written to *blocks); the caller sizes
+// rows_per_block with it. Returns a cudaError_t.
+int lgbm_hist_level_resident(int num_bin, int F, int mode,
+                             long long* blocks) {
+  if (!valid_bins(num_bin, mode) || F <= 0) return (int)cudaErrorInvalidValue;
   switch (mode) {
-    case kF32: return resident<float>(num_bin, mode, blocks);
-    case kBF16: return resident<uint16_t>(num_bin, mode, blocks);
-    default: return resident<int8_t>(num_bin, mode, blocks);
+    case kF32: return resident<float>(num_bin, F, mode, blocks);
+    case kBF16: return resident<uint16_t>(num_bin, F, mode, blocks);
+    default: return resident<int8_t>(num_bin, F, mode, blocks);
   }
 }
 
 // Launches the level histogram over a grid of max_blocks (>= first[n])
 // blocks, and the reduction of its partials (the caller allocates
 // max_blocks * ceil(F / 32) * 3 * num_bin * 32 accumulators), on
-// `stream`; returns cudaGetLastError() (0 = ok).
-int lgbm_hist_level(const void* bins, const void* gh, const void* order,
-                    const void* seg, const void* first, void* out,
-                    void* partials, int F, int num_bin, int n_nodes, int mode,
+// `stream` of `device` (the device current before the call is current
+// again after it); returns cudaGetLastError() (0 = ok).
+int lgbm_hist_level(const void* bins, const void* gh, const void* seg,
+                    const void* first, void* out, void* partials, int F,
+                    int num_bin, int n_nodes, int mode,
                     long long rows_per_block, long long max_blocks,
-                    void* stream) {
+                    int device, void* stream) {
   if (!valid_bins(num_bin, mode) || F <= 0 || n_nodes < 1 ||
-      n_nodes > 65535 || rows_per_block < 1 || max_blocks < 0) {
+      n_nodes > 65535 || rows_per_block < 1 || max_blocks < 0 ||
+      reinterpret_cast<uintptr_t>(bins) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(gh) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kF32:
-      return launch<float>(bins, gh, order, seg, first, out, partials, F,
-                           num_bin, n_nodes, mode, rows_per_block, max_blocks,
-                           st);
+      return launch<float>(bins, gh, seg, first, out, partials, F, num_bin,
+                           n_nodes, mode, rows_per_block, max_blocks, st);
     case kBF16:
-      return launch<uint16_t>(bins, gh, order, seg, first, out, partials, F,
+      return launch<uint16_t>(bins, gh, seg, first, out, partials, F,
                               num_bin, n_nodes, mode, rows_per_block,
                               max_blocks, st);
     default:
-      return launch<int8_t>(bins, gh, order, seg, first, out, partials, F,
-                            num_bin, n_nodes, mode, rows_per_block,
-                            max_blocks, st);
+      return launch<int8_t>(bins, gh, seg, first, out, partials, F, num_bin,
+                            n_nodes, mode, rows_per_block, max_blocks, st);
   }
+}
+
+// The first step of the partition: packed [R] and leaving [R] int64 (see
+// pack_flags) on `stream` of `device`; returns cudaGetLastError().
+int lgbm_level_pack_flags(const void* order, const void* go_left,
+                          const void* descend, void* packed, void* leaving,
+                          long long R, int device, void* stream) {
+  if (R < 1) return (int)cudaErrorInvalidValue;
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  pack_flags<<<grid_for(R), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(order), static_cast<const bool*>(go_left),
+      static_cast<const bool*>(descend), static_cast<long long*>(packed),
+      static_cast<long long*>(leaving), R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The second step, given the inclusive cumulative sums of both: the next
+// level's order nxt [R] and segment bounds new_seg [2n + 1], on `stream`
+// of `device`; returns cudaGetLastError().
+int lgbm_level_place_rows(const void* order, const void* seg,
+                          const void* local, const void* descend,
+                          const void* packed, const void* cum,
+                          const void* cum_out, void* nxt, void* new_seg,
+                          long long R, int n, int device, void* stream) {
+  if (R < 1 || n < 1 || n > 65535) return (int)cudaErrorInvalidValue;
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  const int grid = max(grid_for(R), (n + 256) / 256);
+  place_rows<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(order),
+      static_cast<const long long*>(seg), static_cast<const long long*>(local),
+      static_cast<const bool*>(descend), static_cast<const long long*>(packed),
+      static_cast<const long long*>(cum),
+      static_cast<const long long*>(cum_out), static_cast<long long*>(nxt),
+      static_cast<long long*>(new_seg), R, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* lgbm_cuda_error_string(int code) {

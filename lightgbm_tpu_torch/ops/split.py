@@ -183,6 +183,37 @@ def _xla_cpu_cumsum(x: torch.Tensor) -> torch.Tensor:
     return (inner + excl[..., None]).reshape(xp.shape)[..., :n]
 
 
+# ... and a sum over a long axis as a tree of windows of this many
+# elements (its TreeReductionRewriter): the axis is padded with zeros to a
+# multiple of the window, half the padding (rounded down) in front, each
+# window summed left to right, and the windows' totals reduced the same
+# way until at most one window is left, which is summed left to right.
+XLA_REDUCE_WINDOW = 32
+
+
+def _sequential_sum0(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros_like(x[0])        # XLA's init value, +0.0
+    for k in range(x.shape[0]):
+        acc = acc + x[k]
+    return acc
+
+
+def column_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the first (row) axis of a float32 ``[R, C]`` tensor. On
+    the CPU it adds in the order the JAX package's ``jnp.sum(axis=0)``
+    adds there, so root sums (and the outputs and gains that follow from
+    them) equal the reference's bit for bit; on the card it is
+    ``torch.sum``, one launch."""
+    if x.device.type != "cpu":
+        return x.sum(dim=0)
+    w = XLA_REDUCE_WINDOW
+    while x.shape[0] > w:
+        pad = -x.shape[0] % w
+        xp = torch.nn.functional.pad(x.T, (pad // 2, pad - pad // 2)).T
+        x = _sequential_sum0(xp.reshape(-1, w, *x.shape[1:]).transpose(0, 1))
+    return _sequential_sum0(x)
+
+
 def bin_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive cumulative sum over the last (bin) axis. On the CPU it
     adds in the order the JAX package's ``jnp.cumsum`` adds there (XLA's

@@ -117,15 +117,19 @@ def test_bf16_is_ignored_under_full_scheduling(rng):
 
 def test_every_histogram_is_a_masked_full_pass(rng):
     """The root and one smaller child per split: num_leaves passes, each
-    over all R rows, with gh zero outside the child and the child chosen
-    by the split record's counts (the smaller one)."""
+    over all R rows, the root's adding every row and a child's only the
+    rows whose leaf id is the child's (the mask fused into the pass, gh
+    itself unmasked), the child chosen by the split record's counts (the
+    smaller one)."""
     bins, _, tm = _data(rng, R, F)
     gh = _gradients(rng, R, "l2_dyadic")
     seen = []
 
-    def counting_hist(b, g, num_bin):
-        seen.append((tuple(b.shape), int((g[:, 2] != 0).sum())))
-        return hist_cuda_fm(b, g, num_bin)
+    def counting_hist(b, g, num_bin, *, leaf_id=None, leaf=None):
+        assert torch.equal(g, torch.from_numpy(gh))
+        rows = R if leaf_id is None else int((leaf_id == leaf).sum())
+        seen.append((tuple(b.shape), rows))
+        return hist_cuda_fm(b, g, num_bin, leaf_id=leaf_id, leaf=leaf)
 
     tt, _ = _port(bins, gh, tm, hist_fn=counting_hist)
     assert tt.num_leaves == L and len(seen) == L

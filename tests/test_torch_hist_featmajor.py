@@ -105,3 +105,46 @@ def test_wrapper_on_cpu_runs_the_plain_version(rng):
     with pytest.raises(ValueError, match="stride"):
         hist_cuda_fm(torch.from_numpy(np.ascontiguousarray(bins.T)).T[:, ::2],
                      gh_t[::2].contiguous(), B)
+
+
+@pytest.mark.parametrize("kind", ["int8", "dyadic", "normal"])
+@pytest.mark.parametrize("leaf_rows", [0, 1, 97, 4000])
+def test_fused_leaf_mask_equals_the_masked_form(rng, kind, leaf_rows):
+    """``hist_cuda_fm(bins, gh, B, leaf_id=, leaf=)`` (the mask fused) on
+    the plain route equals the masked form ``hist_featmajor(bins, gh *
+    (leaf_id == leaf))`` bit for bit, from an empty leaf to all rows, on
+    the engine's padded device copy."""
+    F, R, B = 7, 4000, 255
+    bins, gh = _inputs(rng, F, R, B, kind)
+    gh[:, 2] = 1                       # the count channel
+    leaf_id = torch.from_numpy(rng.integers(1, 9, R))
+    leaf_id[torch.from_numpy(rng.permutation(R)[:leaf_rows])] = 0
+    padded = feature_major_bins(np.ascontiguousarray(bins.T),
+                                torch.device("cpu"))
+    gh_t = torch.from_numpy(gh)
+    mask = (leaf_id == 0)[:, None].to(gh_t.dtype)
+    out = hist_cuda_fm(padded, gh_t, B, leaf_id=leaf_id, leaf=0)
+    ref = hist_featmajor(torch.from_numpy(bins), gh_t * mask, B)
+    assert torch.equal(out, ref)
+    assert int(out[0, :, 2].sum()) == leaf_rows
+
+
+@pytest.mark.parametrize("case", ["leaf_alone", "leaf_id_i32", "leaf_id_len",
+                                  "negative_leaf", "leaf_id_2d"])
+def test_fused_form_rejects_unsupported_input(case):
+    F, R, B = 3, 64, 16
+    bins = torch.zeros((F, R), dtype=torch.uint8)
+    gh = torch.zeros((R, 3), dtype=torch.float32)
+    kw = dict(leaf_id=torch.zeros(R, dtype=torch.int64), leaf=0)
+    if case == "leaf_alone":
+        del kw["leaf_id"]
+    elif case == "leaf_id_i32":
+        kw["leaf_id"] = kw["leaf_id"].int()
+    elif case == "leaf_id_len":
+        kw["leaf_id"] = kw["leaf_id"][:-1]
+    elif case == "negative_leaf":
+        kw["leaf"] = -1
+    elif case == "leaf_id_2d":
+        kw["leaf_id"] = kw["leaf_id"][:, None]
+    with pytest.raises(ValueError):
+        hist_cuda_fm(bins, gh, B, **kw)

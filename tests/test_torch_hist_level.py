@@ -24,6 +24,7 @@ import torch
 from lightgbm_tpu.ops.hist_level_pallas import hist_level as jax_hist_level
 from lightgbm_tpu_torch.ops.hist_level import hist_level
 from lightgbm_tpu_torch.ops.hist_level_cuda import hist_level_cuda
+from lightgbm_tpu_torch.ops.histogram import hist_rowmajor
 
 
 def _dyadic_gh(rng, n):
@@ -154,3 +155,154 @@ def test_wrapper_rejects_unsupported_input(case):
         bins = bins.to(torch.int16)
     with pytest.raises(ValueError):
         hist_level_cuda(bins, gh, local, in_lvl, n_nodes, 16)
+
+
+# ---- the node order carried from level to level (no sort) ---------------
+
+def _grow_orders(seed, R, depth, p_valid):
+    """Random partitions down ``depth`` levels: at each level the carried
+    ``(order, seg)`` and the stable sort of that level's keys, as pairs."""
+    from lightgbm_tpu_torch.ops.hist_level import carry_order, node_order
+    rng = np.random.default_rng(seed)
+    heap = torch.zeros(R, dtype=torch.long)
+    order, seg = torch.arange(R), torch.tensor([0, R])
+    pairs = []
+    for d in range(depth + 1):
+        n = 1 << d
+        local = heap - (n - 1)
+        in_lvl = (local >= 0) & (local < n)
+        pairs.append(((order, seg), node_order(local, in_lvl, n),
+                      (local, in_lvl, n)))
+        # nodes that do not split: their rows leave the level
+        valid = torch.from_numpy(rng.uniform(size=n) < p_valid)
+        go_left = torch.from_numpy(rng.uniform(size=R) < 0.4)
+        descend = in_lvl & valid[torch.where(in_lvl, local, 0)]
+        order, seg = carry_order(order, seg, local, go_left, descend)
+        heap = torch.where(descend, 2 * heap + 1 + (~go_left).long(), heap)
+    return pairs
+
+
+@pytest.mark.parametrize("seed,R,depth,p_valid",
+                         [(0, 1, 4, 1.0), (1, 37, 5, 0.6), (2, 1000, 7, 0.8),
+                          (3, 2048, 10, 0.9), (4, 500, 6, 0.0)])
+def test_carried_order_is_the_stable_sort(seed, R, depth, p_valid):
+    """``carry_order`` gives, at every level, the permutation and segment
+    bounds of ``torch.sort(level_keys(...), stable=True)`` (the JAX
+    package's order, ``ops/hist_level_pallas.py:242``), rows that leave
+    the level included (last, in row-id order)."""
+    for d, (carried, ref, _) in enumerate(_grow_orders(seed, R, depth,
+                                                        p_valid)):
+        assert torch.equal(carried[0], ref[0]), d
+        assert torch.equal(carried[1], ref[1]), d
+
+
+def _hist_in_order(bins, gh, order, seg, B):
+    """The level histogram from the rows in node order: node v's
+    histogram over positions seg[v] .. seg[v + 1] - 1 of the gathered
+    bins and gh (what the kernel reads)."""
+    sb, sg = bins.index_select(0, order), gh.index_select(0, order)
+    n = seg.shape[0] - 1
+    return torch.stack([hist_rowmajor(sb[seg[v]:seg[v + 1]],
+                                      sg[seg[v]:seg[v + 1]], B)
+                        for v in range(n)])
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_wrapper_with_the_carried_order_gives_the_same_bits(mode):
+    """On the levels of a random tree, ``hist_level_cuda`` with the
+    carried order equals it without (which sorts itself) bit for bit, and
+    so does the histogram of each node's rows gathered into the carried
+    order (dyadic and int8 gh: exact in any order of adds)."""
+    rng = np.random.default_rng(29)
+    R, F, B = 1500, 5, 32
+    bins = torch.from_numpy(rng.integers(0, B, (R, F), dtype=np.uint8))
+    gh = torch.from_numpy(rng.integers(-128, 128, (R, 3)).astype(np.int8)
+                          if mode == "int8" else _dyadic_gh(rng, R))
+    for (order, seg), _, (local, in_lvl, n) in _grow_orders(5, R, 6, 0.85):
+        with_order = hist_level_cuda(bins, gh, local, in_lvl, n, B,
+                                     order=order, seg=seg)
+        without = hist_level_cuda(bins, gh, local, in_lvl, n, B)
+        assert torch.equal(with_order, without)
+        assert torch.equal(_hist_in_order(bins, gh, order, seg, B),
+                           without)
+
+
+@pytest.mark.parametrize("case", ["order_alone", "seg_len", "order_i32",
+                                  "seg_i32"])
+def test_wrapper_rejects_a_bad_carried_order(case):
+    R, F, n = 64, 4, 2
+    bins = torch.zeros((R, F), dtype=torch.uint8)
+    gh = torch.zeros((R, 3), dtype=torch.float32)
+    local = torch.zeros(R, dtype=torch.int64)
+    in_lvl = torch.ones(R, dtype=torch.bool)
+    kw = dict(order=torch.arange(R), seg=torch.tensor([0, R, R]))
+    if case == "order_alone":
+        del kw["seg"]
+    elif case == "seg_len":
+        kw["seg"] = kw["seg"][:-1]
+    elif case == "order_i32":
+        kw["order"] = kw["order"].int()
+    elif case == "seg_i32":
+        kw["seg"] = kw["seg"].int()
+    with pytest.raises(ValueError):
+        hist_level_cuda(bins, gh, local, in_lvl, n, 16, **kw)
+
+
+def test_level_phase_carries_the_sorted_order(monkeypatch):
+    """Through a pure level tree and a hybrid one, the order and segments
+    handed to the level histogram at every level are the stable sort of
+    that level's keys."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.core import level_grower as tlevel
+    from lightgbm_tpu_torch.ops.hist_level import node_order
+    seen = []
+
+    def checking(bins, gh, local, in_lvl, n_nodes, num_bin, *, order=None,
+                 seg=None):
+        ref = node_order(local, in_lvl, n_nodes)
+        seen.append(n_nodes)
+        assert torch.equal(order, ref[0]) and torch.equal(seg, ref[1])
+        return hist_level_cuda(bins, gh, local, in_lvl, n_nodes, num_bin,
+                               order=order, seg=seg)
+
+    orig = tlevel.make_level_phase
+
+    def phase_with(*a, **kw):
+        kw["hist_fn"] = checking
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tlevel, "make_level_phase", phase_with)
+    from lightgbm_tpu_torch.core import hybrid_grower
+    monkeypatch.setattr(hybrid_grower, "make_level_phase", phase_with)
+    rng = np.random.default_rng(31)
+    X = rng.normal(size=(3000, 6)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(np.float32)
+    for depth in (5, -1):
+        seen.clear()
+        lgt.train({"objective": "binary", "num_leaves": 31,
+                   "max_depth": depth, "min_data_in_leaf": 40,
+                   "device_type": "cpu", "verbosity": -1,
+                   "tpu_row_scheduling": "level"},
+                  lgt.Dataset(X, label=y), num_boost_round=2)
+        assert seen and seen[:3] == [1, 2, 4]
+
+
+def test_partition_wrapper_on_cpu_runs_the_plain_version():
+    """``carry_order_cuda`` (the card's partition) takes ``carry_order``'s
+    contract; on CPU tensors it is the plain version and counts no
+    launch; it refuses what its kernels do not take."""
+    from lightgbm_tpu_torch.ops.hist_level import carry_order
+    from lightgbm_tpu_torch.ops.hist_level_cuda import carry_order_cuda
+    before = carry_order_cuda.launches
+    for (order, seg), _, (local, in_lvl, n) in _grow_orders(9, 700, 5, 0.8):
+        rng = np.random.default_rng(n)
+        go_left = torch.from_numpy(rng.uniform(size=700) < 0.5)
+        descend = in_lvl & torch.from_numpy(rng.uniform(size=700) < 0.9)
+        out = carry_order_cuda(order, seg, local, go_left, descend)
+        ref = carry_order(order, seg, local, go_left, descend)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert carry_order_cuda.launches == before
+    with pytest.raises(ValueError):
+        carry_order_cuda(order.int(), seg, local, go_left, descend)
+    with pytest.raises(ValueError):
+        carry_order_cuda(order, seg, local, go_left.int(), descend)

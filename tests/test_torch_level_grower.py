@@ -6,10 +6,11 @@ h = 0.25 with ``boost_from_average=false``), so every histogram sum is
 exact in f32 whatever the order of its adds, and a first tree must match
 split for split and value for value: the port's pure level tree
 (``max_depth <= MAX_LEVEL_DEPTH``) and hybrid tree (``max_depth=-1``)
-against the JAX package's trees of the same scheduling, and against the
-port's own compact tree (mirroring tests/test_level_grower.py:53, 181).
-Quantized gradients make every sum an exact int32 too, so level and
-hybrid trees with quantization match the compact ones bit for bit
+against the JAX package's trees of the same scheduling, node for node.
+Against the port's own compact tree they hold the same splits and give
+the same predictions (as tests/test_level_grower.py:53, 181 compare
+them); the node numbering may differ, as it does in the JAX package
+(ROADMAP C2). Quantized gradients make every sum an exact int32 too
 (tests/test_level_grower.py:233): against the JAX package with
 ``stochastic_rounding=false`` (the port cannot draw jax.random's bits),
 against the port's own compact tree with rounding on (one seed, one
@@ -53,6 +54,18 @@ def _first_tree(pkg, X, y, **params):
     return pkg.train(params, pkg.Dataset(X, label=y), num_boost_round=1)
 
 
+def _splits(bst):
+    t = bst._engine.models[0]
+    return sorted(zip(t.split_feature.tolist(), t.threshold_real.tolist()))
+
+
+def assert_same_splits(a, b, X):
+    """The same set of splits and the same predictions, whatever the node
+    numbering."""
+    assert _splits(a) == _splits(b)
+    np.testing.assert_array_equal(a.predict(X), b.predict(X))
+
+
 @pytest.mark.parametrize("depth,leaves", [(6, 31), (3, 64)])
 def test_level_first_tree_exact(depth, leaves):
     X, y = _data()
@@ -60,8 +73,9 @@ def test_level_first_tree_exact(depth, leaves):
     t_lvl = _first_tree(lgt, X, y, **_params("level", **kw))
     j_lvl = _first_tree(lgb, X, y, **_params("level", **kw))
     t_cmp = _first_tree(lgt, X, y, **_params("compact", **kw))
-    assert _trees(t_lvl) == _trees(j_lvl) == _trees(t_cmp)
+    assert _trees(t_lvl) == _trees(j_lvl)
     np.testing.assert_array_equal(t_lvl.predict(X), j_lvl.predict(X))
+    assert_same_splits(t_lvl, t_cmp, X)
 
 
 @pytest.mark.parametrize("d0", [1, 5])
@@ -74,11 +88,10 @@ def test_hybrid_first_tree_exact(d0):
               tpu_level_handoff_depth=d0)
     t_hyb = _first_tree(lgt, X, y, **_params("level", **kw))
     t_cmp = _first_tree(lgt, X, y, **_params("compact", **kw))
-    assert _trees(t_hyb) == _trees(t_cmp)
+    j_hyb = _first_tree(lgb, X, y, **_params("level", **kw))
+    assert _trees(t_hyb) == _trees(j_hyb)
     assert max(t.num_leaves for t in t_hyb._engine.models) == 63
-    if d0 == 5:
-        j_hyb = _first_tree(lgb, X, y, **_params("level", **kw))
-        assert _trees(t_hyb) == _trees(j_hyb)
+    assert_same_splits(t_hyb, t_cmp, X)
 
 
 @pytest.mark.parametrize("depth", [6, -1])
@@ -87,7 +100,7 @@ def test_quantized_level_and_hybrid_exact(depth):
     kw = dict(max_depth=depth, use_quantized_grad=True, seed=3)
     t_lvl = _first_tree(lgt, X, y, **_params("level", **kw))
     t_cmp = _first_tree(lgt, X, y, **_params("compact", **kw))
-    assert _trees(t_lvl) == _trees(t_cmp)
+    assert_same_splits(t_lvl, t_cmp, X)
     if depth == 6:
         kw["stochastic_rounding"] = False
         t_lvl = _first_tree(lgt, X, y, **_params("level", **kw))
@@ -98,12 +111,15 @@ def test_quantized_level_and_hybrid_exact(depth):
 @pytest.mark.parametrize("depth", [6, -1])
 def test_bf16_level_matches_compact(depth):
     """bf16 histograms: 0.5 - y and 0.25 are exact in bf16, so the first
-    tree equals the f32 compact tree."""
+    tree is the f32 level tree of the JAX package, and holds the f32
+    compact tree's splits."""
     X, y = _data(seed=7)
     kw = dict(max_depth=depth, tpu_hist_dtype="bfloat16")
     t_lvl = _first_tree(lgt, X, y, **_params("level", **kw))
     t_cmp = _first_tree(lgt, X, y, **_params("compact", max_depth=depth))
-    assert _trees(t_lvl) == _trees(t_cmp)
+    j_lvl = _first_tree(lgb, X, y, **_params("level", max_depth=depth))
+    assert _trees(t_lvl) == _trees(j_lvl)
+    assert_same_splits(t_lvl, t_cmp, X)
 
 
 def test_level_histograms_once_per_depth(monkeypatch):
@@ -133,9 +149,9 @@ def test_level_histograms_once_per_depth(monkeypatch):
 
 @pytest.mark.parametrize("cut", [False, True])
 def test_rank_and_slots_matches_jax_on_monotone_gains(cut):
-    """Where every node's gain is below its parent's, the JAX package's
-    e-ranking (e = the least gain on the root path = the node's own gain)
-    and the port's replay of the best-first order agree on every output."""
+    """Where every node's gain is below its parent's (e = the least gain
+    on the root path = the node's own gain), the port's ranking and the
+    JAX package's agree on every output."""
     import jax.numpy as jnp
     rng = np.random.default_rng(23)
     D, L = 5, 20
@@ -162,6 +178,36 @@ def test_rank_and_slots_matches_jax_on_monotone_gains(cut):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("cut", [False, True])
+def test_rank_and_slots_matches_jax_on_any_gains(seed, cut):
+    """Gains in any order (children out-gaining their parents, ties of e,
+    invalid nodes): the port derives e from the gains as the JAX level
+    phase does, and ranks, cuts and numbers exactly as the JAX package's
+    ``rank_and_slots`` (ROADMAP C2)."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(seed)
+    D, L = 5, 24
+    T = 2 ** (D + 1) - 1
+    gain = rng.choice(np.float32([1.0, 2.0, 3.0, 5.0, 8.0]),
+                      size=T).astype(np.float32)
+    gain[rng.uniform(size=T) < 0.15] = -np.inf
+    gain[rng.uniform(size=T) < 0.05] = 0.0
+    gain[0] = 4.0
+    if not cut:
+        gain[T // 2:] = -np.inf
+    e = np.where(gain > 0, gain, -np.inf).astype(np.float32)
+    for v in range(1, T):
+        e[v] = min(gain[v], e[(v - 1) // 2]) if gain[v] > 0 else -np.inf
+    mask = np.floor(np.log2(np.arange(T) + 1)) == D
+    port = tlevel.rank_and_slots(gain, L, D, cut_depth=D if cut else None)
+    ref = jlevel.rank_and_slots(jnp.asarray(e), L, D,
+                                cut_mask=jnp.asarray(mask) if cut else None)
+    assert port[1] == int(ref[1]) > 0
+    for a, b in zip(port[:1] + port[2:], ref[:1] + ref[2:]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def _interaction_data(seed=0, n=4000, f=8):
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, f)).astype(np.float32)
@@ -170,27 +216,26 @@ def _interaction_data(seed=0, n=4000, f=8):
     return X, (logit > np.median(logit)).astype(np.float32)
 
 
-def _splits(bst):
-    t = bst._engine.models[0]
-    return sorted(zip(t.split_feature.tolist(), t.threshold_real.tolist()))
-
-
-def test_level_order_follows_compact_where_jax_level_does_not():
-    """ROADMAP C2. A split whose children both gain more than it does
-    gives them the same e, and the JAX package's level grower then
-    expands them in heap order where its compact grower expands the
-    larger gain first: same splits, other node numbering. The port
-    replays the compact order, so its level tree is the compact tree node
-    for node, and holds the same splits as the JAX level tree."""
+@pytest.mark.parametrize("depth", [6, -1])
+def test_level_order_follows_compact_where_jax_level_does_not(depth):
+    """ROADMAP C2, repaired. A split whose children both gain more than
+    it does gives them the same e, and the JAX package's level grower
+    then expands them in heap order where its compact grower expands the
+    larger gain first: same splits, other node numbering. The port ranks
+    as the JAX package does, so its level (max_depth=6) and hybrid
+    (max_depth=-1) trees are the JAX package's node for node, and hold the
+    compact tree's splits where the JAX level tree's numbering departs
+    from the compact one's."""
     X, y = _interaction_data()
-    kw = dict(max_depth=6, num_leaves=31)
+    kw = dict(max_depth=depth, num_leaves=31)
     j_lvl = _first_tree(lgb, X, y, **_params("level", **kw))
     j_cmp = _first_tree(lgb, X, y, **_params("compact", **kw))
     t_lvl = _first_tree(lgt, X, y, **_params("level", **kw))
     t_cmp = _first_tree(lgt, X, y, **_params("compact", **kw))
     assert _trees(j_lvl) != _trees(j_cmp)           # the reference's order
-    assert _trees(t_lvl) == _trees(t_cmp) == _trees(j_cmp)
-    assert _splits(t_lvl) == _splits(j_lvl)
+    assert _trees(t_cmp) == _trees(j_cmp)
+    assert _trees(t_lvl) == _trees(j_lvl)
+    assert_same_splits(t_lvl, t_cmp, X)
     np.testing.assert_array_equal(t_lvl.predict(X), j_lvl.predict(X))
 
 
@@ -214,7 +259,7 @@ def test_handoff_depth_is_clamped(capsys):
     assert thybrid.resolve_handoff_depth(31, 12) == tlevel.MAX_LEVEL_DEPTH
     assert not b.update()
     cmp = _first_tree(lgt, X, y, **_params("compact", max_depth=-1))
-    assert _trees(b) == _trees(cmp)
+    assert_same_splits(b, cmp, X)
     with pytest.raises(ValueError):
         tlevel.make_level_grower(b._engine.grower_cfg,
                                  b._engine.feature_meta)

@@ -13,11 +13,19 @@ Gradients are not dyadic here, so sums are compared at f32
 reassociation tolerance, not bit for bit (tests/test_torch_grower.py
 holds the dyadic case bit for bit).
 
-One structural bit may differ: a split on a feature with NaNs scans both
-directions, and where none of the node's rows is missing, sending the
-missing values left or right gives the same gain up to rounding. The
-last ulp then picks the default direction, and the packages' sums round
-differently. The test allows that bit to differ only at such nodes.
+Regression has no transcendental function: its gradients, root sums
+(``ops/split.column_sum`` adds in XLA's CPU order on the CPU),
+histograms and scans are the JAX package's bit for bit, so its trees are
+identical, decision types included, and so are its predictions.
+
+Binary: the first tree is identical too, but from the second on the
+gradients go through ``exp``, whose last ulp differs between XLA's CPU
+``exp`` and torch's (``test_binary_gradients_differ_only_by_exp_ulp``).
+So one structural bit may differ: a split on a feature with NaNs scans
+both directions, and where none of the node's rows is missing, sending
+the missing values left or right gives the same gain up to rounding. The
+last ulp then picks the default direction. The test allows that bit to
+differ only at such nodes, and for binary only (ROADMAP C1).
 """
 import numpy as np
 import pytest
@@ -76,7 +84,44 @@ def _rows_at_nodes(tree, X):
 
 @pytest.mark.parametrize("objective", ["binary", "regression"])
 def test_train_matches_jax(rng, objective):
-    _train_and_compare(rng, objective, {})
+    _train_and_compare(rng, objective, {},
+                       exact=objective == "regression")
+
+
+def test_binary_gradients_differ_only_by_exp_ulp(rng, monkeypatch):
+    """ROADMAP C1, what is left of it: after one identical binary tree the
+    two packages hold the same scores bit for bit, and their gradients
+    differ only where XLA's CPU ``exp`` and torch's differ, by one ulp;
+    with the JAX package's ``exp`` values the port's gradients are the
+    JAX package's bit for bit."""
+    import jax.numpy as jnp
+    X, y = _data(rng, "binary")
+    params = {"objective": "binary", "num_leaves": 15, "device_type": "cpu",
+              "verbosity": -1}
+    jb = lgb.Booster(params, lgb.Dataset(X, label=y))
+    tb = lgt.Booster(params, lgt.Dataset(X, label=y))
+    jb.update()
+    tb.update()
+    je, te = jb._engine, tb._engine
+    score = te.score[0]
+    np.testing.assert_array_equal(score.numpy(), np.asarray(je.score[0]))
+    jg, jh = (np.asarray(a) for a in je._gh_fn(je.score))
+    tg, th = (a.numpy() for a in te.objective.get_gradients(score))
+
+    arg = (te.objective._sign * te.objective.sigmoid * score).numpy()
+    t_exp = torch.exp(torch.from_numpy(arg)).numpy()
+    j_exp = np.array(jnp.exp(jnp.asarray(arg)))
+    ulps = np.abs(t_exp.view(np.int32).astype(np.int64)
+                  - j_exp.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1
+    same_exp = ulps == 0
+    np.testing.assert_array_equal(tg[same_exp], jg[same_exp])
+    np.testing.assert_array_equal(th[same_exp], jh[same_exp])
+
+    monkeypatch.setattr(torch, "exp", lambda t: torch.from_numpy(j_exp))
+    tg2, th2 = (a.numpy() for a in te.objective.get_gradients(score))
+    np.testing.assert_array_equal(tg2, jg)
+    np.testing.assert_array_equal(th2, jh)
 
 
 @pytest.mark.parametrize("objective", ["binary", "regression"])
@@ -86,7 +131,7 @@ def test_full_scheduling_matches_jax(rng, objective):
     _train_and_compare(rng, objective, {"tpu_row_scheduling": "full"})
 
 
-def _train_and_compare(rng, objective, extra):
+def _train_and_compare(rng, objective, extra, exact=False):
     X, y = _data(rng, objective)
     params = {"objective": objective, "num_leaves": 15,
               "device_type": "cpu", "verbosity": -1, **extra}
@@ -103,6 +148,10 @@ def _train_and_compare(rng, objective, extra):
         g_max = np.ptp(y)
     jt, tt = _trees(jb.model_to_string()), _trees(tb.model_to_string())
     assert len(tt) == len(jt) == 5
+    if exact:
+        assert tt == jt
+        np.testing.assert_array_equal(tb.predict(X, raw_score=True),
+                                      jb.predict(X, raw_score=True))
     for j, t, host in zip(jt, tt, jb._engine.models):
         for k in STRUCTURE_KEYS:
             assert t[k] == j[k], k
