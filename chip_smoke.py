@@ -4,7 +4,9 @@
 
 Phases, each reported on its own line:
 
-1. environment: torch and CUDA versions, the card's name and power limit;
+1. environment: torch and CUDA versions, the card's name and power limit,
+   and which torch.uint16 ops the card's torch serves (the port holds
+   u16 bins as int16 and needs none of them);
 2. build: every kernel under lightgbm_tpu_torch/csrc, one nvcc each, in
    parallel;
 3. each kernel in each of its modes against its plain PyTorch version on
@@ -12,9 +14,12 @@ Phases, each reported on its own line:
    (CUDA events around each call on an idle stream: the host's issuing of
    the call counts), its device time (every call queued behind a device
    sleep, so the host's issuing is hidden), the plain version's time, one
-   PyTorch library call's time and its bound on the card: K1
-   (hist_rowmajor) in f32, int8
-   and bf16 at leaf sizes from 1M rows down to 1; the level partition
+   PyTorch library call's time and its bound on the card, over uint8
+   bins at 255 bins and uint16 bins at 257, 1,023 and 4,095 (the plain
+   version is the chunked two-level sum): K1 (hist_rowmajor) in f32,
+   int8 and bf16 at leaf sizes from 1M rows down to 1, its small path
+   against its dense path at small leaves, and its bin windows; the
+   level partition
    (the node order carried from one level to the next) against its plain
    version and the stable sort, and K2 (hist_level) in f32, int8 and bf16
    over 1M rows at 1 to 512 nodes with skewed segments, with empty nodes,
@@ -24,7 +29,7 @@ Phases, each reported on its own line:
    leaves of 1M rows down to 1 (the fused form, which reads each row's
    leaf id) beside the unfused form (gh masked by torch, then a pass over
    every row), and over a ragged row count with and without the engine's
-   16-byte row padding. Two launches on the same input must give the
+   16-element row padding. Two launches on the same input must give the
    same bits;
 4. the main path at full width: ``Booster`` training of a Higgs-shaped
    binary GBDT (1,000,000 x 28, 255 leaves, 255 bins) on the compact
@@ -40,15 +45,21 @@ Phases, each reported on its own line:
    leaf of every tree, and no K1 or K2), the hybrid's first tree must
    hold the compact one's splits and give its outputs (its node numbering
    follows the JAX package's e-ranking), and full+quantized's first tree
-   must equal the quantized one; with ``--profile``, two more iterations
+   must equal the quantized one; then the same eight paths on the same
+   rows binned at max_bin=1023 (uint16 bins through K1, K2 and B2), each
+   run's launch counts showing its u16 kernel mode; the quantized run
+   logs the device time of one tree's threefry draws; with
+   ``--profile``, two more iterations
    of the compact, level and full paths under ``torch.profiler`` show
    where an iteration's time goes (device busy share, K1's, K2's and B2's
    device time per iteration, top ops, launches and device-to-host
    reads);
 6. small trainings on cuda and on the CPU (plain versions), compact,
-   quantized, level and full, which must agree;
+   quantized (stochastic rounding on: both draw the same threefry bits),
+   level and full, in u8 and in u16 bins, which must agree;
 7. prediction on the card: ``predict(device=True)`` of the phase-4 model
-   over 200,000 rows by the binned route, and by the raw route for a
+   and of the phase-5 u16 compact model over 200,000 rows by the binned
+   route, and by the raw route for a
    booster of the same trees without the training bin mappers, against
    the host walk (scores within 1e-5, every tree's leaf equal), with
    rows/s of each route and of the host walk; each route's answer must be
@@ -74,10 +85,23 @@ F32_FLOPS = 67e12
 
 N_ROWS, N_FEATURES = 1_000_000, 28
 NUM_LEAVES, MAX_BIN = 255, 255
+# max_bin of the u16 paths (LightGBM's parameter-tuning guide advises a
+# large max_bin for accuracy), and the bin counts phase 3 holds the u16
+# modes at: one bin past u8, the paths' 1,023, and about where the JAX
+# package's Pallas kernels stop fitting a tile (ops/hist_pallas.py:180)
+U16_MAX_BIN = 1023
+U16_BINS = (257, 1023, 4095)
 TIMED_ITERS = 5
 MODE_ITERS = 3
+U16_ITERS = 2
 KERNEL_SHAPES = (1_000_000, 65_536, 4_097, 1)
+U16_SHAPES = (1_000_000, 4_097, 1)
 LEVEL_NODES = (1, 8, 64, 512)
+U16_LEVEL_NODES = (1, 512)
+# K1's small path against its dense path at these leaf sizes
+SMALL_SHAPES = (1, 300, 1_024, 2_048, 4_097)
+# K1's bin windows compared at the u16 bin counts that need more than one
+WINDOW_SIZES = (256, 512)
 TIMING_REPS = 20
 PLAIN_REPS = 5
 # device clock cycles of sleep per timed call queued behind it (~3 ms at
@@ -87,7 +111,8 @@ GH_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 MODES = ("f32", "int8", "bf16")
 FM_MODES = ("f32", "int8")       # B2: the full path builds no bf16 hists
 PREDICT_ROWS = 200_000
-# training paths of phase 5: name -> (params, the kernel mode it must run)
+# training paths of phase 5: name -> (params, the kernel mode it must run);
+# the *_u16 paths train on the phase-4 data binned with U16_MAX_BIN
 PATHS = {
     "quantized": (dict(use_quantized_grad=True), "hist_rowmajor_int8"),
     "bf16": (dict(tpu_hist_dtype="bfloat16"), "hist_rowmajor_bf16"),
@@ -99,6 +124,21 @@ PATHS = {
     "full": (dict(tpu_row_scheduling="full"), "hist_featmajor_f32"),
     "full_quantized": (dict(tpu_row_scheduling="full",
                             use_quantized_grad=True), "hist_featmajor_int8"),
+    "compact_u16": ({}, "hist_rowmajor_f32_u16"),
+    "quantized_u16": (dict(use_quantized_grad=True),
+                      "hist_rowmajor_int8_u16"),
+    "bf16_u16": (dict(tpu_hist_dtype="bfloat16"), "hist_rowmajor_bf16_u16"),
+    "level_u16": (dict(tpu_row_scheduling="level"), "hist_level_f32_u16"),
+    "level_quantized_u16": (dict(tpu_row_scheduling="level",
+                                 use_quantized_grad=True),
+                            "hist_level_int8_u16"),
+    "level_bf16_u16": (dict(tpu_row_scheduling="level",
+                            tpu_hist_dtype="bfloat16"),
+                       "hist_level_bf16_u16"),
+    "full_u16": (dict(tpu_row_scheduling="full"), "hist_featmajor_f32_u16"),
+    "full_quantized_u16": (dict(tpu_row_scheduling="full",
+                                use_quantized_grad=True),
+                           "hist_featmajor_int8_u16"),
 }
 
 
@@ -247,67 +287,136 @@ def check_against_plain(mode, out, ref, what):
     return float((out.double() - ref.double()).abs().max())
 
 
+def random_bins(shape, B, gen, dev):
+    """Bins in [0, B): uint8 for B <= 256, else u16 bins held as int16
+    (the port's storage of them)."""
+    b = torch.randint(0, B, shape, generator=gen, device=dev,
+                      dtype=torch.int32)
+    return b.to(torch.uint8) if B <= 256 else b.to(torch.int16)
+
+
+def bin_width(B):
+    """(bytes of a bin, the launch-count suffix) at B bins."""
+    return (1, "") if B <= 256 else (2, "_u16")
+
+
 def phase_k1(dev, flush):
-    """K1 in each mode against its plain version at the leaf sizes."""
+    """K1 in each mode against its plain version (the chunked two-level
+    sum) at the leaf sizes, in u8 at MAX_BIN and in u16 at each of
+    U16_BINS; then its small path against its dense path, and its bin
+    windows at the u16 bin counts that need more than one."""
+    from lightgbm_tpu_torch.ops import hist_cuda
     from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_rm
-    from lightgbm_tpu_torch.ops.histogram import hist_rowmajor
-    F, B = N_FEATURES, MAX_BIN
+    from lightgbm_tpu_torch.ops.histogram import hist_rowmajor_chunked
+    F = N_FEATURES
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
-    for mode in MODES:
-        max_err = 0.0
-        for S in KERNEL_SHAPES:
-            bins = torch.randint(0, B, (S, F), generator=gen, device=dev,
-                                 dtype=torch.int32).to(torch.uint8)
-            dyadic = make_gh(mode, (S, 3), gen, dev, dyadic=True)
-            assert torch.equal(hist_cuda_rm(bins, dyadic, B),
-                               hist_rowmajor(bins, dyadic, B)), \
-                f"K1 {mode} S={S}: exact gh differ"
-            gh = make_gh(mode, (S, 3), gen, dev)
-            out = hist_cuda_rm(bins, gh, B)
-            again = hist_cuda_rm(bins, gh, B)
-            ref = hist_rowmajor(bins, gh, B)
-            torch.cuda.synchronize()
-            err = check_against_plain(mode, out, ref, f"K1 {mode} S={S}")
-            max_err = max(max_err, err)
-            same_bits = bool(torch.equal(out, again))
-            assert same_bits, f"K1 {mode} S={S}: two launches differ"
+    for B, shapes in [(MAX_BIN, KERNEL_SHAPES)] + [(b, U16_SHAPES)
+                                                    for b in U16_BINS]:
+        width, suffix = bin_width(B)
+        for mode in MODES:
+            max_err = 0.0
+            for S in shapes:
+                what = f"K1 {mode}{suffix} B={B} S={S}"
+                bins = random_bins((S, F), B, gen, dev)
+                dyadic = make_gh(mode, (S, 3), gen, dev, dyadic=True)
+                assert torch.equal(hist_cuda_rm(bins, dyadic, B),
+                                   hist_rowmajor_chunked(bins, dyadic, B)), \
+                    f"{what}: exact gh differ"
+                gh = make_gh(mode, (S, 3), gen, dev)
+                out = hist_cuda_rm(bins, gh, B)
+                again = hist_cuda_rm(bins, gh, B)
+                ref = hist_rowmajor_chunked(bins, gh, B)
+                torch.cuda.synchronize()
+                err = check_against_plain(mode, out, ref, what)
+                max_err = max(max_err, err)
+                same_bits = bool(torch.equal(out, again))
+                assert same_bits, f"{what}: two launches differ"
 
-            ms = cuda_ms(lambda: hist_cuda_rm(bins, gh, B),
-                         before=flush.zero_)
+                ms = cuda_ms(lambda: hist_cuda_rm(bins, gh, B),
+                             before=flush.zero_)
+                dev_ms = device_ms(lambda: hist_cuda_rm(bins, gh, B),
+                                   before=flush.zero_)
+                issue_ms = host_ms(lambda: hist_cuda_rm(bins, gh, B))
+                plain_ms = cuda_ms(lambda: hist_rowmajor_chunked(bins, gh, B),
+                                   reps=PLAIN_REPS, before=flush.zero_)
+                # yardstick: one index_add_ over the flat (feature, bin)
+                # slot, the per-cell expansion of gh (widened) made outside
+                # the call
+                ids = bins.long() & 0xFFFF
+                slot = (ids + torch.arange(F, device=dev) * B).reshape(-1)
+                del ids
+                vals = gh.to(out.dtype).repeat_interleave(F, dim=0)
+                acc = torch.zeros(F * B, 3, dtype=out.dtype, device=dev)
+                library_ms = cuda_ms(lambda: acc.index_add_(0, slot, vals),
+                                     before=lambda: (flush.zero_(),
+                                                     acc.zero_()))
+                del slot, vals, acc
+                # each input byte read once, the output written once; or 3
+                # adds per cell
+                bound_ms, bound_by = bound(
+                    S * F * width + 3 * S * GH_BYTES[gh.dtype]
+                    + 12 * F * B, 3 * S * F)
+                rows[(mode + suffix, B, S)] = dict(
+                    ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, max_abs_err=max_err)
+                log(f"phase 3 hist_rowmajor mode={mode}{suffix} S={S} F={F} "
+                    f"B={B} path="
+                    f"{'small' if S <= hist_cuda.SMALL_LEAF_ROWS else 'dense'}"
+                    f": max_abs_err={err!r} same_bits_two_launches="
+                    f"{same_bits} kernel_ms={ms!r} "
+                    f"kernel_device_ms={dev_ms!r} host_issue_ms={issue_ms!r} "
+                    f"plain_ms={plain_ms!r} index_add_ms={library_ms!r} "
+                    f"bound_us={bound_ms * 1e3!r} bound_by={bound_by}")
+    # the small path against the dense path, at the same inputs
+    limit = hist_cuda.SMALL_LEAF_ROWS
+    for S in SMALL_SHAPES:
+        bins = random_bins((S, F), MAX_BIN, gen, dev)
+        gh = make_gh("f32", (S, 3), gen, dev, dyadic=True)
+        ref = hist_rowmajor_chunked(bins, gh, MAX_BIN)
+        times = {}
+        for path, rows_max in (("small", S), ("dense", S - 1)):
+            hist_cuda.SMALL_LEAF_ROWS = rows_max
+            assert torch.equal(hist_cuda_rm(bins, gh, MAX_BIN), ref), \
+                f"K1 {path} path S={S}: exact gh differ"
+            times[path] = (cuda_ms(lambda: hist_cuda_rm(bins, gh, MAX_BIN),
+                                   before=flush.zero_),
+                           device_ms(lambda: hist_cuda_rm(bins, gh, MAX_BIN),
+                                     before=flush.zero_))
+        hist_cuda.SMALL_LEAF_ROWS = limit
+        log(f"phase 3 hist_rowmajor small_vs_dense S={S} F={F} B={MAX_BIN} "
+            f"f32: small_ms={times['small'][0]!r} "
+            f"small_device_ms={times['small'][1]!r} "
+            f"dense_ms={times['dense'][0]!r} "
+            f"dense_device_ms={times['dense'][1]!r} "
+            f"small_rows_max={limit}")
+    # bin windows: the widest window a block takes, at 1M rows
+    window = hist_cuda.WINDOW_BINS
+    for B in U16_BINS:
+        if B <= min(WINDOW_SIZES):
+            continue
+        bins = random_bins((N_ROWS, F), B, gen, dev)
+        gh = make_gh("f32", (N_ROWS, 3), gen, dev, dyadic=True)
+        ref = hist_rowmajor_chunked(bins, gh, B)
+        for w in WINDOW_SIZES:
+            hist_cuda.WINDOW_BINS = w
+            assert torch.equal(hist_cuda_rm(bins, gh, B), ref), \
+                f"K1 window={w} B={B}: exact gh differ"
             dev_ms = device_ms(lambda: hist_cuda_rm(bins, gh, B),
                                before=flush.zero_)
-            plain_ms = cuda_ms(lambda: hist_rowmajor(bins, gh, B),
-                               reps=PLAIN_REPS, before=flush.zero_)
-            # yardstick: one index_add_ over the flat (feature, bin) slot,
-            # the per-cell expansion of gh (widened) made outside the call
-            slot = (bins.long() + torch.arange(F, device=dev) * B).reshape(-1)
-            vals = gh.to(out.dtype).repeat_interleave(F, dim=0)
-            acc = torch.zeros(F * B, 3, dtype=out.dtype, device=dev)
-            library_ms = cuda_ms(lambda: acc.index_add_(0, slot, vals),
-                                 before=lambda: (flush.zero_(), acc.zero_()))
-            del slot, vals, acc
-            # each input byte read once, the output written once; or 3
-            # adds per cell
-            bound_ms, bound_by = bound(
-                S * F + 3 * S * GH_BYTES[gh.dtype] + 12 * F * B, 3 * S * F)
-            rows[(mode, S)] = dict(ms=ms, device_ms=dev_ms,
-                                   plain_ms=plain_ms,
-                                   library_ms=library_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, max_abs_err=max_err)
-            log(f"phase 3 hist_rowmajor mode={mode} S={S} F={F} B={B}: "
-                f"max_abs_err={err!r} same_bits_two_launches={same_bits} "
-                f"kernel_ms={ms!r} kernel_device_ms={dev_ms!r} "
-                f"plain_ms={plain_ms!r} "
-                f"index_add_ms={library_ms!r} bound_us={bound_ms * 1e3!r} "
-                f"bound_by={bound_by}")
+            log(f"phase 3 hist_rowmajor window_bins={w} S={N_ROWS} F={F} "
+                f"B={B} f32: kernel_device_ms={dev_ms!r}")
+        hist_cuda.WINDOW_BINS = window
+        del bins, gh, ref
     return rows
 
 
-def level_cases(gen, dev):
+def level_cases(gen, dev, nodes=LEVEL_NODES, extras=True):
     """(label, n_nodes, local, in_lvl, parent) over N_ROWS rows: skewed
     segments (node = floor(n * u^3), so low nodes hold most rows) at each
-    node count, then every odd node empty, then no row in the level.
+    node count of ``nodes``, then (with ``extras``) every odd node empty,
+    then no row in the level.
     ``parent`` is the level above as the level grower holds it (``local``
     and ``in_lvl`` of the parent level, its carried ``order``/``seg``,
     and each row's ``go_left``/``descend``), from which the carried order
@@ -335,8 +444,10 @@ def level_cases(gen, dev):
             local=p_local, order=p_order, seg=p_seg,
             go_left=local % 2 == 0, descend=in_lvl)
 
-    for n in LEVEL_NODES:
+    for n in nodes:
         yield with_parent(f"skewed n={n}", n, skew(n), part())
+    if not extras:
+        return
     yield with_parent("odd nodes empty n=64", 64, skew(64) // 2 * 2, part())
     yield with_parent("no row in the level n=8", 8, skew(8),
                       torch.zeros(R, dtype=torch.bool, device=dev))
@@ -347,160 +458,186 @@ def phase_k2(dev, flush):
     node order that the card's partition (``carry_order_cuda``) carries
     from the parent level; the per-level time counts the partition too.
     The partition itself is held against its plain version and the
-    stable sort."""
+    stable sort. u8 bins at MAX_BIN over every level case, u16 bins at
+    each of U16_BINS over U16_LEVEL_NODES."""
+    R, F = N_ROWS, N_FEATURES
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
+    for B, nodes, extras in [(MAX_BIN, LEVEL_NODES, True)] + [
+            (b, U16_LEVEL_NODES, False) for b in U16_BINS]:
+        bins = random_bins((R, F), B, gen, dev)
+        for case in level_cases(gen, dev, nodes, extras):
+            phase_k2_case(dev, flush, gen, bins, B, case, rows)
+        del bins
+    return rows
+
+
+def phase_k2_case(dev, flush, gen, bins, B, case, rows):
+    """One level case of ``phase_k2`` over ``bins`` at B bins; the
+    partition is checked and timed in the u8 pass only."""
     from lightgbm_tpu_torch.ops.hist_level import (carry_order, hist_level,
                                                    level_keys, node_order)
     from lightgbm_tpu_torch.ops.hist_level_cuda import (carry_order_cuda,
                                                         hist_level_cuda)
-    R, F, B = N_ROWS, N_FEATURES, MAX_BIN
-    gen = torch.Generator(device=dev).manual_seed(1)
-    bins = torch.randint(0, B, (R, F), generator=gen, device=dev,
-                         dtype=torch.int32).to(torch.uint8)
-    rows = {}
-    for label, n, local, in_lvl, parent in level_cases(gen, dev):
-        in_rows = int(in_lvl.sum())
-        ref_order, ref_seg = node_order(local, in_lvl, n)
-        if parent is None:
-            level = lambda: (ref_order, ref_seg)
-        else:
-            args = (parent["order"], parent["seg"], parent["local"],
-                    parent["go_left"], parent["descend"])
-            level = lambda: carry_order_cuda(*args)
-            order, seg = level()
-            again = level()
-            plain = carry_order(*args)
-            assert torch.equal(order, ref_order) and \
-                torch.equal(seg, ref_seg), \
-                f"partition {label}: not the stable sort"
-            # the largest difference from the stable sort, order or bounds
-            part_err = float(max((order - ref_order).abs().max(),
-                                 (seg - ref_seg).abs().max()))
-            assert torch.equal(order, plain[0]) and \
-                torch.equal(seg, plain[1]), f"partition {label}: not plain"
-            assert torch.equal(order, again[0]) and \
-                torch.equal(seg, again[1]), f"partition {label}: two launches"
-            part_ms = cuda_ms(level, before=flush.zero_)
-            part_dev_ms = device_ms(level, before=flush.zero_)
-            part_plain_ms = cuda_ms(lambda: carry_order(*args),
-                                    reps=PLAIN_REPS, before=flush.zero_)
-            # yardstick: one stable torch.sort of the level's node keys
-            # (made outside the call), the permutation the JAX package
-            # computes
-            keys = level_keys(local, in_lvl, n)
-            sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True),
-                              before=flush.zero_)
-            del keys
-            # read once: the parent's order, each row's int64 node and
-            # two bools, the parent's bounds; written once: the order and
-            # the bounds. Its work is a scan and a scatter, no arithmetic
-            # to speak of
-            part_bound, part_by = bound(8 * R + 8 * R + 2 * R + 8 * R
-                                        + 8 * (n // 2 + 1) + 8 * (n + 1), 0)
-            rows[("partition", label)] = dict(
-                ms=part_ms, device_ms=part_dev_ms, plain_ms=part_plain_ms,
-                library_ms=sort_ms, bound_ms=part_bound, bound_by=part_by,
-                max_abs_err=part_err)
-            log(f"phase 3 level_partition {label} R={R}: equals_stable_sort"
-                f"=True equals_plain=True same_bits_two_launches=True "
-                f"max_abs_err={part_err!r} "
-                f"kernel_ms={part_ms!r} kernel_device_ms={part_dev_ms!r} "
-                f"plain_ms={part_plain_ms!r} "
-                f"torch_sort_ms={sort_ms!r} bound_us={part_bound * 1e3!r} "
-                f"bound_by={part_by}")
+    R, F = N_ROWS, N_FEATURES
+    width, suffix = bin_width(B)
+    label, n, local, in_lvl, parent = case
+    in_rows = int(in_lvl.sum())
+    ref_order, ref_seg = node_order(local, in_lvl, n)
+    if parent is None:
+        level = lambda: (ref_order, ref_seg)
+    else:
+        args = (parent["order"], parent["seg"], parent["local"],
+                parent["go_left"], parent["descend"])
+        level = lambda: carry_order_cuda(*args)
+    if parent is not None and B == MAX_BIN:
         order, seg = level()
-        for mode in MODES:
-            what = f"K2 {mode} {label}"
-            call = lambda g, **kw: hist_level_cuda(bins, g, local, in_lvl, n,
-                                                   B, order=order, seg=seg,
-                                                   **kw)
-            dyadic = make_gh(mode, (R, 3), gen, dev, dyadic=True)
-            ref = hist_level(bins, dyadic, local, in_lvl, n, B)
-            assert torch.equal(call(dyadic), ref), f"{what}: exact gh differ"
-            assert torch.equal(
-                hist_level_cuda(bins, dyadic, local, in_lvl, n, B), ref), \
-                f"{what}: exact gh differ without the carried order"
-            gh = make_gh(mode, (R, 3), gen, dev)
-            out = call(gh)
-            again = call(gh)
-            ref = hist_level(bins, gh, local, in_lvl, n, B)
-            torch.cuda.synchronize()
-            err = check_against_plain(mode, out, ref, what)
-            same_bits = bool(torch.equal(out, again))
-            assert same_bits, f"{what}: two launches differ"
-            if label.startswith("odd"):
-                assert not out[1::2].any(), f"{what}: empty nodes not zero"
-            if in_rows == 0:
-                assert not out.any(), f"{what}: no rows but nonzero sums"
+        again = level()
+        plain = carry_order(*args)
+        assert torch.equal(order, ref_order) and \
+            torch.equal(seg, ref_seg), \
+            f"partition {label}: not the stable sort"
+        # the largest difference from the stable sort, order or bounds
+        part_err = float(max((order - ref_order).abs().max(),
+                             (seg - ref_seg).abs().max()))
+        assert torch.equal(order, plain[0]) and \
+            torch.equal(seg, plain[1]), f"partition {label}: not plain"
+        assert torch.equal(order, again[0]) and \
+            torch.equal(seg, again[1]), f"partition {label}: two launches"
+        part_ms = cuda_ms(level, before=flush.zero_)
+        part_dev_ms = device_ms(level, before=flush.zero_)
+        part_plain_ms = cuda_ms(lambda: carry_order(*args),
+                                reps=PLAIN_REPS, before=flush.zero_)
+        # yardstick: one stable torch.sort of the level's node keys
+        # (made outside the call), the permutation the JAX package
+        # computes
+        keys = level_keys(local, in_lvl, n)
+        sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True),
+                          before=flush.zero_)
+        del keys
+        # read once: the parent's order, each row's int64 node and
+        # two bools, the parent's bounds; written once: the order and
+        # the bounds. Its work is a scan and a scatter, no arithmetic
+        # to speak of
+        part_bound, part_by = bound(8 * R + 8 * R + 2 * R + 8 * R
+                                    + 8 * (n // 2 + 1) + 8 * (n + 1), 0)
+        rows[("partition", B, label)] = dict(
+            ms=part_ms, device_ms=part_dev_ms, plain_ms=part_plain_ms,
+            library_ms=sort_ms, bound_ms=part_bound, bound_by=part_by,
+            max_abs_err=part_err)
+        log(f"phase 3 level_partition {label} R={R}: equals_stable_sort"
+            f"=True equals_plain=True same_bits_two_launches=True "
+            f"max_abs_err={part_err!r} "
+            f"kernel_ms={part_ms!r} kernel_device_ms={part_dev_ms!r} "
+            f"plain_ms={part_plain_ms!r} "
+            f"torch_sort_ms={sort_ms!r} bound_us={part_bound * 1e3!r} "
+            f"bound_by={part_by}")
+    order, seg = level()
+    for mode in MODES:
+        what = f"K2 {mode}{suffix} B={B} {label}"
+        call = lambda g, **kw: hist_level_cuda(bins, g, local, in_lvl, n,
+                                               B, order=order, seg=seg,
+                                               **kw)
+        dyadic = make_gh(mode, (R, 3), gen, dev, dyadic=True)
+        ref = hist_level(bins, dyadic, local, in_lvl, n, B)
+        assert torch.equal(call(dyadic), ref), f"{what}: exact gh differ"
+        assert torch.equal(
+            hist_level_cuda(bins, dyadic, local, in_lvl, n, B), ref), \
+            f"{what}: exact gh differ without the carried order"
+        gh = make_gh(mode, (R, 3), gen, dev)
+        out = call(gh)
+        again = call(gh)
+        ref = hist_level(bins, gh, local, in_lvl, n, B)
+        torch.cuda.synchronize()
+        err = check_against_plain(mode, out, ref, what)
+        same_bits = bool(torch.equal(out, again))
+        assert same_bits, f"{what}: two launches differ"
+        if label.startswith("odd"):
+            assert not out[1::2].any(), f"{what}: empty nodes not zero"
+        if in_rows == 0:
+            assert not out.any(), f"{what}: no rows but nonzero sums"
 
-            def per_level():
-                o, sg = level()
-                return hist_level_cuda(bins, gh, local, in_lvl, n, B,
-                                       order=o, seg=sg)
+        def per_level():
+            o, sg = level()
+            return hist_level_cuda(bins, gh, local, in_lvl, n, B,
+                                   order=o, seg=sg)
 
-            ms = cuda_ms(per_level, before=flush.zero_)
-            dev_ms = device_ms(per_level, before=flush.zero_)
-            issue_ms = host_ms(per_level)
-            kernel_ms = cuda_ms(lambda: call(gh), before=flush.zero_)
-            kernel_dev_ms = device_ms(lambda: call(gh), before=flush.zero_)
-            plain_ms = cuda_ms(
-                lambda: hist_level(bins, gh, local, in_lvl, n, B),
-                reps=PLAIN_REPS, before=flush.zero_)
-            # yardstick: one index_add_ over the flat (node, feature, bin)
-            # slot, rows out of the level in a dump node
-            key = torch.where(in_lvl, local, n)
-            slot = ((key * F)[:, None] + torch.arange(F, device=dev)) * B \
-                + bins.long()
-            vals = gh.to(out.dtype).repeat_interleave(F, dim=0)
-            acc = torch.zeros((n + 1) * F * B, 3, dtype=out.dtype,
-                              device=dev)
-            add = lambda: acc.index_add_(0, slot.reshape(-1), vals)
-            library_ms = cuda_ms(add, before=lambda: (flush.zero_(),
-                                                      acc.zero_()))
-            library_dev_ms = device_ms(add, before=lambda: (flush.zero_(),
-                                                            acc.zero_()))
-            del key, slot, vals, acc, add
-            # the per-level function's inputs read once (bins, gh, int64
-            # local and the parent's int64 order, bool go_left and
-            # descend; at the root int64 local and bool in_lvl) and its
-            # output written once; or 3 adds per cell of the level's rows
-            in_bytes = 8 * R + (8 * R + 2 * R if parent is not None else R)
-            bound_ms, bound_by = bound(
-                R * F + 3 * R * GH_BYTES[gh.dtype] + in_bytes
-                + 12 * n * F * B, 3 * in_rows * F)
-            rows[(mode, label)] = dict(ms=ms, device_ms=dev_ms,
-                                       plain_ms=plain_ms,
-                                       library_ms=library_ms,
-                                       bound_ms=bound_ms, bound_by=bound_by,
-                                       max_abs_err=err)
-            log(f"phase 3 hist_level mode={mode} {label} R={R} F={F} B={B} "
-                f"rows_in_level={in_rows}: max_abs_err={err!r} "
-                f"same_bits_two_launches={same_bits} "
-                f"per_level_ms={ms!r} per_level_device_ms={dev_ms!r} "
-                f"per_level_host_issue_ms={issue_ms!r} "
-                f"kernel_call_ms={kernel_ms!r} "
-                f"kernel_call_device_ms={kernel_dev_ms!r} "
-                f"plain_ms={plain_ms!r} index_add_ms={library_ms!r} "
-                f"index_add_device_ms={library_dev_ms!r} "
-                f"per_level_over_index_add={ms / library_ms!r} "
-                f"per_level_over_index_add_device="
-                f"{dev_ms / library_dev_ms!r} "
-                f"bound_us={bound_ms * 1e3!r} bound_by={bound_by}")
-    return rows
+        ms = cuda_ms(per_level, before=flush.zero_)
+        dev_ms = device_ms(per_level, before=flush.zero_)
+        issue_ms = host_ms(per_level)
+        kernel_ms = cuda_ms(lambda: call(gh), before=flush.zero_)
+        kernel_dev_ms = device_ms(lambda: call(gh), before=flush.zero_)
+        plain_ms = cuda_ms(
+            lambda: hist_level(bins, gh, local, in_lvl, n, B),
+            reps=PLAIN_REPS, before=flush.zero_)
+        # yardstick: one index_add_ over the flat (node, feature, bin)
+        # slot, rows out of the level in a dump node
+        key = torch.where(in_lvl, local, n)
+        slot = ((key * F)[:, None] + torch.arange(F, device=dev)) * B \
+            + (bins.long() & 0xFFFF)
+        vals = gh.to(out.dtype).repeat_interleave(F, dim=0)
+        acc = torch.zeros((n + 1) * F * B, 3, dtype=out.dtype,
+                          device=dev)
+        add = lambda: acc.index_add_(0, slot.reshape(-1), vals)
+        library_ms = cuda_ms(add, before=lambda: (flush.zero_(),
+                                                  acc.zero_()))
+        library_dev_ms = device_ms(add, before=lambda: (flush.zero_(),
+                                                        acc.zero_()))
+        del key, slot, vals, acc, add
+        # the per-level function's inputs read once (bins, gh, int64
+        # local and the parent's int64 order, bool go_left and
+        # descend; at the root int64 local and bool in_lvl) and its
+        # output written once; or 3 adds per cell of the level's rows
+        in_bytes = 8 * R + (8 * R + 2 * R if parent is not None else R)
+        bound_ms, bound_by = bound(
+            R * F * width + 3 * R * GH_BYTES[gh.dtype] + in_bytes
+            + 12 * n * F * B, 3 * in_rows * F)
+        rows[(mode + suffix, B, label)] = dict(ms=ms, device_ms=dev_ms,
+                                   plain_ms=plain_ms,
+                                   library_ms=library_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   max_abs_err=err)
+        log(f"phase 3 hist_level mode={mode}{suffix} {label} R={R} "
+            f"F={F} B={B} "
+            f"rows_in_level={in_rows}: max_abs_err={err!r} "
+            f"same_bits_two_launches={same_bits} "
+            f"per_level_ms={ms!r} per_level_device_ms={dev_ms!r} "
+            f"per_level_host_issue_ms={issue_ms!r} "
+            f"kernel_call_ms={kernel_ms!r} "
+            f"kernel_call_device_ms={kernel_dev_ms!r} "
+            f"plain_ms={plain_ms!r} index_add_ms={library_ms!r} "
+            f"index_add_device_ms={library_dev_ms!r} "
+            f"per_level_over_index_add={ms / library_ms!r} "
+            f"per_level_over_index_add_device="
+            f"{dev_ms / library_dev_ms!r} "
+            f"bound_us={bound_ms * 1e3!r} bound_by={bound_by}")
 
 
 def phase_b2(dev, flush):
-    """B2 in each mode against its plain version over 1M feature-major
-    rows: the fused form (each row's leaf id read by the kernel, only the
-    leaf's rows added) for leaves of each size, timed beside the unfused
-    form (gh masked by two torch ops, then a pass over every row); then a
-    ragged row count, with and without the engine's 16-byte row padding."""
+    """B2 in each mode against its plain version (the chunked two-level
+    sum) over 1M feature-major rows, in u8 at MAX_BIN and in u16 at each
+    of U16_BINS: the fused form (each row's leaf id read by the kernel,
+    only the leaf's rows added) for leaves of each size, timed beside the
+    unfused form (gh masked by two torch ops, then a pass over every row);
+    then, at MAX_BIN and U16_MAX_BIN, a ragged row count, with and without
+    the engine's 16-element row padding."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {}
+    for B, shapes in [(MAX_BIN, KERNEL_SHAPES)] + [(b, U16_SHAPES)
+                                                    for b in U16_BINS]:
+        phase_b2_bins(dev, flush, gen, B, shapes, rows)
+    return rows
+
+
+def phase_b2_bins(dev, flush, gen, B, shapes, rows):
+    """``phase_b2`` at B bins."""
     from lightgbm_tpu_torch.ops.hist_cuda import (feature_major_bins,
                                                   hist_cuda_fm)
-    from lightgbm_tpu_torch.ops.histogram import hist_featmajor
-    R, F, B = N_ROWS, N_FEATURES, MAX_BIN
-    gen = torch.Generator(device=dev).manual_seed(2)
-    bins = torch.randint(0, B, (F, R), generator=gen, device=dev,
-                         dtype=torch.int32).to(torch.uint8)
+    from lightgbm_tpu_torch.ops.histogram import (
+        hist_featmajor_chunked as hist_featmajor)
+    R, F = N_ROWS, N_FEATURES
+    width, suffix = bin_width(B)
+    bins = random_bins((F, R), B, gen, dev)
 
     def leaf_ids(n, S):
         """int64 leaf ids of n rows, S of them in leaf 0, the rest in
@@ -512,10 +649,9 @@ def phase_b2(dev, flush):
     def masked(gh, ids):
         return gh * (ids == 0)[:, None].to(gh.dtype)
 
-    rows = {}
     for mode in FM_MODES:
-        for S in KERNEL_SHAPES:
-            what = f"B2 {mode} leaf rows={S}"
+        for S in shapes:
+            what = f"B2 {mode}{suffix} B={B} leaf rows={S}"
             ids = leaf_ids(R, S)
             fused = lambda g: hist_cuda_fm(bins, g, B, leaf_id=ids, leaf=0)
             unfused = lambda g: hist_cuda_fm(bins, masked(g, ids), B)
@@ -554,8 +690,9 @@ def phase_b2(dev, flush):
             for order in ("feature_major", "row_major"):
                 cells = bins.T if order == "row_major" else bins
                 off = torch.arange(F, device=dev) * B
-                slot = (cells.long() + (off if order == "row_major"
-                                        else off[:, None])).reshape(-1)
+                slot = ((cells.long() & 0xFFFF)
+                        + (off if order == "row_major"
+                           else off[:, None])).reshape(-1)
                 vals = (gh_m.to(out.dtype).repeat_interleave(F, dim=0)
                         if order == "row_major"
                         else gh_m.to(out.dtype).repeat(F, 1))
@@ -569,13 +706,14 @@ def phase_b2(dev, flush):
             # leaf id, the leaf's S rows (bins and gh) and the output; or
             # 3 adds per cell of the leaf's rows
             bound_ms, bound_by = bound(
-                8 * R + S * (F + 3 * GH_BYTES[gh.dtype]) + 12 * F * B,
-                3 * S * F)
-            rows[(mode, S)] = dict(ms=ms, device_ms=dev_ms,
+                8 * R + S * (F * width + 3 * GH_BYTES[gh.dtype])
+                + 12 * F * B, 3 * S * F)
+            rows[(mode + suffix, B, S)] = dict(ms=ms, device_ms=dev_ms,
                                    plain_ms=plain_ms, library_ms=library_ms,
                                    bound_ms=bound_ms, bound_by=bound_by,
                                    max_abs_err=err)
-            log(f"phase 3 hist_featmajor mode={mode} R={R} leaf_rows={S} "
+            log(f"phase 3 hist_featmajor mode={mode}{suffix} R={R} "
+                f"leaf_rows={S} "
                 f"F={F} B={B}: max_abs_err={err!r} "
                 f"same_bits_two_launches={same_bits} fused_ms={ms!r} "
                 f"fused_device_ms={dev_ms!r} "
@@ -589,16 +727,22 @@ def phase_b2(dev, flush):
                 f"index_add_ms_feature_major={index_add_ms['feature_major']!r} "
                 f"index_add_ms_row_major={index_add_ms['row_major']!r} "
                 f"bound_us={bound_ms * 1e3!r} bound_by={bound_by}")
-        # ragged: R' = 100,003 rows, once with the row stride R' (byte
+        # ragged: R' = 100,003 rows, once with the row stride R' (element
         # loads throughout) and once in the engine's padded device copy
-        # (row stride 100,016: vector loads, byte loads at each row's tail)
+        # (row stride 100,016: vector loads, element loads at each row's
+        # tail)
+        if B not in (MAX_BIN, U16_MAX_BIN):
+            continue
         Rr = 100_003
         sub = bins[:, :Rr].contiguous()
-        padded = feature_major_bins(sub.T.cpu().numpy(), dev)
+        host = sub.T.cpu().numpy()
+        padded = feature_major_bins(host.view(np.uint16) if width == 2
+                                    else host, dev)
         assert padded.stride(0) == 100_016 and torch.equal(padded, sub)
         ids = leaf_ids(Rr, 40_000)
         for layout, b in (("unpadded", sub), ("padded", padded)):
-            what = f"B2 {mode} ragged R={Rr} {layout} ld={b.stride(0)}"
+            what = (f"B2 {mode}{suffix} B={B} ragged R={Rr} {layout} "
+                    f"ld={b.stride(0)}")
             dyadic = make_gh(mode, (Rr, 3), gen, dev, dyadic=True)
             assert torch.equal(hist_cuda_fm(b, dyadic, B),
                                hist_featmajor(sub, dyadic, B)), \
@@ -614,11 +758,10 @@ def phase_b2(dev, flush):
             assert torch.equal(out, hist_cuda_fm(b, gh, B, leaf_id=ids,
                                                  leaf=0)), \
                 f"{what}: two launches differ"
-            log(f"phase 3 hist_featmajor mode={mode} ragged R={Rr} "
+            log(f"phase 3 hist_featmajor mode={mode}{suffix} ragged R={Rr} "
                 f"{layout} ld={b.stride(0)} F={F} B={B} leaf_rows=40000: "
                 f"max_abs_err={err!r} exact_gh_bit_for_bit=True "
                 "same_bits_two_launches=True")
-    return rows
 
 
 def bench_params(**extra):
@@ -699,11 +842,27 @@ TREE_FIELDS = ("split_feature", "threshold_bin", "default_left",
 
 
 def phase_paths(ds, X, compact_first):
-    """The slice's other paths on the phase-4 dataset; returns each
-    path's launch counts and its booster."""
+    """The slice's other paths on the phase-4 dataset, the *_u16 ones on
+    the same rows binned with U16_MAX_BIN; returns each path's launch
+    counts and its booster."""
+    import lightgbm_tpu_torch as lgt
+    t0 = time.perf_counter()
+    y = ds.label
+    ds_u16 = lgt.Dataset(X, label=y, params={"max_bin": U16_MAX_BIN,
+                                             "verbose": -1}).construct()
+    bins_u16 = ds_u16.binned.bins
+    assert bins_u16.dtype == np.uint16, bins_u16.dtype
+    log(f"phase 5 binning_u16_s={time.perf_counter() - t0!r} "
+        f"max_bin={U16_MAX_BIN} bins_dtype={bins_u16.dtype} "
+        f"num_bin_max={max(m.num_bin for m in ds_u16.binned.bin_mappers)}")
     out = {}
     for name, (extra, must) in PATHS.items():
-        bst, r = train_timed(ds, bench_params(**extra), MODE_ITERS)
+        u16 = name.endswith("_u16")
+        params = bench_params(**extra)
+        if u16:
+            params["max_bin"] = U16_MAX_BIN
+        bst, r = train_timed(ds_u16 if u16 else ds, params,
+                             U16_ITERS if u16 else MODE_ITERS)
         trees = bst._engine.models
         c = r["counts"]
         log(f"phase 5 path={name} warmup_s={r['warm_s']!r} "
@@ -734,10 +893,12 @@ def phase_paths(ds, X, compact_first):
             # of every split: one per leaf; and nothing of K1 or K2
             assert c[must] == sum(t.num_leaves for t in trees), (name, c)
             assert sum(c.values()) == c[must], (name, c)
-        if name == "level":
+        if name in ("level", "level_u16"):
             # the hybrid ranks its level phase's splits as the JAX package
             # does, so its node numbering may differ from the compact
             # tree's: the same splits, and the same output on every row
+            if name == "level_u16":
+                compact_first = out["compact_u16"][1]._engine.models[0]
             first = trees[0]
             split_set = lambda t: sorted(zip(t.split_feature.tolist(),
                                              t.threshold_real.tolist()))
@@ -751,8 +912,8 @@ def phase_paths(ds, X, compact_first):
             log(f"phase 5 level first tree holds the compact first tree's "
                 f"{first.num_leaves - 1} splits and gives its output on "
                 f"{len(Xs)} rows")
-        if name == "full_quantized":
-            ref = out["quantized"][1]._engine.models[0]
+        if name in ("full_quantized", "full_quantized_u16"):
+            ref = out[name.replace("full_", "")][1]._engine.models[0]
             first = trees[0]
             for f in TREE_FIELDS:
                 np.testing.assert_array_equal(
@@ -760,8 +921,27 @@ def phase_paths(ds, X, compact_first):
                     err_msg=f"{name} first tree differs in {f}")
             log(f"phase 5 {name} first tree equals the quantized first "
                 f"tree: {first.num_leaves} leaves, depth {first.max_depth}")
+        if name == "quantized":
+            draw_ms = threefry_draw_ms(bst)
+            log(f"phase 5 path={name} threefry_draws_device_ms_per_tree="
+                f"{draw_ms!r} rows={N_ROWS}")
         out[name] = (c, bst)
-    return out
+    return out, ds_u16
+
+
+def threefry_draw_ms(bst):
+    """Device time of one tree's stochastic-rounding draws: the key chain
+    (host) and two threefry uniforms of every row on the card."""
+    from lightgbm_tpu_torch.utils import prng
+    eng = bst._engine
+    key = eng._rng_key
+    assert key is not None
+
+    def draw():
+        keys = prng.split(prng.fold_in(key, eng.current_iteration()))
+        return [prng.uniform(k, eng.num_data, eng.device) for k in keys]
+
+    return device_ms(draw)
 
 
 def phase_profile(bst, label, iters=2):
@@ -796,15 +976,18 @@ def phase_profile(bst, label, iters=2):
         f"kernel_launches_per_iter={launches / iters!r} "
         f"memcpy_or_sync_calls_per_iter={syncs / iters!r} "
         f"device_to_host_copies_per_iter={d2h / iters!r}")
-    # the histogram kernels' own device time: K1's and K2's without the
-    # reduction they share (reduce_partials), B2's with its mask pass,
-    # its reduction and its sparse pass (these start by programmatic
-    # dependent launch, so a kernel's span may include its wait for the
-    # one before: B2's sum is an upper bound)
-    for kname, keys in (("K1", ("hist_rowmajor_kernel",)),
+    # the histogram kernels' own device time: K1's (both paths) and K2's
+    # without the reductions of their blocks' partials, B2's with its
+    # mask pass and its sparse pass; then the reductions (K1's and B2's
+    # reduce_flagged, K2's reduce_nodes). B2's kernels and reductions
+    # start by programmatic dependent launch, so a span may include the
+    # wait for the kernel before: those sums are upper bounds
+    for kname, keys in (("K1", ("hist_rowmajor_kernel",
+                                "hist_rowmajor_small")),
                         ("K2", ("hist_level_kernel",)),
                         ("B2", ("batch_masks", "hist_featmajor_kernel",
-                                "hist_sparse_kernel", "reduce_flagged"))):
+                                "hist_sparse_kernel")),
+                        ("reductions", ("reduce_flagged", "reduce_nodes"))):
         hits = [e for e in on_device if any(k in e.key for k in keys)]
         if hits:
             log(f"phase profile {label} {kname}_device_ms_per_iter="
@@ -820,26 +1003,37 @@ def phase_profile(bst, label, iters=2):
 
 
 def phase_cross_check():
-    """cuda against cpu on small runs of the compact, quantized, level and
-    full paths (without stochastic rounding: a CUDA and a CPU generator draw
-    different numbers)."""
+    """cuda against cpu on small runs of the compact, quantized (with the
+    default stochastic rounding: both devices draw the same threefry
+    bits), level and full paths, in u8 and in u16 bins (max_bin =
+    U16_MAX_BIN)."""
     import lightgbm_tpu_torch as lgt
     # a row count that is not a multiple of 16: the full path's device
     # bins are padded (feature_major_bins)
     X, y = synth_higgs(20_003, N_FEATURES, seed=1)
     for name, extra in (("compact", {}),
-                        ("quantized", {"use_quantized_grad": True,
-                                       "stochastic_rounding": False}),
+                        ("quantized", {"use_quantized_grad": True}),
                         ("level", {"tpu_row_scheduling": "level",
                                    "max_depth": -1}),
-                        ("full", {"tpu_row_scheduling": "full"})):
+                        ("full", {"tpu_row_scheduling": "full"}),
+                        ("compact_u16", {"max_bin": U16_MAX_BIN}),
+                        ("quantized_u16", {"max_bin": U16_MAX_BIN,
+                                           "use_quantized_grad": True}),
+                        ("level_u16", {"max_bin": U16_MAX_BIN,
+                                       "tpu_row_scheduling": "level",
+                                       "max_depth": -1}),
+                        ("full_u16", {"max_bin": U16_MAX_BIN,
+                                      "tpu_row_scheduling": "full"})):
         out = {}
         for dev in ("cuda", "cpu"):
             params = {"objective": "binary", "num_leaves": 31,
                       "max_bin": MAX_BIN, "verbose": -1, "device_type": dev,
                       **extra}
-            bst = lgt.train(params, lgt.Dataset(X, label=y),
-                            num_boost_round=3, valid_sets=None)
+            ds = lgt.Dataset(X, label=y, params={"max_bin":
+                                                 params["max_bin"]})
+            bst = lgt.train(params, ds, num_boost_round=3, valid_sets=None)
+            if name.endswith("_u16"):
+                assert ds.binned.bins.dtype == np.uint16, name
             t0 = bst._engine.models[0]
             loss = dict((m, v) for _, m, v, _ in bst.eval_train())
             out[dev] = (int(t0.split_feature[0]), float(t0.threshold_real[0]),
@@ -850,10 +1044,11 @@ def phase_cross_check():
         np.testing.assert_allclose(out["cuda"][3], out["cpu"][3], rtol=1e-4)
 
 
-def phase_predict(bst, ds, X):
-    """Device prediction of the phase-4 model: the binned route, and the
-    raw route of a booster over the same trees without the training bin
-    mappers, against the host walk; rows/s of each."""
+def phase_predict(bst, ds, X, label="u8"):
+    """Device prediction of a phase-4/5 model (``label`` names its bins):
+    the binned route, and the raw route of a booster over the same trees
+    without the training bin mappers, against the host walk; rows/s of
+    each."""
     from lightgbm_tpu_torch.convert import TREE_FIELDS as CARRY, \
         booster_from_arrays
     from lightgbm_tpu_torch.ops.forest import snapshot_leaves
@@ -875,7 +1070,8 @@ def phase_predict(bst, ds, X):
         timed[name] = b.predict(Xp, device=dev_route, raw_score=True)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t
-        log(f"phase 7 predict route={name} rows={len(Xp)} trees={n_trees} "
+        log(f"phase 7 predict bins={label} route={name} rows={len(Xp)} "
+            f"trees={n_trees} "
             f"seconds={sec!r} rows_per_s={len(Xp) / sec!r}")
     host_leaf = np.stack([t.predict_leaf(Xp) for t in eng.models])
     for name, b in (("binned", bst), ("raw", raw_bst)):
@@ -897,7 +1093,8 @@ def phase_predict(bst, ds, X):
             binned.used_feature_map if mappers is not None else None)
         np.testing.assert_array_equal(snapshot_leaves(snap, Xp), host_leaf,
                                       err_msg=f"{name} leaves")
-        log(f"phase 7 predict route={name}: scores within 1e-5 of the host "
+        log(f"phase 7 predict bins={label} route={name}: scores within "
+            f"1e-5 of the host "
             f"walk (max_abs_diff="
             f"{float(np.abs(timed[name] - timed['host_walk']).max())!r}), "
             "every leaf equal")
@@ -914,6 +1111,23 @@ SOURCES = {
     "level_partition": ("lightgbm_tpu_torch/csrc/hist_level.cu",
                         "lightgbm_tpu/ops/hist_level_pallas.py:242"),
 }
+
+
+def probe_uint16(dev):
+    """Which torch.uint16 ops the card's torch serves: ok or the error."""
+    a = torch.tensor([1, 300, 65535], dtype=torch.int32).to(torch.uint16)
+    found = {}
+    for op, fn in (("copy_to_card", lambda: a.to(dev)),
+                   ("index_select", lambda: a.to(dev).index_select(
+                       0, torch.tensor([2, 0], device=dev))),
+                   ("to_int32", lambda: a.to(dev).to(torch.int32)),
+                   ("le", lambda: a.to(dev) <= 300)):
+        try:
+            fn()
+            found[op] = "ok"
+        except Exception as e:        # noqa: BLE001 - logged, not hidden
+            found[op] = f"{type(e).__name__}: {str(e)[:60]}"
+    return found
 
 
 def kernel_entry(name, mode, launches, row):
@@ -937,6 +1151,8 @@ def main():
     smi = nvidia_smi_line()
     log(f"phase 1 torch={torch.__version__} cuda={torch.version.cuda} "
         f"python={sys.version.split()[0]} card={smi}")
+    log(f"phase 1 torch.uint16 on the card: {probe_uint16(dev)} (the port "
+        "holds u16 bins as int16 and needs none of these)")
 
     t = time.perf_counter()
     names = _build.kernel_names()
@@ -955,7 +1171,7 @@ def main():
     b2 = phase_b2(dev, flush)
     del flush
     compact_counts, bst, ds, X = phase_main_path()
-    paths = phase_paths(ds, X, bst._engine.models[0])
+    paths, ds_u16 = phase_paths(ds, X, bst._engine.models[0])
     if "--profile" in sys.argv[1:]:
         phase_profile(bst, "compact")
         phase_profile(paths["level"][1], "level")
@@ -964,27 +1180,35 @@ def main():
     runs = {"hist_rowmajor_f32": compact_counts}
     for name, (_, must) in PATHS.items():
         runs[must] = paths[name][0]
+    bst_u16 = paths["compact_u16"][1]
     del paths
     phase_predict(bst, ds, X)
-    del bst, ds, X
+    phase_predict(bst_u16, ds_u16, X, label="u16")
+    del bst, ds, X, bst_u16, ds_u16
     phase_cross_check()
 
     kernels = []
-    for mode in MODES:
-        key = f"hist_rowmajor_{mode}"
-        kernels.append(kernel_entry("hist_rowmajor", mode, runs[key][key],
-                                    k1[(mode, N_ROWS)]))
-    for mode in MODES:
-        key = f"hist_level_{mode}"
-        kernels.append(kernel_entry("hist_level", mode, runs[key][key],
-                                    k2[(mode, f"skewed n={LEVEL_NODES[-1]}")]))
-    for mode in FM_MODES:
-        key = f"hist_featmajor_{mode}"
-        kernels.append(kernel_entry("hist_featmajor", mode, runs[key][key],
-                                    b2[(mode, N_ROWS)]))
+    level = f"skewed n={LEVEL_NODES[-1]}"
+    for B in (MAX_BIN, U16_MAX_BIN):
+        suffix = bin_width(B)[1]
+        for mode in MODES:
+            key = f"hist_rowmajor_{mode}{suffix}"
+            kernels.append(kernel_entry(
+                "hist_rowmajor", mode + suffix, runs[key][key],
+                k1[(mode + suffix, B, N_ROWS)]))
+        for mode in MODES:
+            key = f"hist_level_{mode}{suffix}"
+            kernels.append(kernel_entry(
+                "hist_level", mode + suffix, runs[key][key],
+                k2[(mode + suffix, B, level)]))
+        for mode in FM_MODES:
+            key = f"hist_featmajor_{mode}{suffix}"
+            kernels.append(kernel_entry(
+                "hist_featmajor", mode + suffix, runs[key][key],
+                b2[(mode + suffix, B, N_ROWS)]))
     kernels.append(kernel_entry(
         "level_partition", None, runs["hist_level_f32"]["level_partition"],
-        k2[("partition", f"skewed n={LEVEL_NODES[-1]}")]))
+        k2[("partition", MAX_BIN, level)]))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from ..ops.hist_cuda import hist_cuda_fm, hist_cuda_rm
+from ..ops.histogram import bin_ids
 from ..ops.split import (MISSING_ENUM, K_EPSILON, K_MIN_SCORE, FeatureMeta,
                          SplitHyperParams, best_split_for_leaf,
                          calculate_splitted_leaf_output, column_sum,
@@ -176,7 +177,10 @@ def _go_left(col: torch.Tensor, thr: int, default_left: bool, num_bin: int,
     """Partition direction of a bin column (ref: dense_bin.hpp:317
     SplitInner): ``bin <= threshold`` goes left, except the NaN bin
     (missing type nan) and the default bin (missing type zero), which
-    follow ``default_left``."""
+    follow ``default_left``. u16 bins (int16) are read as unsigned
+    first."""
+    if col.dtype != torch.uint8:
+        col = bin_ids(col)
     go_left = col <= thr
     if missing_type == MISSING_ENUM["nan"]:
         go_left = torch.where(col == num_bin - 1, default_left, go_left)
@@ -189,8 +193,9 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                      hist_fn: Optional[Callable] = None):
     """Build ``grow(bins, gh, uniforms=None) -> (TreeArrays, leaf_id)``.
 
-    ``bins`` is uint8 ``[R, F]`` row-major under compact scheduling and
-    ``[F, R]`` feature-major under full scheduling; ``gh`` f32 ``[R, 3]``
+    ``bins`` is ``[R, F]`` row-major under compact scheduling and
+    ``[F, R]`` feature-major under full scheduling, uint8 or u16 held as
+    int16 (``ops/histogram.bin_ids``); ``gh`` f32 ``[R, 3]``
     = (grad, hess, 1); both on the training device. ``uniforms`` are the
     stochastic-rounding draws ``(ug, uh)`` of a quantized tree.
     ``hist_fn(bins, gh, num_bin)`` builds one histogram (by default kernel

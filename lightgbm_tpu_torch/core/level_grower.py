@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.hist_level_cuda import carry_order_cuda, hist_level_cuda
+from ..ops.histogram import bin_ids
 from ..ops.split import (MISSING_ENUM, K_EPSILON, FeatureMeta,
                          best_split_for_leaf, calculate_splitted_leaf_output,
                          pack_record_rows)
@@ -128,7 +129,7 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
 
             # ---- partition: rows at valid nodes descend ----------------
             f_row = recs.feature.clamp(min=0)[lsafe]
-            col = bins_rm.gather(1, f_row[:, None])[:, 0].long()
+            col = bin_ids(bins_rm.gather(1, f_row[:, None])[:, 0])
             go_left = go_left_rows(col, recs.threshold[lsafe],
                                    recs.default_left[lsafe], meta, f_row)
             descend = in_lvl & (recs.gain > 0.0)[lsafe]

@@ -1,9 +1,11 @@
 // Kernel K2 for Hopper (sm_90a): the histograms of every node of one
-// tree level in one launch, over rows in node order.
+// tree level in one launch, over rows in node order, over uint8 or
+// uint16 bins.
 //
 // Replaces: lightgbm_tpu/ops/hist_level_pallas.py::_hist_level_kernel,
 // reached through hist_level (:208) and _hist_level_impl (pallas_call at
-// :189), in its f32, bf16 and int8 -> int32 modes. The TPU kernel pads
+// :189), in its f32, bf16 and int8 -> int32 modes, over uint8 or uint16
+// bins (:216). The TPU kernel pads
 // every node's segment to a multiple of block_rows so that each grid step
 // has one owner node, prefetches the owners as scalars and keeps the
 // owner's accumulator pinned in VMEM; it contracts a one-hot on the
@@ -12,7 +14,8 @@
 // segment offsets itself, and scatters into shared memory.
 //
 //   out[v, f, b, c] = sum over rows r of node v of gh[r, c] * [bins[r, f] == b]
-//   bins:  uint8 [R, F], gh: [R, 3] (f32 / bf16 / int8), both gathered
+//   bins:  uint8 or uint16 [R, F], values >= num_bin skipped; gh: [R, 3]
+//          (f32 / bf16 / int8); both gathered
 //          into node order (position p holds the p-th row of the order),
 //          16-byte aligned, each buffer readable up to the next multiple
 //          of 16 bytes
@@ -23,10 +26,12 @@
 //   out:   [n_nodes, F, num_bin, 3], f32 (int32 for int8 gh); empty nodes
 //          are exact zeros
 //
-// Bound on an H100 SXM (3.35 TB/s): R*F bin bytes, R*3*sizeof(gh), the
-// 8*R bytes of the node order and 12*n_nodes*F*num_bin of output. At R =
-// 1M, F = 28, num_bin = 255, 512 nodes: about 28 + 12 + 8 + 44 = 92 MB in
-// f32, about 27 us. The adds are far below the card's rate.
+// Bound on an H100 SXM (3.35 TB/s): R*F*w bin bytes (w = 1 or 2),
+// R*3*sizeof(gh), the 8*R bytes of the node order and
+// 12*n_nodes*F*num_bin of output. At R = 1M, F = 28, num_bin = 255, 512
+// nodes: about 28 + 12 + 8 + 44 = 92 MB in f32, about 27 us; at 1,023
+// u16 bins the output alone is 176 MB. The adds are far below the card's
+// rate.
 //
 // Design. The node order is carried from level to level (no sort): after
 // each level's split the level grower partitions each parent's segment
@@ -34,13 +39,14 @@
 // from one cumulative sum over packed left/right flags, then one
 // scatter), and the wrapper (ops/hist_level_cuda.py) gathers bins and gh
 // into that order once per level, so that a node's rows are consecutive
-// 28-byte rows. The block body is hist_grouped.cuh: one warp, lane =
-// feature, a private [num_bin][32][3] shared histogram; a batch of 32
-// rows (its bins and gh bytes, whole 16-byte chunks) is copied into a
-// shared-memory ring with cp.async, kStages batches ahead of the one
-// being added, and the rows are added four at a time, their slots
-// loaded together and sums of the same slot forwarded in row order
-// (lane l reads byte l of each staged row, every lane the row's gh).
+// rows (28 bytes at F = 28 in u8). The block body is K1's
+// (hist_grouped.cuh add_rows_rowmajor): one warp, lane = feature, a
+// private [win][32][3] shared histogram of its column's bin window; a
+// batch of 32 rows (its bins and gh bytes, whole 16-byte chunks) is
+// copied into a shared-memory ring with cp.async, kStages batches ahead
+// of the one being added, and the rows are added four at a time, their
+// slots loaded together and sums of the same slot forwarded in row order
+// (lane l reads bin l of each staged row, every lane the row's gh).
 // Reading the rows through the order instead of gathering them was
 // tried and dropped: rows at random positions cannot be copied 16 bytes
 // at a time, and their byte loads bound the kernel as they bound K1.
@@ -60,30 +66,19 @@ namespace {
 
 using namespace lgbm;
 
-// Bytes of a batch's staging slot: its rows' bins (32 * F) and gh, each
-// widened to whole 16-byte chunks at either end.
-__host__ __device__ inline int bins_slot_bytes(int F) {
-  return (kBatch * F + 32 + 15) / 16 * 16;
-}
-template <typename G>
-__host__ __device__ inline int gh_slot_bytes() {
-  return (kBatch * kChannels * static_cast<int>(sizeof(G)) + 32 + 15) / 16 *
-         16;
-}
-template <typename G>
-inline int level_shared_bytes(int num_bin, int F) {
-  return hist_bytes(num_bin) +
-         kStages * (bins_slot_bytes(F) + gh_slot_bytes<G>());
+template <typename G, typename BinT>
+inline int level_shared_bytes(int win, int F) {
+  return hist_bytes(win) + rm_ring_bytes<G, BinT>(F);
 }
 
-template <typename G>
+template <typename G, typename BinT>
 __global__ void __launch_bounds__(kLanes)
-hist_level_kernel(const uint8_t* __restrict__ bins, const G* __restrict__ gh,
+hist_level_kernel(const BinT* __restrict__ bins, const G* __restrict__ gh,
                   const long long* __restrict__ seg,
                   const long long* __restrict__ first,
                   typename Gh<G>::Acc* __restrict__ out,
-                  typename Gh<G>::Acc* __restrict__ partials, int F, int ft,
-                  int num_bin, int n_nodes, long long rows_per_block) {
+                  typename Gh<G>::Acc* __restrict__ partials, Cols cols,
+                  int n_nodes, long long rows_per_block) {
   using Acc = typename Gh<G>::Acc;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Acc* hist = reinterpret_cast<Acc*>(smem_raw);
@@ -99,72 +94,19 @@ hist_level_kernel(const uint8_t* __restrict__ bins, const G* __restrict__ gh,
   const long long k = g - first[v];
   const long long p0 = seg[v] + k * rows_per_block;
   const long long p1 = min(seg[v + 1], p0 + rows_per_block);
-  const int lane = threadIdx.x;
-  const int f0 = blockIdx.y * ft;
-  const int ftl = min(ft, F - f0);
-  // inactive lanes read feature f0's bytes and add nothing
-  const int lane_bins = lane < ftl ? num_bin : 0;
-  const int lf = lane < ftl ? lane : 0;
-  zero_hist_vec(hist, num_bin);
-
-  unsigned char* ring = smem_raw + hist_bytes(num_bin);
-  const int bslot = bins_slot_bytes(F);
-  const int slot = bslot + gh_slot_bytes<G>();
-  const long long gh_row = kChannels * static_cast<long long>(sizeof(G));
-  const unsigned char* gh_bytes = reinterpret_cast<const unsigned char*>(gh);
-  const long long n_batches = (p1 - p0 + kBatch - 1) / kBatch;
-
-  // copy batch i's whole 16-byte chunks of bins and gh into its slot
-  auto stage = [&](long long i) {
-    unsigned char* sl = ring + (i % kStages) * slot;
-    const long long base = p0 + i * kBatch;
-    const long long end = min(base + kBatch, p1);
-    const long long b0 = base * F / 16, b1 = (end * F + 15) / 16;
-    for (long long c = b0 + lane; c < b1; c += kLanes) {
-      cp_async16(sl + (c - b0) * 16, bins + c * 16);
-    }
-    const long long g0 = base * gh_row / 16;
-    const long long g1 = (end * gh_row + 15) / 16;
-    for (long long c = g0 + lane; c < g1; c += kLanes) {
-      cp_async16(sl + bslot + (c - g0) * 16, gh_bytes + c * 16);
-    }
-  };
-  for (int i = 0; i + 1 < kStages; ++i) {
-    if (i < n_batches) stage(i);
-    cp_async_commit();
-  }
-  for (long long i = 0; i < n_batches; ++i) {
-    if (i + kStages - 1 < n_batches) stage(i + kStages - 1);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncwarp();
-    const unsigned char* sl = ring + (i % kStages) * slot;
-    const long long base = p0 + i * kBatch;
-    const int rows = static_cast<int>(min(static_cast<long long>(kBatch),
-                                          p1 - base));
-    // row j's byte of feature f0 + lane, and its gh
-    const uint8_t* sb = sl + (base * F - base * F / 16 * 16) + f0 + lf;
-    const G* sg = reinterpret_cast<const G*>(
-        sl + bslot + (base * gh_row - base * gh_row / 16 * 16));
-#pragma unroll
-    for (int j0 = 0; j0 < kBatch; j0 += kGroup) {
-      add_group(hist, lane, lane_bins, j0,
-                [&](int j) {
-                  return j < rows ? static_cast<int>(sb[j * F]) : num_bin;
-                },
-                [&](int j, int c) {
-                  return GhShared<G>::load(sg + j * kChannels + c);
-                });
-    }
-    __syncwarp();
-  }
+  const int t = blockIdx.y;
+  zero_hist_vec(hist, cols.win);
+  add_rows_rowmajor<G, BinT>(hist, smem_raw + hist_bytes(cols.win), bins,
+                             gh, p0, p1, cols, t);
   if (first[v + 1] - first[v] == 1) {
     write_out_slots(hist,
-                    out + static_cast<long long>(v) * F * num_bin * kChannels,
-                    f0, ftl, num_bin);
+                    out + static_cast<long long>(v) * cols.F * cols.num_bin *
+                              kChannels,
+                    cols, t);
   } else {
-    const long long part = g * gridDim.y + blockIdx.y;
-    write_partial_vec(hist, partials + part * tile_slots(num_bin), num_bin);
+    const long long part = g * gridDim.y + t;
+    write_partial_vec(hist, partials + part * tile_slots(cols.win),
+                      cols.win);
   }
 }
 
@@ -245,52 +187,49 @@ __global__ void place_rows(const long long* __restrict__ order,
   }
 }
 
-int g_shared_set[3][kMaxDevices];   // per mode, per device
+int g_shared_set[3][2][kMaxDevices];   // per mode, bin width, device
 
-template <typename G>
-int resident(int num_bin, int F, int mode, long long* blocks) {
-  return static_cast<int>(resident_with(hist_level_kernel<G>,
-                                        g_shared_set[mode],
-                                        level_shared_bytes<G>(num_bin, F),
-                                        blocks));
+template <typename G, typename BinT>
+int plan(int num_bin, int F, int mode, int max_win, int* win,
+         long long* blocks) {
+  cudaError_t err = plan_window(num_bin, max_win,
+                                rm_ring_bytes<G, BinT>(F), win);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(resident_with(
+      hist_level_kernel<G, BinT>, g_shared_set[mode][sizeof(BinT) - 1],
+      level_shared_bytes<G, BinT>(*win, F), blocks));
 }
 
-template <typename G>
+template <typename G, typename BinT>
 int launch(const void* bins, const void* gh, const void* seg,
            const void* first, void* out, void* partials, int F, int num_bin,
-           int n_nodes, int mode, long long rows_per_block,
+           int n_nodes, int mode, int win, long long rows_per_block,
            long long max_blocks, cudaStream_t stream) {
   using Acc = typename Gh<G>::Acc;
-  int ft = 0, n_ftiles = 0;
-  feature_tiles(F, &ft, &n_ftiles);
-  const int smem = level_shared_bytes<G>(num_bin, F);
-  cudaError_t err = allow_bytes(hist_level_kernel<G>, g_shared_set[mode],
-                                smem);
+  const Cols cols = make_cols(F, num_bin, win);
+  const int smem = level_shared_bytes<G, BinT>(win, F);
+  cudaError_t err = allow_bytes(hist_level_kernel<G, BinT>,
+                                g_shared_set[mode][sizeof(BinT) - 1], smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long* first_p = static_cast<const long long*>(first);
   if (max_blocks > 0) {
     dim3 grid(static_cast<unsigned>(max_blocks),
-              static_cast<unsigned>(n_ftiles));
-    hist_level_kernel<G><<<grid, kLanes, smem, stream>>>(
-        static_cast<const uint8_t*>(bins), static_cast<const G*>(gh),
+              static_cast<unsigned>(cols.count()));
+    hist_level_kernel<G, BinT><<<grid, kLanes, smem, stream>>>(
+        static_cast<const BinT*>(bins), static_cast<const G*>(gh),
         static_cast<const long long*>(seg), first_p, static_cast<Acc*>(out),
-        static_cast<Acc*>(partials), F, ft, num_bin, n_nodes,
-        rows_per_block);
+        static_cast<Acc*>(partials), cols, n_nodes, rows_per_block);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   constexpr int kReduceThreads = 256;
-  dim3 rgrid((tile_slots(num_bin) + kReduceThreads - 1) / kReduceThreads,
-             static_cast<unsigned>(n_ftiles),
+  dim3 rgrid((tile_slots(win) + kReduceThreads - 1) / kReduceThreads,
+             static_cast<unsigned>(cols.count()),
              static_cast<unsigned>(min(n_nodes, 64)));
   reduce_nodes<Acc><<<rgrid, kReduceThreads, 0, stream>>>(
       static_cast<const Acc*>(partials), static_cast<Acc*>(out), first_p,
-      n_nodes, F, ft, n_ftiles, num_bin);
+      n_nodes, cols);
   return static_cast<int>(cudaGetLastError());
-}
-
-bool valid_bins(int num_bin, int mode) {
-  return num_bin >= 1 && num_bin <= 256 && mode >= kF32 && mode <= kInt8;
 }
 
 int grid_for(long long R) {
@@ -301,50 +240,46 @@ int grid_for(long long R) {
 
 extern "C" {
 
-// Blocks of the kernel in `mode` resident on the current device at once,
-// at num_bin bins and F features (written to *blocks); the caller sizes
-// rows_per_block with it. Returns a cudaError_t.
-int lgbm_hist_level_resident(int num_bin, int F, int mode,
-                             long long* blocks) {
-  if (!valid_bins(num_bin, mode) || F <= 0) return (int)cudaErrorInvalidValue;
-  switch (mode) {
-    case kF32: return resident<float>(num_bin, F, mode, blocks);
-    case kBF16: return resident<uint16_t>(num_bin, F, mode, blocks);
-    default: return resident<int8_t>(num_bin, F, mode, blocks);
+// The plan of the kernel in `mode` on `device` at num_bin bins of
+// bin_bytes (1 or 2) and F features: its bin window (at most max_win
+// bins; *win) and the blocks resident on the device at once (*blocks),
+// with which the caller sizes rows_per_block. Returns a cudaError_t.
+int lgbm_hist_level_plan(int num_bin, int F, int mode, int bin_bytes,
+                         int max_win, int device, int* win,
+                         long long* blocks) {
+  if (!valid_args(num_bin, mode, bin_bytes) || F <= 0 || max_win < 1) {
+    return (int)cudaErrorInvalidValue;
   }
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  return LGBM_DISPATCH3(plan, mode, bin_bytes, num_bin, F, mode, max_win, win,
+                       blocks);
 }
 
 // Launches the level histogram over a grid of max_blocks (>= first[n])
-// blocks, and the reduction of its partials (the caller allocates
-// max_blocks * ceil(F / 32) * 3 * num_bin * 32 accumulators), on
-// `stream` of `device` (the device current before the call is current
-// again after it); returns cudaGetLastError() (0 = ok).
+// blocks per column (feature tile x window of `win` bins, from the
+// plan), and the reduction of its partials (the caller allocates
+// max_blocks * ceil(F / 32) * ceil(num_bin / win) * 3 * win * 32
+// accumulators), on `stream` of `device` (the device current before the
+// call is current again after it); returns cudaGetLastError() (0 = ok).
 int lgbm_hist_level(const void* bins, const void* gh, const void* seg,
                     const void* first, void* out, void* partials, int F,
-                    int num_bin, int n_nodes, int mode,
-                    long long rows_per_block, long long max_blocks,
+                    int num_bin, int n_nodes, int mode, int bin_bytes,
+                    int win, long long rows_per_block, long long max_blocks,
                     int device, void* stream) {
-  if (!valid_bins(num_bin, mode) || F <= 0 || n_nodes < 1 ||
-      n_nodes > 65535 || rows_per_block < 1 || max_blocks < 0 ||
+  if (!valid_args(num_bin, mode, bin_bytes) || F <= 0 || win < 1 ||
+      n_nodes < 1 || n_nodes > 65535 || rows_per_block < 1 ||
+      max_blocks < 0 ||
       reinterpret_cast<uintptr_t>(bins) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(gh) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const OnDevice on(device);
   if (on.err != cudaSuccess) return static_cast<int>(on.err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kF32:
-      return launch<float>(bins, gh, seg, first, out, partials, F, num_bin,
-                           n_nodes, mode, rows_per_block, max_blocks, st);
-    case kBF16:
-      return launch<uint16_t>(bins, gh, seg, first, out, partials, F,
-                              num_bin, n_nodes, mode, rows_per_block,
-                              max_blocks, st);
-    default:
-      return launch<int8_t>(bins, gh, seg, first, out, partials, F, num_bin,
-                            n_nodes, mode, rows_per_block, max_blocks, st);
-  }
+  return LGBM_DISPATCH3(launch, mode, bin_bytes, bins, gh, seg, first, out,
+                       partials, F, num_bin, n_nodes, mode, win,
+                       rows_per_block, max_blocks,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // The first step of the partition: packed [R] and leaving [R] int64 (see

@@ -20,6 +20,9 @@ from ..config import Config
 from ..utils import log
 from .binning import BIN_NUMERICAL, BinMapper
 
+# the most bins a feature may have: bins are stored in at most 16 bits
+MAX_NUM_BIN = 1 << 16
+
 
 class Metadata:
     """label / weight / init_score storage (ref: dataset.h:49)."""
@@ -64,9 +67,10 @@ class BinnedDataset:
 
     Attributes
     ----------
-    bins : np.ndarray uint8 [num_data, num_used_features]
-        Row-major bin indices; trivial (constant / pre-filtered) features
-        are excluded.
+    bins : np.ndarray uint8 or uint16 [num_data, num_used_features]
+        Row-major bin indices (uint16 once a used feature has more than
+        256 bins); trivial (constant / pre-filtered) features are
+        excluded.
     bin_mappers : per ORIGINAL feature BinMapper (len == num_total_features).
     used_feature_map : original feature index for each column of ``bins``.
     """
@@ -155,13 +159,16 @@ class BinnedDataset:
 
 def _quantize_rowmajor(data: np.ndarray, bin_mappers: List[BinMapper],
                        used_feature_map: np.ndarray) -> np.ndarray:
-    """Per-feature ``value_to_bin`` into the row-major u8 matrix."""
+    """Per-feature ``value_to_bin`` into the row-major matrix: uint8 when
+    every used feature has at most 256 bins, uint16 otherwise (the JAX
+    package's rule, ``io/dataset_core.py:168``)."""
     max_num_bin = max((bin_mappers[i].num_bin for i in used_feature_map),
                       default=2)
-    if max_num_bin > 256:
-        log.fatal(f"max_bin gives {max_num_bin} bins; the port's histogram "
-                  "kernel takes uint8 bins (at most 256 per feature)")
-    bins = np.empty((data.shape[0], len(used_feature_map)), np.uint8)
+    if max_num_bin > MAX_NUM_BIN:
+        log.fatal(f"max_bin gives {max_num_bin} bins; bins are stored in "
+                  f"16 bits, at most {MAX_NUM_BIN} per feature")
+    dtype = np.uint8 if max_num_bin <= 256 else np.uint16
+    bins = np.empty((data.shape[0], len(used_feature_map)), dtype)
     for out_i, feat_i in enumerate(used_feature_map):
         bins[:, out_i] = bin_mappers[feat_i].value_to_bin(
             np.asarray(data[:, feat_i], dtype=np.float64))

@@ -41,9 +41,9 @@ from ..core.objective import ObjectiveFunction
 from ..core.tree import HostTree
 from ..io.dataset_core import BinnedDataset
 from ..ops.forest import DeviceRouteUnavailable, ServingEngine
-from ..ops.hist_cuda import feature_major_bins
+from ..ops.hist_cuda import device_bins, feature_major_bins
 from ..ops.split import K_EPSILON, FeatureMeta, SplitHyperParams
-from ..utils import log
+from ..utils import log, prng
 
 
 def resolve_device(config: Config) -> torch.device:
@@ -158,10 +158,11 @@ class GBDT:
             # the same program as full (ref: config.py:35-37)
             self.row_sched = "full"
         # full scheduling holds the bins feature-major only, the other
-        # growers row-major only (ref: gbdt.py:942, 1033-1072)
+        # growers row-major only (ref: gbdt.py:942, 1033-1072); u16 bins
+        # are held as int16 with the same bits (ops/histogram.bin_ids)
         self.bins = (feature_major_bins(train.bins, dev)
                      if self.row_sched == "full"
-                     else torch.as_tensor(train.bins, device=dev))
+                     else device_bins(train.bins, dev))
 
         K = self.num_tree_per_iteration
         self.score = torch.zeros((K, self.num_data), dtype=torch.float32,
@@ -190,15 +191,15 @@ class GBDT:
             quant_bins=int(cfg.num_grad_quant_bins),
             stochastic_rounding=bool(cfg.stochastic_rounding),
             row_sched="full" if self.row_sched == "full" else "compact")
-        # per-tree uniforms of stochastic rounding, one draw per tree from
-        # a generator on the training device (the JAX package folds the
-        # iteration into a PRNG key, models/gbdt.py:835-842, 2303-2309;
-        # the two generators give different numbers from one seed)
-        self._rng = None
+        # per-tree uniforms of stochastic rounding: the JAX package's
+        # threefry chain, fold_in(PRNGKey(seed), iteration * K + k), split
+        # into the keys of the grad and hess draws (ref: models/gbdt.py
+        # 835-842, 2303-2309; core/grower.py 252-258), drawn on the
+        # training device
+        self._rng_key = None
         if self.grower_cfg.quantized and self.grower_cfg.stochastic_rounding:
-            self._rng = torch.Generator(device=dev)
-            self._rng.manual_seed(int(cfg.seed) if cfg.seed is not None
-                                  else 0)
+            self._rng_key = prng.prng_key(
+                int(cfg.seed) if cfg.seed is not None else 0)
         where = ("hand-written for CUDA" if dev.type == "cuda" else
                  "as their plain PyTorch versions on the CPU")
         log.info_once(
@@ -289,6 +290,7 @@ class GBDT:
         """One boosting iteration (ref: gbdt.cpp:353 TrainOneIter).
         Returns True when training should stop (no more valid splits)."""
         K = self.num_tree_per_iteration
+        it = self.current_iteration()
         init_scores = [self._boost_from_average(k) for k in range(K)]
         should_continue = False
         for k in range(K):
@@ -298,12 +300,12 @@ class GBDT:
             grad, hess = self.objective.get_gradients(self.score[k])
             gh = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
             uniforms = None
-            if self._rng is not None:
+            if self._rng_key is not None:
                 # fresh per-tree noise (ref: gradient_discretizer.cpp
                 # random_values_use_start)
-                uniforms = tuple(
-                    torch.rand(self.num_data, generator=self._rng,
-                               device=self.device) for _ in range(2))
+                keys = prng.split(prng.fold_in(self._rng_key, it * K + k))
+                uniforms = tuple(prng.uniform(key, self.num_data,
+                                              self.device) for key in keys)
             tree, leaf_id = self._grow(self.bins, gh, uniforms)
             host = HostTree(tree, self.train_set.used_feature_map)
             if host.num_leaves <= 1:

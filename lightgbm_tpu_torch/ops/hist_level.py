@@ -4,8 +4,10 @@ The contract of kernel K2 (``ops/hist_level_cuda.py``, port of
 ``lightgbm_tpu/ops/hist_level_pallas.py`` ``hist_level``; same function
 as ``lightgbm_tpu/core/level_grower.py`` ``hist_level_scatter``):
 
-    hist_level(bins_rm u8 [R, F], gh [R, 3], local int [R], in_lvl bool [R],
+    hist_level(bins_rm [R, F], gh [R, 3], local int [R], in_lvl bool [R],
                n_nodes, num_bin) -> [n_nodes, F, num_bin, 3]
+
+over uint8 bins or u16 bins held as int16 (``ops/histogram.bin_ids``).
 
 ``local`` is each row's node within the level and ``in_lvl`` says which
 rows are in the level at all (rows that left it add nothing). The mode
@@ -23,6 +25,8 @@ adds) and in int64 for int8 gh.
 from __future__ import annotations
 
 import torch
+
+from .histogram import bin_ids
 
 
 def level_keys(local: torch.Tensor, in_lvl: torch.Tensor,
@@ -99,7 +103,7 @@ def hist_level(bins_rm: torch.Tensor, gh: torch.Tensor, local: torch.Tensor,
     base = level_keys(local, in_lvl, n_nodes) * num_bin
     out = torch.zeros(F, (n_nodes + 1) * num_bin, C, dtype=acc, device=dev)
     for f in range(F):
-        out[f].index_add_(0, base + bins_rm[:, f].long(), vals)
+        out[f].index_add_(0, base + bin_ids(bins_rm[:, f]), vals)
     out = out.reshape(F, n_nodes + 1, num_bin, C)[:, :n_nodes]
     return out.permute(1, 0, 2, 3).contiguous().to(
         torch.int32 if quantized else torch.float32)

@@ -3,7 +3,8 @@ hand-written in CUDA for Hopper.
 
 Port of ``lightgbm_tpu/ops/hist_level_pallas.py`` ``hist_level`` (the
 Pallas kernel ``_hist_level_kernel`` via ``_hist_level_impl``) in its
-f32, bf16 and int8 modes. The kernel source is ``csrc/hist_level.cu``
+f32, bf16 and int8 modes, over uint8 bins or u16 bins held as int16
+(``ops/histogram.bin_ids``). The kernel source is ``csrc/hist_level.cu``
 (its block body is ``csrc/hist_grouped.cuh``); its note gives the bound
 and the design.
 
@@ -27,10 +28,11 @@ from typing import Optional
 import torch
 
 from .. import _build
-from .hist_cuda import (MIN_ROWS_PER_BLOCK, MODES, TILE_FEATURES, check_bins,
-                        check_gh, load_kernel, raise_on, resident_blocks,
-                        stream_handle)
+from .hist_cuda import (MIN_ROWS_PER_BLOCK, MODES, TILE_FEATURES, bind,
+                        check_bins, check_gh, columns, mode_key, plan,
+                        raise_on, stream_handle)
 from .hist_level import _exclusive_cumsum, carry_order, hist_level, node_order
+from .histogram import as_bin_storage
 
 KERNEL = "hist_level"
 
@@ -58,7 +60,9 @@ def hist_level_cuda(bins_rm: torch.Tensor, gh: torch.Tensor,
     for ``local``/``in_lvl``.
 
     ``hist_level_cuda.launches[mode]`` counts kernel launches per gh mode
-    (``f32``, ``bf16``, ``int8``), never the plain version's calls."""
+    and bin width (``f32``, ``bf16``, ``int8``, ``f32_u16``, ...), never
+    the plain version's calls."""
+    bins_rm = as_bin_storage(bins_rm)
     check_bins(bins_rm, num_bin)
     R, F = bins_rm.shape
     check_gh(gh, R)
@@ -91,13 +95,17 @@ def hist_level_cuda(bins_rm: torch.Tensor, gh: torch.Tensor,
         raise ValueError(f"unsupported device {bins_rm.device}")
     mode, key, out_dtype = MODES[gh.dtype]
     dev = bins_rm.device
-    lib, fn = load_kernel(KERNEL, [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_longlong,
-                             ctypes.c_int, ctypes.c_void_p], resident_args=3)
-    n_tiles = -(-F // TILE_FEATURES)
+    gpu = dev.index
+    lib = _build.load(KERNEL)
+    fn = bind(lib, "lgbm_hist_level", [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_void_p])
+    bb = bins_rm.element_size()
+    num_bin = int(num_bin)
+    win, resident = plan(lib, KERNEL, gpu, num_bin, mode, bb, F)
+    n_cols = columns(F, num_bin, win)
     # a level whose rows sit in one node fills one wave of blocks
-    wave = max(resident_blocks(lib, KERNEL, dev, int(num_bin), mode,
-                               F) // n_tiles, 1)
+    wave = max(resident // n_cols, 1)
     rpb = max(MIN_ROWS_PER_BLOCK, -(-R // wave))
     max_blocks = R // rpb + n     # >= sum over nodes of ceil(rows / rpb)
     if order is None:
@@ -106,19 +114,19 @@ def hist_level_cuda(bins_rm: torch.Tensor, gh: torch.Tensor,
     first = _exclusive_cumsum((seg[1:] - seg[:-1] + rpb - 1) // rpb)
     bins_k, gh_k = _gathered(bins_rm, order), _gathered(gh, order)
     out = torch.empty(n, F, num_bin, 3, dtype=out_dtype, device=dev)
-    partials = torch.empty(
-        max_blocks * n_tiles * 3 * num_bin * TILE_FEATURES,
-        dtype=out_dtype, device=dev)
+    partials = torch.empty(max_blocks * n_cols * 3 * win * TILE_FEATURES,
+                           dtype=out_dtype, device=dev)
     raise_on(lib, fn(bins_k.data_ptr(), gh_k.data_ptr(),
                      seg.data_ptr(), first.data_ptr(), out.data_ptr(),
-                     partials.data_ptr(), F, int(num_bin), n, mode,
-                     rpb, max_blocks, dev.index, stream_handle(dev.index)),
-             KERNEL)
-    hist_level_cuda.launches[key] += 1
+                     partials.data_ptr(), F, num_bin, n, mode, bb, win,
+                     rpb, max_blocks, gpu, stream_handle(gpu)), KERNEL)
+    hist_level_cuda.launches[mode_key(key, bins_rm)] += 1
     return out
 
 
-hist_level_cuda.launches = {key: 0 for _, key, _ in MODES.values()}
+hist_level_cuda.launches = {f"{key}{width}": 0
+                            for _, key, _ in MODES.values()
+                            for width in ("", "_u16")}
 
 
 def carry_order_cuda(order: torch.Tensor, seg: torch.Tensor,
@@ -151,29 +159,24 @@ def carry_order_cuda(order: torch.Tensor, seg: torch.Tensor,
     if order.device.type != "cuda":
         raise ValueError(f"unsupported device {order.device}")
     lib = _build.load(KERNEL)
-    if lib.lgbm_level_place_rows.argtypes is None:
-        lib.lgbm_level_pack_flags.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        lib.lgbm_level_pack_flags.restype = ctypes.c_int
-        lib.lgbm_level_place_rows.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.lgbm_level_place_rows.restype = ctypes.c_int
-        lib.lgbm_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.lgbm_cuda_error_string.restype = ctypes.c_char_p
+    pack_flags = bind(lib, "lgbm_level_pack_flags", [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    place_rows = bind(lib, "lgbm_level_place_rows", [ctypes.c_void_p] * 9 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     order, seg, local = order.contiguous(), seg.contiguous(), local.contiguous()
     go_left, descend = go_left.contiguous(), descend.contiguous()
     dev = order.device
     stream = stream_handle(dev.index)
     packed = torch.empty(R, dtype=torch.int64, device=dev)
     leaving = torch.empty(R, dtype=torch.int64, device=dev)
-    raise_on(lib, lib.lgbm_level_pack_flags(
+    raise_on(lib, pack_flags(
         order.data_ptr(), go_left.data_ptr(), descend.data_ptr(),
         packed.data_ptr(), leaving.data_ptr(), R, dev.index, stream), KERNEL)
     cum = torch.cumsum(packed, 0)
     cum_out = torch.cumsum(leaving, 0)
     nxt = torch.empty(R, dtype=torch.int64, device=dev)
     new_seg = torch.empty(2 * n + 1, dtype=torch.int64, device=dev)
-    raise_on(lib, lib.lgbm_level_place_rows(
+    raise_on(lib, place_rows(
         order.data_ptr(), seg.data_ptr(), local.data_ptr(),
         descend.data_ptr(), packed.data_ptr(), cum.data_ptr(),
         cum_out.data_ptr(), nxt.data_ptr(), new_seg.data_ptr(), R, n,

@@ -26,7 +26,11 @@ def _assert_same_binning(X, y, params):
             assert getattr(tm, f) == getattr(jm, f), f
         assert tm.feature_info() == jm.feature_info()
     np.testing.assert_array_equal(td.used_feature_map, jd.used_feature_map)
-    assert td.bins.dtype == np.uint8 and td.bins.flags.c_contiguous
+    # uint8, or uint16 once a used feature has more than 256 bins, as the
+    # JAX package stores them
+    assert td.bins.dtype == jd.bins.dtype and td.bins.flags.c_contiguous
+    assert td.bins.dtype == (np.uint8 if max(
+        m.num_bin for m in td.used_bin_mappers()) <= 256 else np.uint16)
     np.testing.assert_array_equal(td.bins, jd.bins.T)
     np.testing.assert_array_equal(td.metadata.label, jd.metadata.label)
     return td
@@ -38,10 +42,11 @@ def test_golden_train_csv():
     assert td.num_data == len(y)
 
 
-@pytest.mark.parametrize("max_bin", [15, 63, 255])
+@pytest.mark.parametrize("max_bin", [15, 63, 255, 511, 1023])
 def test_random_with_missing_and_zeros(rng, max_bin):
     """Gaussian, integer-valued, zero-heavy, NaN-holding and constant
-    columns: every missing type and the trivial-feature filter."""
+    columns: every missing type and the trivial-feature filter; past 256
+    bins the matrix is uint16."""
     n = 3000
     X = np.stack([
         rng.normal(size=n),
@@ -52,7 +57,8 @@ def test_random_with_missing_and_zeros(rng, max_bin):
         rng.standard_t(2, size=n),
     ], axis=1)
     y = rng.normal(size=n)
-    _assert_same_binning(X, y, {"max_bin": max_bin, "verbosity": -1})
+    td = _assert_same_binning(X, y, {"max_bin": max_bin, "verbosity": -1})
+    assert td.bins.dtype == (np.uint16 if max_bin > 256 else np.uint8)
 
 
 def test_row_sampling_for_bin_finding(rng):
@@ -62,3 +68,14 @@ def test_row_sampling_for_bin_finding(rng):
     _assert_same_binning(X, rng.normal(size=5000),
                          {"bin_construct_sample_cnt": 1000,
                           "data_random_seed": 7, "verbosity": -1})
+
+
+def test_more_bins_than_16_bits_hold_is_refused(rng):
+    """max_bin past 65,536 bins is refused loudly (the JAX package would
+    wrap the bins in uint16)."""
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    X = rng.normal(size=(70000, 1))
+    with pytest.raises(LightGBMError, match="16 bits"):
+        TBinned.from_matrix(X, TConfig({"max_bin": 70000,
+                                        "min_data_in_bin": 1,
+                                        "verbosity": -1}))

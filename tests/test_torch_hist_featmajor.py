@@ -2,7 +2,8 @@
 contract) in the PyTorch port against the JAX package.
 
 The port's plain version ``hist_featmajor`` takes uint8 ``[F, R]`` bins
-and gh ``[R, 3]`` already masked to a leaf, as the JAX package's
+(or uint16 ones, held as int16 or given as ``torch.uint16``) and gh
+``[R, 3]`` already masked to a leaf, as the JAX package's
 ``hist_pallas`` (run here in the Pallas interpreter, as its own tests run
 it) and ``hist_xla`` do. int8 gh sum exactly into int32, and dyadic f32
 gh (k / 8) make every partial sum exact, so those agree bit for bit. For
@@ -21,13 +22,15 @@ from lightgbm_tpu_torch.ops.hist_cuda import (feature_major_bins,
                                               hist_cuda_fm, hist_cuda_rm)
 from lightgbm_tpu_torch.ops.histogram import hist_featmajor, hist_rowmajor
 
-# (F, R, B): the shapes of tests/test_hist_pallas.py, and a ragged R at
-# B = 255 (the bench's bins)
-SHAPES = [(8, 4096, 64), (11, 3000, 63), (3, 500, 256), (5, 1037, 255)]
+# (F, R, B): the shapes of tests/test_hist_pallas.py, a ragged R at
+# B = 255 (the bench's bins), and u16 bins at B = 300
+SHAPES = [(8, 4096, 64), (11, 3000, 63), (3, 500, 256), (5, 1037, 255),
+          (3, 1000, 300)]
 
 
 def _inputs(rng, F, R, B, kind):
-    bins = rng.integers(0, B, size=(F, R)).astype(np.uint8)
+    bins = rng.integers(0, B, size=(F, R)).astype(
+        np.uint8 if B <= 256 else np.uint16)
     if kind == "int8":
         gh = rng.integers(-128, 128, size=(R, 3)).astype(np.int8)
     elif kind == "dyadic":
@@ -81,25 +84,30 @@ def test_masked_rows_are_invisible(rng, kind):
 
 def test_wrapper_on_cpu_runs_the_plain_version(rng):
     """On a CPU tensor ``hist_cuda_fm`` is the plain version, counts no
-    launch, reads a padded device copy (row stride > R) as its [F, R]
-    view, and refuses bf16 gh and a non-unit column stride."""
-    F, R, B = 5, 1037, 255
-    bins, gh = _inputs(rng, F, R, B, "normal")
+    launch, reads a padded device copy (row stride > R, a multiple of 16
+    elements; u16 bins held as int16) as its [F, R] view, and refuses
+    bf16 gh and a non-unit column stride."""
+    F, R = 5, 1037
     before = dict(hist_cuda_fm.launches)
-    padded = feature_major_bins(np.ascontiguousarray(bins.T),
-                                torch.device("cpu"))
-    assert padded.shape == (F, R) and padded.stride(0) % 16 == 0
-    assert padded.stride(0) > R
-    np.testing.assert_array_equal(padded.numpy(), bins)
-    gh_t = torch.from_numpy(gh)
-    out = hist_cuda_fm(padded, gh_t, B)
-    torch.testing.assert_close(out, hist_featmajor(torch.from_numpy(bins),
-                                                   gh_t, B), rtol=0, atol=0)
-    # the same function as K1 over the transposed block
-    torch.testing.assert_close(
-        out, hist_cuda_rm(torch.from_numpy(np.ascontiguousarray(bins.T)),
-                          gh_t, B), rtol=0, atol=0)
-    assert hist_cuda_fm.launches == before == {"f32": 0, "int8": 0}
+    for B in (255, 300):
+        bins, gh = _inputs(rng, F, R, B, "normal")
+        padded = feature_major_bins(np.ascontiguousarray(bins.T),
+                                    torch.device("cpu"))
+        assert padded.shape == (F, R) and padded.stride(0) % 16 == 0
+        assert padded.stride(0) > R
+        assert padded.dtype == (torch.uint8 if B <= 256 else torch.int16)
+        np.testing.assert_array_equal(padded.numpy().view(bins.dtype), bins)
+        gh_t = torch.from_numpy(gh)
+        out = hist_cuda_fm(padded, gh_t, B)
+        torch.testing.assert_close(
+            out, hist_featmajor(torch.from_numpy(bins), gh_t, B), rtol=0,
+            atol=0)
+        # the same function as K1 over the transposed block
+        torch.testing.assert_close(
+            out, hist_cuda_rm(torch.from_numpy(np.ascontiguousarray(bins.T)),
+                              gh_t, B), rtol=0, atol=0)
+    assert hist_cuda_fm.launches == before == {
+        "f32": 0, "int8": 0, "f32_u16": 0, "int8_u16": 0}
     with pytest.raises(ValueError, match="float32 or int8"):
         hist_cuda_fm(padded, gh_t.to(torch.bfloat16), B)
     with pytest.raises(ValueError, match="stride"):

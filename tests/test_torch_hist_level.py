@@ -6,7 +6,9 @@ wrapper ``hist_level_cuda`` runs it for CPU tensors. Both are held
 against the JAX package's Pallas kernel ``hist_level`` (run in interpret
 mode, as tests/test_hist_level.py runs it) on the cases of that file:
 ragged segments with an empty and a single-row node, all rows in one
-node, all rows out of the level, and quantized int8 gh.
+node, all rows out of the level, and quantized int8 gh; the ragged case
+also over uint16 bins at 300 bins (the port holds them as int16; a
+``torch.uint16`` tensor is taken as its int16 view).
 
 f32 cases use dyadic gh (small multiples of 0.25) and bf16 cases values
 that bf16 holds exactly, so every summation order gives the same f32
@@ -56,15 +58,23 @@ def _ragged(rng, R, n_d):
 
 
 @pytest.mark.parametrize("n_d,mode", [(1, "f32"), (4, "bf16"), (16, "f32"),
-                                      (64, "f32"), (64, "bf16")])
+                                      (64, "f32"), (64, "bf16"),
+                                      (16, "f32_u16"), (4, "bf16_u16"),
+                                      (16, "int8_u16")])
 def test_ragged_matches_jax_bit_for_bit(n_d, mode):
     rng = np.random.default_rng(7 + n_d)
-    R, F, B = 3000, 7, 64
-    bins = rng.integers(0, B, (R, F), dtype=np.uint8)
-    gh = _dyadic_gh(rng, R)
+    R, F = 3000, 7
+    u16 = mode.endswith("_u16")
+    B = 300 if u16 else 64
+    bins = rng.integers(0, B, (R, F)).astype(np.uint16 if u16 else np.uint8)
+    gh = (rng.integers(-128, 128, (R, 3)).astype(np.int8)
+          if mode.startswith("int8") else _dyadic_gh(rng, R))
     local, in_lvl = _ragged(rng, R, n_d)
-    port, ref = _both(bins, gh, local, in_lvl, n_d, B, bf16=mode == "bf16")
-    assert port.shape == (n_d, F, B, 3) and port.dtype == np.float32
+    port, ref = _both(bins, gh, local, in_lvl, n_d, B,
+                      bf16=mode.startswith("bf16"))
+    assert port.shape == (n_d, F, B, 3)
+    assert port.dtype == (np.int32 if mode.startswith("int8")
+                          else np.float32)
     np.testing.assert_array_equal(port, ref)
     if n_d >= 4:
         assert np.all(port[1] == 0)        # the empty node is exact zeros
@@ -133,7 +143,8 @@ def test_wrapper_on_cpu_runs_the_plain_version():
 
 
 @pytest.mark.parametrize("case", ["local_f32", "local_len", "in_lvl_int",
-                                  "n_nodes_zero", "f64_gh", "u16_bins"])
+                                  "n_nodes_zero", "f64_gh", "u16_bins",
+                                  "i32_bins"])
 def test_wrapper_rejects_unsupported_input(case):
     R, F = 64, 4
     bins = torch.zeros((R, F), dtype=torch.uint8)
@@ -151,10 +162,14 @@ def test_wrapper_rejects_unsupported_input(case):
         n_nodes = 0
     elif case == "f64_gh":
         gh = gh.double()
-    elif case == "u16_bins":
+    num_bin = 16
+    if case == "u16_bins":     # u16 bins (int16) take at most 2^16 bins
         bins = bins.to(torch.int16)
+        num_bin = (1 << 16) + 1
+    elif case == "i32_bins":
+        bins = bins.to(torch.int32)
     with pytest.raises(ValueError):
-        hist_level_cuda(bins, gh, local, in_lvl, n_nodes, 16)
+        hist_level_cuda(bins, gh, local, in_lvl, n_nodes, num_bin)
 
 
 # ---- the node order carried from level to level (no sort) ---------------

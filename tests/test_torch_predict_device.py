@@ -106,12 +106,24 @@ def test_device_binner_matches_host_mapper_and_jax(rng):
     assert (alone.numpy() != dev[0, :len(Xq)]).any()
 
 
-@pytest.mark.parametrize("missing", ["none", "zero", "nan"])
-def test_leaf_parity_matrix_binned_and_raw(rng, missing):
+@pytest.mark.parametrize("missing,max_bin", [
+    pytest.param("none", 255, id="none"),
+    pytest.param("zero", 255, id="zero"),
+    pytest.param("nan", 255, id="nan"),
+    pytest.param("zero", 1023, id="zero-max_bin_1023"),
+    pytest.param("nan", 1023, id="nan-max_bin_1023")])
+def test_leaf_parity_matrix_binned_and_raw(rng, missing, max_bin):
     """Per-tree leaf indices of the binned route (device binning +
     ``forest_leaf_bins``) and of the raw route (``tree_leaf_raw``) equal
-    the host walk's and the JAX package's, bit for bit."""
-    bst, X = _train(rng, missing=missing, n_round=6)
+    the host walk's and the JAX package's, bit for bit; at max_bin=1023
+    too, where features have more than 256 bins (u16 bins in training)."""
+    if max_bin > 256:
+        bst, X = _train(rng, n=2000, missing=missing, n_round=6,
+                        max_bin=max_bin)
+        assert max(m.num_bin for m in
+                   bst._engine.train_set.used_bin_mappers()) > 256
+    else:
+        bst, X = _train(rng, missing=missing, n_round=6)
     trees, mappers, used = _carry(bst)
     eng = bst._engine
     Xq = _adversarial(rng, X)
@@ -333,3 +345,24 @@ def test_batches_are_scored_at_their_own_row_count(rng, buckets):
                                  eng._serving_mappers,
                                  eng.train_set.used_feature_map)
     assert tforest.snapshot_scores(snap, X[:257]).shape == (1, 257)
+
+
+def test_u16_model_device_route_equals_host_walk(rng):
+    """A model the port trained on u16 bins (max_bin=1023): the binned
+    device route on the CPU gives the host walk's leaves, and its scores
+    to f32 rounding."""
+    bst, X, _ = _port_booster(rng, n=3000, max_bin=1023)
+    eng = bst._engine
+    assert eng.train_set.bins.dtype == np.uint16
+    assert eng.bins.dtype == torch.int16       # held as int16 on the device
+    dev = bst.predict(X, device=True, raw_score=True)
+    np.testing.assert_array_equal(dev, eng.predict_device(X, 0, 3)[:, 0])
+    np.testing.assert_allclose(dev, bst.predict(X, device=False,
+                                                raw_score=True),
+                               rtol=1e-5, atol=1e-6)
+    snap = eng._serving.snapshot(eng.models, eng._model_gen, 0, 3,
+                                 eng._serving_mappers,
+                                 eng.train_set.used_feature_map)
+    np.testing.assert_array_equal(
+        tforest.snapshot_leaves(snap, X),
+        np.stack([t.predict_leaf(X) for t in eng.models]))

@@ -12,14 +12,18 @@ the same int8 rows:
   the port handed the uniforms that JAX draws from
   ``split(fold_in(PRNGKey(seed), iter))``.
 
-The port cannot draw ``jax.random``'s bits, so whole trainings compare
-with ``stochastic_rounding=false``. There the gradients come from each
-framework's own ``exp``, which can differ in the last ulp, so the
-quantization scale ``max|g| / 2`` can too: tree structure must be
-identical, and leaf values and raw scores agree to 1e-5 of their largest
-magnitude. ``quant_train_renew_leaf`` refits leaves in f64 from the f32
-gradient sums of each leaf; the two packages' f32 gradients agree to an
-ulp, so renewed leaf values agree to rtol=1e-5.
+The port draws those bits itself (``utils/prng.py``, the threefry chain
+of ``jax.random``; ``tests/test_torch_prng.py``), so whole trainings
+compare with stochastic rounding on, as by default, and off. The
+gradients of the binary objective come from each framework's own
+``exp``, which can differ in the last ulp, so the quantization scale
+``max|g| / 2`` can too: tree structure must be identical, and leaf values
+and raw scores agree to 1e-5 of their largest magnitude (a regression
+training with stochastic rounding is the JAX package's bit for bit:
+``tests/test_torch_train.py::test_train_matches_jax``).
+``quant_train_renew_leaf`` refits leaves in f64 from the f32 gradient
+sums of each leaf; the two packages' f32 gradients agree to an ulp, so
+renewed leaf values agree to rtol=1e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -142,8 +146,10 @@ def _data(rng, n=3000, f=8):
 
 
 @pytest.mark.parametrize("extra", [{}, {"quant_train_renew_leaf": True},
-                                   {"num_grad_quant_bins": 16}],
-                         ids=["plain", "renew_leaf", "16_bins"])
+                                   {"num_grad_quant_bins": 16},
+                                   {"stochastic_rounding": True}],
+                         ids=["plain", "renew_leaf", "16_bins",
+                              "stochastic_rounding"])
 def test_quantized_training_matches_jax(rng, extra):
     X, y = _data(rng)
     params = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
@@ -185,8 +191,9 @@ def test_renew_leaf_refits_from_true_gradients(rng):
 
 
 def test_stochastic_rounding_is_seeded(rng):
-    """The port draws its uniforms from a generator seeded by ``seed``:
-    the same seed gives the same model, another seed another one."""
+    """The port draws its uniforms from the threefry chain keyed by
+    ``seed``: the same seed gives the same model, another seed another
+    one."""
     X, y = _data(rng, n=1500)
     base = {"objective": "binary", "num_leaves": 7, "verbosity": -1,
             "device_type": "cpu", "use_quantized_grad": True}

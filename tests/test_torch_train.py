@@ -1,6 +1,10 @@
 """``train()`` end to end in the PyTorch port against the JAX package.
 
-Same params, same data, five iterations, binary and regression. The
+Same params, same data, five iterations, binary and regression; at
+3,000 rows, at 10,000 (past the 4,096 rows of a partial histogram of the
+chunked yardstick, ROADMAP C1(c)), with ``max_bin=1023`` (u16 bins) and
+with quantized gradients under the default stochastic rounding (the
+port draws the JAX package's threefry bits, ROADMAP C3). The
 tree blocks of ``model_to_string()`` must have identical structure
 (split features, thresholds, decision types, child pointers, counts);
 raw scores, which cross zero, agree to 1e-5 of their largest magnitude,
@@ -15,8 +19,10 @@ holds the dyadic case bit for bit).
 
 Regression has no transcendental function: its gradients, root sums
 (``ops/split.column_sum`` adds in XLA's CPU order on the CPU),
-histograms and scans are the JAX package's bit for bit, so its trees are
-identical, decision types included, and so are its predictions.
+histograms (one scatter, each slot's rows in row order, as the JAX
+package's CPU ``hist_scatter``) and scans are the JAX package's bit for
+bit, so its trees are identical, decision types included, and so are its
+predictions.
 
 Binary: the first tree is identical too, but from the second on the
 gradients go through ``exp``, whose last ulp differs between XLA's CPU
@@ -52,8 +58,8 @@ def _trees(model_str):
     return trees
 
 
-def _data(rng, objective):
-    n, f = 3000, 8
+def _data(rng, objective, n=3000):
+    f = 8
     X = rng.normal(size=(n, f))
     X[rng.uniform(size=n) < 0.05, 3] = np.nan
     signal = X[:, 0] + 0.5 * X[:, 1] ** 2 - np.nan_to_num(X[:, 3])
@@ -82,10 +88,20 @@ def _rows_at_nodes(tree, X):
     return masks
 
 
-@pytest.mark.parametrize("objective", ["binary", "regression"])
-def test_train_matches_jax(rng, objective):
-    _train_and_compare(rng, objective, {},
-                       exact=objective == "regression")
+@pytest.mark.parametrize("objective,n_rows,extra", [
+    pytest.param("binary", 3000, {}, id="binary"),
+    pytest.param("regression", 3000, {}, id="regression"),
+    pytest.param("regression", 10000, {}, id="regression-10000_rows"),
+    pytest.param("binary", 3000, {"max_bin": 1023}, id="binary-max_bin_1023"),
+    pytest.param("regression", 3000, {"max_bin": 1023},
+                 id="regression-max_bin_1023"),
+    pytest.param("binary", 3000, {"use_quantized_grad": True},
+                 id="binary-quantized"),
+    pytest.param("regression", 3000, {"use_quantized_grad": True},
+                 id="regression-quantized")])
+def test_train_matches_jax(rng, objective, n_rows, extra):
+    _train_and_compare(rng, objective, extra,
+                       exact=objective == "regression", n=n_rows)
 
 
 def test_binary_gradients_differ_only_by_exp_ulp(rng, monkeypatch):
@@ -124,15 +140,30 @@ def test_binary_gradients_differ_only_by_exp_ulp(rng, monkeypatch):
     np.testing.assert_array_equal(th2, jh)
 
 
-@pytest.mark.parametrize("objective", ["binary", "regression"])
-def test_full_scheduling_matches_jax(rng, objective):
+@pytest.mark.parametrize("objective,extra", [
+    pytest.param("binary", {}, id="binary"),
+    pytest.param("regression", {}, id="regression"),
+    pytest.param("binary", {"max_bin": 1023}, id="binary-max_bin_1023"),
+    pytest.param("regression", {"max_bin": 1023},
+                 id="regression-max_bin_1023")])
+def test_full_scheduling_matches_jax(rng, objective, extra):
     """tpu_row_scheduling=full: the port's full grower (its B2 plain
     version on the CPU) against the JAX package's full grower."""
-    _train_and_compare(rng, objective, {"tpu_row_scheduling": "full"})
+    _train_and_compare(rng, objective,
+                       {"tpu_row_scheduling": "full", **extra})
 
 
-def _train_and_compare(rng, objective, extra, exact=False):
-    X, y = _data(rng, objective)
+@pytest.mark.parametrize("objective", ["binary", "regression"])
+def test_hybrid_scheduling_matches_jax_at_u16_bins(rng, objective):
+    """tpu_row_scheduling=level at max_bin=511 (u16 bins): the port's
+    hybrid grower (K2's and K1's plain versions on the CPU) against the
+    JAX package's."""
+    _train_and_compare(rng, objective, {"tpu_row_scheduling": "level",
+                                        "max_bin": 511})
+
+
+def _train_and_compare(rng, objective, extra, exact=False, n=3000):
+    X, y = _data(rng, objective, n)
     params = {"objective": objective, "num_leaves": 15,
               "device_type": "cpu", "verbosity": -1, **extra}
     jds = lgb.Dataset(X, label=y)
