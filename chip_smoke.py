@@ -11,26 +11,31 @@ Phases, each reported on its own line:
    parallel;
 3. each kernel in each of its modes against its plain PyTorch version on
    the card, at the shapes the training paths give it, with its time
-   (CUDA events around each call on an idle stream: the host's issuing of
-   the call counts), its device time (every call queued behind a device
-   sleep, so the host's issuing is hidden), the plain version's time, one
-   PyTorch library call's time and its bound on the card, over uint8
-   bins at 255 bins and uint16 bins at 257, 1,023 and 4,095 (the plain
-   version is the chunked two-level sum): K1 (hist_rowmajor) in f32,
-   int8 and bf16 at leaf sizes from 1M rows down to 1, its small path
-   against its dense path at small leaves, and its bin windows; the
-   level partition
-   (the node order carried from one level to the next) against its plain
-   version and the stable sort, and K2 (hist_level) in f32, int8 and bf16
-   over 1M rows at 1 to 512 nodes with skewed segments, with empty nodes,
-   and with every row out of the level, fed the carried order, timed per
-   level (partition included) beside index_add_; B2 (hist_featmajor) in
+   (CUDA events around each call on an idle stream: the host's issuing
+   of the call counts), its device time (every call queued behind a
+   device sleep, so the host's issuing is hidden), the plain version's
+   time, one PyTorch library call's time and its bound on the card, over
+   uint8 bins at 255 bins and uint16 bins at 257, 1,023 and 4,095 (K1's
+   and K2's wide body), each uniform and skewed (four rows in five in one
+   bin, one feature of three values), and u16 bins at 65,536 on a few
+   rows (the sums are held against the exact sum, a chunked two-level
+   sum in float64 rounded once; the plain version timed is the same sum
+   in float32): K1 (hist_rowmajor) in f32, int8
+   and bf16 at leaf sizes from 1M rows down to 1, its small path against
+   its dense path at small leaves; the level partition (the node
+   order carried from one level to the next) against its plain version
+   and the stable sort, and K2 (hist_level) in f32, int8 and bf16 over
+   1M rows at 1 to 512 nodes with skewed segments, with empty nodes, and
+   with every row out of the level, fed the carried order, timed per
+   level (partition included) beside index_add_ (on skewed and u16 bins
+   at 1 and 512 nodes); B2 (hist_featmajor) in
    f32 and int8 over 1M feature-major rows, adding only the rows of
    leaves of 1M rows down to 1 (the fused form, which reads each row's
-   leaf id) beside the unfused form (gh masked by torch, then a pass over
-   every row), and over a ragged row count with and without the engine's
-   16-element row padding. Two launches on the same input must give the
-   same bits;
+   leaf id) beside the unfused form (gh masked by torch, then a pass
+   over every row), on uniform bins and on skewed uint8 bins, and over
+   a ragged row count with and without the
+   engine's 16-element row padding. Two launches on the same input must
+   give the same bits;
 4. the main path at full width: ``Booster`` training of a Higgs-shaped
    binary GBDT (1,000,000 x 28, 255 leaves, 255 bins) on the compact
    grower for one warm-up and a few timed iterations, then ``predict``;
@@ -43,17 +48,17 @@ Phases, each reported on its own line:
    quantized gradients; each run's launch counts must show its kernel
    mode (level: K2 and the partition at every level; full: B2 once per
    leaf of every tree, and no K1 or K2), the hybrid's first tree must
-   hold the compact one's splits and give its outputs (its node numbering
-   follows the JAX package's e-ranking), and full+quantized's first tree
-   must equal the quantized one; then the same eight paths on the same
-   rows binned at max_bin=1023 (uint16 bins through K1, K2 and B2), each
-   run's launch counts showing its u16 kernel mode; the quantized run
-   logs the device time of one tree's threefry draws; with
-   ``--profile``, two more iterations
-   of the compact, level and full paths under ``torch.profiler`` show
-   where an iteration's time goes (device busy share, K1's, K2's and B2's
-   device time per iteration, top ops, launches and device-to-host
-   reads);
+   hold the compact one's splits and give its outputs (its node
+   numbering follows the JAX package's e-ranking), and full+quantized's
+   first tree must equal the quantized one; then the same eight paths on
+   the same rows binned at max_bin=1023 (uint16 bins through K1, K2 and
+   B2), each run's launch counts showing its u16 kernel mode, and each
+   K1 and K2 path profiled for one more iteration (K1's and K2's device
+   time); the quantized run logs the device time of one tree's threefry
+   draws; with ``--profile``, two more iterations of the compact, level
+   and full paths under ``torch.profiler`` show where an iteration's
+   time goes (device busy share, K1's, K2's and B2's device time per
+   iteration, top ops, launches and device-to-host reads);
 6. small trainings on cuda and on the CPU (plain versions), compact,
    quantized (stochastic rounding on: both draw the same threefry bits),
    level and full, in u8 and in u16 bins, which must agree;
@@ -91,17 +96,22 @@ NUM_LEAVES, MAX_BIN = 255, 255
 # package's Pallas kernels stop fitting a tile (ops/hist_pallas.py:180)
 U16_MAX_BIN = 1023
 U16_BINS = (257, 1023, 4095)
+# u16 bins are held uniform and skewed (four rows in five in one bin, and
+# feature 0 of three values, as Higgs's b-tag features are)
+U16_DISTS = ("uniform", "skewed")
+# the widest histogram u16 bins give: K1 and K2 checked there on a few rows
+WIDEST_BINS = 1 << 16
+WIDEST_ROWS = 5_000
 TIMED_ITERS = 5
 MODE_ITERS = 3
 U16_ITERS = 2
 KERNEL_SHAPES = (1_000_000, 65_536, 4_097, 1)
+# leaf sizes of the u16 and the skewed cases
 U16_SHAPES = (1_000_000, 4_097, 1)
 LEVEL_NODES = (1, 8, 64, 512)
 U16_LEVEL_NODES = (1, 512)
 # K1's small path against its dense path at these leaf sizes
 SMALL_SHAPES = (1, 300, 1_024, 2_048, 4_097)
-# K1's bin windows compared at the u16 bin counts that need more than one
-WINDOW_SIZES = (256, 512)
 TIMING_REPS = 20
 PLAIN_REPS = 5
 # device clock cycles of sleep per timed call queued behind it (~3 ms at
@@ -215,16 +225,17 @@ def cuda_ms(fn, reps=TIMING_REPS, before=None):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=TIMING_REPS, before=None):
+def device_ms(fn, reps=TIMING_REPS, before=None, sleep_per_rep=1):
     """Median device time of ``fn()`` in ms over ``reps`` calls, each
     bracketed by CUDA events; every call is enqueued behind a sleep on the
-    device that outlasts the host's issuing of all of them, so the time
+    device that outlasts the host's issuing of all of them (``fn`` of many
+    launches needs ``sleep_per_rep`` times the usual sleep), so the time
     between the events is the device's alone. ``before()`` runs outside
     the brackets."""
     fn()
     torch.cuda.synchronize()
     pairs = []
-    torch.cuda._sleep(SLEEP_CYCLES_PER_REP * reps)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_REP * reps * sleep_per_rep)
     for _ in range(reps):
         if before is not None:
             before()
@@ -287,11 +298,20 @@ def check_against_plain(mode, out, ref, what):
     return float((out.double() - ref.double()).abs().max())
 
 
-def random_bins(shape, B, gen, dev):
+def random_bins(shape, B, gen, dev, skewed=False):
     """Bins in [0, B): uint8 for B <= 256, else u16 bins held as int16
-    (the port's storage of them)."""
+    (the port's storage of them); ``skewed`` (row-major ``[R, F]``): four
+    rows in five in bin B // 3, and feature 0 of three values (0, B // 2,
+    B - 1)."""
     b = torch.randint(0, B, shape, generator=gen, device=dev,
                       dtype=torch.int32)
+    if skewed:
+        hot = torch.rand(shape, generator=gen, device=dev) < 0.8
+        b = torch.where(hot, B // 3, b)
+        three = torch.tensor([0, B // 2, B - 1], device=dev,
+                             dtype=torch.int32)
+        b[:, 0] = three[torch.randint(0, 3, (shape[0],), generator=gen,
+                                      device=dev)]
     return b.to(torch.uint8) if B <= 256 else b.to(torch.int16)
 
 
@@ -301,38 +321,32 @@ def bin_width(B):
 
 
 def phase_k1(dev, flush):
-    """K1 in each mode against its plain version (the chunked two-level
-    sum) at the leaf sizes, in u8 at MAX_BIN and in u16 at each of
-    U16_BINS; then its small path against its dense path, and its bin
-    windows at the u16 bin counts that need more than one."""
+    """K1 in each mode against the exact sum at the leaf sizes, in u8 at
+    MAX_BIN and in u16 at each of U16_BINS, uniform and skewed, timed
+    beside its plain version (the chunked two-level f32 sum); at
+    WIDEST_BINS on WIDEST_ROWS rows; then its small path against its
+    dense path."""
     from lightgbm_tpu_torch.ops import hist_cuda
     from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_rm
-    from lightgbm_tpu_torch.ops.histogram import hist_rowmajor_chunked
+    from lightgbm_tpu_torch.ops.histogram import (hist_rowmajor_chunked,
+                                                  hist_rowmajor_exact)
     F = N_FEATURES
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
-    for B, shapes in [(MAX_BIN, KERNEL_SHAPES)] + [(b, U16_SHAPES)
-                                                    for b in U16_BINS]:
+    cases = [(MAX_BIN, KERNEL_SHAPES, "uniform"),
+             (MAX_BIN, U16_SHAPES, "skewed")] + [
+        (b, U16_SHAPES, dist) for b in U16_BINS for dist in U16_DISTS]
+    for B, shapes, dist in cases:
         width, suffix = bin_width(B)
+        tag = "" if dist == "uniform" else "_skewed"
         for mode in MODES:
             max_err = 0.0
             for S in shapes:
-                what = f"K1 {mode}{suffix} B={B} S={S}"
-                bins = random_bins((S, F), B, gen, dev)
-                dyadic = make_gh(mode, (S, 3), gen, dev, dyadic=True)
-                assert torch.equal(hist_cuda_rm(bins, dyadic, B),
-                                   hist_rowmajor_chunked(bins, dyadic, B)), \
-                    f"{what}: exact gh differ"
-                gh = make_gh(mode, (S, 3), gen, dev)
-                out = hist_cuda_rm(bins, gh, B)
-                again = hist_cuda_rm(bins, gh, B)
-                ref = hist_rowmajor_chunked(bins, gh, B)
-                torch.cuda.synchronize()
-                err = check_against_plain(mode, out, ref, what)
+                what = f"K1 {mode}{suffix} B={B} {dist} S={S}"
+                bins = random_bins((S, F), B, gen, dev, dist == "skewed")
+                err = check_k1(bins, B, mode, gen, dev, what)
                 max_err = max(max_err, err)
-                same_bits = bool(torch.equal(out, again))
-                assert same_bits, f"{what}: two launches differ"
-
+                gh = make_gh(mode, (S, 3), gen, dev)
                 ms = cuda_ms(lambda: hist_cuda_rm(bins, gh, B),
                              before=flush.zero_)
                 dev_ms = device_ms(lambda: hist_cuda_rm(bins, gh, B),
@@ -346,35 +360,53 @@ def phase_k1(dev, flush):
                 ids = bins.long() & 0xFFFF
                 slot = (ids + torch.arange(F, device=dev) * B).reshape(-1)
                 del ids
-                vals = gh.to(out.dtype).repeat_interleave(F, dim=0)
-                acc = torch.zeros(F * B, 3, dtype=out.dtype, device=dev)
+                out_dtype = torch.int32 if mode == "int8" else torch.float32
+                vals = gh.to(out_dtype).repeat_interleave(F, dim=0)
+                acc = torch.zeros(F * B, 3, dtype=out_dtype, device=dev)
                 library_ms = cuda_ms(lambda: acc.index_add_(0, slot, vals),
                                      before=lambda: (flush.zero_(),
                                                      acc.zero_()))
+                library_dev_ms = device_ms(
+                    lambda: acc.index_add_(0, slot, vals),
+                    before=lambda: (flush.zero_(), acc.zero_()))
                 del slot, vals, acc
                 # each input byte read once, the output written once; or 3
                 # adds per cell
                 bound_ms, bound_by = bound(
                     S * F * width + 3 * S * GH_BYTES[gh.dtype]
                     + 12 * F * B, 3 * S * F)
-                rows[(mode + suffix, B, S)] = dict(
+                rows[(mode + suffix + tag, B, S)] = dict(
                     ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                     library_ms=library_ms, bound_ms=bound_ms,
                     bound_by=bound_by, max_abs_err=max_err)
-                log(f"phase 3 hist_rowmajor mode={mode}{suffix} S={S} F={F} "
-                    f"B={B} path="
-                    f"{'small' if S <= hist_cuda.SMALL_LEAF_ROWS else 'dense'}"
-                    f": max_abs_err={err!r} same_bits_two_launches="
-                    f"{same_bits} kernel_ms={ms!r} "
+                path = ("small" if S <= hist_cuda.SMALL_LEAF_ROWS else
+                        "wide" if width == 2 else "dense")
+                log(f"phase 3 hist_rowmajor mode={mode}{suffix} bins={dist} "
+                    f"S={S} F={F} B={B} path={path}: max_abs_err={err!r} "
+                    f"exact_gh_bit_for_bit=True same_bits_two_launches=True "
+                    f"kernel_ms={ms!r} "
                     f"kernel_device_ms={dev_ms!r} host_issue_ms={issue_ms!r} "
                     f"plain_ms={plain_ms!r} index_add_ms={library_ms!r} "
+                    f"index_add_device_ms={library_dev_ms!r} "
+                    f"device_over_index_add_device="
+                    f"{dev_ms / library_dev_ms!r} "
                     f"bound_us={bound_ms * 1e3!r} bound_by={bound_by}")
+    # the widest histogram, on a few rows (the dense path's wide body)
+    for dist in U16_DISTS:
+        bins = random_bins((WIDEST_ROWS, F), WIDEST_BINS, gen, dev,
+                           dist == "skewed")
+        for mode in MODES:
+            what = f"K1 {mode}_u16 B={WIDEST_BINS} {dist} S={WIDEST_ROWS}"
+            err = check_k1(bins, WIDEST_BINS, mode, gen, dev, what)
+            log(f"phase 3 hist_rowmajor mode={mode}_u16 bins={dist} "
+                f"S={WIDEST_ROWS} F={F} B={WIDEST_BINS}: max_abs_err={err!r}"
+                f" exact_gh_bit_for_bit=True same_bits_two_launches=True")
     # the small path against the dense path, at the same inputs
     limit = hist_cuda.SMALL_LEAF_ROWS
     for S in SMALL_SHAPES:
         bins = random_bins((S, F), MAX_BIN, gen, dev)
         gh = make_gh("f32", (S, 3), gen, dev, dyadic=True)
-        ref = hist_rowmajor_chunked(bins, gh, MAX_BIN)
+        ref = hist_rowmajor_exact(bins, gh, MAX_BIN)
         times = {}
         for path, rows_max in (("small", S), ("dense", S - 1)):
             hist_cuda.SMALL_LEAF_ROWS = rows_max
@@ -391,25 +423,28 @@ def phase_k1(dev, flush):
             f"dense_ms={times['dense'][0]!r} "
             f"dense_device_ms={times['dense'][1]!r} "
             f"small_rows_max={limit}")
-    # bin windows: the widest window a block takes, at 1M rows
-    window = hist_cuda.WINDOW_BINS
-    for B in U16_BINS:
-        if B <= min(WINDOW_SIZES):
-            continue
-        bins = random_bins((N_ROWS, F), B, gen, dev)
-        gh = make_gh("f32", (N_ROWS, 3), gen, dev, dyadic=True)
-        ref = hist_rowmajor_chunked(bins, gh, B)
-        for w in WINDOW_SIZES:
-            hist_cuda.WINDOW_BINS = w
-            assert torch.equal(hist_cuda_rm(bins, gh, B), ref), \
-                f"K1 window={w} B={B}: exact gh differ"
-            dev_ms = device_ms(lambda: hist_cuda_rm(bins, gh, B),
-                               before=flush.zero_)
-            log(f"phase 3 hist_rowmajor window_bins={w} S={N_ROWS} F={F} "
-                f"B={B} f32: kernel_device_ms={dev_ms!r}")
-        hist_cuda.WINDOW_BINS = window
-        del bins, gh, ref
     return rows
+
+
+def check_k1(bins, B, mode, gen, dev, what):
+    """K1 on ``bins`` against the exact sum: dyadic (or int8) gh bit for
+    bit, normal gh within the tolerance, two launches the same bits;
+    returns the largest difference from the exact sum."""
+    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_rm
+    from lightgbm_tpu_torch.ops.histogram import hist_rowmajor_exact
+    S = bins.shape[0]
+    dyadic = make_gh(mode, (S, 3), gen, dev, dyadic=True)
+    assert torch.equal(hist_cuda_rm(bins, dyadic, B),
+                       hist_rowmajor_exact(bins, dyadic, B)), \
+        f"{what}: exact gh differ"
+    gh = make_gh(mode, (S, 3), gen, dev)
+    out = hist_cuda_rm(bins, gh, B)
+    again = hist_cuda_rm(bins, gh, B)
+    ref = hist_rowmajor_exact(bins, gh, B)
+    torch.cuda.synchronize()
+    err = check_against_plain(mode, out, ref, what)
+    assert torch.equal(out, again), f"{what}: two launches differ"
+    return err
 
 
 def level_cases(gen, dev, nodes=LEVEL_NODES, extras=True):
@@ -459,22 +494,54 @@ def phase_k2(dev, flush):
     from the parent level; the per-level time counts the partition too.
     The partition itself is held against its plain version and the
     stable sort. u8 bins at MAX_BIN over every level case, u16 bins at
-    each of U16_BINS over U16_LEVEL_NODES."""
+    each of U16_BINS and u8 bins at MAX_BIN, uniform and skewed, over
+    U16_LEVEL_NODES; then WIDEST_BINS over a few rows."""
+    from lightgbm_tpu_torch.ops.hist_level import hist_level, node_order
+    from lightgbm_tpu_torch.ops.hist_level_cuda import hist_level_cuda
     R, F = N_ROWS, N_FEATURES
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = {}
-    for B, nodes, extras in [(MAX_BIN, LEVEL_NODES, True)] + [
-            (b, U16_LEVEL_NODES, False) for b in U16_BINS]:
-        bins = random_bins((R, F), B, gen, dev)
+    for B, nodes, extras, dist in [
+            (MAX_BIN, LEVEL_NODES, True, "uniform"),
+            (MAX_BIN, U16_LEVEL_NODES, False, "skewed")] + [
+            (b, U16_LEVEL_NODES, False, dist) for b in U16_BINS
+            for dist in U16_DISTS]:
+        bins = random_bins((R, F), B, gen, dev, dist == "skewed")
         for case in level_cases(gen, dev, nodes, extras):
-            phase_k2_case(dev, flush, gen, bins, B, case, rows)
+            phase_k2_case(dev, flush, gen, bins, B, dist, case, rows)
         del bins
+    # the widest histogram, on a few rows in four nodes, node 1 empty
+    Rw, n, B = 4 * WIDEST_ROWS, 4, WIDEST_BINS
+    local = torch.randint(0, n, (Rw,), generator=gen, device=dev)
+    local[local == 1] = 2
+    in_lvl = torch.rand(Rw, generator=gen, device=dev) < 0.9
+    order, seg = node_order(local, in_lvl, n)
+    for dist in U16_DISTS:
+        bins = random_bins((Rw, F), B, gen, dev, dist == "skewed")
+        for mode in MODES:
+            what = f"K2 {mode}_u16 B={B} {dist} R={Rw} n={n}"
+            call = lambda g: hist_level_cuda(bins, g, local, in_lvl, n, B,
+                                             order=order, seg=seg)
+            dyadic = make_gh(mode, (Rw, 3), gen, dev, dyadic=True)
+            assert torch.equal(call(dyadic), hist_level(
+                bins, dyadic, local, in_lvl, n, B)), f"{what}: exact gh differ"
+            gh = make_gh(mode, (Rw, 3), gen, dev)
+            out = call(gh)
+            err = check_against_plain(
+                mode, out, hist_level(bins, gh, local, in_lvl, n, B), what)
+            assert torch.equal(out, call(gh)), f"{what}: two launches differ"
+            assert not out[1].any(), f"{what}: the empty node is not zero"
+            log(f"phase 3 hist_level mode={mode}_u16 bins={dist} R={Rw} "
+                f"F={F} B={B} n={n}: max_abs_err={err!r} "
+                "exact_gh_bit_for_bit=True same_bits_two_launches=True "
+                "empty_node_zero=True")
     return rows
 
 
-def phase_k2_case(dev, flush, gen, bins, B, case, rows):
-    """One level case of ``phase_k2`` over ``bins`` at B bins; the
-    partition is checked and timed in the u8 pass only."""
+def phase_k2_case(dev, flush, gen, bins, B, dist, case, rows):
+    """One level case of ``phase_k2`` over ``bins`` (``dist``: uniform or
+    skewed) at B bins; the partition is checked and timed in the uniform
+    u8 pass only."""
     from lightgbm_tpu_torch.ops.hist_level import (carry_order, hist_level,
                                                    level_keys, node_order)
     from lightgbm_tpu_torch.ops.hist_level_cuda import (carry_order_cuda,
@@ -490,7 +557,7 @@ def phase_k2_case(dev, flush, gen, bins, B, case, rows):
         args = (parent["order"], parent["seg"], parent["local"],
                 parent["go_left"], parent["descend"])
         level = lambda: carry_order_cuda(*args)
-    if parent is not None and B == MAX_BIN:
+    if parent is not None and B == MAX_BIN and dist == "uniform":
         order, seg = level()
         again = level()
         plain = carry_order(*args)
@@ -533,8 +600,9 @@ def phase_k2_case(dev, flush, gen, bins, B, case, rows):
             f"torch_sort_ms={sort_ms!r} bound_us={part_bound * 1e3!r} "
             f"bound_by={part_by}")
     order, seg = level()
+    tag = "" if dist == "uniform" else "_skewed"
     for mode in MODES:
-        what = f"K2 {mode}{suffix} B={B} {label}"
+        what = f"K2 {mode}{suffix} B={B} {dist} {label}"
         call = lambda g, **kw: hist_level_cuda(bins, g, local, in_lvl, n,
                                                B, order=order, seg=seg,
                                                **kw)
@@ -592,12 +660,13 @@ def phase_k2_case(dev, flush, gen, bins, B, case, rows):
         bound_ms, bound_by = bound(
             R * F * width + 3 * R * GH_BYTES[gh.dtype] + in_bytes
             + 12 * n * F * B, 3 * in_rows * F)
-        rows[(mode + suffix, B, label)] = dict(ms=ms, device_ms=dev_ms,
+        rows[(mode + suffix + tag, B, label)] = dict(ms=ms, device_ms=dev_ms,
                                    plain_ms=plain_ms,
                                    library_ms=library_ms,
                                    bound_ms=bound_ms, bound_by=bound_by,
                                    max_abs_err=err)
-        log(f"phase 3 hist_level mode={mode}{suffix} {label} R={R} "
+        log(f"phase 3 hist_level mode={mode}{suffix} bins={dist} {label} "
+            f"R={R} "
             f"F={F} B={B} "
             f"rows_in_level={in_rows}: max_abs_err={err!r} "
             f"same_bits_two_launches={same_bits} "
@@ -614,30 +683,34 @@ def phase_k2_case(dev, flush, gen, bins, B, case, rows):
 
 
 def phase_b2(dev, flush):
-    """B2 in each mode against its plain version (the chunked two-level
-    sum) over 1M feature-major rows, in u8 at MAX_BIN and in u16 at each
-    of U16_BINS: the fused form (each row's leaf id read by the kernel,
-    only the leaf's rows added) for leaves of each size, timed beside the
-    unfused form (gh masked by two torch ops, then a pass over every row);
-    then, at MAX_BIN and U16_MAX_BIN, a ragged row count, with and without
-    the engine's 16-element row padding."""
+    """B2 in each mode against the exact sum over 1M feature-major rows,
+    in u8 at MAX_BIN (uniform and skewed) and in u16 at each of U16_BINS:
+    the fused form (each row's leaf id read by the kernel, only the
+    leaf's rows added) for leaves of each size, timed beside the unfused
+    form (gh masked by two torch ops, then a pass over every row) and its
+    plain version (the chunked two-level f32 sum); then, at MAX_BIN and
+    U16_MAX_BIN, a ragged row count, with and without the engine's
+    16-element row padding."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {}
-    for B, shapes in [(MAX_BIN, KERNEL_SHAPES)] + [(b, U16_SHAPES)
-                                                    for b in U16_BINS]:
-        phase_b2_bins(dev, flush, gen, B, shapes, rows)
+    for B, shapes, dist in [(MAX_BIN, KERNEL_SHAPES, "uniform"),
+                            (MAX_BIN, U16_SHAPES, "skewed")] + [
+            (b, U16_SHAPES, "uniform") for b in U16_BINS]:
+        phase_b2_bins(dev, flush, gen, B, shapes, dist, rows)
     return rows
 
 
-def phase_b2_bins(dev, flush, gen, B, shapes, rows):
-    """``phase_b2`` at B bins."""
+def phase_b2_bins(dev, flush, gen, B, shapes, dist, rows):
+    """``phase_b2`` at B bins (``dist``: uniform or skewed)."""
     from lightgbm_tpu_torch.ops.hist_cuda import (feature_major_bins,
                                                   hist_cuda_fm)
     from lightgbm_tpu_torch.ops.histogram import (
-        hist_featmajor_chunked as hist_featmajor)
+        hist_featmajor_chunked, hist_featmajor_exact as hist_featmajor)
     R, F = N_ROWS, N_FEATURES
     width, suffix = bin_width(B)
-    bins = random_bins((F, R), B, gen, dev)
+    tag = "" if dist == "uniform" else "_skewed"
+    bins = (random_bins((F, R), B, gen, dev) if dist == "uniform" else
+            random_bins((R, F), B, gen, dev, skewed=True).T.contiguous())
 
     def leaf_ids(n, S):
         """int64 leaf ids of n rows, S of them in leaf 0, the rest in
@@ -651,7 +724,7 @@ def phase_b2_bins(dev, flush, gen, B, shapes, rows):
 
     for mode in FM_MODES:
         for S in shapes:
-            what = f"B2 {mode}{suffix} B={B} leaf rows={S}"
+            what = f"B2 {mode}{suffix} B={B} {dist} leaf rows={S}"
             ids = leaf_ids(R, S)
             fused = lambda g: hist_cuda_fm(bins, g, B, leaf_id=ids, leaf=0)
             unfused = lambda g: hist_cuda_fm(bins, masked(g, ids), B)
@@ -680,7 +753,7 @@ def phase_b2_bins(dev, flush, gen, B, shapes, rows):
             pass_ms = device_ms(lambda: hist_cuda_fm(bins, gh_m, B),
                                 before=flush.zero_)
             plain_ms = cuda_ms(
-                lambda: hist_featmajor(bins, masked(gh, ids), B),
+                lambda: hist_featmajor_chunked(bins, masked(gh, ids), B),
                 reps=PLAIN_REPS, before=flush.zero_)
             # yardstick: one index_add_ over the flat (feature, bin) slot
             # of every cell, the per-cell gh (masked, widened) made outside
@@ -708,12 +781,12 @@ def phase_b2_bins(dev, flush, gen, B, shapes, rows):
             bound_ms, bound_by = bound(
                 8 * R + S * (F * width + 3 * GH_BYTES[gh.dtype])
                 + 12 * F * B, 3 * S * F)
-            rows[(mode + suffix, B, S)] = dict(ms=ms, device_ms=dev_ms,
+            rows[(mode + suffix + tag, B, S)] = dict(ms=ms, device_ms=dev_ms,
                                    plain_ms=plain_ms, library_ms=library_ms,
                                    bound_ms=bound_ms, bound_by=bound_by,
                                    max_abs_err=err)
-            log(f"phase 3 hist_featmajor mode={mode}{suffix} R={R} "
-                f"leaf_rows={S} "
+            log(f"phase 3 hist_featmajor mode={mode}{suffix} bins={dist} "
+                f"R={R} leaf_rows={S} "
                 f"F={F} B={B}: max_abs_err={err!r} "
                 f"same_bits_two_launches={same_bits} fused_ms={ms!r} "
                 f"fused_device_ms={dev_ms!r} "
@@ -731,7 +804,7 @@ def phase_b2_bins(dev, flush, gen, B, shapes, rows):
         # loads throughout) and once in the engine's padded device copy
         # (row stride 100,016: vector loads, element loads at each row's
         # tail)
-        if B not in (MAX_BIN, U16_MAX_BIN):
+        if B not in (MAX_BIN, U16_MAX_BIN) or dist != "uniform":
             continue
         Rr = 100_003
         sub = bins[:, :Rr].contiguous()
@@ -857,6 +930,7 @@ def phase_paths(ds, X, compact_first):
         f"num_bin_max={max(m.num_bin for m in ds_u16.binned.bin_mappers)}")
     out = {}
     for name, (extra, must) in PATHS.items():
+        tp = time.perf_counter()
         u16 = name.endswith("_u16")
         params = bench_params(**extra)
         if u16:
@@ -925,7 +999,16 @@ def phase_paths(ds, X, compact_first):
             draw_ms = threefry_draw_ms(bst)
             log(f"phase 5 path={name} threefry_draws_device_ms_per_tree="
                 f"{draw_ms!r} rows={N_ROWS}")
+        if u16 and not name.startswith("full"):
+            # one more iteration, profiled: K1's and K2's device time on
+            # u16 bins (after the launch counts were read and the trees
+            # checked)
+            times = kernel_ms_per_iter(bst)
+            log(f"phase 5 path={name} one more iteration, device ms: "
+                + " ".join(f"{k}_device_ms={ms!r} {k}_launches={n!r}"
+                           for k, (ms, n) in times.items()))
         out[name] = (c, bst)
+        log(f"phase 5 path={name} seconds={time.perf_counter() - tp!r}")
     return out, ds_u16
 
 
@@ -942,6 +1025,44 @@ def threefry_draw_ms(bst):
         return [prng.uniform(k, eng.num_data, eng.device) for k in keys]
 
     return device_ms(draw)
+
+
+# the histogram kernels' own device time, by kernel name: K1's (both
+# paths) and K2's without the reductions of their blocks' partials, B2's
+# with its mask pass and its sparse pass; then the reductions (K1's and
+# B2's reduce_flagged, K2's reduce_nodes)
+KERNEL_KEYS = (("K1", ("hist_rowmajor_kernel", "hist_rowmajor_wide",
+                       "hist_rowmajor_small")),
+               ("K2", ("hist_level_kernel", "hist_level_wide")),
+               ("B2", ("batch_masks", "hist_featmajor_kernel",
+                       "hist_sparse_kernel")),
+               ("reductions", ("reduce_flagged", "reduce_nodes")))
+
+
+def kernel_times(on_device, iters):
+    """{name: (device ms per iteration, launches per iteration)} of the
+    histogram kernels among a profile's device events."""
+    found = {}
+    for kname, keys in KERNEL_KEYS:
+        hits = [e for e in on_device if any(k in e.key for k in keys)]
+        if hits:
+            found[kname] = (sum(e.self_device_time_total for e in hits)
+                            / 1e3 / iters,
+                            sum(e.count for e in hits) / iters)
+    return found
+
+
+def kernel_ms_per_iter(bst):
+    """The histogram kernels' device ms in one more boosting iteration of
+    ``bst``, under ``torch.profiler`` (the device's activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assert not bst.update()
+        torch.cuda.synchronize()
+    return kernel_times(
+        [e for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA], 1)
 
 
 def phase_profile(bst, label, iters=2):
@@ -976,23 +1097,12 @@ def phase_profile(bst, label, iters=2):
         f"kernel_launches_per_iter={launches / iters!r} "
         f"memcpy_or_sync_calls_per_iter={syncs / iters!r} "
         f"device_to_host_copies_per_iter={d2h / iters!r}")
-    # the histogram kernels' own device time: K1's (both paths) and K2's
-    # without the reductions of their blocks' partials, B2's with its
-    # mask pass and its sparse pass; then the reductions (K1's and B2's
-    # reduce_flagged, K2's reduce_nodes). B2's kernels and reductions
-    # start by programmatic dependent launch, so a span may include the
-    # wait for the kernel before: those sums are upper bounds
-    for kname, keys in (("K1", ("hist_rowmajor_kernel",
-                                "hist_rowmajor_small")),
-                        ("K2", ("hist_level_kernel",)),
-                        ("B2", ("batch_masks", "hist_featmajor_kernel",
-                                "hist_sparse_kernel")),
-                        ("reductions", ("reduce_flagged", "reduce_nodes"))):
-        hits = [e for e in on_device if any(k in e.key for k in keys)]
-        if hits:
-            log(f"phase profile {label} {kname}_device_ms_per_iter="
-                f"{sum(dev_us(e) for e in hits) / 1e3 / iters!r} "
-                f"launches_per_iter={sum(e.count for e in hits) / iters!r}")
+    # B2's kernels and the reductions start by programmatic dependent
+    # launch, so a span may include the wait for the kernel before: those
+    # sums are upper bounds
+    for kname, (ms, n) in kernel_times(on_device, iters).items():
+        log(f"phase profile {label} {kname}_device_ms_per_iter={ms!r} "
+            f"launches_per_iter={n!r}")
     for e in sorted(on_device, key=dev_us, reverse=True)[:10]:
         log(f"phase profile {label} device {e.key[:90]!r} count={e.count} "
             f"device_ms={dev_us(e) / 1e3!r}")
@@ -1025,6 +1135,7 @@ def phase_cross_check():
                         ("full_u16", {"max_bin": U16_MAX_BIN,
                                       "tpu_row_scheduling": "full"})):
         out = {}
+        tc = time.perf_counter()
         for dev in ("cuda", "cpu"):
             params = {"objective": "binary", "num_leaves": 31,
                       "max_bin": MAX_BIN, "verbose": -1, "device_type": dev,
@@ -1039,7 +1150,7 @@ def phase_cross_check():
             out[dev] = (int(t0.split_feature[0]), float(t0.threshold_real[0]),
                         int(t0.decision_type[0]), loss["binary_logloss"])
         log(f"phase 6 {name} root_split_and_logloss cuda={out['cuda']} "
-            f"cpu={out['cpu']}")
+            f"cpu={out['cpu']} seconds={time.perf_counter() - tc!r}")
         assert out["cuda"][:3] == out["cpu"][:3], name
         np.testing.assert_allclose(out["cuda"][3], out["cpu"][3], rtol=1e-4)
 
@@ -1167,11 +1278,16 @@ def main():
     # so that every call reads its inputs from device memory
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     k1 = phase_k1(dev, flush)
+    log(f"phase 3 K1 done at {time.perf_counter() - t:.1f} s")
     k2 = phase_k2(dev, flush)
+    log(f"phase 3 K2 done at {time.perf_counter() - t:.1f} s")
     b2 = phase_b2(dev, flush)
+    log(f"phase 3 B2 done at {time.perf_counter() - t:.1f} s")
     del flush
     compact_counts, bst, ds, X = phase_main_path()
+    log(f"phase 4 done at {time.perf_counter() - t:.1f} s")
     paths, ds_u16 = phase_paths(ds, X, bst._engine.models[0])
+    log(f"phase 5 done at {time.perf_counter() - t:.1f} s")
     if "--profile" in sys.argv[1:]:
         phase_profile(bst, "compact")
         phase_profile(paths["level"][1], "level")
@@ -1184,8 +1300,10 @@ def main():
     del paths
     phase_predict(bst, ds, X)
     phase_predict(bst_u16, ds_u16, X, label="u16")
+    log(f"phase 7 done at {time.perf_counter() - t:.1f} s")
     del bst, ds, X, bst_u16, ds_u16
     phase_cross_check()
+    log(f"phase 6 done at {time.perf_counter() - t:.1f} s")
 
     kernels = []
     level = f"skewed n={LEVEL_NODES[-1]}"

@@ -52,7 +52,9 @@
 // bins in one window wherever they fit), the leaf's rows
 // of a batch added four at a time (a group with none is skipped), their
 // slots loaded together and sums of the same slot forwarded in row
-// order; no float atomics, so two launches give the same bits.
+// order; no float atomics, so two launches give the same bits. Skewed
+// bins take the body's f64 hot sums (LaneHot), and reduce_flagged sums
+// in f64.
 // A block that met no row of the leaf writes no partial (its flag says
 // so), and reduce_flagged sums the partials of the others in a fixed
 // order (runs of consecutive blocks in parallel, then the runs in order).
@@ -102,10 +104,12 @@ __host__ __device__ constexpr int fm_slot_bytes() {
   return fm_bins_slot<BinT>() +
          (kBatch * kChannels * static_cast<int>(sizeof(G)) + 15) / 16 * 16;
 }
-// Shared memory beside the histogram: the ring and the masks.
+// Shared memory beside the histogram: the ring, the masks and the
+// widened gh of the hot sums.
 template <typename G, typename BinT>
 inline int fm_fixed_bytes() {
-  return kRing * fm_slot_bytes<G, BinT>() + (kRing + kAhead) * 4;
+  return kRing * fm_slot_bytes<G, BinT>() + (kRing + kAhead) * 4 +
+         kHotBytes;
 }
 
 // Where lane l keeps 16-byte chunk c of its 32 bins (32 * sizeof(BinT)
@@ -170,6 +174,8 @@ hist_featmajor_kernel(const BinT* __restrict__ bins,
   constexpr int slot = fm_slot_bytes<G, BinT>();
   unsigned* s_mask = reinterpret_cast<unsigned*>(ring + kRing * slot);
   unsigned* s_chunk = s_mask + kRing;        // the masks of a chunk
+  double* gd = reinterpret_cast<double*>(s_chunk + kAhead);   // kHotBytes
+  LaneHot hot;
   const int lane = threadIdx.x;
   const int t = blockIdx.y;
   const int f0 = cols.f0(t), b0 = cols.b0(t);
@@ -310,7 +316,33 @@ hist_featmajor_kernel(const BinT* __restrict__ bins,
     if (next_batch(base, mask)) stage(staged++ % kRing, base, mask);
     cp_async_commit();
   }
-  for (int i = 0; i < staged; ++i) {
+  // whether a lane finds the block's first batch with a row of the leaf
+  // skewed (its rows of the leaf, read from the ring as soon as they
+  // land)
+  bool skewed = false;
+  if constexpr (kHotSums<G>) {
+    if (staged > 0) {
+      cp_async_wait<kRing - 2>();
+      __syncwarp();
+      const unsigned m = s_mask[0];
+      auto bin = [&](int j) {
+        const int byte = j * static_cast<int>(sizeof(BinT));
+        const int v = static_cast<int>(*reinterpret_cast<const BinT*>(
+            ring + bins_at<BinT>(lane, byte >> 4) + (byte & 15)));
+        return (m >> j) & 1u ? v - b0 : skip;
+      };
+      // the candidates: the bins of the batch's first three leaf rows
+      const unsigned m1 = m & (m - 1u), m2 = m1 & (m1 - 1u);
+      auto nth = [&](unsigned bits) {
+        return bits != 0u ? bin(__ffs(bits) - 1) : skip;
+      };
+      skewed = __any_sync(kFull, skewed_batch<kBatch>(bin, lim, __popc(m),
+                                                      nth(m), nth(m1),
+                                                      nth(m2)));
+    }
+  }
+  // batch i added in mode M; returns whether the hot sums are in use
+  auto step = [&](int i, auto mode) {
     long long base;
     unsigned mask;
     if (next_batch(base, mask)) stage(staged++ % kRing, base, mask);
@@ -331,23 +363,33 @@ hist_featmajor_kernel(const BinT* __restrict__ bins,
     }
     const G* sg = reinterpret_cast<const G*>(sl + fm_bins_slot<BinT>());
     any |= cur;
-#pragma unroll
-    for (int j0 = 0; j0 < kBatch; j0 += kGroup) {
-      if ((cur >> j0) & ((1u << kGroup) - 1u)) {   // warp-uniform
-        add_group(hist, lane, lim, j0,
-                  [&](int j) {
-                    const int v = static_cast<int>(
-                        (w[j / kPer] >> (8 * sizeof(BinT) * (j % kPer))) &
-                        kBinMask);
-                    return ((cur >> j) & 1u) ? v - b0 : skip;
-                  },
-                  [&](int j, int c) {
-                    return GhShared<G>::load(sg + j * kChannels + c);
-                  });
+    auto bin = [&](int j) {
+      const int v = static_cast<int>(
+          (w[j / kPer] >> (8 * sizeof(BinT) * (j % kPer))) & kBinMask);
+      return ((cur >> j) & 1u) ? v - b0 : skip;
+    };
+    const bool hot_sums = add_batch<decltype(mode)::value>(
+        hist, hot, gd, lane, lim, __popc(cur), bin,
+        [&](int j, int c) {
+          return GhShared<G>::load(sg + j * kChannels + c);
+        },
+        [&](int j0) {            // warp-uniform: a row of the leaf
+          return ((cur >> j0) & ((1u << kGroup) - 1u)) != 0u;
+        });
+    __syncwarp();
+    return hot_sums;
+  };
+  int i = 0;
+  if constexpr (kHotSums<G>) {
+    if (skewed) {
+      hot.clear();
+      if (step(i++, AddAs<kAddPick>())) {
+        while (i < staged) step(i++, AddAs<kAddHot>());
+        hot.finish(hist, lane);
       }
     }
-    __syncwarp();
   }
+  while (i < staged) step(i++, AddAs<kAddPlain>());
   if (gridDim.x == 1) {
     write_out_slots(hist, out, cols, t);
     return;

@@ -39,9 +39,9 @@
 // from one cumulative sum over packed left/right flags, then one
 // scatter), and the wrapper (ops/hist_level_cuda.py) gathers bins and gh
 // into that order once per level, so that a node's rows are consecutive
-// rows (28 bytes at F = 28 in u8). The block body is K1's
+// rows (28 bytes at F = 28 in u8). Over u8 bins the block body is K1's
 // (hist_grouped.cuh add_rows_rowmajor): one warp, lane = feature, a
-// private [win][32][3] shared histogram of its column's bin window; a
+// private [num_bin][32][3] shared histogram of its feature tile; a
 // batch of 32 rows (its bins and gh bytes, whole 16-byte chunks) is
 // copied into a shared-memory ring with cp.async, kStages batches ahead
 // of the one being added, and the rows are added four at a time, their
@@ -58,17 +58,26 @@
 // node with no rows gets zeros from reduce_nodes. The grid is sized by
 // the bound R / rows_per_block + n_nodes, so the host never waits for the
 // device to learn the block count: blocks past the last node's exit at
-// once. No float atomics: f32 and bf16 results do not depend on
-// scheduling.
+// once. Skewed bins take the body's f64 hot sums (LaneHot), and
+// reduce_nodes sums in f64. No float atomics: f32 and bf16 results do
+// not depend on scheduling.
+//
+// u16 bins take hist_level_wide: the same blocks, nodes and reductions
+// over the wide body of hist_grouped.cuh (a warp per feature of a tile,
+// lane = row, all of a tile's bins in one block), which reads a node's
+// rows once per feature tile where the grouped body read them once per
+// 512-bin window;
+// at 512 nodes and 4,095 bins the output alone, 704 MB, bounds it at
+// about 0.21 ms.
 #include "hist_grouped.cuh"
 
 namespace {
 
 using namespace lgbm;
 
-template <typename G, typename BinT>
-inline int level_shared_bytes(int win, int F) {
-  return hist_bytes(win) + rm_ring_bytes<G, BinT>(F);
+template <typename G>
+inline int level_shared_bytes(int num_bin, int F) {
+  return hist_bytes(num_bin) + rm_fixed_bytes<G, uint8_t>(F);
 }
 
 template <typename G, typename BinT>
@@ -107,6 +116,48 @@ hist_level_kernel(const BinT* __restrict__ bins, const G* __restrict__ gh,
     const long long part = g * gridDim.y + t;
     write_partial_vec(hist, partials + part * tile_slots(cols.win),
                       cols.win);
+  }
+}
+
+// The level histogram over u16 bins: the wide body
+// (hist_grouped.cuh add_rows_wide), ft warps a block, one per feature of
+// the column's tile; a block's node and rows as in hist_level_kernel.
+template <typename G, typename BinT>
+__global__ void __launch_bounds__(kWideMaxWarps * kLanes)
+hist_level_wide(const BinT* __restrict__ bins, const G* __restrict__ gh,
+                const long long* __restrict__ seg,
+                const long long* __restrict__ first,
+                typename Gh<G>::Acc* __restrict__ out,
+                typename Gh<G>::Acc* __restrict__ partials, WideCols cols,
+                int n_nodes, long long rows_per_block) {
+  using Acc = typename Gh<G>::Acc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Acc* hist = reinterpret_cast<Acc*>(smem_raw);
+  const long long g = blockIdx.x;
+  if (g >= first[n_nodes]) return;
+  int lo = 0, hi = n_nodes;   // first[lo] <= g < first[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (first[mid] <= g) lo = mid; else hi = mid;
+  }
+  const int v = lo;
+  const long long k = g - first[v];
+  const long long p0 = seg[v] + k * rows_per_block;
+  const long long p1 = min(seg[v + 1], p0 + rows_per_block);
+  const int t = blockIdx.y;
+  const int slots = col_slots(cols);
+  zero_hist_block(hist, slots);
+  add_rows_wide<G, BinT>(hist, smem_raw + slots * 4,
+                         smem_raw + slots * 4 + wide_tag_bytes(cols), bins,
+                         gh, p0, p1, cols, t);
+  __syncthreads();
+  if (first[v + 1] - first[v] == 1) {
+    write_out_wide(hist,
+                   out + static_cast<long long>(v) * cols.F * cols.num_bin *
+                             kChannels,
+                   cols, t);
+  } else {
+    write_partial_block(hist, partials + (g * gridDim.y + t) * slots, slots);
   }
 }
 
@@ -187,29 +238,27 @@ __global__ void place_rows(const long long* __restrict__ order,
   }
 }
 
-int g_shared_set[3][2][kMaxDevices];   // per mode, bin width, device
+int g_shared_set[3][kMaxDevices];   // per mode, device (u8 bins)
+int g_wide_set[3][kMaxDevices];     // per mode, device (u16 bins)
 
-template <typename G, typename BinT>
-int plan(int num_bin, int F, int mode, int max_win, int* win,
-         long long* blocks) {
-  cudaError_t err = plan_window(num_bin, max_win,
-                                rm_ring_bytes<G, BinT>(F), win);
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <typename G>
+int plan(int num_bin, int F, int mode, long long* blocks) {
   return static_cast<int>(resident_with(
-      hist_level_kernel<G, BinT>, g_shared_set[mode][sizeof(BinT) - 1],
-      level_shared_bytes<G, BinT>(*win, F), blocks));
+      hist_level_kernel<G, uint8_t>, g_shared_set[mode],
+      level_shared_bytes<G>(num_bin, F), blocks));
 }
 
-template <typename G, typename BinT>
+template <typename G>
 int launch(const void* bins, const void* gh, const void* seg,
            const void* first, void* out, void* partials, int F, int num_bin,
-           int n_nodes, int mode, int win, long long rows_per_block,
+           int n_nodes, int mode, long long rows_per_block,
            long long max_blocks, cudaStream_t stream) {
   using Acc = typename Gh<G>::Acc;
-  const Cols cols = make_cols(F, num_bin, win);
-  const int smem = level_shared_bytes<G, BinT>(win, F);
+  using BinT = uint8_t;
+  const Cols cols = make_cols(F, num_bin, num_bin);
+  const int smem = level_shared_bytes<G>(num_bin, F);
   cudaError_t err = allow_bytes(hist_level_kernel<G, BinT>,
-                                g_shared_set[mode][sizeof(BinT) - 1], smem);
+                                g_shared_set[mode], smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long* first_p = static_cast<const long long*>(first);
   if (max_blocks > 0) {
@@ -223,10 +272,53 @@ int launch(const void* bins, const void* gh, const void* seg,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   constexpr int kReduceThreads = 256;
-  dim3 rgrid((tile_slots(win) + kReduceThreads - 1) / kReduceThreads,
+  dim3 rgrid((tile_slots(num_bin) + kReduceThreads - 1) / kReduceThreads,
              static_cast<unsigned>(cols.count()),
              static_cast<unsigned>(min(n_nodes, 64)));
   reduce_nodes<Acc><<<rgrid, kReduceThreads, 0, stream>>>(
+      static_cast<const Acc*>(partials), static_cast<Acc*>(out), first_p,
+      n_nodes, cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename G>
+int plan_wide(int F, int mode, int ft, int win, int wpf, int stage_rows,
+              int* optin, long long* blocks) {
+  return static_cast<int>(wide_plan<G, uint16_t>(
+      hist_level_wide<G, uint16_t>, g_wide_set[mode], F, ft, win, wpf,
+      stage_rows, optin, blocks));
+}
+
+template <typename G>
+int launch_wide(const void* bins, const void* gh, const void* seg,
+                const void* first, void* out, void* partials, int F,
+                int num_bin, int n_nodes, int mode, int ft, int win,
+                int wpf, int stage_rows, long long rows_per_block,
+                long long max_blocks, cudaStream_t stream) {
+  using Acc = typename Gh<G>::Acc;
+  using BinT = uint16_t;
+  const WideCols cols = make_wide_cols(F, num_bin, ft, win, wpf,
+                                       stage_rows);
+  const int smem = wide_shared_bytes<G, BinT>(cols);
+  cudaError_t err = allow_bytes(hist_level_wide<G, BinT>,
+                                g_wide_set[mode], smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long* first_p = static_cast<const long long*>(first);
+  if (max_blocks > 0) {
+    dim3 grid(static_cast<unsigned>(max_blocks),
+              static_cast<unsigned>(cols.count()));
+    hist_level_wide<G, BinT><<<grid, cols.warps() * kLanes, smem, stream>>>(
+        static_cast<const BinT*>(bins), static_cast<const G*>(gh),
+        static_cast<const long long*>(seg), first_p, static_cast<Acc*>(out),
+        static_cast<Acc*>(partials), cols, n_nodes, rows_per_block);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  constexpr int kReduceThreads = 256;
+  dim3 rgrid((col_slots(cols) + kReduceThreads - 1) / kReduceThreads,
+             static_cast<unsigned>(cols.count()),
+             static_cast<unsigned>(min(n_nodes, 64)));
+  reduce_nodes<Acc, WideCols><<<rgrid, kReduceThreads, 0, stream>>>(
       static_cast<const Acc*>(partials), static_cast<Acc*>(out), first_p,
       n_nodes, cols);
   return static_cast<int>(cudaGetLastError());
@@ -240,46 +332,84 @@ int grid_for(long long R) {
 
 extern "C" {
 
-// The plan of the kernel in `mode` on `device` at num_bin bins of
-// bin_bytes (1 or 2) and F features: its bin window (at most max_win
-// bins; *win) and the blocks resident on the device at once (*blocks),
-// with which the caller sizes rows_per_block. Returns a cudaError_t.
-int lgbm_hist_level_plan(int num_bin, int F, int mode, int bin_bytes,
-                         int max_win, int device, int* win,
+// The plan of the kernel in `mode` on `device` at num_bin u8 bins and F
+// features: the blocks resident on the device at once (*blocks), with
+// which the caller sizes rows_per_block. Returns a cudaError_t.
+int lgbm_hist_level_plan(int num_bin, int F, int mode, int device,
                          long long* blocks) {
-  if (!valid_args(num_bin, mode, bin_bytes) || F <= 0 || max_win < 1) {
+  if (!valid_args(num_bin, mode, 1) || F <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const OnDevice on(device);
   if (on.err != cudaSuccess) return static_cast<int>(on.err);
-  return LGBM_DISPATCH3(plan, mode, bin_bytes, num_bin, F, mode, max_win, win,
-                       blocks);
+  return LGBM_DISPATCH_MODE(plan, mode, num_bin, F, mode, blocks);
 }
 
-// Launches the level histogram over a grid of max_blocks (>= first[n])
-// blocks per column (feature tile x window of `win` bins, from the
-// plan), and the reduction of its partials (the caller allocates
-// max_blocks * ceil(F / 32) * ceil(num_bin / win) * 3 * win * 32
+// Launches the level histogram over u8 bins on a grid of max_blocks (>=
+// first[n]) blocks per feature tile, and the reduction of its partials
+// (the caller allocates max_blocks * ceil(F / 32) * 3 * num_bin * 32
 // accumulators), on `stream` of `device` (the device current before the
 // call is current again after it); returns cudaGetLastError() (0 = ok).
 int lgbm_hist_level(const void* bins, const void* gh, const void* seg,
                     const void* first, void* out, void* partials, int F,
-                    int num_bin, int n_nodes, int mode, int bin_bytes,
-                    int win, long long rows_per_block, long long max_blocks,
+                    int num_bin, int n_nodes, int mode,
+                    long long rows_per_block, long long max_blocks,
                     int device, void* stream) {
-  if (!valid_args(num_bin, mode, bin_bytes) || F <= 0 || win < 1 ||
-      n_nodes < 1 || n_nodes > 65535 || rows_per_block < 1 ||
-      max_blocks < 0 ||
+  if (!valid_args(num_bin, mode, 1) || F <= 0 || n_nodes < 1 ||
+      n_nodes > 65535 || rows_per_block < 1 || max_blocks < 0 ||
       reinterpret_cast<uintptr_t>(bins) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(gh) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const OnDevice on(device);
   if (on.err != cudaSuccess) return static_cast<int>(on.err);
-  return LGBM_DISPATCH3(launch, mode, bin_bytes, bins, gh, seg, first, out,
-                       partials, F, num_bin, n_nodes, mode, win,
-                       rows_per_block, max_blocks,
-                       static_cast<cudaStream_t>(stream));
+  return LGBM_DISPATCH_MODE(launch, mode, bins, gh, seg, first, out,
+                            partials, F, num_bin, n_nodes, mode,
+                            rows_per_block, max_blocks,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The wide level histogram's plan on `device` (u16 bins): the opt-in
+// shared bytes of a block (*optin) and, for ft > 0, the blocks of the
+// geometry (ft features a tile, windows of win bins, wpf warps a feature,
+// stage_rows rows a stage, at F features) resident on the device at once
+// (*blocks). Returns a cudaError_t.
+int lgbm_hist_level_wide_plan(int F, int mode, int ft, int win, int wpf,
+                              int stage_rows, int device, int* optin,
+                              long long* blocks) {
+  if (!valid_args(1, mode, 2) ||
+      (ft > 0 && !valid_wide(F, 1, ft, win, wpf, stage_rows))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  return LGBM_DISPATCH_MODE(plan_wide, mode, F, mode, ft, win, wpf,
+                            stage_rows, optin, blocks);
+}
+
+// The level histogram over u16 bins, on the wide body: as
+// lgbm_hist_level, with columns of ft features x win bins, wpf warps a
+// feature and stage_rows rows a stage (the caller allocates max_blocks *
+// ceil(F / ft) * ceil(num_bin / win) * 3 * ft * win accumulators of
+// partials).
+int lgbm_hist_level_wide(const void* bins, const void* gh, const void* seg,
+                         const void* first, void* out, void* partials, int F,
+                         int num_bin, int n_nodes, int mode, int ft, int win,
+                         int wpf, int stage_rows, long long rows_per_block,
+                         long long max_blocks, int device, void* stream) {
+  if (!valid_args(num_bin, mode, 2) ||
+      !valid_wide(F, num_bin, ft, win, wpf, stage_rows) || n_nodes < 1 ||
+      n_nodes > 65535 || rows_per_block < 1 || max_blocks < 0 ||
+      reinterpret_cast<uintptr_t>(bins) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(gh) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  return LGBM_DISPATCH_MODE(launch_wide, mode, bins, gh, seg, first, out,
+                            partials, F, num_bin, n_nodes, mode, ft, win,
+                            wpf, stage_rows, rows_per_block, max_blocks,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // The first step of the partition: packed [R] and leaving [R] int64 (see

@@ -11,7 +11,7 @@
 // into bf16 hi/mid/lo triples and padding channels to 16 and tiles to
 // (8, 128); it falls back to an einsum where no tile fits (more than
 // about 4,095 bins). None of that carries over: on Hopper this is a
-// scatter into shared memory, with bin windows for any number of bins.
+// scatter into shared memory, for any number of bins.
 //
 //   out[f, b, c] = sum_r gh[r, c] * [bins[r, f] == b]
 //   bins: uint8 or uint16 [S, F] contiguous, values >= num_bin skipped
@@ -25,23 +25,34 @@
 // (bins of w bytes) + S*3*sizeof(gh) + 12*F*num_bin (out). At S = 1M,
 // F = 28, num_bin = 255, u8: about 40 MB (f32, ~12 us), 34 MB (bf16, ~10
 // us), 31 MB (int8, ~9 us); u16 at 1,023 bins, f32: about 68 MB (~20
-// us). Its 3*S*F adds are far below the card's rate: memory bounds it.
+// us; at 4,095 bins about 69 MB, ~21 us). Its 3*S*F adds are far below
+// the card's rate: memory bounds it.
 //
-// Design. Two paths, chosen by the caller from the leaf's row count,
-// which the host knows:
+// Design. Three paths, chosen by the caller from the leaf's row count,
+// which the host knows, and the bin width:
 //
-// - Dense (hist_rowmajor_kernel): the block body of hist_grouped.cuh.
-//   A leaf of S rows takes min(S / 256, one wave) blocks over row slices
-//   per histogram column (feature tile x bin window); each block zeroes
-//   its [win][32][3] shared histogram with 16-byte stores, stages its
+// - Dense (hist_rowmajor_kernel), u8 bins: the grouped body of
+//   hist_grouped.cuh. A leaf of S rows takes min(S / 256, one wave)
+//   blocks over row slices per feature tile; each block zeroes its
+//   [num_bin][32][3] shared histogram with 16-byte stores, stages its
 //   rows into the cp.async ring (a batch of 32 rows at F = 28 is 896
 //   contiguous bytes in u8, 1,792 in u16) and adds them four at a time.
+//   A block whose first batch puts most rows of a feature in a few bins
+//   adds those bins' rows in f64 registers instead (LaneHot).
 //   With one block the histogram goes straight to `out`; with more, each
 //   block writes its partial (16 bytes a lane) and reduce_flagged sums
-//   them in block order, runs of blocks in parallel. (A body that adds
-//   a lane's rows one after another, each waiting on the one before, its
-//   bins loaded a byte a lane one batch ahead, ran about 1.7x slower per
-//   row than this one in K2 and B2.)
+//   them in block order, in f64, runs of blocks in parallel. (A body
+//   that adds a lane's rows one after another, each waiting on the one
+//   before, its bins loaded a byte a lane one batch ahead, ran about
+//   1.7x slower per row than this one in K2 and B2.)
+// - Wide (hist_rowmajor_wide), the dense path over u16 bins: the wide
+//   body of hist_grouped.cuh, a
+//   warp per feature of a tile of up to 16, lane = row, 12 bytes a bin
+//   and feature, so a block holds all of a tile's bins (4 features of
+//   4,095 bins, 14 of 1,023) and reads the rows once per tile instead of
+//   once per 512-bin window. A leaf takes min(S / 512, one wave) blocks
+//   over row slices per column (feature tile x window); partials and
+//   reduce_flagged as in the dense path.
 // - Small (hist_rowmajor_small): a leaf of a few hundred rows does not
 //   pay for zeroing and writing a 98 KB histogram per block and reducing
 //   them. One block per (feature, bin window) gathers the leaf's bins of
@@ -61,9 +72,9 @@ namespace {
 
 using namespace lgbm;
 
-template <typename G, typename BinT>
-inline int dense_shared_bytes(int win, int F) {
-  return hist_bytes(win) + rm_ring_bytes<G, BinT>(F);
+template <typename G>
+inline int dense_shared_bytes(int num_bin, int F) {
+  return hist_bytes(num_bin) + rm_fixed_bytes<G, uint8_t>(F);
 }
 
 template <typename G, typename BinT>
@@ -89,6 +100,37 @@ hist_rowmajor_kernel(const BinT* __restrict__ bins,
         static_cast<long long>(blockIdx.x) * gridDim.y + t;
     write_partial_vec(hist, partials + part * tile_slots(cols.win),
                       cols.win);
+  }
+}
+
+// The dense path over u16 bins: the wide body
+// (hist_grouped.cuh add_rows_wide), ft warps a block, one per feature of
+// the column's tile, over the block's row slice; partials and their
+// reduction as in hist_rowmajor_kernel.
+template <typename G, typename BinT>
+__global__ void __launch_bounds__(kWideMaxWarps * kLanes)
+hist_rowmajor_wide(const BinT* __restrict__ bins, const G* __restrict__ gh,
+                   typename Gh<G>::Acc* __restrict__ out,
+                   typename Gh<G>::Acc* __restrict__ partials, long long S,
+                   WideCols cols, long long rows_per_block) {
+  using Acc = typename Gh<G>::Acc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Acc* hist = reinterpret_cast<Acc*>(smem_raw);
+  const int t = blockIdx.y;
+  const int slots = col_slots(cols);
+  zero_hist_block(hist, slots);
+  const long long p0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long p1 = min(S, p0 + rows_per_block);
+  add_rows_wide<G, BinT>(hist, smem_raw + slots * 4,
+                         smem_raw + slots * 4 + wide_tag_bytes(cols), bins,
+                         gh, p0, p1, cols, t);
+  __syncthreads();
+  if (gridDim.x == 1) {
+    write_out_wide(hist, out, cols, t);
+  } else {
+    const long long part =
+        static_cast<long long>(blockIdx.x) * gridDim.y + t;
+    write_partial_block(hist, partials + part * slots, slots);
   }
 }
 
@@ -159,29 +201,27 @@ hist_rowmajor_small(const BinT* __restrict__ bins, const G* __restrict__ gh,
   }
 }
 
-int g_dense_set[3][2][kMaxDevices];   // per mode, bin width, device
-int g_small_set[3][2][kMaxDevices];
+int g_dense_set[3][kMaxDevices];   // per mode, device (u8 bins)
+int g_small_set[3][2][kMaxDevices];   // per mode, bin width, device
+int g_wide_set[3][kMaxDevices];    // per mode, device (u16 bins)
 
-template <typename G, typename BinT>
-int plan(int num_bin, int F, int mode, int max_win, int* win,
-         long long* blocks) {
-  cudaError_t err = plan_window(num_bin, max_win,
-                                rm_ring_bytes<G, BinT>(F), win);
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <typename G>
+int plan(int num_bin, int F, int mode, long long* blocks) {
   return static_cast<int>(resident_with(
-      hist_rowmajor_kernel<G, BinT>, g_dense_set[mode][sizeof(BinT) - 1],
-      dense_shared_bytes<G, BinT>(*win, F), blocks));
+      hist_rowmajor_kernel<G, uint8_t>, g_dense_set[mode],
+      dense_shared_bytes<G>(num_bin, F), blocks));
 }
 
-template <typename G, typename BinT>
+template <typename G>
 int launch(const void* bins, const void* gh, void* out, void* partials,
-           long long S, int F, int num_bin, int mode, int win,
-           long long blocks, cudaStream_t stream) {
+           long long S, int F, int num_bin, int mode, long long blocks,
+           cudaStream_t stream) {
   using Acc = typename Gh<G>::Acc;
-  const Cols cols = make_cols(F, num_bin, win);
-  const int smem = dense_shared_bytes<G, BinT>(win, F);
+  using BinT = uint8_t;
+  const Cols cols = make_cols(F, num_bin, num_bin);
+  const int smem = dense_shared_bytes<G>(num_bin, F);
   cudaError_t err = allow_bytes(hist_rowmajor_kernel<G, BinT>,
-                                g_dense_set[mode][sizeof(BinT) - 1], smem);
+                                g_dense_set[mode], smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows_per_block = (S + blocks - 1) / blocks;
   dim3 grid(static_cast<unsigned>(blocks),
@@ -193,10 +233,51 @@ int launch(const void* bins, const void* gh, void* out, void* partials,
   err = cudaGetLastError();
   if (err != cudaSuccess || blocks == 1) return static_cast<int>(err);
   constexpr int kPerBlock = 4 * kReduceSlots;   // accumulators a block sums
-  dim3 rgrid((tile_slots(win) + kPerBlock - 1) / kPerBlock,
+  dim3 rgrid((tile_slots(num_bin) + kPerBlock - 1) / kPerBlock,
              static_cast<unsigned>(cols.count()), 1);
   err = launch_after(reduce_flagged<Acc>, rgrid, dim3(kSegs * kReduceSlots),
                      0, stream, static_cast<const Acc*>(partials),
+                     static_cast<const int*>(nullptr), static_cast<Acc*>(out),
+                     static_cast<int>(blocks), cols);
+  return static_cast<int>(err);
+}
+
+template <typename G>
+int plan_wide(int F, int mode, int ft, int win, int wpf, int stage_rows,
+              int* optin, long long* blocks) {
+  return static_cast<int>(wide_plan<G, uint16_t>(
+      hist_rowmajor_wide<G, uint16_t>, g_wide_set[mode], F, ft, win, wpf,
+      stage_rows, optin, blocks));
+}
+
+template <typename G>
+int launch_wide(const void* bins, const void* gh, void* out, void* partials,
+                long long S, int F, int num_bin, int mode, int ft, int win,
+                int wpf, int stage_rows, long long blocks,
+                cudaStream_t stream) {
+  using Acc = typename Gh<G>::Acc;
+  using BinT = uint16_t;
+  const WideCols cols = make_wide_cols(F, num_bin, ft, win, wpf,
+                                       stage_rows);
+  const int smem = wide_shared_bytes<G, BinT>(cols);
+  cudaError_t err = allow_bytes(hist_rowmajor_wide<G, BinT>,
+                                g_wide_set[mode], smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows_per_block = (S + blocks - 1) / blocks;
+  dim3 grid(static_cast<unsigned>(blocks),
+            static_cast<unsigned>(cols.count()));
+  hist_rowmajor_wide<G, BinT><<<grid, cols.warps() * kLanes, smem, stream>>>(
+      static_cast<const BinT*>(bins), static_cast<const G*>(gh),
+      static_cast<Acc*>(out), static_cast<Acc*>(partials), S, cols,
+      rows_per_block);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || blocks == 1) return static_cast<int>(err);
+  constexpr int kPerBlock = 4 * kReduceSlots;   // accumulators a block sums
+  dim3 rgrid((col_slots(cols) + kPerBlock - 1) / kPerBlock,
+             static_cast<unsigned>(cols.count()), 1);
+  err = launch_after(reduce_flagged<Acc, WideCols>, rgrid,
+                     dim3(kSegs * kReduceSlots), 0, stream,
+                     static_cast<const Acc*>(partials),
                      static_cast<const int*>(nullptr), static_cast<Acc*>(out),
                      static_cast<int>(blocks), cols);
   return static_cast<int>(err);
@@ -223,33 +304,71 @@ int launch_small(const void* bins, const void* gh, void* out, int S, int F,
 
 extern "C" {
 
-// The dense path's plan on `device` at num_bin bins of bin_bytes (1 or 2)
-// and F features: its bin window (at most max_win bins; *win) and the
-// blocks resident on the device at once (*blocks), with which the caller
-// sizes its grid. Returns a cudaError_t.
-int lgbm_hist_rowmajor_plan(int num_bin, int F, int mode, int bin_bytes,
-                            int max_win, int device, int* win,
+// The dense path's plan on `device` at num_bin u8 bins and F features:
+// the blocks resident on the device at once (*blocks), with which the
+// caller sizes its grid. Returns a cudaError_t.
+int lgbm_hist_rowmajor_plan(int num_bin, int F, int mode, int device,
                             long long* blocks) {
-  if (!valid_args(num_bin, mode, bin_bytes) || F <= 0 || max_win < 1) {
+  if (!valid_args(num_bin, mode, 1) || F <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const OnDevice on(device);
   if (on.err != cudaSuccess) return static_cast<int>(on.err);
-  return LGBM_DISPATCH3(plan, mode, bin_bytes, num_bin, F, mode, max_win, win,
-                       blocks);
+  return LGBM_DISPATCH_MODE(plan, mode, num_bin, F, mode, blocks);
 }
 
-// The dense path: the histogram over `blocks` row slices per column
-// (feature tile x window of `win` bins, from the plan) and, for blocks >
-// 1, the reduction of their partials (the caller allocates blocks *
-// ceil(F / 32) * ceil(num_bin / win) * 3 * win * 32 accumulators), on
-// `stream` of `device` (the device current before the call is current
-// again after it); returns cudaGetLastError() (0 = ok).
+// The dense path over u8 bins: the histogram over `blocks` row slices
+// per feature tile and, for blocks > 1, the reduction of their partials
+// (the caller allocates blocks * ceil(F / 32) * 3 * num_bin * 32
+// accumulators), on `stream` of `device` (the device current before the
+// call is current again after it); returns cudaGetLastError() (0 = ok).
 int lgbm_hist_rowmajor(const void* bins, const void* gh, void* out,
                        void* partials, long long S, int F, int num_bin,
-                       int mode, int bin_bytes, int win, long long blocks,
-                       int device, void* stream) {
-  if (!valid_args(num_bin, mode, bin_bytes) || S <= 0 || F <= 0 || win < 1 ||
+                       int mode, long long blocks, int device, void* stream) {
+  if (!valid_args(num_bin, mode, 1) || S <= 0 || F <= 0 || blocks < 1 ||
+      blocks > kMaxParts ||
+      reinterpret_cast<uintptr_t>(bins) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(gh) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  return LGBM_DISPATCH_MODE(launch, mode, bins, gh, out, partials, S, F,
+                            num_bin, mode, blocks,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The wide dense path's plan on `device` (u16 bins): the opt-in shared
+// bytes of a block (*optin) and, for ft > 0, the blocks of the geometry
+// (ft features a tile, windows of win bins, wpf warps a feature,
+// stage_rows rows a stage, at F features) resident on the device at once
+// (*blocks). Returns a cudaError_t.
+int lgbm_hist_rowmajor_wide_plan(int F, int mode, int ft, int win, int wpf,
+                                 int stage_rows, int device, int* optin,
+                                 long long* blocks) {
+  if (!valid_args(1, mode, 2) ||
+      (ft > 0 && !valid_wide(F, 1, ft, win, wpf, stage_rows))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  return LGBM_DISPATCH_MODE(plan_wide, mode, F, mode, ft, win, wpf,
+                            stage_rows, optin, blocks);
+}
+
+// The wide dense path (u16 bins): the histogram over `blocks` row
+// slices per column (ft features a tile x window of win bins, wpf warps
+// a feature) and, for blocks > 1, the reduction of their partials (the
+// caller allocates blocks * ceil(F / ft) * ceil(num_bin / win) * 3 * ft
+// * win accumulators), on `stream` of `device`; returns
+// cudaGetLastError() (0 = ok).
+int lgbm_hist_rowmajor_wide(const void* bins, const void* gh, void* out,
+                            void* partials, long long S, int F, int num_bin,
+                            int mode, int ft, int win, int wpf,
+                            int stage_rows, long long blocks, int device,
+                            void* stream) {
+  if (!valid_args(num_bin, mode, 2) ||
+      !valid_wide(F, num_bin, ft, win, wpf, stage_rows) || S <= 0 ||
       blocks < 1 || blocks > kMaxParts ||
       reinterpret_cast<uintptr_t>(bins) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(gh) % 16 != 0) {
@@ -257,9 +376,9 @@ int lgbm_hist_rowmajor(const void* bins, const void* gh, void* out,
   }
   const OnDevice on(device);
   if (on.err != cudaSuccess) return static_cast<int>(on.err);
-  return LGBM_DISPATCH3(launch, mode, bin_bytes, bins, gh, out, partials, S,
-                       F, num_bin, mode, win, blocks,
-                       static_cast<cudaStream_t>(stream));
+  return LGBM_DISPATCH_MODE(launch_wide, mode, bins, gh, out, partials, S,
+                            F, num_bin, mode, ft, win, wpf, stage_rows,
+                            blocks, static_cast<cudaStream_t>(stream));
 }
 
 // The small path for a leaf of S rows (S * 16 bytes of shared memory

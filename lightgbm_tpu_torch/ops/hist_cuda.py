@@ -11,9 +11,15 @@ note gives the bound and the design.
 
 Bins are uint8, or u16 bins (``max_bin > 256``) held as int16 with the
 same bits (``ops/histogram.bin_ids``); a ``torch.uint16`` tensor is taken
-as its int16 view. Every number of bins binning can give is served: a
-histogram too wide for one block's shared memory is cut into bin windows
-of at most ``WINDOW_BINS`` bins, each block adding one window.
+as its int16 view. Every number of bins binning can give is served. The
+body is chosen by the bin width, which binning takes from the number of
+bins (u16 past 256): K1's dense path and K2 add uint8 bins through the
+grouped body (a warp a block, lane = feature, all bins in one block) and
+u16 bins through the wide body (a warp per feature, lane = row;
+``wide_geometry`` gives its tiles and windows). B2 takes the grouped
+body in both widths, a histogram too wide for one block's shared memory
+cut into bin windows of at most ``WINDOW_BINS`` bins, each block adding
+one window.
 
 ``hist_cuda_rm`` takes K1's contract: bins ``[S, F]`` (contiguous), gh
 ``[S, 3]`` (contiguous) in float32, bfloat16 or int8, and returns ``[F,
@@ -32,6 +38,7 @@ launches the kernel or raises — there is no fallback.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,11 +58,25 @@ TILE_FEATURES = 32      # features per block (one warp, lane = feature)
 MIN_ROWS_PER_BLOCK = 256  # a block's fixed cost (zero, write) needs rows
 BATCH_ROWS = 32         # B2's rows per step; a block's rows are a multiple
 MAX_PARTS = 4096        # blocks a reduction sums at most
-# the widest bin window of a block: a histogram of more bins is split
+# B2's widest bin window of a block: a histogram of more bins is split
 # into windows, each block adding one (the rows are read once a window)
 WINDOW_BINS = 512
 # K1: a leaf of at most this many rows takes the small path
 SMALL_LEAF_ROWS = 1024
+# the wide body's geometry (K1's dense path and K2 over u16 bins), as the
+# kernels read it: at most this many warps a block; a feature's bins split
+# between warps down to runs of this many; stages of at most this many
+# rows (fewer where only that lets a block hold its features' bins), and
+# this many stages (kWideStages of csrc/hist_grouped.cuh; a launch whose
+# shared memory does not fit fails)
+WIDE_MAX_WARPS = 16
+WIDE_MIN_RUN_BINS = 2048
+WIDE_STAGE_ROWS = 512
+WIDE_STAGES = 2
+# a wide block zeroes and writes a histogram of up to ~200 KB, and its
+# warps add their rows 32 at a time one after another: a mid-size leaf
+# needs many blocks of a few hundred rows each
+WIDE_MIN_ROWS_PER_BLOCK = 512
 # B2 reads a lane's 32 bins of a batch as 16-byte vectors where a
 # feature's row starts 16-byte aligned: the device copy of feature-major
 # bins pads each row to a multiple of this many elements (never read)
@@ -93,24 +114,159 @@ def bind(lib, name: str, argtypes: list, restype=ctypes.c_int):
 
 
 def plan(lib, kernel: str, gpu: int, num_bin: int, mode: int,
-         bin_bytes: int, features=None):
-    """``(win, resident)`` of ``kernel`` on device ``gpu``: its bin
+         bin_bytes: int):
+    """``(win, resident)`` of B2 (``kernel``) on device ``gpu``: its bin
     window and the blocks resident at once, at ``num_bin`` bins of
-    ``bin_bytes`` (and ``features`` features, for a kernel whose shared
-    memory depends on them), asked of the library once per key."""
-    key = (kernel, gpu, num_bin, mode, bin_bytes, features, WINDOW_BINS)
+    ``bin_bytes``, asked of the library once per key."""
+    key = (kernel, gpu, num_bin, mode, bin_bytes, WINDOW_BINS)
     if key not in _plans:
-        head = [ctypes.c_int] * (5 if features is not None else 4)
-        fn = bind(lib, f"lgbm_{kernel}_plan", head + [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_longlong)])
+        fn = bind(lib, f"lgbm_{kernel}_plan", [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)])
         win, n = ctypes.c_int(0), ctypes.c_longlong(0)
-        args = ((num_bin, mode) if features is None
-                else (num_bin, features, mode))
-        raise_on(lib, fn(*args, bin_bytes, WINDOW_BINS, gpu,
+        raise_on(lib, fn(num_bin, mode, bin_bytes, WINDOW_BINS, gpu,
                          ctypes.byref(win), ctypes.byref(n)), kernel)
         _plans[key] = (win.value, n.value)
     return _plans[key]
+
+
+def grouped_plan(lib, kernel: str, gpu: int, num_bin: int, F: int,
+                 mode: int) -> int:
+    """The blocks of ``kernel``'s grouped body (K1's dense path or K2,
+    over uint8 bins, all ``num_bin`` bins in one block) resident at once
+    on device ``gpu`` at ``F`` features, asked of the library once per
+    key."""
+    key = (kernel, gpu, num_bin, F, mode)
+    if key not in _plans:
+        fn = bind(lib, f"lgbm_{kernel}_plan", [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_longlong)])
+        n = ctypes.c_longlong(0)
+        raise_on(lib, fn(num_bin, F, mode, gpu, ctypes.byref(n)), kernel)
+        _plans[key] = n.value
+    return _plans[key]
+
+
+class WideGeometry(NamedTuple):
+    """A wide launch's histogram columns: ``n_ftiles`` tiles of ``ft``
+    features times ``n_win`` windows of ``win`` bins (a multiple of 4 *
+    ``wpf``), each feature's window split between ``wpf`` warps,
+    ``stage_rows`` rows staged at a time, and a block's dynamic shared
+    memory."""
+    ft: int
+    n_ftiles: int
+    win: int
+    n_win: int
+    wpf: int
+    stage_rows: int
+    shared_bytes: int
+
+    @property
+    def columns(self) -> int:
+        return self.n_ftiles * self.n_win
+
+    @property
+    def slots(self) -> int:
+        """Accumulators of one block's histograms."""
+        return 3 * self.ft * self.win
+
+
+def _slot_bytes(nbytes: int) -> int:
+    """A ring slot for ``nbytes`` staged bytes: widened to whole 16-byte
+    chunks at either end (``gh_slot_bytes`` in hist_grouped.cuh)."""
+    return (nbytes + 47) // 16 * 16
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def wide_geometry(num_bin: int, F: int, bin_bytes: int, gh_bytes: int,
+                  optin: int) -> WideGeometry:
+    """The wide body's columns at ``num_bin`` bins and ``F`` features of
+    ``bin_bytes`` bytes, gh of ``gh_bytes`` bytes a channel, in blocks of
+    at most ``optin`` bytes of shared memory (232,448 on the H100): all
+    of a feature's bins in one window wherever they fit beside the
+    smallest ring, else the fewest equal windows; then as many features a
+    tile as fit, in the fewest tiles of equal width, with the largest
+    stages that fit beside them; then the warps left over split each
+    feature's bins into runs. The shared bytes are ``wide_shared_bytes``
+    of hist_grouped.cuh: 12 bytes a bin of the histograms, a byte a bin
+    of tags, then ``WIDE_STAGES`` stages of rows, each row's tile of bins
+    (``tile_row_bytes``) and its gh."""
+    def row_bytes(ft):
+        """A staged row's bytes (``tile_row_bytes``): the tile's own where
+        a copy of 16, 8 or 4 bytes divides both the row and the tile,
+        else the 16-byte chunks holding it."""
+        if any(F * bin_bytes % g == 0 and ft * bin_bytes % g == 0
+               for g in (16, 8, 4)):
+            return ft * bin_bytes
+        return (ft * bin_bytes + 30) // 16 * 16
+
+    def shared(ft, win, rows):
+        return 12 * ft * win + _ceil_to(ft * win, 16) + WIDE_STAGES * (
+            _ceil_to(rows * row_bytes(ft), 16)
+            + _slot_bytes(rows * 3 * gh_bytes))
+
+    def stage_rows(ft, win):
+        """The largest stage, a multiple of 32 rows and at most
+        WIDE_STAGE_ROWS, that fits; None if 32 rows do not."""
+        room = optin - 12 * ft * win - _ceil_to(ft * win, 16)
+        # a stage of r rows takes at most r * per + 62 bytes
+        per = row_bytes(ft) + 3 * gh_bytes
+        rows = min(WIDE_STAGE_ROWS,
+                   max(room // WIDE_STAGES - 62, 0) // per // 32 * 32)
+        while (rows + 32 <= WIDE_STAGE_ROWS
+               and shared(ft, win, rows + 32) <= optin):
+            rows += 32
+        return rows if rows >= 32 and shared(ft, win, rows) <= optin \
+            else None
+
+    # the fewest windows whose bins fit one feature beside the least ring
+    most = (optin - shared(1, 0, 32) - 15) // 13 // 4 * 4
+    if most < 4:
+        raise ValueError(f"{F} features do not fit the wide body's ring "
+                         f"in {optin} bytes of shared memory")
+    n_win = -(-num_bin // most)
+    win = _ceil_to(-(-num_bin // n_win), 4)
+    # as many features as fit (the ring grows with them: count it at the
+    # widest tile, then try one more)
+    top = min(F, WIDE_MAX_WARPS)
+    ft = max(1, min(top, (optin - shared(top, 0, 32) - 15) // (13 * win)))
+    while ft < top and stage_rows(ft + 1, win) is not None:
+        ft += 1
+    while stage_rows(ft, win) is None:
+        ft -= 1
+    ft = -(-F // -(-F // ft))         # the fewest tiles, of equal width
+    wpf = max(1, min(WIDE_MAX_WARPS // ft, win // WIDE_MIN_RUN_BINS))
+    while wpf > 1 and stage_rows(ft, _ceil_to(win, 4 * wpf)) is None:
+        wpf -= 1
+    win = _ceil_to(win, 4 * wpf)
+    rows = stage_rows(ft, win)
+    return WideGeometry(ft, -(-F // ft), win, -(-num_bin // win), wpf, rows,
+                        shared(ft, win, rows))
+
+
+_wide_plans: dict = {}
+
+
+def wide_plan(lib, kernel: str, gpu: int, num_bin: int, F: int,
+              mode: int):
+    """``(geometry, resident)`` of ``kernel``'s wide body (u16 bins) on
+    device ``gpu``: its ``WideGeometry`` and the blocks of it resident at
+    once, asked of the library once per key."""
+    key = (kernel, gpu, num_bin, F, mode, WIDE_MAX_WARPS,
+           WIDE_MIN_RUN_BINS, WIDE_STAGE_ROWS)
+    if key not in _wide_plans:
+        fn = bind(lib, f"lgbm_{kernel}_wide_plan", [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)])
+        optin, n = ctypes.c_int(0), ctypes.c_longlong(0)
+        raise_on(lib, fn(F, mode, 0, 4, 1, 32, gpu, ctypes.byref(optin),
+                         ctypes.byref(n)), kernel)
+        gh_bytes = (4, 2, 1)[mode]
+        geo = wide_geometry(num_bin, F, 2, gh_bytes, optin.value)
+        raise_on(lib, fn(F, mode, geo.ft, geo.win, geo.wpf, geo.stage_rows,
+                         gpu, ctypes.byref(optin), ctypes.byref(n)), kernel)
+        _wide_plans[key] = (geo, n.value)
+    return _wide_plans[key]
 
 
 def columns(F: int, num_bin: int, win: int) -> int:
@@ -190,22 +346,38 @@ def hist_cuda_rm(bins_rm: torch.Tensor, gh: torch.Tensor,
             ctypes.c_int] * 6 + [ctypes.c_void_p])
         rc = fn(bins_rm.data_ptr(), gh.data_ptr(), out.data_ptr(), S, F,
                 num_bin, mode, bb, gpu, stream_handle(gpu))
-    else:
+    elif bb == 2:
         bins_rm, gh = aligned16(bins_rm), aligned16(gh)
-        win, resident = plan(lib, KERNEL, gpu, num_bin, mode, bb, F)
-        n_cols = columns(F, num_bin, win)
-        # at least MIN_ROWS_PER_BLOCK rows a block, at most one wave
-        blocks = max(1, min(-(-S // MIN_ROWS_PER_BLOCK), resident // n_cols,
-                            MAX_PARTS))
-        partials = (torch.empty(blocks * n_cols * 3 * win * TILE_FEATURES,
+        geo, resident = wide_plan(lib, KERNEL, gpu, num_bin, F, mode)
+        blocks = max(1, min(-(-S // WIDE_MIN_ROWS_PER_BLOCK),
+                            resident // geo.columns, MAX_PARTS))
+        partials = (torch.empty(blocks * geo.columns * geo.slots,
                                 dtype=out_dtype, device=bins_rm.device)
                     if blocks > 1 else None)
-        fn = bind(lib, "lgbm_hist_rowmajor", [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+        fn = bind(lib, "lgbm_hist_rowmajor_wide", [ctypes.c_void_p] * 4 + [
+            ctypes.c_longlong] + [ctypes.c_int] * 7 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
         rc = fn(bins_rm.data_ptr(), gh.data_ptr(), out.data_ptr(),
                 None if partials is None else partials.data_ptr(), S, F,
-                num_bin, mode, bb, win, blocks, gpu, stream_handle(gpu))
+                num_bin, mode, geo.ft, geo.win, geo.wpf, geo.stage_rows,
+                blocks, gpu, stream_handle(gpu))
+    else:
+        bins_rm, gh = aligned16(bins_rm), aligned16(gh)
+        resident = grouped_plan(lib, KERNEL, gpu, num_bin, F, mode)
+        n_cols = columns(F, num_bin, num_bin)
+        # at least MIN_ROWS_PER_BLOCK rows a block, at most one wave
+        blocks = max(1, min(-(-S // MIN_ROWS_PER_BLOCK), resident // n_cols,
+                            MAX_PARTS))
+        partials = (torch.empty(blocks * n_cols * 3 * num_bin
+                                * TILE_FEATURES, dtype=out_dtype,
+                                device=bins_rm.device)
+                    if blocks > 1 else None)
+        fn = bind(lib, "lgbm_hist_rowmajor", [ctypes.c_void_p] * 4 + [
+            ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        rc = fn(bins_rm.data_ptr(), gh.data_ptr(), out.data_ptr(),
+                None if partials is None else partials.data_ptr(), S, F,
+                num_bin, mode, blocks, gpu, stream_handle(gpu))
     raise_on(lib, rc, KERNEL)
     hist_cuda_rm.launches[mode_key(key, bins_rm)] += 1
     return out

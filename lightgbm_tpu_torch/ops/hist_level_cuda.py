@@ -16,9 +16,11 @@ of the same source around two cumulative sums; its plain version is
 ``ops/hist_level.carry_order``). Without them the wrapper sorts the node
 keys itself (``node_order``). It then gathers bins and gh into that
 order once, so that the kernel reads each node's rows as consecutive
-rows, 16 bytes at a time. A CPU tensor runs the plain version (the
-module-level ``hist_level``, called with the contract's six arguments);
-a CUDA tensor launches the kernel or raises — there is no fallback.
+rows, 16 bytes at a time. u16 bins take the kernel's wide body (a warp
+per feature, lane = row), uint8 bins the grouped one. A CPU
+tensor runs the plain version (the module-level ``hist_level``, called
+with the contract's six arguments); a CUDA tensor launches the kernel or
+raises — there is no fallback.
 """
 from __future__ import annotations
 
@@ -28,9 +30,10 @@ from typing import Optional
 import torch
 
 from .. import _build
-from .hist_cuda import (MIN_ROWS_PER_BLOCK, MODES, TILE_FEATURES, bind,
-                        check_bins, check_gh, columns, mode_key, plan,
-                        raise_on, stream_handle)
+from .hist_cuda import (MIN_ROWS_PER_BLOCK, MODES, TILE_FEATURES,
+                        WIDE_MIN_ROWS_PER_BLOCK, bind, check_bins, check_gh,
+                        columns, grouped_plan, mode_key, raise_on,
+                        stream_handle, wide_plan)
 from .hist_level import _exclusive_cumsum, carry_order, hist_level, node_order
 from .histogram import as_bin_storage
 
@@ -97,16 +100,21 @@ def hist_level_cuda(bins_rm: torch.Tensor, gh: torch.Tensor,
     dev = bins_rm.device
     gpu = dev.index
     lib = _build.load(KERNEL)
-    fn = bind(lib, "lgbm_hist_level", [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_longlong,
-                             ctypes.c_int, ctypes.c_void_p])
     bb = bins_rm.element_size()
     num_bin = int(num_bin)
-    win, resident = plan(lib, KERNEL, gpu, num_bin, mode, bb, F)
-    n_cols = columns(F, num_bin, win)
+    wide = bb == 2
+    if wide:
+        geo, resident = wide_plan(lib, KERNEL, gpu, num_bin, F, mode)
+        n_cols, slots = geo.columns, geo.slots
+        min_rows = WIDE_MIN_ROWS_PER_BLOCK
+    else:
+        resident = grouped_plan(lib, KERNEL, gpu, num_bin, F, mode)
+        n_cols = columns(F, num_bin, num_bin)
+        slots = 3 * num_bin * TILE_FEATURES
+        min_rows = MIN_ROWS_PER_BLOCK
     # a level whose rows sit in one node fills one wave of blocks
     wave = max(resident // n_cols, 1)
-    rpb = max(MIN_ROWS_PER_BLOCK, -(-R // wave))
+    rpb = max(min_rows, -(-R // wave))
     max_blocks = R // rpb + n     # >= sum over nodes of ceil(rows / rpb)
     if order is None:
         order, seg = node_order(local, in_lvl, n)
@@ -114,12 +122,23 @@ def hist_level_cuda(bins_rm: torch.Tensor, gh: torch.Tensor,
     first = _exclusive_cumsum((seg[1:] - seg[:-1] + rpb - 1) // rpb)
     bins_k, gh_k = _gathered(bins_rm, order), _gathered(gh, order)
     out = torch.empty(n, F, num_bin, 3, dtype=out_dtype, device=dev)
-    partials = torch.empty(max_blocks * n_cols * 3 * win * TILE_FEATURES,
-                           dtype=out_dtype, device=dev)
-    raise_on(lib, fn(bins_k.data_ptr(), gh_k.data_ptr(),
-                     seg.data_ptr(), first.data_ptr(), out.data_ptr(),
-                     partials.data_ptr(), F, num_bin, n, mode, bb, win,
-                     rpb, max_blocks, gpu, stream_handle(gpu)), KERNEL)
+    partials = torch.empty(max_blocks * n_cols * slots, dtype=out_dtype,
+                           device=dev)
+    ptrs = (bins_k.data_ptr(), gh_k.data_ptr(), seg.data_ptr(),
+            first.data_ptr(), out.data_ptr(), partials.data_ptr())
+    if wide:
+        fn = bind(lib, "lgbm_hist_level_wide", [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_void_p])
+        rc = fn(*ptrs, F, num_bin, n, mode, geo.ft, geo.win, geo.wpf,
+                geo.stage_rows, rpb, max_blocks, gpu, stream_handle(gpu))
+    else:
+        fn = bind(lib, "lgbm_hist_level", [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_void_p])
+        rc = fn(*ptrs, F, num_bin, n, mode, rpb, max_blocks, gpu,
+                stream_handle(gpu))
+    raise_on(lib, rc, KERNEL)
     hist_level_cuda.launches[mode_key(key, bins_rm)] += 1
     return out
 

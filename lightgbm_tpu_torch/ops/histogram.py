@@ -72,14 +72,25 @@ def hist_rowmajor_chunked(bins_rm: torch.Tensor, gh: torch.Tensor,
     ``CHUNK_ROWS`` rows scattered into its own partial histogram, then a
     tree sum over the partials. One scatter over a million rows adds
     thousands of values into each slot one after another, and its
-    rounding error grows with them; the two-level sum keeps the error at
-    a few ulp, so it is the yardstick the card's kernels are held
-    against at full size (``chip_smoke.py``). int8 gh sum exactly either
-    way."""
-    return _scatter(bins_rm, gh, num_bin, CHUNK_ROWS)
+    rounding error grows with them; the two-level sum keeps it smaller.
+    It is the plain version timed beside the card's kernels at full size
+    (``chip_smoke.py``). int8 gh sum exactly either way."""
+    return _scatter(bins_rm, gh, num_bin, CHUNK_ROWS, torch.float32)
 
 
-def _scatter(bins_rm, gh, num_bin, chunk_rows):
+def hist_rowmajor_exact(bins_rm: torch.Tensor, gh: torch.Tensor,
+                        num_bin: int) -> torch.Tensor:
+    """``hist_rowmajor_chunked`` summed in float64 and rounded once to
+    f32: within half an ulp of the exact sum, like K2's plain version
+    (``ops/hist_level.hist_level``). Where most of a million rows share a
+    bin (a skewed feature) and their gh nearly cancel, every f32 sum,
+    the chunked one included, drifts past rtol 1e-5 / atol 1e-4 of the
+    exact sum: this is the yardstick the card's kernels are held against
+    at full size (``chip_smoke.py``). int8 gh sum exactly either way."""
+    return _scatter(bins_rm, gh, num_bin, CHUNK_ROWS, torch.float64)
+
+
+def _scatter(bins_rm, gh, num_bin, chunk_rows, acc=torch.float32):
     S, F = bins_rm.shape
     C = gh.shape[1]
     dev = bins_rm.device
@@ -97,15 +108,14 @@ def _scatter(bins_rm, gh, num_bin, chunk_rows):
     chunk = torch.arange(S, device=dev) // rows
     slot = (ids + torch.arange(F, device=dev) * num_bin
             + (chunk * (F * num_bin))[:, None])
-    vals = gh.to(torch.float32).repeat_interleave(F, dim=0)
-    out = torch.zeros(n_chunks * F * num_bin, C, dtype=torch.float32,
-                      device=dev)
+    vals = gh.to(torch.float32).to(acc).repeat_interleave(F, dim=0)
+    out = torch.zeros(n_chunks * F * num_bin, C, dtype=acc, device=dev)
     out.scatter_add_(0, slot.reshape(-1, 1).expand(S * F, C), vals)
-    if n_chunks == 1:
-        return out.reshape(F, num_bin, C)
-    # the chunk axis innermost, so the sum over it is a tree reduction
-    parts = out.reshape(n_chunks, F * num_bin * C).T.contiguous()
-    return parts.sum(dim=1).reshape(F, num_bin, C)
+    if n_chunks > 1:
+        # the chunk axis innermost, so the sum over it is a tree reduction
+        out = out.reshape(n_chunks, F * num_bin * C).T.contiguous().sum(
+            dim=1)
+    return out.to(torch.float32).reshape(F, num_bin, C)
 
 
 def hist_featmajor(bins_fm: torch.Tensor, gh: torch.Tensor,
@@ -122,3 +132,9 @@ def hist_featmajor_chunked(bins_fm: torch.Tensor, gh: torch.Tensor,
                            num_bin: int) -> torch.Tensor:
     """``hist_featmajor`` summed as ``hist_rowmajor_chunked`` sums."""
     return hist_rowmajor_chunked(bins_fm.T, gh, num_bin)
+
+
+def hist_featmajor_exact(bins_fm: torch.Tensor, gh: torch.Tensor,
+                         num_bin: int) -> torch.Tensor:
+    """``hist_featmajor`` summed as ``hist_rowmajor_exact`` sums."""
+    return hist_rowmajor_exact(bins_fm.T, gh, num_bin)

@@ -8,7 +8,8 @@ mode, as tests/test_hist_level.py runs it) on the cases of that file:
 ragged segments with an empty and a single-row node, all rows in one
 node, all rows out of the level, and quantized int8 gh; the ragged case
 also over uint16 bins at 300 bins (the port holds them as int16; a
-``torch.uint16`` tensor is taken as its int16 view).
+``torch.uint16`` tensor is taken as its int16 view), uniform and skewed
+(most rows in one bin, one feature of three values).
 
 f32 cases use dyadic gh (small multiples of 0.25) and bf16 cases values
 that bf16 holds exactly, so every summation order gives the same f32
@@ -57,16 +58,28 @@ def _ragged(rng, R, n_d):
     return local, (local >= 0) & (local < n_d)
 
 
+def _skewed_bins(rng, R, F, B):
+    """Four rows in five in bin B // 3, and feature 0 of three values."""
+    bins = rng.integers(0, B, (R, F))
+    bins[rng.uniform(size=(R, F)) < 0.8] = B // 3
+    bins[:, 0] = rng.choice([0, B // 2, B - 1], size=R)
+    return bins
+
+
 @pytest.mark.parametrize("n_d,mode", [(1, "f32"), (4, "bf16"), (16, "f32"),
                                       (64, "f32"), (64, "bf16"),
                                       (16, "f32_u16"), (4, "bf16_u16"),
-                                      (16, "int8_u16")])
+                                      (16, "int8_u16"),
+                                      (16, "f32_u16_skewed"),
+                                      (4, "int8_u16_skewed")])
 def test_ragged_matches_jax_bit_for_bit(n_d, mode):
     rng = np.random.default_rng(7 + n_d)
     R, F = 3000, 7
-    u16 = mode.endswith("_u16")
+    u16 = "_u16" in mode
     B = 300 if u16 else 64
-    bins = rng.integers(0, B, (R, F)).astype(np.uint16 if u16 else np.uint8)
+    bins = (_skewed_bins(rng, R, F, B) if mode.endswith("_skewed")
+            else rng.integers(0, B, (R, F))).astype(
+        np.uint16 if u16 else np.uint8)
     gh = (rng.integers(-128, 128, (R, 3)).astype(np.int8)
           if mode.startswith("int8") else _dyadic_gh(rng, R))
     local, in_lvl = _ragged(rng, R, n_d)
@@ -115,12 +128,19 @@ def test_all_rows_out_of_the_level(quantized):
     assert np.all(port == 0) and np.all(ref == 0)
 
 
-@pytest.mark.parametrize("n_d", [1, 16])
-def test_int8_exact(n_d):
+@pytest.mark.parametrize("n_d,bins_kind", [
+    pytest.param(1, "u8", id="1"), pytest.param(16, "u8", id="16"),
+    pytest.param(16, "u16_skewed", id="16-u16_skewed")])
+def test_int8_exact(n_d, bins_kind):
     """Quantized int8 gh: exact int32 sums on both sides."""
     rng = np.random.default_rng(17)
-    R, F, B = 3000, 6, 64
-    bins = rng.integers(0, B, (R, F), dtype=np.uint8)
+    R, F = 3000, 6
+    if bins_kind == "u8":
+        B = 64
+        bins = rng.integers(0, B, (R, F), dtype=np.uint8)
+    else:
+        B = 300
+        bins = _skewed_bins(rng, R, F, B).astype(np.uint16)
     gh = rng.integers(-128, 128, (R, 3)).astype(np.int8)
     local = rng.integers(0, n_d, R).astype(np.int32)
     in_lvl = rng.uniform(size=R) < 0.9
