@@ -28,14 +28,17 @@ Phases, each reported on its own line:
    1M rows at 1 to 512 nodes with skewed segments, with empty nodes, and
    with every row out of the level, fed the carried order, timed per
    level (partition included) beside index_add_ (on skewed and u16 bins
-   at 1 and 512 nodes); B2 (hist_featmajor) in
+   at 1 and 512 nodes); B2 (hist_featmajor; the grouped body over uint8
+   bins, the wide body over u16 bins) in
    f32 and int8 over 1M feature-major rows, adding only the rows of
    leaves of 1M rows down to 1 (the fused form, which reads each row's
    leaf id) beside the unfused form (gh masked by torch, then a pass
-   over every row), on uniform bins and on skewed uint8 bins, and over
-   a ragged row count with and without the
-   engine's 16-element row padding. Two launches on the same input must
-   give the same bits;
+   over every row), on uniform bins and on skewed uint8 bins and u16
+   bins at 1,023 and 4,095 (u16 leaves of 65,536 rows too), over a
+   ragged row count with and without the engine's 16-element row
+   padding, at 65,536 bins on a few rows, and at shapes with feature
+   tiles and bin windows of unequal width and with 33 and 1 rows. Two
+   launches on the same input must give the same bits;
 4. the main path at full width: ``Booster`` training of a Higgs-shaped
    binary GBDT (1,000,000 x 28, 255 leaves, 255 bins) on the compact
    grower for one warm-up and a few timed iterations, then ``predict``;
@@ -53,8 +56,9 @@ Phases, each reported on its own line:
    first tree must equal the quantized one; then the same eight paths on
    the same rows binned at max_bin=1023 (uint16 bins through K1, K2 and
    B2), each run's launch counts showing its u16 kernel mode, and each
-   K1 and K2 path profiled for one more iteration (K1's and K2's device
-   time); the quantized run logs the device time of one tree's threefry
+   path profiled for one more iteration (K1's, K2's and B2's device
+   time; the full paths must have run B2's wide kernels and not its
+   grouped ones); the quantized run logs the device time of one tree's threefry
    draws; with ``--profile``, two more iterations of the compact, level
    and full paths under ``torch.profiler`` show where an iteration's
    time goes (device busy share, K1's, K2's and B2's device time per
@@ -99,15 +103,20 @@ U16_BINS = (257, 1023, 4095)
 # u16 bins are held uniform and skewed (four rows in five in one bin, and
 # feature 0 of three values, as Higgs's b-tag features are)
 U16_DISTS = ("uniform", "skewed")
-# the widest histogram u16 bins give: K1 and K2 checked there on a few rows
+# the widest histogram u16 bins give: K1, K2 and B2 checked there on a few
+# rows
 WIDEST_BINS = 1 << 16
 WIDEST_ROWS = 5_000
 TIMED_ITERS = 5
 MODE_ITERS = 3
 U16_ITERS = 2
 KERNEL_SHAPES = (1_000_000, 65_536, 4_097, 1)
-# leaf sizes of the u16 and the skewed cases
+# leaf sizes of the u16 and the skewed cases (B2's u16 leaves also at
+# 65,536 rows, a mid-size leaf of a million rows)
 U16_SHAPES = (1_000_000, 4_097, 1)
+B2_U16_SHAPES = (1_000_000, 65_536, 4_097, 1)
+# B2 over skewed u16 bins at these widths
+B2_SKEWED_U16_BINS = (1023, 4095)
 LEVEL_NODES = (1, 8, 64, 512)
 U16_LEVEL_NODES = (1, 512)
 # K1's small path against its dense path at these leaf sizes
@@ -684,7 +693,9 @@ def phase_k2_case(dev, flush, gen, bins, B, dist, case, rows):
 
 def phase_b2(dev, flush):
     """B2 in each mode against the exact sum over 1M feature-major rows,
-    in u8 at MAX_BIN (uniform and skewed) and in u16 at each of U16_BINS:
+    in u8 at MAX_BIN (uniform and skewed) and in u16 at each of U16_BINS
+    (skewed too at B2_SKEWED_U16_BINS; then WIDEST_BINS on a few rows
+    and B2_ODD_SHAPES):
     the fused form (each row's leaf id read by the kernel, only the
     leaf's rows added) for leaves of each size, timed beside the unfused
     form (gh masked by two torch ops, then a pass over every row) and its
@@ -695,9 +706,63 @@ def phase_b2(dev, flush):
     rows = {}
     for B, shapes, dist in [(MAX_BIN, KERNEL_SHAPES, "uniform"),
                             (MAX_BIN, U16_SHAPES, "skewed")] + [
-            (b, U16_SHAPES, "uniform") for b in U16_BINS]:
+            (b, B2_U16_SHAPES, "uniform") for b in U16_BINS] + [
+            (b, B2_U16_SHAPES, "skewed") for b in B2_SKEWED_U16_BINS]:
         phase_b2_bins(dev, flush, gen, B, shapes, dist, rows)
+    phase_b2_widest(dev, gen)
     return rows
+
+
+# B2's wide path at other shapes than the paths': (rows, features, bins)
+# with tiles of unequal width, windows of unequal width, and a few rows
+B2_ODD_SHAPES = ((5_000, 5, 4095), (5_000, 17, 40_000), (33, 3, 1023),
+                 (1, 2, 300))
+
+
+def phase_b2_widest(dev, gen):
+    """B2 at WIDEST_BINS on WIDEST_ROWS feature-major rows (the wide
+    body's bin windows), uniform and skewed, then at B2_ODD_SHAPES, in
+    each mode, fused at leaves of every row, 1,000 rows (a third of the
+    rows at the odd shapes) and 1 row, and unfused, against the exact
+    sum."""
+    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_fm
+    from lightgbm_tpu_torch.ops.histogram import hist_featmajor_exact
+    cases = [(WIDEST_ROWS, N_FEATURES, WIDEST_BINS, dist)
+             for dist in U16_DISTS] + [
+        (R, F, B, "uniform") for R, F, B in B2_ODD_SHAPES]
+    for R, F, B, dist in cases:
+        bins = random_bins((R, F), B, gen, dev,
+                           dist == "skewed").T.contiguous()
+        mid = 1_000 if R == WIDEST_ROWS else R // 3
+        for mode in FM_MODES:
+            err = 0.0
+            for S in (R, mid, 1, None):
+                ids = torch.randint(1, 9, (R,), generator=gen, device=dev)
+                if S is not None:
+                    ids[torch.randperm(R, generator=gen, device=dev)[:S]] = 0
+                kw = {} if S is None else dict(leaf_id=ids, leaf=0)
+                what = f"B2 {mode}_u16 B={B} {dist} R={R} F={F} leaf rows={S}"
+                keep = (torch.ones(R, dtype=torch.bool, device=dev)
+                        if S is None else ids == 0)
+                for dyadic in (True, False):
+                    gh = make_gh(mode, (R, 3), gen, dev, dyadic=dyadic)
+                    out = hist_cuda_fm(bins, gh, B, **kw)
+                    again = hist_cuda_fm(bins, gh, B, **kw)
+                    ref = hist_featmajor_exact(
+                        bins, gh * keep[:, None].to(gh.dtype), B)
+                    torch.cuda.synchronize()
+                    if dyadic:
+                        assert torch.equal(out, ref), \
+                            f"{what}: exact gh differ"
+                    else:
+                        err = max(err, check_against_plain(mode, out, ref,
+                                                           what))
+                    assert torch.equal(out, again), \
+                        f"{what}: two launches differ"
+            log(f"phase 3 hist_featmajor mode={mode}_u16 bins={dist} R={R} "
+                f"F={F} B={B} leaf_rows=all,{mid},1,unfused: "
+                f"max_abs_err={err!r} exact_gh_bit_for_bit=True "
+                f"same_bits_two_launches=True")
 
 
 def phase_b2_bins(dev, flush, gen, B, shapes, dist, rows):
@@ -786,6 +851,7 @@ def phase_b2_bins(dev, flush, gen, B, shapes, dist, rows):
                                    bound_ms=bound_ms, bound_by=bound_by,
                                    max_abs_err=err)
             log(f"phase 3 hist_featmajor mode={mode}{suffix} bins={dist} "
+                f"path={'wide' if width == 2 else 'grouped'} "
                 f"R={R} leaf_rows={S} "
                 f"F={F} B={B}: max_abs_err={err!r} "
                 f"same_bits_two_launches={same_bits} fused_ms={ms!r} "
@@ -999,14 +1065,23 @@ def phase_paths(ds, X, compact_first):
             draw_ms = threefry_draw_ms(bst)
             log(f"phase 5 path={name} threefry_draws_device_ms_per_tree="
                 f"{draw_ms!r} rows={N_ROWS}")
-        if u16 and not name.startswith("full"):
-            # one more iteration, profiled: K1's and K2's device time on
-            # u16 bins (after the launch counts were read and the trees
-            # checked)
-            times = kernel_ms_per_iter(bst)
+        if u16:
+            # one more iteration, profiled: K1's, K2's and B2's device
+            # time on u16 bins (after the launch counts were read and the
+            # trees checked)
+            times, names = kernel_ms_per_iter(bst)
             log(f"phase 5 path={name} one more iteration, device ms: "
                 + " ".join(f"{k}_device_ms={ms!r} {k}_launches={n!r}"
                            for k, (ms, n) in times.items()))
+            if name.startswith("full"):
+                # u16 bins take B2's wide body, never its grouped one
+                ran = lambda k: any(k in n for n in names)
+                assert ran("hist_featmajor_wide"), (name, sorted(names))
+                assert not ran("hist_featmajor_kernel") and \
+                    not ran("hist_sparse_kernel"), (name, sorted(names))
+                b2 = sorted(n for n in names if any(
+                    k in n for k in dict(KERNEL_KEYS)["B2"]))
+                log(f"phase 5 path={name} B2 kernels: {b2}")
         out[name] = (c, bst)
         log(f"phase 5 path={name} seconds={time.perf_counter() - tp!r}")
     return out, ds_u16
@@ -1035,7 +1110,8 @@ KERNEL_KEYS = (("K1", ("hist_rowmajor_kernel", "hist_rowmajor_wide",
                        "hist_rowmajor_small")),
                ("K2", ("hist_level_kernel", "hist_level_wide")),
                ("B2", ("batch_masks", "hist_featmajor_kernel",
-                       "hist_sparse_kernel")),
+                       "hist_featmajor_wide", "hist_sparse_kernel",
+                       "hist_sparse_wide")),
                ("reductions", ("reduce_flagged", "reduce_nodes")))
 
 
@@ -1054,15 +1130,16 @@ def kernel_times(on_device, iters):
 
 def kernel_ms_per_iter(bst):
     """The histogram kernels' device ms in one more boosting iteration of
-    ``bst``, under ``torch.profiler`` (the device's activity only)."""
+    ``bst``, under ``torch.profiler`` (the device's activity only), and
+    the names of the device's kernels in it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         assert not bst.update()
         torch.cuda.synchronize()
-    return kernel_times(
-        [e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA], 1)
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    return kernel_times(on_device, 1), {e.key for e in on_device}
 
 
 def phase_profile(bst, label, iters=2):

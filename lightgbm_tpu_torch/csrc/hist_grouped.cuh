@@ -25,15 +25,12 @@
 // help, since a warp's lanes are features and every warp still issued
 // every row's loads.)
 //
-// Bins are uint8, or uint16 when a feature has more than 256 bins. At
-// 384 bytes a bin, a block's histogram of 256 bins takes 98,304 bytes
-// (two blocks per SM); 1,023 bins do not fit the 227 KB a block can opt
-// in to. So a launch's histogram columns are (feature tile, bin window)
-// pairs: each block adds only the bins of its window [b0, b0 + win), at
-// slot b - b0, and the rows are read once per window. All num_bin bins
-// form one window wherever they fit beside the block's other shared
-// memory and the caller's cap (plan_window); u8 bins always do, and K1
-// and K2 take this body for u8 bins only. B2 takes it in both widths.
+// Bins are uint8 here: at 384 bytes a bin, a block's histogram of 256
+// bins takes 98,304 bytes (two blocks per SM), and 1,023 bins would not
+// fit the 227 KB a block can opt in to. A launch's histogram columns are
+// feature tiles (Cols keeps a bin window [b0, b0 + win) per column, and
+// every u8 launch makes it all num_bin bins). K1, K2 and B2 take this
+// body for u8 bins only.
 //
 // Blocks that share an output write their histograms to a partials
 // buffer in the shared-memory layout (16 bytes a lane) and a reduction
@@ -49,9 +46,10 @@
 // sums those bins' rows in f64 registers (LaneHot, below), and the
 // reductions sum the blocks' partials in f64.
 //
-// K1's and K2's u16 bins take a second body, add_rows_wide (below): a
-// warp per feature and a lane per row, so that a block's histogram takes
-// 12 bytes a bin and feature instead of 384 bytes a bin.
+// u16 bins take a second body, the wide body (below; K1's and K2's
+// add_rows_wide, B2's feature-major stages in hist_featmajor.cu): a warp
+// per feature and a lane per row, so that a block's histogram takes 12
+// bytes a bin and feature instead of 384 bytes a bin.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -681,15 +679,18 @@ __device__ void add_rows_rowmajor(typename Gh<G>::Acc* hist,
 // beside the staging ring (past about 17,000 bins).
 //
 // The block stages stage_rows rows at a time, the next stage's copies in
-// flight while the warps add this one (kWideStages slots, cp.async, one
-// __syncthreads a stage: fewer, larger stages measured faster, since each
-// barrier waits for the slowest warp): of each row only the tile's bins,
-// in 16-, 8- or 4-byte copies where the row and the tile allow (tile_unit;
-// else the 16-byte chunks that hold them), so that a tile of four u16
-// features of 28 moves 8 bytes a row and not 56; and the rows' gh,
-// contiguous. Each warp then adds the staged rows 32 at a time, lane j
-// taking row j, and adds row j only if its bin of the warp's feature is
-// one of the warp's:
+// flight while the warps add this one (add_stages_wide: kWideStages slots,
+// cp.async, one __syncthreads a stage: fewer, larger stages measured
+// faster, since each barrier waits for the slowest warp). How a stage is
+// staged is the kernel's: K1 and K2 (add_rows_wide) copy of each
+// row-major row only the tile's bins, in 16-, 8- or 4-byte copies where
+// the row and the tile allow (tile_unit; else the 16-byte chunks that hold
+// them), so that a tile of four u16 features of 28 moves 8 bytes a row and
+// not 56, and the rows' gh, contiguous; B2 copies each feature's run of
+// feature-major bins and lists the stage's rows of its leaf
+// (hist_featmajor.cu). Each warp then adds the staged rows 32 at a time,
+// lane j taking row j, and adds row j only if its bin of the warp's
+// feature is one of the warp's:
 // - a row of a hot bin (below) goes to the lane's registers;
 // - the other rows find the rows of the 32 that share their bin: each
 //   writes its lane number into its bin's byte tag and reads it back, and
@@ -929,15 +930,15 @@ struct HotBins {
   }
 };
 
-// Add rows j0 .. j0 + 31 of a stage (`rows` of them staged) to one warp's
+// Add rows j0 .. j0 + 31 of a stage (`rows` of them to add) to one warp's
 // run of bins, h its [sub][3] histogram, tag its [sub] byte tags and hot
 // its hot bins: lane l's row is row j0 + l, its bin (less b0, the run's
-// first bin) bin(j0 + l), its gh sg[(j0 + l) * 3 + c]; bins outside [0,
-// lim) are not the warp's.
-template <typename G, typename BinOf>
+// first bin) bin(j0 + l), its three gh in shared memory at gh_at(j0 + l);
+// bins outside [0, lim) are not the warp's.
+template <typename G, typename BinOf, typename GhAt>
 __device__ __forceinline__ void add_batch_wide(
     typename Gh<G>::Acc* h, unsigned char* tag,
-    HotBins<typename Gh<G>::Acc>& hot, BinOf bin, const G* sg, int b0,
+    HotBins<typename Gh<G>::Acc>& hot, BinOf bin, GhAt gh_at, int b0,
     int lim, int j0, int rows) {
   using Acc = typename Gh<G>::Acc;
   const int lane = threadIdx.x % kLanes;
@@ -946,9 +947,10 @@ __device__ __forceinline__ void add_batch_wide(
   const bool adds = in_window(b, lim);
   Acc x0 = Acc(0), x1 = Acc(0), x2 = Acc(0);
   if (adds) {
-    x0 = GhShared<G>::load(sg + j * kChannels);
-    x1 = GhShared<G>::load(sg + j * kChannels + 1);
-    x2 = GhShared<G>::load(sg + j * kChannels + 2);
+    const G* g = gh_at(j);
+    x0 = GhShared<G>::load(g);
+    x1 = GhShared<G>::load(g + 1);
+    x2 = GhShared<G>::load(g + 2);
   }
   // not yet added
   bool rest = adds && !hot.add(b, x0, x1, x2);
@@ -965,10 +967,10 @@ __device__ __forceinline__ void add_batch_wide(
       bigs |= group;
     } else if (lane == __ffs(group) - 1) {
       for (unsigned m = group & (group - 1u); m != 0u; m &= m - 1u) {
-        const int k = j0 + __ffs(m) - 1;
-        x0 += GhShared<G>::load(sg + k * kChannels);
-        x1 += GhShared<G>::load(sg + k * kChannels + 1);
-        x2 += GhShared<G>::load(sg + k * kChannels + 2);
+        const G* g = gh_at(j0 + __ffs(m) - 1);
+        x0 += GhShared<G>::load(g);
+        x1 += GhShared<G>::load(g + 1);
+        x2 += GhShared<G>::load(g + 2);
       }
       Acc* s = h + b * kChannels;
       s[0] += x0;
@@ -1017,10 +1019,63 @@ __device__ __forceinline__ void add_batch_wide(
   // ballot of this batch's tags)
 }
 
+// The stage loop of the wide body, shared by every wide kernel: stages 0
+// .. n_stages - 1 of rows are copied into a ring of kWideStages slots of
+// slot_bytes, the next stage's copies in flight while the warps add this
+// one, and added to column t's histograms `hist` (zeroed by the block
+// before the call) with the block's bin tags `tags`; every thread of the
+// block (32 * cols.warps()) calls it. What differs between kernels is how
+// a stage is staged and read:
+// - stage(i, slot): every thread's share of stage i's copies into `slot`
+//   (cp.async; committed here; plain shared stores are visible too, from
+//   the barrier before the stage is added);
+// - add_stage(i, slot, fl, add), for each warp that owns bins: calls
+//   add(rows, bin, gh_at) once or more with the stage's rows to add, bin(j)
+//   row j's bin of the tile's feature fl and gh_at(j) its gh in `slot`.
+template <typename G, typename Stage, typename AddStage>
+__device__ void add_stages_wide(typename Gh<G>::Acc* hist,
+                                unsigned char* tags, unsigned char* ring,
+                                int slot_bytes, const WideCols& cols, int t,
+                                long long n_stages, Stage stage,
+                                AddStage add_stage) {
+  using Acc = typename Gh<G>::Acc;
+  const int warp = threadIdx.x / kLanes;
+  const int fl = warp / cols.wpf;
+  const int s0 = (warp - fl * cols.wpf) * cols.sub();
+  const bool active = fl < cols.width(t) && s0 < cols.bins(t);
+  const int lim = min(cols.sub(), cols.bins(t) - s0);
+  const int b0 = cols.b0(t) + s0;
+  Acc* h = hist + (fl * cols.win + s0) * kChannels;
+  unsigned char* tag = tags + fl * cols.win + s0;
+  HotBins<Acc> hot;
+  hot.clear();
+  auto add = [&](int rows, auto bin, auto gh_at) {
+    for (int j0 = 0; j0 < rows; j0 += kLanes) {
+      add_batch_wide<G>(h, tag, hot, bin, gh_at, b0, lim, j0, rows);
+    }
+  };
+  for (int i = 0; i + 1 < kWideStages; ++i) {
+    if (i < n_stages) stage(i, ring + (i % kWideStages) * slot_bytes);
+    cp_async_commit();
+  }
+  for (long long i = 0; i < n_stages; ++i) {
+    // stage i has landed for every thread, and every warp is done with
+    // stage i - 1, whose slot the next copy fills
+    cp_async_wait<kWideStages - 2>();
+    __syncthreads();
+    const long long next = i + kWideStages - 1;
+    if (next < n_stages) stage(next, ring + (next % kWideStages) * slot_bytes);
+    cp_async_commit();
+    if (!active) continue;
+    add_stage(i, ring + (i % kWideStages) * slot_bytes, fl, add);
+  }
+  if (active) hot.flush(h);
+}
+
 // Add rows p0 .. p1 - 1 of row-major bins [*, F] and gh [*, 3] to column
 // t's histograms `hist` (zeroed by the block before the call), with the
-// block's bin tags `tags` and staged through `ring`; every thread of the
-// block (32 * cols.warps()) calls it. The buffers' alignment and padding
+// block's bin tags `tags` and staged through `ring` (add_stages_wide);
+// every thread of the block calls it. The buffers' alignment and padding
 // are add_rows_rowmajor's.
 template <typename G, typename BinT>
 __device__ void add_rows_wide(typename Gh<G>::Acc* hist, unsigned char* tags,
@@ -1028,20 +1083,10 @@ __device__ void add_rows_wide(typename Gh<G>::Acc* hist, unsigned char* tags,
                               const BinT* __restrict__ bins,
                               const G* __restrict__ gh, long long p0,
                               long long p1, const WideCols& cols, int t) {
-  using Acc = typename Gh<G>::Acc;
-  const int warp = threadIdx.x / kLanes;
-  const int fl = warp / cols.wpf;
-  const int s0 = (warp - fl * cols.wpf) * cols.sub();
   const int R = cols.stage_rows;
-  const bool active = fl < cols.width(t) && s0 < cols.bins(t);
-  const int lim = min(cols.sub(), cols.bins(t) - s0);
-  const int b0 = cols.b0(t) + s0;
-  Acc* h = hist + (fl * cols.win + s0) * kChannels;
-  unsigned char* tag = tags + fl * cols.win + s0;
   const int g = tile_unit<BinT>(cols.F, cols.ft);
   const int stride = tile_row_bytes<BinT>(cols.F, cols.ft);  // ring row
   const int bpart = (R * stride + 15) / 16 * 16;
-  const int slot = wide_stage_bytes<G, BinT>(cols);
   const long long row_b = cols.F * static_cast<long long>(sizeof(BinT));
   const long long tile_b = cols.f0(t) * static_cast<long long>(sizeof(BinT));
   const int tile_w = cols.width(t) * static_cast<int>(sizeof(BinT));
@@ -1054,11 +1099,10 @@ __device__ void add_rows_wide(typename Gh<G>::Acc* hist, unsigned char* tags,
   const unsigned char* gh_bytes = reinterpret_cast<const unsigned char*>(gh);
   const long long n_stages = p1 > p0 ? (p1 - p0 + R - 1) / R : 0;
 
-  // copy stage i into its slot: row r's tile at r * stride (in g-byte
+  // copy stage i into slot sl: row r's tile at r * stride (in g-byte
   // copies, or the 16-byte chunks holding it), then the stage's gh, whole
   // 16-byte chunks
-  auto stage = [&](long long i) {
-    unsigned char* sl = ring + (i % kWideStages) * slot;
+  auto stage = [&](long long i, unsigned char* sl) {
     const long long base = p0 + i * R;
     const int n = static_cast<int>(min(base + R, p1) - base);
     if (g > 0) {
@@ -1092,21 +1136,8 @@ __device__ void add_rows_wide(typename Gh<G>::Acc* hist, unsigned char* tags,
       cp_async16(sl + bpart + (c - g0) * 16, gh_bytes + c * 16);
     }
   };
-  HotBins<Acc> hot;
-  hot.clear();
-  for (int i = 0; i + 1 < kWideStages; ++i) {
-    if (i < n_stages) stage(i);
-    cp_async_commit();
-  }
-  for (long long i = 0; i < n_stages; ++i) {
-    // stage i has landed for every thread, and every warp is done with
-    // stage i - 1, whose slot the next copy fills
-    cp_async_wait<kWideStages - 2>();
-    __syncthreads();
-    if (i + kWideStages - 1 < n_stages) stage(i + kWideStages - 1);
-    cp_async_commit();
-    if (!active) continue;
-    const unsigned char* sl = ring + (i % kWideStages) * slot;
+  auto add_stage = [&](long long i, const unsigned char* sl, int fl,
+                       auto add) {
     const long long base = p0 + i * R;
     const int rows = static_cast<int>(min(static_cast<long long>(R),
                                           p1 - base));
@@ -1117,16 +1148,16 @@ __device__ void add_rows_wide(typename Gh<G>::Acc* hist, unsigned char* tags,
     // tile_b mod 16
     const int base16 = static_cast<int>(base & 15);
     const int skew = g > 0 ? 0 : 15;
-    auto bin = [&](int j) {
-      const int o = ((base16 + j) * row16 + tile16) & skew;
-      return static_cast<int>(*reinterpret_cast<const BinT*>(
-          sl + j * stride + o + fl * static_cast<int>(sizeof(BinT))));
-    };
-    for (int j0 = 0; j0 < rows; j0 += kLanes) {
-      add_batch_wide<G>(h, tag, hot, bin, sg, b0, lim, j0, rows);
-    }
-  }
-  if (active) hot.flush(h);
+    add(rows,
+        [&](int j) {
+          const int o = ((base16 + j) * row16 + tile16) & skew;
+          return static_cast<int>(*reinterpret_cast<const BinT*>(
+              sl + j * stride + o + fl * static_cast<int>(sizeof(BinT))));
+        },
+        [&](int j) { return sg + j * kChannels; });
+  };
+  add_stages_wide<G>(hist, tags, ring, wide_stage_bytes<G, BinT>(cols), cols,
+                     t, n_stages, stage, add_stage);
 }
 
 // Programmatic dependent launch (sm_90): a kernel launched by
@@ -1260,23 +1291,6 @@ inline cudaError_t shared_optin(int* bytes) {
   return cudaDeviceGetAttribute(bytes,
                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                 device);
-}
-
-// The bin window of a launch (written to *win): all num_bin bins when
-// their histogram fits a block's shared memory beside `fixed` other
-// bytes and num_bin <= max_win; else the fewest equal windows of at most
-// max_win bins that fit.
-inline cudaError_t plan_window(int num_bin, int max_win, int fixed,
-                               int* win) {
-  int optin = 0;
-  const cudaError_t err = shared_optin(&optin);
-  if (err != cudaSuccess) return err;
-  const int fit = (optin - fixed) / hist_bytes(1);
-  const int cap = max_win < fit ? max_win : fit;
-  if (cap < 1 || num_bin < 1) return cudaErrorInvalidValue;
-  const int n_win = (num_bin + cap - 1) / cap;
-  *win = (num_bin + n_win - 1) / n_win;
-  return cudaSuccess;
 }
 
 // The opt-in shared bytes of a block on the current device (*optin) and,

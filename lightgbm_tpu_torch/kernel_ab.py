@@ -10,17 +10,27 @@ behind a device sleep that outlasts the host's issuing, the L2 flushed
 before each): K1 (``hist_cuda_rm``) at leaves of 1M, 65,536, 4,097 and 1
 rows; K2 (``hist_level_cuda``, the node order given) over 1M rows at 1
 and 512 nodes; B2 (``hist_cuda_fm``, the leaf mask fused) over 1M rows
-at leaves of 1M and 4,097 rows; f32 gh, 28 features, 255 bins, data from
-a fixed seed. Then skewed bins (``_skewed``: four rows in five in one
-bin, and feature 0 of three values) at 255 bins, and u16 bins (``_u16``)
-at each of ``U16_BINS``, uniform and skewed: K1 at leaves of 1M, 65,536
-and 4,097 rows, K2 at 1 and 512 nodes, and B2 at leaves of 1M and 4,097
-rows. For each bin set it also gives K1's (1M rows), K2's (1 node), B2's
-(a 1M-row leaf) and the f32 chunked sum's worst error against the exact
-sum (f64), as a fraction of the kernels' tolerance (rtol 1e-5, atol
-1e-4; ``_err_over_tol``, above 1 misses it). Run on one card, with the
-trees in turns (parent, change, change, parent), two versions compare
-on the same card. Needs an NVIDIA GPU.
+at leaves of 1M, 65,536 and 4,097 rows; f32 gh, 28 features, 255 bins,
+data from a fixed seed. Then skewed bins (``_skewed``: four rows in five
+in one bin, and feature 0 of three values) at 255 bins, and u16 bins
+(``_u16``) at each of ``U16_BINS``, uniform and skewed: K1 at leaves of
+1M, 65,536 and 4,097 rows, K2 at 1 and 512 nodes, and B2 at leaves of
+1M, 65,536 and 4,097 rows (over u16 bins B2's wide body), B2 with int8
+gh at a 1M-row leaf, and B2's yardstick (``index_add_``: one call adding
+every cell's gh into its flat slot) and bound (``_bound_us``: the bytes
+it must move at 3.35 TB/s). For each bin set it also gives K1's (1M
+rows), K2's (1 node), B2's (a 1M-row leaf) and the f32 chunked sum's
+worst error against the exact sum (f64), as a fraction of the kernels'
+tolerance (rtol 1e-5, atol 1e-4; ``_err_over_tol``, above 1 misses it).
+Run on one card, with the trees in turns (parent, change, change,
+parent), two versions compare on the same card. Needs an NVIDIA GPU.
+
+    python3 -m lightgbm_tpu_torch.kernel_ab --kernels TREE [TREE ...]
+
+prints instead, for each TREE, B2's device µs a call by kernel (the mask
+pass, the histogram, the reduction, the sparse pass; ``torch.profiler``
+over 10 calls, the L2 flushed before each) over 1M rows of u16 bins at
+257, 1,023 and 4,095 bins and leaves of 1M, 65,536, 4,097 and 1 rows.
 """
 from __future__ import annotations
 
@@ -118,7 +128,17 @@ def _time_tree(tree: str) -> str:
         errs[f"chunked_f32_{tag}"] = err_over_tol(
             hist_rowmajor_chunked(b_rm, gh, nb), ref)
 
-    times, errs = {}, {}
+    def index_add_ms(b, nb):
+        """B2's yardstick: one ``index_add_`` of every cell's gh (f32)
+        into its flat (feature, bin) slot, cells in row-major order, the
+        expansion made outside the call."""
+        slot = ((b.long() & 0xFFFF) + torch.arange(F, device=dev)
+                * nb).reshape(-1)
+        vals = gh.repeat_interleave(F, dim=0)
+        acc = torch.zeros(F * nb, 3, device=dev)
+        return device_ms(lambda: acc.index_add_(0, slot, vals))
+
+    times, errs, bounds = {}, {}, {}
     for S in (1_000_000, 65_536, 4_097, 1):
         bins, gh = bins_of((S, F)), torch.randn(S, 3, generator=gen,
                                                  device=dev)
@@ -130,7 +150,7 @@ def _time_tree(tree: str) -> str:
             bins, gh, local, in_lvl, n, B, order=order, seg=seg))
     bins_fm = bins.T.contiguous()
     leaves = {}
-    for S in (1_000_000, 4_097):
+    for S in (1_000_000, 65_536, 4_097):
         ids = torch.randint(1, 9, (R,), generator=gen, device=dev)
         ids[torch.randperm(R, generator=gen, device=dev)[:S]] = 0
         leaves[S] = ids
@@ -140,6 +160,8 @@ def _time_tree(tree: str) -> str:
     errors(f"B={B}", bins, bins_fm, B, levels[1])
     cases = [(B, True)] + [(nb, skewed) for nb in U16_BINS
                            for skewed in (False, True)]
+    gh8 = torch.randint(-128, 128, (R, 3), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.int8)
     for nb, skewed in cases:
         tag = (f"B={nb}{'_u16' if nb > 256 else ''}"
                f"{'_skewed' if skewed else ''}")
@@ -155,17 +177,77 @@ def _time_tree(tree: str) -> str:
         for S, ids in leaves.items():
             times[f"B2_S={S}_{tag}"] = device_ms(
                 lambda: hist_cuda_fm(b_fm, gh, nb, leaf_id=ids, leaf=0))
+            # the least time: every row's leaf id, the leaf's rows (bins of
+            # 1 or 2 bytes, f32 gh) and the output at 3.35 TB/s
+            bounds[f"B2_S={S}_{tag}"] = (
+                8 * R + S * (F * (1 if nb <= 256 else 2) + 12)
+                + 12 * F * nb) / 3.35e12 * 1e6
+        times[f"B2_int8_S={R}_{tag}"] = device_ms(
+            lambda: hist_cuda_fm(b_fm, gh8, nb, leaf_id=leaves[R], leaf=0))
+        times[f"index_add_{tag}"] = index_add_ms(b_rm, nb)
         errors(tag, b_rm, b_fm, nb, levels[1])
         del b_rm, b_fm
     return f"{tree} " + " ".join(
         [f"{k}_device_ms={v!r}" for k, v in times.items()]
-        + [f"{k}_err_over_tol={v!r}" for k, v in errs.items()])
+        + [f"{k}_err_over_tol={v!r}" for k, v in errs.items()]
+        + [f"{k}_bound_us={v!r}" for k, v in bounds.items()])
+
+
+# B2's kernels by name: the short name of each in --kernels' lines
+B2_KERNELS = (("masks", "batch_masks"), ("histogram", "hist_featmajor_"),
+              ("reduction", "reduce_flagged"), ("sparse", "hist_sparse_"))
+
+
+def _b2_kernels(tree: str) -> str:
+    """``--kernels``' lines for the package under ``tree``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import lightgbm_tpu_torch
+    from lightgbm_tpu_torch import _build
+    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_fm
+    if not lightgbm_tpu_torch.__file__.startswith(tree):
+        raise RuntimeError(f"imported {lightgbm_tpu_torch.__file__}, not "
+                           f"the package under {tree}")
+    _build.build_all(_build.kernel_names())
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    gh = torch.randn(R, 3, generator=gen, device=dev)
+    lines = []
+    for nb in (257, 1023, 4095):
+        bins = torch.randint(0, nb, (F, R), generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int16)
+        for S in (R, 65_536, 4_097, 1):
+            ids = torch.randint(1, 9, (R,), generator=gen, device=dev)
+            ids[torch.randperm(R, generator=gen, device=dev)[:S]] = 0
+            for _ in range(3):
+                hist_cuda_fm(bins, gh, nb, leaf_id=ids, leaf=0)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    flush.zero_()
+                    hist_cuda_fm(bins, gh, nb, leaf_id=ids, leaf=0)
+                torch.cuda.synchronize()
+            us = {}
+            for e in prof.key_averages():
+                for short, key in B2_KERNELS:
+                    if key in e.key:
+                        us[short] = e.self_device_time_total / e.count
+            lines.append(f"{tree} B2_kernels B={nb}_u16 S={S} " + " ".join(
+                f"{short}_device_us={us.get(short, 0.0)!r}"
+                for short, _ in B2_KERNELS))
+    return "\n".join(lines)
 
 
 def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] == "--one":
-        print(_time_tree(os.path.abspath(argv[1])), flush=True)
+    if len(argv) >= 2 and argv[0] in ("--one", "--one-kernels"):
+        run = _time_tree if argv[0] == "--one" else _b2_kernels
+        print(run(os.path.abspath(argv[1])), flush=True)
         return 0
+    one = "--one"
+    if argv and argv[0] == "--kernels":
+        one, argv = "--one-kernels", argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -180,7 +262,7 @@ def main(argv) -> int:
     for tree in argv:
         tree = os.path.abspath(tree)
         env = dict(os.environ, PYTHONPATH=tree)
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
+        subprocess.run([sys.executable, os.path.abspath(__file__), one,
                         tree], env=env, check=True)
     return 0
 

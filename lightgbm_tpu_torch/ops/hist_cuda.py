@@ -16,10 +16,9 @@ body is chosen by the bin width, which binning takes from the number of
 bins (u16 past 256): K1's dense path and K2 add uint8 bins through the
 grouped body (a warp a block, lane = feature, all bins in one block) and
 u16 bins through the wide body (a warp per feature, lane = row;
-``wide_geometry`` gives its tiles and windows). B2 takes the grouped
-body in both widths, a histogram too wide for one block's shared memory
-cut into bin windows of at most ``WINDOW_BINS`` bins, each block adding
-one window.
+``wide_geometry`` gives its tiles and windows). B2 picks its body the
+same way: the grouped body for uint8 bins, the wide body for u16 bins,
+staged feature-major with the leaf mask (``fm_wide_geometry``).
 
 ``hist_cuda_rm`` takes K1's contract: bins ``[S, F]`` (contiguous), gh
 ``[S, 3]`` (contiguous) in float32, bfloat16 or int8, and returns ``[F,
@@ -58,13 +57,10 @@ TILE_FEATURES = 32      # features per block (one warp, lane = feature)
 MIN_ROWS_PER_BLOCK = 256  # a block's fixed cost (zero, write) needs rows
 BATCH_ROWS = 32         # B2's rows per step; a block's rows are a multiple
 MAX_PARTS = 4096        # blocks a reduction sums at most
-# B2's widest bin window of a block: a histogram of more bins is split
-# into windows, each block adding one (the rows are read once a window)
-WINDOW_BINS = 512
 # K1: a leaf of at most this many rows takes the small path
 SMALL_LEAF_ROWS = 1024
-# the wide body's geometry (K1's dense path and K2 over u16 bins), as the
-# kernels read it: at most this many warps a block; a feature's bins split
+# the wide body's geometry (K1's dense path, K2 and B2 over u16 bins), as
+# the kernels read it: at most this many warps a block; a feature's bins split
 # between warps down to runs of this many; stages of at most this many
 # rows (fewer where only that lets a block hold its features' bins), and
 # this many stages (kWideStages of csrc/hist_grouped.cuh; a launch whose
@@ -113,28 +109,12 @@ def bind(lib, name: str, argtypes: list, restype=ctypes.c_int):
     return fn
 
 
-def plan(lib, kernel: str, gpu: int, num_bin: int, mode: int,
-         bin_bytes: int):
-    """``(win, resident)`` of B2 (``kernel``) on device ``gpu``: its bin
-    window and the blocks resident at once, at ``num_bin`` bins of
-    ``bin_bytes``, asked of the library once per key."""
-    key = (kernel, gpu, num_bin, mode, bin_bytes, WINDOW_BINS)
-    if key not in _plans:
-        fn = bind(lib, f"lgbm_{kernel}_plan", [ctypes.c_int] * 5 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)])
-        win, n = ctypes.c_int(0), ctypes.c_longlong(0)
-        raise_on(lib, fn(num_bin, mode, bin_bytes, WINDOW_BINS, gpu,
-                         ctypes.byref(win), ctypes.byref(n)), kernel)
-        _plans[key] = (win.value, n.value)
-    return _plans[key]
-
-
 def grouped_plan(lib, kernel: str, gpu: int, num_bin: int, F: int,
                  mode: int) -> int:
-    """The blocks of ``kernel``'s grouped body (K1's dense path or K2,
-    over uint8 bins, all ``num_bin`` bins in one block) resident at once
-    on device ``gpu`` at ``F`` features, asked of the library once per
-    key."""
+    """The blocks of ``kernel``'s grouped body (K1's dense path, K2 or
+    B2, over uint8 bins, all ``num_bin`` bins in one block) resident at
+    once on device ``gpu`` at ``F`` features, asked of the library once
+    per key."""
     key = (kernel, gpu, num_bin, F, mode)
     if key not in _plans:
         fn = bind(lib, f"lgbm_{kernel}_plan", [ctypes.c_int] * 4 + [
@@ -179,41 +159,28 @@ def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def wide_geometry(num_bin: int, F: int, bin_bytes: int, gh_bytes: int,
-                  optin: int) -> WideGeometry:
-    """The wide body's columns at ``num_bin`` bins and ``F`` features of
-    ``bin_bytes`` bytes, gh of ``gh_bytes`` bytes a channel, in blocks of
-    at most ``optin`` bytes of shared memory (232,448 on the H100): all
-    of a feature's bins in one window wherever they fit beside the
-    smallest ring, else the fewest equal windows; then as many features a
-    tile as fit, in the fewest tiles of equal width, with the largest
-    stages that fit beside them; then the warps left over split each
-    feature's bins into runs. The shared bytes are ``wide_shared_bytes``
-    of hist_grouped.cuh: 12 bytes a bin of the histograms, a byte a bin
-    of tags, then ``WIDE_STAGES`` stages of rows, each row's tile of bins
-    (``tile_row_bytes``) and its gh."""
-    def row_bytes(ft):
-        """A staged row's bytes (``tile_row_bytes``): the tile's own where
-        a copy of 16, 8 or 4 bytes divides both the row and the tile,
-        else the 16-byte chunks holding it."""
-        if any(F * bin_bytes % g == 0 and ft * bin_bytes % g == 0
-               for g in (16, 8, 4)):
-            return ft * bin_bytes
-        return (ft * bin_bytes + 30) // 16 * 16
-
+def _wide_columns(num_bin: int, F: int, optin: int, stage_bytes,
+                  per_row) -> WideGeometry:
+    """The wide body's columns at ``num_bin`` bins and ``F`` features in
+    blocks of at most ``optin`` bytes of shared memory (232,448 on the
+    H100), a stage of ``r`` rows of a tile of ``ft`` features taking
+    ``stage_bytes(ft, r)`` bytes, at most ``r * per_row(ft) + 62``: all of
+    a feature's bins in one window wherever they fit beside the smallest
+    ring, else the fewest equal windows; then as many features a tile as
+    fit, in the fewest tiles of equal width, with the largest stages that
+    fit beside them; then the warps left over split each feature's bins
+    into runs. The shared bytes are 12 a bin of the histograms, one a bin
+    of tags, then ``WIDE_STAGES`` stages."""
     def shared(ft, win, rows):
-        return 12 * ft * win + _ceil_to(ft * win, 16) + WIDE_STAGES * (
-            _ceil_to(rows * row_bytes(ft), 16)
-            + _slot_bytes(rows * 3 * gh_bytes))
+        return 12 * ft * win + _ceil_to(ft * win, 16) + \
+            WIDE_STAGES * stage_bytes(ft, rows)
 
     def stage_rows(ft, win):
         """The largest stage, a multiple of 32 rows and at most
         WIDE_STAGE_ROWS, that fits; None if 32 rows do not."""
         room = optin - 12 * ft * win - _ceil_to(ft * win, 16)
-        # a stage of r rows takes at most r * per + 62 bytes
-        per = row_bytes(ft) + 3 * gh_bytes
-        rows = min(WIDE_STAGE_ROWS,
-                   max(room // WIDE_STAGES - 62, 0) // per // 32 * 32)
+        rows = min(WIDE_STAGE_ROWS, max(room // WIDE_STAGES - 62, 0)
+                   // per_row(ft) // 32 * 32)
         while (rows + 32 <= WIDE_STAGE_ROWS
                and shared(ft, win, rows + 32) <= optin):
             rows += 32
@@ -245,14 +212,50 @@ def wide_geometry(num_bin: int, F: int, bin_bytes: int, gh_bytes: int,
                         shared(ft, win, rows))
 
 
+def wide_geometry(num_bin: int, F: int, bin_bytes: int, gh_bytes: int,
+                  optin: int) -> WideGeometry:
+    """K1's and K2's wide columns (``_wide_columns``) over row-major rows
+    of ``F`` bins of ``bin_bytes`` bytes and gh of ``gh_bytes`` bytes a
+    channel: a stage holds each row's tile of bins (``tile_row_bytes`` of
+    hist_grouped.cuh: the tile's own bytes where a copy of 16, 8 or 4
+    bytes divides both the row and the tile, else the 16-byte chunks
+    holding it), then the rows' gh (``wide_stage_bytes``)."""
+    def row_bytes(ft):
+        if any(F * bin_bytes % g == 0 and ft * bin_bytes % g == 0
+               for g in (16, 8, 4)):
+            return ft * bin_bytes
+        return (ft * bin_bytes + 30) // 16 * 16
+
+    return _wide_columns(
+        num_bin, F, optin,
+        lambda ft, rows: _ceil_to(rows * row_bytes(ft), 16)
+        + _slot_bytes(rows * 3 * gh_bytes),
+        lambda ft: row_bytes(ft) + 3 * gh_bytes)
+
+
+def fm_wide_geometry(num_bin: int, F: int, gh_bytes: int,
+                     optin: int) -> WideGeometry:
+    """B2's wide columns (``_wide_columns``) over feature-major u16 bins
+    and gh of ``gh_bytes`` bytes a channel: a stage holds each feature of
+    the tile's run of the stage's bins (2 bytes a row and feature, whatever
+    F is), the rows' gh, a 2-byte place a row in the list of the leaf's
+    rows, and a 16-byte header (``fm_stage_bytes`` of
+    csrc/hist_featmajor.cu)."""
+    return _wide_columns(
+        num_bin, F, optin,
+        lambda ft, rows: rows * (2 * ft + 3 * gh_bytes + 2) + 16,
+        lambda ft: 2 * ft + 3 * gh_bytes + 2)
+
+
 _wide_plans: dict = {}
 
 
 def wide_plan(lib, kernel: str, gpu: int, num_bin: int, F: int,
               mode: int):
     """``(geometry, resident)`` of ``kernel``'s wide body (u16 bins) on
-    device ``gpu``: its ``WideGeometry`` and the blocks of it resident at
-    once, asked of the library once per key."""
+    device ``gpu``: its ``WideGeometry`` (B2's feature-major layout for
+    ``KERNEL_FM``) and the blocks of it resident at once, asked of the
+    library once per key."""
     key = (kernel, gpu, num_bin, F, mode, WIDE_MAX_WARPS,
            WIDE_MIN_RUN_BINS, WIDE_STAGE_ROWS)
     if key not in _wide_plans:
@@ -262,7 +265,9 @@ def wide_plan(lib, kernel: str, gpu: int, num_bin: int, F: int,
         raise_on(lib, fn(F, mode, 0, 4, 1, 32, gpu, ctypes.byref(optin),
                          ctypes.byref(n)), kernel)
         gh_bytes = (4, 2, 1)[mode]
-        geo = wide_geometry(num_bin, F, 2, gh_bytes, optin.value)
+        geo = (fm_wide_geometry(num_bin, F, gh_bytes, optin.value)
+               if kernel == KERNEL_FM else
+               wide_geometry(num_bin, F, 2, gh_bytes, optin.value))
         raise_on(lib, fn(F, mode, geo.ft, geo.win, geo.wpf, geo.stage_rows,
                          gpu, ctypes.byref(optin), ctypes.byref(n)), kernel)
         _wide_plans[key] = (geo, n.value)
@@ -460,50 +465,78 @@ def hist_cuda_fm(bins_fm: torch.Tensor, gh: torch.Tensor, num_bin: int, *,
         return torch.zeros(F, num_bin, 3, dtype=out_dtype, device=dev)
     gh = aligned16(gh)        # the kernel copies gh 16 bytes at a time
     lib = _build.load(KERNEL_FM)
-    fn = bind(lib, "lgbm_hist_featmajor", [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p])
     fused = leaf_id is not None
     bb = bins_fm.element_size()
-    blocks, rpb, win, words = _fm_geometry(lib, gpu, R, F, num_bin, mode, bb,
-                                           fused)
+    geo, blocks, rpb, words = _fm_geometry(lib, gpu, R, F, num_bin, mode,
+                                           bb, fused)
     out = torch.empty(F, num_bin, 3, dtype=out_dtype, device=dev)
     # partials, flags and the sparse pass's lists in one buffer
     scratch = torch.empty(words, dtype=torch.int32, device=dev)
-    raise_on(lib, fn(bins_fm.data_ptr(), gh.data_ptr(),
-                     leaf_id.data_ptr() if fused else None,
-                     int(leaf) if fused else 0, scratch.data_ptr(),
-                     out.data_ptr(), R, max(bins_fm.stride(0), R), F,
-                     num_bin, mode, bb, win, blocks, rpb, gpu,
-                     stream_handle(gpu)), KERNEL_FM)
+    head = (bins_fm.data_ptr(), gh.data_ptr(),
+            leaf_id.data_ptr() if fused else None,
+            int(leaf) if fused else 0, scratch.data_ptr(), out.data_ptr(),
+            R, max(bins_fm.stride(0), R), F, num_bin, mode)
+    if geo is None:
+        fn = bind(lib, "lgbm_hist_featmajor", _FM_HEAD + [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p])
+        rc = fn(*head, blocks, rpb, gpu, stream_handle(gpu))
+    else:
+        fn = bind(lib, "lgbm_hist_featmajor_wide", _FM_HEAD + [
+            ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_void_p])
+        rc = fn(*head, geo.ft, geo.win, geo.wpf, geo.stage_rows, blocks, rpb,
+                gpu, stream_handle(gpu))
+    raise_on(lib, rc, KERNEL_FM)
     hist_cuda_fm.launches[mode_key(key, bins_fm)] += 1
     return out
 
 
+# B2's leading arguments: bins, gh, leaf_id, leaf, scratch, out, R, ld, F,
+# num_bin, mode
+_FM_HEAD = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p,
+                                    ctypes.c_void_p, ctypes.c_longlong,
+                                    ctypes.c_longlong] + [ctypes.c_int] * 3
 _fm_geometries: dict = {}
 
 
 def _fm_geometry(lib, gpu: int, R: int, F: int, num_bin: int, mode: int,
                  bin_bytes: int, fused: bool):
-    """B2's grid for R rows: (blocks, rows per block, bin window, scratch
-    words), at least MIN_ROWS_PER_BLOCK rows a block and at most one wave
-    per column, a block's rows a whole number of 32-row batches; computed
-    once per key."""
-    key = (gpu, R, F, num_bin, mode, bin_bytes, fused, WINDOW_BINS)
+    """B2's launch for R rows: (the wide body's geometry, None for uint8
+    bins; blocks; rows per block; scratch words), at least
+    MIN_ROWS_PER_BLOCK rows a block (WIDE_MIN_ROWS_PER_BLOCK on the wide
+    body) and at most one wave per column, a block's rows a whole number
+    of 32-row batches; computed once per key."""
+    key = (gpu, R, F, num_bin, mode, bin_bytes, fused)
     if key not in _fm_geometries:
-        win, resident = plan(lib, KERNEL_FM, gpu, num_bin, mode, bin_bytes)
-        cap = resident // columns(F, num_bin, win)
-        blocks = max(1, min(-(-R // MIN_ROWS_PER_BLOCK), cap, MAX_PARTS))
+        if bin_bytes == 2:
+            geo, resident = wide_plan(lib, KERNEL_FM, gpu, num_bin, F, mode)
+            cap, least = resident // geo.columns, WIDE_MIN_ROWS_PER_BLOCK
+        else:
+            geo = None
+            resident = grouped_plan(lib, KERNEL_FM, gpu, num_bin, F, mode)
+            cap = resident // columns(F, num_bin, num_bin)
+            least = MIN_ROWS_PER_BLOCK
+        blocks = max(1, min(-(-R // least), cap, MAX_PARTS))
         rpb = -(-R // blocks)
         rpb = -(-rpb // BATCH_ROWS) * BATCH_ROWS
         blocks = -(-R // rpb)
-        query = bind(lib, "lgbm_hist_featmajor_scratch_words", [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong)
-        _fm_geometries[key] = (blocks, rpb, win,
-                               query(R, F, num_bin, win, blocks, int(fused)))
+        if geo is None:
+            query = bind(lib, "lgbm_hist_featmajor_scratch_words", [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong)
+            words = query(R, F, num_bin, blocks, int(fused))
+        else:
+            query = bind(lib, "lgbm_hist_featmajor_wide_scratch_words", [
+                ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
+                ctypes.c_longlong)
+            words = query(R, F, num_bin, mode, geo.ft, geo.win, geo.wpf,
+                          geo.stage_rows, blocks, int(fused), gpu)
+        if words < 0:
+            raise RuntimeError(f"{KERNEL_FM} scratch query failed on device "
+                               f"{gpu}")
+        _fm_geometries[key] = (geo, blocks, rpb, words)
     return _fm_geometries[key]
 
 

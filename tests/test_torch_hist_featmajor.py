@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from lightgbm_tpu.ops.hist_pallas import hist_pallas
+from lightgbm_tpu.ops.hist_pallas import fit_tiles, hist_pallas
 from lightgbm_tpu.ops.histogram import hist_xla
 from lightgbm_tpu_torch.ops.hist_cuda import (feature_major_bins,
                                               hist_cuda_fm, hist_cuda_rm)
@@ -28,9 +28,15 @@ SHAPES = [(8, 4096, 64), (11, 3000, 63), (3, 500, 256), (5, 1037, 255),
           (3, 1000, 300)]
 
 
-def _inputs(rng, F, R, B, kind):
-    bins = rng.integers(0, B, size=(F, R)).astype(
-        np.uint8 if B <= 256 else np.uint16)
+def _inputs(rng, F, R, B, kind, dist="uniform"):
+    """Feature-major bins and gh; ``dist="skewed"``: four rows in five in
+    bin B // 3, and feature 0 of three values (the skew the card's wide
+    body sums in f64 registers)."""
+    bins = rng.integers(0, B, size=(F, R))
+    if dist == "skewed":
+        bins[rng.uniform(size=(F, R)) < 0.8] = B // 3
+        bins[0] = rng.choice([0, B // 2, B - 1], size=R)
+    bins = bins.astype(np.uint8 if B <= 256 else np.uint16)
     if kind == "int8":
         gh = rng.integers(-128, 128, size=(R, 3)).astype(np.int8)
     elif kind == "dyadic":
@@ -156,3 +162,39 @@ def test_fused_form_rejects_unsupported_input(case):
         kw["leaf_id"] = kw["leaf_id"][:, None]
     with pytest.raises(ValueError):
         hist_cuda_fm(bins, gh, B, **kw)
+
+
+@pytest.mark.parametrize("kind", ["int8", "dyadic", "normal"])
+@pytest.mark.parametrize("leaf_rows", [0, 1, 97, 4000])
+@pytest.mark.parametrize("dist", ["uniform", "skewed"])
+@pytest.mark.parametrize("B", [1023, 4095])
+def test_u16_fused_leaf_mask_matches_jax(rng, B, dist, leaf_rows, kind):
+    """B2's contract over u16 bins (the card's wide path): the fused form
+    on the engine's padded device copy, from an empty leaf to every row,
+    against the JAX package's ``hist_pallas`` of gh masked to the leaf. At
+    1,023 bins that is the Pallas kernel in the interpreter; at 4,095 it
+    is the ``hist_xla`` that ``hist_pallas`` falls back to, since
+    ``fit_tiles`` finds no tile for that many bins. int8 and dyadic gh
+    agree bit for bit; normal f32 gh within the rounding of an f32 sum
+    over all rows."""
+    F, R = 3, 4000
+    bins, gh = _inputs(rng, F, R, B, kind, dist)
+    gh[:, 2] = 1                       # the count channel
+    leaf_id = rng.integers(1, 9, R)
+    leaf_id[rng.permutation(R)[:leaf_rows]] = 0
+    padded = feature_major_bins(np.ascontiguousarray(bins.T),
+                                torch.device("cpu"))
+    out = hist_cuda_fm(padded, torch.from_numpy(gh), B,
+                       leaf_id=torch.from_numpy(leaf_id), leaf=0).numpy()
+    masked = gh * (leaf_id == 0)[:, None].astype(gh.dtype)
+    assert fit_tiles(4, B, 512)[2] == (B == 1023)
+    ref = np.asarray(hist_pallas(jnp.asarray(bins), jnp.asarray(masked), B,
+                                 block_rows=512, feature_tile=4,
+                                 interpret=True))
+    assert out.shape == ref.shape == (F, B, 3) and out.dtype == ref.dtype
+    if kind == "normal":
+        atol = 1e-5 * np.abs(masked).sum(axis=0)
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=atol.max())
+    else:
+        np.testing.assert_array_equal(out, ref)
+    assert int(out[0, :, 2].sum()) == leaf_rows
