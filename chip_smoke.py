@@ -72,7 +72,23 @@ Phases, each reported on its own line:
    booster of the same trees without the training bin mappers, against
    the host walk (scores within 1e-5, every tree's leaf equal), with
    rows/s of each route and of the host walk; each route's answer must be
-   the engine's device scores bit for bit, so no fallback went unseen.
+   the engine's device scores bit for bit, so no fallback went unseen;
+8. the training API and model loading at the phase-4 width: ``train``
+   on the phase-4 dataset with a validation set of 200,000 more rows
+   from another seed (``Dataset(reference=)``), ``auc`` and
+   ``binary_logloss``, ``early_stopping_round=5`` and
+   ``record_evaluation``, K1 launched; each iteration's validation score
+   on the card within 1e-5 of the host walk of the trees so far; the
+   model's text loaded back (``Booster(model_str=)``) predicting the
+   trained booster's host walk bit for bit, its raw device route within
+   1e-5 of that walk (rows/s), ``dump_model`` valid JSON with every tree;
+   ``train(init_model=loaded)`` on the card replaying the loaded trees
+   onto the training score bit for bit and keeping them, and
+   ``rollback_one_iter`` restoring the training and validation scores of
+   the iteration before (within one f32 rounding). It logs the seconds
+   an iteration with the validation set beside phase 4's without it and,
+   in turns on one booster, with and without it, the device ms of one
+   validation-score update and the phase's own seconds.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -130,6 +146,13 @@ GH_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 MODES = ("f32", "int8", "bf16")
 FM_MODES = ("f32", "int8")       # B2: the full path builds no bf16 hists
 PREDICT_ROWS = 200_000
+# phase 8: validation rows (another seed), rounds with the validation set,
+# and rounds of the continued training
+VALID_ROWS = 200_000
+API_ROUNDS = 20
+CONTINUE_ROUNDS = 3
+# pairs of iterations with and without the validation set, in turns
+VALID_AB_PAIRS = 4
 # training paths of phase 5: name -> (params, the kernel mode it must run);
 # the *_u16 paths train on the phase-4 data binned with U16_MAX_BIN
 PATHS = {
@@ -972,7 +995,7 @@ def phase_main_path():
     train_raw = bst._engine.score[0, :len(Xp)].cpu().numpy()
     np.testing.assert_allclose(raw, train_raw, rtol=0, atol=1e-4)
     log("phase 4 predict ok: host walk equals the training score")
-    return r["counts"], bst, ds, X
+    return r, bst, ds, X
 
 
 TREE_FIELDS = ("split_feature", "threshold_bin", "default_left",
@@ -1288,6 +1311,175 @@ def phase_predict(bst, ds, X, label="u8"):
             "every leaf equal")
 
 
+def phase_training_api(ds, X, iter_s_without_valid):
+    """Phase 8: ``train`` with a validation set, early stopping and
+    ``record_evaluation`` at the phase-4 width, then the model's text
+    loaded back, its raw device route, ``dump_model``, continued training
+    from the loaded model and ``rollback_one_iter``, each checked."""
+    import lightgbm_tpu_torch as lgt
+    t_phase = time.perf_counter()
+    Xv, yv = synth_higgs(VALID_ROWS, N_FEATURES, seed=1)
+    Xv64 = np.asarray(Xv, np.float64)
+    valid = lgt.Dataset(Xv, label=yv, reference=ds)
+    params = bench_params(early_stopping_round=5)
+    record, iter_s, eval_s, worst = {}, [], [], []
+    host_sum = np.zeros(VALID_ROWS)
+    started = {}
+
+    def start(env):
+        torch.cuda.synchronize()
+        started["t"] = time.perf_counter()
+    start.before_iteration = True
+
+    def check(env):
+        # the iteration's time (update, validation update, device metrics)
+        # before anything of this check runs
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - started["t"])
+        b = env.model
+        t = time.perf_counter()
+        again = b.eval_valid()          # the iteration's metrics, once more
+        eval_s.append(time.perf_counter() - t)
+        assert again == env.evaluation_result_list, again
+        host_sum[:] += b.predict(Xv64, raw_score=True,
+                                 start_iteration=env.iteration,
+                                 num_iteration=1)
+        score = b._engine.valid_sets[0].score[0].cpu().numpy()
+        worst.append(float(np.abs(score - host_sum).max()))
+        assert worst[-1] <= 1e-5, (env.iteration, worst[-1])
+    check.order = 0               # before record_evaluation and the stop
+
+    reset_counts()
+    bst = lgt.train(params, ds, num_boost_round=API_ROUNDS,
+                    valid_sets=[valid], valid_names=["valid"],
+                    callbacks=[start, check, lgt.record_evaluation(record)])
+    counts = read_counts()
+    eng = bst._engine
+    n_trees = bst.num_trees()
+    assert counts["hist_rowmajor_f32"] > 0, counts
+    assert len(worst) == n_trees == len(record["valid"]["auc"]), \
+        (len(worst), n_trees)
+    assert 0 < bst.best_iteration <= n_trees, bst.best_iteration
+    auc, ll = record["valid"]["auc"], record["valid"]["binary_logloss"]
+    assert auc[-1] > 0.7 and ll[-1] < ll[0], (auc, ll)
+    log(f"phase 8 train rounds={n_trees} best_iteration="
+        f"{bst.best_iteration} best_score={dict(bst.best_score['valid'])} "
+        f"valid_auc={auc!r} valid_logloss={ll!r} launches={counts}")
+    log(f"phase 8 iter_s_with_valid={iter_s!r} median_iter_s_with_valid="
+        f"{statistics.median(iter_s)!r} median_iter_s_without_valid="
+        f"{iter_s_without_valid!r} (phase 4) valid_rows={VALID_ROWS} "
+        f"eval_valid_s={eval_s!r} (device metrics and their one read)")
+    log(f"phase 8 valid score on the card within 1e-5 of the host walk "
+        f"at every iteration (worst={max(worst)!r})")
+
+    # one validation-score update: the tree packed and uploaded, the
+    # traversal over the validation bins, the add; and the traversal alone
+    vd = eng.valid_sets[0]
+    tree = eng.models[-1]
+    upd = vd.score[0].clone()
+    full_ms = cuda_ms(lambda: upd.add_(eng._tree_outputs(tree, vd.bins)))
+    from lightgbm_tpu_torch.ops.forest import pack_binned_tree, upload_trees
+    from lightgbm_tpu_torch.ops.predict import (BinnedTreeArrays, depth_steps,
+                                                forest_leaf_bins)
+    L = tree.num_leaves
+    packed = upload_trees(BinnedTreeArrays,
+                          [pack_binned_tree(tree, L, *eng._mapper_arrays)],
+                          vd.bins.device)
+    steps = depth_steps(tree.max_depth, L)
+    walk_ms = device_ms(lambda: upd.add_(packed.leaf_value.gather(
+        1, forest_leaf_bins(packed, vd.bins, num_steps=steps))[0]),
+        sleep_per_rep=10)
+    log(f"phase 8 valid_score_update_ms={full_ms!r} (CUDA events, host "
+        f"issue included) traversal_and_add_device_ms={walk_ms!r} "
+        f"rows={VALID_ROWS} tree_depth={tree.max_depth} steps={steps}")
+
+    # the text loaded back
+    text = bst.model_to_string()
+    loaded = lgt.Booster(bench_params(), model_str=text)
+    assert loaded.config.device_type == "cuda"
+    host = bst.predict(Xv64, raw_score=True, num_iteration=n_trees)
+    host_loaded = loaded.predict(Xv64, raw_score=True)
+    np.testing.assert_array_equal(host_loaded, host)
+    d = json.loads(json.dumps(loaded.dump_model()))
+    assert len(d["tree_info"]) == n_trees, len(d["tree_info"])
+    loaded.predict(Xv64[:1000], device=True, raw_score=True)     # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    raw_dev = loaded.predict(Xv64, device=True, raw_score=True)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    le = loaded._engine
+    assert le._serving is not None and le._serving.device.type == "cuda"
+    assert le._serving.raw_pack.count == n_trees
+    np.testing.assert_array_equal(raw_dev,
+                                  le.predict_device(Xv64, 0, n_trees)[:, 0])
+    np.testing.assert_allclose(raw_dev, host_loaded, rtol=0, atol=1e-5)
+    log(f"phase 8 loaded model: host walk equals the trained booster's bit "
+        f"for bit; raw device route rows={VALID_ROWS} trees={n_trees} "
+        f"seconds={sec!r} rows_per_s={VALID_ROWS / sec!r} max_abs_diff="
+        f"{float(np.abs(raw_dev - host_loaded).max())!r}; dump_model "
+        f"{len(d['tree_info'])} trees")
+
+    # continued training from the loaded model on the card
+    replayed = {}
+
+    def grab(env):
+        if env.iteration == env.begin_iteration:
+            replayed["score"] = env.model._engine.score.clone()
+    grab.before_iteration = True
+
+    cont = lgt.train(bench_params(), ds, num_boost_round=CONTINUE_ROUNDS,
+                     init_model=loaded, valid_sets=[valid],
+                     valid_names=["valid"], callbacks=[grab],
+                     keep_training_booster=True)
+    assert torch.equal(replayed["score"], eng.score), \
+        "the replayed training score differs from the trained one"
+    trees_of = lambda s: s[s.index("Tree=0"):s.index("end of trees")] \
+        .split("\n\n")
+    kept = trees_of(cont.model_to_string())
+    assert cont.num_trees() == n_trees + CONTINUE_ROUNDS
+    assert kept[:n_trees] == trees_of(text)[:n_trees]
+    log(f"phase 8 init_model: {n_trees} loaded trees kept, replayed "
+        f"training score equals the trained booster's bit for bit, "
+        f"{CONTINUE_ROUNDS} more trees")
+
+    # rollback_one_iter restores the scores of the iteration before
+    ce = cont._engine
+    before = (ce.score.clone(), ce.valid_sets[0].score.clone())
+    assert not cont.update()
+    cont.rollback_one_iter()
+    assert cont.num_trees() == n_trees + CONTINUE_ROUNDS
+    for name, was, now in (("train", before[0], ce.score),
+                           ("valid", before[1], ce.valid_sets[0].score)):
+        diff = float((now - was).abs().max())
+        tol = 4 * 2.0 ** -23 * float(was.abs().max())
+        assert diff <= tol, (name, diff, tol)
+        log(f"phase 8 rollback_one_iter {name} score restored: "
+            f"max_abs_diff={diff!r} (tolerance {tol!r}, one f32 rounding)")
+
+    # iterations with and without the validation set in turns on one
+    # booster (each with its metrics): the validation set's share of an
+    # iteration, free of the spread between phases
+    ab = {"with": [], "without": []}
+    valid_sets = ce.valid_sets
+    for i in range(VALID_AB_PAIRS):
+        for side in (("with", "without") if i % 2 == 0
+                     else ("without", "with")):
+            ce.valid_sets = valid_sets if side == "with" else []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            assert not cont.update()
+            cont.eval_valid()
+            torch.cuda.synchronize()
+            ab[side].append(time.perf_counter() - t)
+    ce.valid_sets = valid_sets
+    log(f"phase 8 in turns on one booster: iter_s_with_valid={ab['with']!r}"
+        f" iter_s_without_valid={ab['without']!r} median_with="
+        f"{statistics.median(ab['with'])!r} median_without="
+        f"{statistics.median(ab['without'])!r}")
+    log(f"phase 8 seconds={time.perf_counter() - t_phase!r}")
+
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
@@ -1361,7 +1553,8 @@ def main():
     b2 = phase_b2(dev, flush)
     log(f"phase 3 B2 done at {time.perf_counter() - t:.1f} s")
     del flush
-    compact_counts, bst, ds, X = phase_main_path()
+    main_run, bst, ds, X = phase_main_path()
+    compact_counts = main_run["counts"]
     log(f"phase 4 done at {time.perf_counter() - t:.1f} s")
     paths, ds_u16 = phase_paths(ds, X, bst._engine.models[0])
     log(f"phase 5 done at {time.perf_counter() - t:.1f} s")
@@ -1378,7 +1571,10 @@ def main():
     phase_predict(bst, ds, X)
     phase_predict(bst_u16, ds_u16, X, label="u16")
     log(f"phase 7 done at {time.perf_counter() - t:.1f} s")
-    del bst, ds, X, bst_u16, ds_u16
+    del bst, bst_u16, ds_u16
+    phase_training_api(ds, X, main_run["median_iter_s"])
+    log(f"phase 8 done at {time.perf_counter() - t:.1f} s")
+    del ds, X
     phase_cross_check()
     log(f"phase 6 done at {time.perf_counter() - t:.1f} s")
 

@@ -1,15 +1,20 @@
 """User-facing ``Dataset`` and ``Booster``.
 
-Port of the first slice of ``lightgbm_tpu/basic.py`` (ref:
-python-package/lightgbm/basic.py Dataset / Booster): a ``Dataset`` over
-a dense numeric matrix, and a ``Booster`` that trains (``update``),
-evaluates on its training rows, predicts by the host walk or on the
-device (``predict(..., device=True)``, the packed forest of
-``ops/forest.py``) and writes the model text.
+Port of ``lightgbm_tpu/basic.py`` (ref: python-package/lightgbm/basic.py
+Dataset / Booster) for dense numeric data: a ``Dataset`` over a matrix or
+a CSV/TSV/LibSVM file, binned on its own or, with ``reference=``, with
+another Dataset's bin mappers (a validation set); a ``Booster`` that
+trains (``update``), keeps validation sets on the training device,
+evaluates, rolls back, predicts by the host walk or on the device
+(``predict(..., device=True)``, the packed forest of ``ops/forest.py``),
+and writes, loads and dumps the model text. A Booster loaded from a model
+(``model_file=`` / ``model_str=``) predicts on the device its ``params``
+name, ``cuda`` unless ``device_type="cpu"``.
 """
 from __future__ import annotations
 
 import copy
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -33,14 +38,20 @@ def _to_2d_numpy(data) -> np.ndarray:
 
 
 class Dataset:
-    """Training data: a dense numeric matrix and its label, binned at
-    ``construct`` (ref: basic.py Dataset)."""
+    """Training or validation data: a dense numeric matrix, or the path
+    of a CSV/TSV/LibSVM file, and its label, binned at ``construct`` (ref:
+    basic.py Dataset). With ``reference`` the rows are binned with the
+    reference's bin mappers."""
 
-    def __init__(self, data, label=None, weight=None, init_score=None,
+    def __init__(self, data, label=None,
+                 reference: Optional["Dataset"] = None, weight=None,
+                 init_score=None,
                  feature_name: Optional[Sequence[str]] = None,
                  params: Optional[Dict[str, Any]] = None):
-        self.data = _to_2d_numpy(data)
+        self.data = (data if isinstance(data, (str, Path))
+                     else _to_2d_numpy(data))
         self.label = label
+        self.reference = reference
         self.weight = weight
         self.init_score = init_score
         self.feature_name = list(feature_name) if feature_name else None
@@ -53,11 +64,26 @@ class Dataset:
         return self
 
     def construct(self) -> "Dataset":
-        if self._binned is None:
-            self._binned = BinnedDataset.from_matrix(
-                self.data, Config(self.params), label=self.label,
-                weight=self.weight, init_score=self.init_score,
-                feature_names=self.feature_name)
+        if self._binned is not None:
+            return self
+        ref = (self.reference.construct()._binned
+               if self.reference is not None else None)
+        cfg = Config(self.params)
+        if isinstance(self.data, (str, Path)):
+            from .io.file_loader import load_svm_or_csv
+            X, y, w, group = load_svm_or_csv(str(self.data), cfg)
+            if group is not None:
+                log.fatal("query/group data is not ported yet (ROADMAP "
+                          "A12.2, ranking)")
+            self.data = X
+            if self.label is None:
+                self.label = y
+            if self.weight is None:
+                self.weight = w
+        self._binned = BinnedDataset.from_matrix(
+            self.data, cfg, label=self.label, weight=self.weight,
+            init_score=self.init_score, feature_names=self.feature_name,
+            reference=ref)
         return self
 
     @property
@@ -65,39 +91,91 @@ class Dataset:
         return self.construct()._binned
 
     def num_data(self) -> int:
-        return self.data.shape[0]
+        return self.binned.num_data
 
     def num_feature(self) -> int:
-        return self.data.shape[1]
+        return self.binned.num_total_features
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        """Bin this dataset with ``reference``'s bin mappers (ref:
+        basic.py set_reference: merges the reference's params, no-ops on
+        the same reference, refuses after construction)."""
+        self._update_params(reference.params)
+        if self.reference is reference:
+            return self
+        if self._binned is not None:
+            raise LightGBMError(
+                "Cannot set reference after the dataset was constructed")
+        self.reference = reference
+        return self
+
+    def create_valid(self, data, label=None, weight=None, init_score=None,
+                     params: Optional[Dict[str, Any]] = None) -> "Dataset":
+        """A validation Dataset binned with this one's bin mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       init_score=init_score,
+                       params=params or self.params)
 
 
 class Booster:
-    """The trained model handle (ref: basic.py Booster)."""
+    """The model handle (ref: basic.py Booster): built from a training
+    Dataset, from a model file or from a model string."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
-                 train_set: Optional[Dataset] = None):
+                 train_set: Optional[Dataset] = None,
+                 model_file=None, model_str: Optional[str] = None):
+        self._init_state(params)
+        if train_set is not None:
+            self._init_from_train_set(train_set)
+        elif model_file is not None:
+            from .io.model_io import load_model_file
+            self._engine, self.config = load_model_file(str(model_file),
+                                                        self.params)
+        elif model_str is not None:
+            self.model_from_string(model_str)
+        else:
+            raise LightGBMError(
+                "need at least one of train_set, model_file, model_str")
+
+    def _init_state(self, params: Optional[Dict[str, Any]]) -> None:
         self.params = copy.deepcopy(params) if params else {}
-        self.train_set = train_set
+        self.train_set: Optional[Dataset] = None
+        self.valid_sets: List[Dataset] = []
+        self.name_valid_sets: List[str] = []
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
+        self.train_data_name = "training"
         self.config = Config(self.params)
-        self._engine: Optional[GBDT] = None
-        if train_set is not None:
-            merged = dict(train_set.params)
-            merged.update(self.params)
-            self.config = Config(merged)
-            train_set._update_params(self.params)
-            objective = create_objective(self.config.objective, self.config)
-            self._engine = GBDT(self.config, train_set.binned, objective)
-            self._engine.add_train_metrics(
-                metrics_for_config(self.config, objective.NAME))
+        self._engine = None
+
+    def _init_from_train_set(self, train_set: Dataset) -> None:
+        if not isinstance(train_set, Dataset):
+            raise LightGBMError("train_set must be a Dataset")
+        self.train_set = train_set
+        merged = dict(train_set.params)
+        merged.update(self.params)
+        self.config = Config(merged)
+        train_set._update_params(self.params)
+        objective = create_objective(self.config.objective, self.config)
+        self._engine = GBDT(self.config, train_set.binned, objective)
+        self._engine.add_train_metrics(
+            metrics_for_config(self.config, objective.NAME))
 
     @classmethod
     def from_engine(cls, params: Optional[Dict[str, Any]],
                     engine: GBDT) -> "Booster":
         """A Booster around an engine that already holds its trees."""
-        self = cls(params)
+        self = cls.__new__(cls)
+        self._init_state(params)
         self._engine = engine
+        return self
+
+    def model_from_string(self, model_str: str) -> "Booster":
+        """Replace this handle's model with one parsed from a string; it
+        predicts on the device this Booster's params name."""
+        from .io.model_io import load_model_string
+        self._engine, self.config = load_model_string(model_str,
+                                                      self.params)
         return self
 
     # -- training -------------------------------------------------------
@@ -107,14 +185,119 @@ class Booster:
             raise LightGBMError("Booster has no training data")
         return self._engine.train_one_iter()
 
-    def eval_train(self) -> List:
-        return self._engine.eval_train()
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Register a validation set (built with ``reference=`` the
+        training Dataset); its bins and score live on the training
+        device."""
+        if self.train_set is None:
+            raise LightGBMError("Booster has no training data")
+        if not isinstance(data, Dataset):
+            raise TypeError("validation data must be a Dataset")
+        data._update_params(self.params).construct()
+        self.valid_sets.append(data)
+        self.name_valid_sets.append(name)
+        metrics = metrics_for_config(self.config,
+                                     self._engine.objective.NAME)
+        self._engine.add_valid_data(data.binned, metrics, name)
+        return self
+
+    def rollback_one_iter(self) -> "Booster":
+        self._engine.rollback_one_iter()
+        return self
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Change parameters between iterations (ref: Booster::ResetConfig,
+        c_api.cpp): ``learning_rate`` is read by the next iteration.
+        Settings the port does not implement yet are refused."""
+        trial = self.config.copy()
+        trial.update(params)
+        bad = trial.unsupported_settings()
+        if bad and self.train_set is not None:
+            log.fatal("the port does not implement these settings yet: "
+                      + ", ".join(bad))
+        self.params.update(params)
+        self.config = trial
+        self._engine.config = trial
+        self._engine.shrinkage_rate = float(trial.learning_rate)
+        return self
+
+    def free_dataset(self) -> "Booster":
+        self.train_set = None
+        self.valid_sets = []
+        return self
+
+    # -- evaluation -----------------------------------------------------
+    def eval(self, data: Dataset, name: str, feval=None) -> List:
+        """Evaluate on the training set or a set added with ``add_valid``
+        (ref: basic.py Booster.eval)."""
+        if data is self.train_set:
+            return [(name, n, v, h)
+                    for _d, n, v, h in self.eval_train(feval)]
+        for vs, vname in zip(self.valid_sets, self.name_valid_sets):
+            if data is vs:
+                return [(name, n, v, h)
+                        for d, n, v, h in self.eval_valid(feval)
+                        if d == vname]
+        raise LightGBMError(
+            "Data for eval must be the training set or have been added "
+            "with add_valid")
+
+    def eval_train(self, feval=None) -> List:
+        out = list(self._engine.eval_train())
+        if feval is not None:
+            out.extend(self._run_feval(feval, "training", self.train_set,
+                                       self._engine.score))
+        return out
+
+    def eval_valid(self, feval=None) -> List:
+        out = list(self._engine.eval_valid())
+        if feval is not None:
+            for vd, vs in zip(self._engine.valid_sets, self.valid_sets):
+                out.extend(self._run_feval(feval, vd.name, vs, vd.score))
+        return out
+
+    @staticmethod
+    def _run_feval(feval, data_name: str, dataset: Dataset,
+                   score) -> List:
+        """``feval(raw_score, dataset)`` for each custom metric, with the
+        f32 score read back as f64 numpy (``[N]``, or ``[K, N]``)."""
+        raw = score.cpu().numpy().astype(np.float64)
+        raw = raw[0] if raw.shape[0] == 1 else raw
+        out = []
+        for f in (feval if isinstance(feval, (list, tuple)) else [feval]):
+            ret = f(raw, dataset)
+            for name, value, hib in (ret if isinstance(ret, list)
+                                     else [ret]):
+                out.append((data_name, name, value, hib))
+        return out
 
     def current_iteration(self) -> int:
         return self._engine.current_iteration()
 
     def num_trees(self) -> int:
         return len(self._engine.models)
+
+    def num_model_per_iteration(self) -> int:
+        return self._engine.num_tree_per_iteration
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Splits per feature (int64) or their summed gain (ref: gbdt.cpp
+        FeatureImportance)."""
+        eng = self._engine
+        out = np.zeros(eng.max_feature_idx + 1, np.float64)
+        K = eng.num_tree_per_iteration
+        limit = (len(eng.models) if iteration is None
+                 else min(iteration * K, len(eng.models)))
+        for t in eng.models[:limit]:
+            for i in range(t.num_leaves - 1):
+                f = int(t.split_feature[i])
+                if importance_type == "split":
+                    if t.split_gain[i] > 0:
+                        out[f] += 1.0
+                else:
+                    out[f] += max(t.split_gain[i], 0.0)
+        return out.astype(np.int64) if importance_type == "split" else out
 
     # -- prediction -----------------------------------------------------
     def predict(self, data, start_iteration: int = 0,
@@ -124,10 +307,11 @@ class Booster:
         """Prediction over raw feature values: the host walk (ref:
         predictor.hpp), or with ``device`` (default: the
         ``tpu_predict_device`` parameter) the packed-forest engine on the
-        training device, whose scores are f32 sums. Where the device
-        route cannot serve (an empty tree range, f64-only values on the
-        raw route) it warns and the host walk answers; any other error
-        propagates."""
+        training device (a loaded model: the device its params name),
+        whose scores are f32 sums. Where the device route cannot serve
+        (an empty tree range, f64-only values or a categorical node on
+        the raw route) it warns and the host walk answers; any other
+        error propagates, a missing card included."""
         X = _to_2d_numpy(data).astype(np.float64, copy=False)
         eng = self._engine
         n_feat = eng.max_feature_idx + 1
@@ -173,6 +357,13 @@ class Booster:
                                num_iteration=num_iteration,
                                start_iteration=start_iteration,
                                importance_type=importance_type)
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> Dict[str, Any]:
+        """The model as a JSON-ready dict (ref: GBDT::DumpModel)."""
+        from .io.model_io import dump_model_dict
+        return dump_model_dict(self._engine, num_iteration=num_iteration,
+                               start_iteration=start_iteration)
 
     def save_model(self, filename, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,

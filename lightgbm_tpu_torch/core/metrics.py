@@ -1,17 +1,20 @@
-"""Evaluation metrics, host side in numpy f64.
+"""Evaluation metrics: on the host in numpy f64, or on the device.
 
 Port of the first slice's metrics from ``lightgbm_tpu/core/metrics.py``:
 ``L2Metric`` (:170), ``BinaryLoglossMetric`` (:323) and ``AUCMetric`` /
 ``_auc`` (:377-404) (ref: regression_metric.hpp, binary_metric.hpp). The
 JAX package evaluates these on the host in f64 on its CPU path; so does
-the port, from the f32 score pulled off the device once per evaluation.
-Each metric returns ``[(name, value, is_higher_better)]``.
+the port on the CPU (``eval``, each metric returns ``[(name, value,
+is_higher_better)]``). On the card the engine calls ``eval_device``
+instead, which computes the same f64 formula from the f32 score where it
+lives and returns 0-d device tensors, so only the values are read back.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..config import Config, canonical_metric
 from ..utils import log
@@ -33,6 +36,7 @@ class Metric:
         self.label: Optional[np.ndarray] = None
         self.weight: Optional[np.ndarray] = None
         self.sum_weights = 0.0
+        self._dev_cache = None
 
     def init(self, metadata, num_data: int) -> None:
         self.num_data = num_data
@@ -42,13 +46,31 @@ class Metric:
                        if metadata.weight is not None else None)
         self.sum_weights = (float(self.weight.sum())
                             if self.weight is not None else float(num_data))
+        self._dev_cache = None
 
     def eval(self, score: np.ndarray, objective=None) -> MetricResult:
         raise NotImplementedError
 
+    def eval_device(self, score: torch.Tensor, objective=None
+                    ) -> List[Tuple[str, torch.Tensor, bool]]:
+        """``eval`` on the score's device in f64: ``[(name, 0-d tensor,
+        is_higher_better)]``."""
+        raise NotImplementedError
+
+    def _dev(self, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Label and weight as f64 tensors on ``device``, uploaded once."""
+        cached = self._dev_cache
+        if cached is None or cached[0].device != torch.device(device):
+            f64 = lambda a: (torch.as_tensor(a, dtype=torch.float64,
+                                             device=device)
+                             if a is not None else None)
+            cached = self._dev_cache = (f64(self.label), f64(self.weight))
+        return cached
+
 
 class _PointwiseMetric(Metric):
-    """Average pointwise loss with the objective's transform applied."""
+    """Average pointwise loss with the objective's transform applied.
+    ``point_loss`` takes numpy arrays or torch tensors alike."""
 
     def transform(self, score, objective):
         if objective is not None:
@@ -67,6 +89,14 @@ class _PointwiseMetric(Metric):
             value = float(np.mean(losses))
         return [(self.NAME, value, self.HIGHER_BETTER)]
 
+    def eval_device(self, score, objective=None):
+        label, weight = self._dev(score.device)
+        pred = self.transform(score.double(), objective)
+        losses = self.point_loss(pred, label)
+        value = ((losses * weight).sum() / self.sum_weights
+                 if weight is not None else losses.mean())
+        return [(self.NAME, value, self.HIGHER_BETTER)]
+
 
 class L2Metric(_PointwiseMetric):
     NAME = "l2"
@@ -80,12 +110,17 @@ class BinaryLoglossMetric(_PointwiseMetric):
     NAME = "binary_logloss"
 
     def point_loss(self, prob, label):
+        if isinstance(prob, torch.Tensor):
+            p = prob.clamp(K_EPSILON, 1.0 - K_EPSILON)
+            return -(label * torch.log(p) + (1.0 - label) * torch.log(1.0 - p))
         p = np.clip(prob, K_EPSILON, 1.0 - K_EPSILON)
         return -(label * np.log(p) + (1.0 - label) * np.log(1.0 - p))
 
     def transform(self, score, objective):
         if objective is not None:
             return objective.convert_output(score)
+        if isinstance(score, torch.Tensor):
+            return torch.sigmoid(score)
         return 1.0 / (1.0 + np.exp(-score))
 
 
@@ -125,6 +160,36 @@ class AUCMetric(Metric):
         return [(self.NAME,
                  _auc(self.label > 0, np.asarray(score, np.float64),
                       self.weight), True)]
+
+    def eval_device(self, score, objective=None):
+        """``_auc`` vectorized, with no read from the device: sort; each
+        row's block of equal scores is bounded by the negatives before
+        its first row and up to its last row (the negatives' running
+        sum, propagated across the block by a running max and a reversed
+        running min); ``sum pos_i * (neg below + neg in block / 2)`` in
+        f64."""
+        label, weight = self._dev(score.device)
+        s, order = torch.sort(score.double(), stable=True)
+        is_pos = label[order] > 0
+        w = weight[order] if weight is not None else torch.ones_like(s)
+        zero = torch.zeros_like(w)
+        pos = torch.where(is_pos, w, zero)
+        neg = torch.where(is_pos, zero, w)
+        cum_neg = neg.cumsum(0)
+        first = torch.ones_like(is_pos)
+        first[1:] = s[1:] != s[:-1]
+        last = torch.ones_like(is_pos)
+        last[:-1] = first[1:]
+        below = torch.where(first, cum_neg - neg, zero).cummax(0).values
+        inf = torch.full_like(w, float("inf"))
+        upto = torch.where(last, cum_neg, inf).flip(0).cummin(0) \
+            .values.flip(0)
+        accum = (pos * (below + 0.5 * (upto - below))).sum()
+        sum_pos, sum_neg = pos.sum(), cum_neg[-1]
+        auc = torch.where((sum_pos == 0) | (sum_neg == 0),
+                          torch.ones_like(accum),
+                          accum / (sum_pos * sum_neg))
+        return [(self.NAME, auc, True)]
 
 
 _METRICS = {"l2": L2Metric, "binary_logloss": BinaryLoglossMetric,

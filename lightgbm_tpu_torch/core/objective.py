@@ -70,8 +70,9 @@ class ObjectiveFunction:
     def boost_from_score(self, class_id: int) -> float:
         return 0.0
 
-    def convert_output(self, raw: np.ndarray) -> np.ndarray:
-        """Raw score -> prediction space (ref: ConvertOutput)."""
+    def convert_output(self, raw):
+        """Raw score -> prediction space (ref: ConvertOutput), for a numpy
+        array or a torch tensor (device metrics) alike."""
         return raw
 
     def to_string(self) -> str:
@@ -107,7 +108,9 @@ class RegressionL2(ObjectiveFunction):
 
     def convert_output(self, raw):
         if self.sqrt:
-            return np.sign(raw) * raw * raw
+            sign = (torch.sign if isinstance(raw, torch.Tensor)
+                    else np.sign)
+            return sign(raw) * raw * raw
         return raw
 
     def to_string(self):
@@ -184,7 +187,8 @@ class BinaryLogloss(ObjectiveFunction):
         return self.need_train
 
     def convert_output(self, raw):
-        return 1.0 / (1.0 + np.exp(-self.sigmoid * raw))
+        exp = torch.exp if isinstance(raw, torch.Tensor) else np.exp
+        return 1.0 / (1.0 + exp(-self.sigmoid * raw))
 
     def to_string(self):
         return f"{self.NAME} sigmoid:{self.sigmoid:g}"

@@ -1,7 +1,10 @@
 """Tree model arrays and the host-side tree.
 
 Port of ``lightgbm_tpu/core/tree.py`` (ref: include/LightGBM/tree.h:27,
-src/io/tree.cpp) for numerical splits. Node numbering matches Tree::Split:
+src/io/tree.cpp). The port's growers make numerical splits only; trees
+loaded from model text may also hold categorical ones, which the host
+walk decides by bitset membership of the raw category value. Node
+numbering matches Tree::Split:
 splitting leaf ``l`` at step ``s`` creates internal node ``s``; the left
 child keeps leaf index ``l``, the right child becomes leaf ``s+1``; leaves
 are encoded in child pointers as ``~leaf_idx``.
@@ -105,6 +108,13 @@ class HostTree:
         self.decision_type: np.ndarray = np.zeros(n_int, np.int32)
         self.is_linear = False
         self.num_cat = 0
+        # bitsets of RAW category values, one per categorical node (ref:
+        # tree.h cat_boundaries_/cat_threshold_); only text trees have them
+        self.cat_boundaries: np.ndarray = np.zeros(1, np.int64)
+        self.cat_threshold: np.ndarray = np.zeros(0, np.uint32)
+        # a tree parsed from model text holds ORIGINAL feature indices
+        # and real thresholds only; GBDT.init_from_model rebinds it
+        self.from_text = False
 
     @classmethod
     def constant(cls, value: float) -> "HostTree":
@@ -119,6 +129,14 @@ class HostTree:
             leaf_weight=np.zeros(1), leaf_count=np.zeros(1),
             leaf_parent=np.full(1, -1, np.int32), num_leaves=1,
             shrinkage=1.0), np.zeros(0, np.int32))
+
+    def copy(self) -> "HostTree":
+        """Deep copy of every array (continued training keeps the source
+        model intact)."""
+        new = self.__class__.__new__(self.__class__)
+        for k, v in self.__dict__.items():
+            new.__dict__[k] = v.copy() if isinstance(v, np.ndarray) else v
+        return new
 
     def shrink(self, rate: float) -> None:
         """ref: tree.h Tree::Shrinkage.
@@ -150,22 +168,29 @@ class HostTree:
             return out
         node = np.zeros(n, dtype=np.int64)
         active = np.ones(n, dtype=bool)
-        # decision_type bits (ref: tree.h kDefaultLeftMask=2, missing type
-        # in bits 2-3; numerical nodes only)
+        # decision_type bits (ref: tree.h kCategoricalMask=1,
+        # kDefaultLeftMask=2, missing type in bits 2-3)
         for _ in range(self.num_leaves):  # depth bound
             if not active.any():
                 break
             f = self.split_feature[node]
             thr = self.threshold_real[node]
             dl = (self.decision_type[node] & 2) != 0
+            is_cat = (self.decision_type[node] & 1) != 0
             mtype = (self.decision_type[node] >> 2) & 3
             x = X[np.arange(n), f]
             isnan = np.isnan(x)
             x0 = np.where(isnan, 0.0, x)
             le = x0 <= thr
+            if is_cat.any():
+                # bitset membership on RAW category values (ref:
+                # tree.h:375 CategoricalDecision + FindInBitset)
+                le = np.where(is_cat,
+                              self._cat_in_bitset(node, x0, isnan), le)
             # missing handling: 0 none (NaN->0), 1 zero, 2 nan
             miss = np.where(mtype == 2, isnan,
                             (mtype == 1) & (np.abs(x0) <= 1e-35))
+            miss = miss & ~is_cat  # cat NaN/unseen goes right (not in set)
             go_left = np.where(miss, dl, le)
             child = np.where(go_left, self.left_child[node],
                              self.right_child[node])
@@ -175,6 +200,35 @@ class HostTree:
             active = active & ~is_leaf
             node = np.where(active, np.maximum(child, 0), node)
         return out
+
+    def cat_values(self, cat_idx: int) -> list:
+        """The raw category values of one categorical node's bitset (ref:
+        Common::FindInBitset layout, 32-bit words)."""
+        lo = int(self.cat_boundaries[cat_idx])
+        hi = int(self.cat_boundaries[min(cat_idx + 1,
+                                         len(self.cat_boundaries) - 1)])
+        return [w * 32 + b for w in range(hi - lo) for b in range(32)
+                if (int(self.cat_threshold[lo + w]) >> b) & 1]
+
+    def _cat_in_bitset(self, node: np.ndarray, x0: np.ndarray,
+                       isnan: np.ndarray) -> np.ndarray:
+        """Vectorized FindInBitset over per-node category bitsets (ref:
+        include/LightGBM/utils/common.h FindInBitset, tree.h:375-391
+        CategoricalDecision). ``threshold_real`` of a categorical node
+        holds its index into ``cat_boundaries``; NaN, negative values and
+        values past the bitset are not in it."""
+        cat_idx = self.threshold_real[node].astype(np.int64)
+        cat_idx = np.clip(cat_idx, 0, max(self.num_cat - 1, 0))
+        lo = self.cat_boundaries[cat_idx]
+        hi = self.cat_boundaries[np.minimum(cat_idx + 1,
+                                            len(self.cat_boundaries) - 1)]
+        v = np.where(isnan | (x0 < 0), -1, np.floor(x0)).astype(np.int64)
+        word = lo + (v >> 5)
+        ok = (v >= 0) & (word < hi)
+        word_c = np.clip(word, 0, max(len(self.cat_threshold) - 1, 0))
+        bits = (self.cat_threshold[word_c] if len(self.cat_threshold)
+                else np.zeros_like(word_c, np.uint32))
+        return ok & (((bits >> (v & 31).astype(np.uint32)) & 1) != 0)
 
     def predict(self, X: np.ndarray) -> np.ndarray:
         return self.leaf_value[self.predict_leaf(X)]

@@ -24,6 +24,15 @@ f32(rate)`` and then ``score += delta`` (ref: the JAX package's
 leaf value after ``HostTree.shrink`` is exactly that product, so a model
 replayed from its text gives the same scores. PyTorch runs each op
 eagerly, so nothing fuses the two into an FMA.
+
+Validation sets (``add_valid_data``) keep their feature-major bins and
+their f32 score on the training device; each tree adds its stored f32
+leaf value at every row's leaf, found by the device traversal of
+``ops/predict.forest_leaf_bins`` (``_tree_outputs``). Continued training
+(``init_from_model``) rebinds the trees of a loaded model to this
+dataset's bins and replays them, in model order, onto every score. On
+the card the metrics are computed on the device and only their values
+are read back (``_eval``).
 """
 from __future__ import annotations
 
@@ -40,8 +49,11 @@ from ..core.metrics import Metric
 from ..core.objective import ObjectiveFunction
 from ..core.tree import HostTree
 from ..io.dataset_core import BinnedDataset
-from ..ops.forest import DeviceRouteUnavailable, ServingEngine
+from ..ops.forest import (BinnedTreeArrays, DeviceRouteUnavailable,
+                          ServingEngine, mapper_arrays, pack_binned_tree,
+                          upload_trees)
 from ..ops.hist_cuda import device_bins, feature_major_bins
+from ..ops.predict import depth_steps, forest_leaf_bins
 from ..ops.split import K_EPSILON, FeatureMeta, SplitHyperParams
 from ..utils import log, prng
 
@@ -54,6 +66,25 @@ def resolve_device(config: Config) -> torch.device:
         log.fatal("device_type='cuda' but torch.cuda.is_available() is "
                   "False; pass device_type='cpu' to run on the CPU")
     return torch.device(dev)
+
+
+class _ValidData:
+    """One validation set on the training device: its feature-major bins,
+    its f32 score ``[K, N]`` and its metrics (ref: valid_score_updater_ /
+    valid_metrics_ in gbdt.h; the JAX package's models/gbdt.py:160)."""
+
+    def __init__(self, dataset: BinnedDataset, metrics: List[Metric],
+                 num_class: int, name: str, device: torch.device):
+        self.dataset = dataset
+        self.metrics = metrics
+        self.name = name
+        self.bins = feature_major_bins(dataset.bins, device)
+        self.score = torch.zeros((num_class, dataset.num_data),
+                                 dtype=torch.float32, device=device)
+        if dataset.metadata.init_score is not None:
+            self.score = torch.as_tensor(
+                dataset.metadata.init_score.reshape(
+                    -1, dataset.num_data).astype(np.float32), device=device)
 
 
 class _ModelList(list):
@@ -102,6 +133,10 @@ class GBDT:
         self.models = []
         self.shrinkage_rate = float(config.learning_rate)
         self.train_metrics: List[Metric] = []
+        self.valid_sets: List[_ValidData] = []
+        # iterations trained in this session (ref: gbdt.h iter_): what
+        # rollback_one_iter may undo; an init model's trees are not
+        self.iter = 0
         self.max_feature_idx = 0
         self.label_idx = 0
         self.feature_names: List[str] = []
@@ -150,6 +185,9 @@ class GBDT:
 
         mappers = train.used_bin_mappers()
         self.num_used_features = len(mappers)
+        # per used feature: num_bin, missing type, default bin (host
+        # arrays for packing trees for the device traversal)
+        self._mapper_arrays = mapper_arrays(mappers)
         self.feature_meta = (FeatureMeta.from_mappers(mappers, dev)
                              if mappers else None)
         self.num_bin_max = int(max((m.num_bin for m in mappers), default=2))
@@ -282,6 +320,8 @@ class GBDT:
             init_score = float(self.objective.boost_from_score(k))
             if abs(init_score) > K_EPSILON:
                 self.score[k] += init_score
+                for vd in self.valid_sets:
+                    vd.score[k] += init_score
                 log.info(f"Start training from score {init_score:.6f}")
                 return init_score
         return 0.0
@@ -328,6 +368,11 @@ class GBDT:
                 self.shrinkage_rate, dtype=torch.float32, device=self.device)
             self.score[k] += delta
             host.shrink(self.shrinkage_rate)
+            # the shrunk leaf value is the f32 product added above: the
+            # valid sets get it before the bias is folded in, as the
+            # training score did (ref: gbdt.py:2406-2418)
+            for vd in self.valid_sets:
+                vd.score[k] += self._tree_outputs(host, vd.bins)
             if abs(init_scores[k]) > K_EPSILON:
                 host.add_bias(init_scores[k])
             self.models.append(host)
@@ -338,6 +383,7 @@ class GBDT:
             if len(self.models) > K:
                 del self.models[-K:]
             return True
+        self.iter += 1
         return False
 
     def _renew_quant_leaves(self, host: HostTree, leaf_np: np.ndarray,
@@ -400,12 +446,134 @@ class GBDT:
             out = srv.predict_raw(models, self._model_gen, X, lo, hi)
         return out.T
 
-    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
-        score = self.score.cpu().numpy().astype(np.float64)
+    # -- validation sets, rollback, continued training ------------------
+    def add_valid_data(self, valid: BinnedDataset, metrics: List[Metric],
+                       name: str) -> None:
+        """Register a validation set binned with the training mappers and
+        replay the existing trees onto its score (ref: the JAX package's
+        models/gbdt.py:1604 add_valid_data)."""
+        if valid.bin_mappers is not self.train_set.bin_mappers:
+            log.fatal(f"validation set {name!r} must be binned with the "
+                      "training set's bin mappers: construct it with "
+                      "reference=<the training Dataset>")
+        for m in metrics:
+            m.init(valid.metadata, valid.num_data)
+        vd = _ValidData(valid, metrics, self.num_tree_per_iteration, name,
+                        self.device)
+        K = self.num_tree_per_iteration
+        for i, t in enumerate(self.models):
+            vd.score[i % K] += self._tree_outputs(t, vd.bins)
+        self.valid_sets.append(vd)
+
+    def _train_bins_fm(self) -> torch.Tensor:
+        """The training bins as a feature-major ``[F, N]`` view."""
+        return self.bins if self.row_sched == "full" else self.bins.T
+
+    def _tree_outputs(self, t: HostTree, bins_fm: torch.Tensor
+                      ) -> torch.Tensor:
+        """f32 ``[R]``: the stored leaf value of tree ``t`` at each row's
+        leaf, by the device traversal over feature-major bins ``[F, R]``
+        on the training device (ref: the JAX package's models/gbdt.py:1953
+        _tree_outputs). The tree's inner feature indices and bin
+        thresholds must be this dataset's."""
+        L = max(int(t.num_leaves), 2)
+        packed = upload_trees(BinnedTreeArrays,
+                              [pack_binned_tree(t, L, *self._mapper_arrays)],
+                              bins_fm.device)
+        leaf = forest_leaf_bins(packed, bins_fm,
+                                num_steps=depth_steps(t.max_depth, L))
+        return packed.leaf_value.gather(1, leaf)[0]
+
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's trees and subtract their outputs
+        from the training and validation scores (ref: gbdt.cpp:463
+        RollbackOneIter). Trees of an init model are not rolled back."""
+        if self.iter <= 0:
+            return
+        K = self.num_tree_per_iteration
+        bins_fm = self._train_bins_fm()
+        for k in range(K):
+            t = self.models[len(self.models) - K + k]
+            self.score[k] -= self._tree_outputs(t, bins_fm)
+            for vd in self.valid_sets:
+                vd.score[k] -= self._tree_outputs(t, vd.bins)
+        del self.models[-K:]
+        self.iter -= 1
+
+    def init_from_model(self, other) -> None:
+        """Continued training from another engine's trees (ref: CLI
+        input_model; the JAX package's models/gbdt.py:2635). Trees parsed
+        from text carry ORIGINAL feature indices and real thresholds:
+        they are rebound to this dataset's inner indices and bins, then
+        every tree's output is added to the training and validation
+        scores in model order, so a model replayed from its text gives
+        the score it trained with."""
+        if other.num_tree_per_iteration != self.num_tree_per_iteration:
+            log.fatal("Cannot continue training: num_tree_per_iteration "
+                      "differs between the init model and this config")
+        K = self.num_tree_per_iteration
+        models = [t.copy() for t in other.models]
+        inner_of = {int(orig): i for i, orig in
+                    enumerate(self.train_set.used_feature_map)}
+        mappers = self.train_set.bin_mappers
+        for t in models:
+            if not t.from_text:
+                continue
+            if t.num_cat > 0:
+                log.fatal("the init model has categorical splits; training "
+                          "on categorical features is not ported yet "
+                          "(ROADMAP A12.5)")
+            for i in range(t.num_leaves - 1):
+                f = int(t.split_feature[i])
+                if f not in inner_of:
+                    log.fatal(f"init model splits on feature {f} which is "
+                              "trivial/absent in the new training data")
+                t.split_feature_inner[i] = inner_of[f]
+                t.threshold_bin[i] = int(mappers[f].value_to_bin(
+                    np.asarray([t.threshold_real[i]]))[0])
+            t.from_text = False
+        self.models = models
+        bins_fm = self._train_bins_fm()
+        for i, t in enumerate(self.models):
+            k = i % K
+            self.score[k] += self._tree_outputs(t, bins_fm)
+            for vd in self.valid_sets:
+                vd.score[k] += self._tree_outputs(t, vd.bins)
+
+    # -- evaluation -----------------------------------------------------
+    def _device_eval(self) -> bool:
+        """Metrics on the score's device (``tpu_device_eval``: auto is on
+        for the card), else on the host in f64 from the score read back."""
+        mode = str(self.config.tpu_device_eval).lower()
+        if mode == "auto":
+            return self.device is not None and self.device.type == "cuda"
+        return mode in ("true", "1", "yes")
+
+    def _eval(self, metrics: List[Metric], score: torch.Tensor,
+              data_name: str) -> List[Tuple[str, str, float, bool]]:
+        """``(data_name, metric, value, is_higher_better)`` of each metric
+        over a ``[K, N]`` score. On the device every value comes back in
+        one read; on the host the score is read once."""
         view = score[0] if self.num_tree_per_iteration == 1 else score
-        return [("training", name, value, hib)
-                for m in self.train_metrics
-                for name, value, hib in m.eval(view, self.objective)]
+        if self._device_eval():
+            entries = [e for m in metrics
+                       for e in m.eval_device(view, self.objective)]
+            if not entries:
+                return []
+            values = torch.stack([v for _, v, _ in entries]).cpu().tolist()
+            return [(data_name, name, float(v), hib)
+                    for (name, _, hib), v in zip(entries, values)]
+        view_np = view.cpu().numpy().astype(np.float64)
+        return [(data_name, name, value, hib)
+                for m in metrics
+                for name, value, hib in m.eval(view_np, self.objective)]
+
+    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
+        return self._eval(self.train_metrics, self.score, "training")
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        return [r for vd in self.valid_sets
+                for r in self._eval(vd.metrics, vd.score, vd.name)]
 
     def current_iteration(self) -> int:
         return len(self.models) // max(self.num_tree_per_iteration, 1)

@@ -44,8 +44,8 @@ WALK_ELEMS = 1 << 24
 
 class DeviceRouteUnavailable(ValueError):
     """The device route cannot serve this request (an empty tree range,
-    or f64-only values on the raw route); the Booster answers it by the
-    host walk. Nothing else is caught."""
+    f64-only values or a categorical node on the raw route); the Booster
+    answers it by the host walk. Nothing else is caught."""
 
 
 def bucket_rows(r: int) -> int:
@@ -150,8 +150,10 @@ def _pad(a, n: int, dtype, fill=0) -> np.ndarray:
     return out
 
 
-def _upload(cls, per_tree: List[dict], device) -> NamedTuple:
-    """Stack per-tree host arrays on a leading axis, one upload a field."""
+def upload_trees(cls, per_tree: List[dict], device) -> NamedTuple:
+    """Stack per-tree host arrays (``pack_binned_tree`` dicts for
+    ``BinnedTreeArrays``, ``_host_tree_to_raw`` ones for
+    ``RawTreeArrays``) on a leading axis, one upload a field."""
     return cls(**{k: torch.as_tensor(np.stack([t[k] for t in per_tree]),
                                      device=device)
                   for k in per_tree[0]})
@@ -223,6 +225,46 @@ class _IncrementalPack:
         return win, steps
 
 
+def mapper_arrays(mappers):
+    """Per used feature: ``(num_bin, missing type, default bin)`` as host
+    int64 arrays, what ``pack_binned_tree`` folds into each node."""
+    return (np.asarray([m.num_bin for m in mappers], np.int64),
+            np.asarray([MISSING_ENUM[m.missing_type] for m in mappers],
+                       np.int64),
+            np.asarray([m.default_bin for m in mappers], np.int64))
+
+
+def pack_binned_tree(t: HostTree, max_leaves: int, feat_nbin: np.ndarray,
+                     feat_miss: np.ndarray, feat_dflt: np.ndarray) -> dict:
+    """Binned serving arrays of one host tree, padded to ``max_leaves``:
+    each node's missing routing folded into ``special``/``flip`` (see
+    ``ops/predict.forest_leaf_bins``) from the per-feature arrays of
+    ``mapper_arrays``."""
+    L = max_leaves
+    li = L - 1
+    ni = max(int(t.num_leaves) - 1, 0)
+    special = np.full(li, -1, np.int32)
+    flip = np.zeros(li, bool)
+    if ni:
+        f = np.asarray(t.split_feature_inner[:ni], np.int64)
+        miss = feat_miss[f]
+        sp = np.where(
+            miss == MISSING_ENUM["nan"], feat_nbin[f] - 1,
+            np.where(miss == MISSING_ENUM["zero"], feat_dflt[f], -1))
+        thr = np.asarray(t.threshold_bin[:ni], np.int64)
+        dl = np.asarray(t.default_left[:ni], bool)
+        special[:ni] = sp
+        flip[:ni] = (sp >= 0) & (dl != (sp <= thr))
+    return dict(
+        split_feature=_pad(t.split_feature_inner[:ni], li, np.int64),
+        threshold_bin=_pad(t.threshold_bin[:ni], li, np.int32),
+        special=special, flip=flip,
+        left_child=_pad(t.left_child[:ni], li, np.int64),
+        right_child=_pad(t.right_child[:ni], li, np.int64),
+        leaf_value=_pad(t.leaf_value[:int(t.num_leaves)], L, np.float32),
+        num_leaves=np.int64(t.num_leaves))
+
+
 class ForestPack(_IncrementalPack):
     """Stacked forest for BINNED traversal, kept in sync incrementally:
     the same generation and more trees appends only the tail; a
@@ -237,37 +279,10 @@ class ForestPack(_IncrementalPack):
         if mappers is self._mapper_src:
             return
         self._mapper_src = mappers
-        self._feat_nbin = np.asarray([m.num_bin for m in mappers], np.int64)
-        self._feat_miss = np.asarray(
-            [MISSING_ENUM[m.missing_type] for m in mappers], np.int64)
-        self._feat_dflt = np.asarray(
-            [m.default_bin for m in mappers], np.int64)
+        self._feat = mapper_arrays(mappers)
 
     def _pack_tree(self, t: HostTree) -> dict:
-        L = self.max_leaves
-        li = L - 1
-        ni = max(int(t.num_leaves) - 1, 0)
-        special = np.full(li, -1, np.int32)
-        flip = np.zeros(li, bool)
-        if ni:
-            f = np.asarray(t.split_feature_inner[:ni], np.int64)
-            miss = self._feat_miss[f]
-            sp = np.where(
-                miss == MISSING_ENUM["nan"], self._feat_nbin[f] - 1,
-                np.where(miss == MISSING_ENUM["zero"],
-                         self._feat_dflt[f], -1))
-            thr = np.asarray(t.threshold_bin[:ni], np.int64)
-            dl = np.asarray(t.default_left[:ni], bool)
-            special[:ni] = sp
-            flip[:ni] = (sp >= 0) & (dl != (sp <= thr))
-        return dict(
-            split_feature=_pad(t.split_feature_inner[:ni], li, np.int64),
-            threshold_bin=_pad(t.threshold_bin[:ni], li, np.int32),
-            special=special, flip=flip,
-            left_child=_pad(t.left_child[:ni], li, np.int64),
-            right_child=_pad(t.right_child[:ni], li, np.int64),
-            leaf_value=_pad(t.leaf_value[:int(t.num_leaves)], L, np.float32),
-            num_leaves=np.int64(t.num_leaves))
+        return pack_binned_tree(t, self.max_leaves, *self._feat)
 
     def sync(self, models: List[HostTree], gen, mappers) -> None:
         self._set_mappers(mappers)
@@ -275,7 +290,8 @@ class ForestPack(_IncrementalPack):
         if not tail:
             return
         packed = [self._pack_tree(t) for t in tail]
-        self._append(models, _upload(BinnedTreeArrays, packed, self.device),
+        self._append(models,
+                     upload_trees(BinnedTreeArrays, packed, self.device),
                      tail)
 
 
@@ -303,14 +319,27 @@ def _host_tree_to_raw(t: HostTree, max_leaves: int) -> dict:
 
 class RawForestPack(_IncrementalPack):
     """Incrementally packed stacked forest for RAW traversal (a model
-    without the training bin mappers; the port's trees are numerical)."""
+    without the training bin mappers). Numerical nodes only: a tree
+    loaded from text may hold categorical ones (``check_servable``)."""
+
+    @staticmethod
+    def check_servable(models: List[HostTree]) -> None:
+        """``DeviceRouteUnavailable`` for an empty window or a tree with
+        a categorical node: bitset membership stays on the host walk."""
+        if not models:
+            raise DeviceRouteUnavailable("device prediction needs a "
+                                         "non-empty tree range")
+        if any(t.num_cat > 0 for t in models):
+            raise DeviceRouteUnavailable(
+                "raw device prediction does not cover categorical splits "
+                "(bitset membership stays on the host walk)")
 
     def sync(self, models: List[HostTree], gen) -> None:
         tail = self._start_sync(models, gen)
         if not tail:
             return
         arrs = [_host_tree_to_raw(t, self.max_leaves) for t in tail]
-        self._append(models, _upload(RawTreeArrays, arrs, self.device),
+        self._append(models, upload_trees(RawTreeArrays, arrs, self.device),
                      tail)
 
 

@@ -13,8 +13,9 @@ The functions take one tree (node arrays ``[L-1]``) or a stack of ``T``
 trees (``[T, L-1]``, as ``ops/forest.py`` packs them) and return the leaf
 of every row, ``[R]`` or ``[T, R]``. Two entry points:
 
-- ``forest_leaf_bins``: over BINNED rows ``[F, R]`` with integer bin
-  thresholds and each node's missing routing folded into two constants;
+- ``forest_leaf_bins``: over BINNED rows ``[F, R]`` (int32, uint8, or
+  u16 bins held as int16) with integer bin thresholds and each node's
+  missing routing folded into two constants;
 - ``tree_leaf_raw``: over RAW feature values ``[R, C]`` (a model without
   the training bin mappers), missing handling resolved per node from its
   ``decision_type``.
@@ -140,7 +141,10 @@ def forest_leaf_bins(tree: BinnedTreeArrays, bins_t: torch.Tensor,
     steps = _resolve_steps(num_steps, tree.max_leaves)
 
     def go_left(b, node, single):
-        b = b.to(torch.int32)
+        # u16 bins are held as int16 (ops/histogram.bin_ids): the 16 bits
+        # read as unsigned
+        b = (b.to(torch.int32) & 0xFFFF if b.dtype == torch.int16
+             else b.to(torch.int32))
         return (b <= _at(tree.threshold_bin, node, single)) ^ (
             (b == _at(tree.special, node, single))
             & _at(tree.flip, node, single))

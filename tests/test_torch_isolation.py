@@ -38,10 +38,39 @@ def _imported_modules(path):
             yield node.args[0].value
 
 
+# modules copied from the JAX package that need nothing but numpy, the
+# port's config and its log: each may import only these
+LEAF_MODULES = {
+    "lightgbm_tpu_torch/callback.py": {"__future__", "collections",
+                                       "typing", ".utils"},
+    "lightgbm_tpu_torch/io/file_loader.py": {"__future__", "os", "typing",
+                                             "numpy", "..config",
+                                             "..utils"},
+}
+
+
 def test_sources_exist():
     sources = _port_sources()
     assert os.path.isfile(sources[0])
     assert len(sources) > 10
+    rel = {os.path.relpath(p, REPO) for p in sources}
+    assert {"lightgbm_tpu_torch/io/model_io.py",
+            "lightgbm_tpu_torch/engine.py"} | set(LEAF_MODULES) <= rel
+
+
+@pytest.mark.parametrize("rel", sorted(LEAF_MODULES))
+def test_copied_leaf_module_imports_only_numpy_config_and_log(rel):
+    with open(os.path.join(REPO, rel)) as fh:
+        tree = ast.parse(fh.read(), filename=rel)
+    found = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            found.add("." * node.level + (node.module or ""))
+            if node.module == "utils" and node.level:
+                assert [a.name for a in node.names] == ["log"], rel
+    assert found <= LEAF_MODULES[rel], found - LEAF_MODULES[rel]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
