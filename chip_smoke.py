@@ -88,7 +88,29 @@ Phases, each reported on its own line:
    the iteration before (within one f32 rounding). It logs the seconds
    an iteration with the validation set beside phase 4's without it and,
    in turns on one booster, with and without it, the device ms of one
-   validation-score update and the phase's own seconds.
+   validation-score update and the phase's own seconds;
+9. multiclass at the shape of UCI Covertype (581,012 x 54: 10 continuous
+   columns and one-hot groups of 4 and 40, 7 classes with its class
+   counts) through ``Booster`` at the phase-4 width: softmax on the
+   compact grower (1 warm-up and 3 timed iterations, K1 launched once per
+   leaf of the 7 trees of each), then on the hybrid (K2) and the full
+   (B2) paths and one-vs-all on the compact path (1 + 1 each); every
+   iteration appends 7 trees, ``multi_logloss`` falls and
+   ``multi_error`` ends below the prior's; the time of the softmax
+   gradients over the [7, N] score; probabilities that sum to 1, the
+   binned and raw device routes within 1e-5 of the host walk in every
+   class column (raw scores relative to max(1, |score|) and absolute in
+   the columns whose |score| stays under 1, probabilities absolute), the
+   device metrics within 1e-5 of the host's, the text round trip bit for
+   bit; cuda against the CPU on 20,000 rows of 3 classes on the compact,
+   hybrid and full paths; then the ten pointwise objectives (L1, Huber,
+   Fair, Poisson, quantile, MAPE, Gamma, Tweedie and the two
+   cross-entropies) on phase 4's rows, 1 + 1 iterations each, each
+   default metric falling (Gamma's deviance, its default ``gamma`` logged
+   beside), with the host seconds of the percentile leaf renewal of L1,
+   quantile and MAPE;
+   with ``--profile``, one more softmax iteration under
+   ``torch.profiler``.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -153,6 +175,32 @@ API_ROUNDS = 20
 CONTINUE_ROUNDS = 3
 # pairs of iterations with and without the validation set, in turns
 VALID_AB_PAIRS = 4
+# phase 9: multiclass at the shape of UCI Covertype, the common public
+# multiclass GBDT benchmark: 581,012 rows of 10 continuous columns and two
+# one-hot groups of 4 and 40 binary columns, 7 classes with its class
+# counts (class 4 holds under 0.5% of the rows)
+COVTYPE_CLASS_ROWS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367,
+                      20_510)
+COVTYPE_CONTINUOUS = 10
+COVTYPE_GROUPS = (4, 40)
+MC_TIMED_ITERS = 3
+MC_PATHS = {"hybrid": (dict(tpu_row_scheduling="level"), "hist_level_f32"),
+            "full": (dict(tpu_row_scheduling="full"), "hist_featmajor_f32"),
+            "ova": (dict(objective="multiclassova"), "hist_rowmajor_f32")}
+MC_PREDICT_ROWS = 20_000
+# the cross-check of phase 9 on cuda and on the CPU: 3 classes, 20,000
+# rows, 31 leaves, 3 rounds
+MC_SMALL_CLASS_ROWS = (8_000, 9_000, 3_000)
+# phase 9's pointwise objectives, each trained 1 + OBJ_ITERS iterations on
+# phase 4's rows with labels made valid for it
+POINTWISE = ("regression_l1", "huber", "fair", "poisson", "quantile",
+             "mape", "gamma", "tweedie", "cross_entropy",
+             "cross_entropy_lambda")
+OBJ_ITERS = 1
+# the metric that must fall: the objective's default, but for gamma, whose
+# default metric (as the JAX package defines it, core/metrics.py:256-264)
+# is not its negative log-likelihood; phase 9 logs it beside the deviance
+LEARNING_METRIC = {"gamma": "gamma_deviance"}
 # training paths of phase 5: name -> (params, the kernel mode it must run);
 # the *_u16 paths train on the phase-4 data binned with U16_MAX_BIN
 PATHS = {
@@ -1480,6 +1528,288 @@ def phase_training_api(ds, X, iter_s_without_valid):
     log(f"phase 8 seconds={time.perf_counter() - t_phase!r}")
 
 
+def synth_covtype(class_rows=COVTYPE_CLASS_ROWS, seed=0):
+    """Covertype-shaped rows from a seed: each class's rows (in the given
+    counts, shuffled) draw the continuous columns around the class's own
+    centre and one column of each one-hot group from the class's own
+    distribution over it."""
+    rng = np.random.default_rng(seed)
+    k = len(class_rows)
+    y = np.repeat(np.arange(k), class_rows)
+    rng.shuffle(y)
+    n = len(y)
+    centres = rng.normal(scale=0.7, size=(k, COVTYPE_CONTINUOUS))
+    cols = [(centres[y] + rng.normal(size=(n, COVTYPE_CONTINUOUS)))
+            .astype(np.float32)]
+    for width in COVTYPE_GROUPS:
+        probs = rng.dirichlet(np.full(width, 0.5), size=k)
+        hot = np.empty(n, np.int64)
+        for c in range(k):
+            rows = np.flatnonzero(y == c)
+            hot[rows] = rng.choice(width, size=len(rows), p=probs[c])
+        onehot = np.zeros((n, width), np.float32)
+        onehot[np.arange(n), hot] = 1.0
+        cols.append(onehot)
+    return np.concatenate(cols, axis=1), y.astype(np.float32)
+
+
+def train_multiclass(ds, params, iters, prior_error):
+    """``train_timed`` for K trees an iteration: warm-up plus ``iters``
+    timed iterations, the launch counts zeroed just before and read just
+    after, K trees appended by every iteration; ``multi_logloss`` must
+    fall and ``multi_error`` end below the prior's."""
+    import lightgbm_tpu_torch as lgt
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bst = lgt.Booster(params, ds)
+    K = bst.num_model_per_iteration()
+    iter_s = []
+    for i in range(1 + iters):
+        t = time.perf_counter()
+        assert not bst.update()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t)
+        assert bst.num_trees() == (i + 1) * K, (i, bst.num_trees())
+        if i == 0:
+            first = dict((m, v) for _, m, v, _ in bst.eval_train())
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    last = dict((m, v) for _, m, v, _ in bst.eval_train())
+    assert last["multi_logloss"] < first["multi_logloss"], (first, last)
+    assert last["multi_error"] < prior_error, (last, prior_error)
+    return bst, dict(warm_s=iter_s[0], iter_s=iter_s[1:],
+                     median_iter_s=statistics.median(iter_s[1:]),
+                     counts=counts, peak_bytes=peak, first=first, last=last)
+
+
+def phase_multiclass(X_higgs, ds_higgs):
+    """Phase 9: multiclass (softmax, then one-vs-all) at the Covertype
+    shape through ``Booster`` on the card, on the compact, hybrid and full
+    paths; its predictions by the host walk and both device routes, its
+    device metrics and its text; a small cuda/cpu cross-check; then the
+    ten pointwise objectives on phase 4's rows."""
+    import lightgbm_tpu_torch as lgt
+    t_phase = time.perf_counter()
+    X, y = synth_covtype()
+    ds = lgt.Dataset(X, label=y).construct()
+    K = len(COVTYPE_CLASS_ROWS)
+    prior_error = 1.0 - max(COVTYPE_CLASS_ROWS) / len(y)
+    log(f"phase 9 data+binning_s={time.perf_counter() - t_phase!r} "
+        f"shape={X.shape} class_rows={COVTYPE_CLASS_ROWS} "
+        f"prior_error={prior_error!r}")
+    mc_params = bench_params(objective="multiclass", num_class=K,
+                             metric=["multi_logloss", "multi_error"])
+    bst, r = train_multiclass(ds, mc_params, MC_TIMED_ITERS, prior_error)
+    leaves = [t.num_leaves for t in bst._engine.models]
+    launches = r["counts"]["hist_rowmajor_f32"]
+    log(f"phase 9 path=compact warmup_s={r['warm_s']!r} "
+        f"iter_s={r['iter_s']!r} median_iter_s={r['median_iter_s']!r} "
+        f"s_per_tree={r['median_iter_s'] / K!r} launches={r['counts']} "
+        f"trees={len(leaves)} leaves={sum(leaves)} "
+        f"peak_bytes_above_start={r['peak_bytes']} first={r['first']} "
+        f"last={r['last']}")
+    assert launches > 0 and launches == sum(leaves), (launches, leaves)
+    assert sum(r["counts"].values()) == launches, r["counts"]
+    eng = bst._engine
+    grad_ms = cuda_ms(lambda: eng.objective.get_gradients(eng.score))
+    grad_dev_ms = device_ms(lambda: eng.objective.get_gradients(eng.score))
+    log(f"phase 9 softmax gradients [{K}, {len(y)}] ms={grad_ms!r} "
+        f"device_ms={grad_dev_ms!r}")
+    phase_multiclass_outputs(bst, X, K)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(bst, "multiclass", iters=1)
+    runs = {"compact": r["counts"]}
+    for name, (extra, must) in MC_PATHS.items():
+        params = dict(mc_params, **extra)
+        b, rp = train_multiclass(ds, params, 1, prior_error)
+        counts = rp["counts"]
+        runs[name] = counts
+        log(f"phase 9 path={name} warmup_s={rp['warm_s']!r} "
+            f"iter_s={rp['iter_s']!r} s_per_tree={rp['iter_s'][0] / K!r} "
+            f"launches={counts} peak_bytes_above_start={rp['peak_bytes']} "
+            f"first={rp['first']} last={rp['last']}")
+        assert counts[must] > 0, (name, counts)
+        if name == "full":
+            assert sum(counts.values()) == counts[must], counts
+        if name == "ova":
+            n_leaves = sum(t.num_leaves for t in b._engine.models)
+            assert counts[must] == n_leaves, (counts, n_leaves)
+        del b
+    del bst, ds, X
+    phase_multiclass_cross_check()
+    phase_objectives(X_higgs, ds_higgs)
+    log(f"phase 9 seconds={time.perf_counter() - t_phase!r}")
+    return runs
+
+
+def phase_multiclass_outputs(bst, X, K):
+    """Phase 9's checks of a trained multiclass model: probabilities that
+    sum to 1, the binned and raw device routes within 1e-5 of the host
+    walk in every class column, the device metrics within 1e-5 of the
+    host's from the score read back, and the text round trip (host walk
+    bit for bit)."""
+    import lightgbm_tpu_torch as lgt
+    eng = bst._engine
+    n_iter = bst.current_iteration()
+    Xp = np.asarray(X[:MC_PREDICT_ROWS], np.float64)
+    prob = bst.predict(Xp)
+    assert prob.shape == (len(Xp), K), prob.shape
+    np.testing.assert_allclose(prob.sum(axis=1), 1.0, rtol=0, atol=1e-5)
+    host = bst.predict(Xp, raw_score=True)
+    binned = bst.predict(Xp, raw_score=True, device=True)
+    np.testing.assert_array_equal(binned, eng.predict_device(Xp, 0, n_iter))
+    loaded = lgt.Booster({"device_type": "cuda", "verbose": -1},
+                         model_str=bst.model_to_string())
+    np.testing.assert_array_equal(loaded.predict(Xp, raw_score=True), host)
+    raw = loaded.predict(Xp, raw_score=True, device=True)
+    le = loaded._engine
+    assert le._serving.device.type == "cuda"
+    assert le._serving.raw_pack.count == n_iter * K
+    np.testing.assert_array_equal(raw, le.predict_device(Xp, 0, n_iter))
+    # raw scores are f32 sums: within 1e-5 of max(1, |score|) (the rare
+    # classes' scores reach hundreds, where f32's spacing is several
+    # 1e-5), so within 1e-5 absolute wherever |score| < 1, logged apart;
+    # probabilities within 1e-5
+    worst, worst_abs, worst_small, worst_prob = {}, {}, {}, {}
+    scale = np.maximum(1.0, np.abs(host))
+    small = np.abs(host) < 1.0
+    for name, b, out in (("binned", bst, binned), ("raw", loaded, raw)):
+        assert out.shape == host.shape
+        err = np.abs(out - host)
+        worst[name] = (err / scale).max(axis=0)
+        worst_abs[name] = err.max(axis=0)
+        worst_small[name] = float(err[small].max(initial=0.0))
+        assert (worst[name] <= 1e-5).all(), (name, worst[name])
+        assert worst_small[name] <= 1e-5, (name, worst_small[name])
+        worst_prob[name] = float(np.abs(b.predict(Xp, device=True)
+                                        - prob).max())
+        assert worst_prob[name] <= 1e-5, (name, worst_prob[name])
+    np.testing.assert_allclose(loaded.predict(Xp), prob, rtol=0, atol=1e-12)
+    assert eng._device_eval()
+    dev_vals = eng.eval_train()
+    score_np = eng.score.cpu().numpy().astype(np.float64)
+    diffs = {}
+    for (_, name, value, _), m in zip(dev_vals, eng.train_metrics):
+        (_, host_value, _), = m.eval(score_np, eng.objective)
+        diffs[name] = abs(value - host_value)
+        assert diffs[name] <= 1e-5, (name, value, host_value)
+    log(f"phase 9 predict rows={len(Xp)} trees={n_iter * K}: probabilities "
+        f"sum to 1; raw score max_abs_diff / max(1, |score|) per class "
+        f"column to the host walk: binned={worst['binned'].tolist()} "
+        f"raw={worst['raw'].tolist()}; absolute: "
+        f"binned={worst_abs['binned'].tolist()} "
+        f"raw={worst_abs['raw'].tolist()}; absolute where |score| < 1 "
+        f"({int(small.sum())} of {small.size}): {worst_small} "
+        f"(max |score| per class: "
+        f"{np.abs(host).max(axis=0).tolist()}); probabilities max_abs_diff:"
+        f" {worst_prob}; "
+        f"text round trip: host walk bit for bit; device metrics against "
+        f"the host's: {diffs}")
+
+
+def phase_multiclass_cross_check():
+    """cuda against cpu on a small multiclass set, as phase 6 does, on the
+    compact, hybrid (K2) and full (B2) paths: every class's first root
+    split equal, ``multi_logloss`` within rtol 1e-4."""
+    import lightgbm_tpu_torch as lgt
+    X, y = synth_covtype(MC_SMALL_CLASS_ROWS, seed=1)
+    K = len(MC_SMALL_CLASS_ROWS)
+    for name, extra in (("compact", {}),
+                        ("hybrid", {"tpu_row_scheduling": "level"}),
+                        ("full", {"tpu_row_scheduling": "full"})):
+        out = {}
+        tc = time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            params = {"objective": "multiclass", "num_class": K,
+                      "num_leaves": 31, "max_bin": MAX_BIN, "verbose": -1,
+                      "device_type": dev, "metric": ["multi_logloss"],
+                      **extra}
+            bst = lgt.train(params, lgt.Dataset(X, label=y),
+                            num_boost_round=3)
+            assert bst.num_trees() == 3 * K
+            roots = [(int(t.split_feature[0]), float(t.threshold_real[0]),
+                      int(t.decision_type[0]))
+                     for t in bst._engine.models[:K]]
+            loss = dict((m, v) for _, m, v, _ in bst.eval_train())
+            out[dev] = (roots, loss["multi_logloss"])
+        log(f"phase 9 cross-check {name} root_splits cuda={out['cuda'][0]} "
+            f"cpu={out['cpu'][0]} multi_logloss cuda={out['cuda'][1]!r} "
+            f"cpu={out['cpu'][1]!r} seconds={time.perf_counter() - tc!r}")
+        assert out["cuda"][0] == out["cpu"][0], (name, out)
+        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                                   err_msg=name)
+
+
+def _timed_renewal(objective, spent):
+    """Wrap ``objective.renew_tree_output`` to add its host seconds to
+    ``spent[0]``."""
+    renew = objective.renew_tree_output
+
+    def timed(*args):
+        t = time.perf_counter()
+        out = renew(*args)
+        spent[0] += time.perf_counter() - t
+        return out
+    objective.renew_tree_output = timed
+
+
+def phase_objectives(X, ds):
+    """The ten pointwise objectives on phase 4's rows (binned with its bin
+    mappers), labels made valid for each from the rows' signal: real for
+    L1, Huber, Fair, quantile and MAPE, positive for Poisson, Gamma and
+    Tweedie, in [0, 1] for the cross-entropies; 1 + OBJ_ITERS iterations
+    each, its ``LEARNING_METRIC`` falling and K1 launched."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.core.metrics import DEFAULT_METRIC_FOR_OBJECTIVE
+    rng = np.random.default_rng(2)
+    X64 = np.asarray(X, np.float64)
+    t = (X64[:, 0] - 0.5 * X64[:, 1] * X64[:, 2] + 0.25 * X64[:, 3] ** 2
+         + 0.3 * rng.normal(size=len(X64)))
+    labels = {"real": t, "positive": np.exp(0.5 * t),
+              "unit": 1.0 / (1.0 + np.exp(-t))}
+    t0 = time.perf_counter()
+    sets = {kind: lgt.Dataset(X, label=v, reference=ds).construct()
+            for kind, v in labels.items()}
+    log(f"phase 9 objectives: three label sets binned with phase 4's "
+        f"mappers in {time.perf_counter() - t0!r} s")
+    for name in POINTWISE:
+        kind = ("positive" if name in ("poisson", "gamma", "tweedie") else
+                "unit" if name.startswith("cross_entropy") else "real")
+        default = DEFAULT_METRIC_FOR_OBJECTIVE[name]
+        metric = LEARNING_METRIC.get(name, default)
+        params = bench_params(objective=name,
+                              metric=list(dict.fromkeys([metric, default])))
+        reset_counts()
+        bst = lgt.Booster(params, sets[kind])
+        renew_s = [0.0]
+        if bst._engine.objective.is_renew_tree_output():
+            _timed_renewal(bst._engine.objective, renew_s)
+        iter_s = []
+        for i in range(1 + OBJ_ITERS):
+            tt = time.perf_counter()
+            assert not bst.update(), name
+            torch.cuda.synchronize()
+            iter_s.append(time.perf_counter() - tt)
+            if i == 0:
+                first = {m: v for _, m, v, _ in bst.eval_train()}
+        last = {m: v for _, m, v, _ in bst.eval_train()}
+        counts = read_counts()
+        assert counts["hist_rowmajor_f32"] > 0, (name, counts)
+        assert np.isfinite(last[metric]) and last[metric] < first[metric], \
+            (name, first, last)
+        readings = " ".join(f"{m} first={first[m]!r} last={last[m]!r}"
+                            for m in first)
+        renewal = (f" renew_tree_output_host_s_per_tree="
+                   f"{renew_s[0] / (1 + OBJ_ITERS)!r}"
+                   if bst._engine.objective.is_renew_tree_output() else "")
+        log(f"phase 9 objective={name} labels={kind} warmup_s={iter_s[0]!r} "
+            f"iter_s={iter_s[1:]!r} {readings}"
+            f" K1_launches={counts['hist_rowmajor_f32']}{renewal}")
+        del bst
+
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
@@ -1574,6 +1904,8 @@ def main():
     del bst, bst_u16, ds_u16
     phase_training_api(ds, X, main_run["median_iter_s"])
     log(f"phase 8 done at {time.perf_counter() - t:.1f} s")
+    mc_runs = phase_multiclass(X, ds)
+    log(f"phase 9 done at {time.perf_counter() - t:.1f} s")
     del ds, X
     phase_cross_check()
     log(f"phase 6 done at {time.perf_counter() - t:.1f} s")
@@ -1601,6 +1933,7 @@ def main():
         "level_partition", None, runs["hist_level_f32"]["level_partition"],
         k2[("partition", MAX_BIN, level)]))
     assert all(k["launches"] > 0 for k in kernels), kernels
+    log("phase 9 launches by run: " + json.dumps(mc_runs))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -74,7 +74,7 @@ class Dataset:
             X, y, w, group = load_svm_or_csv(str(self.data), cfg)
             if group is not None:
                 log.fatal("query/group data is not ported yet (ROADMAP "
-                          "A12.2, ranking)")
+                          "A12.2b, ranking)")
             self.data = X
             if self.label is None:
                 self.label = y
@@ -179,11 +179,32 @@ class Booster:
         return self
 
     # -- training -------------------------------------------------------
-    def update(self) -> bool:
-        """One boosting round; True when no further split was possible."""
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting round; True when no further split was possible
+        (ref: basic.py Booster.update). With ``fobj``, the gradients are
+        ``fobj(raw_score, train_set)``: the raw training score (``[N]``, or
+        ``[K, N]``) in, class-major ``(grad, hess)`` of ``K * N`` values
+        out."""
         if self.train_set is None:
             raise LightGBMError("Booster has no training data")
-        return self._engine.train_one_iter()
+        if train_set is not None and train_set is not self.train_set:
+            raise LightGBMError("Replacing train_set is not supported yet")
+        if fobj is None:
+            return self._engine.train_one_iter()
+        grad, hess = fobj(self._raw_train_score(), self.train_set)
+        return self._engine.train_one_iter(np.asarray(grad, np.float32),
+                                           np.asarray(hess, np.float32))
+
+    def _raw_train_score(self) -> np.ndarray:
+        """The training score read back as f64: ``[N]`` for one model per
+        iteration, else ``[K, N]``."""
+        return self._score_np(self._engine.score)
+
+    @staticmethod
+    def _score_np(score) -> np.ndarray:
+        s = score.cpu().numpy().astype(np.float64)
+        return s[0] if s.shape[0] == 1 else s
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Register a validation set (built with ``reference=`` the
@@ -246,23 +267,22 @@ class Booster:
         out = list(self._engine.eval_train())
         if feval is not None:
             out.extend(self._run_feval(feval, "training", self.train_set,
-                                       self._engine.score))
+                                       self._raw_train_score()))
         return out
 
     def eval_valid(self, feval=None) -> List:
         out = list(self._engine.eval_valid())
         if feval is not None:
             for vd, vs in zip(self._engine.valid_sets, self.valid_sets):
-                out.extend(self._run_feval(feval, vd.name, vs, vd.score))
+                out.extend(self._run_feval(feval, vd.name, vs,
+                                           self._score_np(vd.score)))
         return out
 
     @staticmethod
     def _run_feval(feval, data_name: str, dataset: Dataset,
-                   score) -> List:
-        """``feval(raw_score, dataset)`` for each custom metric, with the
+                   raw: np.ndarray) -> List:
+        """``feval(raw_score, dataset)`` for each custom metric, over the
         f32 score read back as f64 numpy (``[N]``, or ``[K, N]``)."""
-        raw = score.cpu().numpy().astype(np.float64)
-        raw = raw[0] if raw.shape[0] == 1 else raw
         out = []
         for f in (feval if isinstance(feval, (list, tuple)) else [feval]):
             ret = f(raw, dataset)
@@ -345,7 +365,12 @@ class Booster:
             for i, t in enumerate(trees):
                 raw[:, i % K] += t.predict(X)
         if not raw_score and eng.objective is not None:
-            raw[:, 0] = np.asarray(eng.objective.convert_output(raw[:, 0]))
+            if K > 1:
+                # [R, K]: softmax over the classes, or each class's sigmoid
+                raw = np.asarray(eng.objective.convert_output(raw))
+            else:
+                raw[:, 0] = np.asarray(
+                    eng.objective.convert_output(raw[:, 0]))
         return raw[:, 0] if K == 1 else raw
 
     # -- model IO -------------------------------------------------------

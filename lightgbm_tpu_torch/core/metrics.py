@@ -1,16 +1,30 @@
 """Evaluation metrics: on the host in numpy f64, or on the device.
 
-Port of the first slice's metrics from ``lightgbm_tpu/core/metrics.py``:
-``L2Metric`` (:170), ``BinaryLoglossMetric`` (:323) and ``AUCMetric`` /
-``_auc`` (:377-404) (ref: regression_metric.hpp, binary_metric.hpp). The
-JAX package evaluates these on the host in f64 on its CPU path; so does
-the port on the CPU (``eval``, each metric returns ``[(name, value,
-is_higher_better)]``). On the card the engine calls ``eval_device``
-instead, which computes the same f64 formula from the f32 score where it
-lives and returns 0-d device tensors, so only the values are read back.
+Port of ``lightgbm_tpu/core/metrics.py`` (ref: regression_metric.hpp,
+binary_metric.hpp, multiclass_metric.hpp, xentropy_metric.hpp): the
+regression metrics (``l1``, ``l2``, ``rmse``, ``quantile``, ``huber``,
+``fair``, ``poisson``, ``mape``, ``gamma``, ``gamma_deviance``,
+``tweedie``, ``r2``), the binary ones (``binary_logloss``,
+``binary_error``, ``auc``, ``average_precision``), the multiclass ones
+(``multi_logloss``, ``multi_error`` with ``multi_error_top_k``,
+``auc_mu``) and the cross-entropies (``cross_entropy``,
+``cross_entropy_lambda``, ``kullback_leibler``). ``ndcg`` and ``map`` are
+refused: they need query metadata (ROADMAP A12.2b).
+
+Each metric's ``eval`` returns ``[(name, value, is_higher_better)]`` from
+a numpy score (``[N]``, or ``[K, N]`` class-major), in f64 as the JAX
+package computes it on its CPU path. Where the JAX package has a device
+form (``l2``, ``rmse``, ``l1``, ``binary_logloss``, ``binary_error``,
+``auc``, ``multi_logloss``, ``multi_error``), ``eval_device`` computes
+the same f64 formula from the f32 score where it lives and returns 0-d
+device tensors, so the engine reads every value back in one copy; the
+others return None and the engine evaluates them on the host from one
+read of the score. The device forms run in f64, not in the JAX package's
+f32: on the card they are held to the host's values within 1e-5.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -18,10 +32,12 @@ import torch
 
 from ..config import Config, canonical_metric
 from ..utils import log
+from .objective import softmax
 
 K_EPSILON = 1e-15
 
 MetricResult = List[Tuple[str, float, bool]]
+DeviceResult = Optional[List[Tuple[str, torch.Tensor, bool]]]
 
 
 class Metric:
@@ -52,10 +68,10 @@ class Metric:
         raise NotImplementedError
 
     def eval_device(self, score: torch.Tensor, objective=None
-                    ) -> List[Tuple[str, torch.Tensor, bool]]:
+                    ) -> DeviceResult:
         """``eval`` on the score's device in f64: ``[(name, 0-d tensor,
-        is_higher_better)]``."""
-        raise NotImplementedError
+        is_higher_better)]``, or None where there is no device form."""
+        return None
 
     def _dev(self, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Label and weight as f64 tensors on ``device``, uploaded once."""
@@ -67,10 +83,20 @@ class Metric:
             cached = self._dev_cache = (f64(self.label), f64(self.weight))
         return cached
 
+    def _mean(self, losses, weight):
+        """The (weighted) mean of per-row losses, numpy or torch."""
+        if weight is not None:
+            return (losses * weight).sum() / self.sum_weights
+        return losses.mean()
+
+
+# ---------------------------------------------------------------------------
+# Regression metrics (ref: regression_metric.hpp — average of PointLoss)
+# ---------------------------------------------------------------------------
 
 class _PointwiseMetric(Metric):
     """Average pointwise loss with the objective's transform applied.
-    ``point_loss`` takes numpy arrays or torch tensors alike."""
+    A metric with a device form defines ``point_loss_dev``."""
 
     def transform(self, score, objective):
         if objective is not None:
@@ -80,22 +106,39 @@ class _PointwiseMetric(Metric):
     def point_loss(self, pred, label):
         raise NotImplementedError
 
+    def finalize(self, value: float) -> float:
+        return value
+
     def eval(self, score, objective=None) -> MetricResult:
         pred = self.transform(np.asarray(score, np.float64), objective)
         losses = self.point_loss(pred, self.label)
-        if self.weight is not None:
-            value = float(np.sum(losses * self.weight) / self.sum_weights)
-        else:
-            value = float(np.mean(losses))
-        return [(self.NAME, value, self.HIGHER_BETTER)]
+        value = float(self._mean(losses, self.weight))
+        return [(self.NAME, self.finalize(value), self.HIGHER_BETTER)]
+
+    point_loss_dev = None
+
+    def finalize_dev(self, value):
+        return value
+
+    def transform_dev(self, score, objective):
+        """The objective's ``convert_output`` on the device; None for an
+        objective of several outputs a row, whose metrics the engine
+        evaluates on the host."""
+        if objective is None:
+            return score
+        if objective.num_predict_one_row > 1:
+            return None
+        return objective.convert_output(score)
 
     def eval_device(self, score, objective=None):
+        if self.point_loss_dev is None:
+            return None
         label, weight = self._dev(score.device)
-        pred = self.transform(score.double(), objective)
-        losses = self.point_loss(pred, label)
-        value = ((losses * weight).sum() / self.sum_weights
-                 if weight is not None else losses.mean())
-        return [(self.NAME, value, self.HIGHER_BETTER)]
+        pred = self.transform_dev(score.double(), objective)
+        if pred is None:
+            return None
+        value = self._mean(self.point_loss_dev(pred, label), weight)
+        return [(self.NAME, self.finalize_dev(value), self.HIGHER_BETTER)]
 
 
 class L2Metric(_PointwiseMetric):
@@ -105,23 +148,170 @@ class L2Metric(_PointwiseMetric):
         d = pred - label
         return d * d
 
+    point_loss_dev = point_loss
 
-class BinaryLoglossMetric(_PointwiseMetric):
-    NAME = "binary_logloss"
 
-    def point_loss(self, prob, label):
-        if isinstance(prob, torch.Tensor):
-            p = prob.clamp(K_EPSILON, 1.0 - K_EPSILON)
-            return -(label * torch.log(p) + (1.0 - label) * torch.log(1.0 - p))
-        p = np.clip(prob, K_EPSILON, 1.0 - K_EPSILON)
-        return -(label * np.log(p) + (1.0 - label) * np.log(1.0 - p))
+class RMSEMetric(L2Metric):
+    NAME = "rmse"
+
+    def finalize(self, value):
+        return math.sqrt(value)
+
+    def finalize_dev(self, value):
+        return torch.sqrt(value)
+
+
+class L1Metric(_PointwiseMetric):
+    NAME = "l1"
+
+    def point_loss(self, pred, label):
+        return np.abs(pred - label)
+
+    def point_loss_dev(self, pred, label):
+        return torch.abs(pred - label)
+
+
+class QuantileMetric(_PointwiseMetric):
+    NAME = "quantile"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.alpha = float(config.alpha)
+
+    def point_loss(self, pred, label):
+        d = label - pred
+        return np.where(d >= 0, self.alpha * d, (self.alpha - 1.0) * d)
+
+
+class HuberMetric(_PointwiseMetric):
+    NAME = "huber"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.alpha = float(config.alpha)
+
+    def point_loss(self, pred, label):
+        d = np.abs(pred - label)
+        return np.where(d <= self.alpha, 0.5 * d * d,
+                        self.alpha * (d - 0.5 * self.alpha))
+
+
+class FairMetric(_PointwiseMetric):
+    NAME = "fair"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.c = float(config.fair_c)
+
+    def point_loss(self, pred, label):
+        x = np.abs(pred - label)
+        return self.c * x - self.c * self.c * np.log1p(x / self.c)
+
+
+class PoissonMetric(_PointwiseMetric):
+    NAME = "poisson"
+
+    def point_loss(self, pred, label):
+        return pred - label * np.log(np.maximum(pred, 1e-10))
+
+
+class MAPEMetric(_PointwiseMetric):
+    NAME = "mape"
+
+    def point_loss(self, pred, label):
+        return np.abs((label - pred) / np.maximum(1.0, np.abs(label)))
+
+
+class GammaMetric(_PointwiseMetric):
+    """Up to label-only constants (ref: regression_metric.hpp
+    GammaMetric)."""
+
+    NAME = "gamma"
+
+    def point_loss(self, pred, label):
+        eps = 1e-10
+        psi = label / np.maximum(pred, eps)
+        theta = -1.0 / np.maximum(pred, eps)
+        a = psi + np.log(-1.0 / theta)
+        return psi * theta - a
+
+
+class GammaDevianceMetric(_PointwiseMetric):
+    NAME = "gamma_deviance"
+
+    def point_loss(self, pred, label):
+        eps = 1e-10
+        frac = label / np.maximum(pred, eps)
+        return 2.0 * (frac - np.log(np.maximum(frac, eps)) - 1.0)
+
+
+class TweedieMetric(_PointwiseMetric):
+    NAME = "tweedie"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.rho = float(config.tweedie_variance_power)
+
+    def point_loss(self, pred, label):
+        p = np.maximum(pred, 1e-10)
+        a = label * np.power(p, 1.0 - self.rho) / (1.0 - self.rho)
+        b = np.power(p, 2.0 - self.rho) / (2.0 - self.rho)
+        return -a + b
+
+
+class R2Metric(_PointwiseMetric):
+    NAME = "r2"
+    HIGHER_BETTER = True
+
+    def eval(self, score, objective=None) -> MetricResult:
+        pred = self.transform(np.asarray(score, np.float64), objective)
+        w = self.weight if self.weight is not None else np.ones(self.num_data)
+        ybar = np.sum(self.label * w) / np.sum(w)
+        ss_res = np.sum(w * (self.label - pred) ** 2)
+        ss_tot = np.sum(w * (self.label - ybar) ** 2)
+        value = 1.0 - ss_res / max(ss_tot, K_EPSILON)
+        return [(self.NAME, float(value), True)]
+
+
+# ---------------------------------------------------------------------------
+# Binary metrics (ref: binary_metric.hpp)
+# ---------------------------------------------------------------------------
+
+class _ProbabilityMetric(_PointwiseMetric):
+    """A metric of probabilities: with no objective the raw score goes
+    through the logistic function."""
 
     def transform(self, score, objective):
         if objective is not None:
             return objective.convert_output(score)
-        if isinstance(score, torch.Tensor):
-            return torch.sigmoid(score)
         return 1.0 / (1.0 + np.exp(-score))
+
+    def transform_dev(self, score, objective):
+        if objective is None:
+            return torch.sigmoid(score)
+        return super().transform_dev(score, objective)
+
+
+class BinaryLoglossMetric(_ProbabilityMetric):
+    NAME = "binary_logloss"
+
+    def point_loss(self, prob, label):
+        p = np.clip(prob, K_EPSILON, 1.0 - K_EPSILON)
+        return -(label * np.log(p) + (1.0 - label) * np.log(1.0 - p))
+
+    def point_loss_dev(self, prob, label):
+        p = prob.clamp(K_EPSILON, 1.0 - K_EPSILON)
+        return -(label * torch.log(p) + (1.0 - label) * torch.log(1.0 - p))
+
+
+class BinaryErrorMetric(_ProbabilityMetric):
+    NAME = "binary_error"
+
+    def point_loss(self, prob, label):
+        return ((prob > 0.5) != (label > 0)).astype(np.float64)
+
+    def point_loss_dev(self, prob, label):
+        return ((prob > 0.5) != (label > 0)).double()
 
 
 def _auc(label_pos: np.ndarray, score: np.ndarray,
@@ -192,20 +382,217 @@ class AUCMetric(Metric):
         return [(self.NAME, auc, True)]
 
 
-_METRICS = {"l2": L2Metric, "binary_logloss": BinaryLoglossMetric,
-            "auc": AUCMetric}
+class AveragePrecisionMetric(Metric):
+    """ref: binary_metric.hpp AveragePrecisionMetric."""
 
-DEFAULT_METRIC_FOR_OBJECTIVE = {"regression": "l2",
-                                "binary": "binary_logloss"}
+    NAME = "average_precision"
+    HIGHER_BETTER = True
+
+    def eval(self, score, objective=None) -> MetricResult:
+        w = self.weight if self.weight is not None else \
+            np.ones(self.num_data, np.float64)
+        order = np.argsort(-np.asarray(score, np.float64), kind="stable")
+        pos = (self.label[order] > 0).astype(np.float64) * w[order]
+        tp = np.cumsum(pos)
+        total = np.cumsum(w[order])
+        precision = tp / np.maximum(total, K_EPSILON)
+        sum_pos = pos.sum()
+        if sum_pos == 0:
+            return [(self.NAME, 1.0, True)]
+        return [(self.NAME, float(np.sum(precision * pos) / sum_pos), True)]
+
+
+# ---------------------------------------------------------------------------
+# Multiclass metrics (ref: multiclass_metric.hpp), over raw [K, N] scores
+# ---------------------------------------------------------------------------
+
+class MultiLoglossMetric(Metric):
+    """Mean ``-log`` of the softmax probability of the true class, for
+    softmax and one-vs-all models alike (the JAX package's rule)."""
+
+    NAME = "multi_logloss"
+
+    def eval(self, score, objective=None) -> MetricResult:
+        score = np.asarray(score, np.float64)
+        p = softmax(score, 0)
+        li = self.label.astype(np.int64)
+        pt = np.clip(p[li, np.arange(score.shape[1])], K_EPSILON, 1.0)
+        value = float(self._mean(-np.log(pt), self.weight))
+        return [(self.NAME, value, False)]
+
+    def eval_device(self, score, objective=None):
+        if score.ndim != 2:
+            return None
+        label, weight = self._dev(score.device)
+        p = softmax(score.double(), 0)
+        pt = p.gather(0, label.long()[None, :])[0].clamp(K_EPSILON, 1.0)
+        return [(self.NAME, self._mean(-torch.log(pt), weight), False)]
+
+
+class MultiErrorMetric(Metric):
+    """A row is an error when ``multi_error_top_k`` or more classes score
+    strictly above its true class (``multi_error@k`` for k > 1)."""
+
+    NAME = "multi_error"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.top_k = int(config.multi_error_top_k)
+        self.name = (self.NAME if self.top_k <= 1
+                     else f"multi_error@{self.top_k}")
+
+    def eval(self, score, objective=None) -> MetricResult:
+        score = np.asarray(score, np.float64)
+        li = self.label.astype(np.int64)
+        true_score = score[li, np.arange(score.shape[1])]
+        rank = (score > true_score[None, :]).sum(axis=0)
+        err = (rank >= self.top_k).astype(np.float64)
+        return [(self.name, float(self._mean(err, self.weight)), False)]
+
+    def eval_device(self, score, objective=None):
+        if score.ndim != 2:
+            return None
+        label, weight = self._dev(score.device)
+        true_score = score.gather(0, label.long()[None, :])
+        rank = (score > true_score).sum(dim=0)
+        err = (rank >= self.top_k).double()
+        return [(self.name, self._mean(err, weight), False)]
+
+
+class AucMuMetric(Metric):
+    """Multiclass AUC-mu (ref: multiclass_metric.hpp auc_mu; Kleiman &
+    Page 2019): the mean over class pairs of the AUC of ``S_a - S_b``
+    between the rows of class a and of class b."""
+
+    NAME = "auc_mu"
+    HIGHER_BETTER = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.num_class = int(config.num_class)
+
+    def eval(self, score, objective=None) -> MetricResult:
+        score = np.asarray(score, np.float64)
+        K, N = score.shape
+        li = self.label.astype(np.int64)
+        w = self.weight if self.weight is not None else np.ones(N)
+        total = 0.0
+        npairs = 0
+        for a in range(K):
+            for b in range(a + 1, K):
+                mask = (li == a) | (li == b)
+                if not mask.any():
+                    continue
+                is_a = li[mask] == a
+                if is_a.all() or (~is_a).all():
+                    continue
+                total += _auc(is_a, score[a, mask] - score[b, mask],
+                              w[mask])
+                npairs += 1
+        return [(self.NAME, float(total / max(npairs, 1)), True)]
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy metrics (ref: xentropy_metric.hpp)
+# ---------------------------------------------------------------------------
+
+class CrossEntropyMetric(_ProbabilityMetric):
+    NAME = "cross_entropy"
+
+    def point_loss(self, p, label):
+        p = np.clip(p, K_EPSILON, 1.0 - K_EPSILON)
+        return -(label * np.log(p) + (1.0 - label) * np.log(1.0 - p))
+
+
+class CrossEntropyLambdaMetric(_PointwiseMetric):
+    NAME = "cross_entropy_lambda"
+
+    def transform(self, score, objective):
+        if objective is not None:
+            return objective.convert_output(score)
+        return np.log1p(np.exp(score))
+
+    def point_loss(self, hhat, label):
+        hhat = np.maximum(hhat, K_EPSILON)
+        return (1.0 - label) * hhat - label * np.log(
+            np.maximum(np.expm1(hhat), K_EPSILON))
+
+
+class KullbackLeiblerMetric(CrossEntropyMetric):
+    NAME = "kullback_leibler"
+
+    def point_loss(self, p, label):
+        eps = K_EPSILON
+        p = np.clip(p, eps, 1.0 - eps)
+        y = np.clip(label, 0.0, 1.0)
+        # KL(y || p) = xent(y, p) - H(y)
+        hy = np.where((y > 0) & (y < 1),
+                      -(y * np.log(y + eps) + (1 - y) * np.log(1 - y + eps)),
+                      0.0)
+        xent = -(y * np.log(p) + (1.0 - y) * np.log(1.0 - p))
+        return xent - hy
+
+
+# ---------------------------------------------------------------------------
+# Factory (ref: metric.cpp:26 Metric::CreateMetric)
+# ---------------------------------------------------------------------------
+
+_METRICS = {
+    "l1": L1Metric,
+    "l2": L2Metric,
+    "rmse": RMSEMetric,
+    "quantile": QuantileMetric,
+    "huber": HuberMetric,
+    "fair": FairMetric,
+    "poisson": PoissonMetric,
+    "mape": MAPEMetric,
+    "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric,
+    "tweedie": TweedieMetric,
+    "r2": R2Metric,
+    "binary_logloss": BinaryLoglossMetric,
+    "binary_error": BinaryErrorMetric,
+    "auc": AUCMetric,
+    "average_precision": AveragePrecisionMetric,
+    "auc_mu": AucMuMetric,
+    "multi_logloss": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric,
+    "cross_entropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyLambdaMetric,
+    "kullback_leibler": KullbackLeiblerMetric,
+}
+
+# need query metadata the port's Dataset does not hold yet
+_RANKING = ("ndcg", "map")
+
+# the objective's own metric (ref: Config::GetMetricType)
+DEFAULT_METRIC_FOR_OBJECTIVE = {
+    "regression": "l2",
+    "regression_l1": "l1",
+    "huber": "huber",
+    "fair": "fair",
+    "poisson": "poisson",
+    "quantile": "quantile",
+    "mape": "mape",
+    "gamma": "gamma",
+    "tweedie": "tweedie",
+    "binary": "binary_logloss",
+    "multiclass": "multi_logloss",
+    "multiclassova": "multi_logloss",
+    "cross_entropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+}
 
 
 def create_metric(name: str, config: Config) -> Optional[Metric]:
     base = canonical_metric(name).partition("@")[0]
     if base in ("none", "na", "null", "custom"):
         return None
+    if base in _RANKING:
+        log.fatal(f"metric {name!r} is not ported yet: ranking metrics "
+                  "need query data (Dataset(group=)), ROADMAP A12.2b")
     if base not in _METRICS:
-        log.fatal(f"metric {name!r} is not ported yet; the port evaluates "
-                  f"{'/'.join(_METRICS)}")
+        log.fatal(f"Unknown metric type name: {name}")
     return _METRICS[base](config)
 
 

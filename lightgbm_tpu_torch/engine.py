@@ -6,10 +6,11 @@ python-package/lightgbm/engine.py:109): boosting rounds over a training
 (``feval``), callbacks ordered by ``before_iteration`` / ``order``, early
 stopping from the params (``early_stopping_round``, ``first_metric_only``,
 ``early_stopping_min_delta``) or from a callback, and continued training
-from ``init_model`` (a model file path or a Booster). Refused, each
-naming its ROADMAP item: a callable objective (A12.2), ``resume_from``
-(A12.7) and ``tpu_fallback_to_cpu``, which the port never honours: it
-does not fall back from the card.
+from ``init_model`` (a model file path or a Booster). A callable
+``params["objective"]`` is the custom objective: it gives each
+iteration's gradients (``Booster.update(fobj=)``). Refused, each naming
+its ROADMAP item: ``resume_from`` (A12.7) and ``tpu_fallback_to_cpu``,
+which the port never honours: it does not fall back from the card.
 """
 from __future__ import annotations
 
@@ -24,11 +25,22 @@ from .config import _ConfigAliases
 from .utils import log
 
 
-def _refuse_unported(params: Dict[str, Any], resume_from) -> None:
+def _pop_callable_objective(params: Dict[str, Any]) -> Optional[Callable]:
+    """A callable ``objective`` (under any alias) becomes ``fobj``, and the
+    params train the ``custom`` objective (ref: engine.py:74-80)."""
+    obj = params.get("objective")
     for alias in _ConfigAliases.get("objective"):
-        if callable(params.get(alias)):
-            log.fatal("a callable objective is not ported yet "
-                      "(ROADMAP A12.2)")
+        if alias in params:
+            obj = params[alias]
+    if not callable(obj):
+        return None
+    for alias in _ConfigAliases.get("objective"):
+        params.pop(alias, None)
+    params["objective"] = "custom"
+    return obj
+
+
+def _refuse_unported(params: Dict[str, Any], resume_from) -> None:
     if resume_from is not None:
         log.fatal("resume_from (checkpoint resume) is not ported yet "
                   "(ROADMAP A12.7)")
@@ -48,6 +60,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
           resume_from: Optional[str] = None) -> Booster:
     """Train one model; returns the Booster (ref: engine.py:109)."""
     params = copy.deepcopy(params) if params else {}
+    fobj = _pop_callable_objective(params)
     _refuse_unported(params, resume_from)
     for alias in _ConfigAliases.get("num_iterations"):
         if alias in params:
@@ -112,7 +125,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                            begin_iteration=init_iteration,
                            end_iteration=end_iteration,
                            evaluation_result_list=None))
-        finished = booster.update()
+        finished = booster.update(fobj=fobj)
 
         evaluation_result_list = []
         if eval_train_name is not None or \

@@ -282,6 +282,9 @@ def load_model_string(model_str: str,
                 k, _, v = ln[1:-1].partition(": ")
                 if k not in _DROPPED_AT_LOAD:
                     kept[k] = v
+    if obj_str:
+        # the header's objective, so that num_class > 1 is consistent
+        kept["objective"] = obj_str.split()[0]
     cfg = Config(kept)
     if params:
         cfg.update(params)

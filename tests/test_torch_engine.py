@@ -393,7 +393,7 @@ def test_device_auc_equals_host_auc_with_ties(rng, weighted):
     assert float(dev) == 1.0
 
 
-@pytest.mark.parametrize("what", ["callable_objective", "resume_from",
+@pytest.mark.parametrize("what", ["ranking_objective", "resume_from",
                                   "tpu_fallback_to_cpu", "reset_parameter",
                                   "categorical_init_model",
                                   "valid_without_reference"])
@@ -402,13 +402,13 @@ def test_unported_training_api_is_refused(rng, what):
     tr = lgt.Dataset(X, label=y)
     params = _params("regression")
     kw = {}
-    match = {"callable_objective": "A12.2", "resume_from": "A12.7",
+    match = {"ranking_objective": "A12.2b", "resume_from": "A12.7",
              "tpu_fallback_to_cpu": "does not fall back",
              "reset_parameter": "bagging_freq.*A12",
              "categorical_init_model": "A12.5",
              "valid_without_reference": "reference="}[what]
-    if what == "callable_objective":
-        params["objective"] = lambda preds, ds: (preds, np.ones_like(preds))
+    if what == "ranking_objective":
+        params["objective"] = "lambdarank"
     elif what == "resume_from":
         kw["resume_from"] = "checkpoints"
     elif what == "tpu_fallback_to_cpu":

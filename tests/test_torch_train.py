@@ -248,7 +248,7 @@ def test_unported_settings_are_refused(rng):
     X, y = _data(rng, "regression")
     for extra in ({"bagging_freq": 1, "bagging_fraction": 0.5},
                   {"extra_trees": True},
-                  {"objective": "multiclass", "num_class": 3}):
+                  {"objective": "lambdarank"}):
         params = {"objective": "regression", "device_type": "cpu",
                   "verbosity": -1, **extra}
         with pytest.raises(lgt.basic.LightGBMError):
