@@ -110,12 +110,26 @@ Phases, each reported on its own line:
    beside), with the host seconds of the percentile leaf renewal of L1,
    quantile and MAPE;
    with ``--profile``, one more softmax iteration under
-   ``torch.profiler``.
+   ``torch.profiler``;
+10. ranking at the shape of MSLR-WEB30K Fold 1 (2,270,296 x 136 rows in
+   18,919 queries of 1 to 1,251 documents, relevance 0-4) through
+   ``Booster`` at the phase-4 width, with a validation set of 1,000 more
+   queries: lambdarank on the compact grower (1 warm-up and 3 timed
+   iterations, K1 launched once per leaf), rank_xendcg and lambdarank
+   with each row's slot in its query as its position (1 + 1 each, the
+   position biases finite); the validation ``ndcg@10`` rising in each
+   run; the lambdarank gradient pass timed (CUDA events, and the device
+   alone) beside one f32 read and write of its query pairs, with the
+   pair count, the chunks and the bytes of the largest; the peak device
+   bytes of each run; then cuda against the CPU on 20,000 rows in 200
+   queries on the compact, hybrid and full paths (root splits equal,
+   ``ndcg@10`` within rtol 1e-6).
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
 mode, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
+import gc
 import json
 import statistics
 import subprocess
@@ -201,6 +215,25 @@ OBJ_ITERS = 1
 # default metric (as the JAX package defines it, core/metrics.py:256-264)
 # is not its negative log-likelihood; phase 9 logs it beside the deviance
 LEARNING_METRIC = {"gamma": "gamma_deviance"}
+# phase 10: ranking at the shape of MSLR-WEB30K Fold 1's training set, the
+# Microsoft learning-to-rank data behind the "MS LTR" row of LightGBM's
+# docs/Experiments.rst: 2,270,296 rows of 136 features in 18,919 queries of
+# 1 to 1,251 documents (mean 120), relevance 0-4 skewed towards 0
+MSLR_ROWS, MSLR_FEATURES = 2_270_296, 136
+MSLR_QUERIES, MSLR_MAX_QUERY = 18_919, 1_251
+# query lengths: lognormal (this sigma), fitted to the row count
+MSLR_LENGTH_SIGMA = 0.9
+# share of each relevance grade 0-4 (MSLR's labels lean as heavily on 0)
+MSLR_GRADE_SHARE = (0.52, 0.32, 0.13, 0.02, 0.01)
+# a third of the columns are counts, the rest values to three decimals
+MSLR_COUNT_COLUMNS = MSLR_FEATURES // 3
+MSLR_VALID_QUERIES = 1_000
+MSLR_EVAL_AT = [1, 3, 5, 10]
+RANK_TIMED_ITERS = 3
+RANK_ONE_ITERS = 1
+# the cross-check of phase 10 on cuda and on the CPU: 20,000 rows in 200
+# queries, 31 leaves, 3 rounds
+RANK_SMALL_ROWS, RANK_SMALL_QUERIES = 20_000, 200
 # training paths of phase 5: name -> (params, the kernel mode it must run);
 # the *_u16 paths train on the phase-4 data binned with U16_MAX_BIN
 PATHS = {
@@ -1810,6 +1843,207 @@ def phase_objectives(X, ds):
         del bst
 
 
+def mslr_query_sizes(n_rows, n_queries, rng, max_len=MSLR_MAX_QUERY,
+                     span=False):
+    """Query lengths from a lognormal of mean ``n_rows / n_queries``,
+    clipped to [1, max_len] and fitted to sum to ``n_rows``; with
+    ``span`` one query has 1 document and one ``max_len``."""
+    sigma = MSLR_LENGTH_SIGMA
+    raw = rng.lognormal(np.log(n_rows / n_queries) - sigma ** 2 / 2, sigma,
+                        size=n_queries)
+    sizes = np.clip(np.round(raw * n_rows / raw.sum()), 1,
+                    max_len).astype(np.int64)
+    fixed = np.zeros(n_queries, bool)
+    if span:
+        order = np.argsort(sizes)
+        sizes[order[0]], sizes[order[-1]] = 1, max_len
+        fixed[[order[0], order[-1]]] = True
+    while sizes.sum() != n_rows:
+        d = int(n_rows - sizes.sum())
+        room = (sizes < max_len) if d > 0 else (sizes > 1)
+        cand = np.flatnonzero(room & ~fixed)
+        pick = rng.choice(cand, size=min(abs(d), len(cand)), replace=False)
+        sizes[pick] += np.sign(d)
+    return sizes
+
+
+def synth_mslr(n_rows=MSLR_ROWS, n_queries=MSLR_QUERIES, seed=0, span=True):
+    """MSLR-shaped rows from a seed: query lengths as
+    ``mslr_query_sizes``, ``MSLR_COUNT_COLUMNS`` count columns and the
+    rest normal values to three decimals (f32), relevance 0-4 from a
+    hidden score of a few columns plus a per-query offset and noise, cut
+    at the quantiles of ``MSLR_GRADE_SHARE``. Returns X, y, sizes and each
+    row's slot in its query."""
+    rng = np.random.default_rng(seed)
+    sizes = mslr_query_sizes(n_rows, n_queries, rng, span=span)
+    X = rng.standard_normal((n_rows, MSLR_FEATURES), dtype=np.float32)
+    c = MSLR_COUNT_COLUMNS
+    X[:, :c] = np.floor(np.exp(X[:, :c]))
+    X[:, c:] = np.round(X[:, c:], 3)
+    qid = np.repeat(np.arange(n_queries), sizes)
+    hidden = (X[:, c] + 0.6 * X[:, c + 1] - 0.4 * X[:, c + 2] * X[:, c + 3]
+              + 0.3 * np.log1p(X[:, 0]) + 0.5 * rng.normal(size=n_queries)[qid]
+              + 0.8 * rng.normal(size=n_rows))
+    cuts = np.quantile(hidden, np.cumsum(MSLR_GRADE_SHARE)[:-1])
+    y = np.searchsorted(cuts, hidden, side="right").astype(np.float32)
+    starts = np.repeat(np.cumsum(sizes) - sizes, sizes)
+    slot = np.arange(n_rows) - starts
+    return X, y, sizes, slot
+
+
+def rank_params(**extra):
+    return bench_params(**{"objective": "lambdarank", "metric": ["ndcg"],
+                           "eval_at": MSLR_EVAL_AT, **extra})
+
+
+def train_ranking(ds, valid, params, iters, base):
+    """Warm-up plus ``iters`` timed iterations with the launch counts
+    zeroed just before and read just after; the validation ``ndcg@k``
+    after every iteration (evaluated outside the timed span); the peak
+    device memory of the run above ``base`` bytes."""
+    import lightgbm_tpu_torch as lgt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bst = lgt.Booster(params, ds)
+    bst.add_valid(valid, "valid")
+    iter_s, ndcg = [], []
+    for _ in range(1 + iters):
+        t = time.perf_counter()
+        assert not bst.update()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t)
+        ndcg.append({m: v for _, m, v, _ in bst.eval_valid()})
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    first, last = ndcg[0]["ndcg@10"], ndcg[-1]["ndcg@10"]
+    assert np.isfinite(last) and last > first, ndcg
+    leaves = sum(t.num_leaves for t in bst._engine.models)
+    assert counts["hist_rowmajor_f32"] == leaves, (counts, leaves)
+    assert sum(counts.values()) == leaves, counts
+    return bst, dict(warm_s=iter_s[0], iter_s=iter_s[1:],
+                     median_iter_s=statistics.median(iter_s[1:]),
+                     counts=counts, peak_bytes=peak, ndcg=ndcg)
+
+
+def phase_ranking():
+    """Phase 10: lambdarank (compact, then with position bias) and
+    rank_xendcg at the MSLR-WEB30K shape through ``Booster`` on the card,
+    with a validation set of ``MSLR_VALID_QUERIES`` more queries; the
+    gradient pass timed against its bound; then a small cuda/cpu
+    cross-check on the compact, hybrid and full paths."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.core import objective as objective_mod
+    t_phase = time.perf_counter()
+    # earlier phases' boosters freed before the phase's base is read
+    gc.collect()
+    torch.cuda.synchronize()
+    phase_base = torch.cuda.memory_allocated()
+    X, y, sizes, slot = synth_mslr()
+    t_bin = time.perf_counter()
+    log(f"phase 10 data_s={t_bin - t_phase!r} shape={X.shape} "
+        f"queries={len(sizes)} docs_per_query min={sizes.min()} "
+        f"mean={sizes.mean()!r} max={sizes.max()} grades="
+        f"{np.bincount(y.astype(np.int64), minlength=5).tolist()}")
+    ds = lgt.Dataset(X, label=y, group=sizes).construct()
+    n_valid = int(round(MSLR_VALID_QUERIES * MSLR_ROWS / MSLR_QUERIES))
+    Xv, yv, gv, _ = synth_mslr(n_valid, MSLR_VALID_QUERIES, seed=1,
+                               span=False)
+    valid = lgt.Dataset(Xv, label=yv, group=gv, reference=ds).construct()
+    del X, Xv
+    log(f"phase 10 binning_s={time.perf_counter() - t_bin!r} "
+        f"valid_rows={len(yv)} valid_queries={len(gv)}")
+    runs = {}
+    bst, r = train_ranking(ds, valid, rank_params(), RANK_TIMED_ITERS,
+                           phase_base)
+    runs["lambdarank"] = r["counts"]
+    obj = bst._engine.objective
+    pairs = sum(bk.shape[0] * bk.shape[1] ** 2 for bk in obj.buckets)
+    chunks = [(bk.shape[1], q1 - q0) for bk in obj.buckets
+              for q0, q1 in obj.chunks(bk)]
+    chunk_bytes = max(4 * q * m * m for m, q in chunks)
+    log(f"phase 10 lambdarank compact warmup_s={r['warm_s']!r} "
+        f"iter_s={r['iter_s']!r} median_iter_s={r['median_iter_s']!r} "
+        f"launches={r['counts']} "
+        f"peak_bytes_above_phase_start={r['peak_bytes']} "
+        f"buckets={[bk.shape for bk in obj.buckets]} "
+        f"sum_QM2={pairs} chunks={len(chunks)} "
+        f"largest_chunk_bytes={chunk_bytes} "
+        f"chunk_budget_bytes={objective_mod.PAIR_CHUNK_BYTES}")
+    for i, row in enumerate(r["ndcg"]):
+        log(f"phase 10 lambdarank iteration={i + 1} valid {row}")
+    eng = bst._engine
+    grad = lambda: obj.get_gradients(eng.score[0])
+    g, h = grad()
+    assert bool(torch.isfinite(g).all()) and bool(torch.isfinite(h).all())
+    assert not bool(torch.signbit(g[g == 0]).any())
+    grad_ms = cuda_ms(grad, reps=3)
+    grad_dev_ms = device_ms(grad, reps=3)
+    pass_bound = 2 * 4 * pairs / HBM_BYTES_PER_S * 1e3
+    log(f"phase 10 lambdarank gradient pass ms={grad_ms!r} "
+        f"device_ms={grad_dev_ms!r} one_f32_read_and_write_of_the_pairs_ms="
+        f"{pass_bound!r} passes_worth={grad_dev_ms / pass_bound!r}")
+    del bst, eng, obj, g, h, grad
+
+    b, rx = train_ranking(ds, valid, rank_params(objective="rank_xendcg"),
+                          RANK_ONE_ITERS, phase_base)
+    runs["rank_xendcg"] = rx["counts"]
+    log(f"phase 10 rank_xendcg warmup_s={rx['warm_s']!r} "
+        f"iter_s={rx['iter_s']!r} launches={rx['counts']} "
+        f"peak_bytes_above_phase_start={rx['peak_bytes']} valid={rx['ndcg']}")
+    del b
+    ds.set_position(slot)
+    b, rp = train_ranking(ds, valid, rank_params(), RANK_ONE_ITERS,
+                          phase_base)
+    runs["lambdarank_position"] = rp["counts"]
+    biases = b._engine.objective.pos_biases
+    assert len(biases) == MSLR_MAX_QUERY and np.isfinite(biases).all()
+    log(f"phase 10 lambdarank position bias warmup_s={rp['warm_s']!r} "
+        f"iter_s={rp['iter_s']!r} launches={rp['counts']} "
+        f"peak_bytes_above_phase_start={rp['peak_bytes']} valid={rp['ndcg']} "
+        f"biases[:10]={biases[:10].tolist()} "
+        f"biases_min={biases.min()!r} biases_max={biases.max()!r}")
+    del b, ds, valid
+    phase_ranking_cross_check()
+    log(f"phase 10 seconds={time.perf_counter() - t_phase!r}")
+    return runs
+
+
+def phase_ranking_cross_check():
+    """cuda against cpu on a small ranking set, as phase 6 does, on the
+    compact, hybrid (K2) and full (B2) paths: the first root split equal,
+    ``ndcg@10`` within rtol 1e-6."""
+    import lightgbm_tpu_torch as lgt
+    X, y, sizes, _ = synth_mslr(RANK_SMALL_ROWS, RANK_SMALL_QUERIES, seed=2,
+                                span=False)
+    for name, extra in (("compact", {}),
+                        ("hybrid", {"tpu_row_scheduling": "level"}),
+                        ("full", {"tpu_row_scheduling": "full"})):
+        out = {}
+        tc = time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            params = {"objective": "lambdarank", "num_leaves": 31,
+                      "max_bin": MAX_BIN, "verbose": -1, "device_type": dev,
+                      "metric": ["ndcg"], "eval_at": [10], **extra}
+            reset_counts()
+            bst = lgt.train(params, lgt.Dataset(X, label=y, group=sizes),
+                            num_boost_round=3, keep_training_booster=True)
+            counts = read_counts()
+            t0 = bst._engine.models[0]
+            ndcg = dict((m, v) for _, m, v, _ in bst.eval_train())
+            out[dev] = ((int(t0.split_feature[0]), float(t0.threshold_real[0]),
+                         int(t0.decision_type[0])), ndcg["ndcg@10"], counts)
+        log(f"phase 10 cross-check {name} root_split cuda={out['cuda'][0]} "
+            f"cpu={out['cpu'][0]} ndcg@10 cuda={out['cuda'][1]!r} "
+            f"cpu={out['cpu'][1]!r} cuda_launches={out['cuda'][2]} "
+            f"seconds={time.perf_counter() - tc!r}")
+        assert out["cuda"][0] == out["cpu"][0], (name, out)
+        assert sum(out["cuda"][2].values()) > 0, (name, out)
+        assert sum(out["cpu"][2].values()) == 0, (name, out)
+        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-6,
+                                   err_msg=name)
+
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
@@ -1907,6 +2141,8 @@ def main():
     mc_runs = phase_multiclass(X, ds)
     log(f"phase 9 done at {time.perf_counter() - t:.1f} s")
     del ds, X
+    rank_runs = phase_ranking()
+    log(f"phase 10 done at {time.perf_counter() - t:.1f} s")
     phase_cross_check()
     log(f"phase 6 done at {time.perf_counter() - t:.1f} s")
 
@@ -1934,6 +2170,7 @@ def main():
         k2[("partition", MAX_BIN, level)]))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log("phase 9 launches by run: " + json.dumps(mc_runs))
+    log("phase 10 launches by run: " + json.dumps(rank_runs))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

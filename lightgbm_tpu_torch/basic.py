@@ -41,18 +41,24 @@ class Dataset:
     """Training or validation data: a dense numeric matrix, or the path
     of a CSV/TSV/LibSVM file, and its label, binned at ``construct`` (ref:
     basic.py Dataset). With ``reference`` the rows are binned with the
-    reference's bin mappers."""
+    reference's bin mappers. ``group`` holds the query sizes of a ranking
+    task (rows of a query adjacent), ``position`` each row's position id
+    (lambdarank's position bias); a file's group column and its
+    ``.query``/``.group`` and ``.position`` sidecars fill them when not
+    given."""
 
     def __init__(self, data, label=None,
                  reference: Optional["Dataset"] = None, weight=None,
-                 init_score=None,
+                 group=None, init_score=None,
                  feature_name: Optional[Sequence[str]] = None,
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None, position=None):
         self.data = (data if isinstance(data, (str, Path))
                      else _to_2d_numpy(data))
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
+        self.position = position
         self.init_score = init_score
         self.feature_name = list(feature_name) if feature_name else None
         self.params = copy.deepcopy(params) if params else {}
@@ -70,20 +76,22 @@ class Dataset:
                if self.reference is not None else None)
         cfg = Config(self.params)
         if isinstance(self.data, (str, Path)):
-            from .io.file_loader import load_svm_or_csv
-            X, y, w, group = load_svm_or_csv(str(self.data), cfg)
-            if group is not None:
-                log.fatal("query/group data is not ported yet (ROADMAP "
-                          "A12.2b, ranking)")
+            from .io.file_loader import load_position_file, load_svm_or_csv
+            path = str(self.data)
+            X, y, w, group = load_svm_or_csv(path, cfg)
             self.data = X
             if self.label is None:
                 self.label = y
             if self.weight is None:
                 self.weight = w
+            if self.group is None:
+                self.group = group
+            if self.position is None:
+                self.position = load_position_file(path)
         self._binned = BinnedDataset.from_matrix(
             self.data, cfg, label=self.label, weight=self.weight,
             init_score=self.init_score, feature_names=self.feature_name,
-            reference=ref)
+            reference=ref, group=self.group, position=self.position)
         return self
 
     @property
@@ -109,12 +117,39 @@ class Dataset:
         self.reference = reference
         return self
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params: Optional[Dict[str, Any]] = None) -> "Dataset":
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None,
+                     params: Optional[Dict[str, Any]] = None,
+                     position=None) -> "Dataset":
         """A validation Dataset binned with this one's bin mappers."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score,
-                       params=params or self.params)
+                       group=group, init_score=init_score,
+                       params=params or self.params, position=position)
+
+    def set_group(self, group) -> "Dataset":
+        """Query sizes; applied to the binned metadata once constructed."""
+        self.group = group
+        if self._binned is not None:
+            self._binned.metadata.set_query(group)
+        return self
+
+    def get_group(self):
+        """Query sizes: from the binned metadata once constructed."""
+        if self._binned is not None and \
+                self._binned.metadata.query_boundaries is not None:
+            return np.diff(self._binned.metadata.query_boundaries)
+        return self.group
+
+    def set_position(self, position) -> "Dataset":
+        self.position = position
+        if self._binned is not None:
+            self._binned.metadata.set_position(position)
+        return self
+
+    def get_position(self):
+        if self._binned is not None:
+            return self._binned.metadata.position
+        return self.position
 
 
 class Booster:

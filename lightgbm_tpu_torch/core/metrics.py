@@ -7,9 +7,10 @@ regression metrics (``l1``, ``l2``, ``rmse``, ``quantile``, ``huber``,
 ``tweedie``, ``r2``), the binary ones (``binary_logloss``,
 ``binary_error``, ``auc``, ``average_precision``), the multiclass ones
 (``multi_logloss``, ``multi_error`` with ``multi_error_top_k``,
-``auc_mu``) and the cross-entropies (``cross_entropy``,
-``cross_entropy_lambda``, ``kullback_leibler``). ``ndcg`` and ``map`` are
-refused: they need query metadata (ROADMAP A12.2b).
+``auc_mu``), the cross-entropies (``cross_entropy``,
+``cross_entropy_lambda``, ``kullback_leibler``) and the ranking ones
+(``ndcg``, ``map``; rank_metric.hpp, map_metric.hpp), which loop over the
+queries on the host, as the JAX package's do.
 
 Each metric's ``eval`` returns ``[(name, value, is_higher_better)]`` from
 a numpy score (``[N]``, or ``[K, N]`` class-major), in f64 as the JAX
@@ -32,7 +33,7 @@ import torch
 
 from ..config import Config, canonical_metric
 from ..utils import log
-from .objective import softmax
+from .objective import default_label_gain, softmax
 
 K_EPSILON = 1e-15
 
@@ -534,6 +535,90 @@ class KullbackLeiblerMetric(CrossEntropyMetric):
 
 
 # ---------------------------------------------------------------------------
+# Ranking metrics (ref: rank_metric.hpp NDCGMetric, map_metric.hpp)
+# ---------------------------------------------------------------------------
+
+class _RankingMetric(Metric):
+    """A metric per query at each ``eval_at`` cut-off, averaged with
+    uniform query weights, on the host in f64 (the JAX package's
+    core/metrics.py:593-686)."""
+
+    HIGHER_BETTER = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.eval_at = list(config.eval_at) or [1, 2, 3, 4, 5]
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            log.fatal(f"{self.NAME} metric requires query information")
+        self.query_boundaries = metadata.query_boundaries
+        self.num_queries = len(self.query_boundaries) - 1
+
+    @property
+    def names(self):
+        return [f"{self.NAME}@{k}" for k in self.eval_at]
+
+    def query_values(self, lbl: np.ndarray, sc: np.ndarray) -> List[float]:
+        """The metric of one query at each cut-off."""
+        raise NotImplementedError
+
+    def eval(self, score, objective=None) -> MetricResult:
+        score = np.asarray(score, np.float64)
+        results = np.zeros(len(self.eval_at))
+        for q in range(self.num_queries):
+            lo, hi = self.query_boundaries[q], self.query_boundaries[q + 1]
+            results += self.query_values(self.label[lo:hi], score[lo:hi])
+        results /= max(self.num_queries, 1)
+        return [(name, float(v), True)
+                for name, v in zip(self.names, results)]
+
+
+class NDCGMetric(_RankingMetric):
+    """A query whose labels are all 0 counts 1."""
+
+    NAME = "ndcg"
+
+    def __init__(self, config):
+        super().__init__(config)
+        lg = list(config.label_gain)
+        self.label_gain = (np.asarray(lg, np.float64) if lg
+                           else default_label_gain())
+
+    def query_values(self, lbl, sc):
+        gains = self.label_gain[lbl.astype(np.int64)]
+        order = np.argsort(-sc, kind="stable")
+        sorted_gain = gains[order]
+        ideal_gain = np.sort(gains)[::-1]
+        disc = 1.0 / np.log2(np.arange(len(lbl)) + 2.0)
+        out = []
+        for k in self.eval_at:
+            kk = min(k, len(lbl))
+            max_dcg = float(np.sum(ideal_gain[:kk] * disc[:kk]))
+            out.append(1.0 if max_dcg <= 0.0 else
+                       float(np.sum(sorted_gain[:kk] * disc[:kk])) / max_dcg)
+        return out
+
+
+class MapMetric(_RankingMetric):
+    """A query with no relevant document in the cut-off counts 0."""
+
+    NAME = "map"
+
+    def query_values(self, lbl, sc):
+        rel_sorted = (lbl > 0)[np.argsort(-sc, kind="stable")]
+        prec = np.cumsum(rel_sorted) / np.arange(1, len(rel_sorted) + 1)
+        out = []
+        for k in self.eval_at:
+            kk = min(k, len(rel_sorted))
+            nrel = rel_sorted[:kk].sum()
+            out.append(float(np.sum(prec[:kk] * rel_sorted[:kk]) / nrel)
+                       if nrel > 0 else 0.0)
+        return out
+
+
+# ---------------------------------------------------------------------------
 # Factory (ref: metric.cpp:26 Metric::CreateMetric)
 # ---------------------------------------------------------------------------
 
@@ -560,10 +645,9 @@ _METRICS = {
     "cross_entropy": CrossEntropyMetric,
     "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "kullback_leibler": KullbackLeiblerMetric,
+    "ndcg": NDCGMetric,
+    "map": MapMetric,
 }
-
-# need query metadata the port's Dataset does not hold yet
-_RANKING = ("ndcg", "map")
 
 # the objective's own metric (ref: Config::GetMetricType)
 DEFAULT_METRIC_FOR_OBJECTIVE = {
@@ -581,18 +665,21 @@ DEFAULT_METRIC_FOR_OBJECTIVE = {
     "multiclassova": "multi_logloss",
     "cross_entropy": "cross_entropy",
     "cross_entropy_lambda": "cross_entropy_lambda",
+    "lambdarank": "ndcg",
+    "rank_xendcg": "ndcg",
 }
 
 
 def create_metric(name: str, config: Config) -> Optional[Metric]:
-    base = canonical_metric(name).partition("@")[0]
+    """The metric of ``name``; ``ndcg@1,3`` sets its own ``eval_at``."""
+    base, _, at = canonical_metric(name).partition("@")
     if base in ("none", "na", "null", "custom"):
         return None
-    if base in _RANKING:
-        log.fatal(f"metric {name!r} is not ported yet: ranking metrics "
-                  "need query data (Dataset(group=)), ROADMAP A12.2b")
     if base not in _METRICS:
         log.fatal(f"Unknown metric type name: {name}")
+    if at:
+        config = config.copy()
+        config.set("eval_at", [int(a) for a in at.split(",")])
     return _METRICS[base](config)
 
 

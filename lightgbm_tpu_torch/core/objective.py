@@ -5,10 +5,9 @@ include/LightGBM/objective_function.h:20, src/objective/
 regression_objective.hpp, binary_objective.hpp, multiclass_objective.hpp,
 xentropy_objective.hpp): the regression family (L2, L1, Huber, Fair,
 Poisson, Quantile, MAPE, Gamma, Tweedie), binary logloss, multiclass
-softmax and one-vs-all, the two cross-entropies and the adapter for
-gradients the caller supplies (``CustomObjective``). Ranking
-(``lambdarank``, ``rank_xendcg``) is refused: it needs query metadata
-(ROADMAP A12.2b).
+softmax and one-vs-all, the two cross-entropies, ranking (``lambdarank``
+with its position bias, ``rank_xendcg``; rank_objective.hpp) and the
+adapter for gradients the caller supplies (``CustomObjective``).
 
 ``get_gradients`` runs on the score's device in f32 and repeats the JAX
 package's expression term for term, so the per-row rounding is the same
@@ -23,19 +22,25 @@ boost-from-average score) and the percentile leaf renewal of L1,
 quantile and MAPE stay numpy in f64, exactly as the JAX package does
 them.
 
+Ranking groups its queries into power-of-two length buckets, each a
+padded ``[Q, M]`` block, as the JAX package does; lambdarank's all-pairs
+pass over a bucket runs in chunks of whole queries whose ``[Q_c, M, M]``
+f32 temporaries stay under ``PAIR_CHUNK_BYTES`` (every reduction runs
+along one query's axes, so a chunk computes what the whole bucket would).
+
 Score layout: ``[N]`` for one model per iteration, ``[K, N]`` class-major
 for the multiclass objectives.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config, canonical_objective
-from ..utils import log
+from ..utils import log, prng
 
 # ref: include/LightGBM/meta.h kEpsilon
 K_EPSILON = 1e-15
@@ -692,6 +697,275 @@ class CrossEntropyLambda(ObjectiveFunction):
 
 
 # ---------------------------------------------------------------------------
+# Ranking (ref: rank_objective.hpp LambdarankNDCG / RankXENDCG)
+# ---------------------------------------------------------------------------
+
+def default_label_gain(max_label: int = 31) -> np.ndarray:
+    """2^i - 1 gains (ref: dcg_calculator.cpp DefaultLabelGain)."""
+    return np.power(2.0, np.arange(max_label + 1)) - 1.0
+
+
+# the most bytes one [Q_c, M, M] f32 temporary of lambdarank's pairwise
+# pass may take: a bucket's queries are processed in chunks under it
+PAIR_CHUNK_BYTES = 256 << 20
+
+
+class _QueryBucket:
+    """One length bucket of queries padded to a shared width, built once
+    on the training device."""
+
+    def __init__(self, qids: np.ndarray, qb: np.ndarray, width: int,
+                 label: np.ndarray, device):
+        self.qids = qids                       # i64 [Qb] original query ids
+        counts = qb[qids + 1] - qb[qids]
+        slot = np.arange(width)
+        valid = slot[None, :] < counts[:, None]
+        idx = np.where(valid, qb[qids][:, None] + slot[None, :], 0)
+        self.idx = torch.as_tensor(idx, device=device)        # [Qb, Mb]
+        self.valid = torch.as_tensor(valid, device=device)    # [Qb, Mb]
+        self.label_np = np.where(valid, label[idx], 0.0).astype(np.float32)
+        self.label_q = torch.as_tensor(self.label_np, device=device)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return tuple(self.idx.shape)
+
+
+class _RankingObjective(ObjectiveFunction):
+    """Queries grouped into pow2 length buckets, each padded to its width,
+    so the per-query work becomes dense masked ``[Q, M]`` (and ``[Q, M,
+    M]``) tensor ops (ref: rank_objective.hpp:56 GetGradients; the JAX
+    package's core/objective.py:705-752)."""
+
+    MIN_BUCKET_WIDTH = 16
+
+    def init(self, metadata, num_data, device):
+        super().init(metadata, num_data, device)
+        if metadata.query_boundaries is None:
+            log.fatal("Ranking tasks require query information")
+        qb = metadata.query_boundaries.astype(np.int64)
+        self.query_boundaries = qb
+        self.num_queries = len(qb) - 1
+        counts = np.diff(qb)
+        widths = np.maximum(self.MIN_BUCKET_WIDTH,
+                            2 ** np.ceil(np.log2(np.maximum(counts, 1)))
+                            .astype(np.int64))
+        self.buckets = [
+            _QueryBucket(np.flatnonzero(widths == w), qb, int(w), self.label,
+                         device)
+            for w in np.unique(widths)]
+
+    def scatter_back(self, flat: Optional[torch.Tensor], bk: _QueryBucket,
+                     padded: torch.Tensor, q0: int = 0) -> torch.Tensor:
+        """Add the padded ``[Q_c, M]`` values of queries ``q0 ..`` of
+        bucket ``bk`` into the flat ``[N]`` f32 (zeros when None). Every
+        document sits in one slot of one bucket, so each row receives its
+        value once, added to +0.0: a -0.0 comes out +0.0, as the JAX
+        package's ``.at[].add`` gives."""
+        if flat is None:
+            flat = torch.zeros(self.num_data, dtype=torch.float32,
+                               device=padded.device)
+        q1 = q0 + padded.shape[0]
+        vals = torch.where(bk.valid[q0:q1], padded, 0.0)
+        return flat.index_add_(0, bk.idx[q0:q1].reshape(-1),
+                               vals.reshape(-1))
+
+
+class LambdarankNDCG(_RankingObjective):
+    """ref: rank_objective.hpp LambdarankNDCG, the exact sigmoid in place
+    of its lookup table; the JAX package's core/objective.py:755-876."""
+
+    NAME = "lambdarank"
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        self.sigmoid = float(config.sigmoid)
+        if self.sigmoid <= 0:
+            log.fatal(f"Sigmoid param {self.sigmoid} should be > 0")
+        self.norm = bool(config.lambdarank_norm)
+        self.truncation_level = int(config.lambdarank_truncation_level)
+        lg = list(config.label_gain)
+        self.label_gain = (np.asarray(lg, np.float64) if lg
+                           else default_label_gain())
+        self._bias_reg = float(config.lambdarank_position_bias_regularization)
+        self._bias_lr = float(config.learning_rate)
+        self.positions = None
+
+    def init(self, metadata, num_data, device):
+        super().init(metadata, num_data, device)
+        if self.label.max() >= len(self.label_gain):
+            log.fatal(f"Label {int(self.label.max())} exceeds label_gain "
+                      "size; set label_gain explicitly")
+        # per-query inverse max DCG at the truncation level, in f64
+        inv = np.zeros(self.num_queries)
+        gains = self.label_gain
+        for q in range(self.num_queries):
+            lo, hi = self.query_boundaries[q], self.query_boundaries[q + 1]
+            lbl = np.sort(self.label[lo:hi])[::-1][:self.truncation_level]
+            dcg = np.sum(gains[lbl.astype(np.int64)] /
+                         np.log2(np.arange(len(lbl)) + 2.0))
+            inv[q] = 1.0 / dcg if dcg > 0 else 0.0
+        for bk in self.buckets:
+            bk.inv_max_dcg = torch.as_tensor(
+                inv[bk.qids].astype(np.float32), device=device)
+            bk.gain_q = torch.as_tensor(
+                gains[bk.label_np.astype(np.int64)].astype(np.float32),
+                device=device)
+        # position bias (ref: rank_objective.hpp:44-57)
+        if metadata.position is not None:
+            self.positions = metadata.position.astype(np.int64)
+            self.num_position_ids = int(self.positions.max()) + 1
+            self.pos_biases = np.zeros(self.num_position_ids, np.float64)
+            self._positions_dev = torch.as_tensor(self.positions,
+                                                  device=device)
+            log.info(f"Using position bias correction with "
+                     f"{self.num_position_ids} position ids")
+
+    @property
+    def uses_position_bias(self) -> bool:
+        return self.positions is not None
+
+    def update_position_bias(self, lambdas: np.ndarray,
+                             hessians: np.ndarray) -> None:
+        """Newton-Raphson update of the per-position bias factors on the
+        host in f64 (ref: rank_objective.hpp:303
+        UpdatePositionBiasFactors)."""
+        n = self.num_position_ids
+        first = -np.bincount(self.positions, weights=lambdas, minlength=n)
+        second = -np.bincount(self.positions, weights=hessians, minlength=n)
+        counts = np.bincount(self.positions, minlength=n)
+        first -= self.pos_biases * self._bias_reg * counts
+        second -= self._bias_reg * counts
+        self.pos_biases += self._bias_lr * first / (np.abs(second) + 0.001)
+
+    def chunks(self, bk: _QueryBucket) -> List[Tuple[int, int]]:
+        """Query ranges of ``bk`` whose ``[Q_c, M, M]`` f32 temporaries
+        fit ``PAIR_CHUNK_BYTES`` (at least one query each)."""
+        Q, M = bk.shape
+        step = max(1, PAIR_CHUNK_BYTES // (4 * M * M))
+        return [(q0, min(q0 + step, Q)) for q0 in range(0, Q, step)]
+
+    def _chunk_gradients(self, bk: _QueryBucket, score: torch.Tensor,
+                         q0: int, q1: int):
+        """All-pairs lambdas and hessians ``[Q_c, M]`` of queries ``q0 ..
+        q1`` of one bucket (ref: rank_objective.hpp:181
+        GetGradientsForOneQuery), the JAX package's expression term for
+        term. Padded slots hold -inf scores, so their score differences
+        are NaN or infinite: ``torch.where`` drops them before any sum."""
+        valid = bk.valid[q0:q1]
+        lbl = bk.label_q[q0:q1]
+        gain = bk.gain_q[q0:q1]
+        Q, M = valid.shape
+        s = torch.where(valid, score[bk.idx[q0:q1]], -torch.inf)
+        # rank of each doc in its query by descending score (stable)
+        order = torch.argsort(-s, dim=1, stable=True)
+        rank = torch.empty_like(order).scatter_(
+            1, order, torch.arange(M, device=s.device).expand(Q, M))
+        discount = 1.0 / torch.log2(rank.to(torch.float32) + 2.0)
+
+        pair_valid = (valid[:, :, None] & valid[:, None, :] &
+                      (lbl[:, :, None] != lbl[:, None, :]))
+        # truncation: a pair needs one doc ranked < truncation_level
+        in_trunc = rank < self.truncation_level
+        pair_valid &= in_trunc[:, :, None] | in_trunc[:, None, :]
+        # orient: i = high-label doc, j = low; count each pair once
+        high_is_i = lbl[:, :, None] > lbl[:, None, :]
+        pair_valid &= high_is_i
+
+        delta_score = s[:, :, None] - s[:, None, :]            # s_i - s_j
+        delta_ndcg = (gain[:, :, None] - gain[:, None, :]).abs_()
+        delta_ndcg *= (discount[:, :, None] - discount[:, None, :]).abs_()
+        delta_ndcg *= bk.inv_max_dcg[q0:q1, None, None]
+        if self.norm:
+            best = s.amax(dim=1)
+            worst = torch.where(valid, s, torch.inf).amin(dim=1)
+            norm_ok = (best != worst)[:, None, None]
+            delta_ndcg = torch.where(
+                norm_ok, delta_ndcg / (0.01 + delta_score.abs()), delta_ndcg)
+        # signed delta from high to low: 1 / (1 + e^{sigma (s_h - s_l)});
+        # each [Q_c, M, M] temporary is dropped once used, so a few live
+        # at once
+        hl_delta = torch.where(high_is_i, delta_score, -delta_score)
+        del delta_score, high_is_i
+        p = torch.sigmoid(-self.sigmoid * hl_delta)
+        del hl_delta
+        p_lambda = -self.sigmoid * delta_ndcg * p
+        p_hess = self.sigmoid * self.sigmoid * delta_ndcg * p * (1.0 - p)
+        del delta_ndcg, p
+        p_lambda = torch.where(pair_valid, p_lambda, 0.0)
+        p_hess = torch.where(pair_valid, p_hess, 0.0)
+        del pair_valid
+
+        # i (high) receives +lambda, j (low) receives -lambda
+        lambdas = p_lambda.sum(dim=2) - p_lambda.sum(dim=1)
+        hess = p_hess.sum(dim=2) + p_hess.sum(dim=1)
+        if self.norm:
+            sum_lambdas = -2.0 * p_lambda.sum(dim=(1, 2))
+            nf = torch.where(sum_lambdas > 0,
+                             torch.log2(1.0 + sum_lambdas) /
+                             sum_lambdas.clamp(min=K_EPSILON), 1.0)
+            lambdas = lambdas * nf[:, None]
+            hess = hess * nf[:, None]
+        return lambdas, hess
+
+    def get_gradients(self, score, pos_biases: Optional[torch.Tensor] = None):
+        """Bucketed, chunked all-pairs lambdas ``[N]``. ``pos_biases``
+        (f32 ``[num_position_ids]``) is added to the score before the
+        pairwise pass (ref: rank_objective.hpp:69-74)."""
+        if pos_biases is not None and self.positions is not None:
+            score = score + pos_biases[self._positions_dev]
+        grad = hess = None
+        for bk in self.buckets:
+            for q0, q1 in self.chunks(bk):
+                g, h = self._chunk_gradients(bk, score, q0, q1)
+                grad = self.scatter_back(grad, bk, g, q0)
+                hess = self.scatter_back(hess, bk, h, q0)
+        return grad, hess
+
+
+class RankXENDCG(_RankingObjective):
+    """Cross-entropy surrogate for NDCG (ref: rank_objective.hpp
+    RankXENDCG; Bruch et al., 'An Alternative Cross Entropy Loss for
+    Learning-to-Rank'). Its temporaries are ``[Q, M]``: no chunking."""
+
+    NAME = "rank_xendcg"
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        self.seed = int(config.objective_seed)
+        self._iter = 0
+
+    def _bucket_gradients(self, bk: _QueryBucket, score, key):
+        valid = bk.valid
+        s = torch.where(valid, score[bk.idx], -torch.inf)
+        rho = torch.where(valid, softmax(s, 1), 0.0)
+        # phi(label, gumbel) = 2^label - gumbel
+        gumbel = prng.gumbel(key, bk.shape, s.device)
+        phi = torch.where(valid, torch.pow(2.0, bk.label_q) - gumbel, 0.0)
+        phi_sum = phi.sum(dim=1, keepdim=True).clamp(min=K_EPSILON)
+        ys = phi / phi_sum
+        l1 = rho - ys
+        # second-order correction terms (ref: rank_objective.hpp:400-430)
+        l2_denom = (1.0 - rho).clamp(min=K_EPSILON)
+        params = ys + l1 * rho / l2_denom
+        lambdas = l1 + rho * (params.sum(dim=1, keepdim=True) - params)
+        hess = rho * (1.0 - rho)
+        return lambdas, hess
+
+    def get_gradients(self, score):
+        # fresh noise each call: the keys split from PRNGKey(seed + calls)
+        self._iter += 1
+        keys = prng.split(prng.prng_key(self.seed + self._iter),
+                          len(self.buckets))
+        grad = hess = None
+        for bk, key in zip(self.buckets, keys):
+            g, h = self._bucket_gradients(bk, score, key)
+            grad = self.scatter_back(grad, bk, g)
+            hess = self.scatter_back(hess, bk, h)
+        return grad, hess
+
+
+# ---------------------------------------------------------------------------
 # Gradients from the caller (fobj)
 # ---------------------------------------------------------------------------
 
@@ -738,18 +1012,14 @@ _OBJECTIVES = {
     "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy,
     "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
+    "rank_xendcg": RankXENDCG,
     "custom": CustomObjective,
 }
-
-# need query metadata the port's Dataset does not hold yet
-_RANKING = ("lambdarank", "rank_xendcg")
 
 
 def create_objective(name: str, config: Config) -> ObjectiveFunction:
     canonical = canonical_objective(name)
-    if canonical in _RANKING:
-        log.fatal(f"objective {name!r} is not ported yet: ranking needs "
-                  "query data (Dataset(group=)), ROADMAP A12.2b")
     if canonical not in _OBJECTIVES:
         log.fatal(f"Unknown objective type name: {name}")
     return _OBJECTIVES[canonical](config)

@@ -112,6 +112,14 @@ def load_svm_or_csv(path: str, config: Config
     return X, y, weight, group
 
 
+def load_position_file(path: str) -> Optional[np.ndarray]:
+    """<data>.position sidecar (ref: metadata.cpp Metadata::Init —
+    per-row position ids for lambdarank position bias)."""
+    if os.path.exists(path + ".position"):
+        return np.loadtxt(path + ".position", dtype=np.int64).reshape(-1)
+    return None
+
+
 def load_side_files(path: str, weight: Optional[np.ndarray],
                     group_raw: Optional[np.ndarray]
                     ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:

@@ -40,6 +40,7 @@ are read back (``_eval``).
 """
 from __future__ import annotations
 
+import weakref
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -102,13 +103,19 @@ class _ModelList(list):
 
     def __init__(self, iterable=(), bump=None):
         super().__init__(iterable)
-        self._bump = bump if bump is not None else lambda: None
+        # the engine's bound method, held weakly: the engine owns this
+        # list, so a strong reference would make a cycle that keeps a
+        # dropped engine, and its device tensors, alive until the cyclic
+        # collector runs
+        self._bump = weakref.WeakMethod(bump) if bump is not None else None
 
 
 def _bumping(name):
     def method(self, *args, **kwargs):
         out = getattr(list, name)(self, *args, **kwargs)
-        self._bump()
+        bump = self._bump() if self._bump is not None else None
+        if bump is not None:
+            bump()
         return out
     return method
 
@@ -334,17 +341,28 @@ class GBDT:
         the objective over the whole score before any tree of the
         iteration is added (``[N]`` for K == 1, ``[K, N]`` otherwise),
         after boosting from the average; or the caller's class-major
-        ``[K * N]`` arrays, with no boost from the average."""
+        ``[K * N]`` arrays, with no boost from the average. Lambdarank
+        with positions adds its f32 position biases to the score before
+        the pairwise pass, then updates them on the host in f64 from the
+        lambdas and hessians (ref: gbdt.py:1199-1206, 2216-2223)."""
         K, N = self.num_tree_per_iteration, self.num_data
         if gradients is not None and hessians is not None:
             as_kn = lambda a: torch.as_tensor(
                 np.asarray(a, np.float32).reshape(K, N), device=self.device)
             return [0.0] * K, as_kn(gradients), as_kn(hessians)
         init_scores = [self._boost_from_average(k) for k in range(K)]
-        if K == 1:
-            grad, hess = self.objective.get_gradients(self.score[0])
+        obj = self.objective
+        if getattr(obj, "uses_position_bias", False):
+            biases = torch.as_tensor(obj.pos_biases, dtype=torch.float32,
+                                     device=self.device)
+            grad, hess = obj.get_gradients(self.score[0], biases)
+            obj.update_position_bias(grad.cpu().numpy().astype(np.float64),
+                                     hess.cpu().numpy().astype(np.float64))
             return init_scores, grad[None, :], hess[None, :]
-        grad, hess = self.objective.get_gradients(self.score)
+        if K == 1:
+            grad, hess = obj.get_gradients(self.score[0])
+            return init_scores, grad[None, :], hess[None, :]
+        grad, hess = obj.get_gradients(self.score)
         return init_scores, grad, hess
 
     def train_one_iter(self, gradients: Optional[np.ndarray] = None,

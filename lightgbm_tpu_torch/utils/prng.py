@@ -14,9 +14,17 @@ without JAX, following jax 0.9's threefry PRNG with
   key: the two output words are the new key;
 - ``split(key, n)`` hashes the counters ``(0, i)``, ``i < n``: key i is
   the i-th output pair;
-- ``uniform(key, n)`` hashes ``(0, i)`` for every element i, xors the two
-  output words, keeps the top 23 bits as an f32 mantissa in [1, 2) and
-  subtracts 1.
+- ``uniform(key, shape)`` hashes ``(0, i)`` for every element i of the
+  row-major flattened shape (``iota_2x32_shape``: the flat index split
+  into a high and a low word, the high word 0 below 2^32 elements), xors
+  the two output words, keeps the top 23 bits as an f32 mantissa in
+  [1, 2) and subtracts 1; with ``minval`` it then computes
+  ``max(minval, u * (1 - minval) + minval)`` in f32, as ``jax.random``'s
+  ``_uniform`` does;
+- ``gumbel(key, shape)`` is ``-log(-log(uniform(key, shape,
+  minval=finfo(f32).tiny)))``, ``jax.random.gumbel``'s default ``"low"``
+  mode. The uniforms are the JAX package's bit for bit; torch's ``log``
+  may differ from XLA's in the last ulp (ROADMAP C1(a)).
 
 Keys are plain Python ints (a few hashes per tree, on the host). The
 ``[n]`` draws are torch int64 tensors masked to 32 bits on the caller's
@@ -25,7 +33,8 @@ Python ints and tensors.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Tuple, Union
 
 import torch
 
@@ -75,12 +84,28 @@ def split(key: Key, num: int = 2) -> Tuple[Key, ...]:
     return tuple(threefry2x32(key, 0, i) for i in range(num))
 
 
-def uniform(key: Key, n: int, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,), float32)``: f32 ``[n]`` in [0, 1)
-    on ``device``."""
+def uniform(key: Key, shape: Union[int, Tuple[int, ...]], device=None,
+            minval: float = 0.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval=minval)``: f32 in
+    [minval, 1) on ``device``."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = math.prod(shape)
     if not 0 <= n < (1 << 32):
-        raise ValueError(f"n={n} outside [0, 2^32)")
+        raise ValueError(f"{n} elements outside [0, 2^32)")
     counts = torch.arange(n, dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(key, torch.zeros_like(counts), counts)
     mantissa = ((b0 ^ b1) >> 9) | 0x3F800000
-    return mantissa.to(torch.int32).view(torch.float32) - 1.0
+    u = (mantissa.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+    if minval:
+        lo = torch.tensor(minval, dtype=torch.float32, device=device)
+        u = torch.maximum(lo, u * (1.0 - lo) + lo)
+    return u
+
+
+F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def gumbel(key: Key, shape: Tuple[int, ...], device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)``, mode ``"low"``."""
+    return -torch.log(-torch.log(uniform(key, shape, device,
+                                         minval=F32_TINY)))

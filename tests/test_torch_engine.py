@@ -14,7 +14,9 @@ trees and scores are held bit for bit. Binary goes through ``exp``,
 whose last ulp differs between XLA's CPU and torch (ROADMAP C1(a)): its
 metric histories are held within 1e-6.
 """
+import gc
 import os
+import weakref
 
 import numpy as np
 import pytest
@@ -402,7 +404,9 @@ def test_unported_training_api_is_refused(rng, what):
     tr = lgt.Dataset(X, label=y)
     params = _params("regression")
     kw = {}
-    match = {"ranking_objective": "A12.2b", "resume_from": "A12.7",
+    # ranking without query data (Dataset(group=)) is refused
+    match = {"ranking_objective": "require query information",
+             "resume_from": "A12.7",
              "tpu_fallback_to_cpu": "does not fall back",
              "reset_parameter": "bagging_freq.*A12",
              "categorical_init_model": "A12.5",
@@ -435,3 +439,24 @@ def test_train_on_cuda_without_a_card_raises_for_init_model(rng,
         lgt.train({"objective": "regression", "verbosity": -1},
                   lgt.Dataset(X, label=y), num_boost_round=1,
                   init_model=os.path.join(GOLDEN_DIR, "reg_model.txt"))
+
+
+def test_dropped_booster_frees_its_engine_without_the_cyclic_collector(rng):
+    """The model list holds its engine's generation bump weakly, so a
+    Booster that is dropped frees its engine (and on the card its device
+    tensors) at once, not when the cyclic collector next runs; the bump
+    still reaches a live engine."""
+    X, y = _data(rng, "regression")
+    b = lgt.Booster(_params("regression"), lgt.Dataset(X, label=y))
+    b.update()
+    b.update()
+    gen = b._engine._model_gen
+    b.rollback_one_iter()
+    assert b._engine._model_gen == gen + 1
+    engine = weakref.ref(b._engine)
+    gc.disable()
+    try:
+        del b
+        assert engine() is None
+    finally:
+        gc.enable()

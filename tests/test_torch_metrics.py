@@ -10,7 +10,9 @@ the score's device; here the CPU) equals the port's ``eval`` to rtol
 1e-10 and the JAX package's f32 ``eval_device`` to 2e-5 relative (that
 file's tolerance); the other metrics return None in both packages and are
 evaluated on the host. The engine keeps the metric order when device and
-host metrics mix (``tpu_device_eval=true`` on the CPU).
+host metrics mix (``tpu_device_eval=true`` on the CPU). The ranking
+metrics (``ndcg``, ``map``) loop over the queries on the host in both
+packages: equal bit for bit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,10 +24,11 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu.config import Config as JConfig
 from lightgbm_tpu.core import metrics as JM
 from lightgbm_tpu.core import objective as JO
+from lightgbm_tpu.io.dataset_core import Metadata as JMeta
 from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.core import metrics as TM
 from lightgbm_tpu_torch.core import objective as TO
-from lightgbm_tpu_torch.utils.log import LightGBMError
+from lightgbm_tpu_torch.io.dataset_core import Metadata as TMeta
 
 
 class _Meta:
@@ -199,13 +202,28 @@ def test_engine_eval_mixed_device_host_ordering(objective):
 
 
 @pytest.mark.parametrize("name", ["ndcg", "map", "ndcg@3", "lambdarank"])
-def test_ranking_metrics_are_refused(name):
-    with pytest.raises(LightGBMError, match="A12.2b"):
-        TM.create_metric(name, TConfig({}))
+def test_ranking_metrics_match_jax(rng, name):
+    """The metric of each name (``lambdarank`` is an alias of ``ndcg``)
+    created in both packages gives the same names and values bit for bit
+    on the same scores, ties included."""
+    sizes = rng.integers(1, 30, size=40)
+    n = int(sizes.sum())
+    label = rng.integers(0, 5, size=n).astype(np.float32)
+    label[:sizes[0]] = 0.0                  # an all-zero query
+    score = np.round(rng.normal(size=n) * 3) / 3
+    out = []
+    for mod, cfg, meta in ((JM, JConfig, JMeta), (TM, TConfig, TMeta)):
+        m = mod.create_metric(name, cfg({}))
+        md = meta(n)
+        md.set_label(label)
+        md.set_query(sizes)
+        m.init(md, n)
+        out.append((type(m).__name__, m.names, m.eval(score)))
+    assert out[1] == out[0]
 
 
 def test_default_metrics_follow_the_jax_package():
     for obj, metric in TM.DEFAULT_METRIC_FOR_OBJECTIVE.items():
         assert JM.DEFAULT_METRIC_FOR_OBJECTIVE[obj] == metric
     assert set(JM.DEFAULT_METRIC_FOR_OBJECTIVE) - \
-        set(TM.DEFAULT_METRIC_FOR_OBJECTIVE) == {"lambdarank", "rank_xendcg"}
+        set(TM.DEFAULT_METRIC_FOR_OBJECTIVE) == set()

@@ -73,10 +73,13 @@ def _max_grad_hess(objective):
 
 
 def assert_trees_to_binary_standard(jb, tb, X, objective=None,
-                                    g_max=None, h_max=None, rate=RATE):
+                                    g_max=None, h_max=None, rate=RATE,
+                                    converted=True):
     """The binary standard (module docstring) over every tree; ``g_max``
     and ``h_max`` bound a row's |gradient| and hessian (by default the
-    multiclass ``objective``'s)."""
+    multiclass ``objective``'s). ``converted=False`` for an objective
+    whose prediction is the raw score (ranking), held by the raw check
+    alone."""
     n = len(X)
     if g_max is None:
         g_max, h_max = _max_grad_hess(objective)
@@ -113,8 +116,9 @@ def assert_trees_to_binary_standard(jb, tb, X, objective=None,
     jraw = jb.predict(X, raw_score=True)
     np.testing.assert_allclose(tb.predict(X, raw_score=True), jraw, rtol=0,
                                atol=1e-5 * np.abs(jraw).max())
-    np.testing.assert_allclose(tb.predict(X), jb.predict(X), rtol=1e-5,
-                               atol=1e-7)
+    if converted:
+        np.testing.assert_allclose(tb.predict(X), jb.predict(X), rtol=1e-5,
+                                   atol=1e-7)
     np.testing.assert_array_equal(tb.predict(X, pred_leaf=True),
                                   jb.predict(X, pred_leaf=True))
 
@@ -368,6 +372,36 @@ def test_class_without_a_split_takes_its_init_score(rng, objective):
     assert models[2].leaf_value[0] == \
         tb._engine.objective.boost_from_score(2) != 0.0
     assert_trees_to_binary_standard(jb, tb, X, objective)
+
+
+@pytest.mark.parametrize("where", ["train", "valid"])
+def test_multiclass_init_score_matches_jax(rng, where):
+    """A class-major ``init_score`` of K x N values (ROADMAP C7): 300
+    rows, 3 classes, on the training set or on a validation set; the
+    trees, the scores and the validation metric agree with the JAX
+    package's (the binary standard)."""
+    X, y = _data(rng, n=300)
+    init = 0.3 * rng.normal(size=(K, len(y)))
+    params = _params("multiclass", num_leaves=7, min_data_in_leaf=5,
+                     metric=["multi_logloss"])
+    out = {}
+    for pkg in (lgb, lgt):
+        train_init = init.reshape(-1) if where == "train" else None
+        tr = pkg.Dataset(X, label=y, init_score=train_init)
+        va = pkg.Dataset(X[:100], label=y[:100], reference=tr,
+                         init_score=(init[:, :100].reshape(-1)
+                                     if where == "valid" else None))
+        rec = {}
+        b = pkg.train(params, tr, num_boost_round=2, valid_sets=[va],
+                      valid_names=["va"],
+                      callbacks=[pkg.record_evaluation(rec)])
+        out[pkg] = (b, np.asarray(b._engine.valid_sets[0].score),
+                    rec["va"]["multi_logloss"])
+    (jb, jvs, jrec), (tb, tvs, trec) = out[lgb], out[lgt]
+    assert tb.num_trees() == jb.num_trees() == 2 * K
+    assert_trees_to_binary_standard(jb, tb, X, "multiclass")
+    np.testing.assert_allclose(tvs, jvs, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(trec, jrec, rtol=1e-6)
 
 
 @pytest.mark.parametrize("objective", ["regression", "custom"])

@@ -37,9 +37,10 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu.config import Config as JConfig
 from lightgbm_tpu.core import objective as jobj
+from lightgbm_tpu.io.dataset_core import Metadata as JMeta
 from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.core import objective as tobj
-from lightgbm_tpu_torch.utils.log import LightGBMError
+from lightgbm_tpu_torch.io.dataset_core import Metadata as TMeta
 
 N = 2000
 EXACT = ["regression", "regression_sqrt", "regression_l1", "huber", "fair",
@@ -221,9 +222,31 @@ def test_trained_trees_match_jax(rng, name, weighted, path):
 
 
 @pytest.mark.parametrize("name", ["lambdarank", "rank_xendcg", "xendcg"])
-def test_ranking_objectives_are_refused(name):
-    with pytest.raises(LightGBMError, match="A12.2b"):
-        tobj.create_objective(name, TConfig({"objective": name}))
+def test_ranking_objectives_match_jax(rng, name):
+    """The objective of each name (``xendcg`` is an alias of
+    ``rank_xendcg``) created in both packages: the same class name and
+    string, and gradients within rtol 1e-5, atol 1e-6 of the JAX
+    package's (``tests/test_torch_ranking.py`` holds them in detail)."""
+    sizes = rng.integers(2, 40, size=20)
+    n = int(sizes.sum())
+    label = rng.integers(0, 4, size=n).astype(np.float32)
+    score = rng.normal(size=n).astype(np.float32)
+    jmeta, tmeta = JMeta(n), TMeta(n)
+    for md in (jmeta, tmeta):
+        md.set_label(label)
+        md.set_query(sizes)
+    jo = jobj.create_objective(name, JConfig({"objective": name}))
+    to = tobj.create_objective(name, TConfig({"objective": name}))
+    jo.init(jmeta, n)
+    to.init(tmeta, n, torch.device("cpu"))
+    assert type(to).__name__ == type(jo).__name__
+    assert to.to_string() == jo.to_string()
+    jg, jh = jo.get_gradients(jnp.asarray(score))
+    tg, th = to.get_gradients(torch.as_tensor(score))
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_objective_strings_round_trip(rng):
