@@ -123,7 +123,27 @@ Phases, each reported on its own line:
    pair count, the chunks and the bytes of the largest; the peak device
    bytes of each run; then cuda against the CPU on 20,000 rows in 200
    queries on the compact, hybrid and full paths (root splits equal,
-   ``ndcg@10`` within rtol 1e-6).
+   ``ndcg@10`` within rtol 1e-6);
+11. the user surface on phase 4's rows and model (run after phase 9):
+   ``cv`` with 5 stratified folds and 3 rounds (every fold through K1, the
+   mean logloss falling every round, fold 0's ``eval`` on its held-out
+   subset within 1e-6 of the host walk's logloss, the five Boosters' peak
+   bytes); an ``LGBMClassifier`` (4 rounds, the stand-ins where
+   scikit-learn is absent) whose first tree is phase 4's and whose
+   ``predict_proba`` is its Booster's; ``pred_contrib`` of 10,000 rows
+   (each row's sum within 1e-6 of max(1, |score|) of its raw score, host
+   rows/s); ``refit`` on 200,000 rows of another seed (shapes kept, tree
+   0's leaves equal a refit by hand, the logloss within 0.1% of before);
+   ``set_leaf_output`` then ``predict(device=True)`` (repacked: the host
+   walk within 1e-5, the leaf's rows moved); pickled and deep-copied
+   boosters predicting on the card the Booster's raw scores bit for bit
+   and leaving no device bytes once dropped; ``save_binary`` and
+   ``Dataset(path)`` (save and load seconds beside phase 4's binning) and
+   one iteration from the file giving phase 4's first tree; then cuda
+   against the CPU on 20,000 rows: ``cv`` of lambdarank with group folds
+   in 200 queries (root splits equal, fold means within 1e-6) and
+   ``LGBMRegressor`` on the compact, hybrid and full paths (root splits
+   equal, training l2 within rtol 1e-6).
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -234,6 +254,19 @@ RANK_ONE_ITERS = 1
 # the cross-check of phase 10 on cuda and on the CPU: 20,000 rows in 200
 # queries, 31 leaves, 3 rounds
 RANK_SMALL_ROWS, RANK_SMALL_QUERIES = 20_000, 200
+# phase 11: cv folds and rounds, the estimator's rounds, rows explained by
+# TreeSHAP, rows of the refit (another seed), and the cross-check's rows,
+# queries, leaves and rounds
+CV_FOLDS, CV_ROUNDS = 5, 3
+SK_ROUNDS = 4
+CONTRIB_ROWS = 10_000
+REFIT_ROWS = 200_000
+SURFACE_SMALL_ROWS, SURFACE_SMALL_QUERIES = 20_000, 200
+SURFACE_PATHS = (("compact", {}, "hist_rowmajor_f32"),
+                 ("hybrid", {"tpu_row_scheduling": "level"},
+                  "hist_level_f32"),
+                 ("full", {"tpu_row_scheduling": "full"},
+                  "hist_featmajor_f32"))
 # training paths of phase 5: name -> (params, the kernel mode it must run);
 # the *_u16 paths train on the phase-4 data binned with U16_MAX_BIN
 PATHS = {
@@ -1054,10 +1087,13 @@ def phase_main_path():
     import lightgbm_tpu_torch as lgt
     t0 = time.perf_counter()
     X, y = synth_higgs(N_ROWS, N_FEATURES)
+    data_s = time.perf_counter() - t0
     ds = lgt.Dataset(X, label=y).construct()
-    log(f"phase 4 data+binning_s={time.perf_counter() - t0!r} "
-        f"shape={X.shape}")
+    binning_s = time.perf_counter() - t0 - data_s
+    log(f"phase 4 data+binning_s={data_s + binning_s!r} "
+        f"binning_s={binning_s!r} shape={X.shape}")
     bst, r = train_timed(ds, bench_params(), TIMED_ITERS)
+    r["binning_s"] = binning_s
     leaves = [t.num_leaves for t in bst._engine.models]
     log(f"phase 4 warmup_s={r['warm_s']!r} iter_s={r['iter_s']!r} "
         f"median_iter_s={r['median_iter_s']!r} launches={r['counts']} "
@@ -2044,6 +2080,313 @@ def phase_ranking_cross_check():
                                    err_msg=name)
 
 
+def binary_logloss(y, p):
+    p = np.clip(p, 1e-15, 1 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def assert_same_tree(a, b, what):
+    for f in TREE_FIELDS + ("threshold_real", "decision_type"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f"{what}: {f}")
+
+
+def phase_user_surface(bst, ds, X, binning_s):
+    """Phase 11: the user surface on phase 4's rows and model: ``cv``
+    (5 stratified folds, K1), an ``LGBMClassifier`` (no scikit-learn on the
+    card: the stand-ins), ``pred_contrib``, ``refit``, the packed forest
+    after ``set_leaf_output``, pickled and deep-copied boosters and the
+    device memory they leave, a binary dataset file, then a cuda/CPU
+    cross-check of group folds and of ``LGBMRegressor`` on the compact,
+    hybrid and full paths. Returns each run's launches of its kernel mode
+    (K1, but K2 and B2 in the hybrid and full cross-checks)."""
+    import copy
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.sklearn import _SKLEARN_INSTALLED
+    t_phase = time.perf_counter()
+    y = ds.get_label().astype(np.float64)
+    model = bst._engine.models
+    launches = {}
+
+    # -- cv: five fold Boosters in lock step, each through K1
+    stamps = []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    stamp.before_iteration = True
+
+    def stamp_after(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    res = lgt.cv(bench_params(), ds, num_boost_round=CV_ROUNDS,
+                 nfold=CV_FOLDS, stratified=True, seed=0,
+                 return_cvbooster=True, callbacks=[stamp, stamp_after])
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    cvb = res["cvbooster"]
+    leaves = sum(t.num_leaves for b in cvb.boosters for t in b._engine.models)
+    assert counts["hist_rowmajor_f32"] == leaves, (counts, leaves)
+    assert sum(counts.values()) == leaves, counts
+    launches["cv"] = counts["hist_rowmajor_f32"]
+    mean = res["valid binary_logloss-mean"]
+    assert len(mean) == CV_ROUNDS and all(np.diff(mean) < 0), mean
+    round_s = [b - a for a, b in zip(stamps[::2], stamps[1::2])]
+    log(f"phase 11 cv folds={CV_FOLDS} rounds={CV_ROUNDS} seconds={cv_s!r} "
+        f"round_s={round_s!r} s_per_fold_iteration="
+        f"{[r / CV_FOLDS for r in round_s]!r} (update and device metrics "
+        f"of the {CV_FOLDS} folds, divided) launches={counts}")
+    log(f"phase 11 cv valid binary_logloss-mean={mean!r} -stdv="
+        f"{res['valid binary_logloss-stdv']!r} valid auc-mean="
+        f"{res['valid auc-mean']!r}")
+    log(f"phase 11 cv peak_bytes_above_start={peak} (the {CV_FOLDS} fold "
+        f"Boosters together) held_bytes_after={held}")
+    fold_ll = []
+    for b in cvb.boosters:
+        ev = dict((m, v) for _, m, v, _ in b.eval(b.valid_sets[0], "valid"))
+        fold_ll.append(ev["binary_logloss"])
+    np.testing.assert_allclose(np.mean(fold_ll), mean[-1], rtol=0,
+                               atol=1e-6)
+    b0 = cvb.boosters[0]
+    rows0 = b0.valid_sets[0].used_indices
+    host_ll = binary_logloss(y[rows0], b0.predict(np.asarray(X[rows0],
+                                                             np.float64)))
+    assert abs(fold_ll[0] - host_ll) <= 1e-6, (fold_ll[0], host_ll)
+    log(f"phase 11 cv fold 0: eval on its held-out subset "
+        f"({len(rows0)} rows) binary_logloss={fold_ll[0]!r}, the host "
+        f"walk's {host_ll!r}; the folds' mean equals the result's")
+    del res, cvb, b0, b
+    gc.collect()
+
+    # -- the sklearn estimator, through the stand-ins where sklearn is absent
+    reset_counts()
+    t = time.perf_counter()
+    clf = lgt.LGBMClassifier(n_estimators=SK_ROUNDS, num_leaves=NUM_LEAVES,
+                             learning_rate=0.1, max_bin=MAX_BIN,
+                             device_type="cuda", verbose=-1).fit(X, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = read_counts()
+    sk_trees = clf.booster_._engine.models
+    assert len(sk_trees) == SK_ROUNDS
+    assert counts["hist_rowmajor_f32"] == sum(t.num_leaves
+                                              for t in sk_trees), counts
+    launches["sklearn"] = counts["hist_rowmajor_f32"]
+    assert_same_tree(sk_trees[0], model[0], "LGBMClassifier tree 0")
+    Xs = np.asarray(X[:PREDICT_ROWS], np.float64)
+    np.testing.assert_array_equal(clf.predict_proba(Xs)[:, 1],
+                                  clf.booster_.predict(Xs))
+    np.testing.assert_array_equal(clf.classes_, [0.0, 1.0])
+    log(f"phase 11 sklearn _SKLEARN_INSTALLED={_SKLEARN_INSTALLED} "
+        f"LGBMClassifier fit_s={fit_s!r} (binning included) rounds="
+        f"{SK_ROUNDS} launches={counts}; first tree equals phase 4's split "
+        f"for split; predict_proba[:, 1] equals booster_.predict on "
+        f"{PREDICT_ROWS} rows")
+    del clf, sk_trees
+
+    # -- pred_contrib: the host TreeSHAP over phase 4's trees
+    Xc = np.asarray(X[:CONTRIB_ROWS], np.float64)
+    t = time.perf_counter()
+    phi = bst.predict(Xc, pred_contrib=True)
+    shap_s = time.perf_counter() - t
+    raw = bst.predict(Xc, raw_score=True)
+    assert phi.shape == (CONTRIB_ROWS, N_FEATURES + 1), phi.shape
+    gap = np.abs(phi.sum(axis=1) - raw)
+    assert (gap <= 1e-6 * np.maximum(1.0, np.abs(raw))).all(), gap.max()
+    log(f"phase 11 pred_contrib rows={CONTRIB_ROWS} trees={len(model)} "
+        f"leaves={[t.num_leaves for t in model]} seconds={shap_s!r} "
+        f"rows_per_s_host={CONTRIB_ROWS / shap_s!r} max |sum - raw|="
+        f"{float(gap.max())!r}")
+
+    # -- refit to rows of another seed
+    Xr, yr = synth_higgs(REFIT_ROWS, N_FEATURES, seed=3)
+    Xr = np.asarray(Xr, np.float64)
+    ll_before = binary_logloss(yr, bst.predict(Xr))
+    t = time.perf_counter()
+    refit = bst.refit(Xr, yr, decay_rate=0.9)
+    refit_s = time.perf_counter() - t
+    for a, b in zip(refit._engine.models, model):
+        assert a.num_leaves == b.num_leaves
+        for f in ("split_feature", "threshold_real", "left_child",
+                  "right_child", "decision_type"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        assert np.isfinite(a.leaf_value).all()
+    # tree 0 by hand: at score 0 the binary gradient is 0.5 - y and the
+    # hessian 0.25 (sigmoid 1), so a populated leaf becomes 0.9 * old +
+    # 0.1 * rate * -G / H
+    leaf0 = model[0].predict_leaf(Xr)
+    G = np.bincount(leaf0, 0.5 - yr, minlength=model[0].num_leaves)
+    H = np.bincount(leaf0, np.full(REFIT_ROWS, 0.25),
+                    minlength=model[0].num_leaves)
+    new0 = np.where(H > 0, 0.9 * model[0].leaf_value
+                    + 0.1 * model[0].shrinkage * -G / np.maximum(H, 1e-300),
+                    model[0].leaf_value)
+    np.testing.assert_allclose(refit._engine.models[0].leaf_value, new0,
+                               rtol=1e-6, atol=1e-9)
+    ll_after = binary_logloss(yr, refit.predict(Xr))
+    # the blend moves each shrunk leaf towards the refit rows' shrunk
+    # Newton step, which is no descent step for the loss: on rows of the
+    # training distribution the logloss moves by noise either way
+    assert ll_after <= ll_before * (1 + 1e-3), (ll_before, ll_after)
+    log(f"phase 11 refit rows={REFIT_ROWS} decay_rate=0.9 seconds="
+        f"{refit_s!r} trees={len(model)} shapes unchanged, tree 0's leaves "
+        f"equal the hand refit; logloss on those rows {ll_before!r} -> "
+        f"{ll_after!r} (relative change "
+        f"{(ll_after - ll_before) / ll_before!r})")
+    del refit
+
+    # -- the packed forest after set_leaf_output (binned route)
+    Xp = np.asarray(X[:PREDICT_ROWS], np.float64)
+    before = bst.predict(Xp, device=True, raw_score=True)
+    leaf = int(np.argmax(model[0].leaf_count))
+    old = bst.get_leaf_output(0, leaf)
+    bst.set_leaf_output(0, leaf, old + 1.0)
+    after = bst.predict(Xp, device=True, raw_score=True)
+    host = bst.predict(Xp, raw_score=True)
+    np.testing.assert_allclose(after, host, rtol=0, atol=1e-5)
+    moved = model[0].predict_leaf(Xp) == leaf
+    assert moved.any() and np.abs(after - before)[moved].min() > 0.99
+    np.testing.assert_array_equal(after[~moved], before[~moved])
+    bst.set_leaf_output(0, leaf, old)
+    np.testing.assert_array_equal(bst.predict(Xp, device=True,
+                                              raw_score=True), before)
+    log(f"phase 11 set_leaf_output(0, {leaf}) +1: predict(device=True) "
+        f"repacked, within 1e-5 of the host walk (max_abs_diff="
+        f"{float(np.abs(after - host).max())!r}), {int(moved.sum())} rows "
+        "moved by 1, the others unchanged; restored bit for bit")
+
+    # -- pickled and deep-copied boosters predict on the card, then leave
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    copies = {"pickle": pickle.loads(pickle.dumps(bst)),
+              "deepcopy": copy.deepcopy(bst)}
+    for name, c in copies.items():
+        out = c.predict(Xp, device=True, raw_score=True)
+        srv = c._engine._serving
+        assert srv.device.type == "cuda" and \
+            srv.raw_pack.count == len(model), name
+        np.testing.assert_array_equal(out, before, err_msg=name)
+    torch.cuda.synchronize()
+    with_copies = torch.cuda.memory_allocated() - mem0
+    del copies, c, srv, out
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - mem0
+    assert abs(left) <= 1 << 20, left
+    log(f"phase 11 pickle and deepcopy: raw device route equals the "
+        f"Booster's binned route bit for bit on {PREDICT_ROWS} rows; device "
+        f"bytes held with the copies {with_copies}, after dropping them "
+        f"{left} (no cyclic collection)")
+
+    # -- a binary dataset file of phase 4's rows
+    tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        path = os.path.join(tmp, "phase4.bin")
+        t = time.perf_counter()
+        ds.save_binary(path)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = lgt.Dataset(path).construct()
+        load_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp)
+    np.testing.assert_array_equal(loaded.binned.bins, ds.binned.bins)
+    reset_counts()
+    b1 = lgt.Booster(bench_params(), loaded)
+    assert not b1.update()
+    counts = read_counts()
+    launches["binary_file"] = counts["hist_rowmajor_f32"]
+    assert launches["binary_file"] == b1._engine.models[0].num_leaves
+    assert_same_tree(b1._engine.models[0], model[0], "binary file tree 0")
+    log(f"phase 11 save_binary_s={save_s!r} load_s={load_s!r} "
+        f"(phase 4 binning_s={binning_s!r}) file_bytes={size}; one "
+        f"iteration from the file: first tree equals phase 4's, "
+        f"launches={counts}")
+    del b1, loaded
+    phase_user_surface_cross_check(launches)
+    log(f"phase 11 seconds={time.perf_counter() - t_phase!r}")
+    return launches
+
+
+def phase_user_surface_cross_check(launches):
+    """cuda against cpu on small runs: ``cv`` with group folds on ranking
+    rows, and ``LGBMRegressor`` on the compact, hybrid (K2) and full (B2)
+    paths: root splits equal; fold means within 1e-6, the training l2
+    within rtol 1e-6."""
+    import lightgbm_tpu_torch as lgt
+    X, y, sizes, _ = synth_mslr(SURFACE_SMALL_ROWS, SURFACE_SMALL_QUERIES,
+                                seed=3, span=False)
+    out = {}
+    tc = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        params = {"objective": "lambdarank", "num_leaves": 31,
+                  "max_bin": MAX_BIN, "verbose": -1, "device_type": dev,
+                  "metric": ["ndcg"], "eval_at": [10]}
+        reset_counts()
+        res = lgt.cv(params, lgt.Dataset(X, label=y, group=sizes),
+                     num_boost_round=3, nfold=CV_FOLDS, seed=0,
+                     return_cvbooster=True)
+        counts = read_counts()
+        bs = res["cvbooster"].boosters
+        for b in bs:
+            q = b.valid_sets[0].get_group()
+            assert q.sum() == b.valid_sets[0].num_data()
+        t0 = bs[0]._engine.models[0]
+        out[dev] = ((int(t0.split_feature[0]), float(t0.threshold_real[0]),
+                     int(t0.decision_type[0])),
+                    res["valid ndcg@10-mean"], counts)
+    log(f"phase 11 cross-check cv group folds root_split cuda="
+        f"{out['cuda'][0]} cpu={out['cpu'][0]} ndcg@10-mean cuda="
+        f"{out['cuda'][1]!r} cpu={out['cpu'][1]!r} cuda_launches="
+        f"{out['cuda'][2]} seconds={time.perf_counter() - tc!r}")
+    assert out["cuda"][0] == out["cpu"][0], out
+    assert out["cuda"][2]["hist_rowmajor_f32"] > 0, out
+    assert sum(out["cpu"][2].values()) == 0, out
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-6)
+    launches["cross_check_cv"] = out["cuda"][2]["hist_rowmajor_f32"]
+
+    X, _ = synth_higgs(SURFACE_SMALL_ROWS, N_FEATURES, seed=4)
+    yr = X[:, 0] - 0.5 * X[:, 1] * X[:, 2] + 0.25 * X[:, 3] ** 2
+    for name, extra, mode in SURFACE_PATHS:
+        out = {}
+        tc = time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            reset_counts()
+            reg = lgt.LGBMRegressor(n_estimators=3, num_leaves=31,
+                                    max_bin=MAX_BIN, device_type=dev,
+                                    verbose=-1, **extra).fit(X, yr)
+            counts = read_counts()
+            t0 = reg.booster_._engine.models[0]
+            l2 = float(np.mean((reg.predict(X) - yr) ** 2))
+            out[dev] = ((int(t0.split_feature[0]),
+                         float(t0.threshold_real[0]),
+                         int(t0.decision_type[0])), l2, counts)
+        log(f"phase 11 cross-check LGBMRegressor {name} root_split cuda="
+            f"{out['cuda'][0]} cpu={out['cpu'][0]} l2 cuda="
+            f"{out['cuda'][1]!r} cpu={out['cpu'][1]!r} cuda_launches="
+            f"{out['cuda'][2]} seconds={time.perf_counter() - tc!r}")
+        assert out["cuda"][0] == out["cpu"][0], (name, out)
+        assert out["cuda"][2][mode] > 0, (name, out)
+        assert sum(out["cpu"][2].values()) == 0, (name, out)
+        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-6,
+                                   err_msg=name)
+        launches[f"cross_check_{name}_{mode}"] = out["cuda"][2][mode]
+
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
@@ -2135,12 +2478,14 @@ def main():
     phase_predict(bst, ds, X)
     phase_predict(bst_u16, ds_u16, X, label="u16")
     log(f"phase 7 done at {time.perf_counter() - t:.1f} s")
-    del bst, bst_u16, ds_u16
+    del bst_u16, ds_u16
     phase_training_api(ds, X, main_run["median_iter_s"])
     log(f"phase 8 done at {time.perf_counter() - t:.1f} s")
     mc_runs = phase_multiclass(X, ds)
     log(f"phase 9 done at {time.perf_counter() - t:.1f} s")
-    del ds, X
+    surface_runs = phase_user_surface(bst, ds, X, main_run["binning_s"])
+    log(f"phase 11 done at {time.perf_counter() - t:.1f} s")
+    del bst, ds, X
     rank_runs = phase_ranking()
     log(f"phase 10 done at {time.perf_counter() - t:.1f} s")
     phase_cross_check()
@@ -2171,6 +2516,7 @@ def main():
     assert all(k["launches"] > 0 for k in kernels), kernels
     log("phase 9 launches by run: " + json.dumps(mc_runs))
     log("phase 10 launches by run: " + json.dumps(rank_runs))
+    log("phase 11 launches by run: " + json.dumps(surface_runs))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

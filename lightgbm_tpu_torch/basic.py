@@ -1,15 +1,18 @@
 """User-facing ``Dataset`` and ``Booster``.
 
 Port of ``lightgbm_tpu/basic.py`` (ref: python-package/lightgbm/basic.py
-Dataset / Booster) for dense numeric data: a ``Dataset`` over a matrix or
-a CSV/TSV/LibSVM file, binned on its own or, with ``reference=``, with
-another Dataset's bin mappers (a validation set); a ``Booster`` that
-trains (``update``), keeps validation sets on the training device,
-evaluates, rolls back, predicts by the host walk or on the device
-(``predict(..., device=True)``, the packed forest of ``ops/forest.py``),
-and writes, loads and dumps the model text. A Booster loaded from a model
-(``model_file=`` / ``model_str=``) predicts on the device its ``params``
-name, ``cuda`` unless ``device_type="cpu"``.
+Dataset / Booster) for dense numeric data: a ``Dataset`` over a matrix, a
+CSV/TSV/LibSVM file or a binary dataset file (``save_binary``), binned on
+its own or, with ``reference=``, with another Dataset's bin mappers (a
+validation set, a ``subset``); a ``Booster`` that trains (``update``),
+keeps validation sets on the training device, evaluates, rolls back,
+predicts by the host walk or on the device (``predict(..., device=True)``,
+the packed forest of ``ops/forest.py``), explains by the host TreeSHAP
+(``pred_contrib``), refits its leaves to new data, pickles and copies as
+its model text, and writes, loads and dumps the model text. A Booster
+loaded from a model (``model_file=`` / ``model_str=``, or unpickled)
+predicts on the device its ``params`` name, ``cuda`` unless
+``device_type="cpu"``.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .config import Config
 from .core.metrics import metrics_for_config
@@ -37,22 +41,67 @@ def _to_2d_numpy(data) -> np.ndarray:
     return X
 
 
+def _node_index(tree_idx: int, child: int) -> str:
+    return (f"{tree_idx}-S{child}" if child >= 0
+            else f"{tree_idx}-L{~child}")
+
+
+def _node_row(t, tree_idx: int, names: List[str], parent, depth: int,
+              is_leaf: bool, idx: int) -> Dict[str, Any]:
+    """One node of ``trees_to_dataframe`` (ref: basic.py
+    Booster.trees_to_dataframe's columns)."""
+    if is_leaf:
+        return {"tree_index": tree_idx, "node_depth": depth,
+                "node_index": f"{tree_idx}-L{idx}", "left_child": None,
+                "right_child": None, "parent_index": parent,
+                "split_feature": None, "split_gain": None,
+                "threshold": None, "decision_type": None,
+                "missing_direction": None, "missing_type": None,
+                "value": float(t.leaf_value[idx]),
+                "weight": float(t.leaf_weight[idx]),
+                "count": int(t.leaf_count[idx])}
+    f = int(t.split_feature[idx])
+    dtype = int(t.decision_type[idx])
+    is_cat = bool(dtype & 1)
+    # a categorical node's threshold_real indexes its bitset
+    thr = ("||".join(str(v) for v in t.cat_values(int(t.threshold_real[idx])))
+           if is_cat else float(t.threshold_real[idx]))
+    return {"tree_index": tree_idx, "node_depth": depth,
+            "node_index": f"{tree_idx}-S{idx}", "left_child": None,
+            "right_child": None, "parent_index": parent,
+            "split_feature": names[f] if f < len(names) else f,
+            "split_gain": float(t.split_gain[idx]), "threshold": thr,
+            "decision_type": "==" if is_cat else "<=",
+            "missing_direction": "left" if dtype & 2 else "right",
+            "missing_type": ["None", "Zero", "NaN"][(dtype >> 2) & 3],
+            "value": float(t.internal_value[idx]),
+            "weight": float(t.internal_weight[idx]),
+            "count": int(t.internal_count[idx])}
+
+
 class Dataset:
     """Training or validation data: a dense numeric matrix, or the path
-    of a CSV/TSV/LibSVM file, and its label, binned at ``construct`` (ref:
-    basic.py Dataset). With ``reference`` the rows are binned with the
-    reference's bin mappers. ``group`` holds the query sizes of a ranking
-    task (rows of a query adjacent), ``position`` each row's position id
-    (lambdarank's position bias); a file's group column and its
-    ``.query``/``.group`` and ``.position`` sidecars fill them when not
-    given."""
+    of a CSV/TSV/LibSVM file or of a binary dataset file, and its label,
+    binned at ``construct`` (ref: basic.py Dataset). With ``reference``
+    the rows are binned with the reference's bin mappers. ``group`` holds
+    the query sizes of a ranking task (rows of a query adjacent),
+    ``position`` each row's position id (lambdarank's position bias); a
+    file's group column and its ``.query``/``.group`` and ``.position``
+    sidecars fill them when not given."""
+
+    # generic field access (ref: basic.py Dataset.set_field/get_field)
+    _FIELDS = {"label": ("set_label", "get_label"),
+               "weight": ("set_weight", "get_weight"),
+               "group": ("set_group", "get_group"),
+               "init_score": ("set_init_score", "get_init_score"),
+               "position": ("set_position", "get_position")}
 
     def __init__(self, data, label=None,
                  reference: Optional["Dataset"] = None, weight=None,
                  group=None, init_score=None,
                  feature_name: Optional[Sequence[str]] = None,
                  params: Optional[Dict[str, Any]] = None, position=None):
-        self.data = (data if isinstance(data, (str, Path))
+        self.data = (data if data is None or isinstance(data, (str, Path))
                      else _to_2d_numpy(data))
         self.label = label
         self.reference = reference
@@ -60,8 +109,12 @@ class Dataset:
         self.group = group
         self.position = position
         self.init_score = init_score
-        self.feature_name = list(feature_name) if feature_name else None
+        self.feature_name = (None if feature_name is None or
+                             isinstance(feature_name, str)
+                             else [str(f) for f in feature_name])
         self.params = copy.deepcopy(params) if params else {}
+        # the rows of ``reference`` this Dataset holds (``subset``)
+        self.used_indices: Optional[np.ndarray] = None
         self._binned: Optional[BinnedDataset] = None
 
     def _update_params(self, params: Optional[Dict[str, Any]]) -> "Dataset":
@@ -72,12 +125,21 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._binned is not None:
             return self
+        if self.used_indices is not None:
+            self._binned = self.reference.construct()._binned.subset(
+                self.used_indices)
+            return self._apply_fields()
         ref = (self.reference.construct()._binned
                if self.reference is not None else None)
         cfg = Config(self.params)
         if isinstance(self.data, (str, Path)):
+            from .io.binary_io import is_binary_dataset_file, load_binary
             from .io.file_loader import load_position_file, load_svm_or_csv
             path = str(self.data)
+            if is_binary_dataset_file(path):
+                # already binned, with its own bin mappers
+                self._binned = load_binary(path)
+                return self._apply_fields()
             X, y, w, group = load_svm_or_csv(path, cfg)
             self.data = X
             if self.label is None:
@@ -92,6 +154,22 @@ class Dataset:
             self.data, cfg, label=self.label, weight=self.weight,
             init_score=self.init_score, feature_names=self.feature_name,
             reference=ref, group=self.group, position=self.position)
+        return self
+
+    def _apply_fields(self) -> "Dataset":
+        """The fields given to a Dataset whose bins came ready (a subset,
+        a binary file) replace the ones it came with."""
+        md = self._binned.metadata
+        if self.label is not None:
+            md.set_label(self.label)
+        if self.weight is not None:
+            md.set_weight(self.weight)
+        if self.group is not None:
+            md.set_query(self.group)
+        if self.init_score is not None:
+            md.set_init_score(self.init_score)
+        if self.position is not None:
+            md.set_position(self.position)
         return self
 
     @property
@@ -117,6 +195,20 @@ class Dataset:
         self.reference = reference
         return self
 
+    def get_ref_chain(self, ref_limit: int = 100) -> set:
+        """This Dataset and the chain of its references (ref: basic.py
+        get_ref_chain)."""
+        chain: set = set()
+        head = self
+        while head is not None and head not in chain and \
+                len(chain) < ref_limit:
+            chain.add(head)
+            head = head.reference
+        return chain
+
+    def get_params(self) -> Dict[str, Any]:
+        return copy.deepcopy(self.params)
+
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None,
                      params: Optional[Dict[str, Any]] = None,
@@ -126,12 +218,107 @@ class Dataset:
                        group=group, init_score=init_score,
                        params=params or self.params, position=position)
 
+    def subset(self, used_indices: Sequence[int],
+               params: Optional[Dict[str, Any]] = None) -> "Dataset":
+        """The rows ``used_indices`` (sorted) of this Dataset, sharing its
+        bin mappers (ref: basic.py Dataset.subset, Dataset::CopySubrow):
+        its bins and metadata are gathered at ``construct``; query
+        boundaries are rebuilt from the rows' queries, positions dropped
+        (as in the JAX package)."""
+        ret = Dataset(None, reference=self, params=params or self.params)
+        ret.used_indices = np.sort(np.asarray(used_indices, np.int64))
+        return ret
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append ``other``'s features to this Dataset in place (ref:
+        basic.py add_features_from, Dataset::AddFeaturesFrom): both are
+        constructed, with the same row count; this one keeps its
+        metadata. Colliding names take a ``D<index>_`` prefix."""
+        a, b = self.binned, other.binned
+        if a.num_data != b.num_data:
+            raise LightGBMError(
+                f"Cannot add features from a dataset with {b.num_data} "
+                f"rows to one with {a.num_data} rows")
+        off = a.num_total_features
+        a.bin_mappers = list(a.bin_mappers) + list(b.bin_mappers)
+        a.used_feature_map = np.concatenate(
+            [a.used_feature_map, b.used_feature_map + off]).astype(np.int32)
+        dtype = (np.uint16 if np.uint16 in (a.bins.dtype, b.bins.dtype)
+                 else np.uint8)
+        a.bins = np.concatenate([a.bins.astype(dtype), b.bins.astype(dtype)],
+                                axis=1)
+        a.num_total_features += b.num_total_features
+        merged = list(a.feature_names) + list(b.feature_names)
+        if len(set(merged)) != len(merged):
+            merged = (list(a.feature_names) +
+                      [f"D{off + i}_{n}" for i, n in
+                       enumerate(b.feature_names)])
+        a.feature_names = merged
+        a.max_bin = max(a.max_bin, b.max_bin)
+        if isinstance(self.data, np.ndarray) and \
+                isinstance(other.data, np.ndarray):
+            self.data = np.hstack([self.data, other.data])
+        else:
+            self.data = None
+        self.feature_name = list(a.feature_names)
+        return self
+
+    def save_binary(self, filename) -> "Dataset":
+        """Write the binned Dataset to a binary file that ``Dataset(path)``
+        of either package loads (ref: Dataset::SaveBinaryFile)."""
+        from .io.binary_io import save_binary
+        save_binary(self.binned, str(filename))
+        return self
+
+    # -- fields (ref: basic.py set_field / get_field) --------------------
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._binned is not None:
+            if label is None:
+                self._binned.metadata.label = None
+            else:
+                self._binned.metadata.set_label(label)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._binned is not None:
+            self._binned.metadata.set_weight(weight)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._binned is not None:
+            self._binned.metadata.set_init_score(init_score)
+        return self
+
     def set_group(self, group) -> "Dataset":
         """Query sizes; applied to the binned metadata once constructed."""
         self.group = group
         if self._binned is not None:
             self._binned.metadata.set_query(group)
         return self
+
+    def set_position(self, position) -> "Dataset":
+        self.position = position
+        if self._binned is not None:
+            self._binned.metadata.set_position(position)
+        return self
+
+    def get_label(self):
+        if self._binned is not None:
+            return self._binned.metadata.label
+        return self.label
+
+    def get_weight(self):
+        if self._binned is not None:
+            return self._binned.metadata.weight
+        return self.weight
+
+    def get_init_score(self):
+        if self._binned is not None:
+            return self._binned.metadata.init_score
+        return self.init_score
 
     def get_group(self):
         """Query sizes: from the binned metadata once constructed."""
@@ -140,16 +327,59 @@ class Dataset:
             return np.diff(self._binned.metadata.query_boundaries)
         return self.group
 
-    def set_position(self, position) -> "Dataset":
-        self.position = position
-        if self._binned is not None:
-            self._binned.metadata.set_position(position)
-        return self
-
     def get_position(self):
         if self._binned is not None:
             return self._binned.metadata.position
         return self.position
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        if field_name not in self._FIELDS:
+            raise LightGBMError(f"Unknown field name: {field_name}")
+        getattr(self, self._FIELDS[field_name][0])(data)
+        return self
+
+    def get_field(self, field_name: str):
+        """A field of the constructed Dataset; ``group`` is the query
+        boundaries ``[0, n1, n1 + n2, ...]`` (``get_group`` gives the
+        sizes)."""
+        if field_name not in self._FIELDS:
+            raise LightGBMError(f"Unknown field name: {field_name}")
+        if self._binned is None:
+            raise LightGBMError("Cannot get fields before construct Dataset")
+        if field_name == "group":
+            return self._binned.metadata.query_boundaries
+        return getattr(self, self._FIELDS[field_name][1])()
+
+    def get_data(self):
+        """The data this Dataset was built from: the matrix (a file's,
+        once parsed), the path of a binary file, or None for a subset."""
+        return self.data
+
+    def get_feature_name(self) -> List[str]:
+        return list(self.binned.feature_names)
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        if feature_name is not None and feature_name != "auto":
+            names = [str(f) for f in feature_name]
+            if self._binned is not None:
+                if len(names) != self._binned.num_total_features:
+                    raise LightGBMError(
+                        f"Length of feature names ({len(names)}) does not "
+                        "equal the number of features "
+                        f"({self._binned.num_total_features})")
+                self._binned.feature_names = names
+            self.feature_name = names
+        return self
+
+    def feature_num_bin(self, feature) -> int:
+        """Number of bins of one feature, by index or name (ref: basic.py
+        feature_num_bin)."""
+        binned = self.binned
+        if isinstance(feature, str):
+            if feature not in binned.feature_names:
+                raise LightGBMError(f"Unknown feature name: {feature!r}")
+            feature = binned.feature_names.index(feature)
+        return int(binned.bin_mappers[int(feature)].num_bin)
 
 
 class Booster:
@@ -282,6 +512,74 @@ class Booster:
         self.valid_sets = []
         return self
 
+    def refit(self, data, label, decay_rate: float = 0.9, weight=None,
+              group=None, init_score=None, **kwargs) -> "Booster":
+        """A new Booster with these trees' shapes and thresholds and leaf
+        values refitted to ``data`` (ref: basic.py Booster.refit ->
+        LGBM_BoosterRefit; gbdt.cpp GBDT::RefitTree with
+        refit_decay_rate): iteration by iteration, the objective's
+        gradients over the refitted score so far, on the device the
+        params name, are summed per leaf on the host, and each populated
+        leaf becomes ``decay_rate * old + (1 - decay_rate) * new``; a
+        leaf no row reaches keeps its value. ``kwargs`` update the
+        config (the leaf output's ``lambda_l1``, ``lambda_l2``,
+        ``max_delta_step``)."""
+        from .io.dataset_core import Metadata
+        from .io.model_io import load_model_string
+        from .models.gbdt import resolve_device
+        from .ops.split import SplitHyperParams, \
+            calculate_splitted_leaf_output
+        X = _to_2d_numpy(data).astype(np.float64, copy=False)
+        n = X.shape[0]
+        engine, cfg = load_model_string(self.model_to_string(), self.params)
+        cfg.update(kwargs)
+        md = Metadata(n)
+        md.set_label(label)
+        md.set_weight(weight)
+        md.set_query(group)
+        objective = create_objective(cfg.objective, cfg)
+        device = resolve_device(cfg)
+        objective.init(md, n, device)
+        hp = SplitHyperParams(
+            lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
+            min_data_in_leaf=cfg.min_data_in_leaf,
+            min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
+            min_gain_to_split=cfg.min_gain_to_split,
+            max_delta_step=cfg.max_delta_step)
+        K = engine.num_tree_per_iteration
+        score = np.zeros((K, n), np.float64)
+        if init_score is not None:
+            score += np.asarray(init_score, np.float64).reshape(-1, n)
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+        for it in range(len(engine.models) // max(K, 1)):
+            s_dev = torch.as_tensor(score, dtype=torch.float32,
+                                    device=device)
+            g, h = objective.get_gradients(s_dev[0] if K == 1 else s_dev)
+            g = g.cpu().numpy().astype(np.float64).reshape(K, n)
+            h = h.cpu().numpy().astype(np.float64).reshape(K, n)
+            for k in range(K):
+                t = engine.models[it * K + k]
+                if t.num_leaves <= 1:
+                    score[k] += t.leaf_value[0]
+                    continue
+                leaf = t.predict_leaf(X)
+                sum_g = np.bincount(leaf, weights=g[k],
+                                    minlength=t.num_leaves)
+                sum_h = np.bincount(leaf, weights=h[k],
+                                    minlength=t.num_leaves)
+                # the leaf output in f32, as the JAX package computes it
+                new_val = calculate_splitted_leaf_output(
+                    f32(sum_g), f32(sum_h), hp).numpy().astype(np.float64)
+                new_val *= t.shrinkage
+                t.leaf_value = np.where(
+                    sum_h > 0,
+                    decay_rate * t.leaf_value + (1.0 - decay_rate) * new_val,
+                    t.leaf_value)
+                score[k] += t.leaf_value[leaf]
+        out = Booster.from_engine(self.params, engine)
+        out.config = cfg
+        return out
+
     # -- evaluation -----------------------------------------------------
     def eval(self, data: Dataset, name: str, feval=None) -> List:
         """Evaluate on the training set or a set added with ``add_valid``
@@ -354,11 +652,124 @@ class Booster:
                     out[f] += max(t.split_gain[i], 0.0)
         return out.astype(np.int64) if importance_type == "split" else out
 
+    # -- introspection and editing --------------------------------------
+    @property
+    def num_class_(self) -> int:
+        return self._engine.num_tree_per_iteration
+
+    def feature_name(self) -> List[str]:
+        return list(self._engine.feature_names)
+
+    def num_feature(self) -> int:
+        return self._engine.max_feature_idx + 1
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        self.train_data_name = name
+        return self
+
+    def lower_bound(self) -> float:
+        """The sum of every tree's smallest leaf value."""
+        return float(sum(t.leaf_value.min() for t in self._engine.models))
+
+    def upper_bound(self) -> float:
+        """The sum of every tree's largest leaf value."""
+        return float(sum(t.leaf_value.max() for t in self._engine.models))
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        return float(self._engine.models[tree_id].leaf_value[leaf_id])
+
+    def set_leaf_output(self, tree_id: int, leaf_id: int,
+                        value: float) -> "Booster":
+        """ref: Booster.set_leaf_output / Tree::SetLeafOutput. The next
+        device prediction repacks the forest."""
+        t = self._engine.models[tree_id]
+        t.leaf_value = np.asarray(t.leaf_value, np.float64).copy()
+        t.leaf_value[leaf_id] = float(value)
+        self._engine.invalidate_serving_cache()
+        return self
+
+    def shuffle_models(self, start_iteration: int = 0,
+                       end_iteration: int = -1) -> "Booster":
+        """Permute the iterations in [start, end) with numpy's global
+        generator (ref: basic.py shuffle_models); the next device
+        prediction repacks the forest."""
+        eng = self._engine
+        K = max(eng.num_tree_per_iteration, 1)
+        n_iter = len(eng.models) // K
+        end = n_iter if end_iteration <= 0 else min(end_iteration, n_iter)
+        idx = np.arange(start_iteration, end)
+        if len(idx) > 1:
+            perm = np.random.permutation(idx)
+            blocks = [eng.models[i * K:(i + 1) * K] for i in range(n_iter)]
+            reordered = list(blocks)
+            for dst, src in zip(idx, perm):
+                reordered[dst] = blocks[src]
+            eng.models = [t for b in reordered for t in b]
+        eng.invalidate_serving_cache()
+        return self
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """Histogram of the real thresholds of ``feature`` (index or name)
+        over every numerical split (ref: basic.py
+        get_split_value_histogram)."""
+        eng = self._engine
+        if isinstance(feature, str):
+            if feature not in eng.feature_names:
+                raise LightGBMError(f"Unknown feature name {feature!r}")
+            feature = eng.feature_names.index(feature)
+        values = np.asarray(
+            [float(t.threshold_real[i]) for t in eng.models
+             for i in range(t.num_leaves - 1)
+             if int(t.split_feature[i]) == feature
+             and not t.decision_type[i] & 1], np.float64)
+        if bins is None or (isinstance(bins, str) and bins == "auto"):
+            bins = max(min(len(np.unique(values)), 10), 1) \
+                if len(values) else 1
+        hist, edges = np.histogram(values, bins=bins)
+        if xgboost_style:
+            ret = np.column_stack((edges[1:], hist))
+            return ret[ret[:, 1] > 0]
+        return hist, edges
+
+    def trees_to_dataframe(self):
+        """One row per node of every tree, in the reference's columns
+        (ref: basic.py Booster.trees_to_dataframe); needs pandas."""
+        try:
+            import pandas as pd
+        except ImportError as e:
+            raise LightGBMError("trees_to_dataframe needs pandas") from e
+        names = self.feature_name()
+        rows = []
+        for tree_idx, t in enumerate(self._engine.models):
+            if t.num_leaves <= 1:
+                rows.append(_node_row(t, tree_idx, names, None, 1, True, 0))
+                continue
+            # an explicit stack: leaf-wise trees can be num_leaves deep
+            stack = [(0, None, 1)]
+            while stack:
+                node, parent, depth = stack.pop()
+                if node < 0:
+                    rows.append(_node_row(t, tree_idx, names, parent, depth,
+                                          True, ~node))
+                    continue
+                row = _node_row(t, tree_idx, names, parent, depth, False,
+                                node)
+                rows.append(row)
+                lc, rc = int(t.left_child[node]), int(t.right_child[node])
+                row["left_child"] = _node_index(tree_idx, lc)
+                row["right_child"] = _node_index(tree_idx, rc)
+                # right first, so that the left subtree comes out first
+                stack.append((rc, row["node_index"], depth + 1))
+                stack.append((lc, row["node_index"], depth + 1))
+        return pd.DataFrame(rows)
+
     # -- prediction -----------------------------------------------------
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
-                device: Optional[bool] = None) -> np.ndarray:
+                pred_contrib: bool = False, validate_features: bool = False,
+                device: Optional[bool] = None, **kwargs) -> np.ndarray:
         """Prediction over raw feature values: the host walk (ref:
         predictor.hpp), or with ``device`` (default: the
         ``tpu_predict_device`` parameter) the packed-forest engine on the
@@ -366,14 +777,47 @@ class Booster:
         whose scores are f32 sums. Where the device route cannot serve
         (an empty tree range, f64-only values or a categorical node on
         the raw route) it warns and the host walk answers; any other
-        error propagates, a missing card included."""
-        X = _to_2d_numpy(data).astype(np.float64, copy=False)
+        error propagates, a missing card included.
+
+        ``data`` may be the path of a CSV/TSV/LibSVM file, parsed with
+        the training schema (``data_has_header=True`` skips a header) and
+        padded with zero columns to the model's features.
+        ``pred_contrib`` gives the host TreeSHAP ``[N, (F + 1) * K]``.
+        ``predict_disable_shape_check`` (here or in the params) lets a
+        matrix of another width through: absent trailing features read
+        0. With ``validate_features``, a frame's column names must be
+        the model's."""
         eng = self._engine
         n_feat = eng.max_feature_idx + 1
-        if X.shape[1] != n_feat:
+        if isinstance(data, (str, Path)):
+            from .io.file_loader import load_svm_or_csv
+            cfg = self.config.copy()
+            cfg.update({"header": bool(kwargs.get("data_has_header",
+                                                  False))})
+            X = load_svm_or_csv(str(data), cfg)[0]
+            if X.shape[1] < n_feat:
+                # LibSVM rows may leave out trailing zero features
+                X = np.pad(X, ((0, 0), (0, n_feat - X.shape[1])))
+        else:
+            if validate_features and hasattr(data, "columns"):
+                names = [str(c) for c in data.columns]
+                if names != self.feature_name():
+                    raise LightGBMError(
+                        f"The data's feature names {names} are not the "
+                        f"model's {self.feature_name()}")
+            X = _to_2d_numpy(data).astype(np.float64, copy=False)
+        disable_check = bool(kwargs.get(
+            "predict_disable_shape_check",
+            self.config.predict_disable_shape_check))
+        if X.shape[1] != n_feat and not disable_check:
             raise LightGBMError(
                 f"The number of features in data ({X.shape[1]}) is not "
-                f"the same as it was in training data ({n_feat}).")
+                f"the same as it was in training data ({n_feat}).\nYou "
+                "can set predict_disable_shape_check=true to discard this "
+                "error, but please be aware what you are doing.")
+        if X.shape[1] < n_feat:
+            # as the reference's zero-initialized row buffer (predictor.hpp)
+            X = np.pad(X, ((0, 0), (0, n_feat - X.shape[1])))
         K = eng.num_tree_per_iteration
         n_total_iter = len(eng.models) // max(K, 1)
         if num_iteration is None or num_iteration < 0:
@@ -386,9 +830,17 @@ class Booster:
         if pred_leaf:
             return np.stack([t.predict_leaf(X) for t in trees], axis=1) \
                 if trees else np.zeros((X.shape[0], 0), np.int64)
-        raw = None
         use_device = (self.config.tpu_predict_device if device is None
                       else device)
+        if pred_contrib:
+            if use_device:
+                raise LightGBMError(
+                    "pred_contrib on the device (the packed SHAP path) is "
+                    "not ported yet (ROADMAP A14); pass device=False for "
+                    "the host TreeSHAP")
+            from .core.shap import predict_contrib
+            return predict_contrib(eng, X, start_iteration, end_iteration)
+        raw = None
         if use_device:
             try:
                 raw = eng.predict_device(X, start_iteration, end_iteration)
@@ -434,3 +886,35 @@ class Booster:
                         start_iteration=start_iteration,
                         importance_type=importance_type)
         return self
+
+    # -- copies (ref: basic.py Booster.__getstate__ / __setstate__) --------
+    # The engine holds device tensors and the training data: a pickle or a
+    # copy carries the model text instead, and comes back as a loaded
+    # model, without training data, predicting on the device its params
+    # name.
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        for heavy in ("_engine", "train_set", "valid_sets"):
+            state.pop(heavy, None)
+        state["_model_str"] = (self.model_to_string()
+                               if self._engine is not None else None)
+        return state
+
+    def __setstate__(self, state):
+        model_str = state.pop("_model_str", None)
+        self.__dict__.update(state)
+        self.train_set = None
+        self.valid_sets = []
+        self._engine = None
+        if model_str is not None:
+            self.model_from_string(model_str)
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, memo):
+        out = type(self).__new__(type(self))
+        if memo is not None:
+            memo[id(self)] = out
+        out.__setstate__(copy.deepcopy(self.__getstate__(), memo or {}))
+        return out

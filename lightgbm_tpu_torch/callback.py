@@ -3,8 +3,9 @@
 Copy of ``lightgbm_tpu/callback.py`` (ref: python-package/lightgbm/
 callback.py: CallbackEnv :65, EarlyStopException :40, log_evaluation
 :109, record_evaluation :183, reset_parameter :254, early_stopping
-:462). ``checkpoint_callback`` is not ported (ROADMAP A12.7), nor is
-``cv``'s booster container (A12.3).
+:462). ``checkpoint_callback`` is not ported (ROADMAP A12.7). Under
+``cv`` the model is the ``CVBooster``, which passes ``reset_parameter``
+on to every fold's Booster.
 """
 from __future__ import annotations
 

@@ -1,12 +1,16 @@
-"""``train``: the training entry point.
+"""``train`` and ``cv``: the training entry points.
 
-Port of ``lightgbm_tpu/engine.py`` ``train`` (ref:
-python-package/lightgbm/engine.py:109): boosting rounds over a training
-``Dataset`` with validation sets, custom evaluation functions
-(``feval``), callbacks ordered by ``before_iteration`` / ``order``, early
-stopping from the params (``early_stopping_round``, ``first_metric_only``,
+Port of ``lightgbm_tpu/engine.py`` (ref: python-package/lightgbm/
+engine.py: train :109, cv and CVBooster :356+). ``train`` runs boosting
+rounds over a training ``Dataset`` with validation sets, custom
+evaluation functions (``feval``), callbacks ordered by
+``before_iteration`` / ``order``, early stopping from the params
+(``early_stopping_round``, ``first_metric_only``,
 ``early_stopping_min_delta``) or from a callback, and continued training
-from ``init_model`` (a model file path or a Booster). A callable
+from ``init_model`` (a model file path or a Booster). ``cv`` trains one
+Booster a fold, each on a ``Dataset.subset`` of the rows with the rest as
+its validation set, in lock step, and aggregates each metric's mean and
+standard deviation over the folds each round. A callable
 ``params["objective"]`` is the custom objective: it gives each
 iteration's gradients (``Booster.update(fobj=)``). Refused, each naming
 its ROADMAP item: ``resume_from`` (A12.7) and ``tpu_fallback_to_cpu``,
@@ -16,12 +20,15 @@ from __future__ import annotations
 
 import collections
 import copy
+import json
 from typing import Any, Callable, Dict, List, Optional, Union
+
+import numpy as np
 
 from . import callback as callback_module
 from .basic import Booster, Dataset
 from .callback import CallbackEnv, EarlyStopException
-from .config import _ConfigAliases
+from .config import Config, _ConfigAliases
 from .utils import log
 
 
@@ -50,6 +57,26 @@ def _refuse_unported(params: Dict[str, Any], resume_from) -> None:
                   "the card; pass device_type='cpu' to run on the CPU")
 
 
+def _sorted_callbacks(callbacks: Optional[List[Callable]],
+                      early_stopping_round: Optional[int],
+                      params: Dict[str, Any], verbose: bool):
+    """The callbacks run before and after each iteration, each list in
+    ``order``, with the params' early stopping added."""
+    cbs = set(callbacks or [])
+    if early_stopping_round is not None and early_stopping_round > 0:
+        min_delta = params.get("early_stopping_min_delta")
+        cbs.add(callback_module.early_stopping(
+            early_stopping_round,
+            bool(params.get("first_metric_only", False)), verbose=verbose,
+            min_delta=float(min_delta) if min_delta is not None else 0.0))
+    order = lambda cb: getattr(cb, "order", 0)
+    return (sorted((cb for cb in cbs
+                    if getattr(cb, "before_iteration", False)), key=order),
+            sorted((cb for cb in cbs
+                    if not getattr(cb, "before_iteration", False)),
+                   key=order))
+
+
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100,
           valid_sets: Optional[List[Dataset]] = None,
@@ -69,7 +96,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
     for alias in _ConfigAliases.get("early_stopping_round"):
         if params.get(alias) is not None:
             early_stopping_round = int(params[alias])
-    first_metric_only = bool(params.get("first_metric_only", False))
     if num_boost_round <= 0:
         raise ValueError("num_boost_round must be greater than 0")
     if not isinstance(train_set, Dataset):
@@ -96,23 +122,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
             else:
                 booster.add_valid(vs, name)
 
-    cbs = set(callbacks or [])
-    if early_stopping_round is not None and early_stopping_round > 0:
-        verbosity = 1
-        for alias in _ConfigAliases.get("verbosity"):
-            if params.get(alias) is not None:
-                verbosity = int(params[alias])
-        min_delta = params.get("early_stopping_min_delta")
-        cbs.add(callback_module.early_stopping(
-            early_stopping_round, first_metric_only,
-            verbose=verbosity >= 1,
-            min_delta=float(min_delta) if min_delta is not None else 0.0))
-    callbacks_before = sorted(
-        (cb for cb in cbs if getattr(cb, "before_iteration", False)),
-        key=lambda cb: getattr(cb, "order", 0))
-    callbacks_after = sorted(
-        (cb for cb in cbs if not getattr(cb, "before_iteration", False)),
-        key=lambda cb: getattr(cb, "order", 0))
+    verbosity = 1
+    for alias in _ConfigAliases.get("verbosity"):
+        if params.get(alias) is not None:
+            verbosity = int(params[alias])
+    callbacks_before, callbacks_after = _sorted_callbacks(
+        callbacks, early_stopping_round, params, verbose=verbosity >= 1)
 
     if eval_train_name is not None:
         booster.train_data_name = eval_train_name
@@ -154,3 +169,207 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if not keep_training_booster:
         booster.free_dataset()
     return booster
+
+
+class CVBooster:
+    """The fold Boosters of ``cv`` (ref: engine.py:356 CVBooster). An
+    attribute it lacks is called on every fold Booster: ``predict(X)``
+    gives one answer a fold."""
+
+    def __init__(self, model_file=None):
+        self.boosters: List[Booster] = []
+        self.best_iteration = -1
+        if model_file is not None:
+            with open(str(model_file)) as f:
+                self._from_dict(json.load(f))
+
+    def _from_dict(self, models: Dict[str, Any]) -> None:
+        self.best_iteration = models.get("best_iteration", -1)
+        self.boosters = [Booster(model_str=s)
+                         for s in models.get("boosters", [])]
+
+    def model_to_string(self, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0,
+                        importance_type: str = "split") -> str:
+        """Every fold's model text in one JSON string."""
+        return json.dumps({
+            "boosters": [b.model_to_string(num_iteration=num_iteration,
+                                           start_iteration=start_iteration,
+                                           importance_type=importance_type)
+                         for b in self.boosters],
+            "best_iteration": self.best_iteration})
+
+    def model_from_string(self, model_str: str) -> "CVBooster":
+        self._from_dict(json.loads(model_str))
+        return self
+
+    def save_model(self, filename, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> "CVBooster":
+        with open(str(filename), "w") as f:
+            f.write(self.model_to_string(num_iteration, start_iteration,
+                                         importance_type))
+        return self
+
+    def __getattr__(self, name: str):
+        if name.startswith("__"):   # keep copy, pickle and introspection
+            raise AttributeError(name)
+
+        def handler_function(*args: Any, **kwargs: Any) -> List[Any]:
+            return [getattr(b, name)(*args, **kwargs) for b in self.boosters]
+        return handler_function
+
+
+def _make_n_folds(full_data: Dataset, folds, nfold: int, seed: int,
+                  stratified: bool, shuffle: bool) -> List:
+    """``(train_rows, test_rows)`` of each fold (ref: engine.py
+    _make_n_folds): the given ``folds`` (an iterable of pairs, or a
+    splitter whose ``split(X, y, groups)`` gets each row's query index),
+    else whole queries when the data has them, else folds stratified by
+    label, else plain ones; shuffled from ``seed``."""
+    num_data = full_data.construct().num_data()
+    if folds is not None:
+        if not hasattr(folds, "__iter__") and not hasattr(folds, "split"):
+            raise AttributeError(
+                "folds should be a generator or iterator of (train_idx, "
+                "test_idx) tuples or scikit-learn splitter object")
+        if hasattr(folds, "split"):
+            group = full_data.get_group()
+            flat_group = (np.repeat(np.arange(len(group)), group)
+                          if group is not None
+                          else np.zeros(num_data, np.int64))
+            folds = folds.split(X=np.empty(num_data),
+                                y=full_data.get_label(), groups=flat_group)
+        return list(folds)
+    rng = np.random.default_rng(seed)
+    group = full_data.get_group()
+    if group is not None:
+        gidx = np.arange(len(group))
+        if shuffle:
+            rng.shuffle(gidx)
+        bounds = np.concatenate([[0], np.cumsum(group)])
+        out = []
+        for gf in np.array_split(gidx, nfold):
+            test = (np.concatenate([np.arange(bounds[g], bounds[g + 1])
+                                    for g in gf]) if len(gf)
+                    else np.zeros(0, np.int64))
+            out.append((np.setdiff1d(np.arange(num_data), test), test))
+        return out
+    if stratified:
+        # within each class an (optionally shuffled) round-robin deal, so
+        # every fold gets the same class proportions
+        label = np.asarray(full_data.get_label())
+        assignment = np.zeros(num_data, np.int64)
+        for cls in np.unique(label):
+            rows = np.flatnonzero(label == cls)
+            if shuffle:
+                rng.shuffle(rows)
+            assignment[rows] = np.arange(len(rows)) % nfold
+        return [(np.flatnonzero(assignment != f),
+                 np.flatnonzero(assignment == f)) for f in range(nfold)]
+    idx = np.arange(num_data)
+    if shuffle:
+        rng.shuffle(idx)
+    return [(np.setdiff1d(np.arange(num_data), p), p)
+            for p in np.array_split(idx, nfold)]
+
+
+def _agg_cv_result(raw_results: List[List]) -> List:
+    """``("cv_agg", "<data> <metric>", mean, higher_better, stdv)`` over
+    the folds (ref: engine.py _agg_cv_result)."""
+    cvmap: Dict[str, List[float]] = collections.OrderedDict()
+    metric_type = {}
+    for one_result in raw_results:
+        for data_name, metric, value, hib in one_result:
+            key = f"{data_name} {metric}"
+            metric_type[key] = hib
+            cvmap.setdefault(key, []).append(value)
+    return [("cv_agg", k, float(np.mean(v)), metric_type[k],
+             float(np.std(v))) for k, v in cvmap.items()]
+
+
+def cv(params: Dict[str, Any], train_set: Dataset,
+       num_boost_round: int = 100, folds=None, nfold: int = 5,
+       stratified: bool = True, shuffle: bool = True, metrics=None,
+       feval=None, init_model: Optional[Union[str, Booster]] = None,
+       fpreproc=None, seed: int = 0,
+       callbacks: Optional[List[Callable]] = None,
+       eval_train_metric: bool = False,
+       return_cvbooster: bool = False) -> Dict[str, Any]:
+    """Cross-validation (ref: engine.py:356 cv): ``{"<data> <metric>-mean":
+    [...], "<data> <metric>-stdv": [...]}`` a round, and with
+    ``return_cvbooster`` the ``CVBooster`` under ``"cvbooster"``.
+    Stratified folds apply to the classification objectives only.
+    ``fpreproc(train, test, params)`` may rewrite each fold. With
+    ``init_model`` each fold Booster starts from its trees, as ``train``
+    does (the JAX package's ``cv`` ignores it). Early stopping truncates
+    the results at the best round and sets each fold's
+    ``best_iteration``."""
+    params = copy.deepcopy(params) if params else {}
+    if not isinstance(train_set, Dataset):
+        raise TypeError("cv() only accepts Dataset object")
+    fobj = _pop_callable_objective(params)
+    _refuse_unported(params, None)
+    for alias in _ConfigAliases.get("num_iterations"):
+        if alias in params:
+            num_boost_round = int(params.pop(alias))
+    early_stopping_round = None
+    for alias in _ConfigAliases.get("early_stopping_round"):
+        if params.get(alias) is not None:
+            early_stopping_round = int(params[alias])
+    if metrics is not None:
+        params["metric"] = metrics
+    if Config(params).objective not in ("binary", "multiclass",
+                                        "multiclassova"):
+        stratified = False
+
+    train_set._update_params(params).construct()
+    folds = _make_n_folds(train_set, folds, nfold, seed, stratified, shuffle)
+    predictor = (Booster(params=params, model_file=init_model)
+                 if isinstance(init_model, str) else init_model)
+    cvbooster = CVBooster()
+    for train_idx, test_idx in folds:
+        tr, te = train_set.subset(train_idx), train_set.subset(test_idx)
+        fold_params = params
+        if fpreproc is not None:
+            tr, te, fold_params = fpreproc(tr, te, params.copy())
+        b = Booster(params=fold_params, train_set=tr)
+        if predictor is not None:
+            b._engine.init_from_model(predictor._engine)
+        b.add_valid(te, "valid")
+        cvbooster.boosters.append(b)
+
+    callbacks_before, callbacks_after = _sorted_callbacks(
+        callbacks, early_stopping_round, params, verbose=False)
+    results: Dict[str, List[float]] = collections.defaultdict(list)
+    for i in range(num_boost_round):
+        for cb in callbacks_before:
+            cb(CallbackEnv(model=cvbooster, params=params, iteration=i,
+                           begin_iteration=0, end_iteration=num_boost_round,
+                           evaluation_result_list=None))
+        for b in cvbooster.boosters:
+            b.update(fobj=fobj)
+        res = _agg_cv_result(
+            [(b.eval_train(feval) if eval_train_metric else [])
+             + b.eval_valid(feval) for b in cvbooster.boosters])
+        for _, key, mean, _, std in res:
+            results[f"{key}-mean"].append(mean)
+            results[f"{key}-stdv"].append(std)
+        try:
+            for cb in callbacks_after:
+                cb(CallbackEnv(model=cvbooster, params=params, iteration=i,
+                               begin_iteration=0,
+                               end_iteration=num_boost_round,
+                               evaluation_result_list=res))
+        except EarlyStopException as e:
+            cvbooster.best_iteration = e.best_iteration + 1
+            for b in cvbooster.boosters:
+                b.best_iteration = cvbooster.best_iteration
+            for k in results:
+                results[k] = results[k][:cvbooster.best_iteration]
+            break
+
+    out: Dict[str, Any] = dict(results)
+    if return_cvbooster:
+        out["cvbooster"] = cvbooster
+    return out

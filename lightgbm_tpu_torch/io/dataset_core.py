@@ -208,6 +208,40 @@ class BinnedDataset:
     def used_bin_mappers(self) -> List[BinMapper]:
         return [self.bin_mappers[i] for i in self.used_feature_map]
 
+    def subset(self, row_indices: np.ndarray) -> "BinnedDataset":
+        """Row-subset copy sharing the bin mappers (ref: Dataset::CopySubrow;
+        the JAX package's io/dataset_core.py:944): a row gather of the
+        bins, label, weight and class-major ``init_score``; query
+        boundaries are rebuilt from the rows' query ids. ``position`` is
+        not carried, as in the JAX package."""
+        row_indices = np.asarray(row_indices, dtype=np.int64)
+        out = BinnedDataset()
+        out.bins = self.bins[row_indices]
+        out.bin_mappers = self.bin_mappers
+        out.used_feature_map = self.used_feature_map
+        out.num_data = len(row_indices)
+        out.num_total_features = self.num_total_features
+        out.feature_names = self.feature_names
+        out.max_bin = self.max_bin
+        meta = Metadata(out.num_data)
+        src = self.metadata
+        if src.label is not None:
+            meta.label = src.label[row_indices]
+        if src.weight is not None:
+            meta.weight = src.weight[row_indices]
+        if src.init_score is not None:
+            ncol = len(src.init_score) // src.num_data
+            meta.init_score = src.init_score.reshape(
+                ncol, src.num_data)[:, row_indices].reshape(-1)
+        if src.query_boundaries is not None:
+            qid = np.searchsorted(src.query_boundaries,
+                                  np.arange(src.num_data), side="right") - 1
+            # the rows of one query stay adjacent for ranking
+            _, counts = np.unique(qid[row_indices], return_counts=True)
+            meta.set_query(counts)
+        out.metadata = meta
+        return out
+
     def feature_infos(self) -> List[str]:
         return [m.feature_info() for m in self.bin_mappers]
 

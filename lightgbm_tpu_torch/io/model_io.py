@@ -217,8 +217,16 @@ class _LoadedEngine:
         self.feature_infos: List[str] = []
         self.config = Config()
         self.valid_sets: List = []
-        self._model_gen = 0       # the trees never change: one generation
+        # advanced by invalidate_serving_cache: the next device
+        # prediction repacks
+        self._model_gen = 0
         self._serving = None
+
+    def invalidate_serving_cache(self) -> None:
+        """Call after changing the trees (``set_leaf_output``, ``refit``,
+        ``shuffle_models``): the packed forest is rebuilt at the next
+        device prediction."""
+        self._model_gen += 1
 
     def current_iteration(self) -> int:
         return len(self.models) // max(self.num_tree_per_iteration, 1)

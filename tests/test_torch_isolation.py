@@ -49,6 +49,23 @@ LEAF_MODULES = {
 }
 
 
+# modules copied from the JAX package for the user surface, and the only
+# imports each may have: the host TreeSHAP without the JAX package's
+# native kernel, the binary dataset format, and the estimators with their
+# stand-ins for a machine without scikit-learn
+COPIED_MODULES = {
+    "lightgbm_tpu_torch/core/shap.py": {"__future__", "numpy", ".tree"},
+    "lightgbm_tpu_torch/io/binary_io.py": {"__future__", "json", "math",
+                                           "numpy", "..utils", ".binning",
+                                           ".dataset_core"},
+    "lightgbm_tpu_torch/sklearn.py": {"__future__", "inspect", "typing",
+                                      "numpy", "sklearn.base",
+                                      "sklearn.preprocessing", ".basic",
+                                      ".callback", ".config", ".engine",
+                                      ".utils.log"},
+}
+
+
 def test_sources_exist():
     sources = _port_sources()
     assert os.path.isfile(sources[0])
@@ -59,7 +76,8 @@ def test_sources_exist():
             "lightgbm_tpu_torch/io/dataset_core.py",
             "lightgbm_tpu_torch/core/objective.py",
             "lightgbm_tpu_torch/core/metrics.py",
-            "lightgbm_tpu_torch/utils/prng.py"} | set(LEAF_MODULES) <= rel
+            "lightgbm_tpu_torch/utils/prng.py"} | set(LEAF_MODULES) | \
+        set(COPIED_MODULES) <= rel
 
 
 @pytest.mark.parametrize("rel", sorted(LEAF_MODULES))
@@ -94,3 +112,16 @@ def test_import_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("rel", sorted(COPIED_MODULES))
+def test_copied_module_imports_only_what_it_needs(rel):
+    with open(os.path.join(REPO, rel)) as fh:
+        tree = ast.parse(fh.read(), filename=rel)
+    found = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            found.add("." * node.level + (node.module or ""))
+    assert found <= COPIED_MODULES[rel], found - COPIED_MODULES[rel]
