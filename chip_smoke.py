@@ -38,7 +38,10 @@ Phases, each reported on its own line:
    ragged row count with and without the engine's 16-element row
    padding, at 65,536 bins on a few rows, and at shapes with feature
    tiles and bin windows of unequal width and with 33 and 1 rows. Two
-   launches on the same input must give the same bits;
+   launches on the same input must give the same bits. Then K1, K2 and
+   B2 in every mode, u8 and u16, fed gh as row sampling makes it (a 0/1
+   bag as the count channel, g and h amplified as GOSS does) over skewed
+   bins: dyadic and int8 gh bit for bit, the bagged counts exact;
 4. the main path at full width: ``Booster`` training of a Higgs-shaped
    binary GBDT (1,000,000 x 28, 255 leaves, 255 bins) on the compact
    grower for one warm-up and a few timed iterations, then ``predict``;
@@ -143,7 +146,26 @@ Phases, each reported on its own line:
    against the CPU on 20,000 rows: ``cv`` of lambdarank with group folds
    in 200 queries (root splits equal, fold means within 1e-6) and
    ``LGBMRegressor`` on the compact, hybrid and full paths (root splits
-   equal, training l2 within rtol 1e-6).
+   equal, training l2 within rtol 1e-6);
+12. the sampling and boosting variants on phase 4's rows (run after
+   phase 11) through ``Booster``: phase 4's configuration again as the
+   phase's baseline, bagging 0.5 every iteration on the compact path
+   (1 + 3 iterations), on the hybrid (K2) and the full (B2) paths,
+   balanced bagging (0.5 / 0.3) and ``tpu_device_bagging`` (1 + 1 each),
+   column sampling 0.8 a tree and 0.8 a node (1 + 3), GOSS at rate 0.5
+   (1 + 5: it samples from iteration 2), DART (drop rate 0.3, no skip;
+   1 + 5) and a random forest (bagging 0.632, column sampling 0.8;
+   1 + 3); each run launching its kernel mode and learning (its
+   training logloss falls; a forest's stays under the prior's), with its
+   s/iteration beside phase 4's, the host ms of its sampling, the rows
+   K1 reads an iteration, its peak bytes and its logloss after each
+   iteration; DART's traversal of the training rows (a dropped tree
+   costs two) over the strided and over contiguous bins; the forest's
+   mean of its trees by both device routes within 1e-5 of the host
+   walk, each the engine's device scores; then cuda against the CPU on
+   20,000 rows, every variant (bagging also on the hybrid and full
+   paths): the same bags, the trees to the binary standard of the CPU
+   tests.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -1038,6 +1060,111 @@ def phase_b2_bins(dev, flush, gen, B, shapes, dist, rows):
                 f"{layout} ld={b.stride(0)} F={F} B={B} leaf_rows=40000: "
                 f"max_abs_err={err!r} exact_gh_bit_for_bit=True "
                 "same_bits_two_launches=True")
+
+
+# phase 3's sampled gh: K1 at these leaf sizes (the dense, wide and
+# small paths), K2 at these node counts, B2 at these leaf sizes, each in
+# u8 at MAX_BIN and in u16 at U16_MAX_BIN, over skewed bins (hot bins)
+SAMPLED_K1_SHAPES = (N_ROWS, 4_097, 300)
+SAMPLED_K2_NODES = 64
+SAMPLED_B2_SHAPES = (N_ROWS, 65_536, 1)
+# the bag keeps a row with this probability; GOSS multiplies the gradient
+# and hessian of a sampled small-gradient row by (1 - top_rate) /
+# other_rate (4 at 0.2 / 0.2), here on this share of the rows
+SAMPLED_KEEP, SAMPLED_AMP_SHARE, SAMPLED_AMP = 0.5, 0.3, 4.0
+
+
+def make_sampled_gh(mode, R, gen, dev, dyadic):
+    """gh as row sampling makes it: ``[g*w, h*w, bag]`` with a 0/1 bag
+    and w = bag times GOSS's amplification on some kept rows; int8 gh
+    quantized from such rows, its count channel the bag. Dyadic values
+    (k / 8, |k| <= 64, times 0, 1 or 4) that bf16 and f32 hold exactly."""
+    bag = (torch.rand(R, generator=gen, device=dev) < SAMPLED_KEEP).float()
+    amp = torch.where(torch.rand(R, generator=gen, device=dev)
+                      < SAMPLED_AMP_SHARE, SAMPLED_AMP, 1.0)
+    w = bag * amp
+    if mode == "int8":
+        q = torch.randint(-31, 32, (R, 2), generator=gen, device=dev,
+                          dtype=torch.int32).float()
+        return torch.cat([q * w[:, None], bag[:, None]], 1).to(torch.int8)
+    if dyadic:
+        gh2 = torch.randint(-64, 65, (R, 2), generator=gen, device=dev,
+                            dtype=torch.int32).float() / 8
+    else:
+        gh2 = torch.randn((R, 2), generator=gen, device=dev)
+    gh = torch.cat([gh2 * w[:, None], bag[:, None]], 1)
+    return gh.to(torch.bfloat16) if mode == "bf16" else gh
+
+
+def phase_sampled_gh(dev):
+    """K1, K2 and B2 in every mode fed gh as bagging and GOSS make it
+    (``make_sampled_gh``): a 0/1 count channel and amplified g and h,
+    over skewed bins, against the exact sum: dyadic gh bit for bit,
+    normal gh within the tolerance, the count channel (the bagged count)
+    exact either way."""
+    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_fm, hist_cuda_rm
+    from lightgbm_tpu_torch.ops.hist_level import hist_level, node_order
+    from lightgbm_tpu_torch.ops.hist_level_cuda import hist_level_cuda
+    from lightgbm_tpu_torch.ops.histogram import (hist_featmajor_exact,
+                                                  hist_rowmajor_exact)
+    R, F = N_ROWS, N_FEATURES
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def check(mode, call, plain, S, what):
+        err = 0.0
+        for dyadic in (True, False):
+            gh = make_sampled_gh(mode, S, gen, dev, dyadic)
+            out, ref = call(gh), plain(gh)
+            torch.cuda.synchronize()
+            if dyadic or mode == "int8":
+                assert torch.equal(out, ref), f"{what}: exact gh differ"
+            else:
+                err = max(err, check_against_plain(mode, out, ref, what))
+            assert torch.equal(out[..., 2].double(), ref[..., 2].double()), \
+                f"{what}: the bagged counts differ"
+        return err
+
+    for B in (MAX_BIN, U16_MAX_BIN):
+        suffix = bin_width(B)[1]
+        bins = random_bins((R, F), B, gen, dev, skewed=True)
+        bins_fm = bins.T.contiguous()
+        local = (torch.rand(R, generator=gen, device=dev) ** 3
+                 * SAMPLED_K2_NODES).long().clamp(max=SAMPLED_K2_NODES - 1)
+        in_lvl = torch.rand(R, generator=gen, device=dev) < 0.9
+        order, seg = node_order(local, in_lvl, SAMPLED_K2_NODES)
+        for mode in MODES:
+            errs = {}
+            for S in SAMPLED_K1_SHAPES:
+                sub = bins[:S]
+                errs[f"K1_S{S}"] = check(
+                    mode, lambda g: hist_cuda_rm(sub, g, B),
+                    lambda g: hist_rowmajor_exact(sub, g, B), S,
+                    f"K1 {mode}{suffix} sampled gh S={S}")
+            errs[f"K2_n{SAMPLED_K2_NODES}"] = check(
+                mode, lambda g: hist_level_cuda(
+                    bins, g, local, in_lvl, SAMPLED_K2_NODES, B,
+                    order=order, seg=seg),
+                lambda g: hist_level(bins, g, local, in_lvl,
+                                     SAMPLED_K2_NODES, B), R,
+                f"K2 {mode}{suffix} sampled gh")
+            if mode in FM_MODES:
+                for S in SAMPLED_B2_SHAPES:
+                    ids = torch.randint(1, 9, (R,), generator=gen,
+                                        device=dev)
+                    ids[torch.randperm(R, generator=gen,
+                                       device=dev)[:S]] = 0
+                    keep = (ids == 0)[:, None]
+                    errs[f"B2_S{S}"] = check(
+                        mode, lambda g: hist_cuda_fm(bins_fm, g, B,
+                                                     leaf_id=ids, leaf=0),
+                        lambda g: hist_featmajor_exact(
+                            bins_fm, g * keep.to(g.dtype), B), R,
+                        f"B2 {mode}{suffix} sampled gh leaf rows={S}")
+            log(f"phase 3 sampled gh mode={mode}{suffix} B={B} bins=skewed "
+                f"keep={SAMPLED_KEEP} amplified_share={SAMPLED_AMP_SHARE} "
+                f"amp={SAMPLED_AMP}: exact_gh_bit_for_bit=True "
+                f"bagged_counts_exact=True max_abs_err={errs}")
+        del bins, bins_fm, local, in_lvl, order, seg
 
 
 def bench_params(**extra):
@@ -2387,6 +2514,384 @@ def phase_user_surface_cross_check(launches):
         launches[f"cross_check_{name}_{mode}"] = out["cuda"][2][mode]
 
 
+# phase 12: the sampling and boosting variants on phase 4's rows and
+# binning (1M x 28, 255 leaves, 255 bins, binary): name -> (params, timed
+# iterations after one warm-up, the kernel mode the run must launch).
+# "none" is phase 4's configuration again, for the same phase's baseline
+BAG = dict(bagging_fraction=0.5, bagging_freq=1)
+SAMPLING_RUNS = {
+    "none": ({}, 1, "hist_rowmajor_f32"),
+    "bagging": (BAG, 3, "hist_rowmajor_f32"),
+    "bagging_hybrid": (dict(BAG, tpu_row_scheduling="level"), 1,
+                       "hist_level_f32"),
+    "bagging_full": (dict(BAG, tpu_row_scheduling="full"), 1,
+                     "hist_featmajor_f32"),
+    "balanced": (dict(pos_bagging_fraction=0.5, neg_bagging_fraction=0.3),
+                 1, "hist_rowmajor_f32"),
+    "device_bagging": (dict(BAG, tpu_device_bagging=True), 1,
+                       "hist_rowmajor_f32"),
+    "column_sampling": (dict(feature_fraction=0.8,
+                             feature_fraction_bynode=0.8), 3,
+                        "hist_rowmajor_f32"),
+    # at learning rate 0.5 GOSS samples from iteration int(1 / 0.5) = 2:
+    # four of the five timed iterations
+    "goss": (dict(data_sample_strategy="goss", learning_rate=0.5), 5,
+             "hist_rowmajor_f32"),
+    "dart": (dict(boosting="dart", drop_rate=0.3, skip_drop=0.0), 5,
+             "hist_rowmajor_f32"),
+    "rf": (dict(boosting="rf", bagging_fraction=0.632, bagging_freq=1,
+                feature_fraction=0.8), 3, "hist_rowmajor_f32"),
+}
+# the cross-check of phase 12 on cuda and on the CPU: every run above
+# but the baseline, 20,000 rows, 31 leaves, 3 rounds
+SAMPLING_SMALL_ROWS = 20_000
+
+
+def sampling_rate(params):
+    """The factor every stored leaf value carries: the learning rate, 1
+    for a random forest."""
+    return 1.0 if params.get("boosting") == "rf" else params["learning_rate"]
+
+
+def sampling_grad_max(params):
+    """The largest |gradient| of a binary row under the run's sampling,
+    GOSS's amplification (1 - top_rate) / other_rate included."""
+    if params.get("data_sample_strategy") == "goss":
+        from lightgbm_tpu_torch import Config
+        cfg = Config(params)
+        return (1.0 - cfg.top_rate) / cfg.other_rate
+    return 1.0
+
+
+def record_bags(eng):
+    """Each iteration's bag (numpy bool [N]) as the engine draws it, by
+    wrapping its sampling step (an iteration with no sample keeps every
+    row)."""
+    bags = []
+    row_sample = eng._row_sample
+
+    def recorded(grad, hess):
+        pair = row_sample(grad, hess)
+        bags.append(np.ones(eng.num_data, bool) if pair is None
+                    else pair[0].cpu().numpy() > 0)
+        return pair
+    eng._row_sample = recorded
+    return bags
+
+
+def rows_at_nodes(t, X):
+    """Boolean row mask of every internal node of a host tree (a node's
+    parent always has the smaller index)."""
+    masks = [None] * (t.num_leaves - 1)
+    masks[0] = np.ones(len(X), bool)
+    for i in range(t.num_leaves - 1):
+        x = X[:, t.split_feature[i]]
+        go_left = np.where(np.isnan(x), (t.decision_type[i] & 2) != 0,
+                           np.nan_to_num(x) <= t.threshold_real[i])
+        for child, side in ((t.left_child[i], go_left),
+                            (t.right_child[i], ~go_left)):
+            if child >= 0:
+                masks[child] = masks[i] & side
+    return masks
+
+
+def assert_trees_to_binary_standard(a, b, X, bags, rate, g_max, h_max,
+                                    what):
+    """Two boosters' trees to the binary standard of the port's CPU tests
+    (tests/test_torch_multiclass.py): the same structure and (bagged)
+    counts; a threshold may differ only where no row of the node's bag
+    lies between the two, ``default_left`` only at a node of no missing
+    value (these rows have none); leaf hessian sums within 1e-6 N max h,
+    leaf values within 1e-6 rate N max|g| / H; on the rows of every bag
+    the same leaves, and each raw score within the sum of its leaves'
+    value bounds (the CPU tests' 1e-5 of the largest score is for ulp
+    differences of the gradients; the card also sums each histogram in
+    another order)."""
+    n = len(X)
+    ta, tb = a._engine.models, b._engine.models
+    assert len(ta) == len(tb), what
+    for i, (p, q) in enumerate(zip(ta, tb)):
+        nl = p.num_leaves
+        assert q.num_leaves == nl, (what, i)
+        ni = nl - 1
+        for f, m in (("split_feature", ni), ("left_child", ni),
+                     ("right_child", ni), ("internal_count", ni),
+                     ("leaf_count", nl)):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(p, f))[:m], np.asarray(getattr(q, f))[:m],
+                err_msg=f"{what} tree {i} {f}")
+        if nl <= 1:
+            continue
+        np.testing.assert_array_equal(p.decision_type[:ni] & ~2,
+                                      q.decision_type[:ni] & ~2)
+        node_rows = [r & bags[i] for r in rows_at_nodes(q, X)]
+        for j in np.flatnonzero(p.threshold_real[:ni] !=
+                                q.threshold_real[:ni]):
+            x = X[node_rows[j], q.split_feature[j]]
+            lo, hi = sorted((p.threshold_real[j], q.threshold_real[j]))
+            assert not ((x > lo) & (x <= hi)).any(), (what, i, j, lo, hi)
+        wa, wb = p.leaf_weight[:nl], q.leaf_weight[:nl]
+        assert (np.abs(wa - wb) < 1e-6 * n * h_max).all(), (what, i)
+        assert (np.abs(p.leaf_value[:nl] - q.leaf_value[:nl])
+                < 1e-6 * rate * n * g_max / np.maximum(wa, 1e-12)).all(), \
+            (what, i)
+    Xb = X[np.logical_and.reduce(bags)]
+    leaves = b.predict(Xb, pred_leaf=True)
+    np.testing.assert_array_equal(a.predict(Xb, pred_leaf=True), leaves,
+                                  err_msg=what)
+    # a row's raw score within the sum of its leaves' value bounds
+    tol = sum(1e-6 * rate * n * g_max
+              / np.maximum(t.leaf_weight[leaves[:, i]], 1e-12)
+              for i, t in enumerate(tb))
+    diff = np.abs(a.predict(Xb, raw_score=True)
+                  - b.predict(Xb, raw_score=True))
+    assert (diff <= tol).all(), (what, float(diff.max()),
+                                 float((diff / tol).max()))
+
+
+def nonzero(counts):
+    """The launch counts of the modes that ran."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def train_variant(ds, params, iters):
+    """Warm-up plus ``iters`` timed iterations, the launch counts zeroed
+    just before and read just after; per iteration its seconds, the
+    training ``binary_logloss`` and ``auc`` after it, the rows K1 read
+    (counted around the compact grower's K1 calls, so the launches and
+    their counts stay K1's own) and, for DART, the trees it dropped; the
+    peak device bytes above the start."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.core import grower
+    k1 = grower.hist_cuda_rm
+    rows_read = [0]
+
+    def counted(bins, gh, num_bin):
+        rows_read[0] += bins.shape[0]
+        return k1(bins, gh, num_bin)
+    grower.hist_cuda_rm = counted
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        bst = lgt.Booster(params, ds)
+        r = dict(iter_s=[], logloss=[], auc=[], k1_rows=[], dropped=[])
+        for i in range(1 + iters):
+            rows_read[0] = 0
+            t = time.perf_counter()
+            assert not bst.update(), "stopped early"
+            torch.cuda.synchronize()
+            if i:
+                r["iter_s"].append(time.perf_counter() - t)
+            ev = dict((m, v) for _, m, v, _ in bst.eval_train())
+            r["logloss"].append(ev["binary_logloss"])
+            r["auc"].append(ev["auc"])
+            r["k1_rows"].append(rows_read[0])
+            r["dropped"].append(len(getattr(bst._engine, "drop_index", ())))
+        r["counts"] = read_counts()
+        r["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    finally:
+        grower.hist_cuda_rm = k1
+    r["median_iter_s"] = statistics.median(r["iter_s"])
+    return bst, r
+
+
+def median_ms(fn, reps=3):
+    """Median wall ms of ``fn()`` (the device synchronized after each)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def sampling_host_ms(eng):
+    """Host ms of one sample as the engine draws it, by a fresh sampler
+    of the same config: the ``[K, N]`` gradient read (GOSS), the draw
+    (the bag, GOSS's partition over |g h|, or the threefry draw on the
+    device) and the mask's upload; and one tree's column masks drawn by
+    the engine itself."""
+    from lightgbm_tpu_torch.models.sample_strategy import SampleStrategy
+    cfg = eng.config
+    strat = SampleStrategy.create(cfg, eng.num_data,
+                                  eng.num_tree_per_iteration,
+                                  metadata=eng.train_set.metadata)
+    out = {}
+    if cfg.feature_fraction < 1.0 or cfg.feature_fraction_bynode < 1.0:
+        out["column_masks_ms"] = median_ms(eng._feature_mask)
+    resample = iter(range(0, 1 << 30, max(cfg.bagging_freq, 1)))
+    if not strat.needs_grad and not strat.need_bagging:
+        return out
+    if strat.needs_grad:
+        grad, hess = eng.objective.get_gradients(eng.score[0])
+        out["grad_read_ms"] = median_ms(
+            lambda: (grad.cpu().numpy(), hess.cpu().numpy()))
+        g, h = grad.cpu().numpy()[None], hess.cpu().numpy()[None]
+        it = int(1.0 / cfg.learning_rate)
+        out["draw_ms"] = median_ms(lambda: strat.sample(it, g, h))
+        pair = strat.sample(it, g, h)
+    elif cfg.tpu_device_bagging:
+        out["device_draw_ms"] = median_ms(lambda: strat.sample_dev(
+            next(resample), eng._bag_key, eng.device))
+        return out
+    else:
+        out["draw_ms"] = median_ms(lambda: strat.sample(next(resample)))
+        pair = strat.sample(next(resample))
+    if pair is not None:
+        out["upload_ms"] = median_ms(lambda: [
+            torch.as_tensor(a, device=eng.device) for a in
+            (pair[:1] if pair[1] is pair[0] else pair)])
+    return out
+
+
+def phase_sampling(ds, X, phase4_iter_s):
+    """Phase 12: the sampling and boosting variants of SAMPLING_RUNS on
+    phase 4's rows through ``Booster``: each run learns (its training
+    logloss falls, a random forest's stays under the prior's), launches
+    its kernel mode, and logs its s/iteration beside phase 4's, the host
+    ms of its sampling, the rows K1 reads an iteration, its peak bytes
+    and its logloss after each iteration; DART's traversal of the
+    training rows (a dropped tree costs two) on the strided bins and on a
+    contiguous copy; the random forest predicts by both device routes
+    the mean of its trees that the host walk gives (within 1e-5); then
+    cuda against the CPU on 20,000 rows. Returns each run's launches of
+    its kernel mode."""
+    import lightgbm_tpu_torch as lgt
+    t_phase = time.perf_counter()
+    launches, k1_rows = {}, {}
+    prior = float(np.log(2.0))          # balanced labels
+    # a Booster leaves its params in its Dataset's: each run starts from
+    # the Dataset's own
+    ds_params = dict(ds.params)
+    for name, (extra, iters, must) in SAMPLING_RUNS.items():
+        tr = time.perf_counter()
+        ds.params = dict(ds_params)
+        bst, r = train_variant(ds, bench_params(**extra), iters)
+        eng = bst._engine
+        c = r["counts"]
+        log(f"phase 12 run={name} iter_s={r['iter_s']!r} "
+            f"median_iter_s={r['median_iter_s']!r} "
+            f"phase4_median_iter_s={phase4_iter_s!r} "
+            f"over_phase4={r['median_iter_s'] / phase4_iter_s!r} "
+            f"launches={nonzero(c)} k1_rows_per_iter={r['k1_rows']} "
+            f"dropped_per_iter={r['dropped']} "
+            f"peak_bytes_above_start={r['peak_bytes']} "
+            f"logloss_per_iter={r['logloss']!r} auc_last={r['auc'][-1]!r}")
+        assert c[must] > 0, (name, c)
+        assert r["auc"][-1] > 0.7, (name, r["auc"])
+        if name == "rf":
+            assert max(r["logloss"]) < prior, (name, r["logloss"])
+        else:
+            assert r["logloss"][-1] < r["logloss"][0], (name, r["logloss"])
+        if name not in ("none", "dart"):
+            log(f"phase 12 run={name} sampling_host_ms="
+                f"{sampling_host_ms(eng)}")
+        if name == "dart":
+            assert sum(r["dropped"]) > 0, r["dropped"]
+            bins_fm = eng._train_bins_fm()
+            t0 = eng.models[0]
+            strided_ms = cuda_ms(lambda: eng._tree_outputs(t0, bins_fm),
+                                 reps=5)
+            contig = bins_fm.contiguous()
+            contig_ms = cuda_ms(lambda: eng._tree_outputs(t0, contig),
+                                reps=5)
+            log(f"phase 12 run=dart traversal_ms_strided={strided_ms!r} "
+                f"traversal_ms_contiguous={contig_ms!r} "
+                f"ms_per_dropped_tree={2 * strided_ms!r} "
+                f"contiguous_copy_bytes={contig.numel()} "
+                f"bins_stride={tuple(bins_fm.stride())}")
+            del contig
+        if name == "rf":
+            phase_sampling_rf_predict(bst, X)
+        launches[name] = c[must]
+        k1_rows[name] = r["k1_rows"]
+        del bst, eng
+        gc.collect()
+        log(f"phase 12 run={name} seconds={time.perf_counter() - tr!r}")
+    ds.params = ds_params
+    log(f"phase 12 k1_rows_per_iter without sampling={k1_rows['none']} "
+        f"with bagging 0.5={k1_rows['bagging']} (the bag keeps every "
+        "physical row in the partition)")
+    phase_sampling_cross_check(launches)
+    log(f"phase 12 seconds={time.perf_counter() - t_phase!r}")
+    return launches
+
+
+def phase_sampling_rf_predict(bst, X):
+    """The random forest's mean of its trees by the host walk, the
+    binned device route and the raw device route of its loaded text."""
+    import lightgbm_tpu_torch as lgt
+    eng = bst._engine
+    Xp = np.asarray(X[:PREDICT_ROWS], np.float64)
+    n_iter = bst.current_iteration()
+    host = bst.predict(Xp, raw_score=True, device=False)
+    total = sum(t.predict(Xp) for t in eng.models)
+    np.testing.assert_allclose(host * n_iter, total, rtol=1e-12, atol=1e-12)
+    t = time.perf_counter()
+    binned = bst.predict(Xp, raw_score=True, device=True)
+    binned_s = time.perf_counter() - t
+    # no fallback went unseen: the answer is the engine's device scores
+    assert np.array_equal(binned, eng.predict_device(Xp, 0, n_iter)[:, 0]
+                          / n_iter)
+    loaded = lgt.Booster({"device_type": "cuda"},
+                         model_str=bst.model_to_string())
+    assert loaded._engine.average_output
+    t = time.perf_counter()
+    raw_route = loaded.predict(Xp, raw_score=True, device=True)
+    raw_s = time.perf_counter() - t
+    assert np.array_equal(raw_route, loaded._engine.predict_device(
+        Xp, 0, n_iter)[:, 0] / n_iter)
+    err = {k: float(np.abs(v - host).max())
+           for k, v in (("binned", binned), ("raw", raw_route))}
+    log(f"phase 12 run=rf predict rows={len(Xp)} iterations={n_iter} "
+        f"max_abs_err_vs_host_walk={err} binned_rows_per_s="
+        f"{len(Xp) / binned_s!r} raw_rows_per_s={len(Xp) / raw_s!r}")
+    assert max(err.values()) < 1e-5, err
+
+
+def phase_sampling_cross_check(launches):
+    """cuda against the CPU on SAMPLING_SMALL_ROWS rows for every run of
+    SAMPLING_RUNS but the baseline (compact, and bagging on the hybrid
+    and full paths): trees to the binary standard over each iteration's
+    bag (the CPU run's; both draw the same bags), the CPU launching no
+    kernel."""
+    import lightgbm_tpu_torch as lgt
+    X, y = synth_higgs(SAMPLING_SMALL_ROWS, N_FEATURES, seed=5)
+    for name, (extra, _, must) in SAMPLING_RUNS.items():
+        if name == "none":
+            continue
+        tc = time.perf_counter()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = bench_params(num_leaves=31, device_type=dev, **extra)
+            reset_counts()
+            bst = lgt.Booster(params, lgt.Dataset(X, label=y))
+            bags = record_bags(bst._engine)
+            for _ in range(3):
+                assert not bst.update(), (name, dev)
+            loss = dict((m, v) for _, m, v, _ in bst.eval_train())
+            out[dev] = (bst, bags, read_counts(), loss["binary_logloss"])
+        (cb, cbags, cc, closs), (pb, pbags, pc, ploss) = out["cuda"], \
+            out["cpu"]
+        bags_equal = all(np.array_equal(a, b) for a, b in zip(cbags, pbags))
+        log(f"phase 12 cross-check run={name} logloss cuda={closs!r} "
+            f"cpu={ploss!r} bags_equal={bags_equal} "
+            f"cuda_launches={nonzero(cc)} "
+            f"seconds={time.perf_counter() - tc!r}")
+        assert bags_equal, name
+        assert cc[must] > 0 and sum(pc.values()) == 0, (name, cc, pc)
+        assert_trees_to_binary_standard(
+            cb, pb, X.astype(np.float64), pbags, sampling_rate(params),
+            sampling_grad_max(params), 0.25 * sampling_grad_max(params),
+            f"phase 12 cross-check {name}")
+        np.testing.assert_allclose(closs, ploss, rtol=1e-4, err_msg=name)
+        launches[f"cross_check_{name}_{must}"] = cc[must]
+
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
@@ -2459,6 +2964,8 @@ def main():
     log(f"phase 3 K2 done at {time.perf_counter() - t:.1f} s")
     b2 = phase_b2(dev, flush)
     log(f"phase 3 B2 done at {time.perf_counter() - t:.1f} s")
+    phase_sampled_gh(dev)
+    log(f"phase 3 sampled gh done at {time.perf_counter() - t:.1f} s")
     del flush
     main_run, bst, ds, X = phase_main_path()
     compact_counts = main_run["counts"]
@@ -2485,6 +2992,8 @@ def main():
     log(f"phase 9 done at {time.perf_counter() - t:.1f} s")
     surface_runs = phase_user_surface(bst, ds, X, main_run["binning_s"])
     log(f"phase 11 done at {time.perf_counter() - t:.1f} s")
+    sampling_runs = phase_sampling(ds, X, main_run["median_iter_s"])
+    log(f"phase 12 done at {time.perf_counter() - t:.1f} s")
     del bst, ds, X
     rank_runs = phase_ranking()
     log(f"phase 10 done at {time.perf_counter() - t:.1f} s")
@@ -2517,6 +3026,7 @@ def main():
     log("phase 9 launches by run: " + json.dumps(mc_runs))
     log("phase 10 launches by run: " + json.dumps(rank_runs))
     log("phase 11 launches by run: " + json.dumps(surface_runs))
+    log("phase 12 launches by run: " + json.dumps(sampling_runs))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -27,6 +27,7 @@ from .config import Config
 from .core.metrics import metrics_for_config
 from .core.objective import create_objective
 from .io.dataset_core import BinnedDataset
+from .models import create_boosting
 from .models.gbdt import GBDT
 from .ops.forest import DeviceRouteUnavailable
 from .utils import log
@@ -422,7 +423,8 @@ class Booster:
         self.config = Config(merged)
         train_set._update_params(self.params)
         objective = create_objective(self.config.objective, self.config)
-        self._engine = GBDT(self.config, train_set.binned, objective)
+        self._engine = create_boosting(self.config, train_set.binned,
+                                       objective)
         self._engine.add_train_metrics(
             metrics_for_config(self.config, objective.NAME))
 
@@ -493,8 +495,9 @@ class Booster:
 
     def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
         """Change parameters between iterations (ref: Booster::ResetConfig,
-        c_api.cpp): ``learning_rate`` is read by the next iteration.
-        Settings the port does not implement yet are refused."""
+        c_api.cpp): ``learning_rate`` and the row sampler's settings are
+        read by the next iteration. Settings the port does not implement
+        yet are refused."""
         trial = self.config.copy()
         trial.update(params)
         bad = trial.unsupported_settings()
@@ -505,6 +508,8 @@ class Booster:
         self.config = trial
         self._engine.config = trial
         self._engine.shrinkage_rate = float(trial.learning_rate)
+        if hasattr(self._engine, "sample_strategy"):
+            self._engine.sample_strategy.reset_config(trial)
         return self
 
     def free_dataset(self) -> "Booster":
@@ -783,6 +788,9 @@ class Booster:
         the training schema (``data_has_header=True`` skips a header) and
         padded with zero columns to the model's features.
         ``pred_contrib`` gives the host TreeSHAP ``[N, (F + 1) * K]``.
+        A random forest (``average_output``) predicts the mean of its
+        iterations on every route; its ``pred_contrib`` is the sum, not
+        the mean, as the JAX package gives it.
         ``predict_disable_shape_check`` (here or in the params) lets a
         matrix of another width through: absent trailing features read
         0. With ``validate_features``, a frame's column names must be
@@ -851,6 +859,10 @@ class Booster:
             raw = np.zeros((X.shape[0], K), dtype=np.float64)
             for i, t in enumerate(trees):
                 raw[:, i % K] += t.predict(X)
+        if eng.average_output and end_iteration > start_iteration:
+            # a random forest predicts the mean of its trees (ref: the JAX
+            # package's basic.py:1125-1126)
+            raw /= end_iteration - start_iteration
         if not raw_score and eng.objective is not None:
             if K > 1:
                 # [R, K]: softmax over the classes, or each class's sigmoid

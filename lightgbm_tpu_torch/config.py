@@ -11,7 +11,8 @@ Differences from the JAX package's copy: ``device_type`` defaults to
 ``"cuda"`` and accepts ``"cuda"`` or ``"cpu"``; the ``tpu_*`` names stay
 registered so one params dict drives both packages. The port reads
 ``tpu_row_scheduling`` (compact, full, leaf or level), ``tpu_hist_dtype``,
-``tpu_level_handoff_depth`` and ``tpu_predict_device``; it accepts and
+``tpu_level_handoff_depth``, ``tpu_device_bagging`` and
+``tpu_predict_device``; it accepts and
 ignores ``tpu_hist_kernel``, ``tpu_use_pallas`` and ``tpu_rows_per_block``
 (every value runs the port's hand kernels) and ``tpu_predict_buckets``
 (it pads no request; see models/gbdt.py), and refuses the settings it cannot honour yet (see
@@ -443,17 +444,15 @@ def _parse_list(value: Any, elem_type: Any) -> List[Any]:
     return [elem_type(v) for v in value]
 
 
-# What the port implements is the dense numerical ``gbdt`` path with the
-# compact, full/leaf, level and hybrid growers. A setting that needs anything else
-# maps to a predicate that is True for the unsupported value and to the
-# ROADMAP item that ports it; training refuses it instead of ignoring it.
+# What the port implements is dense numerical training with the compact,
+# full/leaf, level and hybrid growers: ``gbdt``, ``dart`` and ``rf``
+# boosting, bagging (uniform, balanced, by query, ``tpu_device_bagging``)
+# and GOSS row sampling, and per-tree and per-node column sampling. A
+# setting that needs anything else maps to a predicate that is True for
+# the unsupported value and to the ROADMAP item that ports it; training
+# refuses it instead of ignoring it.
 _UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {
-    "boosting": (lambda v: str(v).lower() != "gbdt", "A12"),
-    "data_sample_strategy": (lambda v: str(v).lower() != "bagging", "A12"),
     "tree_learner": (lambda v: str(v).lower() != "serial", "A13"),
-    "bagging_freq": (lambda v: v > 0, "A12"),
-    "feature_fraction": (lambda v: v < 1.0, "A12"),
-    "feature_fraction_bynode": (lambda v: v < 1.0, "A12"),
     "extra_trees": (bool, "A12"),
     "monotone_constraints": (lambda v: any(int(x) != 0 for x in v), "A12"),
     "interaction_constraints": (bool, "A12"),

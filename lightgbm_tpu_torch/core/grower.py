@@ -189,15 +189,33 @@ def _go_left(col: torch.Tensor, thr: int, default_left: bool, num_bin: int,
     return go_left
 
 
+def node_mask(feature_mask: Optional[torch.Tensor], rows: List[int]
+              ) -> Optional[torch.Tensor]:
+    """Column sampling's mask for the nodes of mask rows ``rows``: a
+    tree's ``[F]`` mask serves every node; ``feature_fraction_bynode``'s
+    ``[2L, F]`` gives each its own row (root 0, the children of split i
+    2i+1 and 2i+2; ref: the JAX package's core/grower.py:825-834)."""
+    if feature_mask is None or feature_mask.dim() == 1:
+        return feature_mask
+    last = feature_mask.shape[0] - 1
+    return feature_mask[[min(r, last) for r in rows]]
+
+
 def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                      hist_fn: Optional[Callable] = None):
-    """Build ``grow(bins, gh, uniforms=None) -> (TreeArrays, leaf_id)``.
+    """Build ``grow(bins, gh, uniforms=None, feature_mask=None) ->
+    (TreeArrays, leaf_id)``.
 
     ``bins`` is ``[R, F]`` row-major under compact scheduling and
     ``[F, R]`` feature-major under full scheduling, uint8 or u16 held as
     int16 (``ops/histogram.bin_ids``); ``gh`` f32 ``[R, 3]``
-    = (grad, hess, 1); both on the training device. ``uniforms`` are the
-    stochastic-rounding draws ``(ug, uh)`` of a quantized tree.
+    = (grad, hess, 1), or under row sampling (grad·w, hess·w, bag): every
+    physical row stays in the partition, so the compact grower picks the
+    smaller child by raw rows and the full grower by the record's
+    (bagged) counts, as the JAX package does; both on the training
+    device. ``uniforms`` are the stochastic-rounding draws ``(ug, uh)``
+    of a quantized tree. ``feature_mask`` is column sampling's bool mask
+    on the device, ``[F]`` or ``[2L, F]`` (``node_mask``).
     ``hist_fn(bins, gh, num_bin)`` builds one histogram (by default kernel
     K1 for compact and B2 for full scheduling: the card's kernel for CUDA
     tensors, its plain version for CPU tensors); under full scheduling it
@@ -205,8 +223,8 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     leaf's rows (``ops/hist_cuda.hist_cuda_fm``'s contract). ``leaf_id``
     (int64 ``[R]``, on the device) is each row's leaf.
 
-    ``grow.resume(bins, gh_hist, conv, state, k0)`` runs the split loop
-    from step ``k0`` over a committed ``GrowState``.
+    ``grow.resume(bins, gh_hist, conv, state, k0, feature_mask=None)``
+    runs the split loop from step ``k0`` over a committed ``GrowState``.
     """
     hp = cfg.hparams
     L = cfg.num_leaves
@@ -218,7 +236,7 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     miss_h = meta.missing_type.tolist()
     dflt_h = meta.default_bin.tolist()
 
-    def root_state(bins, gh, gh_hist, conv) -> GrowState:
+    def root_state(bins, gh, gh_hist, conv, feature_mask) -> GrowState:
         """ref: LeafSplits::Init + the first FindBestSplits."""
         dev = gh.device
         F, R = bins.shape if full else bins.shape[::-1]
@@ -230,7 +248,8 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             torch.zeros((), **f32))
         hist_root = hist_fn(bins, gh_hist, B)
         best_root = best_split_for_leaf(conv(hist_root), root_g, root_h,
-                                        root_c, root_out, meta, hp)
+                                        root_c, root_out, meta, hp,
+                                        node_mask(feature_mask, [0]))
 
         hist = torch.zeros((L, F, B, 3), dtype=hist_root.dtype, device=dev)
         hist[0] = hist_root
@@ -291,7 +310,9 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                        leaf=l if left_smaller else new_leaf)
 
     def resume(bins: torch.Tensor, gh_hist: torch.Tensor, conv: Callable,
-               st: GrowState, k0: int) -> Tuple[TreeArrays, torch.Tensor]:
+               st: GrowState, k0: int,
+               feature_mask: Optional[torch.Tensor] = None
+               ) -> Tuple[TreeArrays, torch.Tensor]:
         dev = gh_hist.device
         R = gh_hist.shape[0]
         hist, stats, best, node = st.hist, st.stats, st.best, st.node
@@ -353,7 +374,8 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             stats[pair] = child
             rec2 = best_split_for_leaf(
                 conv(hist[pair]), child[:, S_SG], child[:, S_SH],
-                child[:, S_CNT], child[:, S_VAL], meta, hp)
+                child[:, S_CNT], child[:, S_VAL], meta, hp,
+                node_mask(feature_mask, [2 * i + 1, 2 * i + 2]))
             best[pair] = pack_record_rows(rec2)
             num_leaves = new_leaf + 1
 
@@ -388,11 +410,12 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         leaf_id[st.order] = pos2leaf
         return tree, leaf_id
 
-    def grow(bins: torch.Tensor, gh: torch.Tensor, uniforms=None
+    def grow(bins: torch.Tensor, gh: torch.Tensor, uniforms=None,
+             feature_mask: Optional[torch.Tensor] = None
              ) -> Tuple[TreeArrays, torch.Tensor]:
         gh_hist, conv = hist_inputs(cfg, gh, uniforms)
-        state = root_state(bins, gh, gh_hist, conv)
-        return resume(bins, gh_hist, conv, state, 0)
+        state = root_state(bins, gh, gh_hist, conv, feature_mask)
+        return resume(bins, gh_hist, conv, state, 0, feature_mask)
 
     grow.resume = resume
     return grow

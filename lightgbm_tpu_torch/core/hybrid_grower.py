@@ -22,7 +22,7 @@ the pool the tail inherits is exactly what the tail would have built.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -58,9 +58,10 @@ def make_hybrid_grower(cfg: GrowerConfig, meta: FeatureMeta,
                        handoff_depth: int = 0,
                        hist_fn: Callable = hist_cuda_rm,
                        level_hist_fn: Callable = hist_level_cuda):
-    """Build ``grow(bins_rm, gh, uniforms=None) -> (TreeArrays, leaf_id)``
-    for unbounded or deep ``max_depth``: the level phase to D0, then the
-    compact tail. ``handoff_depth <= 0`` means auto."""
+    """Build ``grow(bins_rm, gh, uniforms=None, feature_mask=None) ->
+    (TreeArrays, leaf_id)`` for unbounded or deep ``max_depth``: the level
+    phase to D0, then the compact tail, both under the one ``[F]`` column
+    mask. ``handoff_depth <= 0`` means auto."""
     L = int(cfg.num_leaves)
     D0 = resolve_handoff_depth(L, handoff_depth)
     if 0 < cfg.max_depth <= D0:
@@ -82,10 +83,11 @@ def make_hybrid_grower(cfg: GrowerConfig, meta: FeatureMeta,
     rc_all = np.minimum(2 * ids + 2, T - 1)
     root = ids == 0
 
-    def grow(bins_rm: torch.Tensor, gh: torch.Tensor, uniforms=None):
+    def grow(bins_rm: torch.Tensor, gh: torch.Tensor, uniforms=None,
+             feature_mask: Optional[torch.Tensor] = None):
         dev = gh.device
         gh_hist, conv = hist_inputs(cfg, gh, uniforms)
-        res = phase(bins_rm, gh, gh_hist, conv)
+        res = phase(bins_rm, gh, gh_hist, conv, feature_mask)
         h = res["host"].cpu().numpy()
 
         # ---- the committed prefix and its leaf slots ---------------------
@@ -157,6 +159,6 @@ def make_hybrid_grower(cfg: GrowerConfig, meta: FeatureMeta,
             seg_start=np.where(live_slot, starts, 0).tolist(),
             seg_rows=np.where(live_slot, cnt, 0).tolist(),
             num_leaves=k0 + 1)
-        return tail.resume(bins_rm, gh_hist, conv, state, k0)
+        return tail.resume(bins_rm, gh_hist, conv, state, k0, feature_mask)
 
     return grow

@@ -74,7 +74,9 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
     partitioned stably into its children's, no sort) and handed to
     ``hist_fn`` as ``order``/``seg``.
 
-    Returns ``phase(bins_rm, gh, gh_hist, conv) -> dict``: ``heap``
+    Returns ``phase(bins_rm, gh, gh_hist, conv, feature_mask=None) ->
+    dict`` (``feature_mask``: column sampling's ``[F]`` mask, one for
+    every node, as the JAX package's level_grower.py:318-321 applies it): ``heap``
     (int64 [R], each row's final heap node), ``host`` (f32 [T, NB + 4]
     on the device: the packed split row of every heap node, then its
     grad/hess/count sums and output; columns ``H_*``) and, with
@@ -86,7 +88,8 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
     n_scan = depth + (1 if scan_last else 0)
 
     def phase(bins_rm: torch.Tensor, gh: torch.Tensor,
-              gh_hist: torch.Tensor, conv: Callable) -> Dict:
+              gh_hist: torch.Tensor, conv: Callable,
+              feature_mask: Optional[torch.Tensor] = None) -> Dict:
         dev = gh.device
         R = bins_rm.shape[0]
         sums = root_sums(cfg, gh, gh_hist, conv)
@@ -113,7 +116,7 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
             # ---- the split scan, batched over the level's nodes --------
             recs = best_split_for_leaf(conv(hist_raw), node_d[:, 0],
                                        node_d[:, 1], node_d[:, 2],
-                                       node_d[:, 3], meta, hp)
+                                       node_d[:, 3], meta, hp, feature_mask)
             rows_l.append(pack_record_rows(recs))
             if d >= depth:
                 break       # deepest scanned level: no descend
@@ -212,8 +215,8 @@ def rank_and_slots(gain_h: np.ndarray, L: int, depth: int,
 
 def make_level_grower(cfg: GrowerConfig, meta: FeatureMeta,
                       hist_fn: Callable = hist_level_cuda):
-    """Build ``grow(bins_rm, gh, uniforms=None) -> (TreeArrays, leaf_id)``
-    for ``1 <= max_depth <= MAX_LEVEL_DEPTH`` (ref: level_grower.py:578);
+    """Build ``grow(bins_rm, gh, uniforms=None, feature_mask=None) ->
+    (TreeArrays, leaf_id)`` for ``1 <= max_depth <= MAX_LEVEL_DEPTH`` (ref: level_grower.py:578);
     deeper or unbounded configs go through the hybrid grower."""
     L = int(cfg.num_leaves)
     D = int(cfg.max_depth)
@@ -230,9 +233,10 @@ def make_level_grower(cfg: GrowerConfig, meta: FeatureMeta,
     lc_all = np.minimum(2 * ids_all + 1, T_all - 1)
     rc_all = np.minimum(2 * ids_all + 2, T_all - 1)
 
-    def grow(bins_rm: torch.Tensor, gh: torch.Tensor, uniforms=None):
+    def grow(bins_rm: torch.Tensor, gh: torch.Tensor, uniforms=None,
+             feature_mask: Optional[torch.Tensor] = None):
         gh_hist, conv = hist_inputs(cfg, gh, uniforms)
-        res = phase(bins_rm, gh, gh_hist, conv)
+        res = phase(bins_rm, gh, gh_hist, conv, feature_mask)
         h = res["host"].cpu().numpy()
         rank, k, chosen, slot, eff = rank_and_slots(h[:, B_GAIN], L, D)
         leaf_id = torch.from_numpy(np.maximum(eff, 0)).to(gh.device)[

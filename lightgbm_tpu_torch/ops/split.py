@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -227,7 +227,9 @@ def bin_cumsum(x: torch.Tensor) -> torch.Tensor:
 
 def best_split_for_leaf(hist: torch.Tensor, sum_gradient, sum_hessian,
                         num_data, parent_output, meta: FeatureMeta,
-                        hp: SplitHyperParams) -> SplitRecord:
+                        hp: SplitHyperParams,
+                        feature_mask: Optional[torch.Tensor] = None
+                        ) -> SplitRecord:
     """Best split over all features for one leaf, or for a batch of them.
 
     Parameters
@@ -236,6 +238,9 @@ def best_split_for_leaf(hist: torch.Tensor, sum_gradient, sum_hessian,
         or [N, F, B, 3] for N leaves.
     sum_gradient, sum_hessian, num_data, parent_output : f32 leaf totals,
         scalars (or [N]); the count is a float.
+    feature_mask : bool [F] (every leaf) or [N, F] (one row a leaf), or
+        None: column sampling; a masked feature cannot win (ref: the JAX
+        package's ops/split.py:702-703).
 
     The arithmetic mirrors FindBestThresholdSequentially with the
     kEpsilon seeding: the accumulating side starts at kEpsilon and the
@@ -248,7 +253,7 @@ def best_split_for_leaf(hist: torch.Tensor, sum_gradient, sum_hessian,
     rec = _select_across_features(
         _per_feature_scan(hist4, f32(sum_gradient), f32(sum_hessian),
                           f32(num_data), f32(parent_output), meta, hp),
-        hp)
+        hp, feature_mask)
     return rec if batched else SplitRecord(*(v[0] for v in rec))
 
 
@@ -358,12 +363,16 @@ def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
     return out
 
 
-def _select_across_features(scan: dict, hp: SplitHyperParams) -> SplitRecord:
+def _select_across_features(scan: dict, hp: SplitHyperParams,
+                            feature_mask: Optional[torch.Tensor] = None
+                            ) -> SplitRecord:
     """Cross-feature selection over _per_feature_scan output: the winner
     by (max net gain, smaller feature index), and its side sums fetched
     from the scan's cumulative sums at (feature, iteration) with the same
     f32 operations the scan used."""
     best_gain = scan["best_gain"]                              # [N, F]
+    if feature_mask is not None:
+        best_gain = torch.where(feature_mask, best_gain, K_MIN_SCORE)
     best_t = scan["best_t"]
     N = best_gain.shape[0]
     dev = best_gain.device

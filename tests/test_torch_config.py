@@ -1,7 +1,8 @@
 """Settings the PyTorch port cannot honour yet are refused, by name and
 with the ROADMAP item that ports them; the settings the port has ported
 (quantized gradients, bf16 histograms, level, full and leaf scheduling,
-and every ``tpu_hist_kernel`` value) train."""
+every ``tpu_hist_kernel`` value, DART, random forests, bagging, GOSS and
+column sampling) train."""
 import numpy as np
 import pytest
 
@@ -10,14 +11,8 @@ from lightgbm_tpu_torch.config import _UNSUPPORTED_WHEN
 
 F = 4
 REFUSED = [
-    ("boosting", "rf", "A12"),
     ("tree_learner", "voting", "A13"),
-    ("boosting", "dart", "A12"),
-    ("data_sample_strategy", "goss", "A12"),
     ("tree_learner", "data", "A13"),
-    ("bagging_freq", 1, "A12"),
-    ("feature_fraction", 0.5, "A12"),
-    ("feature_fraction_bynode", 0.5, "A12"),
     ("extra_trees", True, "A12"),
     ("monotone_constraints", [1] + [0] * (F - 1), "A12"),
     ("interaction_constraints", "[0,1],[2,3]", "A12"),
@@ -65,9 +60,15 @@ def test_unported_setting_is_refused_with_its_roadmap_item(name, value,
     {"tpu_hist_kernel": "pallas"}, {"tpu_hist_kernel": "pallas_level"},
     {"tpu_row_scheduling": "full", "tpu_use_pallas": True,
      "tpu_rows_per_block": 512},
-    {"tpu_row_scheduling": "leaf", "use_quantized_grad": True}],
+    {"tpu_row_scheduling": "leaf", "use_quantized_grad": True},
+    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"boosting": "dart"}, {"data_sample_strategy": "goss"},
+    {"bagging_freq": 1, "bagging_fraction": 0.5},
+    {"feature_fraction": 0.5}, {"feature_fraction_bynode": 0.5}],
     ids=["quantized", "bf16", "level", "einsum", "scatter", "pallas",
-         "pallas_level", "full", "leaf"])
+         "pallas_level", "full", "leaf", "boosting=rf", "boosting=dart",
+         "data_sample_strategy=goss", "bagging_freq=1",
+         "feature_fraction=0.5", "feature_fraction_bynode=0.5"])
 def test_ported_settings_train(extra):
     X, y = _data()
     params = {"objective": "binary", "device_type": "cpu", "verbosity": -1,

@@ -408,7 +408,7 @@ def test_unported_training_api_is_refused(rng, what):
     match = {"ranking_objective": "require query information",
              "resume_from": "A12.7",
              "tpu_fallback_to_cpu": "does not fall back",
-             "reset_parameter": "bagging_freq.*A12",
+             "reset_parameter": "extra_trees.*A12",
              "categorical_init_model": "A12.5",
              "valid_without_reference": "reference="}[what]
     if what == "ranking_objective":
@@ -426,7 +426,7 @@ def test_unported_training_api_is_refused(rng, what):
     with pytest.raises(LightGBMError, match=match):
         if what == "reset_parameter":
             b = lgt.Booster(params, tr)
-            b.reset_parameter({"bagging_freq": 1, "bagging_fraction": 0.5})
+            b.reset_parameter({"extra_trees": True})
         else:
             lgt.train(params, tr, num_boost_round=2, **kw)
 

@@ -74,22 +74,27 @@ def _max_grad_hess(objective):
 
 def assert_trees_to_binary_standard(jb, tb, X, objective=None,
                                     g_max=None, h_max=None, rate=RATE,
-                                    converted=True):
+                                    converted=True, bags=None):
     """The binary standard (module docstring) over every tree; ``g_max``
     and ``h_max`` bound a row's |gradient| and hessian (by default the
     multiclass ``objective``'s). ``converted=False`` for an objective
     whose prediction is the raw score (ranking), held by the raw check
-    alone."""
+    alone. ``bags`` gives each tree's bool row mask under row sampling:
+    a row out of the bag adds nothing to a histogram, so only the bag's
+    rows of a node count there, and the predictions are held on the rows
+    of every bag."""
     n = len(X)
     if g_max is None:
         g_max, h_max = _max_grad_hess(objective)
     jt, tt = _trees(jb.model_to_string()), _trees(tb.model_to_string())
     assert len(tt) == len(jt)
-    for j, t, host in zip(jt, tt, jb._engine.models):
+    for ti, (j, t, host) in enumerate(zip(jt, tt, jb._engine.models)):
         for key in STRUCTURE_KEYS:
             if key != "threshold":
                 assert t[key] == j[key], key
         node_rows = _rows_at_nodes(host, X) if host.num_leaves > 1 else []
+        if bags is not None:
+            node_rows = [rows & bags[ti] for rows in node_rows]
         jthr = np.asarray(j["threshold"].split(), float) \
             if "threshold" in j else np.zeros(0)
         tthr = np.asarray(t["threshold"].split(), float) \
@@ -113,6 +118,10 @@ def assert_trees_to_binary_standard(jb, tb, X, objective=None,
         if len(jw) > 1:
             np.testing.assert_array_less(np.abs(tv - jv),
                                          1e-6 * rate * n * g_max / jw)
+    if bags is not None:
+        # a row outside a tree's bag may lie between its two thresholds:
+        # the predictions are held on the rows of every bag
+        X = X[np.logical_and.reduce(bags)]
     jraw = jb.predict(X, raw_score=True)
     np.testing.assert_allclose(tb.predict(X, raw_score=True), jraw, rtol=0,
                                atol=1e-5 * np.abs(jraw).max())

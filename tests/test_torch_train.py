@@ -246,7 +246,7 @@ def test_cuda_without_a_card_raises(rng, monkeypatch):
 
 def test_unported_settings_are_refused(rng):
     X, y = _data(rng, "regression")
-    for extra in ({"bagging_freq": 1, "bagging_fraction": 0.5},
+    for extra in ({"linear_tree": True},
                   {"extra_trees": True},
                   {"objective": "lambdarank"}):
         params = {"objective": "regression", "device_type": "cpu",
