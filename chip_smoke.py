@@ -165,7 +165,26 @@ Phases, each reported on its own line:
    walk, each the engine's device scores; then cuda against the CPU on
    20,000 rows, every variant (bagging also on the hybrid and full
    paths): the same bags, the trees to the binary standard of the CPU
-   tests.
+   tests;
+13. categorical features at the shape of the 2009 ASA Data Expo airline
+   data (LightGBM's docs/Experiments.rst "Expo", 11,000,000 rows of the
+   eight columns szilard/benchm-ml trains on: Month, DayofMonth,
+   DayOfWeek, UniqueCarrier, Origin and Dest categorical, the airports
+   Zipf-skewed; DepTime and Distance numerical; about one positive in
+   five) through ``Booster`` with 200,000 held-out rows as a validation
+   set (run after phase 12, its data freed): the compact path (1 + 3
+   iterations), quantized, hybrid (K2), full (B2) and compact at
+   max_bin=1023 (Origin and Dest of 301 bins: K1 over u16 bins; 1 + 1
+   each), and the compact path with the codes as numbers (1 + 3); each
+   run launching its kernel mode and learning (the held-out logloss
+   falling and under the prior's), with its s/iteration beside phase
+   4's, its peak bytes, the binning seconds and how many splits a tree
+   takes on a categorical feature; the held-out rows by the binned
+   device route within 1e-5 of the host walk, and the model loaded from
+   its text answering by the host walk; then cuda against the CPU on
+   20,000 rows for every grower (the level grower at depth 4 for the
+   hybrid's level phase), each leaf holding the same rows, values to
+   the binary standard widened for sums over large category bins.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -2892,6 +2911,373 @@ def phase_sampling_cross_check(launches):
         launches[f"cross_check_{name}_{must}"] = cc[must]
 
 
+# phase 13: categorical features at the shape of the 2009 ASA Data Expo
+# airline on-time data (LightGBM's docs/Experiments.rst "Expo" row, 11M
+# rows; the eight raw columns szilard/benchm-ml trains on, target
+# dep_delayed_15min): name, categories, Zipf exponent of the codes (0:
+# uniform). Origin and Dest are Zipf-skewed, as airports are
+AIRLINE_ROWS = 11_000_000
+AIRLINE_HOLDOUT = 200_000
+AIRLINE_COLUMNS = ("Month", "DayofMonth", "DayOfWeek", "DepTime",
+                   "UniqueCarrier", "Origin", "Dest", "Distance")
+AIRLINE_CATEGORICAL = {"Month": (12, 0.0), "DayofMonth": (31, 0.0),
+                       "DayOfWeek": (7, 0.0), "UniqueCarrier": (22, 0.6),
+                       "Origin": (300, 1.4), "Dest": (300, 1.4)}
+AIRLINE_CAT_INDEX = [AIRLINE_COLUMNS.index(c) for c in AIRLINE_CATEGORICAL]
+# about one flight in five departs 15 minutes late
+AIRLINE_POSITIVE_SHARE = 0.2
+# name -> (params, timed iterations after one warm-up, categorical
+# features or not, the kernel mode the run must launch); *_u16 runs bin
+# at max_bin=1023, where Origin and Dest take 301 bins (uint16 bins)
+CAT_RUNS = {
+    "compact": ({}, 3, True, "hist_rowmajor_f32"),
+    "quantized": (dict(use_quantized_grad=True), 1, True,
+                  "hist_rowmajor_int8"),
+    "hybrid": (dict(tpu_row_scheduling="level"), 1, True, "hist_level_f32"),
+    "full": (dict(tpu_row_scheduling="full"), 1, True, "hist_featmajor_f32"),
+    "compact_u16": (dict(max_bin=U16_MAX_BIN), 1, True,
+                    "hist_rowmajor_f32_u16"),
+    # the codes as numbers: the same rows with no categorical feature
+    "codes_as_numbers": ({}, 3, False, "hist_rowmajor_f32"),
+}
+# the cross-check of phase 13 on cuda and on the CPU: 20,000 rows, 31
+# leaves, 3 rounds, every grower: the level grower at max_depth=4 stands
+# for the hybrid's level phase (the hybrid commits the first of the
+# nodes ranked by e, and e ties exactly across a set and its complement,
+# which the last bit of the f32 sums orders: a different commit, a
+# different tree), the compact path for its tail
+CAT_SMALL_ROWS = 20_000
+CAT_CHECKS = {
+    "compact": ({}, "hist_rowmajor_f32"),
+    "quantized": (dict(use_quantized_grad=True), "hist_rowmajor_int8"),
+    "level": (dict(tpu_row_scheduling="level", max_depth=4),
+              "hist_level_f32"),
+    "full": (dict(tpu_row_scheduling="full"), "hist_featmajor_f32"),
+    "compact_u16": (dict(max_bin=U16_MAX_BIN), "hist_rowmajor_f32_u16"),
+}
+
+
+def synth_airline(n, seed=0):
+    """Airline-shaped rows (float32 [n, 8], columns AIRLINE_COLUMNS) and
+    labels: codes 1-based for the calendar columns and 0-based for the
+    carrier and airports, DepTime as hhmm, Distance in miles (30-4,900).
+    The label is a logistic function of per-category effects (drawn at
+    random from the fixed seed 1, so not monotone in the code), the
+    departure hour and the distance, plus noise, cut at about one
+    positive in five."""
+    eff_rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
+    X = np.empty((n, len(AIRLINE_COLUMNS)), np.float32)
+    logit = np.zeros(n, np.float32)
+    for name, (k, zipf) in AIRLINE_CATEGORICAL.items():
+        p = 1.0 / np.arange(1, k + 1) ** zipf
+        codes = rng.choice(k, size=n, p=p / p.sum())
+        effect = eff_rng.normal(scale=0.35, size=k).astype(np.float32)
+        logit += effect[codes]
+        base = 1 if name in ("Month", "DayofMonth", "DayOfWeek") else 0
+        X[:, AIRLINE_COLUMNS.index(name)] = codes + base
+    minutes = np.clip(rng.normal(800, 280, size=n), 0, 1439).astype(np.int64)
+    X[:, AIRLINE_COLUMNS.index("DepTime")] = minutes // 60 * 100 + minutes % 60
+    dist = np.clip(rng.lognormal(6.4, 0.65, size=n), 30, 4900)
+    X[:, AIRLINE_COLUMNS.index("Distance")] = np.round(dist)
+    logit += (1.2 * minutes / 1440.0 + 0.05 * np.log(dist)).astype(np.float32)
+    logit += rng.logistic(size=n).astype(np.float32)
+    # the cut from the fixed-seed rows, so every sample shares it
+    cut = np.quantile(logit[:min(n, 1_000_000)], 1 - AIRLINE_POSITIVE_SHARE)
+    return X, (logit > cut).astype(np.float32)
+
+
+def cat_split_stats(models):
+    """Per tree: splits on a categorical feature, and the mean size of
+    their category sets."""
+    out = []
+    for t in models:
+        cnt = np.asarray(t.cat_count_inner)
+        k = cnt[cnt > 0]
+        out.append((int(len(k)), float(k.mean()) if len(k) else 0.0))
+    return out
+
+
+def train_categorical(ds, valid, params, iters):
+    """Warm-up plus ``iters`` timed iterations of a Booster with the
+    held-out rows as its validation set, the launch counts zeroed just
+    before and read just after; the held-out logloss and AUC after the
+    warm-up and after the last iteration; the peak device bytes above
+    the start."""
+    import lightgbm_tpu_torch as lgt
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bst = lgt.Booster(params, ds)
+    bst.add_valid(valid, "holdout")
+    r = dict(iter_s=[], holdout=[])
+    for i in range(1 + iters):
+        t = time.perf_counter()
+        assert not bst.update(), "stopped early"
+        torch.cuda.synchronize()
+        if i:
+            r["iter_s"].append(time.perf_counter() - t)
+        if i in (0, iters):
+            r["holdout"].append(dict((m, v) for _, m, v, _ in
+                                     bst.eval_valid()))
+        if i == 0:
+            r["warm_s"] = time.perf_counter() - t
+    r["counts"] = read_counts()
+    r["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    r["median_iter_s"] = statistics.median(r["iter_s"])
+    return bst, r
+
+
+def phase_categorical(phase4_iter_s):
+    """Phase 13: categorical features at the airline shape through
+    ``Booster`` (CAT_RUNS), each run launching its kernel mode and
+    learning on 200,000 held-out rows (logloss falling from the warm-up
+    and under the prior's, AUC over 0.6), with its s/iteration beside
+    phase 4's, its peak bytes and how many splits a tree takes on a
+    categorical feature (their sets' mean size); the host seconds of
+    binning; the held-out rows by the binned device route within 1e-5 of
+    the host walk (each the engine's device scores), and a model loaded
+    from its text answering by the host walk; then cuda against the CPU
+    on 20,000 rows, every grower. Returns each mode's launches."""
+    import lightgbm_tpu_torch as lgt
+    t_phase = time.perf_counter()
+    n = AIRLINE_ROWS
+    X, y = synth_airline(n + AIRLINE_HOLDOUT)
+    Xv, yv = X[n:], y[n:]
+    X, y = X[:n], y[:n]
+    log(f"phase 13 data_s={time.perf_counter() - t_phase!r} rows={n} "
+        f"holdout={len(Xv)} positive_share={float(y.mean())!r} "
+        f"columns={AIRLINE_COLUMNS} categorical={AIRLINE_CAT_INDEX}")
+    prior_p = float(y.mean())
+    prior = -(prior_p * np.log(prior_p) + (1 - prior_p) * np.log(1 - prior_p))
+    datasets, launches, totals = {}, {}, {}
+    for name, (extra, iters, cats, must) in CAT_RUNS.items():
+        key = (extra.get("max_bin", MAX_BIN), cats)
+        if key not in datasets:
+            t = time.perf_counter()
+            dparams = {"max_bin": key[0], "verbose": -1}
+            ds = lgt.Dataset(X, label=y, params=dparams,
+                             categorical_feature=(AIRLINE_CAT_INDEX if cats
+                                                  else [])).construct()
+            binning_s = time.perf_counter() - t
+            valid = lgt.Dataset(Xv, label=yv, reference=ds).construct()
+            nb = [m.num_bin for m in ds.binned.bin_mappers]
+            log(f"phase 13 binning max_bin={key[0]} categorical={cats} "
+                f"binning_s={binning_s!r} num_bin={nb} "
+                f"bins_dtype={ds.binned.bins.dtype}")
+            datasets[key] = (ds, valid, dict(ds.params))
+        ds, valid, ds_params = datasets[key]
+        ds.params = dict(ds_params)
+        params = bench_params(**extra)
+        tr = time.perf_counter()
+        bst, r = train_categorical(ds, valid, params, iters)
+        c = r["counts"]
+        stats = cat_split_stats(bst._engine.models)
+        first, last = r["holdout"][0], r["holdout"][-1]
+        log(f"phase 13 run={name} warm_s={r['warm_s']!r} "
+            f"iter_s={r['iter_s']!r} median_iter_s={r['median_iter_s']!r} "
+            f"phase4_median_iter_s={phase4_iter_s!r} "
+            f"over_phase4={r['median_iter_s'] / phase4_iter_s!r} "
+            f"launches={nonzero(c)} peak_bytes_above_start="
+            f"{r['peak_bytes']} cat_splits_and_mean_set_per_tree={stats} "
+            f"holdout_first={first} holdout_last={last} "
+            f"prior_logloss={prior!r}")
+        assert c[must] > 0, (name, c)
+        assert last["binary_logloss"] < first["binary_logloss"], name
+        assert last["binary_logloss"] < prior and last["auc"] > 0.6, \
+            (name, last)
+        if cats:
+            assert sum(k for k, _ in stats) > 0, (name, stats)
+        else:
+            assert sum(k for k, _ in stats) == 0, (name, stats)
+        launches[name] = c[must]
+        for k, v in c.items():
+            totals[k] = totals.get(k, 0) + v
+        if name == "compact":
+            phase_categorical_predict(bst, Xv)
+            phase_categorical_scan_cost(bst._engine)
+        if name == "compact_u16":
+            assert ds.binned.bins.dtype == np.uint16
+        del bst
+        gc.collect()
+        log(f"phase 13 run={name} seconds={time.perf_counter() - tr!r}")
+    del datasets, X, Xv
+    gc.collect()
+    phase_categorical_cross_check(launches)
+    log(f"phase 13 seconds={time.perf_counter() - t_phase!r}")
+    return launches, totals
+
+
+def phase_categorical_scan_cost(eng):
+    """The split scan of two leaves (one split's children) at the run's
+    shape, with the categorical features and with every feature taken as
+    numerical: host ms a call (synchronized after each) and the kernels
+    one call launches (``torch.profiler``)."""
+    from lightgbm_tpu_torch.ops.split import best_split_for_leaf
+    meta = eng.feature_meta
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    F, B = eng.num_used_features, eng.num_bin_max
+    hist = torch.rand((2, F, B, 3), device="cuda", generator=gen) * 100
+    sums = hist[:, 0].sum(dim=1)
+    args = (sums[:, 0], sums[:, 1], sums[:, 2], torch.zeros(2, device="cuda"))
+    out = {}
+    for label, m in (("categorical", meta),
+                     ("numerical", meta._replace(is_categorical=None,
+                                                 cat_features=None,
+                                                 cat_num_bin=None))):
+        call = lambda: best_split_for_leaf(hist, *args, m,
+                                           eng.grower_cfg.hparams)
+        ms = median_ms(call, reps=20)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        out[label] = (ms, kernels)
+    log(f"phase 13 split scan of two leaves (ms a call, kernels): {out}")
+
+
+def phase_categorical_predict(bst, Xv):
+    """The held-out rows by the binned device route against the host
+    walk (each the engine's device scores, so no fallback went unseen);
+    a model loaded from its text: its raw route refuses the categorical
+    nodes and the Booster answers by the host walk."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.forest import DeviceRouteUnavailable
+    eng = bst._engine
+    Xp = np.asarray(Xv, np.float64)
+    n_iter = bst.current_iteration()
+    t = time.perf_counter()
+    host = bst.predict(Xp, raw_score=True, device=False)
+    host_s = time.perf_counter() - t
+    bst.predict(Xp[:1000], raw_score=True, device=True)      # warm-up
+    t = time.perf_counter()
+    binned = bst.predict(Xp, raw_score=True, device=True)
+    binned_s = time.perf_counter() - t
+    assert np.array_equal(binned, eng.predict_device(Xp, 0, n_iter)[:, 0])
+    err = float(np.abs(binned - host).max())
+    log(f"phase 13 predict rows={len(Xp)} binned_max_abs_err_vs_host_walk="
+        f"{err!r} binned_rows_per_s={len(Xp) / binned_s!r} "
+        f"host_walk_rows_per_s={len(Xp) / host_s!r}")
+    assert err < 1e-5, err
+    loaded = lgt.Booster({"device_type": "cuda"},
+                         model_str=bst.model_to_string())
+    try:
+        loaded._engine.predict_device(Xp[:10], 0, n_iter)
+        raise AssertionError("the raw route served categorical nodes")
+    except DeviceRouteUnavailable as e:
+        reason = str(e)
+    Xs = Xp[:20_000]
+    got = loaded.predict(Xs, raw_score=True, device=True)
+    assert np.array_equal(got, bst.predict(Xs, raw_score=True)), \
+        "the loaded model's answer is not the host walk"
+    log(f"phase 13 loaded model: predict(device=True) took the host walk "
+        f"(raw route: {reason}); equal to the trained model's host walk "
+        f"on {len(Xs)} rows")
+
+
+def leaf_partition_map(a, b, X):
+    """Per tree, the one-to-one map from ``a``'s leaves to ``b``'s that
+    the rows of X give (each leaf of either holds the same rows as its
+    image), or an AssertionError; and the count of trees whose leaves
+    are numbered differently."""
+    la = a.predict(X, pred_leaf=True)
+    lb = b.predict(X, pred_leaf=True)
+    maps, renumbered = [], 0
+    for i in range(la.shape[1]):
+        pairs = np.unique(la[:, i].astype(np.int64) * (1 << 20) + lb[:, i])
+        ua, ub = pairs >> 20, pairs & ((1 << 20) - 1)
+        assert len(np.unique(ua)) == len(ua) == len(np.unique(ub)), \
+            f"tree {i}: the leaves hold different rows"
+        maps.append((ua, ub))
+        renumbered += int((ua != ub).any())
+    return maps, renumbered
+
+
+def assert_same_partitions(a, b, X, rate, g_max, h_max, what):
+    """The binary standard of the port's CPU tests where a categorical
+    split may pick the complement of a set at an exact tie, and where a
+    few category bins hold thousands of rows: each tree has as many
+    leaves in both, each leaf holds the same training rows as its image
+    (the numbering may differ: a tied set and its complement swap two
+    children); matched leaves' hessian sums within 1e-6 N max h plus
+    1e-4 of the sum, values within 1e-6 rate N max|g| / H plus 2e-4 of
+    the value (the CPU's plain version adds a bin's rows one at a time
+    in f32, which over a bin of m equal hessians drifts by up to m^2 u
+    h: 7e-5 of a leaf's sum at 3,349 rows on the card's first check),
+    and each raw score within the sum of its leaves' value bounds.
+    Returns the trees renumbered and the largest relative differences."""
+    n = len(X)
+    ta, tb = a._engine.models, b._engine.models
+    assert len(ta) == len(tb), what
+    for i, (p, q) in enumerate(zip(ta, tb)):
+        assert p.num_leaves == q.num_leaves, (what, i)
+    maps, renumbered = leaf_partition_map(a, b, X)
+    tol = np.zeros(n)
+    leaves_b = b.predict(X, pred_leaf=True)
+    worst = {"weight": 0.0, "value": 0.0}
+    for i, ((ua, ub), p, q) in enumerate(zip(maps, ta, tb)):
+        assert len(ua) == p.num_leaves, (what, i)
+        wa, wb = p.leaf_weight[ua], q.leaf_weight[ub]
+        va, vb = p.leaf_value[ua], q.leaf_value[ub]
+        assert (np.abs(wa - wb) < 1e-6 * n * h_max + 1e-4 * wb).all(), \
+            (what, i, float(np.abs(wa - wb).max()))
+        bound = (1e-6 * rate * n * g_max / np.maximum(wb, 1e-12)
+                 + 2e-4 * np.abs(vb))
+        assert (np.abs(va - vb) < bound).all(), \
+            (what, i, float(np.abs(va - vb).max()))
+        worst["weight"] = max(worst["weight"], float(
+            (np.abs(wa - wb) / np.maximum(wb, 1e-12)).max()))
+        worst["value"] = max(worst["value"], float(
+            (np.abs(va - vb) / np.maximum(np.abs(vb), 1e-12)).max()))
+        lb = leaves_b[:, i]
+        w_row = np.maximum(q.leaf_weight[lb], 1e-12)
+        tol += (1e-6 * rate * n * g_max / w_row
+                + 2e-4 * np.abs(q.leaf_value[lb]))
+    diff = np.abs(a.predict(X, raw_score=True) - b.predict(X, raw_score=True))
+    assert (diff <= tol).all(), (what, float(diff.max()))
+    return renumbered, worst
+
+
+def phase_categorical_cross_check(launches):
+    """cuda against the CPU on CAT_SMALL_ROWS airline-shaped rows, 31
+    leaves, 3 rounds, every grower of CAT_CHECKS: the CPU launching no
+    kernel, the trees to ``assert_same_partitions``, the training logloss
+    within rtol 1e-4."""
+    import lightgbm_tpu_torch as lgt
+    X, y = synth_airline(CAT_SMALL_ROWS, seed=7)
+    Xd = X.astype(np.float64)
+    for name, (extra, must) in CAT_CHECKS.items():
+        tc = time.perf_counter()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = bench_params(num_leaves=31, device_type=dev, **extra)
+            reset_counts()
+            bst = lgt.Booster(params, lgt.Dataset(
+                X, label=y, categorical_feature=AIRLINE_CAT_INDEX))
+            for _ in range(3):
+                assert not bst.update(), (name, dev)
+            loss = dict((m, v) for _, m, v, _ in bst.eval_train())
+            out[dev] = (bst, read_counts(), loss["binary_logloss"])
+        (cb, cc, closs), (pb, pc, ploss) = out["cuda"], out["cpu"]
+        assert cc[must] > 0 and sum(pc.values()) == 0, (name, cc, pc)
+        renumbered, worst = assert_same_partitions(
+            cb, pb, Xd, params["learning_rate"], 1.0, 0.25,
+            f"phase 13 cross-check {name}")
+        same_sets = all(np.array_equal(p.cat_threshold, q.cat_threshold)
+                        for p, q in zip(cb._engine.models,
+                                        pb._engine.models))
+        log(f"phase 13 cross-check run={name} logloss cuda={closs!r} "
+            f"cpu={ploss!r} trees_renumbered={renumbered} "
+            f"largest_relative_diff={worst} "
+            f"category_sets_equal={same_sets} cuda_launches={nonzero(cc)} "
+            f"seconds={time.perf_counter() - tc!r}")
+        np.testing.assert_allclose(closs, ploss, rtol=1e-4, err_msg=name)
+        launches[f"cross_check_{name}_{must}"] = cc[must]
+
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
@@ -2995,6 +3381,9 @@ def main():
     sampling_runs = phase_sampling(ds, X, main_run["median_iter_s"])
     log(f"phase 12 done at {time.perf_counter() - t:.1f} s")
     del bst, ds, X
+    gc.collect()
+    cat_runs, cat_totals = phase_categorical(main_run["median_iter_s"])
+    log(f"phase 13 done at {time.perf_counter() - t:.1f} s")
     rank_runs = phase_ranking()
     log(f"phase 10 done at {time.perf_counter() - t:.1f} s")
     phase_cross_check()
@@ -3007,26 +3396,33 @@ def main():
         for mode in MODES:
             key = f"hist_rowmajor_{mode}{suffix}"
             kernels.append(kernel_entry(
-                "hist_rowmajor", mode + suffix, runs[key][key],
+                "hist_rowmajor", mode + suffix,
+                runs[key][key] + cat_totals.get(key, 0),
                 k1[(mode + suffix, B, N_ROWS)]))
         for mode in MODES:
             key = f"hist_level_{mode}{suffix}"
             kernels.append(kernel_entry(
-                "hist_level", mode + suffix, runs[key][key],
+                "hist_level", mode + suffix,
+                runs[key][key] + cat_totals.get(key, 0),
                 k2[(mode + suffix, B, level)]))
         for mode in FM_MODES:
             key = f"hist_featmajor_{mode}{suffix}"
             kernels.append(kernel_entry(
-                "hist_featmajor", mode + suffix, runs[key][key],
+                "hist_featmajor", mode + suffix,
+                runs[key][key] + cat_totals.get(key, 0),
                 b2[(mode + suffix, B, N_ROWS)]))
     kernels.append(kernel_entry(
-        "level_partition", None, runs["hist_level_f32"]["level_partition"],
+        "level_partition", None,
+        runs["hist_level_f32"]["level_partition"]
+        + cat_totals.get("level_partition", 0),
         k2[("partition", MAX_BIN, level)]))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log("phase 9 launches by run: " + json.dumps(mc_runs))
     log("phase 10 launches by run: " + json.dumps(rank_runs))
     log("phase 11 launches by run: " + json.dumps(surface_runs))
     log("phase 12 launches by run: " + json.dumps(sampling_runs))
+    log("phase 13 launches by run: " + json.dumps(cat_runs)
+        + " by mode: " + json.dumps(nonzero(cat_totals)))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

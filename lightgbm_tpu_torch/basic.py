@@ -1,8 +1,11 @@
 """User-facing ``Dataset`` and ``Booster``.
 
 Port of ``lightgbm_tpu/basic.py`` (ref: python-package/lightgbm/basic.py
-Dataset / Booster) for dense numeric data: a ``Dataset`` over a matrix, a
-CSV/TSV/LibSVM file or a binary dataset file (``save_binary``), binned on
+Dataset / Booster) for dense data: a ``Dataset`` over a matrix, a pandas
+DataFrame (its column names the feature names), an Arrow table or any
+``__arrow_c_stream__`` producer (pyarrow needed then), a CSV/TSV/LibSVM
+file or a binary dataset file (``save_binary``), with categorical
+features by index or name (``categorical_feature``), binned on
 its own or, with ``reference=``, with another Dataset's bin mappers (a
 validation set, a ``subset``); a ``Booster`` that trains (``update``),
 keeps validation sets on the training device, evaluates, rolls back,
@@ -17,6 +20,7 @@ predicts on the device its ``params`` name, ``cuda`` unless
 from __future__ import annotations
 
 import copy
+import sys
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -34,12 +38,82 @@ from .utils import log
 from .utils.log import LightGBMError
 
 
+def _is_frame(data) -> bool:
+    """A pandas DataFrame, recognized as the JAX package does (basic.py:33)
+    without importing pandas."""
+    return hasattr(data, "values") and hasattr(data, "columns")
+
+
+def _is_arrow_table(data) -> bool:
+    # an object of pyarrow's means pyarrow is imported already
+    pa = sys.modules.get("pyarrow")
+    return pa is not None and isinstance(data, (pa.Table, pa.RecordBatch))
+
+
+def _has_arrow_c_stream(data) -> bool:
+    """Another producer of the Arrow C stream (a polars DataFrame, ...)."""
+    return (hasattr(data, "__arrow_c_stream__") and not _is_frame(data)
+            and not isinstance(data, np.ndarray)
+            and not _is_arrow_table(data))
+
+
+def _arrow_table(data):
+    """An Arrow table of a table, a record batch or a C-stream producer."""
+    if _is_arrow_table(data):
+        return data
+    try:
+        import pyarrow as pa
+    except ImportError as e:
+        raise LightGBMError("this input implements the Arrow C-stream "
+                            "protocol; reading it needs pyarrow") from e
+    return pa.table(data)
+
+
+def _refuse_sparse(data) -> None:
+    sp = sys.modules.get("scipy.sparse")
+    if sp is not None and sp.issparse(data):
+        raise LightGBMError(
+            "scipy sparse input is not ported yet (ROADMAP A12.5b, with "
+            "EFB and multival storage); pass a dense matrix")
+
+
 def _to_2d_numpy(data) -> np.ndarray:
-    X = np.asarray(data)
+    """A dense 2-D array of a matrix, a DataFrame (its values, as float64
+    unless numeric, as the JAX package's basic.py:31-43) or an Arrow
+    table (float64, nulls as NaN); scipy sparse input is refused."""
+    _refuse_sparse(data)
+    if _is_arrow_table(data) or _has_arrow_c_stream(data):
+        from .io.dataset_core import ArrowColumns
+        src = ArrowColumns(_arrow_table(data))
+        return np.stack([src.get_col(f) for f in range(src.num_features)],
+                        axis=1)
+    X = np.asarray(data.values if _is_frame(data) else data)
     if X.ndim != 2:
         raise LightGBMError(f"data must be 2-dimensional, got shape "
                             f"{X.shape}")
+    if X.dtype.kind not in "fiub":
+        X = X.astype(np.float64)
     return X
+
+
+def _categorical_indices(categorical_feature, cfg: Config,
+                         names: Optional[List[str]]) -> List[int]:
+    """The categorical features' indices (ref: the JAX package's
+    basic.py:338-348): a list of indices or of feature names, or else
+    the params' comma-separated index string (``categorical_feature``);
+    names that are not features are ignored."""
+    if isinstance(categorical_feature, (list, tuple)):
+        cats = []
+        for c in categorical_feature:
+            if isinstance(c, (int, np.integer)):
+                cats.append(int(c))
+            elif names and c in names:
+                cats.append(names.index(c))
+        return cats
+    if cfg.categorical_feature:
+        return [int(c) for c in str(cfg.categorical_feature).split(",")
+                if c.strip() != ""]
+    return []
 
 
 def _node_index(tree_idx: int, child: int) -> str:
@@ -81,14 +155,18 @@ def _node_row(t, tree_idx: int, names: List[str], parent, depth: int,
 
 
 class Dataset:
-    """Training or validation data: a dense numeric matrix, or the path
-    of a CSV/TSV/LibSVM file or of a binary dataset file, and its label,
+    """Training or validation data: a dense numeric matrix, a pandas
+    DataFrame, an Arrow table (or C-stream producer), or the path of a
+    CSV/TSV/LibSVM file or of a binary dataset file, and its label,
     binned at ``construct`` (ref: basic.py Dataset). With ``reference``
     the rows are binned with the reference's bin mappers. ``group`` holds
     the query sizes of a ranking task (rows of a query adjacent),
     ``position`` each row's position id (lambdarank's position bias); a
     file's group column and its ``.query``/``.group`` and ``.position``
-    sidecars fill them when not given."""
+    sidecars fill them when not given. ``categorical_feature`` lists the
+    features binned as categories, by index or by name ("auto": the
+    params' ``categorical_feature``). scipy sparse input is refused
+    (ROADMAP A12.5b)."""
 
     # generic field access (ref: basic.py Dataset.set_field/get_field)
     _FIELDS = {"label": ("set_label", "get_label"),
@@ -101,9 +179,14 @@ class Dataset:
                  reference: Optional["Dataset"] = None, weight=None,
                  group=None, init_score=None,
                  feature_name: Optional[Sequence[str]] = None,
+                 categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None, position=None):
-        self.data = (data if data is None or isinstance(data, (str, Path))
-                     else _to_2d_numpy(data))
+        # frames and Arrow input stay as given until construct
+        keep = (data is None or isinstance(data, (str, Path))
+                or _is_frame(data) or _is_arrow_table(data)
+                or _has_arrow_c_stream(data))
+        self.data = data if keep else _to_2d_numpy(data)
+        self.categorical_feature = categorical_feature
         self.label = label
         self.reference = reference
         self.weight = weight
@@ -151,10 +234,40 @@ class Dataset:
                 self.group = group
             if self.position is None:
                 self.position = load_position_file(path)
-        self._binned = BinnedDataset.from_matrix(
-            self.data, cfg, label=self.label, weight=self.weight,
-            init_score=self.init_score, feature_names=self.feature_name,
-            reference=ref, group=self.group, position=self.position)
+        from .io.dataset_core import ArrowColumns, DenseColumns
+        if _is_arrow_table(self.data) or _has_arrow_c_stream(self.data):
+            source = ArrowColumns(_arrow_table(self.data))
+        else:
+            source = DenseColumns(_to_2d_numpy(self.data))
+        names = self.feature_name
+        if names is None and _is_frame(self.data):
+            names = [str(c) for c in self.data.columns]
+        elif names is None:
+            names = source.column_names()
+        self._binned = BinnedDataset.from_columns(
+            source, cfg, label=self.label, weight=self.weight,
+            init_score=self.init_score, feature_names=names,
+            reference=ref, group=self.group, position=self.position,
+            categorical_features=_categorical_indices(
+                self.categorical_feature, cfg, names))
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """Change the categorical features (ref: basic.py
+        Dataset.set_categorical_feature; the JAX package's basic.py:373):
+        nothing happens when they are unchanged; a constructed Dataset is
+        binned again at its next ``construct``, from its raw data."""
+        if self.categorical_feature == categorical_feature:
+            return self
+        if self._binned is not None:
+            if self.data is None or self.used_indices is not None:
+                raise LightGBMError(
+                    "Cannot set categorical feature: this Dataset holds "
+                    "no raw data to bin again")
+            log.warning("categorical_feature changed after construction; "
+                        "the dataset will be re-binned")
+            self._binned = None
+        self.categorical_feature = categorical_feature
         return self
 
     def _apply_fields(self) -> "Dataset":

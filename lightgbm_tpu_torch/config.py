@@ -444,10 +444,11 @@ def _parse_list(value: Any, elem_type: Any) -> List[Any]:
     return [elem_type(v) for v in value]
 
 
-# What the port implements is dense numerical training with the compact,
-# full/leaf, level and hybrid growers: ``gbdt``, ``dart`` and ``rf``
-# boosting, bagging (uniform, balanced, by query, ``tpu_device_bagging``)
-# and GOSS row sampling, and per-tree and per-node column sampling. A
+# What the port implements is dense training, numerical and categorical
+# features, with the compact, full/leaf, level and hybrid growers:
+# ``gbdt``, ``dart`` and ``rf`` boosting, bagging (uniform, balanced, by
+# query, ``tpu_device_bagging``) and GOSS row sampling, and per-tree and
+# per-node column sampling. A
 # setting that needs anything else maps to a predicate that is True for
 # the unsupported value and to the ROADMAP item that ports it; training
 # refuses it instead of ignoring it.
@@ -458,7 +459,6 @@ _UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {
     "interaction_constraints": (bool, "A12"),
     "forcedsplits_filename": (bool, "A12"),
     "forcedbins_filename": (bool, "A12"),
-    "categorical_feature": (bool, "A12"),
     "feature_contri": (lambda v: any(float(x) != 1.0 for x in v), "A12"),
     "cegb_penalty_split": (lambda v: v > 0.0, "A12"),
     "cegb_penalty_feature_lazy": (bool, "A12"),

@@ -25,6 +25,12 @@ splits:
   split and where) and the size of the left child: those are control
   decisions. All gain and output arithmetic stays in f32 tensors.
 
+Categorical features (ref: dense_bin.hpp SplitCategoricalInner): a
+split's record carries its category set, the chosen BINS (``best_cat``
+[L, MAXK] on the device, -1 padded, read with the split's row); a row
+goes left when its bin is in the set, bin 0 (NaN and unseen categories)
+never is. The tree keeps each node's set (``TreeArrays.cat_bins``).
+
 Full row scheduling (``row_sched="full"``; the engine maps ``leaf`` to
 it, as the JAX package does) keeps no row order: bins are FEATURE-major
 ``[F, R]``, every row carries its leaf in ``leaf_id``, a split rewrites
@@ -67,7 +73,7 @@ from ..ops.histogram import bin_ids
 from ..ops.split import (MISSING_ENUM, K_EPSILON, K_MIN_SCORE, FeatureMeta,
                          SplitHyperParams, best_split_for_leaf,
                          calculate_splitted_leaf_output, column_sum,
-                         pack_record_rows)
+                         max_cat_width, pack_record_rows)
 from .tree import TreeArrays
 
 
@@ -98,11 +104,12 @@ S_SG, S_SH, S_CNT, S_VAL, S_LMIN, S_LMAX, S_DEPTH, S_PARENT, S_ISR, \
 NS = 10
 # packed SplitRecord columns (f32 [L, NB]; ops/split.pack_record_rows)
 B_GAIN, B_FEAT, B_THR, B_DL, B_LG, B_LH, B_LC, B_LO, B_RG, B_RH, B_RC, \
-    B_RO = range(12)
-NB = 12
+    B_RO, B_NCAT = range(13)
+NB = 13
 # tree internal-node columns (f32 [L-1, NN], host side)
-N_FEAT, N_THR, N_DL, N_GAIN, N_IVAL, N_IWT, N_ICNT, N_LC, N_RC = range(9)
-NN = 9
+N_FEAT, N_THR, N_DL, N_GAIN, N_IVAL, N_IWT, N_ICNT, N_LC, N_RC, \
+    N_CCNT = range(10)
+NN = 10
 
 
 def quantize_gradients(gh: torch.Tensor, quant_bins: int, ug, uh
@@ -160,7 +167,10 @@ class GrowState:
     f32), ``stats`` [L, NS], ``best`` [L, NB], and ``order`` [R] (compact)
     or ``leaf_id`` [R] (full). Host values: the internal-node rows
     ``node`` [L-1, NN], each leaf's segment ``seg_start``/``seg_rows``
-    (compact), and ``num_leaves``."""
+    (compact), and ``num_leaves``. With categorical features, each
+    leaf's best split's category set ``best_cat`` [L, MAXK] (int64,
+    device) and each node's ``tree_cat`` [L-1, MAXK] (int32, host), -1
+    padded."""
     hist: torch.Tensor
     stats: torch.Tensor
     best: torch.Tensor
@@ -170,17 +180,35 @@ class GrowState:
     seg_rows: List[int]
     num_leaves: int
     leaf_id: Optional[torch.Tensor] = None
+    best_cat: Optional[torch.Tensor] = None
+    tree_cat: Optional[np.ndarray] = None
+
+
+def cat_table(cat_bins: torch.Tensor, num_bin: int) -> torch.Tensor:
+    """bool ``[..., num_bin]`` membership table of -1 padded category sets
+    ``[..., MAXK]`` (one set, or one a node): ``table[..., b]`` is whether
+    bin b is in the set."""
+    table = torch.zeros((*cat_bins.shape[:-1], num_bin + 1), dtype=torch.bool,
+                        device=cat_bins.device)
+    idx = torch.where(cat_bins >= 0, cat_bins, num_bin)
+    table.scatter_(-1, idx, True)
+    return table[..., :num_bin]
 
 
 def _go_left(col: torch.Tensor, thr: int, default_left: bool, num_bin: int,
-             missing_type: int, default_bin: int) -> torch.Tensor:
+             missing_type: int, default_bin: int,
+             cat_set: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Partition direction of a bin column (ref: dense_bin.hpp:317
     SplitInner): ``bin <= threshold`` goes left, except the NaN bin
     (missing type nan) and the default bin (missing type zero), which
-    follow ``default_left``. u16 bins (int16) are read as unsigned
+    follow ``default_left``. A categorical split (``cat_set``, its -1
+    padded bins) sends left the rows whose bin is in the set (ref:
+    SplitCategoricalInner). u16 bins (int16) are read as unsigned
     first."""
     if col.dtype != torch.uint8:
         col = bin_ids(col)
+    if cat_set is not None:
+        return cat_table(cat_set, num_bin)[col.long()]
     go_left = col <= thr
     if missing_type == MISSING_ENUM["nan"]:
         go_left = torch.where(col == num_bin - 1, default_left, go_left)
@@ -230,6 +258,8 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     L = cfg.num_leaves
     B = cfg.num_bin
     full = cfg.row_sched == "full"
+    has_cat = meta.has_cat
+    MAXK = max_cat_width(hp, B) if has_cat else 0
     if hist_fn is None:
         hist_fn = hist_cuda_fm if full else hist_cuda_rm
     nbin_h = meta.num_bin.tolist()
@@ -264,6 +294,12 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         best[:, B_FEAT] = -1.0
         best[:, B_DL] = 1.0
         best[0] = pack_record_rows(best_root)
+        best_cat = tree_cat = None
+        if has_cat:
+            best_cat = torch.full((L, MAXK), -1, dtype=torch.int64,
+                                  device=dev)
+            best_cat[0] = best_root.cat_bins
+            tree_cat = np.full((max(L - 1, 0), MAXK), -1, np.int32)
         seg_rows = [0] * L
         seg_rows[0] = R
         return GrowState(
@@ -272,9 +308,11 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             node=np.zeros((max(L - 1, 0), NN), np.float32),
             seg_start=[0] * L, seg_rows=seg_rows, num_leaves=1,
             leaf_id=(torch.zeros(R, dtype=torch.int64, device=dev)
-                     if full else None))
+                     if full else None),
+            best_cat=best_cat, tree_cat=tree_cat)
 
-    def partition_compact(bins_rm, gh_hist, st, l, new_leaf, f, thr, dl):
+    def partition_compact(bins_rm, gh_hist, st, l, new_leaf, f, thr, dl,
+                          cat_set):
         """Stable partition of leaf ``l``'s segment; the smaller child's
         histogram from its gathered rows. Returns (left_smaller,
         hist_small)."""
@@ -282,7 +320,7 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         start, rows = seg_start[l], seg_rows[l]
         seg = order[start:start + rows]
         go_left = _go_left(bins_rm[seg, f], thr, dl, nbin_h[f], miss_h[f],
-                           dflt_h[f])
+                           dflt_h[f], cat_set)
         n_left = int(go_left.sum())
         order[start:start + rows] = torch.cat([seg[go_left],
                                                seg[~go_left]])
@@ -297,13 +335,13 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                                      gh_hist.index_select(0, idx), B)
 
     def partition_full(bins_fm, gh_hist, st, l, new_leaf, f, thr, dl,
-                       left_smaller):
+                       cat_set, left_smaller):
         """Leaf ``l``'s right-going rows move to ``new_leaf`` (ref:
         core/grower.py:1045-1060); the smaller child's histogram is one
         pass over all rows that adds the child's (``leaf_hist``,
         :601-603, the mask fused into the kernel). Returns hist_small."""
         go_left = _go_left(bins_fm[f], thr, dl, nbin_h[f], miss_h[f],
-                           dflt_h[f])
+                           dflt_h[f], cat_set)
         st.leaf_id = torch.where((st.leaf_id == l) & ~go_left, new_leaf,
                                  st.leaf_id)
         return hist_fn(bins_fm, gh_hist, B, leaf_id=st.leaf_id,
@@ -326,19 +364,28 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                                    < cfg.max_depth, cand, K_MIN_SCORE)
             lt = torch.argmax(cand)
             # one device->host read per split: the chosen leaf, its gain,
-            # its best split and its stats
-            head = torch.cat([lt.to(torch.float32)[None], cand[lt][None],
-                              best[lt], stats[lt]]).cpu().numpy()
+            # its best split and its stats (and its category set)
+            parts = [lt.to(torch.float32)[None], cand[lt][None], best[lt],
+                     stats[lt]]
+            if has_cat:
+                parts.append(st.best_cat[lt].to(torch.float32))
+            head = torch.cat(parts).cpu().numpy()
             l, gain = int(head[0]), head[1]
             if not gain > 0.0:
                 break
-            brow, srow = head[2:2 + NB], head[2 + NB:]
+            brow = head[2:2 + NB]
+            srow = head[2 + NB:2 + NB + NS]
             new_leaf = i + 1
 
             # ---- record the split (ref: tree.cpp Tree::Split) ------------
             node[i] = [brow[B_FEAT], brow[B_THR], brow[B_DL], brow[B_GAIN],
                        srow[S_VAL], srow[S_SH], srow[S_CNT], -(l + 1.0),
-                       -(new_leaf + 1.0)]
+                       -(new_leaf + 1.0), brow[B_NCAT]]
+            cat_set = None
+            if has_cat:
+                st.tree_cat[i] = head[2 + NB + NS:]
+                if brow[B_NCAT] > 0:
+                    cat_set = st.best_cat[l]
             p = int(srow[S_PARENT])
             if p >= 0:
                 node[p, N_RC if srow[S_ISR] > 0.5 else N_LC] = i
@@ -351,10 +398,10 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                 # the record's counts pick the smaller child (:1242)
                 left_smaller = bool(brow[B_LC] <= brow[B_RC])
                 hist_small = partition_full(bins, gh_hist, st, l, new_leaf,
-                                            f, thr, dl, left_smaller)
+                                            f, thr, dl, cat_set, left_smaller)
             else:
                 left_smaller, hist_small = partition_compact(
-                    bins, gh_hist, st, l, new_leaf, f, thr, dl)
+                    bins, gh_hist, st, l, new_leaf, f, thr, dl, cat_set)
             hist_large = hist[l] - hist_small
             if left_smaller:
                 hist[l], hist[new_leaf] = hist_small, hist_large
@@ -377,6 +424,8 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                 child[:, S_CNT], child[:, S_VAL], meta, hp,
                 node_mask(feature_mask, [2 * i + 1, 2 * i + 2]))
             best[pair] = pack_record_rows(rec2)
+            if has_cat:
+                st.best_cat[pair] = rec2.cat_bins
             num_leaves = new_leaf + 1
 
         # ---- materialize the tree ----------------------------------------
@@ -398,7 +447,9 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             leaf_count=(statm[:, S_CNT] if grew else np.zeros(L, np.float32)),
             leaf_parent=statm[:, S_PARENT].astype(np.int32),
             num_leaves=num_leaves,
-            shrinkage=1.0)
+            shrinkage=1.0,
+            cat_count=i32(N_CCNT) if has_cat else None,
+            cat_bins=st.tree_cat)
         if full:
             return tree, st.leaf_id
         # each row's leaf, from the final segments

@@ -14,7 +14,9 @@ hybrid serves it:
 3. seed the compact grower's state from the level output (per-leaf stats
    and best rows from the level scans, histogram-pool rows from the
    kept level histograms, ``order``/segments from a stable sort on leaf
-   slots) and resume its split loop at step k0 (``grow.resume``).
+   slots, and with categorical features each leaf's and each committed
+   node's category set) and resume its split loop at step k0
+   (``grow.resume``).
 
 gh is turned into the histograms' input (int8 under quantization, bf16
 in the bf16 mode) once per tree, and the same rows feed both phases, so
@@ -30,10 +32,10 @@ import torch
 from ..ops.hist_cuda import hist_cuda_rm
 from ..ops.hist_level_cuda import hist_level_cuda
 from ..ops.split import K_MIN_SCORE, FeatureMeta
-from .grower import (B_DL, B_FEAT, B_GAIN, B_THR, NB, NN, NS, S_LMAX,
-                     S_LMIN, S_PARENT, GrowerConfig, GrowState, hist_inputs,
-                     make_tree_grower)
-from .level_grower import (H_CN, H_OUT, H_SG, H_SH, MAX_LEVEL_DEPTH,
+from .grower import (B_DL, B_FEAT, B_GAIN, B_NCAT, B_THR, NB, NN, NS,
+                     S_LMAX, S_LMIN, S_PARENT, GrowerConfig, GrowState,
+                     hist_inputs, make_tree_grower)
+from .level_grower import (H_CAT, H_CN, H_OUT, H_SG, H_SH, MAX_LEVEL_DEPTH,
                            make_level_phase, rank_and_slots)
 
 
@@ -140,10 +142,22 @@ def make_hybrid_grower(cfg: GrowerConfig, meta: FeatureMeta,
         rptr = np.where(committed[rc_all], rank[rc_all], -(slot[rc_all] + 1))
         node_rows = np.stack(
             [h[:, B_FEAT], h[:, B_THR], h[:, B_DL], h[:, B_GAIN],
-             h[:, H_OUT], h[:, H_SH], h[:, H_CN], lptr, rptr],
-            axis=1).astype(np.float32)
+             h[:, H_OUT], h[:, H_SH], h[:, H_CN], lptr, rptr,
+             h[:, B_NCAT]], axis=1).astype(np.float32)
         node = np.zeros((L, NN), np.float32)     # row L - 1: dump row
-        node[np.where(committed, rank, L - 1)] = node_rows
+        rk_nodes = np.where(committed, rank, L - 1)
+        node[rk_nodes] = node_rows
+
+        # ---- category sets: each live leaf's best, each committed node's
+        best_cat = tree_cat = None
+        if meta.has_cat:
+            sets = h[:, H_CAT:].astype(np.int64)
+            leaf_sets = np.full((L + 1, sets.shape[1]), -1, np.int64)
+            leaf_sets[lslot] = sets
+            best_cat = torch.from_numpy(leaf_sets[:L]).to(dev)
+            tree_cat = np.full((L, sets.shape[1]), -1, np.int32)
+            tree_cat[rk_nodes] = sets
+            tree_cat = tree_cat[:L - 1].copy()
 
         # ---- histogram pool: the live leaves' level histograms ----------
         # (raw dtype; unborn slots alias the root row, which the tail
@@ -158,7 +172,8 @@ def make_hybrid_grower(cfg: GrowerConfig, meta: FeatureMeta,
             node=node[:L - 1].copy(),
             seg_start=np.where(live_slot, starts, 0).tolist(),
             seg_rows=np.where(live_slot, cnt, 0).tolist(),
-            num_leaves=k0 + 1)
+            num_leaves=k0 + 1,
+            best_cat=best_cat, tree_cat=tree_cat)
         return tail.resume(bins_rm, gh_hist, conv, state, k0, feature_mask)
 
     return grow

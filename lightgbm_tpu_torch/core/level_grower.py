@@ -16,6 +16,12 @@ assemble the tree there with numpy: a tree has at most
 ``2^(MAX_LEVEL_DEPTH + 1) - 1`` heap nodes, and the order is a control
 decision, like the compact grower's per-split read.
 
+Categorical features: the batched scan gives each node its category
+set, and a level's partition tests each row's bin against its own
+node's set through a ``[n_nodes, B]`` membership table (one gather a
+row; the JAX package gathers each row's ``[MAXK]`` set, which at 11M
+rows is 2.8 GB a level). The sets reach the host with the level's rows.
+
 Numerical note (as in the JAX package): node sums, outputs and child
 stats come from the same split records the compact grower uses, so the
 only divergence channel is histogram accumulation order: none for dyadic
@@ -33,9 +39,9 @@ from ..ops.hist_level_cuda import carry_order_cuda, hist_level_cuda
 from ..ops.histogram import bin_ids
 from ..ops.split import (MISSING_ENUM, K_EPSILON, FeatureMeta,
                          best_split_for_leaf, calculate_splitted_leaf_output,
-                         pack_record_rows)
-from .grower import (B_DL, B_FEAT, B_GAIN, B_THR, NB, GrowerConfig,
-                     hist_inputs, root_sums)
+                         max_cat_width, pack_record_rows)
+from .grower import (B_DL, B_FEAT, B_GAIN, B_NCAT, B_THR, NB, GrowerConfig,
+                     cat_table, hist_inputs, root_sums)
 from .tree import TreeArrays
 
 # dense level histograms are [2^d, F, B, 3]: depth 10 = 1024 nodes is the
@@ -43,20 +49,31 @@ from .tree import TreeArrays
 MAX_LEVEL_DEPTH = 10
 
 # columns of the per-node host read: the packed split row, then the
-# node's grad/hess/count sums and output
+# node's grad/hess/count sums and output, then (with categorical
+# features) the node's category set, MAXK columns from H_CAT
 H_SG, H_SH, H_CN, H_OUT = range(NB, NB + 4)
+H_CAT = NB + 4
 
 
-def go_left_rows(col, thr, dl, meta: FeatureMeta, f_row) -> torch.Tensor:
+def go_left_rows(col, thr, dl, meta: FeatureMeta, f_row, node=None,
+                 num_cat=None, table=None) -> torch.Tensor:
     """Per-row partition direction (ref: dense_bin.hpp:317 SplitInner;
     the JAX package's ``_go_left_bins``): each row carries its own node's
-    threshold, default direction and split feature ``f_row``."""
+    threshold, default direction and split feature ``f_row``. With
+    categorical features, a row of a node with a category set
+    (``num_cat`` [n_nodes] > 0) goes left when ``table[node, col]``
+    (``[n_nodes, B]``, ``grower.cat_table`` of the sets) holds; ``node``
+    is each row's node."""
     go_left = col <= thr
     is_nan_bin = ((meta.missing_type[f_row] == MISSING_ENUM["nan"])
                   & (col == meta.num_bin[f_row].long() - 1))
     is_dflt_bin = ((meta.missing_type[f_row] == MISSING_ENUM["zero"])
                    & (col == meta.default_bin[f_row].long()))
-    return torch.where(is_nan_bin | is_dflt_bin, dl, go_left)
+    go_left = torch.where(is_nan_bin | is_dflt_bin, dl, go_left)
+    if table is not None:
+        in_set = table.reshape(-1)[node * table.shape[1] + col]
+        go_left = torch.where(num_cat[node] > 0, in_set, go_left)
+    return go_left
 
 
 def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
@@ -79,13 +96,16 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
     every node, as the JAX package's level_grower.py:318-321 applies it): ``heap``
     (int64 [R], each row's final heap node), ``host`` (f32 [T, NB + 4]
     on the device: the packed split row of every heap node, then its
-    grad/hess/count sums and output; columns ``H_*``) and, with
+    grad/hess/count sums and output, then with categorical features its
+    category set, MAXK more; columns ``H_*``) and, with
     ``collect_hists``, ``hists``: the raw level histograms [T, F, B, 3]
     (int32 under quantization) for seeding the compact pool.
     """
     B = int(cfg.num_bin)
     hp = cfg.hparams
     n_scan = depth + (1 if scan_last else 0)
+    has_cat = meta.has_cat
+    MAXK = max_cat_width(hp, B) if has_cat else 0
 
     def phase(bins_rm: torch.Tensor, gh: torch.Tensor,
               gh_hist: torch.Tensor, conv: Callable,
@@ -101,7 +121,7 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
         order = torch.arange(R, device=dev)
         seg = torch.tensor([0, R], device=dev)
         node_d = torch.stack([sums[0], sums[1], sums[2], root_out])[None]
-        rows_l, node_l, hist_l = [], [node_d], []
+        rows_l, node_l, hist_l, cat_l = [], [node_d], [], []
 
         for d in range(n_scan):
             n_d = 1 << d
@@ -118,6 +138,8 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
                                        node_d[:, 1], node_d[:, 2],
                                        node_d[:, 3], meta, hp, feature_mask)
             rows_l.append(pack_record_rows(recs))
+            if has_cat:
+                cat_l.append(recs.cat_bins)
             if d >= depth:
                 break       # deepest scanned level: no descend
 
@@ -133,8 +155,10 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
             # ---- partition: rows at valid nodes descend ----------------
             f_row = recs.feature.clamp(min=0)[lsafe]
             col = bin_ids(bins_rm.gather(1, f_row[:, None])[:, 0])
-            go_left = go_left_rows(col, recs.threshold[lsafe],
-                                   recs.default_left[lsafe], meta, f_row)
+            go_left = go_left_rows(
+                col, recs.threshold[lsafe], recs.default_left[lsafe], meta,
+                f_row, lsafe, recs.num_cat,
+                cat_table(recs.cat_bins, B) if has_cat else None)
             descend = in_lvl & (recs.gain > 0.0)[lsafe]
             heap = torch.where(descend, 2 * heap + 1 + (~go_left).long(),
                                heap)
@@ -150,7 +174,11 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
             filler[:, B_GAIN] = -np.inf
             filler[:, B_FEAT] = -1.0
             rows_l.append(filler)
-        host = torch.cat([torch.cat(rows_l), torch.cat(node_l)], dim=1)
+            cat_l.append(torch.full((n_leafrow, MAXK), -1, device=dev))
+        cols = [torch.cat(rows_l), torch.cat(node_l)]
+        if has_cat:
+            cols.append(torch.cat(cat_l).to(torch.float32))
+        host = torch.cat(cols, dim=1)
         res = dict(heap=heap, host=host)
         if collect_hists:
             res["hists"] = torch.cat(hist_l)
@@ -280,6 +308,12 @@ def make_level_grower(cfg: GrowerConfig, meta: FeatureMeta,
             leaf_parent=leaf_scatter(rank[par_all], fill=-1, dtype=np.int32),
             num_leaves=k + 1,
             shrinkage=1.0)
+        if meta.has_cat:
+            sets = np.full((li + 1, h.shape[1] - H_CAT), -1, np.int32)
+            sets[rk] = h[:, H_CAT:]
+            tree = tree._replace(
+                cat_count=node_scatter(h[:, B_NCAT], np.int32),
+                cat_bins=sets[:L - 1])
         return tree, leaf_id
 
     return grow

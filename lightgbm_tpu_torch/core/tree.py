@@ -1,10 +1,11 @@
 """Tree model arrays and the host-side tree.
 
 Port of ``lightgbm_tpu/core/tree.py`` (ref: include/LightGBM/tree.h:27,
-src/io/tree.cpp). The port's growers make numerical splits only; trees
-loaded from model text may also hold categorical ones, which the host
-walk decides by bitset membership of the raw category value. Node
-numbering matches Tree::Split:
+src/io/tree.cpp). A categorical node holds its category set twice: as
+the grower chose it, the set of BINS (``cat_bins_inner``, what the
+binned device route tests), and as model text stores it, a bitset of
+RAW category values (``cat_boundaries``/``cat_threshold``, what the host
+walk tests). Node numbering matches Tree::Split:
 splitting leaf ``l`` at step ``s`` creates internal node ``s``; the left
 child keeps leaf index ``l``, the right child becomes leaf ``s+1``; leaves
 are encoded in child pointers as ``~leaf_idx``.
@@ -14,7 +15,7 @@ decisions), so ``TreeArrays`` holds numpy arrays here.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -68,6 +69,10 @@ class TreeArrays(NamedTuple):
     leaf_parent: np.ndarray      # i32 [L]
     num_leaves: int
     shrinkage: float
+    # categorical splits (None without categorical features; ref: tree.h
+    # cat_threshold_inner_): each node's set of category BINS
+    cat_count: Optional[np.ndarray] = None  # i32 [L-1]; 0 = numerical
+    cat_bins: Optional[np.ndarray] = None   # i32 [L-1, MAXK], -1 padded
 
 
 class HostTree:
@@ -103,6 +108,16 @@ class HostTree:
         self.shrinkage = float(a["shrinkage"])
         self.max_depth = max_leaf_depth(self.left_child, self.right_child,
                                         self.num_leaves)
+        # each node's category-BIN set from the grower (-1 padded; empty
+        # for a numerical node); init_model rebinds a text tree's sets
+        if a["cat_bins"] is not None and n_int:
+            self.cat_bins_inner = np.asarray(
+                a["cat_bins"][:n_int]).astype(np.int32)
+            self.cat_count_inner = np.asarray(
+                a["cat_count"][:n_int]).astype(np.int32)
+        else:
+            self.cat_bins_inner = np.zeros((n_int, 0), np.int32)
+            self.cat_count_inner = np.zeros(n_int, np.int32)
         # filled by models/gbdt.finalize_tree
         self.threshold_real: np.ndarray = np.zeros(n_int, np.float64)
         self.decision_type: np.ndarray = np.zeros(n_int, np.int32)

@@ -488,12 +488,20 @@ class BinMapper:
         """Vectorized value->bin (ref: bin.h:613 ValueToBin)."""
         values = np.asarray(values, dtype=np.float64)
         if self.bin_type == BIN_CATEGORICAL:
-            out = np.zeros(values.shape, dtype=np.int32)
+            # one lookup over the sorted category keys: NaN, negative and
+            # unseen values fall in bin 0 (the JAX package loops over
+            # the categories with a full-length mask each)
             nan_mask = np.isnan(values)
             iv = np.where(nan_mask, -1, values).astype(np.int64)
-            for cat, b in self.categorical_2_bin.items():
-                out[iv == cat] = b
-            return out
+            keys = np.fromiter(self.categorical_2_bin, np.int64)
+            if not len(keys):
+                return np.zeros(values.shape, dtype=np.int32)
+            by_key = np.argsort(keys)
+            keys = keys[by_key]
+            bins = np.fromiter(self.categorical_2_bin.values(),
+                               np.int32)[by_key]
+            pos = np.minimum(np.searchsorted(keys, iv), len(keys) - 1)
+            return np.where(keys[pos] == iv, bins[pos], 0).astype(np.int32)
         nan_mask = np.isnan(values)
         vals = np.where(nan_mask, 0.0, values)
         n_numeric = self.num_bin - (1 if self.missing_type == MISSING_NAN else 0)

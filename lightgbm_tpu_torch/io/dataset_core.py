@@ -7,8 +7,14 @@ src/io/dataset_loader.cpp:601 ConstructFromSampleData).
 The JAX package stores ``bins`` feature-major ``[F, R]``; the port stores
 the ROW-major ``[R, F]`` matrix, the layout the compact grower gathers
 leaf rows from and the histogram kernel reads. Bin finding (row sampling,
-per-feature ``BinMapper.find_bin``) follows the JAX package line for line
-so the boundaries and the binned values are bit-identical.
+per-feature ``BinMapper.find_bin``, categorical features by index)
+follows the JAX package line for line so the boundaries and the binned
+values are bit-identical.
+
+Input reaches binning through a ``ColumnSource`` (the JAX package's
+io/dataset_core.py:195-300): a dense matrix (``DenseColumns``) or an
+Arrow table (``ArrowColumns``, pyarrow imported only when one is given),
+one float64 column at a time.
 """
 from __future__ import annotations
 
@@ -18,10 +24,66 @@ import numpy as np
 
 from ..config import Config
 from ..utils import log
-from .binning import BIN_NUMERICAL, BinMapper
+from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
 
 # the most bins a feature may have: bins are stored in at most 16 bits
 MAX_NUM_BIN = 1 << 16
+
+
+class ColumnSource:
+    """Column-addressable view of a 2-D feature container: every input
+    format gives float64 columns on demand, so binning never holds a
+    dense float copy of columnar data (ref: the reference's Parser /
+    ArrowChunkedArray adapters)."""
+
+    num_data: int
+    num_features: int
+
+    def get_col(self, f: int) -> np.ndarray:      # f64 [N]
+        raise NotImplementedError
+
+    def get_col_sample(self, f: int, rows: np.ndarray) -> np.ndarray:
+        """f64 [len(rows)]; override when sampling beats a whole column."""
+        return self.get_col(f)[rows]
+
+    def column_names(self) -> Optional[List[str]]:
+        return None
+
+
+class DenseColumns(ColumnSource):
+    """A dense ``[N, F]`` matrix."""
+
+    def __init__(self, data: np.ndarray):
+        self.data = np.asarray(data)
+        self.num_data, self.num_features = self.data.shape
+
+    def get_col(self, f: int) -> np.ndarray:
+        return np.ascontiguousarray(self.data[:, f], dtype=np.float64)
+
+    def get_col_sample(self, f: int, rows: np.ndarray) -> np.ndarray:
+        return np.asarray(self.data[rows, f], dtype=np.float64)
+
+
+class ArrowColumns(ColumnSource):
+    """A pyarrow Table or RecordBatch, converted a column at a time;
+    nulls become NaN, as the reference maps Arrow nulls (ref:
+    include/LightGBM/arrow.h)."""
+
+    def __init__(self, table):
+        import pyarrow as pa
+        if isinstance(table, pa.RecordBatch):
+            table = pa.Table.from_batches([table])
+        self.table = table
+        self.num_data = table.num_rows
+        self.num_features = table.num_columns
+
+    def get_col(self, f: int) -> np.ndarray:
+        col = self.table.column(int(f))
+        return np.asarray(col.to_numpy(zero_copy_only=False),
+                          dtype=np.float64)
+
+    def column_names(self) -> List[str]:
+        return [str(n) for n in self.table.column_names]
 
 
 class Metadata:
@@ -120,25 +182,34 @@ class BinnedDataset:
 
     @classmethod
     def from_matrix(cls, data: np.ndarray, config: Config,
-                    label: Optional[Sequence[float]] = None,
-                    weight: Optional[Sequence[float]] = None,
-                    init_score: Optional[Sequence[float]] = None,
-                    feature_names: Optional[List[str]] = None,
-                    reference: Optional["BinnedDataset"] = None,
-                    group: Optional[Sequence[int]] = None,
-                    position: Optional[Sequence[int]] = None,
-                    ) -> "BinnedDataset":
-        """Build from a dense [N, F] float matrix (ref:
+                    **kwargs) -> "BinnedDataset":
+        """Build from a dense [N, F] float matrix (``from_columns``)."""
+        data = np.asarray(data)
+        if data.ndim != 2:
+            log.fatal("data must be 2-dimensional")
+        return cls.from_columns(DenseColumns(data), config, **kwargs)
+
+    @classmethod
+    def from_columns(cls, source: ColumnSource, config: Config,
+                     label: Optional[Sequence[float]] = None,
+                     weight: Optional[Sequence[float]] = None,
+                     init_score: Optional[Sequence[float]] = None,
+                     feature_names: Optional[List[str]] = None,
+                     reference: Optional["BinnedDataset"] = None,
+                     group: Optional[Sequence[int]] = None,
+                     position: Optional[Sequence[int]] = None,
+                     categorical_features: Sequence[int] = (),
+                     ) -> "BinnedDataset":
+        """Build from a column source (ref:
         DatasetLoader::ConstructFromSampleData dataset_loader.cpp:601).
         With ``reference`` (a validation set) the rows are binned with
         the reference's bin mappers, used features, ``max_bin`` and
         feature names (ref: the JAX package's io/dataset_core.py:458).
         ``group`` holds query sizes and ``position`` each row's position
-        id (ranking)."""
-        data = np.asarray(data)
-        if data.ndim != 2:
-            log.fatal("data must be 2-dimensional")
-        num_data, num_features = data.shape
+        id (ranking); ``categorical_features`` the indices of the
+        features binned as categories. Names come from ``feature_names``,
+        else the source's columns, else ``Column_i``."""
+        num_data, num_features = source.num_data, source.num_features
         self = cls()
         self.num_data = num_data
         self.num_total_features = num_features
@@ -152,14 +223,17 @@ class BinnedDataset:
             self.feature_names = reference.feature_names
         else:
             self.max_bin = int(config.max_bin)
+            src_names = source.column_names()
             self.feature_names = (
                 list(feature_names) if feature_names else
+                src_names if src_names else
                 [f"Column_{i}" for i in range(num_features)])
-            self.bin_mappers = cls._find_bin_mappers(data, config)
+            self.bin_mappers = cls._find_bin_mappers(source, config,
+                                                     categorical_features)
             self.used_feature_map = np.asarray(
                 [i for i, m in enumerate(self.bin_mappers)
                  if not m.is_trivial], dtype=np.int32)
-        self.bins = _quantize_rowmajor(data, self.bin_mappers,
+        self.bins = _quantize_rowmajor(source, self.bin_mappers,
                                        self.used_feature_map)
         meta = Metadata(num_data)
         if label is not None:
@@ -172,11 +246,12 @@ class BinnedDataset:
         return self
 
     @staticmethod
-    def _find_bin_mappers(data: np.ndarray,
-                          config: Config) -> List[BinMapper]:
+    def _find_bin_mappers(source: ColumnSource, config: Config,
+                          categorical_features: Sequence[int] = ()
+                          ) -> List[BinMapper]:
         """Sample rows and find per-feature bin boundaries (ref:
         dataset_loader.cpp:1080 ConstructBinMappersFromTextData)."""
-        num_data, num_features = data.shape
+        num_data, num_features = source.num_data, source.num_features
         sample_cnt = min(config.bin_construct_sample_cnt, num_data)
         if sample_cnt < num_data:
             rng = np.random.default_rng(config.data_random_seed)
@@ -190,15 +265,17 @@ class BinnedDataset:
             config.min_data_in_leaf * len(sample_indices)
             / max(num_data, 1), config.min_data_in_bin))
         max_bin_by_feature = config.max_bin_by_feature
+        cat_set = set(int(c) for c in categorical_features)
         mappers = []
         for f in range(num_features):
-            col = np.asarray(data[sample_indices, f], dtype=np.float64)
+            col = source.get_col_sample(f, sample_indices)
             mb = (max_bin_by_feature[f] if f < len(max_bin_by_feature)
                   else config.max_bin)
             mappers.append(BinMapper.find_bin(
                 col, len(sample_indices), mb, config.min_data_in_bin,
                 filter_cnt, pre_filter=config.feature_pre_filter,
-                bin_type=BIN_NUMERICAL, use_missing=config.use_missing,
+                bin_type=BIN_CATEGORICAL if f in cat_set else BIN_NUMERICAL,
+                use_missing=config.use_missing,
                 zero_as_missing=config.zero_as_missing))
         n_trivial = sum(m.is_trivial for m in mappers)
         if n_trivial:
@@ -246,7 +323,7 @@ class BinnedDataset:
         return [m.feature_info() for m in self.bin_mappers]
 
 
-def _quantize_rowmajor(data: np.ndarray, bin_mappers: List[BinMapper],
+def _quantize_rowmajor(source: ColumnSource, bin_mappers: List[BinMapper],
                        used_feature_map: np.ndarray) -> np.ndarray:
     """Per-feature ``value_to_bin`` into the row-major matrix: uint8 when
     every used feature has at most 256 bins, uint16 otherwise (the JAX
@@ -257,8 +334,8 @@ def _quantize_rowmajor(data: np.ndarray, bin_mappers: List[BinMapper],
         log.fatal(f"max_bin gives {max_num_bin} bins; bins are stored in "
                   f"16 bits, at most {MAX_NUM_BIN} per feature")
     dtype = np.uint8 if max_num_bin <= 256 else np.uint16
-    bins = np.empty((data.shape[0], len(used_feature_map)), dtype)
+    bins = np.empty((source.num_data, len(used_feature_map)), dtype)
     for out_i, feat_i in enumerate(used_feature_map):
         bins[:, out_i] = bin_mappers[feat_i].value_to_bin(
-            np.asarray(data[:, feat_i], dtype=np.float64))
+            source.get_col(feat_i))
     return bins

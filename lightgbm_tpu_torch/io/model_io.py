@@ -162,11 +162,11 @@ def _tree_from_block(block: Dict[str, str]) -> HostTree:
     t.num_leaves = n
     ni = max(n - 1, 0)
 
-    def ints(key, count):
+    def ints(key, count, dtype=np.int32):
         if count == 0 or key not in block or not block[key]:
-            return np.zeros(count, np.int32)
+            return np.zeros(count, dtype)
         return np.asarray([int(float(x)) for x in block[key].split()],
-                          np.int32)
+                          dtype)
 
     def floats(key, count):
         if count == 0 or key not in block or not block[key]:
@@ -195,7 +195,9 @@ def _tree_from_block(block: Dict[str, str]) -> HostTree:
         t.cat_boundaries = ints("cat_boundaries",
                                 t.num_cat + 1).astype(np.int64)
         nthr = int(t.cat_boundaries[-1]) if len(t.cat_boundaries) else 0
-        t.cat_threshold = ints("cat_threshold", nthr).astype(np.uint32)
+        # bitset words use all 32 bits: parse wider than int32
+        t.cat_threshold = ints("cat_threshold", nthr,
+                               np.int64).astype(np.uint32)
     t.from_text = True
     t.max_depth = max_leaf_depth(t.left_child, t.right_child, t.num_leaves)
     return t

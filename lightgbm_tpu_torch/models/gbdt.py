@@ -247,7 +247,11 @@ class GBDT:
             min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
             min_gain_to_split=cfg.min_gain_to_split,
             max_delta_step=cfg.max_delta_step,
-            path_smooth=cfg.path_smooth)
+            path_smooth=cfg.path_smooth,
+            max_cat_threshold=int(cfg.max_cat_threshold),
+            cat_l2=float(cfg.cat_l2), cat_smooth=float(cfg.cat_smooth),
+            max_cat_to_onehot=int(cfg.max_cat_to_onehot),
+            min_data_per_group=int(cfg.min_data_per_group))
         self.grower_cfg = GrowerConfig(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
             num_bin=self.num_bin_max, hparams=hp,
@@ -673,7 +677,10 @@ class GBDT:
         they are rebound to this dataset's inner indices and bins, then
         every tree's output is added to the training and validation
         scores in model order, so a model replayed from its text gives
-        the score it trained with."""
+        the score it trained with. A categorical node's bitset of raw
+        categories is decoded back to this dataset's bins (ref: the JAX
+        package's models/gbdt.py:2660-2676); categories this dataset
+        never saw drop out of the set, as they fall in bin 0."""
         if other.num_tree_per_iteration != self.num_tree_per_iteration:
             log.fatal("Cannot continue training: num_tree_per_iteration "
                       "differs between the init model and this config")
@@ -686,18 +693,29 @@ class GBDT:
         for t in models:
             if not t.from_text:
                 continue
-            if t.num_cat > 0:
-                log.fatal("the init model has categorical splits; training "
-                          "on categorical features is not ported yet "
-                          "(ROADMAP A12.5)")
-            for i in range(t.num_leaves - 1):
+            ni = t.num_leaves - 1
+            cat_sets = {}
+            for i in range(ni):
                 f = int(t.split_feature[i])
                 if f not in inner_of:
                     log.fatal(f"init model splits on feature {f} which is "
                               "trivial/absent in the new training data")
                 t.split_feature_inner[i] = inner_of[f]
-                t.threshold_bin[i] = int(mappers[f].value_to_bin(
-                    np.asarray([t.threshold_real[i]]))[0])
+                m = mappers[f]
+                if m.bin_type == "numerical":
+                    t.threshold_bin[i] = int(m.value_to_bin(
+                        np.asarray([t.threshold_real[i]]))[0])
+                elif (t.decision_type[i] & 1) and t.num_cat > 0:
+                    cat_sets[i] = [m.categorical_2_bin[v]
+                                   for v in t.cat_values(
+                                       int(t.threshold_real[i]))
+                                   if v in m.categorical_2_bin]
+            width = max([len(v) for v in cat_sets.values()], default=0)
+            t.cat_bins_inner = np.full((ni, width), -1, np.int32)
+            t.cat_count_inner = np.zeros(ni, np.int32)
+            for i, bins in cat_sets.items():
+                t.cat_bins_inner[i, :len(bins)] = bins
+                t.cat_count_inner[i] = len(bins)
             t.from_text = False
         self.models = models
         bins_fm = self._train_bins_fm()
@@ -771,19 +789,45 @@ _MISSING_BITS = {"none": 0, "zero": 1, "nan": 2}
 
 
 def finalize_tree(host: HostTree, bin_mappers) -> None:
-    """Resolve a numerical host tree's bin thresholds to real values and
-    pack its decision_type bits, from the bin mappers of its ORIGINAL
-    features (ref: tree.h kDefaultLeftMask=2, missing type in bits 2-3;
-    Tree::Split stores RealThreshold = bin upper bound)."""
+    """Resolve a host tree's bin thresholds to real values and pack its
+    decision_type bits, from the bin mappers of its ORIGINAL features
+    (ref: tree.h kCategoricalMask=1, kDefaultLeftMask=2, missing type in
+    bits 2-3; Tree::Split stores RealThreshold = bin upper bound). A
+    categorical node's set of bins becomes a bitset over its RAW
+    category values (ref: Tree::SplitCategorical cat_threshold_ /
+    cat_boundaries_, Common::ConstructBitset), and its threshold the
+    index of that bitset; the JAX package's models/gbdt.py:2538-2582."""
     n_int = host.num_leaves - 1
     thr_real = np.zeros(n_int, np.float64)
     dtype_bits = np.zeros(n_int, np.int32)
+    cat_boundaries = [0]
+    cat_words: List[np.ndarray] = []
     for i in range(n_int):
         m = bin_mappers[host.split_feature[i]]
         tb = int(host.threshold_bin[i])
-        thr_real[i] = m.bin_upper_bound[min(tb, len(m.bin_upper_bound) - 1)]
+        if m.bin_type == "categorical":
+            k = int(host.cat_count_inner[i])
+            cats = [m.bin_2_categorical[b]
+                    for b in host.cat_bins_inner[i][:k]
+                    if 0 < b < len(m.bin_2_categorical)
+                    and m.bin_2_categorical[b] >= 0]
+            words = np.zeros((max(cats) // 32 + 1) if cats else 1,
+                             np.uint32)
+            for v in cats:
+                words[v // 32] |= np.uint32(1) << np.uint32(v % 32)
+            thr_real[i] = float(len(cat_boundaries) - 1)
+            cat_boundaries.append(cat_boundaries[-1] + len(words))
+            cat_words.append(words)
+            dtype_bits[i] |= 1
+        else:
+            thr_real[i] = m.bin_upper_bound[min(tb,
+                                                len(m.bin_upper_bound) - 1)]
         if host.default_left[i]:
             dtype_bits[i] |= 2
         dtype_bits[i] |= _MISSING_BITS[m.missing_type] << 2
     host.threshold_real = thr_real
     host.decision_type = dtype_bits
+    host.num_cat = len(cat_words)
+    host.cat_boundaries = np.asarray(cat_boundaries, np.int64)
+    host.cat_threshold = (np.concatenate(cat_words) if cat_words
+                          else np.zeros(0, np.uint32))

@@ -227,24 +227,40 @@ class _IncrementalPack:
 
 def mapper_arrays(mappers):
     """Per used feature: ``(num_bin, missing type, default bin)`` as host
-    int64 arrays, what ``pack_binned_tree`` folds into each node."""
+    int64 arrays, what ``pack_binned_tree`` folds into each node, and the
+    words of a categorical node's bitset over bins: enough for the most
+    bins of a categorical feature, 0 without one. Every tree packed with
+    these mappers has that width, so packs stack."""
+    cat_bins = [m.num_bin for m in mappers if m.bin_type == "categorical"]
     return (np.asarray([m.num_bin for m in mappers], np.int64),
             np.asarray([MISSING_ENUM[m.missing_type] for m in mappers],
                        np.int64),
-            np.asarray([m.default_bin for m in mappers], np.int64))
+            np.asarray([m.default_bin for m in mappers], np.int64),
+            (max(cat_bins) + 31) // 32 if cat_bins else 0)
 
 
 def pack_binned_tree(t: HostTree, max_leaves: int, feat_nbin: np.ndarray,
-                     feat_miss: np.ndarray, feat_dflt: np.ndarray) -> dict:
+                     feat_miss: np.ndarray, feat_dflt: np.ndarray,
+                     cat_width: int = 0) -> dict:
     """Binned serving arrays of one host tree, padded to ``max_leaves``:
     each node's missing routing folded into ``special``/``flip`` (see
     ``ops/predict.forest_leaf_bins``) from the per-feature arrays of
-    ``mapper_arrays``."""
+    ``mapper_arrays``, and each categorical node's set of bins
+    (``cat_bins_inner``) as ``cat_width`` bitset words."""
     L = max_leaves
     li = L - 1
     ni = max(int(t.num_leaves) - 1, 0)
     special = np.full(li, -1, np.int32)
     flip = np.zeros(li, bool)
+    is_cat = np.zeros(li, bool)
+    words = np.zeros((li, cat_width), np.uint32)
+    if ni and cat_width:
+        is_cat[:ni] = (np.asarray(t.decision_type[:ni]) & 1) != 0
+        for i in np.flatnonzero(is_cat[:ni]):
+            b = t.cat_bins_inner[i, :t.cat_count_inner[i]].astype(np.int64)
+            np.bitwise_or.at(words[i], b >> 5,
+                             np.left_shift(np.uint32(1),
+                                           (b & 31).astype(np.uint32)))
     if ni:
         f = np.asarray(t.split_feature_inner[:ni], np.int64)
         miss = feat_miss[f]
@@ -253,8 +269,8 @@ def pack_binned_tree(t: HostTree, max_leaves: int, feat_nbin: np.ndarray,
             np.where(miss == MISSING_ENUM["zero"], feat_dflt[f], -1))
         thr = np.asarray(t.threshold_bin[:ni], np.int64)
         dl = np.asarray(t.default_left[:ni], bool)
-        special[:ni] = sp
-        flip[:ni] = (sp >= 0) & (dl != (sp <= thr))
+        special[:ni] = np.where(is_cat[:ni], -1, sp)
+        flip[:ni] = (special[:ni] >= 0) & (dl != (sp <= thr))
     return dict(
         split_feature=_pad(t.split_feature_inner[:ni], li, np.int64),
         threshold_bin=_pad(t.threshold_bin[:ni], li, np.int32),
@@ -262,7 +278,8 @@ def pack_binned_tree(t: HostTree, max_leaves: int, feat_nbin: np.ndarray,
         left_child=_pad(t.left_child[:ni], li, np.int64),
         right_child=_pad(t.right_child[:ni], li, np.int64),
         leaf_value=_pad(t.leaf_value[:int(t.num_leaves)], L, np.float32),
-        num_leaves=np.int64(t.num_leaves))
+        num_leaves=np.int64(t.num_leaves),
+        is_cat=is_cat, cat_words=words.view(np.int32))
 
 
 class ForestPack(_IncrementalPack):

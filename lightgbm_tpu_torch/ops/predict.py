@@ -15,7 +15,8 @@ of every row, ``[R]`` or ``[T, R]``. Two entry points:
 
 - ``forest_leaf_bins``: over BINNED rows ``[F, R]`` (int32, uint8, or
   u16 bins held as int16) with integer bin thresholds and each node's
-  missing routing folded into two constants;
+  missing routing folded into two constants; a categorical node tests
+  its bitset over bins (ref: tree.h CategoricalDecisionInner);
 - ``tree_leaf_raw``: over RAW feature values ``[R, C]`` (a model without
   the training bin mappers), missing handling resolved per node from its
   ``decision_type``.
@@ -65,7 +66,9 @@ def _resolve_steps(num_steps: Optional[int], max_leaves: int) -> int:
 class BinnedTreeArrays(NamedTuple):
     """One tree, or ``T`` trees stacked on a leading axis, in binned
     serving form (device tensors). ``special``/``flip`` fold each node's
-    missing routing (see ``forest_leaf_bins``)."""
+    missing routing (see ``forest_leaf_bins``); a categorical node
+    (``is_cat``) holds its set of bins as a bitset of ``W`` 32-bit words
+    (``cat_words``; W is 0 when no feature is categorical)."""
     split_feature: torch.Tensor   # int64 [.., L-1] used-feature index
     threshold_bin: torch.Tensor   # int32 [.., L-1]
     special: torch.Tensor         # int32 [.., L-1]; -1 none
@@ -74,6 +77,8 @@ class BinnedTreeArrays(NamedTuple):
     right_child: torch.Tensor     # int64 [.., L-1]
     leaf_value: torch.Tensor      # f32 [.., L]
     num_leaves: torch.Tensor      # int64 [..]
+    is_cat: torch.Tensor          # bool [.., L-1]
+    cat_words: torch.Tensor       # int32 [.., L-1, W]
 
     @property
     def max_leaves(self) -> int:
@@ -137,17 +142,28 @@ def forest_leaf_bins(tree: BinnedTreeArrays, bins_t: torch.Tensor,
     constants computed at pack time:
     ``go_left = (b <= thr) XOR ((b == special) AND flip)``, where
     ``tree.special`` is the one bin whose routing may disagree with the
-    compare (-1 when none) and ``tree.flip`` says whether it does."""
+    compare (-1 when none) and ``tree.flip`` says whether it does. A
+    categorical node sends left the bins its bitset holds (bit ``b % 32``
+    of word ``b // 32``; bins past the words are not in it), so bin 0,
+    NaN and unseen categories, goes right."""
     steps = _resolve_steps(num_steps, tree.max_leaves)
+    W = tree.cat_words.shape[-1]
 
     def go_left(b, node, single):
         # u16 bins are held as int16 (ops/histogram.bin_ids): the 16 bits
         # read as unsigned
         b = (b.to(torch.int32) & 0xFFFF if b.dtype == torch.int16
              else b.to(torch.int32))
-        return (b <= _at(tree.threshold_bin, node, single)) ^ (
+        left = (b <= _at(tree.threshold_bin, node, single)) ^ (
             (b == _at(tree.special, node, single))
             & _at(tree.flip, node, single))
+        if W:
+            words = tree.cat_words.reshape(*tree.is_cat.shape[:-1], -1)
+            w = b >> 5
+            word = _at(words, node * W + w.clamp(max=W - 1), single)
+            in_set = (w < W) & (((word >> (b & 31)) & 1) != 0)
+            left = torch.where(_at(tree.is_cat, node, single), in_set, left)
+        return left
 
     return _walk(tree, bins_t, steps, go_left)
 

@@ -1,8 +1,10 @@
-"""Vectorized best-split search over feature histograms, numerical features.
+"""Vectorized best-split search over feature histograms.
 
 Port of ``lightgbm_tpu/ops/split.py`` (ref:
 src/treelearner/feature_histogram.hpp:166 FindBestThreshold, :838
-FindBestThresholdSequentially, :712-830 gain/output formulas).
+FindBestThresholdSequentially, :712-830 gain/output formulas;
+feature_histogram.cpp:459 FindBestThresholdCategoricalInner for
+categorical features, ``_categorical_scan``).
 
 Both scan directions for all features are evaluated at once as cumulative
 sums over the ``[F, B]`` histogram:
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,6 +52,12 @@ class SplitHyperParams:
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
     path_smooth: float = 0.0
+    # categorical optimal split (ref: config.h cat_* params)
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_to_onehot: int = 4
+    min_data_per_group: int = 100
 
     @property
     def use_l1(self) -> bool:
@@ -62,22 +70,43 @@ class SplitHyperParams:
 
 class FeatureMeta(NamedTuple):
     """Per-used-feature metadata as device tensors [F] (int32), plus
-    whether any feature has a missing type (known on the host, so the
-    scan can drop the forward direction without reading the device)."""
+    what the host knows without reading the device: whether any
+    numerical feature has a missing type (without one the scan drops the
+    forward direction: a categorical feature's numerical scan is never
+    used) and
+    the categorical features (``cat_features``, int64 indices, None when
+    there are none; ``is_categorical`` is the bool [F] mask;
+    ``cat_num_bin`` their bin counts on the host, which tell the scan
+    which of its branches a feature takes)."""
     num_bin: torch.Tensor
     missing_type: torch.Tensor
     default_bin: torch.Tensor
     has_missing: bool = True
+    is_categorical: Optional[torch.Tensor] = None
+    cat_features: Optional[torch.Tensor] = None
+    cat_num_bin: Optional[Tuple[int, ...]] = None
+
+    @property
+    def has_cat(self) -> bool:
+        return self.cat_features is not None
 
     @staticmethod
     def from_mappers(mappers, device="cpu") -> "FeatureMeta":
         i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
         miss = [MISSING_ENUM[m.missing_type] for m in mappers]
+        is_cat = [m.bin_type == "categorical" for m in mappers]
         return FeatureMeta(
             num_bin=i32([m.num_bin for m in mappers]),
             missing_type=i32(miss),
             default_bin=i32([m.default_bin for m in mappers]),
-            has_missing=any(v != MISSING_ENUM["none"] for v in miss))
+            has_missing=any(v != MISSING_ENUM["none"] and not c
+                            for v, c in zip(miss, is_cat)),
+            is_categorical=torch.tensor(is_cat, device=device),
+            cat_features=(torch.tensor(
+                [i for i, c in enumerate(is_cat) if c], device=device)
+                if any(is_cat) else None),
+            cat_num_bin=tuple(m.num_bin for m in mappers
+                              if m.bin_type == "categorical") or None)
 
 
 class SplitRecord(NamedTuple):
@@ -95,14 +124,28 @@ class SplitRecord(NamedTuple):
     right_sum_hessian: torch.Tensor
     right_count: torch.Tensor
     right_output: torch.Tensor
+    # categorical split set (ref: SplitInfo::cat_threshold, the chosen
+    # category BINS): int64, present only when a feature is categorical
+    num_cat: Optional[torch.Tensor] = None   # 0 = numerical split
+    cat_bins: Optional[torch.Tensor] = None  # [..., MAXK], -1 padded
 
 
 def pack_record_rows(rec: SplitRecord) -> torch.Tensor:
-    """SplitRecord -> packed f32 [..., 12] rows in the grower's column
+    """SplitRecord -> packed f32 [..., 13] rows in the grower's column
     layout: [gain, feature, threshold, default_left, left (g, h, count,
-    output), right (g, h, count, output)]. Bin thresholds and feature ids
-    are < 2^24, exact in f32."""
-    return torch.stack([v.to(torch.float32) for v in rec], dim=-1)
+    output), right (g, h, count, output), num_cat] (num_cat 0 without
+    categorical features). Bin thresholds, feature ids and set sizes are
+    < 2^24, exact in f32. The set itself travels beside the row."""
+    num_cat = (rec.num_cat if rec.num_cat is not None
+               else torch.zeros_like(rec.feature))
+    return torch.stack([v.to(torch.float32) for v in rec[:12]]
+                       + [num_cat.to(torch.float32)], dim=-1)
+
+
+def max_cat_width(hp: "SplitHyperParams", num_bin: int) -> int:
+    """MAXK, the width of a split's padded category set (ref: the JAX
+    package's core/grower.py:455)."""
+    return min(int(hp.max_cat_threshold), int(num_bin))
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +271,8 @@ def bin_cumsum(x: torch.Tensor) -> torch.Tensor:
 def best_split_for_leaf(hist: torch.Tensor, sum_gradient, sum_hessian,
                         num_data, parent_output, meta: FeatureMeta,
                         hp: SplitHyperParams,
-                        feature_mask: Optional[torch.Tensor] = None
+                        feature_mask: Optional[torch.Tensor] = None,
+                        rand_u: Optional[torch.Tensor] = None
                         ) -> SplitRecord:
     """Best split over all features for one leaf, or for a batch of them.
 
@@ -241,20 +285,30 @@ def best_split_for_leaf(hist: torch.Tensor, sum_gradient, sum_hessian,
     feature_mask : bool [F] (every leaf) or [N, F] (one row a leaf), or
         None: column sampling; a masked feature cannot win (ref: the JAX
         package's ops/split.py:702-703).
+    rand_u : extra_trees' per-feature draws; not ported (ROADMAP A12.6),
+        so anything but None raises.
 
     The arithmetic mirrors FindBestThresholdSequentially with the
     kEpsilon seeding: the accumulating side starts at kEpsilon and the
     parent hessian carries +2 kEpsilon (ref: feature_histogram.hpp:172).
+    Categorical features (``meta.cat_features``) take the categorical
+    scan's result instead of the numerical scan over their bins.
     """
+    if rand_u is not None:
+        raise NotImplementedError("extra_trees' random thresholds are not "
+                                  "ported yet (ROADMAP A12.6)")
     batched = hist.dim() == 4
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
                                     device=hist.device).reshape(-1)
     hist4 = hist if batched else hist[None]
-    rec = _select_across_features(
-        _per_feature_scan(hist4, f32(sum_gradient), f32(sum_hessian),
-                          f32(num_data), f32(parent_output), meta, hp),
-        hp, feature_mask)
-    return rec if batched else SplitRecord(*(v[0] for v in rec))
+    sums = [f32(v) for v in (sum_gradient, sum_hessian, num_data,
+                             parent_output)]
+    scan = _per_feature_scan(hist4, *sums, meta, hp)
+    cat = _categorical_scan_of(hist4, sums, meta, hp) if meta.has_cat \
+        else None
+    rec = _select_across_features(scan, hp, feature_mask, meta, cat)
+    return rec if batched else SplitRecord(
+        *(None if v is None else v[0] for v in rec))
 
 
 def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
@@ -363,13 +417,234 @@ def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
     return out
 
 
+def _greedy_groups(eligible: torch.Tensor, counts: torch.Tensor,
+                   min_data_per_group: float) -> torch.Tensor:
+    """The reference's ``min_data_per_group`` thinning of a prefix scan
+    (feature_histogram.cpp cnt_cur_group; the JAX package's sequential
+    ``lax.scan``, ops/split.py:596-616) without a loop over the slots.
+
+    Walking slots 0..K-1, a running group count adds each slot's count;
+    slot i is a candidate when ``eligible[i]`` and the group holds at
+    least ``min_data_per_group`` rows, and a candidate starts a new
+    group. So the next candidate after slot j is the first eligible slot
+    i > j whose prefix count exceeds j's by at least the minimum: a
+    successor map over the slots (start = one slot before the first),
+    whose chain from the start is followed by pointer doubling. Counts
+    are whole numbers, summed here in f64 (exact); the JAX package's f32
+    group sum is exact below 2^24 rows, where the two agree.
+
+    eligible : bool [..., K]; counts : [..., K] per slot. Returns the
+    candidate mask, bool [..., K]."""
+    K = eligible.shape[-1]
+    dev = eligible.device
+    pfx = torch.cumsum(counts.to(torch.float64), dim=-1)
+    p_ext = torch.nn.functional.pad(pfx, (1, 0))               # [..., K+1]
+    slot = torch.arange(K, device=dev)
+    # succ[j, i]: slot i may follow node j (node 0 = start, node j >= 1
+    # = slot j - 1)
+    after = slot[None, :] >= torch.arange(K + 1, device=dev)[:, None]
+    succ = (after & eligible[..., None, :]
+            & (pfx[..., None, :] - p_ext[..., :, None] >= min_data_per_group))
+    # a last column that always holds: "no successor" is node K + 1,
+    # which is its own successor
+    succ = torch.nn.functional.pad(succ, (0, 1), value=True)
+    nxt = torch.argmax(succ.to(torch.uint8), -1) + 1            # [..., K+1]
+    nxt = torch.nn.functional.pad(nxt, (0, 1), value=K + 1)
+    node = torch.arange(K + 2, device=dev)
+    on = (node == 0).expand(nxt.shape)                          # the start
+    span = 1
+    while span <= K:
+        # every node reached within `span` more steps joins the chain
+        on = on | ((nxt[..., :, None] == node) & on[..., :, None]).any(-2)
+        nxt = torch.gather(nxt, -1, nxt)
+        span *= 2
+    return on[..., 1:K + 1]
+
+
+# the per-feature values a categorical scan returns, in this order
+CAT_VALUES = ("lg", "lh", "lc", "rg", "rh", "rc", "lo", "ro")
+
+
+def _categorical_scan_of(hist4, sums, meta: FeatureMeta,
+                         hp: SplitHyperParams) -> dict:
+    """The categorical scan of ``meta``'s categorical features, from the
+    leaf totals ``sums`` (grad, hess, count, parent output; [N] each)."""
+    onehot = (None if meta.cat_num_bin is None else
+              [nb - 1 <= hp.max_cat_to_onehot for nb in meta.cat_num_bin])
+    return _categorical_scan(hist4[:, meta.cat_features], sums[0],
+                             sums[1] + 2 * K_EPSILON, sums[2], sums[3],
+                             meta.num_bin[meta.cat_features], hp, onehot)
+
+
+def _categorical_scan(hist, sum_gradient, sum_hessian, num_data,
+                      parent_output, num_bin: torch.Tensor,
+                      hp: SplitHyperParams, onehot=None) -> dict:
+    """Best categorical split of each feature of ``hist`` [N, Fc, B, 3]
+    (the categorical features' histograms; ``num_bin`` [Fc]), leaf totals
+    [N] with ``sum_hessian`` carrying +2 kEpsilon (ref:
+    feature_histogram.cpp:459 FindBestThresholdCategoricalInner; port of
+    the JAX package's ops/split.py ``_categorical_scan``).
+
+    Features of at most ``max_cat_to_onehot`` categories scan each
+    category alone (one-hot); the others stable-sort their bins by
+    ``sum_grad / (sum_hess + cat_smooth)`` and scan prefixes of the
+    sorted order from both ends, at most ``max_cat_threshold`` long and
+    thinned by ``min_data_per_group``, with ``cat_l2`` added to the l2
+    term. Bin 0 (NaN and unseen categories) is never in a set: those
+    rows go right (default_left=False). ``onehot`` (host bools [Fc],
+    which features scan one-hot; None: unknown) lets the scan skip a
+    branch no feature takes.
+
+    Divergence kept from the JAX package: the reference approximates a
+    bin's count as RoundInt(hess * num_data / sum_hessian), having no
+    count channel in its categorical histograms; here the histogram's
+    exact count is used (the same when hessians are constant).
+
+    Returns per feature, [N, Fc]: the net gain and the set size; the
+    sets [N, Fc, MAXK] (bins, -1 padded); and ``vals`` [N, Fc, 8], the
+    two sides' sums and outputs in ``CAT_VALUES`` order. Every value is
+    the JAX package's bit for bit: each channel's operations are the
+    same elementwise f32 operations, only batched."""
+    N, Fc, B, _ = hist.shape
+    dev = hist.device
+    col3 = lambda v: v[:, None, None]
+    col4 = lambda v: v[:, None, None, None]
+    bin_idx = torch.arange(B, device=dev)
+    nbin = num_bin.long()
+    in_range = (bin_idx >= 1) & (bin_idx < nbin[:, None])       # [Fc, B]
+    do1 = onehot is None or any(onehot)
+    do2 = onehot is None or not all(onehot)
+
+    hp_ns = dataclasses.replace(hp, path_smooth=0.0)
+    hp_cat = dataclasses.replace(hp, lambda_l2=hp.lambda_l2 + hp.cat_l2)
+    if hp.use_smoothing:
+        # smoothing on: the shift is the gain at the PARENT's output
+        shift = leaf_gain_given_output(sum_gradient, sum_hessian, hp,
+                                       parent_output)
+    else:
+        shift = leaf_gain(sum_gradient, sum_hessian, hp_ns, num_data,
+                          torch.zeros_like(sum_gradient))
+    min_gain_shift = shift + hp.min_gain_to_split              # [N]
+
+    def gain(lg, lh, lc, rg, rh, rc, hp_use, parent):
+        """Split gain, the chosen set on the left; NaN is no split."""
+        g = (leaf_gain(lg, lh, hp_use, lc, parent) +
+             leaf_gain(rg, rh, hp_use, rc, parent))
+        return torch.where(torch.isnan(g), K_MIN_SCORE, g)
+
+    def with_outputs(sides, hp_use):
+        """[N, Fc, 6] side sums -> [N, Fc, 8] with both outputs."""
+        po = parent_output[:, None]
+        outs = [calculate_splitted_leaf_output(sides[..., 3 * s],
+                                               sides[..., 3 * s + 1], hp_use,
+                                               sides[..., 3 * s + 2], po)
+                for s in (0, 1)]
+        return torch.cat([sides, torch.stack(outs, -1)], -1)
+
+    g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]          # [N, Fc, B]
+    KK = max_cat_width(hp, B)
+    slots = torch.arange(KK, device=dev)
+    net1 = net2 = None
+    if do1:
+        # ---- one-hot: left = a single category ---------------------------
+        lh1 = h + K_EPSILON
+        rg1 = col3(sum_gradient) - g
+        rh1 = col3(sum_hessian) - h - K_EPSILON
+        rc1 = col3(num_data) - c
+        gain1 = gain(g, lh1, c, rg1, rh1, rc1, hp, col3(parent_output))
+        valid1 = (in_range & (c >= hp.min_data_in_leaf) &
+                  (h >= hp.min_sum_hessian_in_leaf) &
+                  (rc1 >= hp.min_data_in_leaf) &
+                  (rh1 >= hp.min_sum_hessian_in_leaf) &
+                  (gain1 > col3(min_gain_shift)))
+        gain1 = torch.where(valid1, gain1, K_MIN_SCORE)
+        t1 = torch.argmax(gain1, dim=-1)              # ties -> smaller bin
+        net1 = torch.gather(gain1, -1, t1[..., None])[..., 0]
+        sides = torch.stack([g, lh1, c, rg1, rh1, rc1], -1)
+        vals1 = with_outputs(torch.gather(
+            sides, 2, t1[..., None, None].expand(N, Fc, 1, 6))[:, :, 0], hp)
+        set1 = torch.where(slots == 0, t1[..., None], -1)
+        ncat1 = torch.ones_like(t1)
+    if do2:
+        # ---- sorted subset: prefixes of the bins ordered by grad/hess ----
+        used = in_range & (c >= hp.cat_smooth)
+        ratio = torch.where(used, g / (h + hp.cat_smooth), math.inf)
+        order_asc = torch.argsort(ratio, dim=-1, stable=True)
+        used_bin = used.sum(-1)                                 # [N, Fc]
+        rev_pos = (used_bin[..., None] - 1 - bin_idx).clamp(0, B - 1)
+        order_desc = torch.gather(order_asc, -1, rev_pos)
+        orders = torch.stack([order_asc[..., :KK], order_desc[..., :KK]],
+                             dim=2)                             # [N, Fc, 2, KK]
+        # the three channels gathered into sorted order and summed in one
+        # pass each: [3, N, Fc, 2, KK]
+        ghc = torch.gather(hist[:, :, None].expand(N, Fc, 2, B, 3), 3,
+                           orders[..., None].expand(N, Fc, 2, KK, 3))
+        L = bin_cumsum(ghc.movedim(-1, 0))
+        Lg, Lh, Lc = L[0], L[1] + K_EPSILON, L[2]
+        Rg = col4(sum_gradient) - Lg
+        Rh = col4(sum_hessian) - Lh
+        Rc = col4(num_data) - Lc
+        max_num_cat = torch.clamp((used_bin + 1) // 2,
+                                  max=hp.max_cat_threshold)
+        limit = torch.minimum(max_num_cat, used_bin)[..., None, None]
+        # a slot whose left side is too small is skipped; one whose right
+        # side is too small ends its direction's scan (ref: the `break`)
+        left_bad = ((Lc < hp.min_data_in_leaf) |
+                    (Lh < hp.min_sum_hessian_in_leaf))
+        brk = ~left_bad & ((Rc < hp.min_data_in_leaf) |
+                           (Rc < hp.min_data_per_group) |
+                           (Rh < hp.min_sum_hessian_in_leaf))
+        alive = torch.cumsum(brk.to(torch.int32), dim=-1) == 0
+        cand = _greedy_groups(alive & ~left_bad, ghc[..., 2],
+                              hp.min_data_per_group)
+        gain2 = gain(Lg, Lh, Lc, Rg, Rh, Rc, hp_cat, col4(parent_output))
+        gain2 = torch.where(cand & (slots < limit)
+                            & (gain2 > col4(min_gain_shift)),
+                            gain2, K_MIN_SCORE)
+        # the reference scans direction +1 fully, then -1, the first strict
+        # maximum winning: the row-major flatten keeps that order
+        bf2 = torch.argmax(gain2.reshape(N, Fc, 2 * KK), dim=-1)
+        bdir, bk = bf2 // KK, bf2 % KK
+        net2 = torch.gather(gain2.reshape(N, Fc, 2 * KK), -1,
+                            bf2[..., None])[..., 0]
+        sides = torch.stack([Lg, Lh, Lc, Rg, Rh, Rc], -1).reshape(
+            N, Fc, 2 * KK, 6)
+        vals2 = with_outputs(torch.gather(
+            sides, 2, bf2[..., None, None].expand(N, Fc, 1, 6))[:, :, 0],
+            hp_cat)
+        best_order = torch.gather(
+            orders, 2, bdir[..., None, None].expand(N, Fc, 1, KK))[:, :, 0]
+        set2 = torch.where(slots <= bk[..., None], best_order, -1)
+        ncat2 = bk + 1
+
+    if do1 and do2:
+        # num_bin counts the reserved bin 0: the categories are num_bin - 1
+        use1 = (nbin - 1) <= hp.max_cat_to_onehot                # [Fc]
+        pick = lambda a1, a2: torch.where(
+            use1.reshape(-1, *([1] * (a1.dim() - 2))), a1, a2)
+        bgain, vals = pick(net1, net2), pick(vals1, vals2)
+        cat_bins, num_cat = pick(set1, set2), pick(ncat1, ncat2)
+    elif do1:
+        bgain, vals, cat_bins, num_cat = net1, vals1, set1, ncat1
+    else:
+        bgain, vals, cat_bins, num_cat = net2, vals2, set2, ncat2
+    return dict(
+        net_gain=torch.where(bgain > K_MIN_SCORE,
+                             bgain - min_gain_shift[:, None], K_MIN_SCORE),
+        num_cat=num_cat, cat_bins=cat_bins, vals=vals)
+
+
 def _select_across_features(scan: dict, hp: SplitHyperParams,
-                            feature_mask: Optional[torch.Tensor] = None
-                            ) -> SplitRecord:
+                            feature_mask: Optional[torch.Tensor] = None,
+                            meta: Optional[FeatureMeta] = None,
+                            cat: Optional[dict] = None) -> SplitRecord:
     """Cross-feature selection over _per_feature_scan output: the winner
     by (max net gain, smaller feature index), and its side sums fetched
     from the scan's cumulative sums at (feature, iteration) with the same
-    f32 operations the scan used."""
+    f32 operations the scan used. With ``cat`` (the categorical scan of
+    ``meta.cat_features``) a categorical feature competes with its
+    categorical result, and a categorical winner takes its sums, outputs
+    and set from there (threshold 0, default_left False)."""
     best_gain = scan["best_gain"]                              # [N, F]
     if feature_mask is not None:
         best_gain = torch.where(feature_mask, best_gain, K_MIN_SCORE)
@@ -380,11 +655,22 @@ def _select_across_features(scan: dict, hp: SplitHyperParams,
     net_gain = torch.where(valid_any,
                            best_gain - scan["min_gain_shift"][:, None],
                            K_MIN_SCORE)
+    if cat is not None:
+        # categorical features take their subset-scan result instead of
+        # the (meaningless) numerical scan over their bins
+        cat_net = torch.full_like(net_gain, K_MIN_SCORE)
+        cat_net[:, meta.cat_features] = cat["net_gain"]
+        if feature_mask is not None:
+            cat_net = torch.where(feature_mask, cat_net, K_MIN_SCORE)
+        net_gain = torch.where(meta.is_categorical, cat_net, net_gain)
+        valid_any = torch.where(meta.is_categorical, cat_net > K_MIN_SCORE,
+                                valid_any)
     best_f = torch.argmax(net_gain, dim=-1)                    # [N]
     sel = lambda a: torch.gather(a, -1, best_f[:, None])[:, 0]
     gain_out = sel(net_gain)
     has_valid = sel(valid_any)
     best_t_w = sel(best_t)
+    best_dl = sel(scan["best_dl"])
 
     n = torch.arange(N, device=dev)
     eps_h = torch.tensor([0.0, K_EPSILON, 0.0], dtype=torch.float32,
@@ -411,13 +697,29 @@ def _select_across_features(scan: dict, hp: SplitHyperParams,
         torch.stack([lvec[:, 1], rvec[:, 1]], dim=-1), hp,
         torch.stack([lvec[:, 2], rvec[:, 2]], dim=-1),
         scan["parent_output"][:, None])
+    num_cat = cat_bins = None
+    if cat is not None:
+        is_cat_win = meta.is_categorical[best_f]               # [N]
+        # the winner's position among the categorical features
+        cpos = torch.cumsum(meta.is_categorical.long(), 0)[best_f] - 1
+        cpos = cpos.clamp(min=0)
+        win = is_cat_win[:, None]
+        vals = cat["vals"][n, cpos]                            # [N, 8]
+        lvec = torch.where(win, vals[:, 0:3], lvec)
+        rvec = torch.where(win, vals[:, 3:6], rvec)
+        outs = torch.where(win, vals[:, 6:8], outs)
+        best_t_w = torch.where(is_cat_win, 0, best_t_w)
+        best_dl = torch.where(is_cat_win, False, best_dl)
+        num_cat = torch.where(has_valid & is_cat_win,
+                              cat["num_cat"][n, cpos], 0)
+        cat_bins = torch.where(win, cat["cat_bins"][n, cpos], -1)
     lrec = lvec - eps_h
     rrec = rvec - eps_h
     return SplitRecord(
         gain=torch.where(has_valid, gain_out, K_MIN_SCORE),
         feature=torch.where(has_valid, best_f, -1),
         threshold=best_t_w,
-        default_left=sel(scan["best_dl"]),
+        default_left=best_dl,
         left_sum_gradient=lrec[:, 0],
         left_sum_hessian=lrec[:, 1],
         left_count=lrec[:, 2],
@@ -425,4 +727,29 @@ def _select_across_features(scan: dict, hp: SplitHyperParams,
         right_sum_gradient=rrec[:, 0],
         right_sum_hessian=rrec[:, 1],
         right_count=rrec[:, 2],
-        right_output=outs[:, 1])
+        right_output=outs[:, 1],
+        num_cat=num_cat, cat_bins=cat_bins)
+
+
+def per_feature_net_gains(hist, sum_gradient, sum_hessian, num_data,
+                          parent_output, meta: FeatureMeta,
+                          hp: SplitHyperParams) -> torch.Tensor:
+    """Best NET split gain of each feature, [F] (or [N, F] for a batch of
+    leaves), K_MIN_SCORE where a feature has no valid split: what the
+    voting-parallel learner's local vote ranks features by (ref:
+    voting_parallel_tree_learner.cpp; the JAX package's
+    ops/split.py:888-912)."""
+    batched = hist.dim() == 4
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
+                                    device=hist.device).reshape(-1)
+    hist4 = hist if batched else hist[None]
+    sums = [f32(v) for v in (sum_gradient, sum_hessian, num_data,
+                             parent_output)]
+    scan = _per_feature_scan(hist4, *sums, meta, hp)
+    net = torch.where(scan["best_gain"] > K_MIN_SCORE,
+                      scan["best_gain"] - scan["min_gain_shift"][:, None],
+                      K_MIN_SCORE)
+    if meta.has_cat:
+        net[:, meta.cat_features] = _categorical_scan_of(
+            hist4, sums, meta, hp)["net_gain"]
+    return net if batched else net[0]

@@ -8,8 +8,9 @@ reference's ``_process_params`` does. Without scikit-learn (the card's
 machine has none) the estimators still fit and predict: stand-ins give
 ``BaseEstimator``'s ``get_params`` / ``set_params`` by the constructor's
 signature, the mixins nothing and ``LabelEncoder`` the sorted classes.
-Input is dense (numpy or a frame's values); sparse and categorical input
-wait for ROADMAP A12.5.
+Input is dense (numpy or a frame's values), with categorical features by
+index or by a frame's column name; sparse input waits for ROADMAP
+A12.5b.
 """
 from __future__ import annotations
 
@@ -231,9 +232,6 @@ class LGBMModel(_SKBase):
             categorical_feature="auto", callbacks=None,
             init_model=None) -> "LGBMModel":
         """ref: sklearn.py LGBMModel.fit (:895)."""
-        if categorical_feature not in ("auto", None, [], ()):
-            raise LightGBMError("categorical features are not ported yet "
-                                "(ROADMAP A12.5)")
         params = self._process_params(stage="fit")
         if callable(eval_metric):
             feval = _EvalFunctionWrapper(eval_metric)
@@ -263,7 +261,9 @@ class LGBMModel(_SKBase):
 
         train_set = Dataset(X_arr, label=y, weight=sample_weight,
                             group=group, init_score=init_score,
-                            feature_name=feature_name, params=params)
+                            feature_name=feature_name,
+                            categorical_feature=categorical_feature,
+                            params=params)
         valid_sets: List[Dataset] = []
         valid_names: List[str] = []
         if eval_set is not None:
@@ -605,9 +605,10 @@ class LGBMRanker(LGBMModel):
 
 def _as_matrix(X):
     """A dense 2-D float64 array of numpy input or a frame's values;
-    sparse input waits for ROADMAP A12.5."""
+    sparse input waits for ROADMAP A12.5b."""
     if hasattr(X, "tocsr"):
-        raise LightGBMError("sparse input is not ported yet (ROADMAP A12.5)")
+        raise LightGBMError("sparse input is not ported yet "
+                            "(ROADMAP A12.5b)")
     if hasattr(X, "values") and hasattr(X, "columns"):
         X = X.values
     arr = np.asarray(X)

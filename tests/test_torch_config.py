@@ -1,8 +1,8 @@
 """Settings the PyTorch port cannot honour yet are refused, by name and
 with the ROADMAP item that ports them; the settings the port has ported
 (quantized gradients, bf16 histograms, level, full and leaf scheduling,
-every ``tpu_hist_kernel`` value, DART, random forests, bagging, GOSS and
-column sampling) train."""
+every ``tpu_hist_kernel`` value, DART, random forests, bagging, GOSS,
+column sampling and categorical features) train."""
 import numpy as np
 import pytest
 
@@ -18,7 +18,6 @@ REFUSED = [
     ("interaction_constraints", "[0,1],[2,3]", "A12"),
     ("forcedsplits_filename", "forced.json", "A12"),
     ("forcedbins_filename", "bins.json", "A12"),
-    ("categorical_feature", "0", "A12"),
     ("feature_contri", [0.5] * F, "A12"),
     ("cegb_penalty_split", 0.1, "A12"),
     ("cegb_penalty_feature_lazy", [1.0] * F, "A12"),
@@ -64,11 +63,13 @@ def test_unported_setting_is_refused_with_its_roadmap_item(name, value,
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
     {"boosting": "dart"}, {"data_sample_strategy": "goss"},
     {"bagging_freq": 1, "bagging_fraction": 0.5},
-    {"feature_fraction": 0.5}, {"feature_fraction_bynode": 0.5}],
+    {"feature_fraction": 0.5}, {"feature_fraction_bynode": 0.5},
+    {"categorical_feature": "0"}],
     ids=["quantized", "bf16", "level", "einsum", "scatter", "pallas",
          "pallas_level", "full", "leaf", "boosting=rf", "boosting=dart",
          "data_sample_strategy=goss", "bagging_freq=1",
-         "feature_fraction=0.5", "feature_fraction_bynode=0.5"])
+         "feature_fraction=0.5", "feature_fraction_bynode=0.5",
+         "categorical_feature=0"])
 def test_ported_settings_train(extra):
     X, y = _data()
     params = {"objective": "binary", "device_type": "cpu", "verbosity": -1,

@@ -397,7 +397,6 @@ def test_device_auc_equals_host_auc_with_ties(rng, weighted):
 
 @pytest.mark.parametrize("what", ["ranking_objective", "resume_from",
                                   "tpu_fallback_to_cpu", "reset_parameter",
-                                  "categorical_init_model",
                                   "valid_without_reference"])
 def test_unported_training_api_is_refused(rng, what):
     X, y = _data(rng, "regression")
@@ -409,7 +408,6 @@ def test_unported_training_api_is_refused(rng, what):
              "resume_from": "A12.7",
              "tpu_fallback_to_cpu": "does not fall back",
              "reset_parameter": "extra_trees.*A12",
-             "categorical_init_model": "A12.5",
              "valid_without_reference": "reference="}[what]
     if what == "ranking_objective":
         params["objective"] = "lambdarank"
@@ -417,10 +415,6 @@ def test_unported_training_api_is_refused(rng, what):
         kw["resume_from"] = "checkpoints"
     elif what == "tpu_fallback_to_cpu":
         params["tpu_fallback_to_cpu"] = True
-    elif what == "categorical_init_model":
-        _, X = load_golden_csv("train.csv")
-        tr = lgt.Dataset(X, label=np.zeros(len(X)))
-        kw["init_model"] = os.path.join(GOLDEN_DIR, "model.txt")
     elif what == "valid_without_reference":
         kw["valid_sets"] = [lgt.Dataset(X, label=y)]
     with pytest.raises(LightGBMError, match=match):

@@ -173,12 +173,17 @@ def test_pickled_estimator_predicts_the_same(data):
 
 
 def test_sparse_and_categorical_input_refused(data):
+    """Sparse input is refused, naming ROADMAP A12.5b; categorical
+    features are no longer refused (A12.5a): they fit, and the model has
+    categorical splits."""
     sparse = pytest.importorskip("scipy.sparse")
     t = lgt.LGBMRegressor(**KW, device_type="cpu")
-    with pytest.raises(LightGBMError, match="A12.5"):
+    with pytest.raises(LightGBMError, match="A12.5b"):
         t.fit(sparse.csr_matrix(np.nan_to_num(data["X"])), data["y"])
-    with pytest.raises(LightGBMError, match="A12.5"):
-        t.fit(data["X"], data["y"], categorical_feature=[1])
+    X = data["X"].copy()
+    X[:, 1] = np.arange(len(X)) % 7
+    t.fit(X, data["y"] + 3.0 * (X[:, 1] % 3 == 1), categorical_feature=[1])
+    assert "cat_threshold=" in t.booster_.model_to_string()
 
 
 def test_estimators_fit_without_scikit_learn(data, tmp_path):
