@@ -95,7 +95,7 @@ Phases, each reported on its own line:
 9. multiclass at the shape of UCI Covertype (581,012 x 54: 10 continuous
    columns and one-hot groups of 4 and 40, 7 classes with its class
    counts) through ``Booster`` at the phase-4 width: softmax on the
-   compact grower (1 warm-up and 3 timed iterations, K1 launched once per
+   compact grower (1 warm-up and 1 timed iteration, K1 launched once per
    leaf of the 7 trees of each), then on the hybrid (K2) and the full
    (B2) paths and one-vs-all on the compact path (1 + 1 each); every
    iteration appends 7 trees, ``multi_logloss`` falls and
@@ -117,8 +117,8 @@ Phases, each reported on its own line:
 10. ranking at the shape of MSLR-WEB30K Fold 1 (2,270,296 x 136 rows in
    18,919 queries of 1 to 1,251 documents, relevance 0-4) through
    ``Booster`` at the phase-4 width, with a validation set of 1,000 more
-   queries: lambdarank on the compact grower (1 warm-up and 3 timed
-   iterations, K1 launched once per leaf), rank_xendcg and lambdarank
+   queries: lambdarank on the compact grower (1 warm-up and 1 timed
+   iteration, K1 launched once per leaf), rank_xendcg and lambdarank
    with each row's slot in its query as its position (1 + 1 each, the
    position biases finite); the validation ``ndcg@10`` rising in each
    run; the lambdarank gradient pass timed (CUDA events, and the device
@@ -172,10 +172,10 @@ Phases, each reported on its own line:
    DayOfWeek, UniqueCarrier, Origin and Dest categorical, the airports
    Zipf-skewed; DepTime and Distance numerical; about one positive in
    five) through ``Booster`` with 200,000 held-out rows as a validation
-   set (run after phase 12, its data freed): the compact path (1 + 3
+   set (run after phase 12, its data freed): the compact path (1 + 1
    iterations), quantized, hybrid (K2), full (B2) and compact at
    max_bin=1023 (Origin and Dest of 301 bins: K1 over u16 bins; 1 + 1
-   each), and the compact path with the codes as numbers (1 + 3); each
+   each), and the compact path with the codes as numbers (1 + 1); each
    run launching its kernel mode and learning (the held-out logloss
    falling and under the prior's), with its s/iteration beside phase
    4's, its peak bytes, the binning seconds and how many splits a tree
@@ -184,7 +184,31 @@ Phases, each reported on its own line:
    its text answering by the host walk; then cuda against the CPU on
    20,000 rows for every grower (the level grower at depth 4 for the
    hybrid's level phase), each leaf holding the same rows, values to
-   the binary standard widened for sums over large category bins.
+   the binary standard widened for sums over large category bins;
+14. wide sparse data at the shape of the Allstate claims data (LightGBM's
+   docs/Experiments.rst, the EFB benchmark: 13,200,000 rows of 4,228
+   one-hot features from 32 raw categorical columns, made as
+   scripts/scale_proof.py makes them) through ``Dataset`` over the CSR
+   rows, which the auto rule packs straight into EFB groups at
+   ``max_conflict_rate=0.01`` (at 0 it finds about 300 groups, more than
+   8 K_max, and stores them multi-value; ingest seconds by stage, G,
+   K_max and the groups' bytes), with 200,000 held-out rows as a
+   validation set (run after phase 13, its data freed): the compact (K1
+   over the group columns), quantized, hybrid (K2 then K1), full (B2
+   over [G, R]) and multi-value (``tpu_sparse_storage=multival``, its
+   own Dataset: the plain torch scatter over [R, K]) runs, 1 + 2
+   iterations each, each launching its kernel mode exactly (multi-value:
+   none) and learning (the held-out logloss falling, and under the
+   prior's), with its s/iteration beside phase 4's and its peak bytes;
+   the multi-value root histogram's device ms beside K1's over the
+   groups; the held-out CSR in row blocks by the binned device route
+   within 1e-5 of the host walk (rows/s); then cuda against the CPU on
+   20,000 rows, 2 rounds (compact, quantized, level at depth 4, full,
+   multi-value: the same BundleInfo, each leaf holding the same rows,
+   logloss within rtol 1e-4). On phase 4's rows (after phase 12): a
+   bounded LRU histogram pool and no pool (``histogram_pool_size`` 5 and
+   0.1 MB: hits, misses, K1 launches), and the rows as a ``Sequence``
+   binning to the dense Dataset's bins.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -221,8 +245,8 @@ U16_DISTS = ("uniform", "skewed")
 WIDEST_BINS = 1 << 16
 WIDEST_ROWS = 5_000
 TIMED_ITERS = 5
-MODE_ITERS = 3
-U16_ITERS = 2
+MODE_ITERS = 1
+U16_ITERS = 1
 KERNEL_SHAPES = (1_000_000, 65_536, 4_097, 1)
 # leaf sizes of the u16 and the skewed cases (B2's u16 leaves also at
 # 65,536 rows, a mid-size leaf of a million rows)
@@ -258,7 +282,7 @@ COVTYPE_CLASS_ROWS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367,
                       20_510)
 COVTYPE_CONTINUOUS = 10
 COVTYPE_GROUPS = (4, 40)
-MC_TIMED_ITERS = 3
+MC_TIMED_ITERS = 1
 MC_PATHS = {"hybrid": (dict(tpu_row_scheduling="level"), "hist_level_f32"),
             "full": (dict(tpu_row_scheduling="full"), "hist_featmajor_f32"),
             "ova": (dict(objective="multiclassova"), "hist_rowmajor_f32")}
@@ -290,7 +314,7 @@ MSLR_GRADE_SHARE = (0.52, 0.32, 0.13, 0.02, 0.01)
 MSLR_COUNT_COLUMNS = MSLR_FEATURES // 3
 MSLR_VALID_QUERIES = 1_000
 MSLR_EVAL_AT = [1, 3, 5, 10]
-RANK_TIMED_ITERS = 3
+RANK_TIMED_ITERS = 1
 RANK_ONE_ITERS = 1
 # the cross-check of phase 10 on cuda and on the CPU: 20,000 rows in 200
 # queries, 31 leaves, 3 rounds
@@ -2930,7 +2954,7 @@ AIRLINE_POSITIVE_SHARE = 0.2
 # features or not, the kernel mode the run must launch); *_u16 runs bin
 # at max_bin=1023, where Origin and Dest take 301 bins (uint16 bins)
 CAT_RUNS = {
-    "compact": ({}, 3, True, "hist_rowmajor_f32"),
+    "compact": ({}, 1, True, "hist_rowmajor_f32"),
     "quantized": (dict(use_quantized_grad=True), 1, True,
                   "hist_rowmajor_int8"),
     "hybrid": (dict(tpu_row_scheduling="level"), 1, True, "hist_level_f32"),
@@ -2938,7 +2962,7 @@ CAT_RUNS = {
     "compact_u16": (dict(max_bin=U16_MAX_BIN), 1, True,
                     "hist_rowmajor_f32_u16"),
     # the codes as numbers: the same rows with no categorical feature
-    "codes_as_numbers": ({}, 3, False, "hist_rowmajor_f32"),
+    "codes_as_numbers": ({}, 1, False, "hist_rowmajor_f32"),
 }
 # the cross-check of phase 13 on cuda and on the CPU: 20,000 rows, 31
 # leaves, 3 rounds, every grower: the level grower at max_depth=4 stands
@@ -3001,9 +3025,8 @@ def cat_split_stats(models):
 def train_categorical(ds, valid, params, iters):
     """Warm-up plus ``iters`` timed iterations of a Booster with the
     held-out rows as its validation set, the launch counts zeroed just
-    before and read just after; the held-out logloss and AUC after the
-    warm-up and after the last iteration; the peak device bytes above
-    the start."""
+    before and read just after; the held-out logloss and AUC after each
+    iteration; the peak device bytes above the start."""
     import lightgbm_tpu_torch as lgt
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -3018,9 +3041,8 @@ def train_categorical(ds, valid, params, iters):
         torch.cuda.synchronize()
         if i:
             r["iter_s"].append(time.perf_counter() - t)
-        if i in (0, iters):
-            r["holdout"].append(dict((m, v) for _, m, v, _ in
-                                     bst.eval_valid()))
+        r["holdout"].append(dict((m, v) for _, m, v, _ in
+                                 bst.eval_valid()))
         if i == 0:
             r["warm_s"] = time.perf_counter() - t
     r["counts"] = read_counts()
@@ -3278,6 +3300,406 @@ def phase_categorical_cross_check(launches):
         launches[f"cross_check_{name}_{must}"] = cc[must]
 
 
+
+# ---------------------------------------------------------------------------
+# phase 14: wide sparse data
+# ---------------------------------------------------------------------------
+# Allstate claims (LightGBM's docs/Experiments.rst, the EFB benchmark):
+# 13.2M rows of 4,228 one-hot features, made as scripts/scale_proof.py
+# makes them: 32 raw categorical columns one-hot expanded, one active
+# column per raw column per row, seed 1, the label from raw columns 0-2;
+# 200,000 held-out rows from the draws after them
+ALLSTATE_ROWS = 13_200_000
+ALLSTATE_HOLDOUT = 200_000
+ALLSTATE_RAW, ALLSTATE_FEATURES = 32, 4228
+# At the default max_conflict_rate=0 the auto rule's 20,000-row probe
+# bundles the 4,228 features into about 300 groups: two features of
+# different raw columns (each on 1/132 of the rows) meet on about one
+# probe row, so the greedy bundling mixes raw columns and G passes
+# 8 K_max = 256, and the rows are stored multi-value. The group runs bin
+# with this conflict rate, where G is about 200 and the rows pack
+# straight into groups (a row active in two members of a group keeps the
+# later one's bin: LightGBM's EFB approximation).
+ALLSTATE_CONFLICT_RATE = 0.01
+# storage -> the Dataset's params
+ALLSTATE_STORAGE = {"groups": {"max_conflict_rate": ALLSTATE_CONFLICT_RATE},
+                    "multival": {"tpu_sparse_storage": "multival"}}
+# name -> (params, timed iterations after one warm-up, the kernel mode
+# the run must launch (None: multi-value storage, no histogram kernel),
+# storage)
+ALLSTATE_RUNS = {
+    "compact": ({}, 2, "hist_rowmajor_f32", "groups"),
+    "quantized": (dict(use_quantized_grad=True), 2, "hist_rowmajor_int8",
+                  "groups"),
+    "hybrid": (dict(tpu_row_scheduling="level"), 2, "hist_level_f32",
+               "groups"),
+    "full": (dict(tpu_row_scheduling="full"), 2, "hist_featmajor_f32",
+             "groups"),
+    "multival": ({}, 2, None, "multival"),
+}
+# histogram_pool_size (MB) of the pool runs on phase 4's rows: at
+# 28 x 255 x 3 x 4 B a slot, about 61 LRU slots, and no pool
+POOL_RUNS = {"bounded": 5.0, "none": 0.1}
+SEQUENCE_BATCH = 65_536
+# the cross-check of phase 14 on cuda and on the CPU: 20,000 rows of the
+# Allstate shape, 31 leaves, 2 rounds
+ALLSTATE_SMALL_ROWS = 20_000
+ALLSTATE_SMALL_ROUNDS = 2
+_GROUPS = ALLSTATE_STORAGE["groups"]
+ALLSTATE_CHECKS = {
+    "compact": (dict(_GROUPS), "hist_rowmajor_f32"),
+    "quantized": (dict(use_quantized_grad=True, **_GROUPS),
+                  "hist_rowmajor_int8"),
+    "level": (dict(tpu_row_scheduling="level", max_depth=4, **_GROUPS),
+              "hist_level_f32"),
+    "full": (dict(tpu_row_scheduling="full", **_GROUPS),
+             "hist_featmajor_f32"),
+    "multival": (dict(tpu_sparse_storage="multival"), None),
+}
+
+
+def synth_allstate(n, holdout=0, seed=1):
+    """Allstate-shaped CSR rows (float32 ones, 4,228 columns) and labels,
+    then ``holdout`` more rows from the next draws of the same generator,
+    cut at the training rows' median logit (``scripts/scale_proof.py``'s
+    generator)."""
+    import scipy.sparse as sp
+    G, F = ALLSTATE_RAW, ALLSTATE_FEATURES
+    sizes = np.full(G, F // G, np.int64)
+    sizes[: F % G] += 1
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    rng = np.random.default_rng(seed)
+
+    def rows(m):
+        choice = rng.integers(0, sizes[None, :], size=(m, G))
+        indices = (offs[None, :] + choice).astype(np.int32)
+        indptr = np.arange(m + 1, dtype=np.int64) * G
+        X = sp.csr_matrix((np.ones(m * G, np.float32), indices.reshape(-1),
+                           indptr), shape=(m, F))
+        logits = ((choice[:, 0] % 7) * 0.3 - (choice[:, 1] % 5) * 0.4
+                  + (choice[:, 2] % 3) * 0.5 + 0.5 * rng.normal(size=m))
+        return X, logits
+
+    X, logits = rows(n)
+    cut = np.median(logits)
+    y = (logits > cut).astype(np.float32)
+    if not holdout:
+        return X, y
+    Xv, lv = rows(holdout)
+    return X, y, Xv, (lv > cut).astype(np.float32)
+
+
+class StageTimer:
+    """Host seconds of the dataset stages (bin mappers, the auto rule's
+    probe, the packing) while it is entered, and the group count of the
+    probe's bundling: the package's functions wrapped, and restored on
+    exit."""
+
+    def __init__(self):
+        from lightgbm_tpu_torch.io import bundling, dataset_core
+        B = dataset_core.BinnedDataset
+        self.seconds = {}
+        self.probe_groups = None
+        find = bundling.find_bundles
+
+        def probe(*a, **k):
+            info = find(*a, **k)
+            self.probe_groups = (a[0].shape[1] if info is None
+                                 else info.num_groups)
+            return info
+        self._sites = [(B, "_find_bin_mappers", "bin_mappers", True),
+                       (B, "_auto_sparse_storage", "probe", False),
+                       (bundling, "pack_sparse_direct", "packing", False),
+                       (dataset_core, "_quantize_sparse", "packing", False),
+                       (dataset_core, "_quantize_rowmajor", "packing",
+                        False)]
+        self._saved = [(bundling, "find_bundles", find)]
+        bundling.find_bundles = probe
+
+    def __enter__(self):
+        for obj, name, label, static in self._sites:
+            fn = obj.__dict__[name]
+            self._saved.append((obj, name, fn))
+            inner = fn.__func__ if static else fn
+
+            def wrapped(*a, _inner=inner, _label=label, **k):
+                t = time.perf_counter()
+                try:
+                    return _inner(*a, **k)
+                finally:
+                    self.seconds[_label] = (self.seconds.get(_label, 0.0)
+                                            + time.perf_counter() - t)
+            setattr(obj, name, staticmethod(wrapped) if static else wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+
+def assert_sparse_launches(name, c, trees, must):
+    """Each run's kernel mode, over the group columns: compact K1 only,
+    once a leaf; hybrid K2 at every level of the level phase (levels
+    0..D0, the order carried between them) and then K1 for the tail; full
+    B2 once a leaf and nothing else; multi-value storage no histogram
+    kernel."""
+    leaves = sum(t.num_leaves for t in trees)
+    if must is None:
+        assert sum(c.values()) == 0, (name, c)
+        return
+    assert c[must] > 0, (name, c)
+    if name in ("compact", "quantized", "full"):
+        assert c[must] == leaves and sum(c.values()) == c[must], (name, c)
+    if name == "hybrid":
+        from lightgbm_tpu_torch.core.hybrid_grower import auto_handoff_depth
+        d0 = auto_handoff_depth(NUM_LEAVES)
+        assert c[must] == (d0 + 1) * len(trees), (name, c)
+        assert c["level_partition"] == d0 * len(trees), (name, c)
+        assert c["hist_rowmajor_f32"] > 0, (name, c)
+
+
+def phase_sparse(phase4_iter_s):
+    """Phase 14: wide sparse data at the Allstate shape (ALLSTATE_RUNS):
+    the CSR rows through ``Dataset`` (the auto rule packs them straight
+    into EFB groups: ingest seconds by stage, G, K_max and the groups'
+    bytes), each run launching its kernel mode over the group columns
+    (multi-value storage: none) and learning on the held-out rows, with
+    its s/iteration beside phase 4's and its peak bytes; the multi-value
+    root histogram's device ms beside K1's over the groups; the held-out
+    CSR predicted in row blocks by the binned device route and by the
+    host walk; then cuda against the CPU on 20,000 rows. Returns each
+    mode's launches by run and in all."""
+    import lightgbm_tpu_torch as lgt
+    t_phase = time.perf_counter()
+    n = ALLSTATE_ROWS
+    X, y, Xv, yv = synth_allstate(n, ALLSTATE_HOLDOUT)
+    gen_s = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    csc = X.tocsc()
+    del X
+    gc.collect()
+    csc_s = time.perf_counter() - t
+    prior_p = float(y.mean())
+    prior = -(prior_p * np.log(prior_p) + (1 - prior_p) * np.log(1 - prior_p))
+    k_max = int(np.bincount(csc.indices, minlength=n).max())
+    datasets, launches, totals = {}, {}, {}
+    for name, (extra, iters, must, storage) in ALLSTATE_RUNS.items():
+        dparams = ALLSTATE_STORAGE[storage]
+        if storage not in datasets:
+            datasets.clear()
+            gc.collect()
+            t = time.perf_counter()
+            with StageTimer() as st:
+                ds = lgt.Dataset(csc, label=y, params={
+                    "verbose": -1, **dparams}).construct()
+            b = ds.binned
+            ingest = dict(generation=gen_s, csc=csc_s, **st.seconds,
+                          construct=time.perf_counter() - t)
+            t = time.perf_counter()
+            valid = lgt.Dataset(Xv, label=yv, reference=ds).construct()
+            valid_s = time.perf_counter() - t
+            # the auto rule (tpu_sparse_storage=auto) chose the storage
+            head = (f"phase 14 ingest storage={storage} dataset_params="
+                    f"{dparams} rows={n} features={csc.shape[1]} "
+                    f"holdout={len(yv)} seconds_by_stage={ingest} "
+                    f"holdout_binning_s={valid_s!r} K_max={k_max} "
+                    f"probe_G={st.probe_groups} 8_K_max={8 * k_max}")
+            assert b.bins is None
+            if storage == "groups":
+                info = b.efb_info
+                assert b.bins_grouped is not None, "no groups packed"
+                log(f"{head} G={info.num_groups} group_num_bin_max="
+                    f"{int(info.group_num_bin.max())} groups_bytes="
+                    f"{b.bins_grouped.nbytes} logical_bytes="
+                    f"{n * csc.shape[1]} positive_share={prior_p!r}")
+            else:
+                assert b.bins_mv is not None, "not stored multi-value"
+                log(f"{head} K={b.bins_mv[0].shape[1]} pairs_bytes="
+                    f"{b.bins_mv[0].nbytes + b.bins_mv[1].nbytes}")
+            datasets[storage] = (ds, valid, dict(ds.params))
+        ds, valid, ds_params = datasets[storage]
+        ds.params = dict(ds_params)
+        params = bench_params(**extra, **dparams)
+        tr = time.perf_counter()
+        bst, r = train_categorical(ds, valid, params, iters)
+        eng = bst._engine
+        c = r["counts"]
+        assert (eng._bundle is not None) == (must is not None), name
+        assert_sparse_launches(name, c, eng.models, must)
+        first, last = r["holdout"][0], r["holdout"][-1]
+        log(f"phase 14 run={name} warm_s={r['warm_s']!r} "
+            f"iter_s={r['iter_s']!r} median_iter_s={r['median_iter_s']!r} "
+            f"phase4_median_iter_s={phase4_iter_s!r} "
+            f"over_phase4={r['median_iter_s'] / phase4_iter_s!r} "
+            f"launches={nonzero(c)} leaves_per_tree="
+            f"{[t.num_leaves for t in eng.models]} peak_bytes_above_start="
+            f"{r['peak_bytes']} holdout_by_iteration={r['holdout']} "
+            f"prior_logloss={prior!r}")
+        assert last["binary_logloss"] < first["binary_logloss"], name
+        assert last["binary_logloss"] < prior and last["auc"] > 0.6, \
+            (name, last)
+        if must is not None:
+            launches[name] = c[must]
+        for k, v in c.items():
+            totals[k] = totals.get(k, 0) + v
+        if name == "compact":
+            compact = bst
+            phase_sparse_predict(bst, Xv)
+        if name == "multival":
+            phase_sparse_root_hist(compact._engine, eng)
+        del bst
+        gc.collect()
+        log(f"phase 14 run={name} seconds={time.perf_counter() - tr!r}")
+    del datasets, csc, Xv, compact
+    gc.collect()
+    phase_sparse_cross_check(launches)
+    log(f"phase 14 seconds={time.perf_counter() - t_phase!r}")
+    return launches, totals
+
+
+def phase_sparse_root_hist(eng_groups, eng_mv):
+    """Device ms of one root histogram: K1 over the G group columns, and
+    the multi-value scatter over the [R, K] pairs (one index_add_ per
+    column), with the scatter's bound (each id, bin and gh byte read
+    once at the memory rate)."""
+    from lightgbm_tpu_torch.ops.hist_cuda import hist_cuda_rm
+    from lightgbm_tpu_torch.ops.hist_multival import hist_multival
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bins, sb = eng_groups.bins, eng_mv.bins
+    R, G = bins.shape
+    gh = torch.randn((R, 3), device="cuda", generator=gen)
+    B = eng_groups.num_bin_max
+    k1_ms = device_ms(lambda: hist_cuda_rm(bins, gh, B), reps=5)
+    mv_ms = device_ms(lambda: hist_multival(sb, gh, eng_mv.num_bin_max),
+                      reps=5, sleep_per_rep=4)
+    K = sb.idx.shape[1]
+    mv_bound, mv_by = bound(R * K * 8 + R * 12, R * K * 3)
+    k1_bound, k1_by = bound(R * G + R * 12, R * G * 3)
+    log(f"phase 14 root histogram rows={R}: K1 over G={G} group columns "
+        f"device_ms={k1_ms!r} bound_ms={k1_bound!r} ({k1_by}); multi-value "
+        f"scatter over K={K} pairs of {sb.num_features} features x "
+        f"{eng_mv.num_bin_max} bins device_ms={mv_ms!r} bound_ms="
+        f"{mv_bound!r} ({mv_by}) over_K1={mv_ms / k1_ms!r}")
+
+
+def phase_sparse_predict(bst, Xv):
+    """The held-out CSR rows in row blocks by the binned device route and
+    by the host walk: within 1e-5, with rows/s of each."""
+    eng = bst._engine
+    n_iter = bst.current_iteration()
+    t = time.perf_counter()
+    host = bst.predict(Xv, raw_score=True, device=False)
+    host_s = time.perf_counter() - t
+    bst.predict(Xv[:1000], raw_score=True, device=True)      # warm-up
+    t = time.perf_counter()
+    binned = bst.predict(Xv, raw_score=True, device=True)
+    binned_s = time.perf_counter() - t
+    first = Xv[:5000].toarray().astype(np.float64)
+    assert np.array_equal(binned[:5000],
+                          eng.predict_device(first, 0, n_iter)[:, 0])
+    err = float(np.abs(binned - host).max())
+    log(f"phase 14 predict rows={Xv.shape[0]} cols={Xv.shape[1]} "
+        f"binned_max_abs_err_vs_host_walk={err!r} binned_rows_per_s="
+        f"{Xv.shape[0] / binned_s!r} host_walk_rows_per_s="
+        f"{Xv.shape[0] / host_s!r}")
+    assert err < 1e-5, err
+
+
+def phase_sparse_on_phase4_rows(ds, X, phase4_iter_s):
+    """Phase 14 on phase 4's rows and model: the histogram-pool policy
+    (POOL_RUNS: a bounded LRU pool and no pool; K1 launched once a root,
+    once a split that subtracts from a cached parent and twice a split
+    that misses), and the rows as a ``Sequence`` binning to the dense
+    Dataset's bins. Returns the pool runs' K1 launches."""
+    import lightgbm_tpu_torch as lgt
+    launches = {}
+    for name, mb in POOL_RUNS.items():
+        bst, r = train_timed(ds, bench_params(histogram_pool_size=mb),
+                             MODE_ITERS)
+        eng = bst._engine
+        pc = eng._grow.pool_counts
+        c = r["counts"]
+        k1 = c["hist_rowmajor_f32"]
+        log(f"phase 14 pool run={name} histogram_pool_size={mb} "
+            f"hist_pool={eng.grower_cfg.hist_pool} slots="
+            f"{eng.grower_cfg.pool_slots} hits={pc['hits']} misses="
+            f"{pc['misses']} children_recomputed={2 * pc['misses']} "
+            f"K1_launches={k1} median_iter_s={r['median_iter_s']!r} "
+            f"phase4_median_iter_s={phase4_iter_s!r} over_phase4="
+            f"{r['median_iter_s'] / phase4_iter_s!r} "
+            f"peak_bytes_above_start={r['peak_bytes']}")
+        assert eng.grower_cfg.hist_pool == name, name
+        assert pc["misses"] > 0, (name, pc)
+        assert k1 == len(eng.models) + pc["hits"] + 2 * pc["misses"], \
+            (name, k1, pc)
+        launches[f"pool_{name}_hist_rowmajor_f32"] = k1
+        del bst
+        gc.collect()
+
+    class Rows(lgt.Sequence):
+        batch_size = SEQUENCE_BATCH
+
+        def __getitem__(self, idx):
+            return X[idx]
+
+        def __len__(self):
+            return len(X)
+
+    t = time.perf_counter()
+    seq = lgt.Dataset(Rows(), label=ds.label).construct()
+    seq_s = time.perf_counter() - t
+    np.testing.assert_array_equal(seq.binned.bins, ds.binned.bins)
+    log(f"phase 14 Sequence of phase 4's rows (batch {SEQUENCE_BATCH}): "
+        f"bins equal the dense Dataset's; binning_s={seq_s!r} rows_per_s="
+        f"{len(X) / seq_s!r}")
+    return launches
+
+
+def phase_sparse_cross_check(launches):
+    """cuda against the CPU on ALLSTATE_SMALL_ROWS Allstate-shaped rows,
+    31 leaves, ALLSTATE_SMALL_ROUNDS rounds, every path of
+    ALLSTATE_CHECKS: the same
+    BundleInfo (or none, multi-value), the CPU launching no kernel, the
+    trees to ``assert_same_partitions``, the training logloss within rtol
+    1e-4."""
+    import lightgbm_tpu_torch as lgt
+    X, y = synth_allstate(ALLSTATE_SMALL_ROWS, seed=7)
+    Xd = X.toarray().astype(np.float64)
+    for name, (extra, must) in ALLSTATE_CHECKS.items():
+        tc = time.perf_counter()
+        out = {}
+        # one Dataset (host bins) for both devices
+        ds = lgt.Dataset(X, label=y, params=bench_params(**extra))
+        ds.construct()
+        for dev in ("cuda", "cpu"):
+            params = bench_params(num_leaves=31, device_type=dev, **extra)
+            reset_counts()
+            bst = lgt.Booster(params, ds)
+            for _ in range(ALLSTATE_SMALL_ROUNDS):
+                assert not bst.update(), (name, dev)
+            loss = dict((m, v) for _, m, v, _ in bst.eval_train())
+            out[dev] = (bst, read_counts(), loss["binary_logloss"])
+        (cb, cc, closs), (pb, pc, ploss) = out["cuda"], out["cpu"]
+        ci, pi = cb._engine._bundle, pb._engine._bundle
+        assert (ci is None) == (pi is None) == (must is None), name
+        if ci is not None:
+            for k in ("group", "offset", "default_bin", "num_bin",
+                      "group_num_bin"):
+                assert np.array_equal(getattr(ci, k), getattr(pi, k)), k
+        assert sum(pc.values()) == 0, (name, pc)
+        assert (cc[must] > 0) if must else sum(cc.values()) == 0, (name, cc)
+        renumbered, worst = assert_same_partitions(
+            cb, pb, Xd, params["learning_rate"], 1.0, 0.25,
+            f"phase 14 cross-check {name}")
+        log(f"phase 14 cross-check run={name} logloss cuda={closs!r} "
+            f"cpu={ploss!r} groups={None if ci is None else ci.num_groups} "
+            f"trees_renumbered={renumbered} largest_relative_diff={worst} "
+            f"cuda_launches={nonzero(cc)} "
+            f"seconds={time.perf_counter() - tc!r}")
+        np.testing.assert_allclose(closs, ploss, rtol=1e-4, err_msg=name)
+        if must:
+            launches[f"cross_check_{name}_{must}"] = cc[must]
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
@@ -3380,10 +3802,19 @@ def main():
     log(f"phase 11 done at {time.perf_counter() - t:.1f} s")
     sampling_runs = phase_sampling(ds, X, main_run["median_iter_s"])
     log(f"phase 12 done at {time.perf_counter() - t:.1f} s")
+    pool_runs = phase_sparse_on_phase4_rows(ds, X, main_run["median_iter_s"])
+    log(f"phase 14 on phase 4's rows done at {time.perf_counter() - t:.1f} s")
     del bst, ds, X
     gc.collect()
     cat_runs, cat_totals = phase_categorical(main_run["median_iter_s"])
     log(f"phase 13 done at {time.perf_counter() - t:.1f} s")
+    sparse_runs, sparse_totals = phase_sparse(main_run["median_iter_s"])
+    log(f"phase 14 done at {time.perf_counter() - t:.1f} s")
+    for k, v in pool_runs.items():
+        key = k.split("_", 2)[2]
+        sparse_totals[key] = sparse_totals.get(key, 0) + v
+    later = {k: cat_totals.get(k, 0) + sparse_totals.get(k, 0)
+             for k in set(cat_totals) | set(sparse_totals)}
     rank_runs = phase_ranking()
     log(f"phase 10 done at {time.perf_counter() - t:.1f} s")
     phase_cross_check()
@@ -3397,24 +3828,24 @@ def main():
             key = f"hist_rowmajor_{mode}{suffix}"
             kernels.append(kernel_entry(
                 "hist_rowmajor", mode + suffix,
-                runs[key][key] + cat_totals.get(key, 0),
+                runs[key][key] + later.get(key, 0),
                 k1[(mode + suffix, B, N_ROWS)]))
         for mode in MODES:
             key = f"hist_level_{mode}{suffix}"
             kernels.append(kernel_entry(
                 "hist_level", mode + suffix,
-                runs[key][key] + cat_totals.get(key, 0),
+                runs[key][key] + later.get(key, 0),
                 k2[(mode + suffix, B, level)]))
         for mode in FM_MODES:
             key = f"hist_featmajor_{mode}{suffix}"
             kernels.append(kernel_entry(
                 "hist_featmajor", mode + suffix,
-                runs[key][key] + cat_totals.get(key, 0),
+                runs[key][key] + later.get(key, 0),
                 b2[(mode + suffix, B, N_ROWS)]))
     kernels.append(kernel_entry(
         "level_partition", None,
         runs["hist_level_f32"]["level_partition"]
-        + cat_totals.get("level_partition", 0),
+        + later.get("level_partition", 0),
         k2[("partition", MAX_BIN, level)]))
     assert all(k["launches"] > 0 for k in kernels), kernels
     log("phase 9 launches by run: " + json.dumps(mc_runs))
@@ -3423,6 +3854,9 @@ def main():
     log("phase 12 launches by run: " + json.dumps(sampling_runs))
     log("phase 13 launches by run: " + json.dumps(cat_runs)
         + " by mode: " + json.dumps(nonzero(cat_totals)))
+    log("phase 14 launches by run: " + json.dumps({**sparse_runs,
+                                                    **pool_runs})
+        + " by mode: " + json.dumps(nonzero(sparse_totals)))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

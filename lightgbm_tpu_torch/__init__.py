@@ -15,9 +15,10 @@ from .callback import (early_stopping, log_evaluation, record_evaluation,
                        reset_parameter)
 from .config import Config
 from .engine import CVBooster, cv, train
+from .io.sequence import Sequence
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "LGBMClassifier",
            "LGBMModel", "LGBMRanker", "LGBMRegressor", "callback", "cv",
            "early_stopping", "log_evaluation", "record_evaluation",
-           "reset_parameter", "train"]
+           "reset_parameter", "Sequence", "train"]

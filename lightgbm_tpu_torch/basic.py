@@ -1,9 +1,11 @@
 """User-facing ``Dataset`` and ``Booster``.
 
 Port of ``lightgbm_tpu/basic.py`` (ref: python-package/lightgbm/basic.py
-Dataset / Booster) for dense data: a ``Dataset`` over a matrix, a pandas
-DataFrame (its column names the feature names), an Arrow table or any
-``__arrow_c_stream__`` producer (pyarrow needed then), a CSV/TSV/LibSVM
+Dataset / Booster): a ``Dataset`` over a matrix, a scipy sparse matrix
+(stored dense, in EFB groups or multi-value, ``tpu_sparse_storage``), a
+pandas DataFrame (its column names the feature names), an Arrow table or
+any ``__arrow_c_stream__`` producer (pyarrow needed then), a
+``Sequence`` or a list of them (``io/sequence.py``), a CSV/TSV/LibSVM
 file or a binary dataset file (``save_binary``), with categorical
 features by index or name (``categorical_feature``), binned on
 its own or, with ``reference=``, with another Dataset's bin mappers (a
@@ -69,19 +71,27 @@ def _arrow_table(data):
     return pa.table(data)
 
 
-def _refuse_sparse(data) -> None:
+def _is_sparse(data) -> bool:
+    # a scipy matrix means scipy is imported already
     sp = sys.modules.get("scipy.sparse")
-    if sp is not None and sp.issparse(data):
-        raise LightGBMError(
-            "scipy sparse input is not ported yet (ROADMAP A12.5b, with "
-            "EFB and multival storage); pass a dense matrix")
+    return sp is not None and sp.issparse(data)
+
+
+def _is_sequence_input(data) -> bool:
+    """A ``Sequence``, or a non-empty list or tuple of them."""
+    from .io.sequence import Sequence
+    return isinstance(data, Sequence) or (
+        isinstance(data, (list, tuple)) and len(data) > 0
+        and all(isinstance(s, Sequence) for s in data))
 
 
 def _to_2d_numpy(data) -> np.ndarray:
-    """A dense 2-D array of a matrix, a DataFrame (its values, as float64
-    unless numeric, as the JAX package's basic.py:31-43) or an Arrow
-    table (float64, nulls as NaN); scipy sparse input is refused."""
-    _refuse_sparse(data)
+    """A dense 2-D array of a matrix, a scipy sparse matrix (densified),
+    a DataFrame (its values, as float64 unless numeric, as the JAX
+    package's basic.py:31-43) or an Arrow table (float64, nulls as
+    NaN)."""
+    if _is_sparse(data):
+        return data.toarray()
     if _is_arrow_table(data) or _has_arrow_c_stream(data):
         from .io.dataset_core import ArrowColumns
         src = ArrowColumns(_arrow_table(data))
@@ -184,7 +194,8 @@ class Dataset:
         # frames and Arrow input stay as given until construct
         keep = (data is None or isinstance(data, (str, Path))
                 or _is_frame(data) or _is_arrow_table(data)
-                or _has_arrow_c_stream(data))
+                or _has_arrow_c_stream(data) or _is_sparse(data)
+                or _is_sequence_input(data))
         self.data = data if keep else _to_2d_numpy(data)
         self.categorical_feature = categorical_feature
         self.label = label
@@ -234,9 +245,13 @@ class Dataset:
                 self.group = group
             if self.position is None:
                 self.position = load_position_file(path)
-        from .io.dataset_core import ArrowColumns, DenseColumns
+        if _is_sequence_input(self.data):
+            return self._construct_from_sequences(cfg, ref)
+        from .io.dataset_core import ArrowColumns, DenseColumns, SparseColumns
         if _is_arrow_table(self.data) or _has_arrow_c_stream(self.data):
             source = ArrowColumns(_arrow_table(self.data))
+        elif _is_sparse(self.data):
+            source = SparseColumns(self.data)
         else:
             source = DenseColumns(_to_2d_numpy(self.data))
         names = self.feature_name
@@ -251,6 +266,19 @@ class Dataset:
             categorical_features=_categorical_indices(
                 self.categorical_feature, cfg, names))
         return self
+
+    def _construct_from_sequences(self, cfg: Config,
+                                  ref: Optional[BinnedDataset]) -> "Dataset":
+        """Bin ``Sequence`` input by random-access sampling and batched
+        range reads (the JAX package's basic.py __init_from_seqs)."""
+        from .io.sequence import build_from_sequences
+        seqs = (list(self.data) if isinstance(self.data, (list, tuple))
+                else [self.data])
+        self._binned = build_from_sequences(
+            seqs, cfg, _categorical_indices(self.categorical_feature, cfg,
+                                            self.feature_name),
+            reference=ref, feature_names=self.feature_name)
+        return self._apply_fields()
 
     def set_categorical_feature(self, categorical_feature) -> "Dataset":
         """Change the categorical features (ref: basic.py
@@ -354,6 +382,9 @@ class Dataset:
                 f"Cannot add features from a dataset with {b.num_data} "
                 f"rows to one with {a.num_data} rows")
         off = a.num_total_features
+        a.ensure_logical_bins()
+        b.ensure_logical_bins()
+        a.bins_grouped = a.efb_info = a.bins_mv = None
         a.bin_mappers = list(a.bin_mappers) + list(b.bin_mappers)
         a.used_feature_map = np.concatenate(
             [a.used_feature_map, b.used_feature_map + off]).astype(np.int32)
@@ -372,6 +403,9 @@ class Dataset:
         if isinstance(self.data, np.ndarray) and \
                 isinstance(other.data, np.ndarray):
             self.data = np.hstack([self.data, other.data])
+        elif _is_sparse(self.data) and _is_sparse(other.data):
+            import scipy.sparse as sp
+            self.data = sp.hstack([self.data, other.data], format="csr")
         else:
             self.data = None
         self.feature_name = list(a.feature_names)
@@ -381,6 +415,7 @@ class Dataset:
         """Write the binned Dataset to a binary file that ``Dataset(path)``
         of either package loads (ref: Dataset::SaveBinaryFile)."""
         from .io.binary_io import save_binary
+        self.binned.ensure_logical_bins()
         save_binary(self.binned, str(filename))
         return self
 
@@ -901,6 +936,9 @@ class Booster:
         the training schema (``data_has_header=True`` skips a header) and
         padded with zero columns to the model's features.
         ``pred_contrib`` gives the host TreeSHAP ``[N, (F + 1) * K]``.
+        A scipy sparse matrix is predicted in row blocks, each densified
+        and predicted by the route asked for; its ``pred_contrib`` is a
+        CSR matrix.
         A random forest (``average_output``) predicts the mean of its
         iterations on every route; its ``pred_contrib`` is the sum, not
         the mean, as the JAX package gives it.
@@ -910,6 +948,13 @@ class Booster:
         the model's."""
         eng = self._engine
         n_feat = eng.max_feature_idx + 1
+        if _is_sparse(data):
+            return self._predict_sparse(
+                data, start_iteration=start_iteration,
+                num_iteration=num_iteration, raw_score=raw_score,
+                pred_leaf=pred_leaf, pred_contrib=pred_contrib,
+                validate_features=validate_features, device=device,
+                **kwargs)
         if isinstance(data, (str, Path)):
             from .io.file_loader import load_svm_or_csv
             cfg = self.config.copy()
@@ -984,6 +1029,24 @@ class Booster:
                 raw[:, 0] = np.asarray(
                     eng.objective.convert_output(raw[:, 0]))
         return raw[:, 0] if K == 1 else raw
+
+    def _predict_sparse(self, data, pred_contrib: bool, **kw):
+        """Sparse rows in blocks of ``max(1024, 2**25 // n_cols)`` rows
+        (``predict_sparse_block_rows`` overrides it), each densified to
+        at most 256 MB of float64 and predicted as a matrix, never the
+        whole matrix at once (ref: c_api.cpp PredictForCSR; the JAX
+        package's basic.py:967-995). ``pred_contrib`` gives CSR."""
+        import scipy.sparse as sp
+        csr = data.tocsr()
+        n_rows = csr.shape[0]
+        block = int(kw.pop("predict_sparse_block_rows",
+                           max(1024, (1 << 25) // max(csr.shape[1], 1))))
+        outs = [self.predict(csr[i:i + block].toarray().astype(np.float64),
+                             pred_contrib=pred_contrib, **kw)
+                for i in range(0, max(n_rows, 1), block)]
+        if pred_contrib:
+            return sp.vstack([sp.csr_matrix(o) for o in outs], format="csr")
+        return np.concatenate(outs, axis=0)
 
     # -- model IO -------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,

@@ -444,11 +444,14 @@ def _parse_list(value: Any, elem_type: Any) -> List[Any]:
     return [elem_type(v) for v in value]
 
 
-# What the port implements is dense training, numerical and categorical
-# features, with the compact, full/leaf, level and hybrid growers:
-# ``gbdt``, ``dart`` and ``rf`` boosting, bagging (uniform, balanced, by
-# query, ``tpu_device_bagging``) and GOSS row sampling, and per-tree and
-# per-node column sampling. A
+# What the port implements is training on dense, scipy sparse and
+# ``Sequence`` input, numerical and categorical features, with the
+# compact, full/leaf, level and hybrid growers: EFB bundles
+# (``enable_bundle``, ``max_conflict_rate``), multi-value sparse storage
+# (``tpu_sparse_storage``), the histogram-pool policy
+# (``histogram_pool_size``), ``gbdt``, ``dart`` and ``rf`` boosting,
+# bagging (uniform, balanced, by query, ``tpu_device_bagging``) and GOSS
+# row sampling, and per-tree and per-node column sampling. A
 # setting that needs anything else maps to a predicate that is True for
 # the unsupported value and to the ROADMAP item that ports it; training
 # refuses it instead of ignoring it.

@@ -96,6 +96,14 @@ class GrowerConfig:
     quantized: bool = False
     quant_bins: int = 4          # ref: num_grad_quant_bins
     stochastic_rounding: bool = True
+    # the histogram pool of compact scheduling (ref: histogram_pool_size,
+    # the LRU HistogramPool of feature_histogram.hpp:1368): "full" keeps
+    # every leaf's histogram; "bounded" keeps pool_slots (>= 2) in LRU
+    # order, subtracting from a cached parent and histogramming both
+    # children from their rows on a miss; "none" keeps none and
+    # histograms both children of every split from their rows
+    hist_pool: str = "full"
+    pool_slots: int = 0
 
 
 # per-leaf stats columns (f32 [L, NS]), as in the JAX grower
@@ -182,6 +190,11 @@ class GrowState:
     leaf_id: Optional[torch.Tensor] = None
     best_cat: Optional[torch.Tensor] = None
     tree_cat: Optional[np.ndarray] = None
+    # the bounded pool's LRU bookkeeping (host): each leaf's slot (-1:
+    # not cached), each slot's last-touch step (-1: free) and owner
+    slot_map: Optional[List[int]] = None
+    slot_stamp: Optional[List[int]] = None
+    slot_owner: Optional[List[int]] = None
 
 
 def cat_table(cat_bins: torch.Tensor, num_bin: int) -> torch.Tensor:
@@ -205,7 +218,7 @@ def _go_left(col: torch.Tensor, thr: int, default_left: bool, num_bin: int,
     padded bins) sends left the rows whose bin is in the set (ref:
     SplitCategoricalInner). u16 bins (int16) are read as unsigned
     first."""
-    if col.dtype != torch.uint8:
+    if col.dtype != torch.int64:
         col = bin_ids(col)
     if cat_set is not None:
         return cat_table(cat_set, num_bin)[col.long()]
@@ -230,13 +243,17 @@ def node_mask(feature_mask: Optional[torch.Tensor], rows: List[int]
 
 
 def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
-                     hist_fn: Optional[Callable] = None):
+                     hist_fn: Optional[Callable] = None, layout=None):
     """Build ``grow(bins, gh, uniforms=None, feature_mask=None) ->
     (TreeArrays, leaf_id)``.
 
     ``bins`` is ``[R, F]`` row-major under compact scheduling and
     ``[F, R]`` feature-major under full scheduling, uint8 or u16 held as
-    int16 (``ops/histogram.bin_ids``); ``gh`` f32 ``[R, 3]``
+    int16 (``ops/histogram.bin_ids``); with ``layout``
+    (``core/layout.py``) it holds EFB group columns (``[R, G]`` /
+    ``[G, R]``) or multi-value ``SparseBins``, and the layout expands
+    each histogram to the logical features before the scan and reads a
+    split feature's logical bins. ``gh`` f32 ``[R, 3]``
     = (grad, hess, 1), or under row sampling (grad·w, hess·w, bag): every
     physical row stays in the partition, so the compact grower picks the
     smaller child by raw rows and the full grower by the record's
@@ -251,13 +268,30 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     leaf's rows (``ops/hist_cuda.hist_cuda_fm``'s contract). ``leaf_id``
     (int64 ``[R]``, on the device) is each row's leaf.
 
+    Compact scheduling keeps the histogram pool ``cfg.hist_pool`` says
+    (the JAX package's core/grower.py:1115-1135, 1272-1300); the slot
+    choice of the bounded pool is the JAX package's, so the same children
+    are histogrammed from their rows. ``grow.pool_counts`` counts the
+    splits that subtracted from a cached parent (``hits``) and those
+    that histogrammed both children from their rows (``misses``).
+
     ``grow.resume(bins, gh_hist, conv, state, k0, feature_mask=None)``
-    runs the split loop from step ``k0`` over a committed ``GrowState``.
+    runs the split loop from step ``k0`` over a committed ``GrowState``
+    (full pool only).
     """
+    from .layout import DenseLayout
     hp = cfg.hparams
     L = cfg.num_leaves
     B = cfg.num_bin
     full = cfg.row_sched == "full"
+    if layout is None:
+        layout = DenseLayout(full)
+    pool = cfg.hist_pool
+    if pool not in ("full", "bounded", "none"):
+        raise ValueError(f"hist_pool={pool!r}: 'full', 'bounded' or 'none'")
+    if pool != "full" and full:
+        raise ValueError(f"hist_pool={pool!r} requires row_sched='compact'")
+    P = max(int(cfg.pool_slots), 2) if pool == "bounded" else L
     has_cat = meta.has_cat
     MAXK = max_cat_width(hp, B) if has_cat else 0
     if hist_fn is None:
@@ -265,11 +299,16 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     nbin_h = meta.num_bin.tolist()
     miss_h = meta.missing_type.tolist()
     dflt_h = meta.default_bin.tolist()
+    counts = {"hits": 0, "misses": 0}
+
+    def scan_hists(conv, raw, totals):
+        """Raw histograms -> the logical f32 histograms the scan reads."""
+        return layout.fix(conv(raw), totals)
 
     def root_state(bins, gh, gh_hist, conv, feature_mask) -> GrowState:
         """ref: LeafSplits::Init + the first FindBestSplits."""
         dev = gh.device
-        F, R = bins.shape if full else bins.shape[::-1]
+        R = gh.shape[0]
         f32 = dict(dtype=torch.float32, device=dev)
         sums = root_sums(cfg, gh, gh_hist, conv)
         root_g, root_h, root_c = sums[0], sums[1], sums[2]
@@ -277,12 +316,15 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             root_g, root_h + 2 * K_EPSILON, hp, root_c,
             torch.zeros((), **f32))
         hist_root = hist_fn(bins, gh_hist, B)
-        best_root = best_split_for_leaf(conv(hist_root), root_g, root_h,
-                                        root_c, root_out, meta, hp,
-                                        node_mask(feature_mask, [0]))
+        best_root = best_split_for_leaf(
+            scan_hists(conv, hist_root, sums), root_g, root_h, root_c,
+            root_out, meta, hp, node_mask(feature_mask, [0]))
 
-        hist = torch.zeros((L, F, B, 3), dtype=hist_root.dtype, device=dev)
-        hist[0] = hist_root
+        hist = None
+        if pool != "none":
+            hist = torch.zeros((P, *hist_root.shape),
+                               dtype=hist_root.dtype, device=dev)
+            hist[0] = hist_root
         stats = torch.zeros((L, NS), **f32)
         stats[:, S_LMIN] = -np.inf
         stats[:, S_LMAX] = np.inf
@@ -302,7 +344,7 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             tree_cat = np.full((max(L - 1, 0), MAXK), -1, np.int32)
         seg_rows = [0] * L
         seg_rows[0] = R
-        return GrowState(
+        st = GrowState(
             hist=hist, stats=stats, best=best,
             order=None if full else torch.arange(R, device=dev),
             node=np.zeros((max(L - 1, 0), NN), np.float32),
@@ -310,29 +352,76 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             leaf_id=(torch.zeros(R, dtype=torch.int64, device=dev)
                      if full else None),
             best_cat=best_cat, tree_cat=tree_cat)
+        if pool == "bounded":
+            st.slot_map = [0] + [-1] * (L - 1)
+            st.slot_stamp = [0] + [-1] * (P - 1)
+            st.slot_owner = [0] + [-1] * (P - 1)
+        return st
 
-    def partition_compact(bins_rm, gh_hist, st, l, new_leaf, f, thr, dl,
-                          cat_set):
-        """Stable partition of leaf ``l``'s segment; the smaller child's
-        histogram from its gathered rows. Returns (left_smaller,
-        hist_small)."""
+    def partition_compact(bins_rm, st, l, new_leaf, f, thr, dl, cat_set):
+        """Stable partition of leaf ``l``'s segment: its left rows stay
+        in ``l``, its right rows go to ``new_leaf``. Returns the left and
+        right row counts."""
         order, seg_start, seg_rows = st.order, st.seg_start, st.seg_rows
         start, rows = seg_start[l], seg_rows[l]
         seg = order[start:start + rows]
-        go_left = _go_left(bins_rm[seg, f], thr, dl, nbin_h[f], miss_h[f],
-                           dflt_h[f], cat_set)
+        go_left = _go_left(layout.column(bins_rm, seg, f), thr, dl,
+                           nbin_h[f], miss_h[f], dflt_h[f], cat_set)
         n_left = int(go_left.sum())
         order[start:start + rows] = torch.cat([seg[go_left],
                                                seg[~go_left]])
         n_right = rows - n_left
         seg_start[l], seg_rows[l] = start, n_left
         seg_start[new_leaf], seg_rows[new_leaf] = start + n_left, n_right
-        left_smaller = n_left <= n_right
-        s_start = start if left_smaller else start + n_left
-        s_rows = n_left if left_smaller else n_right
-        idx = order[s_start:s_start + s_rows]
-        return left_smaller, hist_fn(bins_rm.index_select(0, idx),
-                                     gh_hist.index_select(0, idx), B)
+        return n_left, n_right
+
+    def segment_hist(bins_rm, gh_hist, st, leaf):
+        """The histogram of a leaf's segment, from its gathered rows."""
+        start, rows = st.seg_start[leaf], st.seg_rows[leaf]
+        idx = st.order[start:start + rows]
+        return hist_fn(bins_rm.index_select(0, idx),
+                       gh_hist.index_select(0, idx), B)
+
+    def children_compact(bins_rm, gh_hist, st, l, new_leaf, i):
+        """The raw histograms of leaf ``l``'s two children after its
+        partition, under the pool policy, and the pool's update."""
+        left_smaller = st.seg_rows[l] <= st.seg_rows[new_leaf]
+        sp = -1
+        if pool == "full":
+            sp = l
+        elif pool == "bounded":
+            sp = st.slot_map[l]
+        if sp >= 0:
+            counts["hits"] += 1
+            small = segment_hist(bins_rm, gh_hist, st,
+                                 l if left_smaller else new_leaf)
+            large = st.hist[sp] - small
+            hl, hr = (small, large) if left_smaller else (large, small)
+        else:
+            counts["misses"] += 1
+            hl = segment_hist(bins_rm, gh_hist, st, l)
+            hr = segment_hist(bins_rm, gh_hist, st, new_leaf)
+        if pool == "full":
+            st.hist[l], st.hist[new_leaf] = hl, hr
+        elif pool == "bounded":
+            # LRU (ref: the JAX package's core/grower.py:1272-1300): the
+            # left child keeps the parent's slot on a hit, else takes the
+            # least recent one; the right child takes the next least
+            # recent; evicted owners are unmapped
+            stamps, owner, smap = st.slot_stamp, st.slot_owner, st.slot_map
+            sl = sp if sp >= 0 else int(np.argmin(stamps))
+            stamps[sl] = i
+            sr = int(np.argmin(stamps))
+            own_l, own_r = owner[sl], owner[sr]
+            if own_l >= 0 and own_l != l:
+                smap[own_l] = -1
+            if own_r >= 0 and own_r != l:
+                smap[own_r] = -1
+            smap[l], smap[new_leaf] = sl, sr
+            stamps[sr] = i
+            owner[sl], owner[sr] = l, new_leaf
+            st.hist[sl], st.hist[sr] = hl, hr
+        return torch.stack([hl, hr])
 
     def partition_full(bins_fm, gh_hist, st, l, new_leaf, f, thr, dl,
                        cat_set, left_smaller):
@@ -340,14 +429,14 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         core/grower.py:1045-1060); the smaller child's histogram is one
         pass over all rows that adds the child's (``leaf_hist``,
         :601-603, the mask fused into the kernel). Returns hist_small."""
-        go_left = _go_left(bins_fm[f], thr, dl, nbin_h[f], miss_h[f],
-                           dflt_h[f], cat_set)
+        go_left = _go_left(layout.column(bins_fm, None, f), thr, dl,
+                           nbin_h[f], miss_h[f], dflt_h[f], cat_set)
         st.leaf_id = torch.where((st.leaf_id == l) & ~go_left, new_leaf,
                                  st.leaf_id)
         return hist_fn(bins_fm, gh_hist, B, leaf_id=st.leaf_id,
                        leaf=l if left_smaller else new_leaf)
 
-    def resume(bins: torch.Tensor, gh_hist: torch.Tensor, conv: Callable,
+    def resume(bins, gh_hist: torch.Tensor, conv: Callable,
                st: GrowState, k0: int,
                feature_mask: Optional[torch.Tensor] = None
                ) -> Tuple[TreeArrays, torch.Tensor]:
@@ -390,23 +479,25 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             if p >= 0:
                 node[p, N_RC if srow[S_ISR] > 0.5 else N_LC] = i
 
-            # ---- partition, smaller child's histogram, sibling by
-            # subtraction ------------------------------------------------
+            # ---- partition, the children's histograms ---------------------
             f, thr, dl = int(brow[B_FEAT]), int(brow[B_THR]), \
                 bool(brow[B_DL] > 0.5)
             if full:
-                # the record's counts pick the smaller child (:1242)
+                # the record's counts pick the smaller child (:1242); the
+                # sibling by subtraction
                 left_smaller = bool(brow[B_LC] <= brow[B_RC])
                 hist_small = partition_full(bins, gh_hist, st, l, new_leaf,
                                             f, thr, dl, cat_set, left_smaller)
+                counts["hits"] += 1
+                hist_large = hist[l] - hist_small
+                if left_smaller:
+                    hist[l], hist[new_leaf] = hist_small, hist_large
+                else:
+                    hist[l], hist[new_leaf] = hist_large, hist_small
+                raw2 = hist[[l, new_leaf]]
             else:
-                left_smaller, hist_small = partition_compact(
-                    bins, gh_hist, st, l, new_leaf, f, thr, dl, cat_set)
-            hist_large = hist[l] - hist_small
-            if left_smaller:
-                hist[l], hist[new_leaf] = hist_small, hist_large
-            else:
-                hist[l], hist[new_leaf] = hist_large, hist_small
+                partition_compact(bins, st, l, new_leaf, f, thr, dl, cat_set)
+                raw2 = children_compact(bins, gh_hist, st, l, new_leaf, i)
 
             # ---- children stats and best splits --------------------------
             depth = srow[S_DEPTH] + 1.0
@@ -420,8 +511,9 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             pair = [l, new_leaf]
             stats[pair] = child
             rec2 = best_split_for_leaf(
-                conv(hist[pair]), child[:, S_SG], child[:, S_SH],
-                child[:, S_CNT], child[:, S_VAL], meta, hp,
+                scan_hists(conv, raw2, child[:, S_SG:S_CNT + 1]),
+                child[:, S_SG], child[:, S_SH], child[:, S_CNT],
+                child[:, S_VAL], meta, hp,
                 node_mask(feature_mask, [2 * i + 1, 2 * i + 2]))
             best[pair] = pack_record_rows(rec2)
             if has_cat:
@@ -454,14 +546,14 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             return tree, st.leaf_id
         # each row's leaf, from the final segments
         starts = torch.tensor(st.seg_start[:num_leaves], device=dev)
-        counts = torch.tensor(st.seg_rows[:num_leaves], device=dev)
+        counts_t = torch.tensor(st.seg_rows[:num_leaves], device=dev)
         by_pos = torch.argsort(starts)
-        pos2leaf = torch.repeat_interleave(by_pos, counts[by_pos])
+        pos2leaf = torch.repeat_interleave(by_pos, counts_t[by_pos])
         leaf_id = torch.empty(R, dtype=torch.int64, device=dev)
         leaf_id[st.order] = pos2leaf
         return tree, leaf_id
 
-    def grow(bins: torch.Tensor, gh: torch.Tensor, uniforms=None,
+    def grow(bins, gh: torch.Tensor, uniforms=None,
              feature_mask: Optional[torch.Tensor] = None
              ) -> Tuple[TreeArrays, torch.Tensor]:
         gh_hist, conv = hist_inputs(cfg, gh, uniforms)
@@ -469,4 +561,5 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         return resume(bins, gh_hist, conv, state, 0, feature_mask)
 
     grow.resume = resume
+    grow.pool_counts = counts
     return grow

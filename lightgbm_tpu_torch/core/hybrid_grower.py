@@ -59,11 +59,14 @@ def resolve_handoff_depth(num_leaves: int, requested: int) -> int:
 def make_hybrid_grower(cfg: GrowerConfig, meta: FeatureMeta,
                        handoff_depth: int = 0,
                        hist_fn: Callable = hist_cuda_rm,
-                       level_hist_fn: Callable = hist_level_cuda):
+                       level_hist_fn: Callable = hist_level_cuda,
+                       layout=None):
     """Build ``grow(bins_rm, gh, uniforms=None, feature_mask=None) ->
     (TreeArrays, leaf_id)`` for unbounded or deep ``max_depth``: the level
     phase to D0, then the compact tail, both under the one ``[F]`` column
-    mask. ``handoff_depth <= 0`` means auto."""
+    mask. ``handoff_depth <= 0`` means auto. With ``layout`` (EFB groups)
+    both phases expand alike and the tail's pool is seeded from the
+    PHYSICAL level histograms (the JAX package's hybrid_grower.py:88-109)."""
     L = int(cfg.num_leaves)
     D0 = resolve_handoff_depth(L, handoff_depth)
     if 0 < cfg.max_depth <= D0:
@@ -72,8 +75,9 @@ def make_hybrid_grower(cfg: GrowerConfig, meta: FeatureMeta,
             f"{cfg.max_depth}); the pure level grower serves shallow "
             "configs")
     phase = make_level_phase(cfg, meta, depth=D0, scan_last=True,
-                             collect_hists=True, hist_fn=level_hist_fn)
-    tail = make_tree_grower(cfg, meta, hist_fn=hist_fn)
+                             collect_hists=True, hist_fn=level_hist_fn,
+                             layout=layout)
+    tail = make_tree_grower(cfg, meta, hist_fn=hist_fn, layout=layout)
 
     T = 2 ** (D0 + 1) - 1            # heap nodes, levels 0..D0
     ids = np.arange(T)

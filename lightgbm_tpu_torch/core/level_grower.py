@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 from ..ops.hist_level_cuda import carry_order_cuda, hist_level_cuda
-from ..ops.histogram import bin_ids
 from ..ops.split import (MISSING_ENUM, K_EPSILON, FeatureMeta,
                          best_split_for_leaf, calculate_splitted_leaf_output,
                          max_cat_width, pack_record_rows)
@@ -78,7 +77,7 @@ def go_left_rows(col, thr, dl, meta: FeatureMeta, f_row, node=None,
 
 def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
                      scan_last: bool, collect_hists: bool = False,
-                     hist_fn: Callable = hist_level_cuda):
+                     hist_fn: Callable = hist_level_cuda, layout=None):
     """The level loop (ref: level_grower.py:268 make_level_phase).
 
     Scans levels 0..depth-1 and, with ``scan_last``, level ``depth`` too;
@@ -100,7 +99,15 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
     category set, MAXK more; columns ``H_*``) and, with
     ``collect_hists``, ``hists``: the raw level histograms [T, F, B, 3]
     (int32 under quantization) for seeding the compact pool.
+
+    With ``layout`` (``core/layout.py``) ``bins_rm`` holds EFB group
+    columns: each level's histograms are ``[n, G, B, 3]``, expanded per
+    node with the node's own totals, and the partition decodes each row's
+    group column (the JAX package's level_grower.py:416-421, 462-468).
     """
+    from .layout import DenseLayout
+    if layout is None:
+        layout = DenseLayout()
     B = int(cfg.num_bin)
     hp = cfg.hparams
     n_scan = depth + (1 if scan_last else 0)
@@ -134,7 +141,8 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
             if collect_hists:
                 hist_l.append(hist_raw)
             # ---- the split scan, batched over the level's nodes --------
-            recs = best_split_for_leaf(conv(hist_raw), node_d[:, 0],
+            recs = best_split_for_leaf(layout.fix(conv(hist_raw),
+                                                  node_d[:, :3]), node_d[:, 0],
                                        node_d[:, 1], node_d[:, 2],
                                        node_d[:, 3], meta, hp, feature_mask)
             rows_l.append(pack_record_rows(recs))
@@ -154,7 +162,7 @@ def make_level_phase(cfg: GrowerConfig, meta: FeatureMeta, depth: int,
 
             # ---- partition: rows at valid nodes descend ----------------
             f_row = recs.feature.clamp(min=0)[lsafe]
-            col = bin_ids(bins_rm.gather(1, f_row[:, None])[:, 0])
+            col = layout.rows_column(bins_rm, f_row)
             go_left = go_left_rows(
                 col, recs.threshold[lsafe], recs.default_left[lsafe], meta,
                 f_row, lsafe, recs.num_cat,
@@ -242,7 +250,7 @@ def rank_and_slots(gain_h: np.ndarray, L: int, depth: int,
 
 
 def make_level_grower(cfg: GrowerConfig, meta: FeatureMeta,
-                      hist_fn: Callable = hist_level_cuda):
+                      hist_fn: Callable = hist_level_cuda, layout=None):
     """Build ``grow(bins_rm, gh, uniforms=None, feature_mask=None) ->
     (TreeArrays, leaf_id)`` for ``1 <= max_depth <= MAX_LEVEL_DEPTH`` (ref: level_grower.py:578);
     deeper or unbounded configs go through the hybrid grower."""
@@ -255,7 +263,7 @@ def make_level_grower(cfg: GrowerConfig, meta: FeatureMeta,
             "serves deeper and unbounded configs)")
     T_all = 2 ** (D + 1) - 1
     phase = make_level_phase(cfg, meta, depth=D, scan_last=False,
-                             hist_fn=hist_fn)
+                             hist_fn=hist_fn, layout=layout)
     ids_all = np.arange(T_all)
     par_all = np.maximum((ids_all - 1) // 2, 0)
     lc_all = np.minimum(2 * ids_all + 1, T_all - 1)

@@ -16,6 +16,15 @@ or, for ``tpu_row_scheduling=level``, the pure level grower
 in all of them, bf16 histograms (``tpu_hist_dtype``) in all but full,
 which builds f32 histograms under it as the JAX package does.
 
+The stored columns may be physical (``core/layout.py``): EFB groups
+(``enable_bundle``: dense bins bundled here by ``io/bundling.find_bundles``,
+or the groups a sparse source was packed into), whose histograms the
+growers expand to the logical features before each scan, or multi-value
+``[R, K]`` pairs (``tpu_sparse_storage``), whose plain torch scatter is
+the histogram on every device. The compact grower's histogram pool
+follows ``histogram_pool_size`` (``_pool_policy``: full, a bounded LRU
+pool, or none), budgeted over the stored columns (``_hist_budget``).
+
 Row sampling (``models/sample_strategy.py``: bagging, balanced and by
 query, ``tpu_device_bagging``, GOSS) gives each iteration a 0/1 bag and a
 row weight: every tree of it grows from ``[g·w, h·w, bag]`` over all
@@ -48,6 +57,7 @@ are read back (``_eval``).
 """
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from typing import List, Optional, Tuple
 
@@ -92,7 +102,8 @@ class _ValidData:
         self.dataset = dataset
         self.metrics = metrics
         self.name = name
-        self.bins = feature_major_bins(dataset.bins, device)
+        self.bins = feature_major_bins(dataset.ensure_logical_bins(),
+                                       device)
         self.score = torch.zeros((num_class, dataset.num_data),
                                  dtype=torch.float32, device=device)
         if dataset.metadata.init_score is not None:
@@ -215,12 +226,30 @@ class GBDT:
         if self.row_sched == "leaf":
             # the same program as full (ref: config.py:35-37)
             self.row_sched = "full"
+        self._multival = train.bins_mv is not None
+        if self._multival and self.row_sched == "level":
+            # ref: gbdt.py:1764-1765
+            log.warning("tpu_row_scheduling='level' does not support "
+                        "multi-value sparse storage — falling back to "
+                        "'compact'")
+            self.row_sched = "compact"
+        bins_host = self._setup_bundles(train)
+        # the logical feature-major bins of the traversal replays, made
+        # on first use when the stored columns are physical
+        self._logical_fm = None
         # full scheduling holds the bins feature-major only, the other
         # growers row-major only (ref: gbdt.py:942, 1033-1072); u16 bins
-        # are held as int16 with the same bits (ops/histogram.bin_ids)
-        self.bins = (feature_major_bins(train.bins, dev)
-                     if self.row_sched == "full"
-                     else device_bins(train.bins, dev))
+        # are held as int16 with the same bits (ops/histogram.bin_ids);
+        # multi-value storage is its [R, K] pairs
+        if self._multival:
+            from ..ops.hist_multival import SparseBins
+            self.bins = SparseBins(torch.from_numpy(train.bins_mv[0]).to(dev),
+                                   torch.from_numpy(train.bins_mv[1]).to(dev),
+                                   len(mappers))
+        elif self.row_sched == "full":
+            self.bins = feature_major_bins(bins_host, dev)
+        else:
+            self.bins = device_bins(bins_host, dev)
 
         K = self.num_tree_per_iteration
         self.score = torch.zeros((K, self.num_data), dtype=torch.float32,
@@ -260,6 +289,7 @@ class GBDT:
             quant_bins=int(cfg.num_grad_quant_bins),
             stochastic_rounding=bool(cfg.stochastic_rounding),
             row_sched="full" if self.row_sched == "full" else "compact")
+        self._layout = self._make_layout()
         # per-tree uniforms of stochastic rounding: the JAX package's
         # threefry chain, fold_in(PRNGKey(seed), iteration * K + k), split
         # into the keys of the grad and hess draws (ref: models/gbdt.py
@@ -297,33 +327,123 @@ class GBDT:
                             f"{'; '.join(reasons)} — falling back to "
                             "'compact'")
                 self.row_sched = "compact"
+        if self.row_sched == "compact":
+            self._pool_policy()
         self._grow = (self._make_grower()
                       if self.feature_meta is not None else None)
+
+    def _setup_bundles(self, train: BinnedDataset) -> Optional[np.ndarray]:
+        """EFB (ref: dataset.cpp:112 FindGroups; the JAX package's
+        models/gbdt.py:944-1017): with ``enable_bundle`` and more than one
+        used feature, bundle dense bins (``find_bundles``) or take the
+        groups a sparse source was packed into. The groups' bin count
+        widens ``num_bin_max``, the growers' B. Returns the host bins the
+        growers read (row-major): the groups, the logical bins, or None
+        under multi-value storage."""
+        from ..io.bundling import find_bundles, pack_bins
+        cfg = self.config
+        self._bundle = None
+        if self._multival:
+            return None
+        if (cfg.enable_bundle and self.num_used_features > 1 and
+                (train.bins is not None or train.bins_grouped is not None)):
+            nb_used = np.asarray([train.bin_mappers[i].num_bin
+                                  for i in train.used_feature_map], np.int64)
+            info = (train.efb_info if train.bins_grouped is not None else
+                    find_bundles(train.bins, nb_used,
+                                 max_conflict_rate=cfg.max_conflict_rate))
+            if info is not None:
+                self.num_bin_max = int(max(self.num_bin_max,
+                                           info.group_num_bin.max()))
+                info.build_gather_map(self.num_bin_max)
+                self._bundle = info
+                log.info(f"EFB bundled {self.num_used_features} features "
+                         f"into {info.num_groups} groups")
+                return (train.bins_grouped if train.bins_grouped is not None
+                        else pack_bins(train.bins, info))
+        # a sparse source packed into groups, trained unbundled
+        return train.ensure_logical_bins()
+
+    def _make_layout(self):
+        """How the growers read the stored columns (core/layout.py)."""
+        from ..core.layout import BundleLayout, DenseLayout, MultivalLayout
+        full = self.row_sched == "full"
+        if self._bundle is not None:
+            return BundleLayout(self._bundle, self.device, full)
+        if self._multival:
+            dflt = np.asarray([m.default_bin for m in
+                               self.train_set.used_bin_mappers()], np.int32)
+            return MultivalLayout(dflt, self.num_bin_max, self.device, full)
+        return DenseLayout(full)
 
     def _make_grower(self):
         """The grower for ``row_sched`` (ref: gbdt.py:1164-1190): level
         scheduling routes pure level for ``1 <= max_depth <=
         MAX_LEVEL_DEPTH`` and hybrid otherwise."""
-        gcfg, meta = self.grower_cfg, self.feature_meta
+        gcfg, meta, layout = self.grower_cfg, self.feature_meta, self._layout
         if self.row_sched != "level":
             # compact or full, by gcfg.row_sched
-            return make_tree_grower(gcfg, meta)
+            hist_fn = None
+            if self._multival:
+                from ..core.layout import multival_hist
+                hist_fn = multival_hist
+            return make_tree_grower(gcfg, meta, hist_fn=hist_fn, layout=layout)
         if 1 <= gcfg.max_depth <= MAX_LEVEL_DEPTH:
-            return make_level_grower(gcfg, meta)
+            return make_level_grower(gcfg, meta, layout=layout)
         d0 = int(self.config.tpu_level_handoff_depth)
         if d0 > MAX_LEVEL_DEPTH:
             log.warning(f"tpu_level_handoff_depth={d0} exceeds "
                         f"MAX_LEVEL_DEPTH={MAX_LEVEL_DEPTH}; clamping")
-        return make_hybrid_grower(gcfg, meta, handoff_depth=d0)
+        return make_hybrid_grower(gcfg, meta, handoff_depth=d0, layout=layout)
+
+    def _hist_budget(self) -> Tuple[int, int]:
+        """(bytes of one [G, B, 3] histogram, the budget in bytes): the one
+        histogram memory rule, shared by the compact pool policy and the
+        hybrid's eligibility (ref: the JAX package's models/gbdt.py
+        1730-1745). G is the stored (physical) column count: the EFB
+        groups, else the used features; the budget is
+        ``histogram_pool_size`` MB, 4 GiB when unset."""
+        cfg = self.config
+        n_phys = (self._bundle.num_groups if self._bundle is not None
+                  else self.num_used_features)
+        row_bytes = n_phys * self.num_bin_max * 3 * 4
+        limit_bytes = (int(cfg.histogram_pool_size * (1 << 20))
+                       if cfg.histogram_pool_size >= 0 else 4 << 30)
+        return row_bytes, limit_bytes
+
+    def _pool_policy(self) -> None:
+        """The compact grower's histogram pool (ref: histogram_pool_size,
+        the LRU HistogramPool of feature_histogram.hpp:1368; the JAX
+        package's models/gbdt.py:1080-1126): the full ``[L, G, B, 3]``
+        pool within the budget; past it, a bounded LRU pool of as many
+        slots as fit, at least 2 (not under multi-value storage), else
+        no pool."""
+        slot_bytes, limit_bytes = self._hist_budget()
+        pool_bytes = self.config.num_leaves * slot_bytes
+        if pool_bytes <= limit_bytes:
+            return
+        n_slots = int(limit_bytes // max(slot_bytes, 1))
+        if n_slots >= 2 and not self._multival:
+            self.grower_cfg = dataclasses.replace(
+                self.grower_cfg, hist_pool="bounded", pool_slots=n_slots)
+            log.info(f"histogram pool ({pool_bytes >> 20} MB) exceeds the "
+                     f"budget; bounded LRU pool with {n_slots} slots "
+                     "(recompute on miss)")
+        else:
+            self.grower_cfg = dataclasses.replace(self.grower_cfg,
+                                                  hist_pool="none")
+            log.info(f"histogram pool ({pool_bytes >> 20} MB) exceeds the "
+                     "budget; computing per-split child histograms "
+                     "without a pool")
 
     def _level_ineligibility(self) -> List[str]:
         """Reasons level scheduling cannot serve this config (ref:
         gbdt.py:1747-1810), for what the port accepts: per-node column
         sampling (one mask a level there), and memory: the hybrid keeps
-        the full [L, F, B, 3] pool for its tail and every level
-        histogram [T, F, B, 3] (T = 2^(D0+1) - 1) for seeding it, and
-        both together must fit the histogram budget
-        (``histogram_pool_size`` MB, 4 GiB when unset)."""
+        the full [L, G, B, 3] pool for its tail and every level
+        histogram [T, G, B, 3] (T = 2^(D0+1) - 1) for seeding it, and
+        both together must fit the histogram budget (``_hist_budget``,
+        over the stored columns: EFB groups, not logical features)."""
         cfg = self.config
         # the level scan gives every node of a level one mask
         reasons = ["feature_fraction_bynode"] if self._bynode else []
@@ -331,9 +451,7 @@ class GBDT:
             return reasons
         d0 = resolve_handoff_depth(cfg.num_leaves,
                                    cfg.tpu_level_handoff_depth)
-        row_bytes = self.num_used_features * self.num_bin_max * 3 * 4
-        limit_bytes = (cfg.histogram_pool_size * (1 << 20)
-                       if cfg.histogram_pool_size >= 0 else 4 << 30)
+        row_bytes, limit_bytes = self._hist_budget()
         need_bytes = (cfg.num_leaves + 2 ** (d0 + 1) - 1) * row_bytes
         if need_bytes > limit_bytes:
             reasons.append(f"histogram memory over budget ({need_bytes >> 20}"
@@ -636,8 +754,20 @@ class GBDT:
         self.valid_sets.append(vd)
 
     def _train_bins_fm(self) -> torch.Tensor:
-        """The training bins as a feature-major ``[F, N]`` view."""
-        return self.bins if self.row_sched == "full" else self.bins.T
+        """The training bins as a feature-major logical ``[F, N]`` view.
+        Over EFB groups or multi-value pairs the logical bins are decoded
+        once (``ensure_logical_bins``; ref: gbdt.py:1256-1264)."""
+        if self._bundle is None and not self._multival:
+            return self.bins if self.row_sched == "full" else self.bins.T
+        if self._logical_fm is None:
+            if self.train_set.bins is None:
+                log.warning("densifying EFB-bundled or multi-value sparse "
+                            "bins for a traversal path (rollback/DART/"
+                            "continued training) — this costs the logical "
+                            "bin footprint")
+            self._logical_fm = feature_major_bins(
+                self.train_set.ensure_logical_bins(), self.device)
+        return self._logical_fm
 
     def _tree_outputs(self, t: HostTree, bins_fm: torch.Tensor
                       ) -> torch.Tensor:

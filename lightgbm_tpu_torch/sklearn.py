@@ -189,13 +189,14 @@ class LGBMModel(_SKBase):
         return self
 
     def _more_tags(self):
-        return {"allow_nan": True, "X_types": ["2darray", "1dlabels"],
+        return {"allow_nan": True, "X_types": ["2darray", "sparse",
+                                                "1dlabels"],
                 "non_deterministic": False}
 
     def __sklearn_tags__(self):  # sklearn >= 1.6 tag protocol
         tags = super().__sklearn_tags__()
         tags.input_tags.allow_nan = True
-        tags.input_tags.sparse = False
+        tags.input_tags.sparse = True
         return tags
 
     # -- param translation (ref: sklearn.py _process_params) -------------
@@ -604,11 +605,11 @@ class LGBMRanker(LGBMModel):
 
 
 def _as_matrix(X):
-    """A dense 2-D float64 array of numpy input or a frame's values;
-    sparse input waits for ROADMAP A12.5b."""
+    """A scipy sparse matrix as CSR (``Dataset`` bins it without
+    densifying it; ``predict`` takes it in row blocks), else a dense 2-D
+    float64 array of numpy input or a frame's values."""
     if hasattr(X, "tocsr"):
-        raise LightGBMError("sparse input is not ported yet "
-                            "(ROADMAP A12.5b)")
+        return X.tocsr()
     if hasattr(X, "values") and hasattr(X, "columns"):
         X = X.values
     arr = np.asarray(X)

@@ -4,7 +4,9 @@ by name), Arrow tables and ``__arrow_c_stream__`` producers (through
 ``io/dataset_core.ArrowColumns``), ``Dataset.set_categorical_feature``,
 ``trees_to_dataframe`` of categorical nodes, the estimators'
 ``categorical_feature`` and ``cv`` over categorical data; scipy sparse
-input stays refused (ROADMAP A12.5b); training and prediction on numpy
+input, refused until ROADMAP A12.5b, now trains and predicts as its
+dense matrix does (``tests/test_torch_sparse_input.py`` holds the rest
+of it); training and prediction on numpy
 input import neither pandas nor pyarrow (the card's machine has
 neither).
 
@@ -209,14 +211,17 @@ def test_cv_folds_keep_the_categorical_bins(data):
 
 
 def test_sparse_input_is_refused_naming_a12_5b(data):
+    """Refused until ROADMAP A12.5b ported it: a CSR matrix of the rows
+    trains the dense matrix's model text and predicts its values."""
     sparse = pytest.importorskip("scipy.sparse")
-    m = sparse.csr_matrix(data["X"])
-    with pytest.raises(LightGBMError, match="A12.5b"):
-        lgt.Dataset(m, label=data["y"])
-    bst = lgt.train(PARAMS, lgt.Dataset(data["X"], label=data["y"]),
-                    num_boost_round=1)
-    with pytest.raises(LightGBMError, match="A12.5b"):
-        bst.predict(m)
+    X = np.nan_to_num(data["X"])
+    m = sparse.csr_matrix(X)
+    got = lgt.train(PARAMS, lgt.Dataset(m, label=data["y"]),
+                    num_boost_round=ROUNDS)
+    want = lgt.train(PARAMS, lgt.Dataset(X, label=data["y"]),
+                     num_boost_round=ROUNDS)
+    assert got.model_to_string() == want.model_to_string()
+    np.testing.assert_array_equal(got.predict(m), want.predict(X))
 
 
 def test_numpy_path_imports_neither_pandas_nor_pyarrow(data, tmp_path):

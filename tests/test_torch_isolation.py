@@ -66,6 +66,22 @@ COPIED_MODULES = {
 }
 
 
+# the wide sparse data modules, ported from the JAX package's (bundling,
+# multi-value storage, Sequence input): the only imports each may have
+SPARSE_MODULES = {
+    "lightgbm_tpu_torch/io/bundling.py": {"__future__", "dataclasses",
+                                          "typing", "numpy", "torch",
+                                          "..ops.split"},
+    "lightgbm_tpu_torch/ops/hist_multival.py": {"__future__", "typing",
+                                                "numpy", "torch",
+                                                "..io.bundling"},
+    "lightgbm_tpu_torch/io/sequence.py": {"__future__", "abc", "typing",
+                                          "numpy", "..config", "..utils",
+                                          ".dataset_core"},
+}
+COPIED_MODULES.update(SPARSE_MODULES)
+
+
 def test_sources_exist():
     sources = _port_sources()
     assert os.path.isfile(sources[0])

@@ -173,13 +173,17 @@ def test_pickled_estimator_predicts_the_same(data):
 
 
 def test_sparse_and_categorical_input_refused(data):
-    """Sparse input is refused, naming ROADMAP A12.5b; categorical
-    features are no longer refused (A12.5a): they fit, and the model has
-    categorical splits."""
+    """Neither is refused any more: sparse input (ROADMAP A12.5b) fits
+    the dense matrix's model and predicts its values; categorical
+    features (A12.5a) fit, and the model has categorical splits."""
     sparse = pytest.importorskip("scipy.sparse")
     t = lgt.LGBMRegressor(**KW, device_type="cpu")
-    with pytest.raises(LightGBMError, match="A12.5b"):
-        t.fit(sparse.csr_matrix(np.nan_to_num(data["X"])), data["y"])
+    Xd = np.nan_to_num(data["X"])
+    t.fit(sparse.csr_matrix(Xd), data["y"])
+    d = lgt.LGBMRegressor(**KW, device_type="cpu").fit(Xd, data["y"])
+    assert t.booster_.model_to_string() == d.booster_.model_to_string()
+    np.testing.assert_array_equal(t.predict(sparse.csr_matrix(Xd)),
+                                  d.predict(Xd))
     X = data["X"].copy()
     X[:, 1] = np.arange(len(X)) % 7
     t.fit(X, data["y"] + 3.0 * (X[:, 1] % 3 == 1), categorical_feature=[1])
