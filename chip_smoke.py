@@ -208,7 +208,31 @@ Phases, each reported on its own line:
    logloss within rtol 1e-4). On phase 4's rows (after phase 12): a
    bounded LRU histogram pool and no pool (``histogram_pool_size`` 5 and
    0.1 MB: hits, misses, K1 launches), and the rows as a ``Sequence``
-   binning to the dense Dataset's bins.
+   binning to the dense Dataset's bins;
+15. constraints and tree variants on phase 4's rows (after phase 14's
+   runs there): monotone constraints (+1, -1, +1 on the features phase
+   4's first tree ranks first, second and third by gain) by the basic
+   method, with ``monotone_penalty=2``, intermediate (on the compact
+   path, on the full path (B2) and with quantized gradients) and
+   advanced; interaction constraints (4 groups of 7); CEGB (split 0.1,
+   coupled and lazy 1.0 on every feature, ``cegb_tradeoff=0.1``); a
+   3-level forced prefix on the top two features at the medians of
+   their nodes' rows; ``feature_contri`` 0.5 on
+   half the features; extra_trees (compact and full); level scheduling
+   with monotone constraints (the JAX package's fallback reason logged,
+   the compact model trained); linear trees (``linear_lambda=0.1``) on a
+   Dataset rebuilt with ``linear_tree``. 1 + 1 iterations each (linear
+   1 + 2); each run launching its kernel mode (K1, B2 on the full
+   path) and learning, its property checked (predictions monotone along
+   the constrained features over 1,000 rows, every tree inside one
+   interaction group, fewer features than phase 4's trees use under
+   CEGB, the forced prefix at the top of every tree), with its
+   s/iteration beside phase 4's, its training logloss after each
+   iteration, K1's and B2's launches and its peak bytes; then cuda
+   against the CPU on 20,000 rows, 2 rounds, 31 leaves, every run: trees
+   to the binary standard, training scores within 1e-5, linear trees'
+   host-walk predictions within 1e-5 and their device route answered by
+   the host walk, said once.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -3613,6 +3637,9 @@ def phase_sparse_on_phase4_rows(ds, X, phase4_iter_s):
     Dataset's bins. Returns the pool runs' K1 launches."""
     import lightgbm_tpu_torch as lgt
     launches = {}
+    # a Booster leaves its params in its Dataset's: the pool runs' budget
+    # must not follow the Dataset into later phases
+    ds_params = dict(ds.params)
     for name, mb in POOL_RUNS.items():
         bst, r = train_timed(ds, bench_params(histogram_pool_size=mb),
                              MODE_ITERS)
@@ -3635,6 +3662,7 @@ def phase_sparse_on_phase4_rows(ds, X, phase4_iter_s):
         launches[f"pool_{name}_hist_rowmajor_f32"] = k1
         del bst
         gc.collect()
+    ds.params = ds_params
 
     class Rows(lgt.Sequence):
         batch_size = SEQUENCE_BATCH
@@ -3699,6 +3727,304 @@ def phase_sparse_cross_check(launches):
         np.testing.assert_allclose(closs, ploss, rtol=1e-4, err_msg=name)
         if must:
             launches[f"cross_check_{name}_{must}"] = cc[must]
+
+# phase 15: constraints and tree variants on phase 4's rows and binning
+# (1M x 28, 255 leaves, 255 bins, binary, rate 0.1), one warm-up and one
+# timed iteration each (linear trees: two, so that one tree is fitted);
+# the monotone directions fall on the features phase 4's first tree
+# ranks first, second and third by gain
+CONSTRAINT_ITERS = 1
+LINEAR_ITERS = 2
+CONSTRAINT_SMALL_ROWS = 20_000
+CONSTRAINT_SMALL_ROUNDS = 2
+INTERACTION_GROUPS = 4
+
+
+def ranked_features(bst):
+    """Features of the booster's first tree, by their summed split gain."""
+    t = bst._engine.models[0]
+    gain = np.zeros(bst._engine.max_feature_idx + 1)
+    np.add.at(gain, t.split_feature[:t.num_leaves - 1],
+              t.split_gain[:t.num_leaves - 1])
+    return [int(f) for f in np.argsort(-gain, kind="stable")]
+
+
+def constraint_runs(top, X, tmpdir):
+    """name -> (params, timed iterations, the kernel mode the run must
+    launch, its property): the runs of phase 15 over rows like ``X``
+    (the forced thresholds are the features' medians there)."""
+    F = X.shape[1]
+    mono = [0] * F
+    for f, sign in zip(top[:3], (1, -1, 1)):
+        mono[f] = sign
+    size = F // INTERACTION_GROUPS
+    groups = ",".join("[" + ",".join(str(i) for i in range(g * size,
+                                                           (g + 1) * size))
+                      + "]" for g in range(INTERACTION_GROUPS))
+    # each forced split at the median of its node's rows: the first
+    # feature, then the second, then the first again in each quarter (a
+    # weak feature's split can have no gain, which ends the prefix)
+    med = lambda f, rows=slice(None): float(np.median(X[rows, f]))
+    t0, t1 = med(top[0]), med(top[1])
+
+    def level2(left):
+        side = X[:, top[0]] <= t0 if left else X[:, top[0]] > t0
+        cells = [side & (X[:, top[1]] <= t1), side & (X[:, top[1]] > t1)]
+        return {"feature": top[1], "threshold": t1,
+                "left": {"feature": top[0], "threshold": med(top[0],
+                                                             cells[0])},
+                "right": {"feature": top[0], "threshold": med(top[0],
+                                                              cells[1])}}
+    forced = {"feature": top[0], "threshold": t0, "left": level2(True),
+              "right": level2(False)}
+    path = f"{tmpdir}/forced_{len(X)}.json"
+    with open(path, "w") as fh:
+        json.dump(forced, fh)
+    inter = dict(monotone_constraints=mono,
+                 monotone_constraints_method="intermediate")
+    K1, B2 = "hist_rowmajor_f32", "hist_featmajor_f32"
+    it = CONSTRAINT_ITERS
+    return {
+        "monotone": (dict(monotone_constraints=mono), it, K1, "monotone"),
+        "monotone_penalty": (dict(monotone_constraints=mono,
+                                  monotone_penalty=2.0), it, K1, "monotone"),
+        "intermediate": (inter, it, K1, "monotone"),
+        "advanced": (dict(inter, monotone_constraints_method="advanced"), it,
+                     K1, "monotone"),
+        "intermediate_full": (dict(inter, tpu_row_scheduling="full"), it, B2,
+                              "monotone"),
+        "intermediate_quantized": (dict(inter, use_quantized_grad=True), it,
+                                   "hist_rowmajor_int8", "monotone"),
+        "interaction": (dict(interaction_constraints=groups), it, K1,
+                        "interaction"),
+        # at tradeoff 1 the penalties, 1.1 a row, exceed every split's
+        # gain on these rows (about 0.5 a row at the root): 0.1 keeps
+        # their ratios and lets the strongest splits through
+        "cegb": (dict(cegb_penalty_split=0.1,
+                      cegb_penalty_feature_coupled=[1.0] * F,
+                      cegb_penalty_feature_lazy=[1.0] * F,
+                      cegb_tradeoff=0.1), it, K1, "cegb"),
+        "forced": (dict(forcedsplits_filename=path), it, K1, "forced"),
+        "feature_contri": (dict(feature_contri=[1.0 if i % 2 else 0.5
+                                                for i in range(F)]), it, K1,
+                           "learns"),
+        "extra_trees": (dict(extra_trees=True), it, K1, "extra_trees"),
+        "extra_trees_full": (dict(extra_trees=True,
+                                  tpu_row_scheduling="full"), it, B2,
+                             "extra_trees"),
+        "level_monotone": (dict(monotone_constraints=mono,
+                                tpu_row_scheduling="level", verbose=0), it,
+                           K1, "level_fallback"),
+        "linear": (dict(linear_tree=True, linear_lambda=0.1), LINEAR_ITERS,
+                   K1, "linear"),
+    }
+
+
+def tree_features(t):
+    """The split features of a host tree."""
+    return set(int(f) for f in t.split_feature[:t.num_leaves - 1])
+
+
+def monotone_holds(bst, X, mono):
+    """Raw predictions over 1,000 rows (ten base rows, each swept over
+    100 values from the 1st to the 99th percentile of a constrained
+    feature) move in each constrained feature's direction."""
+    for f in np.flatnonzero(mono):
+        grid = np.linspace(*np.percentile(X[:, f], [1, 99]), 100)
+        probe = np.repeat(np.asarray(X[:10], np.float64), len(grid), axis=0)
+        probe[:, f] = np.tile(grid, 10)
+        d = np.diff(bst.predict(probe, raw_score=True).reshape(10, -1), 1)
+        if not (mono[f] * d >= -1e-12).all():
+            return False
+    return True
+
+
+def check_constraint_property(kind, bst, X, params, base_bst, forced_top):
+    """Each run's property (tests/test_torch_constraints.py's on both
+    packages): returns what was checked, asserting it."""
+    eng = bst._engine
+    if kind == "monotone":
+        assert monotone_holds(bst, X, params["monotone_constraints"])
+        return "monotone along each constrained feature"
+    if kind == "interaction":
+        size = X.shape[1] // INTERACTION_GROUPS
+        for t in eng.models:
+            assert len({f // size for f in tree_features(t)}) <= 1
+        return "every tree inside one interaction group"
+    if kind == "cegb":
+        n = len(eng.models)
+        used = set().union(*(tree_features(t) for t in eng.models))
+        base = set().union(*(tree_features(t)
+                             for t in base_bst._engine.models[:n]))
+        assert len(used) < len(base), (used, base)
+        return f"features used {len(used)} < {len(base)} without CEGB"
+    if kind == "forced":
+        for t in eng.models:
+            # the prefix (breadth first: node 0, then 1 and 2, then 3-6)
+            feats = [int(f) for f in t.split_feature[:7]]
+            assert feats == ([forced_top[0]] + [forced_top[1]] * 2
+                             + [forced_top[0]] * 4), feats
+        return "the 3-level forced prefix at the top of every tree"
+    if kind == "extra_trees":
+        base = base_bst._engine.models[0]
+        assert not np.array_equal(eng.models[0].threshold_bin,
+                                  base.threshold_bin)
+        return "first tree's thresholds differ from phase 4's"
+    if kind == "linear":
+        lin = eng.models[-1]
+        assert lin.is_linear and any(len(c) for c in lin.leaf_coeff)
+        Xp = np.asarray(X[:20000], np.float64)
+        train = eng.score[0, :20000].cpu().numpy()
+        err = float(np.abs(bst.predict(Xp, raw_score=True) - train).max())
+        assert err < 1e-4, err
+        return (f"leaves fitted; host walk within {err!r} of the training "
+                "score")
+    return "learns"
+
+
+def phase_constraints(base_bst, ds, X, phase4_iter_s):
+    """Phase 15: constraints and tree variants on phase 4's rows through
+    ``Booster`` (CONSTRAINT_RUNS): each run launching its kernel mode and
+    learning, its property checked, with its s/iteration beside phase
+    4's, its training logloss after each iteration, K1's and B2's
+    launches and its peak bytes; ``tpu_row_scheduling=level`` with
+    monotone constraints logging the JAX package's reason and training
+    the compact model; linear trees on a Dataset rebuilt with
+    ``linear_tree``; then cuda against the CPU on CONSTRAINT_SMALL_ROWS
+    rows. Returns each run's launches of its kernel mode and the
+    phase's launches by mode."""
+    import tempfile
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.utils import log as plog
+    t_phase = time.perf_counter()
+    top = ranked_features(base_bst)
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    runs = constraint_runs(top, X, tmpdir)
+    launches, totals = {}, {}
+    ds_params = dict(ds.params)
+    ds_linear = None
+    for name, (extra, iters, must, kind) in runs.items():
+        tr = time.perf_counter()
+        data = ds
+        if kind == "linear":
+            t = time.perf_counter()
+            ds_linear = lgt.Dataset(X, label=ds.label,
+                                    params={"linear_tree": True}).construct()
+            log(f"phase 15 run=linear Dataset rebuilt with linear_tree "
+                f"binning_s={time.perf_counter() - t!r} raw_bytes="
+                f"{ds_linear.binned.raw.nbytes}")
+            data = ds_linear
+        else:
+            ds.params = dict(ds_params)
+        msgs = []
+        plog.register_logger(msgs.append)
+        try:
+            bst, r = train_variant(data, bench_params(**extra), iters)
+        finally:
+            plog.register_logger(None)
+        eng = bst._engine
+        c = r["counts"]
+        prop = check_constraint_property(kind, bst, X, extra, base_bst, top)
+        if kind == "level_fallback":
+            said = [m for m in msgs if "tpu_row_scheduling='level' does "
+                    "not support" in m]
+            assert len(said) == 1 and "monotone constraints" in said[0], msgs
+            assert eng.row_sched == "compact"
+            prop = "level fell back to compact: " + said[0].split(
+                "[Warning] ", 1)[-1]
+        log(f"phase 15 run={name} iter_s={r['iter_s']!r} "
+            f"median_iter_s={r['median_iter_s']!r} "
+            f"phase4_median_iter_s={phase4_iter_s!r} "
+            f"over_phase4={r['median_iter_s'] / phase4_iter_s!r} "
+            f"logloss_per_iter={r['logloss']!r} K1_launches="
+            f"{c['hist_rowmajor_f32'] + c['hist_rowmajor_int8']} "
+            f"B2_launches={c['hist_featmajor_f32']} "
+            f"launches={nonzero(c)} peak_bytes_above_start="
+            f"{r['peak_bytes']} property={prop} "
+            f"seconds={time.perf_counter() - tr!r}")
+        assert c[must] > 0, (name, c)
+        assert r["logloss"][-1] < r["logloss"][0], (name, r["logloss"])
+        assert eng.grower_cfg.hist_pool == "full", (name, eng.grower_cfg)
+        launches[name] = c[must]
+        for k, v in c.items():
+            totals[k] = totals.get(k, 0) + v
+        del bst, eng
+        gc.collect()
+    ds.params = ds_params
+    del ds_linear
+    gc.collect()
+    cross = phase_constraints_cross_check(top, tmpdir)
+    for k, v in cross.items():
+        totals[k] = totals.get(k, 0) + v
+    log(f"phase 15 seconds={time.perf_counter() - t_phase!r}")
+    return launches, totals
+
+
+def phase_constraints_cross_check(top, tmpdir):
+    """cuda against the CPU on CONSTRAINT_SMALL_ROWS rows, 31 leaves,
+    CONSTRAINT_SMALL_ROUNDS rounds, every run of phase 15: the CPU
+    launching no kernel, the trees to the binary standard, the training
+    scores within 1e-5; linear trees by their host-walk predictions
+    within 1e-5, ``predict(device=True)`` saying once that the host walk
+    answers and giving its scores. Returns the cuda runs' launches."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.forest import LINEAR_TREES_ON_HOST
+    from lightgbm_tpu_torch.utils import log as plog
+    X, y = synth_higgs(CONSTRAINT_SMALL_ROWS, N_FEATURES, seed=11)
+    Xd = X.astype(np.float64)
+    totals = {}
+    for name, (extra, _, must, kind) in constraint_runs(top, X,
+                                                        tmpdir).items():
+        tc = time.perf_counter()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = bench_params(num_leaves=31, device_type=dev, **extra)
+            reset_counts()
+            bst = lgt.Booster(params, lgt.Dataset(X, label=y,
+                                                  params=params))
+            for _ in range(CONSTRAINT_SMALL_ROUNDS):
+                assert not bst.update(), (name, dev)
+            out[dev] = (bst, read_counts())
+        (cb, cc), (pb, pc) = out["cuda"], out["cpu"]
+        assert cc[must] > 0 and sum(pc.values()) == 0, (name, cc, pc)
+        n_trees = len(pb._engine.models)
+        score_err = float(np.abs(cb._engine.score.cpu().numpy()
+                                 - pb._engine.score.numpy()).max())
+        if kind == "linear":
+            pc_raw = pb.predict(Xd, raw_score=True)
+            err = float(np.abs(cb.predict(Xd, raw_score=True)
+                               - pc_raw).max())
+            msgs = []
+            plog.register_logger(msgs.append)
+            plog.logged_once.clear()
+            plog.set_verbosity(0)
+            try:
+                dev_raw = [cb.predict(Xd, raw_score=True, device=True)
+                           for _ in range(2)]
+            finally:
+                plog.register_logger(None)
+                plog.set_verbosity(-1)
+            said = [m for m in msgs if LINEAR_TREES_ON_HOST in m]
+            assert len(said) == 1, msgs
+            assert all(np.array_equal(d, cb.predict(Xd, raw_score=True))
+                       for d in dev_raw)
+            assert err < 1e-5, (name, err)
+            detail = (f"host_walk_max_abs_err={err!r} device_route="
+                      f"host walk, said once")
+        else:
+            assert_trees_to_binary_standard(
+                cb, pb, Xd, [np.ones(len(X), bool)] * n_trees, 0.1, 1.0,
+                0.25, f"phase 15 cross-check {name}")
+            detail = "trees to the binary standard"
+        assert score_err < 1e-5, (name, score_err)
+        log(f"phase 15 cross-check run={name} {detail} "
+            f"training_score_max_abs_err={score_err!r} "
+            f"cuda_launches={nonzero(cc)} "
+            f"seconds={time.perf_counter() - tc!r}")
+        for k, v in cc.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
 
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
@@ -3804,6 +4130,9 @@ def main():
     log(f"phase 12 done at {time.perf_counter() - t:.1f} s")
     pool_runs = phase_sparse_on_phase4_rows(ds, X, main_run["median_iter_s"])
     log(f"phase 14 on phase 4's rows done at {time.perf_counter() - t:.1f} s")
+    constraint_launches, constraint_totals = phase_constraints(
+        bst, ds, X, main_run["median_iter_s"])
+    log(f"phase 15 done at {time.perf_counter() - t:.1f} s")
     del bst, ds, X
     gc.collect()
     cat_runs, cat_totals = phase_categorical(main_run["median_iter_s"])
@@ -3814,7 +4143,9 @@ def main():
         key = k.split("_", 2)[2]
         sparse_totals[key] = sparse_totals.get(key, 0) + v
     later = {k: cat_totals.get(k, 0) + sparse_totals.get(k, 0)
-             for k in set(cat_totals) | set(sparse_totals)}
+             + constraint_totals.get(k, 0)
+             for k in set(cat_totals) | set(sparse_totals)
+             | set(constraint_totals)}
     rank_runs = phase_ranking()
     log(f"phase 10 done at {time.perf_counter() - t:.1f} s")
     phase_cross_check()
@@ -3857,6 +4188,8 @@ def main():
     log("phase 14 launches by run: " + json.dumps({**sparse_runs,
                                                     **pool_runs})
         + " by mode: " + json.dumps(nonzero(sparse_totals)))
+    log("phase 15 launches by run: " + json.dumps(constraint_launches)
+        + " by mode: " + json.dumps(nonzero(constraint_totals)))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ from .core.objective import create_objective
 from .io.dataset_core import BinnedDataset
 from .models import create_boosting
 from .models.gbdt import GBDT
-from .ops.forest import DeviceRouteUnavailable
+from .ops.forest import LINEAR_TREES_ON_HOST, DeviceRouteUnavailable
 from .utils import log
 from .utils.log import LightGBMError
 
@@ -1011,8 +1011,11 @@ class Booster:
             try:
                 raw = eng.predict_device(X, start_iteration, end_iteration)
             except DeviceRouteUnavailable as e:
-                log.warning(f"device prediction unavailable ({e}); "
-                            "using the host path")
+                # a linear model's route is the host walk, as the
+                # reference's: said once, not at every call
+                (log.warning_once if str(e) == LINEAR_TREES_ON_HOST
+                 else log.warning)(f"device prediction unavailable ({e}); "
+                                   "using the host path")
         if raw is None:
             raw = np.zeros((X.shape[0], K), dtype=np.float64)
             for i, t in enumerate(trees):

@@ -17,6 +17,17 @@ ignores ``tpu_hist_kernel``, ``tpu_use_pallas`` and ``tpu_rows_per_block``
 (every value runs the port's hand kernels) and ``tpu_predict_buckets``
 (it pads no request; see models/gbdt.py), and refuses the settings it cannot honour yet (see
 ``unsupported_settings``).
+
+These knobs are accepted and ignored without changing the model: they
+tune how the JAX package lays out or schedules work on a TPU, and the
+port's kernels and synchronous loop have no counterpart of them:
+``tpu_packed_bins``, ``tpu_partition_mode`` and ``tpu_min_bucket`` (bin
+packing, the segment partition and its pow2 buckets),
+``tpu_async_boosting`` (the JAX package's asynchronous boosting gives
+the synchronous models bit for bit), ``tpu_donate_state`` and
+``tpu_stop_check_interval`` (buffer donation and the asynchronous stop
+check), ``tpu_compile_cache_dir`` and ``tpu_profile_dir`` (XLA's compile
+cache and profiler).
 """
 from __future__ import annotations
 
@@ -451,22 +462,20 @@ def _parse_list(value: Any, elem_type: Any) -> List[Any]:
 # (``tpu_sparse_storage``), the histogram-pool policy
 # (``histogram_pool_size``), ``gbdt``, ``dart`` and ``rf`` boosting,
 # bagging (uniform, balanced, by query, ``tpu_device_bagging``) and GOSS
-# row sampling, and per-tree and per-node column sampling. A
-# setting that needs anything else maps to a predicate that is True for
-# the unsupported value and to the ROADMAP item that ports it; training
-# refuses it instead of ignoring it.
+# row sampling, per-tree and per-node column sampling, monotone
+# constraints (``monotone_constraints_method`` basic, intermediate and
+# advanced, ``monotone_penalty``), interaction constraints, CEGB,
+# forced splits and forced bins, ``feature_contri``, extra_trees and
+# linear trees. A setting that needs anything else maps to a predicate
+# that is True for the unsupported value and to the ROADMAP item that
+# ports it; training refuses it instead of ignoring it.
 _UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {
     "tree_learner": (lambda v: str(v).lower() != "serial", "A13"),
-    "extra_trees": (bool, "A12"),
-    "monotone_constraints": (lambda v: any(int(x) != 0 for x in v), "A12"),
-    "interaction_constraints": (bool, "A12"),
-    "forcedsplits_filename": (bool, "A12"),
-    "forcedbins_filename": (bool, "A12"),
-    "feature_contri": (lambda v: any(float(x) != 1.0 for x in v), "A12"),
-    "cegb_penalty_split": (lambda v: v > 0.0, "A12"),
-    "cegb_penalty_feature_lazy": (bool, "A12"),
-    "cegb_penalty_feature_coupled": (bool, "A12"),
-    "linear_tree": (bool, "A12"),
+    # the JAX package loads such a file through its two-round loader,
+    # whose sample gives other bin bounds than the in-memory load
+    "two_round": (bool, "A15"),
+    "tpu_integrity_numeric_guard": (bool, "A12.7"),
+    "tpu_heartbeat_file": (bool, "A12.7"),
 }
 
 

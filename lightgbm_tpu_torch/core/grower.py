@@ -59,6 +59,36 @@ Histogram modes (``hist_inputs``), as in the JAX grower:
 k0)`` seam: it continues the split loop at step ``k0`` from a
 ``GrowState`` that another phase (the hybrid grower's level phase)
 committed.
+
+Constraints and tree variants (the JAX grower's core/grower.py:561-994,
+:1339-1660), each decided on the host where the split's other state
+already lives:
+
+- monotone constraints: each leaf carries its output bounds (stats
+  ``S_LMIN``/``S_LMAX``); the scan clamps to them, and a numerical split
+  on a monotone feature bounds its children by the mid-point of their
+  outputs (``mc_method="basic"``). ``"intermediate"`` bounds each child
+  by its sibling's output and keeps every leaf's bin box ``[L, F]``: a
+  leaf that exactly one monotone feature separates from a new child is
+  tightened by the child's output and, when a bound moved, rescanned
+  from the histogram pool; ``"advanced"`` also recomputes the
+  children's bounds from the boxes instead of inheriting them. The
+  boxes and the bounds are mirrored on the host (f32, as the JAX
+  package keeps them): the one read a split makes carries every leaf's
+  best gain besides the chosen row;
+- interaction constraints: each leaf's path features ``[L, F]`` on the
+  host; a node scans only the union of the groups that hold its path;
+- CEGB: ``cegb = (const [F], per_count [F])``, subtracted per feature
+  as ``const + per_count * count``;
+- forced splits: ``forced = (active, slot, feature, threshold)`` numpy
+  arrays; step i splits leaf ``slot[i]`` at the given bin while the
+  forced prefix holds, and the first forced split whose net gain is not
+  positive (or that breaks ``max_depth``) ends the prefix;
+- extra_trees: ``et_key`` is the tree's threefry key
+  ``fold_in(tree_key, 7919)``; the root draws one uniform a feature from
+  ``fold_in(et_key, 2**20)``, the children of split i from
+  ``fold_in(fold_in(et_key, i), 1)`` and ``(..., 2)`` (drawn on the host,
+  ``utils/prng.py``, and uploaded).
 """
 from __future__ import annotations
 
@@ -73,7 +103,9 @@ from ..ops.histogram import bin_ids
 from ..ops.split import (MISSING_ENUM, K_EPSILON, K_MIN_SCORE, FeatureMeta,
                          SplitHyperParams, best_split_for_leaf,
                          calculate_splitted_leaf_output, column_sum,
-                         max_cat_width, pack_record_rows)
+                         forced_split_record, max_cat_width,
+                         pack_record_rows)
+from ..utils import prng
 from .tree import TreeArrays
 
 
@@ -104,6 +136,14 @@ class GrowerConfig:
     # histograms both children of every split from their rows
     hist_pool: str = "full"
     pool_slots: int = 0
+    # extremely randomized trees (ref: config extra_trees)
+    extra_trees: bool = False
+    # monotone constraint method: basic | intermediate | advanced (ref:
+    # monotone_constraints.hpp BasicLeafConstraints:466,
+    # IntermediateLeafConstraints:517)
+    mc_method: str = "basic"
+    # interaction groups over USED feature indices, or None
+    interaction_groups: Optional[tuple] = None
 
 
 # per-leaf stats columns (f32 [L, NS]), as in the JAX grower
@@ -195,6 +235,18 @@ class GrowState:
     slot_map: Optional[List[int]] = None
     slot_stamp: Optional[List[int]] = None
     slot_owner: Optional[List[int]] = None
+    # interaction constraints: each leaf's path features, bool [L, F]
+    path: Optional[np.ndarray] = None
+    # the forced prefix is still on track
+    forced_ok: bool = True
+    # refined monotone modes (host): each leaf's bin box [L, F]
+    # (inclusive), its output, bounds and mask row, f32 as on the device
+    leaf_flo: Optional[np.ndarray] = None
+    leaf_fhi: Optional[np.ndarray] = None
+    leaf_val: Optional[np.ndarray] = None
+    leaf_min: Optional[np.ndarray] = None
+    leaf_max: Optional[np.ndarray] = None
+    leaf_nrow: Optional[np.ndarray] = None
 
 
 def cat_table(cat_bins: torch.Tensor, num_bin: int) -> torch.Tensor:
@@ -243,9 +295,10 @@ def node_mask(feature_mask: Optional[torch.Tensor], rows: List[int]
 
 
 def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
-                     hist_fn: Optional[Callable] = None, layout=None):
-    """Build ``grow(bins, gh, uniforms=None, feature_mask=None) ->
-    (TreeArrays, leaf_id)``.
+                     hist_fn: Optional[Callable] = None, layout=None,
+                     forced: Optional[tuple] = None):
+    """Build ``grow(bins, gh, uniforms=None, feature_mask=None, cegb=None,
+    et_key=None) -> (TreeArrays, leaf_id)``.
 
     ``bins`` is ``[R, F]`` row-major under compact scheduling and
     ``[F, R]`` feature-major under full scheduling, uint8 or u16 held as
@@ -278,6 +331,11 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     ``grow.resume(bins, gh_hist, conv, state, k0, feature_mask=None)``
     runs the split loop from step ``k0`` over a committed ``GrowState``
     (full pool only).
+
+    ``forced`` (a forced-split prefix), ``cegb``, ``et_key`` and the
+    constraints of ``cfg`` and ``meta`` are described in the module
+    docstring. Forced splits and the refined monotone modes need the
+    full histogram pool.
     """
     from .layout import DenseLayout
     hp = cfg.hparams
@@ -300,12 +358,143 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     miss_h = meta.missing_type.tolist()
     dflt_h = meta.default_bin.tolist()
     counts = {"hits": 0, "misses": 0}
+    F = len(nbin_h)
+    use_mc = meta.monotone is not None
+    use_inter = use_mc and cfg.mc_method in ("intermediate", "advanced")
+    use_adv = use_mc and cfg.mc_method == "advanced"
+    mono_h = np.asarray(meta.monotone.tolist(), np.int64) if use_mc else None
+    if forced is not None and pool != "full":
+        raise ValueError("forced splits need the full histogram pool; use "
+                         "hist_pool='full'")
+    if use_inter and pool != "full":
+        raise ValueError("monotone_constraints_method=intermediate re-scans "
+                         "affected leaves from the histogram pool; use "
+                         "hist_pool='full'")
+    if use_inter and cfg.extra_trees:
+        raise ValueError("monotone_constraints_method=intermediate does not "
+                         "compose with extra_trees")
+    group_masks = None
+    if cfg.interaction_groups is not None:
+        group_masks = np.zeros((len(cfg.interaction_groups), F), bool)
+        for gi, group in enumerate(cfg.interaction_groups):
+            for fi in group:
+                if 0 <= fi < F:
+                    group_masks[gi, fi] = True
 
     def scan_hists(conv, raw, totals):
         """Raw histograms -> the logical f32 histograms the scan reads."""
         return layout.fix(conv(raw), totals)
 
-    def root_state(bins, gh, gh_hist, conv, feature_mask) -> GrowState:
+    def allowed_of(paths: np.ndarray) -> np.ndarray:
+        """bool [N, F]: the features of the interaction groups that hold
+        each node's path features ``paths`` [N, F] (ref: col_sampler.hpp;
+        the JAX package's core/grower.py:810-834)."""
+        contains = np.all(group_masks[None] | ~paths[:, None, :], axis=2)
+        return np.any(group_masks[None] & contains[:, :, None], axis=1)
+
+    def masks(feature_mask, nrows: List[int], allowed):
+        """The scan's mask of the nodes of mask rows ``nrows``: column
+        sampling (``node_mask``) and ``allowed`` (interaction groups;
+        bool [N, F] on the device, or None)."""
+        fm = node_mask(feature_mask, nrows)
+        if allowed is None:
+            return fm
+        return allowed if fm is None else fm & allowed
+
+    def uniforms_of(keys) -> np.ndarray:
+        """extra_trees: one uniform a feature from each key, f32 [N, F]
+        on the host."""
+        return np.stack([prng.uniform_host(k, F) for k in keys])
+
+    def upload(blocks, dev):
+        """The host arrays a split hands the device, [N, *] each, in one
+        copy (one host-to-device transfer, which waits for the queue);
+        returns the device views in order."""
+        widths = [b.shape[1] for b in blocks]
+        buf = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+            blocks, axis=1))).to(dev)
+        return torch.split(buf, widths, dim=1)
+
+    def scan_leaves(hh, rows, fm, cegb, rand_u):
+        """Best splits of N leaves from their logical f32 histograms
+        ``hh`` and their stats rows ``rows`` [N, NS] (totals, output,
+        bounds, depth)."""
+        cnt = rows[:, S_CNT]
+        gp = None if cegb is None else cegb[0] + cegb[1] * cnt[:, None]
+        return best_split_for_leaf(
+            hh, rows[:, S_SG], rows[:, S_SH], cnt, rows[:, S_VAL], meta, hp,
+            fm, leaf_range=(rows[:, S_LMIN], rows[:, S_LMAX]),
+            leaf_depth=rows[:, S_DEPTH], gain_penalty=gp, rand_u=rand_u)
+
+    def child_bounds(st, l, srow, brow, num_leaves):
+        """f32 (l_min, l_max, r_min, r_max) of the two children of leaf
+        ``l`` (ref: monotone_constraints.hpp:488-504 and :546; the JAX
+        package's core/grower.py:1339-1441): basic bounds by the outputs'
+        mid-point, the refined modes by the sibling's output; advanced
+        takes the base bounds from the boxes of the other leaves."""
+        p_min, p_max = srow[S_LMIN], srow[S_LMAX]
+        f = int(brow[B_FEAT])
+        is_num = brow[B_NCAT] == 0
+        mono_f = int(mono_h[f]) if f >= 0 and is_num else 0
+        base = [p_min, p_max, p_min, p_max]
+        if use_adv:
+            ac_flo, ac_fhi = child_boxes(st, l, brow)
+            exists = np.arange(L) < num_leaves
+            exists[l] = False
+            sel_ub, sel_lb = linked_bounds(st.leaf_flo, st.leaf_fhi, ac_flo,
+                                           ac_fhi, exists)
+            jout = st.leaf_val[:, None]
+            geo_max = np.min(np.where(sel_ub, jout, np.float32(np.inf)), 0)
+            geo_min = np.max(np.where(sel_lb, jout, np.float32(-np.inf)), 0)
+            base = [geo_min[0], geo_max[0], geo_min[1], geo_max[1]]
+        if use_inter:
+            bl, br = brow[B_RO], brow[B_LO]
+        else:
+            bl = br = (brow[B_LO] + brow[B_RO]) * np.float32(0.5)
+        l_min = np.maximum(base[0], bl) if mono_f < 0 else base[0]
+        l_max = np.minimum(base[1], bl) if mono_f > 0 else base[1]
+        r_min = np.maximum(base[2], br) if mono_f > 0 else base[2]
+        r_max = np.minimum(base[3], br) if mono_f < 0 else base[3]
+        return l_min, l_max, r_min, r_max
+
+    def child_boxes(st, l, brow):
+        """The bin boxes ([2, F] low, [2, F] high) of leaf ``l``'s
+        children: a numerical split cuts the split feature at its
+        threshold, a categorical one leaves both the parent's box."""
+        flo_p, fhi_p = st.leaf_flo[l], st.leaf_fhi[l]
+        left_fhi, right_flo = fhi_p.copy(), flo_p.copy()
+        if brow[B_NCAT] == 0 and brow[B_FEAT] >= 0:
+            f, thr = int(brow[B_FEAT]), int(brow[B_THR])
+            left_fhi[f], right_flo[f] = thr, thr + 1
+        return np.stack([flo_p, right_flo]), np.stack([left_fhi, fhi_p])
+
+    def linked_bounds(flo, fhi, c_flo, c_fhi, exists):
+        """``(hi_side, lo_side)``, bool [L, 2]: the existing leaves linked
+        to each child (exactly one feature separates their boxes, and it
+        is monotone: the leaves the reference's GoUp/GoDown walk reaches,
+        monotone_constraints.hpp:625-700) on the side where their output
+        must be at least the child's (they bound its max, it bounds their
+        min), and on the side where it must be at most (ref: the JAX
+        package's core/grower.py:1380-1423, :1573-1604)."""
+        ov = ((flo[:, None, :] <= c_fhi[None]) &
+              (fhi[:, None, :] >= c_flo[None]))                  # [L, 2, F]
+        n_sep = (~ov).sum(2)
+        sep = np.argmax(~ov, axis=2)                             # [L, 2]
+        msep = mono_h[sep]
+        linked = (n_sep == 1) & (msep != 0) & exists[:, None]
+        j_lo = np.take_along_axis(flo, sep, axis=1)
+        j_hi = np.take_along_axis(fhi, sep, axis=1)
+        c_lo = c_flo[np.arange(2)[None, :], sep]
+        c_hi = c_fhi[np.arange(2)[None, :], sep]
+        below, above = j_hi < c_lo, j_lo > c_hi
+        inc = msep > 0
+        # j above an increasing child bounds the child's max (advanced's
+        # reading) = the child bounds j's min (intermediate's reading)
+        return (linked & np.where(inc, above, below),
+                linked & np.where(inc, below, above))
+
+    def root_state(bins, gh, gh_hist, conv, feature_mask, cegb=None,
+                   et_key=None) -> GrowState:
         """ref: LeafSplits::Init + the first FindBestSplits."""
         dev = gh.device
         R = gh.shape[0]
@@ -316,9 +505,21 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             root_g, root_h + 2 * K_EPSILON, hp, root_c,
             torch.zeros((), **f32))
         hist_root = hist_fn(bins, gh_hist, B)
-        best_root = best_split_for_leaf(
-            scan_hists(conv, hist_root, sums), root_g, root_h, root_c,
-            root_out, meta, hp, node_mask(feature_mask, [0]))
+        root_row = torch.zeros((1, NS), **f32)
+        root_row[0, S_SG:S_VAL + 1] = torch.stack([root_g, root_h, root_c,
+                                                  root_out])
+        root_row[0, S_LMIN], root_row[0, S_LMAX] = -np.inf, np.inf
+        path0 = (np.zeros((L, F), bool) if group_masks is not None
+                 else None)
+        allowed0 = rand0 = None
+        if path0 is not None:
+            allowed0 = torch.as_tensor(allowed_of(path0[:1]), device=dev)
+        if et_key is not None:
+            rand0 = torch.as_tensor(uniforms_of(
+                [prng.fold_in(et_key, 2 ** 20)]), device=dev)
+        best_root = scan_leaves(
+            scan_hists(conv, hist_root, sums)[None], root_row,
+            masks(feature_mask, [0], allowed0), cegb, rand0)
 
         hist = None
         if pool != "none":
@@ -335,12 +536,12 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         best[:, B_GAIN] = K_MIN_SCORE
         best[:, B_FEAT] = -1.0
         best[:, B_DL] = 1.0
-        best[0] = pack_record_rows(best_root)
+        best[0] = pack_record_rows(best_root)[0]
         best_cat = tree_cat = None
         if has_cat:
             best_cat = torch.full((L, MAXK), -1, dtype=torch.int64,
                                   device=dev)
-            best_cat[0] = best_root.cat_bins
+            best_cat[0] = best_root.cat_bins[0]
             tree_cat = np.full((max(L - 1, 0), MAXK), -1, np.int32)
         seg_rows = [0] * L
         seg_rows[0] = R
@@ -351,7 +552,14 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             seg_start=[0] * L, seg_rows=seg_rows, num_leaves=1,
             leaf_id=(torch.zeros(R, dtype=torch.int64, device=dev)
                      if full else None),
-            best_cat=best_cat, tree_cat=tree_cat)
+            best_cat=best_cat, tree_cat=tree_cat, path=path0)
+        if use_inter:
+            st.leaf_flo = np.zeros((L, F), np.int64)
+            st.leaf_fhi = np.tile(np.asarray(nbin_h, np.int64) - 1, (L, 1))
+            st.leaf_val = np.zeros(L, np.float32)
+            st.leaf_min = np.full(L, -np.inf, np.float32)
+            st.leaf_max = np.full(L, np.inf, np.float32)
+            st.leaf_nrow = np.zeros(L, np.int64)
         if pool == "bounded":
             st.slot_map = [0] + [-1] * (L - 1)
             st.slot_stamp = [0] + [-1] * (P - 1)
@@ -436,9 +644,63 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         return hist_fn(bins_fm, gh_hist, B, leaf_id=st.leaf_id,
                        leaf=l if left_smaller else new_leaf)
 
+    def refine_bounds(st, conv, l, new_leaf, brow, gains_h, bounds,
+                      feature_mask, cegb, i):
+        """The refined monotone modes after leaf ``l``'s split (ref:
+        IntermediateLeafConstraints::UpdateConstraintsWithOutputs,
+        monotone_constraints.hpp:546-700; the JAX package's
+        core/grower.py:1536-1660): the children's boxes, outputs and
+        bounds enter the host mirror; every other leaf with a valid split
+        (``gains_h``, read with the split's row) that a child is linked
+        to is tightened by the child's output, and the leaves whose bound
+        moved are rescanned from the pool with their new bounds."""
+        dev = st.stats.device
+        c_flo, c_fhi = child_boxes(st, l, brow)
+        st.leaf_fhi[l] = c_fhi[0]
+        st.leaf_flo[new_leaf], st.leaf_fhi[new_leaf] = c_flo[1], c_fhi[1]
+        st.leaf_val[l], st.leaf_val[new_leaf] = brow[B_LO], brow[B_RO]
+        (st.leaf_min[l], st.leaf_max[l], st.leaf_min[new_leaf],
+         st.leaf_max[new_leaf]) = bounds
+        st.leaf_nrow[l], st.leaf_nrow[new_leaf] = 2 * i + 1, 2 * i + 2
+        updatable = np.zeros(L, bool)
+        updatable[:len(gains_h)] = gains_h > K_MIN_SCORE
+        updatable[[l, new_leaf]] = False
+        hi_side, lo_side = linked_bounds(st.leaf_flo, st.leaf_fhi, c_flo,
+                                         c_fhi, updatable)
+        c_out = np.asarray([brow[B_LO], brow[B_RO]], np.float32)[None]
+        cand_max = np.min(np.where(lo_side, c_out, np.float32(np.inf)), 1)
+        cand_min = np.max(np.where(hi_side, c_out, np.float32(-np.inf)), 1)
+        nmax = np.where(updatable, np.minimum(st.leaf_max, cand_max),
+                        st.leaf_max)
+        nmin = np.where(updatable, np.maximum(st.leaf_min, cand_min),
+                        st.leaf_min)
+        idx = np.flatnonzero((nmax < st.leaf_max) | (nmin > st.leaf_min))
+        st.leaf_min, st.leaf_max = nmin, nmax
+        if not len(idx):
+            return
+        # the leaves, their bounds (exact in f64) and their allowed
+        # features in one upload
+        blocks = [np.stack([idx, nmin[idx], nmax[idx]], 1)]
+        if st.path is not None:
+            blocks.append(allowed_of(st.path[idx]))
+        parts = upload([b.astype(np.float64) for b in blocks], dev)
+        idx_t = parts[0][:, 0].long()
+        st.stats[idx_t, S_LMIN] = parts[0][:, 1].float()
+        st.stats[idx_t, S_LMAX] = parts[0][:, 2].float()
+        rows = st.stats[idx_t]
+        rec = scan_leaves(
+            scan_hists(conv, st.hist[idx_t], rows[:, S_SG:S_CNT + 1]), rows,
+            masks(feature_mask, st.leaf_nrow[idx].tolist(),
+                  parts[1] > 0.5 if st.path is not None else None), cegb,
+            None)
+        st.best[idx_t] = pack_record_rows(rec)
+        if has_cat:
+            st.best_cat[idx_t] = rec.cat_bins
+
     def resume(bins, gh_hist: torch.Tensor, conv: Callable,
                st: GrowState, k0: int,
-               feature_mask: Optional[torch.Tensor] = None
+               feature_mask: Optional[torch.Tensor] = None,
+               cegb: Optional[tuple] = None, et_key=None
                ) -> Tuple[TreeArrays, torch.Tensor]:
         dev = gh_hist.device
         R = gh_hist.shape[0]
@@ -453,17 +715,51 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                                    < cfg.max_depth, cand, K_MIN_SCORE)
             lt = torch.argmax(cand)
             # one device->host read per split: the chosen leaf, its gain,
-            # its best split and its stats (and its category set)
+            # its best split and its stats (and its category set; a forced
+            # split's record and its leaf's stats; every leaf's best gain
+            # under the refined monotone modes)
             parts = [lt.to(torch.float32)[None], cand[lt][None], best[lt],
                      stats[lt]]
             if has_cat:
                 parts.append(st.best_cat[lt].to(torch.float32))
+            want_forced = (forced is not None and st.forced_ok
+                           and i < len(forced[0]) and bool(forced[0][i]))
+            if want_forced:
+                slot, ff, ft = (int(forced[1][i]), int(forced[2][i]),
+                                int(forced[3][i]))
+                srow_d = stats[slot]
+                frec = forced_split_record(
+                    scan_hists(conv, hist[slot], srow_d[S_SG:S_CNT + 1]),
+                    ff, ft, srow_d[S_SG], srow_d[S_SH], srow_d[S_CNT],
+                    srow_d[S_VAL], (nbin_h[ff], miss_h[ff], dflt_h[ff]), hp)
+                parts += [pack_record_rows(frec), srow_d]
+            if use_inter:
+                parts.append(best[:num_leaves, B_GAIN])
             head = torch.cat(parts).cpu().numpy()
             l, gain = int(head[0]), head[1]
-            if not gain > 0.0:
-                break
             brow = head[2:2 + NB]
             srow = head[2 + NB:2 + NB + NS]
+            off = 2 + NB + NS
+            bcat = None
+            if has_cat:
+                bcat = head[off:off + MAXK]
+                off += MAXK
+            if want_forced:
+                # ForceSplits (ref: serial_tree_learner.cpp:560; the JAX
+                # package's core/grower.py:956-994): a forced split whose
+                # net gain is not positive, or past max_depth, ends the
+                # forced prefix and this step takes the best leaf
+                frow, fsrow = head[off:off + NB], head[off + NB:off + NB + NS]
+                off += NB + NS
+                st.forced_ok = bool(frow[B_GAIN] > 0.0 and (
+                    cfg.max_depth <= 0 or fsrow[S_DEPTH] < cfg.max_depth))
+                if st.forced_ok:
+                    l, gain, brow, srow = slot, frow[B_GAIN], frow, fsrow
+                    if has_cat:
+                        bcat = np.full(MAXK, -1, np.float32)
+            gains_h = head[off:off + num_leaves] if use_inter else None
+            if not gain > 0.0:
+                break
             new_leaf = i + 1
 
             # ---- record the split (ref: tree.cpp Tree::Split) ------------
@@ -472,7 +768,7 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                        -(new_leaf + 1.0), brow[B_NCAT]]
             cat_set = None
             if has_cat:
-                st.tree_cat[i] = head[2 + NB + NS:]
+                st.tree_cat[i] = bcat
                 if brow[B_NCAT] > 0:
                     cat_set = st.best_cat[l]
             p = int(srow[S_PARENT])
@@ -501,24 +797,45 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
 
             # ---- children stats and best splits --------------------------
             depth = srow[S_DEPTH] + 1.0
+            l_min, l_max, r_min, r_max = (
+                child_bounds(st, l, srow, brow, num_leaves) if use_mc else
+                (srow[S_LMIN], srow[S_LMAX], srow[S_LMIN], srow[S_LMAX]))
             child = np.asarray(
                 [[brow[B_LG], brow[B_LH], brow[B_LC], brow[B_LO],
-                  srow[S_LMIN], srow[S_LMAX], depth, i, 0.0, 2 * i + 1],
+                  l_min, l_max, depth, i, 0.0, 2 * i + 1],
                  [brow[B_RG], brow[B_RH], brow[B_RC], brow[B_RO],
-                  srow[S_LMIN], srow[S_LMAX], depth, i, 1.0, 2 * i + 2]],
+                  r_min, r_max, depth, i, 1.0, 2 * i + 2]],
                 np.float32)
-            child = torch.from_numpy(child).to(dev)
             pair = [l, new_leaf]
+            # the children's stats, allowed features and extra_trees'
+            # draws reach the device in one upload
+            blocks = [child]
+            if st.path is not None:
+                if f >= 0:
+                    st.path[l, f] = True
+                st.path[new_leaf] = st.path[l]
+                blocks.append(allowed_of(st.path[pair]).astype(np.float32))
+            if et_key is not None:
+                ki = prng.fold_in(et_key, i)
+                blocks.append(uniforms_of([prng.fold_in(ki, 1),
+                                           prng.fold_in(ki, 2)]))
+            parts = list(upload(blocks, dev))
+            child = parts.pop(0)
+            allowed2 = parts.pop(0) > 0.5 if st.path is not None else None
+            rand2 = parts.pop(0) if et_key is not None else None
             stats[pair] = child
-            rec2 = best_split_for_leaf(
-                scan_hists(conv, raw2, child[:, S_SG:S_CNT + 1]),
-                child[:, S_SG], child[:, S_SH], child[:, S_CNT],
-                child[:, S_VAL], meta, hp,
-                node_mask(feature_mask, [2 * i + 1, 2 * i + 2]))
+            rec2 = scan_leaves(
+                scan_hists(conv, raw2, child[:, S_SG:S_CNT + 1]), child,
+                masks(feature_mask, [2 * i + 1, 2 * i + 2], allowed2),
+                cegb, rand2)
             best[pair] = pack_record_rows(rec2)
             if has_cat:
                 st.best_cat[pair] = rec2.cat_bins
             num_leaves = new_leaf + 1
+            if use_inter:
+                refine_bounds(st, conv, l, new_leaf, brow, gains_h,
+                              (l_min, l_max, r_min, r_max), feature_mask,
+                              cegb, i)
 
         # ---- materialize the tree ----------------------------------------
         statm = stats.cpu().numpy()
@@ -554,11 +871,14 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         return tree, leaf_id
 
     def grow(bins, gh: torch.Tensor, uniforms=None,
-             feature_mask: Optional[torch.Tensor] = None
+             feature_mask: Optional[torch.Tensor] = None,
+             cegb: Optional[tuple] = None, et_key=None
              ) -> Tuple[TreeArrays, torch.Tensor]:
         gh_hist, conv = hist_inputs(cfg, gh, uniforms)
-        state = root_state(bins, gh, gh_hist, conv, feature_mask)
-        return resume(bins, gh_hist, conv, state, 0, feature_mask)
+        state = root_state(bins, gh, gh_hist, conv, feature_mask, cegb,
+                           et_key)
+        return resume(bins, gh_hist, conv, state, 0, feature_mask, cegb,
+                      et_key)
 
     grow.resume = resume
     grow.pool_counts = counts

@@ -130,6 +130,16 @@ class HostTree:
         # a tree parsed from model text holds ORIGINAL feature indices
         # and real thresholds only; GBDT.init_from_model rebinds it
         self.from_text = False
+        self._init_linear_fields()
+
+    def _init_linear_fields(self) -> None:
+        """Each leaf's linear model (ref: tree.h leaf_const_/leaf_coeff_/
+        leaf_features_), filled when ``is_linear``: features by ORIGINAL
+        index."""
+        L = self.num_leaves
+        self.leaf_const = np.zeros(L, np.float64)
+        self.leaf_coeff: list = [np.zeros(0, np.float64)] * L
+        self.leaf_features: list = [[] for _ in range(L)]
 
     @classmethod
     def constant(cls, value: float) -> "HostTree":
@@ -150,7 +160,8 @@ class HostTree:
         model intact)."""
         new = self.__class__.__new__(self.__class__)
         for k, v in self.__dict__.items():
-            new.__dict__[k] = v.copy() if isinstance(v, np.ndarray) else v
+            new.__dict__[k] = v.copy() if isinstance(v, (np.ndarray, list)) \
+                else v
         return new
 
     def shrink(self, rate: float) -> None:
@@ -164,6 +175,10 @@ class HostTree:
         self.internal_value = _f32_round(
             self.internal_value.astype(np.float32) * np.float32(rate))
         self.shrinkage *= rate
+        if self.is_linear:
+            # the linear terms predict in f64 from raw features
+            self.leaf_const = self.leaf_const * rate
+            self.leaf_coeff = [c * rate for c in self.leaf_coeff]
 
     def add_bias(self, val: float) -> None:
         """ref: tree.cpp Tree::AddBias — folds the boost-from-average init
@@ -174,6 +189,25 @@ class HostTree:
             self.leaf_value.astype(np.float32) + np.float32(val))
         self.internal_value = _f32_round(
             self.internal_value.astype(np.float32) + np.float32(val))
+        if self.is_linear:
+            self.leaf_const = self.leaf_const + val
+
+    def linear_output(self, X: np.ndarray, leaf: np.ndarray) -> np.ndarray:
+        """f64 output of a LINEAR tree at each row, given the rows' raw
+        features and leaves (ref: tree.cpp PredictionFunLinear): a row
+        with NaN in one of its leaf's features gets the leaf's constant."""
+        out = self.leaf_const[leaf]
+        for l in range(self.num_leaves):
+            feats = self.leaf_features[l]
+            if not feats:
+                continue
+            rows = leaf == l
+            if not rows.any():
+                continue
+            Xl = X[rows][:, feats].astype(np.float64)
+            lin = Xl @ self.leaf_coeff[l]
+            out[rows] += np.where(np.isnan(Xl).any(axis=1), 0.0, lin)
+        return out
 
     def predict_leaf(self, X: np.ndarray) -> np.ndarray:
         """Raw-feature traversal -> leaf index per row."""
@@ -246,4 +280,7 @@ class HostTree:
         return ok & (((bits >> (v & 31).astype(np.uint32)) & 1) != 0)
 
     def predict(self, X: np.ndarray) -> np.ndarray:
-        return self.leaf_value[self.predict_leaf(X)]
+        leaf = self.predict_leaf(X)
+        if self.is_linear:
+            return self.linear_output(X, leaf)
+        return self.leaf_value[leaf]

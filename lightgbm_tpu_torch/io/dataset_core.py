@@ -26,7 +26,7 @@ needs the logical bins calls ``ensure_logical_bins``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -57,6 +57,11 @@ class ColumnSource:
     def column_names(self) -> Optional[List[str]]:
         return None
 
+    def to_dense_f32(self) -> Optional[np.ndarray]:
+        """The dense ``[N, F]`` f32 values where a source has them
+        cheaply (linear trees), else None."""
+        return None
+
 
 class DenseColumns(ColumnSource):
     """A dense ``[N, F]`` matrix."""
@@ -70,6 +75,9 @@ class DenseColumns(ColumnSource):
 
     def get_col_sample(self, f: int, rows: np.ndarray) -> np.ndarray:
         return np.asarray(self.data[rows, f], dtype=np.float64)
+
+    def to_dense_f32(self) -> np.ndarray:
+        return np.asarray(self.data, np.float32)
 
 
 class SparseColumns(ColumnSource):
@@ -124,6 +132,12 @@ class ArrowColumns(ColumnSource):
 
     def column_names(self) -> List[str]:
         return [str(n) for n in self.table.column_names]
+
+    def to_dense_f32(self) -> np.ndarray:
+        out = np.empty((self.num_data, self.num_features), np.float32)
+        for f in range(self.num_features):
+            out[:, f] = self.get_col(f)
+        return out
 
 
 class Metadata:
@@ -212,6 +226,9 @@ class BinnedDataset:
         over used features, or None.
     bin_mappers : per ORIGINAL feature BinMapper (len == num_total_features).
     used_feature_map : original feature index for each column of ``bins``.
+    raw : np.ndarray f32 [num_data, num_total_features] or None
+        The raw features, kept only under ``linear_tree`` (ref: Dataset
+        raw_data_, dataset.h; the JAX package's io/dataset_core.py:401).
     """
 
     def __init__(self) -> None:
@@ -226,6 +243,7 @@ class BinnedDataset:
         self.metadata: Optional[Metadata] = None
         self.feature_names: List[str] = []
         self.max_bin: int = 0
+        self.raw: Optional[np.ndarray] = None
 
     @classmethod
     def from_matrix(cls, data: np.ndarray, config: Config,
@@ -281,6 +299,12 @@ class BinnedDataset:
                 [i for i, m in enumerate(self.bin_mappers)
                  if not m.is_trivial], dtype=np.int32)
         self._store(source, config, reference is None)
+        if config.linear_tree:
+            self.raw = source.to_dense_f32()
+            if self.raw is None:
+                log.fatal("linear_tree requires raw feature values; "
+                          "sparse inputs are not supported with "
+                          "linear_tree=true")
         meta = Metadata(num_data)
         if label is not None:
             meta.set_label(label)
@@ -411,6 +435,7 @@ class BinnedDataset:
             config.min_data_in_bin))
         max_bin_by_feature = config.max_bin_by_feature
         cat_set = set(int(c) for c in categorical_features)
+        forced_bounds = _load_forced_bounds(config)
         mappers = []
         for f in range(num_features):
             col = source.get_col_sample(f, sample_indices)
@@ -421,7 +446,8 @@ class BinnedDataset:
                 filter_cnt, pre_filter=config.feature_pre_filter,
                 bin_type=BIN_CATEGORICAL if f in cat_set else BIN_NUMERICAL,
                 use_missing=config.use_missing,
-                zero_as_missing=config.zero_as_missing))
+                zero_as_missing=config.zero_as_missing,
+                forced_upper_bounds=forced_bounds.get(f, ())))
         n_trivial = sum(m.is_trivial for m in mappers)
         if n_trivial:
             log.info(f"{n_trivial} trivial feature(s) removed")
@@ -451,6 +477,7 @@ class BinnedDataset:
         out.num_total_features = self.num_total_features
         out.feature_names = self.feature_names
         out.max_bin = self.max_bin
+        out.raw = self.raw[row_indices] if self.raw is not None else None
         meta = Metadata(out.num_data)
         src = self.metadata
         if src.label is not None:
@@ -472,6 +499,26 @@ class BinnedDataset:
 
     def feature_infos(self) -> List[str]:
         return [m.feature_info() for m in self.bin_mappers]
+
+
+def _load_forced_bounds(config: Config) -> Dict[int, List[float]]:
+    """User-forced bin upper bounds by ORIGINAL feature (ref: config
+    forcedbins_filename, dataset_loader.cpp GetForcedBins; the JAX
+    package's io/dataset_core.py:128-144): the JSON list
+    ``[{"feature": i, "bin_upper_bound": [...]}, ...]``."""
+    forced_bounds: Dict[int, List[float]] = {}
+    if config.forcedbins_filename:
+        import json
+        try:
+            with open(config.forcedbins_filename) as fh:
+                for entry in json.load(fh):
+                    forced_bounds[int(entry["feature"])] = [
+                        float(v) for v in entry["bin_upper_bound"]]
+        except (OSError, ValueError, KeyError, TypeError,
+                IndexError) as e:
+            log.fatal(f"could not read forcedbins_filename="
+                      f"{config.forcedbins_filename}: {e}")
+    return forced_bounds
 
 
 def _quantize_sparse(source: SparseColumns, bin_mappers: List[BinMapper],

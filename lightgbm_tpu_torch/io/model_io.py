@@ -11,8 +11,10 @@ indices and real thresholds, no bin mappers. Its device prediction takes
 the raw-threshold route of ``ops/forest.py`` on the device its
 ``Config`` names (``device_type``, ``cuda`` by default): the
 ``device_type`` in the file's parameters block says where the model was
-trained, not where it is to run, and is dropped at load. Linear trees
-are refused at load (ROADMAP A12.6).
+trained, not where it is to run, and is dropped at load. A linear
+tree's block carries its leaves' constants, features and coefficients
+(ref: Tree::ToString, src/io/tree.cpp:385-399); such a model predicts by
+the host walk.
 """
 from __future__ import annotations
 
@@ -61,6 +63,17 @@ def _tree_to_string(t: HostTree) -> str:
         lines.append("cat_boundaries=" + _arr_to_str(t.cat_boundaries))
         lines.append("cat_threshold=" + _arr_to_str(t.cat_threshold))
     lines.append(f"is_linear={int(t.is_linear)}")
+    if t.is_linear:
+        lines.append("leaf_const=" + " ".join(
+            repr(float(v)) for v in t.leaf_const[:n]))
+        lines.append("num_features=" + _arr_to_str(
+            [len(t.leaf_coeff[i]) for i in range(n)]))
+        lines.append("leaf_features=" + " ".join(
+            " ".join(str(f) for f in t.leaf_features[i])
+            for i in range(n) if len(t.leaf_features[i])))
+        lines.append("leaf_coeff=" + " ".join(
+            " ".join(repr(float(c)) for c in t.leaf_coeff[i])
+            for i in range(n) if len(t.leaf_coeff[i])))
     lines.append(f"shrinkage={t.shrinkage:g}")
     return "\n".join(lines) + "\n"
 
@@ -151,9 +164,6 @@ def _parse_kv_block(lines: List[str]) -> Dict[str, str]:
 
 def _tree_from_block(block: Dict[str, str]) -> HostTree:
     n = int(block["num_leaves"])
-    if int(block.get("is_linear", 0)):
-        log.fatal("linear trees (is_linear=1) are not ported yet "
-                  "(ROADMAP A12.6); this model cannot be loaded")
     if "cat_value_to_bin" in block:
         log.fatal("this model was saved with the removed interim "
                   "categorical format (cat_value_to_bin); re-train it "
@@ -191,6 +201,24 @@ def _tree_from_block(block: Dict[str, str]) -> HostTree:
     t.num_cat = int(block.get("num_cat", 0))
     t.shrinkage = float(block.get("shrinkage", 1.0))
     t.leaf_parent = np.full(n, -1, np.int32)
+    t.is_linear = bool(int(block.get("is_linear", 0)))
+    t._init_linear_fields()
+    if t.is_linear:
+        t.leaf_const = floats("leaf_const", n)
+        nf = ints("num_features", n)
+        flat_f = [int(float(x)) for x in block.get("leaf_features",
+                                                   "").split()]
+        flat_c = [float(x) for x in block.get("leaf_coeff", "").split()]
+        if not int(nf.sum()) == len(flat_f) == len(flat_c):
+            log.fatal(f"linear tree block: num_features counts "
+                      f"{int(nf.sum())} features, leaf_features lists "
+                      f"{len(flat_f)} and leaf_coeff {len(flat_c)}")
+        pos = 0
+        for i in range(n):
+            k = int(nf[i])
+            t.leaf_features[i] = flat_f[pos:pos + k]
+            t.leaf_coeff[i] = np.asarray(flat_c[pos:pos + k], np.float64)
+            pos += k
     if t.num_cat > 0:
         t.cat_boundaries = ints("cat_boundaries",
                                 t.num_cat + 1).astype(np.int64)

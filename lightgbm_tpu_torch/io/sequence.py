@@ -57,6 +57,9 @@ def build_from_sequences(seqs: _Seq[Sequence], config: Config,
     """A binned dataset of one or more Sequences, their rows concatenated
     in order (ref: basic.py __init_from_seqs). With ``reference`` the
     rows are binned with its mappers (a validation set)."""
+    if config.linear_tree:
+        log.fatal("linear_tree requires in-memory data; Sequences are "
+                  "streamed")
     counts = [len(s) for s in seqs]
     n_rows = int(sum(counts))
     if n_rows == 0:

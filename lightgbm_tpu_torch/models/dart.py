@@ -39,12 +39,13 @@ class DART(GBDT):
     def _add_tree_score(self, tree_idx: int, k: int) -> None:
         """The training score += the tree's current outputs."""
         self.score[k] += self._tree_outputs(self.models[tree_idx],
-                                            self._train_bins_fm())
+                                            self._train_bins_fm(),
+                                            self.train_set.raw)
 
     def _add_tree_score_valid(self, tree_idx: int, k: int) -> None:
         t = self.models[tree_idx]
         for vd in self.valid_sets:
-            vd.score[k] += self._tree_outputs(t, vd.bins)
+            vd.score[k] += self._tree_outputs(t, vd.bins, vd.dataset.raw)
 
     def _negate_dropped(self) -> None:
         """Each dropped tree negated and added to the training score

@@ -82,6 +82,23 @@ from ..utils import log, prng
 from .sample_strategy import SampleStrategy
 
 
+def _orig_to_used(used_feature_map) -> dict:
+    """Original feature index -> used (inner) index (ref: Dataset::
+    InnerFeatureIndex)."""
+    return {int(o): u for u, o in enumerate(used_feature_map)}
+
+
+def _parse_interaction_constraints(spec) -> list:
+    """Parse "[0,1,2],[2,3]" (or a list of lists) into a list of int lists
+    (ref: config.h interaction_constraints string format; the JAX
+    package's models/gbdt.py:150-157)."""
+    if isinstance(spec, (list, tuple)):
+        return [list(map(int, grp)) for grp in spec]
+    import re
+    return [[int(v) for v in grp.split(",") if v.strip() != ""]
+            for grp in re.findall(r"\[([^\[\]]*)\]", str(spec))]
+
+
 def resolve_device(config: Config) -> torch.device:
     """The training device named by ``device_type``: ``cuda`` (the
     default) or ``cpu``. Asking for ``cuda`` without a card raises."""
@@ -219,8 +236,10 @@ class GBDT:
         # per used feature: num_bin, missing type, default bin (host
         # arrays for packing trees for the device traversal)
         self._mapper_arrays = mapper_arrays(mappers)
-        self.feature_meta = (FeatureMeta.from_mappers(mappers, dev)
-                             if mappers else None)
+        monotone, mc_method, contri = self._constraint_meta(train)
+        self.feature_meta = (FeatureMeta.from_mappers(
+            mappers, dev, monotone=monotone, penalty=contri)
+            if mappers else None)
         self.num_bin_max = int(max((m.num_bin for m in mappers), default=2))
         self.row_sched = str(cfg.tpu_row_scheduling).lower()
         if self.row_sched == "leaf":
@@ -233,6 +252,10 @@ class GBDT:
                         "multi-value sparse storage — falling back to "
                         "'compact'")
             self.row_sched = "compact"
+        self._linear = bool(cfg.linear_tree)
+        if self._linear:
+            self._check_linear(train)
+        self._forced = self._load_forced_splits(train)
         bins_host = self._setup_bundles(train)
         # the logical feature-major bins of the traversal replays, made
         # on first use when the stored columns are physical
@@ -277,6 +300,7 @@ class GBDT:
             min_gain_to_split=cfg.min_gain_to_split,
             max_delta_step=cfg.max_delta_step,
             path_smooth=cfg.path_smooth,
+            monotone_penalty=cfg.monotone_penalty,
             max_cat_threshold=int(cfg.max_cat_threshold),
             cat_l2=float(cfg.cat_l2), cat_smooth=float(cfg.cat_smooth),
             max_cat_to_onehot=int(cfg.max_cat_to_onehot),
@@ -288,17 +312,24 @@ class GBDT:
             quantized=bool(cfg.use_quantized_grad),
             quant_bins=int(cfg.num_grad_quant_bins),
             stochastic_rounding=bool(cfg.stochastic_rounding),
-            row_sched="full" if self.row_sched == "full" else "compact")
+            row_sched="full" if self.row_sched == "full" else "compact",
+            extra_trees=bool(cfg.extra_trees), mc_method=mc_method,
+            interaction_groups=self._interaction_groups(train))
         self._layout = self._make_layout()
-        # per-tree uniforms of stochastic rounding: the JAX package's
-        # threefry chain, fold_in(PRNGKey(seed), iteration * K + k), split
-        # into the keys of the grad and hess draws (ref: models/gbdt.py
-        # 835-842, 2303-2309; core/grower.py 252-258), drawn on the
-        # training device
+        # each tree's threefry key, the JAX package's chain
+        # fold_in(PRNGKey(seed'), iteration * K + k): split into the keys
+        # of stochastic rounding's grad and hess draws, and folded with
+        # 7919 into extra_trees' key. seed' is extra_seed under
+        # extra_trees, else seed (ref: models/gbdt.py 835-842,
+        # 2303-2309; core/grower.py 252-258, 836-840)
         self._rng_key = None
-        if self.grower_cfg.quantized and self.grower_cfg.stochastic_rounding:
-            self._rng_key = prng.prng_key(
-                int(cfg.seed) if cfg.seed is not None else 0)
+        if ((self.grower_cfg.quantized and
+             self.grower_cfg.stochastic_rounding) or
+                self.grower_cfg.extra_trees):
+            rng_seed = (cfg.extra_seed if cfg.extra_trees and
+                        cfg.extra_seed is not None
+                        else (cfg.seed if cfg.seed is not None else 0))
+            self._rng_key = prng.prng_key(int(rng_seed))
         where = ("hand-written for CUDA" if dev.type == "cuda" else
                  "as their plain PyTorch versions on the CPU")
         log.info_once(
@@ -329,8 +360,210 @@ class GBDT:
                 self.row_sched = "compact"
         if self.row_sched == "compact":
             self._pool_policy()
+        self._setup_cegb(train)
         self._grow = (self._make_grower()
                       if self.feature_meta is not None else None)
+
+    def _constraint_meta(self, train: BinnedDataset):
+        """``(monotone, mc_method, feature_contri)``: the monotone
+        directions and the contri multipliers per USED feature, or None
+        when none is set (ref: the JAX package's models/gbdt.py:704-737;
+        both are given per ORIGINAL feature), and the monotone method,
+        basic under extra_trees."""
+        cfg = self.config
+        F = train.num_total_features
+        used = train.used_feature_map
+        monotone = contri = None
+        if cfg.monotone_constraints:
+            mc_in = np.asarray(cfg.monotone_constraints, np.int32)
+            if len(mc_in) != F:
+                log.fatal(f"monotone_constraints has {len(mc_in)} entries "
+                          f"but the dataset has {F} features")
+            if np.any(mc_in != 0):
+                monotone = mc_in[used]
+        mc_method = str(cfg.monotone_constraints_method).lower()
+        if monotone is not None and mc_method in ("intermediate",
+                                                  "advanced") \
+                and cfg.extra_trees:
+            log.warning(f"monotone_constraints_method={mc_method} does not "
+                        "compose with extra_trees; using 'basic'")
+            mc_method = "basic"
+        if cfg.feature_contri:
+            fc_in = np.asarray(cfg.feature_contri, np.float64)
+            if len(fc_in) != F:
+                log.fatal(f"feature_contri has {len(fc_in)} entries but the "
+                          f"dataset has {F} features")
+            if np.any(fc_in != 1.0):
+                contri = fc_in[used]
+        return monotone, mc_method, contri
+
+    def _interaction_groups(self, train: BinnedDataset) -> Optional[tuple]:
+        """``interaction_constraints`` over ORIGINAL feature indices ->
+        a tuple of tuples of USED indices (ref: col_sampler.hpp; the JAX
+        package's models/gbdt.py:786-800)."""
+        spec = self.config.interaction_constraints
+        if not spec:
+            return None
+        parsed = _parse_interaction_constraints(spec)
+        if not parsed:
+            log.fatal(f"could not parse interaction_constraints={spec!r}; "
+                      "expected e.g. \"[0,1,2],[2,3]\"")
+        orig2used = _orig_to_used(train.used_feature_map)
+        return tuple(tuple(orig2used[f] for f in grp if f in orig2used)
+                     for grp in parsed)
+
+    def _check_linear(self, train: BinnedDataset) -> None:
+        """Linear trees need the raw features and no L1 objective (ref:
+        config.cpp:426 CheckParamConflict; the JAX package's
+        models/gbdt.py:863-881)."""
+        cfg = self.config
+        if train.raw is None:
+            log.fatal("linear_tree requires the training Dataset to be "
+                      "constructed with linear_tree=true in its params "
+                      "(raw feature values are needed; datasets loaded "
+                      "from binary files do not carry them)")
+        if cfg.zero_as_missing:
+            log.fatal("zero_as_missing must be false when fitting linear "
+                      "trees")
+        if self.objective is not None and \
+                getattr(self.objective, "NAME", "") == "regression_l1":
+            log.fatal("Cannot use regression_l1 objective when fitting "
+                      "linear trees")
+
+    def _load_forced_splits(self, train: BinnedDataset) -> Optional[tuple]:
+        """Parse ``forcedsplits_filename``'s JSON into the grower's forced
+        prefix ``(active, slot, feature, threshold_bin)`` [L - 1] (ref:
+        gbdt.cpp:91-97, serial_tree_learner ForceSplits; the JAX
+        package's models/gbdt.py:1638-1692). Slots follow the grower:
+        splitting slot s at step i keeps the left child in s and puts the
+        right child in slot i + 1. A forced split on an unused or a
+        categorical feature ends the prefix there."""
+        cfg = self.config
+        if not cfg.forcedsplits_filename:
+            return None
+        import json
+        from collections import deque
+        with open(cfg.forcedsplits_filename) as f:
+            root = json.load(f)
+        if not root or "feature" not in root:
+            return None
+        orig2used = _orig_to_used(train.used_feature_map)
+        L = cfg.num_leaves
+        active = np.zeros(L - 1, bool)
+        slot = np.zeros(L - 1, np.int32)
+        feat = np.zeros(L - 1, np.int32)
+        thr = np.zeros(L - 1, np.int32)
+        q = deque([(root, 0)])
+        step = 0
+        while q and step < L - 1:
+            node, s = q.popleft()
+            f_orig = int(node["feature"])
+            if f_orig not in orig2used:
+                log.warning(f"forced split on unused feature {f_orig}; "
+                            "stopping forced prefix here")
+                break
+            mapper = train.bin_mappers[f_orig]
+            if mapper.bin_type == "categorical":
+                log.warning(f"forced split on categorical feature {f_orig} "
+                            "is not supported; stopping forced prefix here")
+                break
+            # the left side is value <= threshold: bin(threshold) (ref:
+            # Dataset::BinThreshold)
+            active[step] = True
+            slot[step] = s
+            feat[step] = orig2used[f_orig]
+            thr[step] = int(mapper.value_to_bin(
+                np.asarray([float(node["threshold"])]))[0])
+            for key, child_slot in (("left", s), ("right", step + 1)):
+                child = node.get(key)
+                if isinstance(child, dict) and "feature" in child and \
+                        "threshold" in child:
+                    q.append((child, child_slot))
+            step += 1
+        return (active, slot, feat, thr) if active.any() else None
+
+    def _setup_cegb(self, train: BinnedDataset) -> None:
+        """Cost-effective gradient boosting's state (ref:
+        cost_effective_gradient_boosting.hpp; the JAX package's
+        models/gbdt.py:1694-1727): each feature's penalty is ``const +
+        per_count * num_data_in_leaf``, from ``cegb_penalty_split``, the
+        coupled penalty of a feature no tree has used yet and the lazy
+        penalty scaled by the share of rows not yet charged for the
+        feature, all tree-granular as in the JAX package. The used set
+        ``[F]`` and the charged rows ``[F, N]`` (lazy only) live on the
+        host in f64 arithmetic."""
+        cfg = self.config
+        F = self.num_used_features
+        coupled = cfg.cegb_penalty_feature_coupled
+        lazy = cfg.cegb_penalty_feature_lazy
+        self._cegb_enabled = bool(cfg.cegb_penalty_split > 0.0 or coupled
+                                  or lazy)
+        if not self._cegb_enabled:
+            return
+        for name, pen in (("coupled", coupled), ("lazy", lazy)):
+            if pen and len(pen) != train.num_total_features:
+                log.fatal(f"cegb_penalty_feature_{name} should be the same "
+                          "size as feature number")
+        ufm = train.used_feature_map
+        self._cegb_coupled = (np.asarray(coupled, np.float64)[ufm]
+                              if coupled else np.zeros(F))
+        self._cegb_lazy = (np.asarray(lazy, np.float64)[ufm]
+                           if lazy else np.zeros(F))
+        self._cegb_feature_used = np.zeros(F, bool)
+        self._cegb_row_charged = (np.zeros((F, self.num_data), bool)
+                                  if lazy else None)
+
+    def _cegb_penalty(self) -> Optional[tuple]:
+        """``(const [F], per_count [F])`` f32 on the training device for
+        the next tree, or None (ref: the JAX package's
+        models/gbdt.py:1812-1825)."""
+        if not getattr(self, "_cegb_enabled", False):
+            return None
+        cfg = self.config
+        tradeoff = cfg.cegb_tradeoff
+        const = tradeoff * self._cegb_coupled * (~self._cegb_feature_used)
+        per_count = np.full(self.num_used_features,
+                            tradeoff * cfg.cegb_penalty_split)
+        if self._cegb_row_charged is not None:
+            frac_uncharged = 1.0 - self._cegb_row_charged.mean(axis=1)
+            per_count = per_count + tradeoff * self._cegb_lazy * frac_uncharged
+        as32 = lambda a: torch.as_tensor(a.astype(np.float32),
+                                         device=self.device)
+        return as32(const), as32(per_count)
+
+    def _cegb_after_tree(self, host: HostTree, leaf_id: torch.Tensor,
+                         selected: Optional[torch.Tensor]) -> None:
+        """The forest's used features, and under the lazy penalty each
+        in-bag row charged for the features on its leaf's path (ref: the
+        JAX package's models/gbdt.py:1827-1860)."""
+        if not getattr(self, "_cegb_enabled", False):
+            return
+        n_int = host.num_leaves - 1
+        for i in range(n_int):
+            self._cegb_feature_used[int(host.split_feature_inner[i])] = True
+        if self._cegb_row_charged is None or n_int <= 0:
+            return
+        # each feature's leaves (those with it on their path), then one
+        # pass over the rows a feature
+        leaves_of = {}
+        stack = [(0, frozenset())]
+        while stack:
+            node, feats = stack.pop()
+            if node < 0:
+                for f in feats:
+                    leaves_of.setdefault(f, []).append(~node)
+                continue
+            f = int(host.split_feature_inner[node])
+            stack.append((int(host.left_child[node]), feats | {f}))
+            stack.append((int(host.right_child[node]), feats | {f}))
+        leaf_np = leaf_id.cpu().numpy()
+        in_bag = (None if selected is None
+                  else selected.cpu().numpy() > 0)
+        for f, leaves in leaves_of.items():
+            rows = np.isin(leaf_np, leaves)
+            if in_bag is not None:
+                rows &= in_bag
+            self._cegb_row_charged[f] |= rows
 
     def _setup_bundles(self, train: BinnedDataset) -> Optional[np.ndarray]:
         """EFB (ref: dataset.cpp:112 FindGroups; the JAX package's
@@ -343,9 +576,18 @@ class GBDT:
         from ..io.bundling import find_bundles, pack_bins
         cfg = self.config
         self._bundle = None
+        if self._forced is not None and cfg.enable_bundle:
+            # forced splits read per-feature columns (ref: gbdt.py:948-952)
+            log.warning("forced splits with EFB bundling are untested; "
+                        "disabling bundling")
         if self._multival:
+            if self._forced is not None:
+                log.warning("forced splits are not supported with "
+                            "multi-value sparse storage; ignoring")
+                self._forced = None
             return None
-        if (cfg.enable_bundle and self.num_used_features > 1 and
+        if (cfg.enable_bundle and self._forced is None and
+                self.num_used_features > 1 and
                 (train.bins is not None or train.bins_grouped is not None)):
             nb_used = np.asarray([train.bin_mappers[i].num_bin
                                   for i in train.used_feature_map], np.int64)
@@ -387,7 +629,8 @@ class GBDT:
             if self._multival:
                 from ..core.layout import multival_hist
                 hist_fn = multival_hist
-            return make_tree_grower(gcfg, meta, hist_fn=hist_fn, layout=layout)
+            return make_tree_grower(gcfg, meta, hist_fn=hist_fn,
+                                    layout=layout, forced=self._forced)
         if 1 <= gcfg.max_depth <= MAX_LEVEL_DEPTH:
             return make_level_grower(gcfg, meta, layout=layout)
         d0 = int(self.config.tpu_level_handoff_depth)
@@ -423,7 +666,16 @@ class GBDT:
         if pool_bytes <= limit_bytes:
             return
         n_slots = int(limit_bytes // max(slot_bytes, 1))
-        if n_slots >= 2 and not self._multival:
+        if self._forced is not None:
+            log.warning("histogram pool exceeds the budget but forced "
+                        "splits need it; keeping the full pool")
+        elif (self.grower_cfg.mc_method in ("intermediate", "advanced")
+              and self.feature_meta is not None
+              and self.feature_meta.monotone is not None):
+            log.warning("histogram pool exceeds the budget but "
+                        "monotone_constraints_method=intermediate re-scans "
+                        "from it; keeping the full pool")
+        elif n_slots >= 2 and not self._multival:
             self.grower_cfg = dataclasses.replace(
                 self.grower_cfg, hist_pool="bounded", pool_slots=n_slots)
             log.info(f"histogram pool ({pool_bytes >> 20} MB) exceeds the "
@@ -437,16 +689,38 @@ class GBDT:
                      "without a pool")
 
     def _level_ineligibility(self) -> List[str]:
-        """Reasons level scheduling cannot serve this config (ref:
-        gbdt.py:1747-1810), for what the port accepts: per-node column
-        sampling (one mask a level there), and memory: the hybrid keeps
-        the full [L, G, B, 3] pool for its tail and every level
-        histogram [T, G, B, 3] (T = 2^(D0+1) - 1) for seeding it, and
-        both together must fit the histogram budget (``_hist_budget``,
-        over the stored columns: EFB groups, not logical features)."""
+        """Reasons level scheduling cannot serve this config, in the JAX
+        package's words (ref: gbdt.py:1747-1810), for what the port
+        accepts: the settings whose sequential, step-by-step state feeds
+        later split decisions (monotone and interaction constraints,
+        CEGB, forced splits, extra_trees' per-split draws, linear trees),
+        per-node column sampling (one mask a level there), and memory:
+        the hybrid keeps the full [L, G, B, 3] pool for its tail and
+        every level histogram [T, G, B, 3] (T = 2^(D0+1) - 1) for seeding
+        it, and both together must fit the histogram budget
+        (``_hist_budget``, over the stored columns: EFB groups, not
+        logical features)."""
         cfg = self.config
+        reasons = []
+        if self.grower_cfg.hparams.monotone_penalty > 0 or (
+                self.feature_meta is not None and
+                self.feature_meta.monotone is not None):
+            reasons.append("monotone constraints")
+        if self.grower_cfg.interaction_groups is not None:
+            reasons.append("interaction constraints")
+        if (cfg.cegb_penalty_split > 0.0 or
+                cfg.cegb_penalty_feature_coupled or
+                cfg.cegb_penalty_feature_lazy):
+            reasons.append("CEGB penalties")
+        if self._forced is not None:
+            reasons.append("forced splits")
+        if self.grower_cfg.extra_trees:
+            reasons.append("extra_trees")
         # the level scan gives every node of a level one mask
-        reasons = ["feature_fraction_bynode"] if self._bynode else []
+        if self._bynode:
+            reasons.append("feature_fraction_bynode")
+        if cfg.linear_tree:
+            reasons.append("linear trees")
         if 1 <= cfg.max_depth <= MAX_LEVEL_DEPTH or self.feature_meta is None:
             return reasons
         d0 = resolve_handoff_depth(cfg.num_leaves,
@@ -563,17 +837,31 @@ class GBDT:
                                           replace=False)] = True
         return torch.as_tensor(masks, device=self.device)
 
-    def _tree_uniforms(self, k: int):
-        """The stochastic-rounding draws of class k's tree this iteration,
-        or None: the JAX package's threefry chain, keyed by iterations
-        trained here, not an init model's (ref: gradient_discretizer.cpp
-        random_values_use_start)."""
-        if self._rng_key is None:
-            return None
-        keys = prng.split(prng.fold_in(
-            self._rng_key, self.iter * self.num_tree_per_iteration + k))
-        return tuple(prng.uniform(key, self.num_data, self.device)
-                     for key in keys)
+    def _grow_tree(self, k: int, gh: torch.Tensor
+                   ) -> Tuple[object, torch.Tensor]:
+        """Class k's tree of this iteration from its ``[N, 3]`` gh, with
+        the tree's column sample, CEGB penalties and threefry draws: the
+        JAX package's chain ``fold_in(key, iteration * K + k)``, keyed by
+        iterations trained here, not an init model's (ref:
+        gradient_discretizer.cpp random_values_use_start), split into
+        stochastic rounding's two draws and folded with 7919 into
+        extra_trees' key."""
+        uniforms = et_key = None
+        if self._rng_key is not None:
+            tree_key = prng.fold_in(
+                self._rng_key, self.iter * self.num_tree_per_iteration + k)
+            gcfg = self.grower_cfg
+            if gcfg.quantized and gcfg.stochastic_rounding:
+                uniforms = tuple(prng.uniform(key, self.num_data,
+                                              self.device)
+                                 for key in prng.split(tree_key))
+            if gcfg.extra_trees:
+                et_key = prng.fold_in(tree_key, 7919)
+        # the level growers take neither: those settings leave them
+        extras = {k: v for k, v in (("cegb", self._cegb_penalty()),
+                                    ("et_key", et_key)) if v is not None}
+        return self._grow(self.bins, gh, uniforms, self._feature_mask(),
+                          **extras)
 
     def train_one_iter(self, gradients: Optional[np.ndarray] = None,
                        hessians: Optional[np.ndarray] = None) -> bool:
@@ -590,9 +878,7 @@ class GBDT:
                 self.models.append(HostTree.constant(init_scores[k]))
                 continue
             g, h = grad[k], hess[k]
-            tree, leaf_id = self._grow(self.bins, sampled_gh(g, h, sample),
-                                       self._tree_uniforms(k),
-                                       self._feature_mask())
+            tree, leaf_id = self._grow_tree(k, sampled_gh(g, h, sample))
             host = HostTree(tree, self.train_set.used_feature_map)
             if host.num_leaves <= 1:
                 # no valid split for this class this iteration
@@ -611,12 +897,23 @@ class GBDT:
                 continue
             should_continue = True
             finalize_tree(host, self.train_set.bin_mappers)
+            self._cegb_after_tree(host, leaf_id,
+                                  None if sample is None else sample[0])
             renew_quant = (self.grower_cfg.quantized and
                            self.config.quant_train_renew_leaf)
             renew_objective = (self.objective is not None and
                                self.objective.is_renew_tree_output())
-            if renew_quant or renew_objective:
+            if renew_quant or renew_objective or self._linear:
                 leaf_np = leaf_id.cpu().numpy()
+            if self._linear:
+                # ref: LinearTreeLearner::CalculateLinear; the first tree
+                # of a run stays constant (gbdt.py:2340-2346)
+                w_np = (None if sample is None else
+                        (sample[1] * sample[0]).cpu().numpy())
+                self._fit_linear_leaves(
+                    host, leaf_np, g.cpu().numpy(), h.cpu().numpy(), w_np,
+                    is_first_tree=(len(self.models) < K and
+                                   self.num_init_iteration == 0))
             if renew_quant:
                 # the full row weight, amplification included, as the
                 # tree was grown with
@@ -630,19 +927,29 @@ class GBDT:
                     leaf_np = np.where(sample[0].cpu().numpy() > 0,
                                        leaf_np, -1)
                 self._renew_tree_output(host, k, leaf_np)
-            # two roundings: the product, then the accumulate
-            lv = torch.as_tensor(
-                host.leaf_value[:host.num_leaves].astype(np.float32),
-                device=self.device)
-            delta = lv[leaf_id] * torch.tensor(
-                self.shrinkage_rate, dtype=torch.float32, device=self.device)
-            self.score[k] += delta
-            host.shrink(self.shrinkage_rate)
+            if host.is_linear:
+                # a linear tree shrinks first and adds its f64 linear
+                # outputs rounded to f32 (ref: gbdt.py:2387-2394)
+                host.shrink(self.shrinkage_rate)
+                self.score[k] += torch.as_tensor(
+                    host.linear_output(self.train_set.raw, leaf_np).astype(
+                        np.float32), device=self.device)
+            else:
+                # two roundings: the product, then the accumulate
+                lv = torch.as_tensor(
+                    host.leaf_value[:host.num_leaves].astype(np.float32),
+                    device=self.device)
+                delta = lv[leaf_id] * torch.tensor(
+                    self.shrinkage_rate, dtype=torch.float32,
+                    device=self.device)
+                self.score[k] += delta
+                host.shrink(self.shrinkage_rate)
             # the shrunk leaf value is the f32 product added above: the
             # valid sets get it before the bias is folded in, as the
             # training score did (ref: gbdt.py:2406-2418)
             for vd in self.valid_sets:
-                vd.score[k] += self._tree_outputs(host, vd.bins)
+                vd.score[k] += self._tree_outputs(host, vd.bins,
+                                                  vd.dataset.raw)
             if abs(init_scores[k]) > K_EPSILON:
                 host.add_bias(init_scores[k])
             self.models.append(host)
@@ -655,6 +962,73 @@ class GBDT:
             return True
         self.iter += 1
         return False
+
+    def _fit_linear_leaves(self, host: HostTree, leaf_np: np.ndarray,
+                           grad: np.ndarray, hess: np.ndarray,
+                           weight: Optional[np.ndarray],
+                           is_first_tree: bool) -> None:
+        """A ridge fit in every leaf over the NUMERICAL features on its
+        path, on the host in f64 (ref: linear_tree_learner.cpp
+        CalculateLinear, coeffs = -(X'HX + lambda I)^-1 X'g, Eq 3 of
+        arXiv:1802.05640; the JAX package's models/gbdt.py:2439-2510):
+        rows with a NaN among the leaf's features are left out, a leaf
+        with too few usable rows stays constant, and coefficients with
+        ``|coef| <= 1e-35`` are dropped."""
+        host.is_linear = True
+        host._init_linear_fields()
+        n = host.num_leaves
+        host.leaf_const[:] = host.leaf_value[:n]
+        if is_first_tree:
+            return
+        raw = self.train_set.raw
+        lam = float(self.config.linear_lambda)
+        mappers = self.train_set.bin_mappers
+        # each leaf's sorted numerical ORIGINAL path features
+        path_feats = {}
+        stack = [(0, [])]
+        while stack:
+            node, feats = stack.pop()
+            if node < 0:
+                path_feats[~node] = sorted(set(feats))
+                continue
+            f = int(host.split_feature[node])
+            nxt = feats + [f] if mappers[f].bin_type == "numerical" else feats
+            stack.append((int(host.left_child[node]), nxt))
+            stack.append((int(host.right_child[node]), nxt))
+        order = np.argsort(leaf_np, kind="stable")
+        counts = np.bincount(leaf_np, minlength=n)
+        starts = np.zeros(n + 1, np.int64)
+        np.cumsum(counts, out=starts[1:])
+        g = grad.astype(np.float64)
+        h = hess.astype(np.float64)
+        if weight is not None:
+            g = g * weight
+            h = h * weight
+        for leaf, feats in path_feats.items():
+            if not feats:
+                continue
+            rows = order[starts[leaf]:starts[leaf + 1]]
+            if weight is not None:
+                rows = rows[weight[rows] > 0]
+            Xl = raw[np.ix_(rows, feats)].astype(np.float64)
+            ok = ~np.isnan(Xl).any(axis=1)
+            rows, Xl = rows[ok], Xl[ok]
+            if len(rows) < len(feats) + 1:
+                continue
+            X1 = np.concatenate([Xl, np.ones((len(rows), 1))], axis=1)
+            XTHX = (X1 * h[rows][:, None]).T @ X1
+            XTHX[np.arange(len(feats)), np.arange(len(feats))] += lam
+            XTg = X1.T @ g[rows]
+            try:
+                coeffs = -np.linalg.solve(XTHX, XTg)
+            except np.linalg.LinAlgError:
+                continue
+            if not np.isfinite(coeffs).all():
+                continue
+            keep = np.abs(coeffs[:-1]) > 1e-35
+            host.leaf_features[leaf] = [feats[j] for j in np.flatnonzero(keep)]
+            host.leaf_coeff[leaf] = coeffs[:-1][keep]
+            host.leaf_const[leaf] = coeffs[-1]
 
     def _renew_tree_output(self, host: HostTree, k: int,
                            leaf_np: np.ndarray) -> None:
@@ -744,13 +1118,17 @@ class GBDT:
             log.fatal(f"validation set {name!r} must be binned with the "
                       "training set's bin mappers: construct it with "
                       "reference=<the training Dataset>")
+        if self._linear and valid.raw is None:
+            log.fatal("linear_tree validation data was constructed without "
+                      "raw features; pass the same params (incl. "
+                      "linear_tree) to the valid Dataset")
         for m in metrics:
             m.init(valid.metadata, valid.num_data)
         vd = _ValidData(valid, metrics, self.num_tree_per_iteration, name,
                         self.device)
         K = self.num_tree_per_iteration
         for i, t in enumerate(self.models):
-            vd.score[i % K] += self._tree_outputs(t, vd.bins)
+            vd.score[i % K] += self._tree_outputs(t, vd.bins, valid.raw)
         self.valid_sets.append(vd)
 
     def _train_bins_fm(self) -> torch.Tensor:
@@ -769,19 +1147,25 @@ class GBDT:
                 self.train_set.ensure_logical_bins(), self.device)
         return self._logical_fm
 
-    def _tree_outputs(self, t: HostTree, bins_fm: torch.Tensor
-                      ) -> torch.Tensor:
+    def _tree_outputs(self, t: HostTree, bins_fm: torch.Tensor,
+                      raw: Optional[np.ndarray] = None) -> torch.Tensor:
         """f32 ``[R]``: the stored leaf value of tree ``t`` at each row's
         leaf, by the device traversal over feature-major bins ``[F, R]``
         on the training device (ref: the JAX package's models/gbdt.py:1953
         _tree_outputs). The tree's inner feature indices and bin
-        thresholds must be this dataset's."""
+        thresholds must be this dataset's. A linear tree adds its f64
+        linear terms over the rows' raw features ``raw`` on the host,
+        rounded to f32."""
         L = max(int(t.num_leaves), 2)
         packed = upload_trees(BinnedTreeArrays,
                               [pack_binned_tree(t, L, *self._mapper_arrays)],
                               bins_fm.device)
         leaf = forest_leaf_bins(packed, bins_fm,
                                 num_steps=depth_steps(t.max_depth, L))
+        if t.is_linear and raw is not None:
+            return torch.as_tensor(
+                t.linear_output(raw, leaf[0].cpu().numpy()).astype(
+                    np.float32), device=bins_fm.device)
         return packed.leaf_value.gather(1, leaf)[0]
 
     def rollback_one_iter(self) -> None:
@@ -794,9 +1178,10 @@ class GBDT:
         bins_fm = self._train_bins_fm()
         for k in range(K):
             t = self.models[len(self.models) - K + k]
-            self.score[k] -= self._tree_outputs(t, bins_fm)
+            self.score[k] -= self._tree_outputs(t, bins_fm,
+                                                self.train_set.raw)
             for vd in self.valid_sets:
-                vd.score[k] -= self._tree_outputs(t, vd.bins)
+                vd.score[k] -= self._tree_outputs(t, vd.bins, vd.dataset.raw)
         del self.models[-K:]
         self.iter -= 1
 
@@ -851,9 +1236,10 @@ class GBDT:
         bins_fm = self._train_bins_fm()
         for i, t in enumerate(self.models):
             k = i % K
-            self.score[k] += self._tree_outputs(t, bins_fm)
+            self.score[k] += self._tree_outputs(t, bins_fm,
+                                                self.train_set.raw)
             for vd in self.valid_sets:
-                vd.score[k] += self._tree_outputs(t, vd.bins)
+                vd.score[k] += self._tree_outputs(t, vd.bins, vd.dataset.raw)
 
     # -- evaluation -----------------------------------------------------
     def _device_eval(self) -> bool:

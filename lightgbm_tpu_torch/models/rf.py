@@ -73,9 +73,8 @@ class RF(GBDT):
             if not self.class_need_train[k] or self._grow is None:
                 self.models.append(HostTree.constant(self.init_scores[k]))
                 continue
-            tree, leaf_id = self._grow(
-                self.bins, sampled_gh(grad[k], hess[k], sample),
-                self._tree_uniforms(k), self._feature_mask())
+            tree, leaf_id = self._grow_tree(
+                k, sampled_gh(grad[k], hess[k], sample))
             host = HostTree(tree, self.train_set.used_feature_map)
             if host.num_leaves <= 1:
                 self.models.append(HostTree.constant(
@@ -83,6 +82,8 @@ class RF(GBDT):
                 continue
             should_continue = True
             finalize_tree(host, self.train_set.bin_mappers)
+            self._cegb_after_tree(host, leaf_id,
+                                  None if sample is None else sample[0])
             if self.objective.is_renew_tree_output():
                 init = self.init_scores[k]
                 label = self.train_set.metadata.label

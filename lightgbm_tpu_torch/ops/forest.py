@@ -42,6 +42,12 @@ ROW_BUCKET_MIN = 256
 WALK_ELEMS = 1 << 24
 
 
+# why a window with a linear tree takes the host walk
+LINEAR_TREES_ON_HOST = ("device prediction does not cover linear trees "
+                        "(their leaves' linear models read raw features on "
+                        "the host)")
+
+
 class DeviceRouteUnavailable(ValueError):
     """The device route cannot serve this request (an empty tree range,
     f64-only values or a categorical node on the raw route); the Booster
@@ -477,6 +483,10 @@ class ServingEngine:
         if not models[lo:hi]:
             raise DeviceRouteUnavailable("serving snapshot needs a "
                                          "non-empty tree range")
+        if any(t.is_linear for t in models[lo:hi]):
+            # linear leaves read raw features on the host (ref: the JAX
+            # package's ops/forest.py:381-383)
+            raise DeviceRouteUnavailable(LINEAR_TREES_ON_HOST)
         if mappers is not None:
             self.pack.sync(models, gen, mappers)
             if self.binner is None or self._binner_src is not mappers:

@@ -52,6 +52,9 @@ class SplitHyperParams:
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
     path_smooth: float = 0.0
+    # the split-gain penalty of monotone features by depth (ref:
+    # monotone_constraints.hpp:358 ComputeMonotoneSplitGainPenalty)
+    monotone_penalty: float = 0.0
     # categorical optimal split (ref: config.h cat_* params)
     max_cat_threshold: int = 32
     cat_l2: float = 10.0
@@ -85,13 +88,22 @@ class FeatureMeta(NamedTuple):
     is_categorical: Optional[torch.Tensor] = None
     cat_features: Optional[torch.Tensor] = None
     cat_num_bin: Optional[Tuple[int, ...]] = None
+    # int32 [F] in {-1, 0, +1}, or None without any monotone constraint
+    # (ref: config monotone_constraints; the JAX package's
+    # ops/split.py FeatureMeta.monotone)
+    monotone: Optional[torch.Tensor] = None
+    # f32 [F] split-gain multiplier (feature_contri), or None when all 1
+    penalty: Optional[torch.Tensor] = None
 
     @property
     def has_cat(self) -> bool:
         return self.cat_features is not None
 
     @staticmethod
-    def from_mappers(mappers, device="cpu") -> "FeatureMeta":
+    def from_mappers(mappers, device="cpu", monotone=None,
+                     penalty=None) -> "FeatureMeta":
+        """``monotone`` and ``penalty`` are per USED feature (host
+        sequences), or None."""
         i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
         miss = [MISSING_ENUM[m.missing_type] for m in mappers]
         is_cat = [m.bin_type == "categorical" for m in mappers]
@@ -106,7 +118,12 @@ class FeatureMeta(NamedTuple):
                 [i for i, c in enumerate(is_cat) if c], device=device)
                 if any(is_cat) else None),
             cat_num_bin=tuple(m.num_bin for m in mappers
-                              if m.bin_type == "categorical") or None)
+                              if m.bin_type == "categorical") or None,
+            monotone=None if monotone is None else i32(
+                [int(v) for v in monotone]),
+            penalty=None if penalty is None else torch.tensor(
+                [float(v) for v in penalty], dtype=torch.float32,
+                device=device))
 
 
 class SplitRecord(NamedTuple):
@@ -177,6 +194,19 @@ def leaf_gain_given_output(sum_g, sum_h, hp: SplitHyperParams, output):
     """ref: feature_histogram.hpp:819 GetLeafGainGivenOutput."""
     sg = threshold_l1(sum_g, hp.lambda_l1) if hp.use_l1 else sum_g
     return -(2.0 * sg * output + (sum_h + hp.lambda_l2) * output * output)
+
+
+def leaf_gain_at_clamped_output(sum_g, sum_h, hp: SplitHyperParams,
+                                output):
+    """``leaf_gain_given_output`` as the JAX package's monotone path
+    rounds it on the CPU, where XLA contracts ``2 sg * out + t`` into one
+    fused multiply-add (``t = (sum_h + l2) * out * out`` rounded twice):
+    the product and the sum round once, emulated in f64 (the product of
+    two f32 values is exact there) on every device."""
+    sg = threshold_l1(sum_g, hp.lambda_l1) if hp.use_l1 else sum_g
+    t = (sum_h + hp.lambda_l2) * output * output
+    fused = ((2.0 * sg).double() * output.double() + t.double()).float()
+    return -fused
 
 
 def leaf_gain(sum_g, sum_h, hp: SplitHyperParams, num_data=None,
@@ -272,6 +302,8 @@ def best_split_for_leaf(hist: torch.Tensor, sum_gradient, sum_hessian,
                         num_data, parent_output, meta: FeatureMeta,
                         hp: SplitHyperParams,
                         feature_mask: Optional[torch.Tensor] = None,
+                        leaf_range=None, leaf_depth=None,
+                        gain_penalty: Optional[torch.Tensor] = None,
                         rand_u: Optional[torch.Tensor] = None
                         ) -> SplitRecord:
     """Best split over all features for one leaf, or for a batch of them.
@@ -283,10 +315,25 @@ def best_split_for_leaf(hist: torch.Tensor, sum_gradient, sum_hessian,
     sum_gradient, sum_hessian, num_data, parent_output : f32 leaf totals,
         scalars (or [N]); the count is a float.
     feature_mask : bool [F] (every leaf) or [N, F] (one row a leaf), or
-        None: column sampling; a masked feature cannot win (ref: the JAX
-        package's ops/split.py:702-703).
-    rand_u : extra_trees' per-feature draws; not ported (ROADMAP A12.6),
-        so anything but None raises.
+        None: column sampling and interaction constraints; a masked
+        feature cannot win (ref: the JAX package's ops/split.py:702-703).
+    leaf_range : ``(min, max)`` f32 output bounds of each leaf ([N] or
+        scalars), or None for unbounded; read only with
+        ``meta.monotone`` (ref: monotone_constraints.hpp BasicConstraint).
+    leaf_depth : each leaf's depth ([N] or a scalar), for
+        ``monotone_penalty``.
+    gain_penalty : f32 [F] or [N, F] subtracted from each feature's net
+        gain (CEGB's DeltaGain, cost_effective_gradient_boosting.hpp).
+    rand_u : f32 [F] or [N, F] uniforms in [0, 1), extremely randomized
+        trees: one random threshold competes for a numerical feature (bin
+        ``floor(u * (num_bin - 2))``), one random category or one random
+        prefix length for a categorical one (ref: feature_histogram.hpp
+        USE_RAND; the JAX package's ops/split.py:273-285, :556-622).
+
+    Each feature's net gain passes, in this order, the column mask, the
+    categorical scan's swap, ``feature_contri`` (``meta.penalty``),
+    ``gain_penalty`` and the monotone penalty: the order the JAX package
+    applies them in, which decides the f32 bits.
 
     The arithmetic mirrors FindBestThresholdSequentially with the
     kEpsilon seeding: the accumulating side starts at kEpsilon and the
@@ -294,29 +341,46 @@ def best_split_for_leaf(hist: torch.Tensor, sum_gradient, sum_hessian,
     Categorical features (``meta.cat_features``) take the categorical
     scan's result instead of the numerical scan over their bins.
     """
-    if rand_u is not None:
-        raise NotImplementedError("extra_trees' random thresholds are not "
-                                  "ported yet (ROADMAP A12.6)")
     batched = hist.dim() == 4
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
                                     device=hist.device).reshape(-1)
     hist4 = hist if batched else hist[None]
+    N = hist4.shape[0]
     sums = [f32(v) for v in (sum_gradient, sum_hessian, num_data,
                              parent_output)]
-    scan = _per_feature_scan(hist4, *sums, meta, hp)
-    cat = _categorical_scan_of(hist4, sums, meta, hp) if meta.has_cat \
-        else None
-    rec = _select_across_features(scan, hp, feature_mask, meta, cat)
+    out_range = None
+    if meta.monotone is not None:
+        lo, hi = ((-math.inf, math.inf) if leaf_range is None
+                  else leaf_range)
+        out_range = tuple(f32(v).expand(N) for v in (lo, hi))
+    rows = lambda v: None if v is None else (
+        v.reshape(-1, v.shape[-1]).expand(N, -1))
+    if rand_u is not None and rand_u.shape[-1] != hist4.shape[1]:
+        raise ValueError(f"rand_u holds one uniform a feature: "
+                         f"{hist4.shape[1]} features, {rand_u.shape[-1]} "
+                         "draws")
+    rand_u = rows(rand_u)
+    scan = _per_feature_scan(hist4, *sums, meta, hp, out_range, rand_u)
+    cat = (_categorical_scan_of(hist4, sums, meta, hp, out_range, rand_u)
+           if meta.has_cat else None)
+    depth = None if leaf_depth is None else f32(leaf_depth).expand(N)
+    rec = _select_across_features(scan, hp, feature_mask, meta, cat,
+                                  depth, rows(gain_penalty))
     return rec if batched else SplitRecord(
         *(None if v is None else v[0] for v in rec))
 
 
 def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
                       parent_output, meta: FeatureMeta,
-                      hp: SplitHyperParams) -> dict:
+                      hp: SplitHyperParams, out_range=None,
+                      rand_u=None) -> dict:
     """The two-direction cumulative scan over hist [N, F, B, 3] with leaf
     totals [N]; returns per-feature best arrays [N, F] and what the
-    selection needs."""
+    selection needs. ``out_range`` (min, max [N]) turns on the monotone
+    path: both children's outputs are clamped to it, a candidate whose
+    outputs break its feature's direction is invalid, and the gain is
+    taken at the clamped outputs (ref: GetSplitGains USE_MC,
+    feature_histogram.hpp:781-797). ``rand_u`` [N, F]: extra_trees."""
     N, F, B, _ = hist.shape
     dev = hist.device
     col = lambda v: v[:, None, None]              # [N] -> [N, 1, 1]
@@ -338,6 +402,13 @@ def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
 
     in_range = bin_idx < nbin
     acc_mask = in_range & ~(skip_default & (bin_idx == dflt))
+    rand_bins = None
+    if rand_u is not None:
+        # extra_trees: the one threshold bin of each feature that competes
+        # (ref: feature_histogram.hpp:205 rand.NextInt(0, num_bin - 2))
+        span = torch.clamp(meta.num_bin - 2, min=1).to(torch.float32)
+        rand_bins = torch.minimum((rand_u * span).to(torch.int32),
+                                  meta.num_bin - 2)[..., None]  # [N, F, 1]
 
     min_gain_shift = (leaf_gain(sum_gradient, sum_hessian, hp, num_data,
                                 parent_output) + hp.min_gain_to_split)
@@ -352,7 +423,20 @@ def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
                  (rc >= hp.min_data_in_leaf) &
                  (lh >= hp.min_sum_hessian_in_leaf) &
                  (rh >= hp.min_sum_hessian_in_leaf))
-        gains = split_gain(lg, lh, rg, rh, hp, lc, rc, col(parent_output))
+        if out_range is not None:
+            po = col(parent_output)
+            lo = _clamp_range(calculate_splitted_leaf_output(
+                lg, lh, hp, lc, po), out_range, col)
+            ro = _clamp_range(calculate_splitted_leaf_output(
+                rg, rh, hp, rc, po), out_range, col)
+            mono = meta.monotone[:, None]
+            viol = ((mono > 0) & (lo > ro)) | ((mono < 0) & (lo < ro))
+            gains = (leaf_gain_at_clamped_output(lg, lh, hp, lo) +
+                     leaf_gain_at_clamped_output(rg, rh, hp, ro))
+            valid = valid & ~viol
+        else:
+            gains = split_gain(lg, lh, rg, rh, hp, lc, rc,
+                               col(parent_output))
         gains = torch.where(torch.isnan(gains), K_MIN_SCORE, gains)
         valid = valid & (gains > col(min_gain_shift))
         return gains, valid
@@ -375,6 +459,8 @@ def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
     # applies to the iteration t = thr + 1
     thr_ok_u = ((bin_idx >= 1) & (bin_idx <= hi) & in_range
                 & ~(skip_default & (bin_idx == dflt)))
+    if rand_bins is not None:
+        thr_ok_u = thr_ok_u & (bin_idx == rand_bins + 1)
     gains_rev_u = torch.where(valid_rev & thr_ok_u, gains_rev_u,
                               K_MIN_SCORE)
     # reverse ties -> larger threshold (first seen high-to-low)
@@ -384,7 +470,7 @@ def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
     out = dict(min_gain_shift=min_gain_shift, sfx=sfx, pfx=None,
                use_fwd=None, sum_gradient=sum_gradient,
                sum_hessian2=sum_hessian, num_data=num_data,
-               parent_output=parent_output)
+               parent_output=parent_output, out_range=out_range)
 
     if not meta.has_missing:
         # with no missing values anywhere the forward scan cannot win
@@ -404,6 +490,8 @@ def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
                                               rg_fwd, rh_fwd, rc_fwd)
     thr_ok_fwd = ((bin_idx <= nbin - 2) & in_range & run_forward
                   & ~(skip_default & (bin_idx == dflt)))
+    if rand_bins is not None:
+        thr_ok_fwd = thr_ok_fwd & (bin_idx == rand_bins)
     gains_fwd = torch.where(valid_fwd & thr_ok_fwd, gains_fwd, K_MIN_SCORE)
     # forward ties -> smaller threshold; forward replaces reverse only on
     # strictly greater gain
@@ -415,6 +503,13 @@ def _per_feature_scan(hist, sum_gradient, sum_hessian, num_data,
                best_dl=torch.where(use_fwd, False, ~dl_false[:, 0]),
                pfx=pfx, use_fwd=use_fwd)
     return out
+
+
+def _clamp_range(x, out_range, col):
+    """``clip(x, min, max)`` with the leaf bounds ``out_range`` ([N] each)
+    broadcast by ``col``: max first, then min, as ``jnp.clip``."""
+    return torch.minimum(torch.maximum(x, col(out_range[0])),
+                         col(out_range[1]))
 
 
 def _greedy_groups(eligible: torch.Tensor, counts: torch.Tensor,
@@ -466,19 +561,25 @@ CAT_VALUES = ("lg", "lh", "lc", "rg", "rh", "rc", "lo", "ro")
 
 
 def _categorical_scan_of(hist4, sums, meta: FeatureMeta,
-                         hp: SplitHyperParams) -> dict:
+                         hp: SplitHyperParams, out_range=None,
+                         rand_u=None) -> dict:
     """The categorical scan of ``meta``'s categorical features, from the
     leaf totals ``sums`` (grad, hess, count, parent output; [N] each)."""
     onehot = (None if meta.cat_num_bin is None else
               [nb - 1 <= hp.max_cat_to_onehot for nb in meta.cat_num_bin])
-    return _categorical_scan(hist4[:, meta.cat_features], sums[0],
-                             sums[1] + 2 * K_EPSILON, sums[2], sums[3],
-                             meta.num_bin[meta.cat_features], hp, onehot)
+    cf = meta.cat_features
+    return _categorical_scan(
+        hist4[:, cf], sums[0], sums[1] + 2 * K_EPSILON, sums[2], sums[3],
+        meta.num_bin[cf], hp, onehot,
+        mono=None if out_range is None else meta.monotone[cf],
+        out_range=out_range,
+        rand_u=None if rand_u is None else rand_u[:, cf])
 
 
 def _categorical_scan(hist, sum_gradient, sum_hessian, num_data,
                       parent_output, num_bin: torch.Tensor,
-                      hp: SplitHyperParams, onehot=None) -> dict:
+                      hp: SplitHyperParams, onehot=None, mono=None,
+                      out_range=None, rand_u=None) -> dict:
     """Best categorical split of each feature of ``hist`` [N, Fc, B, 3]
     (the categorical features' histograms; ``num_bin`` [Fc]), leaf totals
     [N] with ``sum_hessian`` carrying +2 kEpsilon (ref:
@@ -494,6 +595,13 @@ def _categorical_scan(hist, sum_gradient, sum_hessian, num_data,
     rows go right (default_left=False). ``onehot`` (host bools [Fc],
     which features scan one-hot; None: unknown) lets the scan skip a
     branch no feature takes.
+
+    With ``out_range`` (monotone constraints; ``mono`` the features'
+    directions [Fc]) both sides' outputs are clamped to the leaf's
+    bounds, the gain is taken at them and a set whose outputs break the
+    direction is invalid. ``rand_u`` [N, Fc] (extra_trees) lets one
+    random category, or one random prefix length, compete (ref:
+    feature_histogram.cpp:191, :272).
 
     Divergence kept from the JAX package: the reference approximates a
     bin's count as RoundInt(hess * num_data / sum_hessian), having no
@@ -526,11 +634,23 @@ def _categorical_scan(hist, sum_gradient, sum_hessian, num_data,
                           torch.zeros_like(sum_gradient))
     min_gain_shift = shift + hp.min_gain_to_split              # [N]
 
-    def gain(lg, lh, lc, rg, rh, rc, hp_use, parent):
-        """Split gain, the chosen set on the left; NaN is no split."""
-        g = (leaf_gain(lg, lh, hp_use, lc, parent) +
-             leaf_gain(rg, rh, hp_use, rc, parent))
-        return torch.where(torch.isnan(g), K_MIN_SCORE, g)
+    def gain(lg, lh, lc, rg, rh, rc, hp_use, parent, colx, mono_b):
+        """Split gain, the chosen set on the left; NaN is no split. With
+        monotone constraints: the gain at the clamped outputs, and
+        whether the outputs keep the direction."""
+        if out_range is None:
+            g = (leaf_gain(lg, lh, hp_use, lc, parent) +
+                 leaf_gain(rg, rh, hp_use, rc, parent))
+            ok = None
+        else:
+            lo = _clamp_range(calculate_splitted_leaf_output(
+                lg, lh, hp_use, lc, parent), out_range, colx)
+            ro = _clamp_range(calculate_splitted_leaf_output(
+                rg, rh, hp_use, rc, parent), out_range, colx)
+            ok = ~(((mono_b > 0) & (lo > ro)) | ((mono_b < 0) & (lo < ro)))
+            g = (leaf_gain_at_clamped_output(lg, lh, hp_use, lo) +
+                 leaf_gain_at_clamped_output(rg, rh, hp_use, ro))
+        return torch.where(torch.isnan(g), K_MIN_SCORE, g), ok
 
     def with_outputs(sides, hp_use):
         """[N, Fc, 6] side sums -> [N, Fc, 8] with both outputs."""
@@ -539,6 +659,9 @@ def _categorical_scan(hist, sum_gradient, sum_hessian, num_data,
                                                sides[..., 3 * s + 1], hp_use,
                                                sides[..., 3 * s + 2], po)
                 for s in (0, 1)]
+        if out_range is not None:
+            outs = [_clamp_range(o, out_range, lambda v: v[:, None])
+                    for o in outs]
         return torch.cat([sides, torch.stack(outs, -1)], -1)
 
     g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]          # [N, Fc, B]
@@ -551,12 +674,21 @@ def _categorical_scan(hist, sum_gradient, sum_hessian, num_data,
         rg1 = col3(sum_gradient) - g
         rh1 = col3(sum_hessian) - h - K_EPSILON
         rc1 = col3(num_data) - c
-        gain1 = gain(g, lh1, c, rg1, rh1, rc1, hp, col3(parent_output))
+        gain1, ok1 = gain(g, lh1, c, rg1, rh1, rc1, hp, col3(parent_output),
+                          col3, None if mono is None else mono[:, None])
         valid1 = (in_range & (c >= hp.min_data_in_leaf) &
                   (h >= hp.min_sum_hessian_in_leaf) &
                   (rc1 >= hp.min_data_in_leaf) &
                   (rh1 >= hp.min_sum_hessian_in_leaf) &
                   (gain1 > col3(min_gain_shift)))
+        if ok1 is not None:
+            valid1 = valid1 & ok1
+        if rand_u is not None:
+            # one random category bin of each feature competes
+            span1 = torch.clamp(nbin - 1, min=1).to(torch.float32)
+            rand1 = 1 + torch.minimum((rand_u * span1).to(torch.int64),
+                                      nbin - 2)
+            valid1 = valid1 & (bin_idx == rand1[..., None])
         gain1 = torch.where(valid1, gain1, K_MIN_SCORE)
         t1 = torch.argmax(gain1, dim=-1)              # ties -> smaller bin
         net1 = torch.gather(gain1, -1, t1[..., None])[..., 0]
@@ -597,9 +729,21 @@ def _categorical_scan(hist, sum_gradient, sum_hessian, num_data,
         alive = torch.cumsum(brk.to(torch.int32), dim=-1) == 0
         cand = _greedy_groups(alive & ~left_bad, ghc[..., 2],
                               hp.min_data_per_group)
-        gain2 = gain(Lg, Lh, Lc, Rg, Rh, Rc, hp_cat, col4(parent_output))
-        gain2 = torch.where(cand & (slots < limit)
-                            & (gain2 > col4(min_gain_shift)),
+        gain2, ok2 = gain(Lg, Lh, Lc, Rg, Rh, Rc, hp_cat,
+                          col4(parent_output), col4,
+                          None if mono is None else mono[:, None, None])
+        cand = cand & (slots < limit)
+        if ok2 is not None:
+            cand = cand & ok2
+        if rand_u is not None:
+            # one random prefix length, shared by both directions
+            max_thr = torch.clamp(torch.minimum(max_num_cat, used_bin) - 1,
+                                  min=0)
+            rand_p = torch.minimum(
+                (rand_u * torch.clamp(max_thr, min=1).to(torch.float32)
+                 ).to(torch.int64), torch.clamp(max_thr - 1, min=0))
+            cand = cand & (slots == rand_p[..., None, None])
+        gain2 = torch.where(cand & (gain2 > col4(min_gain_shift)),
                             gain2, K_MIN_SCORE)
         # the reference scans direction +1 fully, then -1, the first strict
         # maximum winning: the row-major flatten keeps that order
@@ -637,14 +781,21 @@ def _categorical_scan(hist, sum_gradient, sum_hessian, num_data,
 def _select_across_features(scan: dict, hp: SplitHyperParams,
                             feature_mask: Optional[torch.Tensor] = None,
                             meta: Optional[FeatureMeta] = None,
-                            cat: Optional[dict] = None) -> SplitRecord:
+                            cat: Optional[dict] = None,
+                            leaf_depth: Optional[torch.Tensor] = None,
+                            gain_penalty: Optional[torch.Tensor] = None
+                            ) -> SplitRecord:
     """Cross-feature selection over _per_feature_scan output: the winner
     by (max net gain, smaller feature index), and its side sums fetched
     from the scan's cumulative sums at (feature, iteration) with the same
     f32 operations the scan used. With ``cat`` (the categorical scan of
     ``meta.cat_features``) a categorical feature competes with its
     categorical result, and a categorical winner takes its sums, outputs
-    and set from there (threshold 0, default_left False)."""
+    and set from there (threshold 0, default_left False). Before the
+    argmax each net gain takes ``feature_contri``, ``gain_penalty`` and
+    the monotone penalty at ``leaf_depth`` [N], in that order (ref:
+    serial_tree_learner.cpp:996-1005; the JAX package's
+    ops/split.py:704-726)."""
     best_gain = scan["best_gain"]                              # [N, F]
     if feature_mask is not None:
         best_gain = torch.where(feature_mask, best_gain, K_MIN_SCORE)
@@ -665,6 +816,27 @@ def _select_across_features(scan: dict, hp: SplitHyperParams,
         net_gain = torch.where(meta.is_categorical, cat_net, net_gain)
         valid_any = torch.where(meta.is_categorical, cat_net > K_MIN_SCORE,
                                 valid_any)
+    if meta is not None and meta.penalty is not None:
+        # feature_contri multiplies the feature's best gain (ref:
+        # feature_histogram.hpp:175); a gain no longer positive is void
+        net_gain = torch.where(valid_any, net_gain * meta.penalty, net_gain)
+        valid_any = valid_any & (net_gain > 0.0)
+        net_gain = torch.where(valid_any, net_gain, K_MIN_SCORE)
+    if gain_penalty is not None:
+        net_gain = torch.where(valid_any, net_gain - gain_penalty, net_gain)
+    out_range = scan["out_range"]
+    if out_range is not None and hp.monotone_penalty > 0.0:
+        # ref: monotone_constraints.hpp:358 ComputeMonotoneSplitGainPenalty
+        depth = (torch.zeros_like(net_gain[:, 0]) if leaf_depth is None
+                 else leaf_depth)[:, None]
+        pen = hp.monotone_penalty
+        if pen <= 1.0:
+            penalty = 1.0 - pen / torch.exp2(depth) + K_EPSILON
+        else:
+            penalty = 1.0 - torch.exp2((pen - 1.0) - depth) + K_EPSILON
+        penalty = torch.where(pen >= depth + 1.0, K_EPSILON, penalty)
+        net_gain = torch.where(valid_any & (meta.monotone != 0),
+                               net_gain * penalty, net_gain)
     best_f = torch.argmax(net_gain, dim=-1)                    # [N]
     sel = lambda a: torch.gather(a, -1, best_f[:, None])[:, 0]
     gain_out = sel(net_gain)
@@ -697,6 +869,8 @@ def _select_across_features(scan: dict, hp: SplitHyperParams,
         torch.stack([lvec[:, 1], rvec[:, 1]], dim=-1), hp,
         torch.stack([lvec[:, 2], rvec[:, 2]], dim=-1),
         scan["parent_output"][:, None])
+    if out_range is not None:
+        outs = _clamp_range(outs, out_range, lambda v: v[:, None])
     num_cat = cat_bins = None
     if cat is not None:
         is_cat_win = meta.is_categorical[best_f]               # [N]
@@ -752,4 +926,60 @@ def per_feature_net_gains(hist, sum_gradient, sum_hessian, num_data,
     if meta.has_cat:
         net[:, meta.cat_features] = _categorical_scan_of(
             hist4, sums, meta, hp)["net_gain"]
+    if meta.penalty is not None:
+        # feature_contri applies before the vote (ref: the JAX package's
+        # ops/split.py:578-582)
+        net = torch.where((net > K_MIN_SCORE) & (net * meta.penalty > 0.0),
+                          net * meta.penalty, K_MIN_SCORE)
     return net if batched else net[0]
+
+
+def forced_split_record(hist: torch.Tensor, feature: int,
+                        threshold_bin: int, sum_gradient, sum_hessian,
+                        num_data, parent_output,
+                        feature_meta: Tuple[int, int, int],
+                        hp: SplitHyperParams) -> SplitRecord:
+    """The split record of a FORCED numerical split of one leaf at
+    (``feature``, ``threshold_bin``), from its f32 histogram [F, B, 3]
+    and its totals; ``feature_meta`` is the feature's (num_bin, missing
+    type, default bin) on the host (ref: FeatureHistogram::
+    GatherInfoForThresholdNumerical, feature_histogram.hpp:487-589; the
+    JAX package's ops/split.py:915-974): the right side sums the bins in
+    ``(threshold, hi]``, the zero-missing default bin skipped and the NaN
+    bin left; ``default_left`` is always True; the gain is K_MIN_SCORE
+    (an invalid split) when the net gain is not positive. The sums add
+    in XLA's CPU order on the CPU (``column_sum``)."""
+    dev = hist.device
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+    B = hist.shape[1]
+    sum_gradient, num_data, parent_output = (
+        f32(sum_gradient), f32(num_data), f32(parent_output))
+    sum_hessian = f32(sum_hessian) + 2 * K_EPSILON
+    nbin_f, miss_f, dflt_f = feature_meta
+    bin_idx = torch.arange(B, device=dev)
+    hi = nbin_f - 1 - (miss_f == MISSING_ENUM["nan"])
+    right_mask = (bin_idx > threshold_bin) & (bin_idx <= hi)
+    if miss_f == MISSING_ENUM["zero"]:
+        right_mask = right_mask & (bin_idx != dflt_f)
+    r = column_sum(hist[feature] * right_mask.to(hist.dtype)[:, None])
+    rg, rh, rc = r[0], r[1] + K_EPSILON, r[2]
+    lg, lh, lc = sum_gradient - rg, sum_hessian - rh, num_data - rc
+    min_gain_shift = (leaf_gain(sum_gradient, sum_hessian, hp, num_data,
+                                parent_output) + hp.min_gain_to_split)
+    gain = (leaf_gain(lg, lh, hp, lc, parent_output) +
+            leaf_gain(rg, rh, hp, rc, parent_output))
+    valid = torch.isfinite(gain) & (gain > min_gain_shift)
+    i64 = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
+    return SplitRecord(
+        gain=torch.where(valid, gain - min_gain_shift, K_MIN_SCORE),
+        feature=torch.where(valid, i64(feature), -1),
+        threshold=i64(threshold_bin),
+        default_left=torch.tensor(True, device=dev),
+        left_sum_gradient=lg, left_sum_hessian=lh - K_EPSILON,
+        left_count=lc,
+        left_output=calculate_splitted_leaf_output(lg, lh, hp, lc,
+                                                   parent_output),
+        right_sum_gradient=rg, right_sum_hessian=rh - K_EPSILON,
+        right_count=rc,
+        right_output=calculate_splitted_leaf_output(rg, rh, hp, rc,
+                                                    parent_output))

@@ -74,5 +74,12 @@ def info_once(msg: str) -> None:
         info(msg)
 
 
+def warning_once(msg: str) -> None:
+    """WARNING-log ``msg`` once per process."""
+    if msg not in logged_once:
+        logged_once.add(msg)
+        warning(msg)
+
+
 def fatal(msg: str) -> None:
     raise LightGBMError(msg)

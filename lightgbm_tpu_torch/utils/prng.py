@@ -36,6 +36,7 @@ from __future__ import annotations
 import math
 from typing import Tuple, Union
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -100,6 +101,16 @@ def uniform(key: Key, shape: Union[int, Tuple[int, ...]], device=None,
         lo = torch.tensor(minval, dtype=torch.float32, device=device)
         u = torch.maximum(lo, u * (1.0 - lo) + lo)
     return u
+
+
+def uniform_host(key: Key, n: int) -> np.ndarray:
+    """``uniform(key, n)`` as a numpy f32 array, hashed with numpy on the
+    host: the same bits, without a torch launch per hash step, for the
+    few draws of a split (extra_trees)."""
+    counts = np.arange(n, dtype=np.int64)
+    b0, b1 = threefry2x32(key, np.zeros_like(counts), counts)
+    mantissa = ((b0 ^ b1) >> 9) | 0x3F800000
+    return mantissa.astype(np.uint32).view(np.float32) - np.float32(1.0)
 
 
 F32_TINY = torch.finfo(torch.float32).tiny

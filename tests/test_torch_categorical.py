@@ -211,13 +211,16 @@ def test_greedy_groups_is_the_sequential_thinning(rng):
 
 
 def test_rand_u_is_refused():
+    """extra_trees' draws are one uniform a feature: draws of another
+    width are refused (the categorical draws themselves are held against
+    the JAX package in tests/test_torch_extra_trees.py)."""
     hist, tot = _hists(np.random.default_rng(0), [6], 1)
     _, tm = _metas([6], [True])
-    with pytest.raises(NotImplementedError, match="A12.6"):
+    with pytest.raises(ValueError, match="one uniform a feature"):
         tsplit.best_split_for_leaf(torch.from_numpy(hist[0]), tot[0, 0],
                                    tot[0, 1], tot[0, 2], 0.0, tm,
                                    tsplit.SplitHyperParams(),
-                                   rand_u=torch.zeros(1))
+                                   rand_u=torch.zeros(2))
 
 
 def test_per_feature_net_gains_takes_the_categorical_scan(rng):

@@ -2,7 +2,11 @@
 with the ROADMAP item that ports them; the settings the port has ported
 (quantized gradients, bf16 histograms, level, full and leaf scheduling,
 every ``tpu_hist_kernel`` value, DART, random forests, bagging, GOSS,
-column sampling and categorical features) train."""
+column sampling, categorical features, monotone and interaction
+constraints, CEGB, forced splits and bins, ``feature_contri``,
+extra_trees and linear trees) train."""
+import json
+
 import numpy as np
 import pytest
 
@@ -13,16 +17,9 @@ F = 4
 REFUSED = [
     ("tree_learner", "voting", "A13"),
     ("tree_learner", "data", "A13"),
-    ("extra_trees", True, "A12"),
-    ("monotone_constraints", [1] + [0] * (F - 1), "A12"),
-    ("interaction_constraints", "[0,1],[2,3]", "A12"),
-    ("forcedsplits_filename", "forced.json", "A12"),
-    ("forcedbins_filename", "bins.json", "A12"),
-    ("feature_contri", [0.5] * F, "A12"),
-    ("cegb_penalty_split", 0.1, "A12"),
-    ("cegb_penalty_feature_lazy", [1.0] * F, "A12"),
-    ("cegb_penalty_feature_coupled", [1.0] * F, "A12"),
-    ("linear_tree", True, "A12"),
+    ("two_round", True, "A15"),
+    ("tpu_integrity_numeric_guard", True, "A12.7"),
+    ("tpu_heartbeat_file", "heartbeat.json", "A12.7"),
 ]
 
 
@@ -48,6 +45,45 @@ def test_unported_setting_is_refused_with_its_roadmap_item(name, value,
     with pytest.raises(lgt.basic.LightGBMError,
                        match=rf"{name}=.*\(ROADMAP {item}\)"):
         lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=1)
+
+
+def _forced_files(tmp_path):
+    splits = tmp_path / "forced.json"
+    splits.write_text(json.dumps({"feature": 0, "threshold": 0.0}))
+    bins = tmp_path / "bins.json"
+    bins.write_text(json.dumps([{"feature": 1,
+                                 "bin_upper_bound": [-0.5, 0.5]}]))
+    return str(splits), str(bins)
+
+
+# the settings A12.6 ported, once refused; a value that names a file is
+# a key of the files ``_forced_files`` writes
+PORTED_A12_6 = [
+    ("extra_trees", True),
+    ("monotone_constraints", [1] + [0] * (F - 1)),
+    ("interaction_constraints", "[0,1],[2,3]"),
+    ("forcedsplits_filename", "splits"),
+    ("forcedbins_filename", "bins"),
+    ("feature_contri", [0.5] * F),
+    ("cegb_penalty_split", 0.1),
+    ("cegb_penalty_feature_lazy", [1.0] * F),
+    ("cegb_penalty_feature_coupled", [1.0] * F),
+    ("linear_tree", True),
+]
+
+
+@pytest.mark.parametrize("name,value", PORTED_A12_6,
+                         ids=[f"{n}={v}" for n, v in PORTED_A12_6])
+def test_a12_6_settings_train(name, value, tmp_path):
+    files = dict(zip(("splits", "bins"), _forced_files(tmp_path)))
+    X, y = _data()
+    params = {"objective": "binary", "device_type": "cpu", "verbosity": -1,
+              "num_leaves": 7, name: files.get(value, value)
+              if isinstance(value, str) else value}
+    assert lgt.Config(params).unsupported_settings() == []
+    bst = lgt.train(params, lgt.Dataset(X, label=y, params=params),
+                    num_boost_round=2)
+    assert np.isfinite(bst.predict(X)).all()
 
 
 @pytest.mark.parametrize("extra", [

@@ -407,7 +407,7 @@ def test_unported_training_api_is_refused(rng, what):
     match = {"ranking_objective": "require query information",
              "resume_from": "A12.7",
              "tpu_fallback_to_cpu": "does not fall back",
-             "reset_parameter": "extra_trees.*A12",
+             "reset_parameter": "tree_learner.*A13",
              "valid_without_reference": "reference="}[what]
     if what == "ranking_objective":
         params["objective"] = "lambdarank"
@@ -420,7 +420,7 @@ def test_unported_training_api_is_refused(rng, what):
     with pytest.raises(LightGBMError, match=match):
         if what == "reset_parameter":
             b = lgt.Booster(params, tr)
-            b.reset_parameter({"extra_trees": True})
+            b.reset_parameter({"tree_learner": "voting"})
         else:
             lgt.train(params, tr, num_boost_round=2, **kw)
 

@@ -206,13 +206,20 @@ def test_loaded_model_device_is_cuda_unless_asked(monkeypatch):
 
 
 def test_linear_tree_model_is_refused(rng):
+    """A linear tree whose block counts more features than it lists is
+    refused at load (a well-formed one loads: tests/
+    test_torch_linear_tree.py)."""
     X, y = _data(rng, "regression")
-    text = lgt.train(_params("regression"), lgt.Dataset(X, label=y),
+    params = {**_params("regression"), "linear_tree": True}
+    text = lgt.train(params, lgt.Dataset(X, label=y, params=params),
                      num_boost_round=2).model_to_string()
-    assert "is_linear=0" in text
-    with pytest.raises(LightGBMError, match="A12.6"):
-        lgt.Booster(CPU, model_str=text.replace("is_linear=0",
-                                                "is_linear=1", 1))
+    assert "is_linear=1" in text
+    lgt.Booster(CPU, model_str=text)
+    head, tail = text.split("num_features=", 1)
+    bad = head + "num_features=" + str(int(tail.split()[0]) + 1) + \
+        tail[len(tail.split()[0]):]
+    with pytest.raises(LightGBMError, match="linear tree block"):
+        lgt.Booster(CPU, model_str=bad)
 
 
 def test_loaded_tree_copy_is_deep():

@@ -246,8 +246,8 @@ def test_cuda_without_a_card_raises(rng, monkeypatch):
 
 def test_unported_settings_are_refused(rng):
     X, y = _data(rng, "regression")
-    for extra in ({"linear_tree": True},
-                  {"extra_trees": True},
+    for extra in ({"tree_learner": "voting"},
+                  {"two_round": True},
                   {"objective": "lambdarank"}):
         params = {"objective": "regression", "device_type": "cpu",
                   "verbosity": -1, **extra}
