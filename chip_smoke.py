@@ -128,7 +128,7 @@ Phases, each reported on its own line:
    queries on the compact, hybrid and full paths (root splits equal,
    ``ndcg@10`` within rtol 1e-6);
 11. the user surface on phase 4's rows and model (run after phase 9):
-   ``cv`` with 5 stratified folds and 3 rounds (every fold through K1, the
+   ``cv`` with 5 stratified folds and 2 rounds (every fold through K1, the
    mean logloss falling every round, fold 0's ``eval`` on its held-out
    subset within 1e-6 of the host walk's logloss, the five Boosters' peak
    bytes); an ``LGBMClassifier`` (4 rounds, the stand-ins where
@@ -153,7 +153,8 @@ Phases, each reported on its own line:
    (1 + 3 iterations), on the hybrid (K2) and the full (B2) paths,
    balanced bagging (0.5 / 0.3) and ``tpu_device_bagging`` (1 + 1 each),
    column sampling 0.8 a tree and 0.8 a node (1 + 3), GOSS at rate 0.5
-   (1 + 5: it samples from iteration 2), DART (drop rate 0.3, no skip;
+   drawn on the host (``tpu_async_boosting=false``; 1 + 3: it samples
+   from iteration 2), DART (drop rate 0.3, no skip;
    1 + 5) and a random forest (bagging 0.632, column sampling 0.8;
    1 + 3); each run launching its kernel mode and learning (its
    training logloss falls; a forest's stays under the prior's), with its
@@ -232,7 +233,31 @@ Phases, each reported on its own line:
    against the CPU on 20,000 rows, 2 rounds, 31 leaves, every run: trees
    to the binary standard, training scores within 1e-5, linear trees'
    host-walk predictions within 1e-5 and their device route answered by
-   the host walk, said once.
+   the host walk, said once;
+16. asynchronous boosting, checkpoints and the training-side robustness
+   on phase 4's rows (after phase 15): (a) 1 + 2 iterations with
+   ``tpu_async_boosting`` auto (on for the card) and false, the same
+   model text; (b) GOSS at rate 0.5 drawn on the card (1 + 3), the host
+   sampler never called (no ``[K, N]`` gradient read), the draw of its
+   last sampled iteration equal to the plain draw on the CPU from the
+   same gradients bit for bit, s/iteration against phase 12's
+   host-drawn GOSS and the draw's ms; (c) bagging 0.5 and columns 0.8
+   through ``train``: an uninterrupted 4-round run, one killed mid-write
+   of its third checkpoint (``write_kill:after=2``), its
+   ``resume_from`` giving the uninterrupted model text and predictions
+   (host walk and device route) bit for bit, a bit-flipped newest
+   checkpoint skipped, the ms of each checkpoint write; (d) the numeric
+   guard under ``nan_grad:after=1`` refusing iteration 1 with one tree
+   kept, then two armed iterations timed and the guard's device ms;
+   (e) the heartbeat of (a)'s async run (``compiling`` at iteration 0,
+   ``iter`` after, ``seq`` rising), then two children on 100,000 of
+   phase 4's rows under ``watch_child``, started after (d) and running
+   beside (c) and (f): a healthy one exits 0, one under
+   ``LGBM_TPU_FAULTS=hang:after=2`` is classified STALLED and ended
+   within its 5 s budget of its last beat; (f) cuda against the CPU on
+   20,000 rows: GOSS drawn on the device chain on both (the same bags)
+   and a run killed at its second checkpoint and resumed, trees to the
+   binary standard.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -294,7 +319,7 @@ PREDICT_ROWS = 200_000
 # phase 8: validation rows (another seed), rounds with the validation set,
 # and rounds of the continued training
 VALID_ROWS = 200_000
-API_ROUNDS = 20
+API_ROUNDS = 10
 CONTINUE_ROUNDS = 3
 # pairs of iterations with and without the validation set, in turns
 VALID_AB_PAIRS = 4
@@ -346,7 +371,7 @@ RANK_SMALL_ROWS, RANK_SMALL_QUERIES = 20_000, 200
 # phase 11: cv folds and rounds, the estimator's rounds, rows explained by
 # TreeSHAP, rows of the refit (another seed), and the cross-check's rows,
 # queries, leaves and rounds
-CV_FOLDS, CV_ROUNDS = 5, 3
+CV_FOLDS, CV_ROUNDS = 5, 2
 SK_ROUNDS = 4
 CONTRIB_ROWS = 10_000
 REFIT_ROWS = 200_000
@@ -2601,9 +2626,10 @@ SAMPLING_RUNS = {
                              feature_fraction_bynode=0.8), 3,
                         "hist_rowmajor_f32"),
     # at learning rate 0.5 GOSS samples from iteration int(1 / 0.5) = 2:
-    # four of the five timed iterations
-    "goss": (dict(data_sample_strategy="goss", learning_rate=0.5), 5,
-             "hist_rowmajor_f32"),
+    # two of the three timed iterations; drawn on the host (synchronous:
+    # auto would draw on the card, which phase 16 holds)
+    "goss": (dict(data_sample_strategy="goss", learning_rate=0.5,
+                  tpu_async_boosting="false"), 3, "hist_rowmajor_f32"),
     "dart": (dict(boosting="dart", drop_rate=0.3, skip_drop=0.0), 5,
              "hist_rowmajor_f32"),
     "rf": (dict(boosting="rf", bagging_fraction=0.632, bagging_freq=1,
@@ -2637,8 +2663,8 @@ def record_bags(eng):
     bags = []
     row_sample = eng._row_sample
 
-    def recorded(grad, hess):
-        pair = row_sample(grad, hess)
+    def recorded(grad, hess, *rest):
+        pair = row_sample(grad, hess, *rest)
         bags.append(np.ones(eng.num_data, bool) if pair is None
                     else pair[0].cpu().numpy() > 0)
         return pair
@@ -2826,10 +2852,10 @@ def phase_sampling(ds, X, phase4_iter_s):
     contiguous copy; the random forest predicts by both device routes
     the mean of its trees that the host walk gives (within 1e-5); then
     cuda against the CPU on 20,000 rows. Returns each run's launches of
-    its kernel mode."""
+    its kernel mode and its median s/iteration."""
     import lightgbm_tpu_torch as lgt
     t_phase = time.perf_counter()
-    launches, k1_rows = {}, {}
+    launches, k1_rows, medians = {}, {}, {}
     prior = float(np.log(2.0))          # balanced labels
     # a Booster leaves its params in its Dataset's: each run starts from
     # the Dataset's own
@@ -2876,6 +2902,7 @@ def phase_sampling(ds, X, phase4_iter_s):
             phase_sampling_rf_predict(bst, X)
         launches[name] = c[must]
         k1_rows[name] = r["k1_rows"]
+        medians[name] = r["median_iter_s"]
         del bst, eng
         gc.collect()
         log(f"phase 12 run={name} seconds={time.perf_counter() - tr!r}")
@@ -2885,7 +2912,7 @@ def phase_sampling(ds, X, phase4_iter_s):
         "physical row in the partition)")
     phase_sampling_cross_check(launches)
     log(f"phase 12 seconds={time.perf_counter() - t_phase!r}")
-    return launches
+    return launches, medians
 
 
 def phase_sampling_rf_predict(bst, X):
@@ -4026,6 +4053,469 @@ def phase_constraints_cross_check(top, tmpdir):
     return totals
 
 
+# phase 16: asynchronous boosting, checkpoints and training-side
+# robustness on phase 4's rows. (a) 1 + ROBUST_ITERS iterations with
+# tpu_async_boosting auto and false; (b) GOSS at rate 0.5 (it samples
+# from iteration 2) drawn on the card, 1 + ROBUST_GOSS_ITERS; (c) an
+# uninterrupted ROBUST_CKPT_ROUNDS-round run, one killed at checkpoint
+# write ROBUST_KILL_AFTER + 1, and its resume; (d) the numeric guard
+ROBUST_ITERS = 2
+ROBUST_GOSS = dict(data_sample_strategy="goss", learning_rate=0.5)
+ROBUST_GOSS_ITERS = 3
+ROBUST_CKPT = dict(bagging_fraction=0.5, bagging_freq=1,
+                   feature_fraction=0.8)
+ROBUST_CKPT_ROUNDS = 4
+ROBUST_KILL_AFTER = 2
+# (e) two supervised children on this many of phase 4's rows: one healthy
+# (CHILD_ITERS iterations), one under hang:after=2 (it would train
+# CHILD_HANG_ITERS) whose iter phase may sit still CHILD_STALL_SEC
+CHILD_ROWS = 100_000
+CHILD_ITERS = 3
+CHILD_HANG_ITERS = 10_000
+CHILD_STALL_SEC = 5.0
+CHILD_POLL_SEC = 0.25
+CHILD_DEVICE = "cuda"
+# (f) cuda against the CPU on this many rows, 31 leaves
+ROBUST_SMALL_ROWS = 20_000
+ROBUST_SMALL_ROUNDS = 3
+
+_CHILD_SRC = r"""
+import sys
+import numpy as np
+import lightgbm_tpu_torch as lgt
+X, y = np.load(sys.argv[1]), np.load(sys.argv[2])
+params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+          "min_data_in_leaf": 20, "verbose": -1, "device_type": sys.argv[4]}
+bst = lgt.Booster(params, lgt.Dataset(X, label=y))
+for _ in range(int(sys.argv[3])):
+    bst.update()
+"""
+
+
+def tree_text(bst):
+    s = bst.model_to_string()
+    return s[s.index("Tree=0"):s.index("end of trees")]
+
+
+def run_updates(ds, params, iters, prepare=None, each=None):
+    """A Booster on ``ds`` with ``params``: ``prepare(bst)`` first, then
+    1 + ``iters`` updates (the launch counts zeroed just before and read
+    just after), ``each(i, bst)`` after each; the seconds of the timed
+    ones, the training logloss after each, the counts."""
+    import lightgbm_tpu_torch as lgt
+    reset_counts()
+    bst = lgt.Booster(params, ds)
+    if prepare is not None:
+        prepare(bst)
+    iter_s, logloss = [], []
+    for i in range(1 + iters):
+        t = time.perf_counter()
+        assert not bst.update(), "stopped early"
+        torch.cuda.synchronize()
+        if i:
+            iter_s.append(time.perf_counter() - t)
+        logloss.append(dict((m, v) for _, m, v, _ in
+                            bst.eval_train())["binary_logloss"])
+        if each is not None:
+            each(i, bst)
+    counts = read_counts()
+    assert logloss[-1] < logloss[0], logloss
+    return bst, dict(iter_s=iter_s, median_iter_s=statistics.median(iter_s),
+                     logloss=logloss, counts=counts)
+
+
+def phase_robustness(ds, X, phase4_iter_s, goss12_iter_s):
+    """Phase 16: asynchronous boosting, checkpoints and the training-side
+    robustness on phase 4's rows through ``Booster`` and ``train``, then
+    cuda against the CPU on 20,000 rows. Returns each run's K1 launches
+    and their totals by mode."""
+    import os
+    import tempfile
+    from lightgbm_tpu_torch.robustness import heartbeat
+    t_phase = time.perf_counter()
+    ds_params = dict(ds.params)
+    launches, totals = {}, {}
+
+    def counted(name, counts):
+        launches[name] = counts["hist_rowmajor_f32"]
+        assert launches[name] > 0, (name, counts)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) async (auto: on for the card) and sync; (e) the heartbeat
+        # of the async run
+        hb_path = os.path.join(tmp, "train.hb")
+        beats = []
+        ds.params = dict(ds_params)
+        try:
+            b_auto, r_auto = run_updates(
+                ds, bench_params(tpu_heartbeat_file=hb_path), ROBUST_ITERS,
+                each=lambda i, b: beats.append(heartbeat.read(hb_path)))
+        finally:
+            heartbeat.uninstall()
+        ds.params = dict(ds_params)
+        b_sync, r_sync = run_updates(
+            ds, bench_params(tpu_async_boosting="false"), ROBUST_ITERS)
+        assert b_auto._engine._async_mode is True
+        assert b_sync._engine._async_mode is False
+        assert tree_text(b_auto) == tree_text(b_sync)
+        counted("async", r_auto["counts"])
+        counted("sync", r_sync["counts"])
+        log(f"phase 16 (a) async auto iter_s={r_auto['iter_s']!r} "
+            f"sync iter_s={r_sync['iter_s']!r} "
+            f"async_over_sync={r_auto['median_iter_s'] / r_sync['median_iter_s']!r} "
+            f"phase4_median_iter_s={phase4_iter_s!r} model text equal")
+        assert beats[0].phase == "compiling" and beats[0].progress == 0
+        assert beats[-1].phase == "iter" and beats[-1].progress >= 1
+        assert all(a.seq < b.seq for a, b in zip(beats, beats[1:]))
+        log("phase 16 (e) heartbeat " + " ".join(
+            f"[{b.phase} progress={b.progress} seq={b.seq}]" for b in beats))
+        del b_auto, b_sync
+        gc.collect()
+
+        robust_goss(ds, ds_params, goss12_iter_s, counted)
+        robust_guard(ds, ds_params, r_sync["median_iter_s"], counted)
+        # the children start up (torch, CUDA, binning) while (c) and (f),
+        # which time nothing but the checkpoint writes, run
+        children = start_children(ds, X, tmp)
+        try:
+            robust_checkpoints(ds, ds_params, X, tmp, counted)
+            ds.params = ds_params
+            cross = phase_robustness_cross_check()
+        finally:
+            children = finish_children(children)
+        check_children(*children)
+        for name, counts in cross.items():
+            counted(name, counts)
+    ds.params = ds_params
+    log(f"phase 16 seconds={time.perf_counter() - t_phase!r}")
+    return launches, totals
+
+
+def robust_goss(ds, ds_params, goss12_iter_s, counted):
+    """(b) GOSS drawn on the card: the host sampler never called (no
+    [K, N] gradient read), the draw at the last sampled iteration equal
+    to the plain draw on the CPU from the same gradients, bit for bit;
+    s/iteration against phase 12's host-drawn GOSS."""
+    from lightgbm_tpu_torch.utils import prng
+    seen = {}
+
+    def prepare(bst):
+        strat = bst._engine.sample_strategy
+
+        def host_draw(*a, **k):
+            raise AssertionError("host GOSS draw under async boosting")
+        draw = strat.sample_dev
+
+        def recorded(it, grad, hess, key):
+            seen.update(it=it, grad=grad.clone(), hess=hess.clone(),
+                        key=key)
+            return draw(it, grad, hess, key)
+        strat.sample = host_draw
+        strat.sample_dev = recorded
+
+    ds.params = dict(ds_params)
+    bst, r = run_updates(ds, bench_params(**ROBUST_GOSS), ROBUST_GOSS_ITERS,
+                         prepare=prepare)
+    eng = bst._engine
+    assert eng._async_mode and eng._goss_dev_used and seen["it"] >= 2
+    counted("goss_async", r["counts"])
+    strat = type(eng.sample_strategy)(eng.config, eng.num_data, 1)
+    it, g, h, key = seen["it"], seen["grad"], seen["hess"], seen["key"]
+    assert key == prng.fold_in(eng._bag_key, it)
+    on_card = strat.sample_dev(it, g, h, key)
+    on_cpu = strat.sample_dev(it, g.cpu(), h.cpu(), key)
+    for a, b in zip(on_card, on_cpu):
+        assert a.device == g.device and torch.equal(a.cpu(), b), \
+            "device GOSS draw"
+    draw_ms = cuda_ms(lambda: strat.sample_dev(it, g, h, key), reps=5)
+    log(f"phase 16 (b) goss async iter_s={r['iter_s']!r} "
+        f"median_iter_s={r['median_iter_s']!r} "
+        f"phase12_host_goss_median_iter_s={goss12_iter_s!r} "
+        f"over_phase12={r['median_iter_s'] / goss12_iter_s!r} "
+        f"device_draw_ms={draw_ms!r} host_draw={sampling_host_ms(eng)} "
+        f"draw at iteration {it}: {int(on_cpu[0].sum())} rows kept, "
+        f"equal to the CPU draw bit for bit; logloss={r['logloss']!r}")
+    del bst, eng, seen
+    gc.collect()
+
+
+def robust_checkpoints(ds, ds_params, X, tmp, counted):
+    """(c) An uninterrupted run; one killed mid-write of checkpoint
+    ROBUST_KILL_AFTER + 1; its resume from the newest valid checkpoint
+    giving the uninterrupted model text and predictions bit for bit; a
+    bit-flipped newest checkpoint skipped; the ms of a checkpoint
+    write."""
+    import os
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.robustness import checkpoint as ckpt
+    from lightgbm_tpu_torch.robustness import faults
+    params = bench_params(**ROBUST_CKPT)
+    ck = os.path.join(tmp, "ck")
+    write_ms, state_ms = [], []
+    write = ckpt.write_checkpoint
+
+    def timed_write(directory, state, keep_last=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = write(directory, state, keep_last=keep_last)
+        write_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def run(name, **kw):
+        ds.params = dict(ds_params)
+        reset_counts()
+        t = time.perf_counter()
+        try:
+            bst = lgt.train(dict(params), ds,
+                            num_boost_round=ROBUST_CKPT_ROUNDS, **kw)
+        finally:
+            counted(name, read_counts())
+            log(f"phase 16 (c) run={name} seconds="
+                f"{time.perf_counter() - t!r}")
+        return bst
+
+    ref = run("ckpt_reference")
+    ckpt.write_checkpoint = timed_write
+    try:
+        with faults.inject(f"write_kill:after={ROBUST_KILL_AFTER}:n=1"):
+            try:
+                run("ckpt_killed",
+                    callbacks=[lgt.checkpoint_callback(ck, every_n=1)])
+                raise AssertionError("write_kill did not fire")
+            except faults.WriteKilled:
+                pass
+        got = ckpt.latest_valid_checkpoint(ck)
+        assert got[1]["iteration"] == ROBUST_KILL_AFTER, got[1]["iteration"]
+        resumed = run("ckpt_resumed", resume_from=ck,
+                      callbacks=[lgt.checkpoint_callback(ck, every_n=1)])
+    finally:
+        ckpt.write_checkpoint = write
+    assert resumed.model_to_string() == ref.model_to_string()
+    Xp = np.asarray(X[:PREDICT_ROWS], np.float64)
+    for device in (False, True):
+        assert np.array_equal(resumed.predict(Xp, device=device),
+                              ref.predict(Xp, device=device)), device
+    t = time.perf_counter()
+    state = ckpt.booster_state(resumed, ROBUST_CKPT_ROUNDS + 1)
+    state_ms.append((time.perf_counter() - t) * 1e3)
+    with faults.inject("bitflip:where=ckpt"):
+        flipped = ckpt.write_checkpoint(ck, state)
+    path, back = ckpt.latest_valid_checkpoint(ck)
+    assert path != flipped and back["iteration"] == ROBUST_CKPT_ROUNDS
+    log(f"phase 16 (c) resumed from iteration {ROBUST_KILL_AFTER} to "
+        f"{ROBUST_CKPT_ROUNDS}: model text and predictions ({len(Xp)} rows, "
+        f"host walk and device route) equal to the uninterrupted run bit "
+        f"for bit; bit-flipped newest skipped for iteration "
+        f"{back['iteration']}; checkpoint_write_ms={write_ms!r} "
+        f"booster_state_ms={state_ms!r} checkpoint_bytes="
+        f"{os.path.getsize(path)}")
+
+
+def robust_guard(ds, ds_params, sync_iter_s, counted):
+    """(d) The numeric guard under nan_grad:after=1: NumericHealthError
+    before iteration 1's tree commits, one tree kept; then two armed
+    iterations with no fault, timed, and the guard's own device ms."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.robustness import faults
+    from lightgbm_tpu_torch.robustness.integrity import NumericHealthError
+    ds.params = dict(ds_params)
+    reset_counts()
+    bst = lgt.Booster(bench_params(tpu_integrity_numeric_guard=True), ds)
+    with faults.inject("nan_grad:after=1"):
+        bst.update()
+        try:
+            bst.update()
+            raise AssertionError("the guard let a NaN iteration through")
+        except NumericHealthError as e:
+            refused = str(e)
+    assert bst.num_trees() == 1 and bst._engine.iter == 1
+    iter_s = []
+    for _ in range(2):
+        t = time.perf_counter()
+        assert not bst.update()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t)
+    counted("guard", read_counts())
+    eng = bst._engine
+    g, h = eng.objective.get_gradients(eng.score[0])
+    guard_ms = cuda_ms(lambda: eng._guard_sums(g[None], h[None]), reps=10)
+    log(f"phase 16 (d) guard refused iteration 1 ({refused[:80]}...), "
+        f"trees kept={bst.num_trees() - 2} before the armed iterations; "
+        f"armed iter_s={iter_s!r} sync_median_iter_s={sync_iter_s!r} "
+        f"guard_sums_ms={guard_ms!r}")
+    del bst, eng
+    gc.collect()
+
+
+def start_children(ds, X, tmp):
+    """(e) Two children on CHILD_ROWS of phase 4's rows, each under
+    ``watch_child`` in a thread of its own: a healthy one, and one under
+    ``LGBM_TPU_FAULTS=hang:after=2`` that goes silent from its third
+    beat. Returns what ``finish_children`` joins."""
+    import os
+    import subprocess
+    import threading
+    from lightgbm_tpu_torch.robustness import heartbeat
+    from lightgbm_tpu_torch.robustness.supervisor import (DeviceStallError,
+                                                          watch_child)
+    x_path, y_path = os.path.join(tmp, "X.npy"), os.path.join(tmp, "y.npy")
+    np.save(x_path, np.ascontiguousarray(X[:CHILD_ROWS]))
+    np.save(y_path, np.asarray(ds.get_label()[:CHILD_ROWS], np.float32))
+    policy = heartbeat.StallPolicy(
+        stall_sec={"compiling": 300.0, "iter": CHILD_STALL_SEC},
+        default_stall=CHILD_STALL_SEC, silent_sec=60.0, startup_grace=120.0)
+    runs = {"healthy": ({}, CHILD_ITERS),
+            "hang": ({"LGBM_TPU_FAULTS": "hang:after=2"}, CHILD_HANG_ITERS)}
+    procs, out, threads = {}, {}, []
+
+    def supervise(name, proc, hb):
+        verdicts = []
+        try:
+            rc = watch_child(proc, hb, policy=policy, poll=CHILD_POLL_SEC,
+                             term_grace=10.0, label=f"child {name}",
+                             on_status=lambda v, r: verdicts.append(
+                                 (v, time.monotonic())))
+            out[name] = ("exit", rc, verdicts, time.monotonic())
+        except DeviceStallError as e:
+            out[name] = ("stalled", str(e), verdicts, time.monotonic())
+
+    t0 = time.perf_counter()
+    for name, (extra, iters) in runs.items():
+        hb = os.path.join(tmp, f"child_{name}.hb")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("LGBM_TPU_")}
+        env.update(LGBM_TPU_HEARTBEAT=hb, LGBM_TPU_HEARTBEAT_KA="0.5",
+                   LGBM_TPU_STALL_SEC_ITER=str(CHILD_STALL_SEC), **extra)
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", _CHILD_SRC, x_path, y_path, str(iters),
+             CHILD_DEVICE], env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__))), hb)
+        th = threading.Thread(target=supervise, args=(name, *procs[name]))
+        th.start()
+        threads.append(th)
+    return procs, out, threads, t0
+
+
+def finish_children(children):
+    """Join the supervisors, then end every child still running."""
+    procs, out, threads, t0 = children
+    try:
+        for th in threads:
+            th.join(timeout=240)
+            assert not th.is_alive(), "a supervisor did not return"
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+    return procs, out, time.perf_counter() - t0
+
+
+def check_children(procs, out, seconds):
+    """The healthy child exited 0 after CHILD_ITERS iterations; the hung
+    one was classified STALLED within CHILD_STALL_SEC of its last beat
+    (plus the poll) and ended."""
+    from lightgbm_tpu_torch.robustness import heartbeat
+    kind, rc, verdicts, _ = out["healthy"]
+    assert kind == "exit" and rc == 0, out["healthy"]
+    last = heartbeat.read(procs["healthy"][1])
+    assert (last.phase, last.progress) == ("iter", CHILD_ITERS - 1), last
+    kind, detail, verdicts, ended = out["hang"]
+    stalled_at = [t for v, t in verdicts if v == heartbeat.STALLED]
+    assert kind == "stalled" and stalled_at, out["hang"]
+    frozen = heartbeat.read(procs["hang"][1])
+    assert (frozen.phase, frozen.progress) == ("iter", 1), frozen
+    classified_s, ended_s = stalled_at[0] - frozen.t, ended - frozen.t
+    # the verdict comes one poll after the budget runs out, the
+    # SIGTERM one poll after that (hysteresis), then the child's exit
+    assert classified_s <= CHILD_STALL_SEC + 2 * CHILD_POLL_SEC, \
+        classified_s
+    assert ended_s <= CHILD_STALL_SEC + 3.0, ended_s
+    log(f"phase 16 (e) children on {CHILD_ROWS} rows: healthy rc=0 after "
+        f"{CHILD_ITERS} iterations (last beat {last.phase} "
+        f"{last.progress}); hang child verdicts="
+        f"{[v for v, _ in verdicts]} classified {classified_s!r} s and "
+        f"ended {ended_s!r} s after its last beat (budget "
+        f"{CHILD_STALL_SEC} s, poll {CHILD_POLL_SEC} s), exit code "
+        f"{procs['hang'][0].returncode}; seconds={seconds!r} (beside (c) "
+        "and (f))")
+
+
+def phase_robustness_cross_check():
+    """(f) cuda against the CPU on ROBUST_SMALL_ROWS rows, 31 leaves:
+    GOSS drawn on the device chain (auto on the card, true on the CPU:
+    the same bags), and a run killed at its second checkpoint write and
+    resumed to ROBUST_SMALL_ROUNDS (the bags its restored sampler draws);
+    the CPU launching no kernel, the trees to the binary standard.
+    Returns the cuda runs' launches."""
+    import os
+    import tempfile
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.models.sample_strategy import BaggingStrategy
+    from lightgbm_tpu_torch.robustness import faults
+    X, y = synth_higgs(ROBUST_SMALL_ROWS, N_FEATURES, seed=16)
+    Xd = X.astype(np.float64)
+    counts = {}
+    tc = time.perf_counter()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = bench_params(num_leaves=31, device_type=dev,
+                              **ROBUST_GOSS)
+        if dev == "cpu":
+            params["tpu_async_boosting"] = "true"
+        reset_counts()
+        bst = lgt.Booster(params, lgt.Dataset(X, label=y))
+        bags = record_bags(bst._engine)
+        for _ in range(ROBUST_SMALL_ROUNDS):
+            assert not bst.update(), dev
+        assert bst._engine._goss_dev_used, dev
+        out[dev] = (bst, bags, read_counts())
+    (cb, cbags, cc), (pb, pbags, pc) = out["cuda"], out["cpu"]
+    assert all(np.array_equal(a, b) for a, b in zip(cbags, pbags))
+    assert cc["hist_rowmajor_f32"] > 0 and sum(pc.values()) == 0, (cc, pc)
+    amp = sampling_grad_max(ROBUST_GOSS)
+    assert_trees_to_binary_standard(cb, pb, Xd, pbags, 0.5, amp, 0.25 * amp,
+                                    "phase 16 cross-check goss async")
+    counts["cross_check_goss_async"] = cc
+    log(f"phase 16 (f) cross-check goss async: bags equal, trees to the "
+        f"binary standard, cuda_launches={nonzero(cc)} "
+        f"seconds={time.perf_counter() - tc!r}")
+
+    tc = time.perf_counter()
+    resumed = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            params = bench_params(num_leaves=31, device_type=dev,
+                                  **ROBUST_CKPT)
+            ck = os.path.join(tmp, dev)
+            reset_counts()
+            with faults.inject("write_kill:after=1:n=1"):
+                try:
+                    lgt.train(dict(params), lgt.Dataset(X, label=y),
+                              num_boost_round=ROBUST_SMALL_ROUNDS,
+                              callbacks=[lgt.checkpoint_callback(ck)])
+                    raise AssertionError("write_kill did not fire")
+                except faults.WriteKilled:
+                    pass
+            resumed[dev] = (lgt.train(dict(params), lgt.Dataset(X, label=y),
+                                      num_boost_round=ROBUST_SMALL_ROUNDS,
+                                      resume_from=ck), read_counts())
+    (cb, cc), (pb, pc) = resumed["cuda"], resumed["cpu"]
+    assert cc["hist_rowmajor_f32"] > 0 and sum(pc.values()) == 0, (cc, pc)
+    strat = BaggingStrategy(lgt.Config(bench_params(**ROBUST_CKPT)),
+                            ROBUST_SMALL_ROWS, 1)
+    bags = [strat.sample(i)[0] > 0 for i in range(ROBUST_SMALL_ROUNDS)]
+    assert_trees_to_binary_standard(cb, pb, Xd, bags, 0.1, 1.0, 0.25,
+                                    "phase 16 cross-check resumed")
+    counts["cross_check_resumed"] = cc
+    log(f"phase 16 (f) cross-check resumed (killed at write 2, resumed to "
+        f"{ROBUST_SMALL_ROUNDS}): trees to the binary standard, "
+        f"cuda_launches={nonzero(cc)} seconds={time.perf_counter() - tc!r}")
+    return counts
+
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
@@ -4126,13 +4616,17 @@ def main():
     log(f"phase 9 done at {time.perf_counter() - t:.1f} s")
     surface_runs = phase_user_surface(bst, ds, X, main_run["binning_s"])
     log(f"phase 11 done at {time.perf_counter() - t:.1f} s")
-    sampling_runs = phase_sampling(ds, X, main_run["median_iter_s"])
+    sampling_runs, sampling_medians = phase_sampling(
+        ds, X, main_run["median_iter_s"])
     log(f"phase 12 done at {time.perf_counter() - t:.1f} s")
     pool_runs = phase_sparse_on_phase4_rows(ds, X, main_run["median_iter_s"])
     log(f"phase 14 on phase 4's rows done at {time.perf_counter() - t:.1f} s")
     constraint_launches, constraint_totals = phase_constraints(
         bst, ds, X, main_run["median_iter_s"])
     log(f"phase 15 done at {time.perf_counter() - t:.1f} s")
+    robust_launches, robust_totals = phase_robustness(
+        ds, X, main_run["median_iter_s"], sampling_medians["goss"])
+    log(f"phase 16 done at {time.perf_counter() - t:.1f} s")
     del bst, ds, X
     gc.collect()
     cat_runs, cat_totals = phase_categorical(main_run["median_iter_s"])
@@ -4143,9 +4637,9 @@ def main():
         key = k.split("_", 2)[2]
         sparse_totals[key] = sparse_totals.get(key, 0) + v
     later = {k: cat_totals.get(k, 0) + sparse_totals.get(k, 0)
-             + constraint_totals.get(k, 0)
+             + constraint_totals.get(k, 0) + robust_totals.get(k, 0)
              for k in set(cat_totals) | set(sparse_totals)
-             | set(constraint_totals)}
+             | set(constraint_totals) | set(robust_totals)}
     rank_runs = phase_ranking()
     log(f"phase 10 done at {time.perf_counter() - t:.1f} s")
     phase_cross_check()
@@ -4190,6 +4684,8 @@ def main():
         + " by mode: " + json.dumps(nonzero(sparse_totals)))
     log("phase 15 launches by run: " + json.dumps(constraint_launches)
         + " by mode: " + json.dumps(nonzero(constraint_totals)))
+    log("phase 16 launches by run: " + json.dumps(robust_launches)
+        + " by mode: " + json.dumps(nonzero(robust_totals)))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,17 +8,26 @@ points run on ``cuda`` unless the parameters say ``device_type="cpu"``;
 on the CPU each kernel's plain PyTorch version runs instead. A model
 loaded from a file or string, or unpickled, predicts on the device its
 ``params`` name, by the same rule.
+
+``LGBM_TPU_FAULTS`` installs its fault plan at import, as in the JAX
+package (``robustness/faults.py``); ``LGBM_TPU_HEARTBEAT`` is read when a
+Booster sets up training (``robustness/heartbeat.py``).
 """
-from . import callback
+from . import callback, robustness
 from .basic import Booster, Dataset
-from .callback import (early_stopping, log_evaluation, record_evaluation,
-                       reset_parameter)
+from .callback import (checkpoint_callback, early_stopping, log_evaluation,
+                       record_evaluation, reset_parameter)
 from .config import Config
 from .engine import CVBooster, cv, train
 from .io.sequence import Sequence
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "LGBMClassifier",
-           "LGBMModel", "LGBMRanker", "LGBMRegressor", "callback", "cv",
-           "early_stopping", "log_evaluation", "record_evaluation",
-           "reset_parameter", "Sequence", "train"]
+           "LGBMModel", "LGBMRanker", "LGBMRegressor", "callback",
+           "checkpoint_callback", "cv", "early_stopping", "log_evaluation",
+           "record_evaluation", "reset_parameter", "robustness", "Sequence",
+           "train"]
+
+# opt-in fault injection for any importing process (children that
+# inherit the variable included)
+robustness.faults.install_from_env()

@@ -3,9 +3,10 @@
 Copy of ``lightgbm_tpu/callback.py`` (ref: python-package/lightgbm/
 callback.py: CallbackEnv :65, EarlyStopException :40, log_evaluation
 :109, record_evaluation :183, reset_parameter :254, early_stopping
-:462). ``checkpoint_callback`` is not ported (ROADMAP A12.7). Under
-``cv`` the model is the ``CVBooster``, which passes ``reset_parameter``
-on to every fold's Booster.
+:462) and ``checkpoint_callback`` (the JAX package's callback.py:126,
+over ``robustness/checkpoint.py``). Under ``cv`` the model is the
+``CVBooster``, which passes ``reset_parameter`` on to every fold's
+Booster.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from typing import Callable, Dict, List, Tuple, Union
 from .utils import log
 
 __all__ = ["EarlyStopException", "CallbackEnv", "log_evaluation",
-           "record_evaluation", "reset_parameter", "early_stopping"]
+           "record_evaluation", "reset_parameter", "early_stopping",
+           "checkpoint_callback"]
 
 
 class EarlyStopException(Exception):
@@ -230,4 +232,63 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
             _final_iteration_check(env, eval_name_splitted, i)
 
     _callback.order = 30  # type: ignore
+    return _callback
+
+
+def checkpoint_callback(directory: str, every_n: int = 1,
+                        keep_last: int = 3) -> Callable:
+    """Atomically checkpoint the FULL training state every ``every_n``
+    iterations (and at the last), keeping the newest ``keep_last``
+    checkpoints (ref: the JAX package's callback.py:126).
+
+    Each checkpoint (robustness/checkpoint.py) carries the model string
+    plus loop state — iteration, best_iteration/best_score, the eval
+    history accumulated so far, and the bagging/column RNG snapshots —
+    and is written atomically (tmp + fsync + rename, CRC32 footer), so
+    a kill at any byte leaves the previous checkpoints intact. Resume
+    with ``train(..., resume_from=directory)``: the newest CRC-valid
+    checkpoint is selected and training continues bit-identically to an
+    uninterrupted run.
+
+    Early-stopping state is NOT part of the contract: the
+    early_stopping callback re-initializes at the resume point, so a
+    resumed run may stop later than the uninterrupted one when a crash
+    lands inside the patience window. ``cv`` folds are not checkpointed.
+    """
+    if every_n <= 0:
+        raise ValueError("every_n must be greater than zero")
+    if keep_last <= 0:
+        raise ValueError("keep_last must be greater than zero")
+    from .robustness import checkpoint as _ckpt
+
+    eval_history: Dict[str, Dict[str, List[float]]] = {}
+    warned_cv = [False]
+
+    def _callback(env: CallbackEnv) -> None:
+        for item in env.evaluation_result_list or []:
+            eval_history.setdefault(item[0], collections.OrderedDict()) \
+                .setdefault(item[1], []).append(item[2])
+        it = env.iteration + 1
+        if it % every_n != 0 and env.iteration != env.end_iteration - 1:
+            return
+        if hasattr(env.model, "boosters"):      # a cv() CVBooster
+            if not warned_cv[0]:
+                warned_cv[0] = True
+                log.warning("checkpoint_callback only supports "
+                            "train() Boosters; skipping (cv() folds "
+                            "are not checkpointed)")
+            return
+        state = _ckpt.booster_state(env.model, it, eval_history)
+        # keep_last lets a full disk prune and retry once, as the
+        # retention below would prune anyway
+        path = _ckpt.write_checkpoint(directory, state, keep_last=keep_last)
+        _ckpt.prune_checkpoints(directory, keep_last)
+        log.debug(f"checkpoint written: {path}")
+
+    def _seed(state: Dict) -> None:
+        eval_history.clear()
+        eval_history.update(state.get("eval_history") or {})
+
+    _callback.order = 100  # type: ignore
+    _callback._ckpt_seed_state = _seed  # type: ignore
     return _callback

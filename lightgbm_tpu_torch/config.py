@@ -11,8 +11,13 @@ Differences from the JAX package's copy: ``device_type`` defaults to
 ``"cuda"`` and accepts ``"cuda"`` or ``"cpu"``; the ``tpu_*`` names stay
 registered so one params dict drives both packages. The port reads
 ``tpu_row_scheduling`` (compact, full, leaf or level), ``tpu_hist_dtype``,
-``tpu_level_handoff_depth``, ``tpu_device_bagging`` and
-``tpu_predict_device``; it accepts and
+``tpu_level_handoff_depth``, ``tpu_device_bagging``,
+``tpu_predict_device``, ``tpu_async_boosting`` (auto, on for the card:
+GOSS draws on the device, the JAX package's asynchronous draw, so a GOSS
+model under it differs from the synchronous one, as in the JAX package;
+every other model is the synchronous one), ``tpu_heartbeat_file``,
+``tpu_stall_sec``, ``tpu_integrity_numeric_guard`` and
+``tpu_integrity_loss_spike_factor``; it accepts and
 ignores ``tpu_hist_kernel``, ``tpu_use_pallas`` and ``tpu_rows_per_block``
 (every value runs the port's hand kernels) and ``tpu_predict_buckets``
 (it pads no request; see models/gbdt.py), and refuses the settings it cannot honour yet (see
@@ -20,14 +25,14 @@ ignores ``tpu_hist_kernel``, ``tpu_use_pallas`` and ``tpu_rows_per_block``
 
 These knobs are accepted and ignored without changing the model: they
 tune how the JAX package lays out or schedules work on a TPU, and the
-port's kernels and synchronous loop have no counterpart of them:
+port's kernels and loop have no counterpart of them:
 ``tpu_packed_bins``, ``tpu_partition_mode`` and ``tpu_min_bucket`` (bin
 packing, the segment partition and its pow2 buckets),
-``tpu_async_boosting`` (the JAX package's asynchronous boosting gives
-the synchronous models bit for bit), ``tpu_donate_state`` and
-``tpu_stop_check_interval`` (buffer donation and the asynchronous stop
-check), ``tpu_compile_cache_dir`` and ``tpu_profile_dir`` (XLA's compile
-cache and profiler).
+``tpu_donate_state`` and ``tpu_stop_check_interval`` (buffer donation
+and the batched stop check of the JAX package's queue of device trees,
+which the port's grower, returning host trees, has no need of),
+``tpu_compile_cache_dir`` and ``tpu_profile_dir`` (XLA's compile cache
+and profiler).
 """
 from __future__ import annotations
 
@@ -474,8 +479,6 @@ _UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {
     # the JAX package loads such a file through its two-round loader,
     # whose sample gives other bin bounds than the in-memory load
     "two_round": (bool, "A15"),
-    "tpu_integrity_numeric_guard": (bool, "A12.7"),
-    "tpu_heartbeat_file": (bool, "A12.7"),
 }
 
 

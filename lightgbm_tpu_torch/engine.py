@@ -12,9 +12,12 @@ Booster a fold, each on a ``Dataset.subset`` of the rows with the rest as
 its validation set, in lock step, and aggregates each metric's mean and
 standard deviation over the folds each round. A callable
 ``params["objective"]`` is the custom objective: it gives each
-iteration's gradients (``Booster.update(fobj=)``). Refused, each naming
-its ROADMAP item: ``resume_from`` (A12.7) and ``tpu_fallback_to_cpu``,
-which the port never honours: it does not fall back from the card.
+iteration's gradients (``Booster.update(fobj=)``). ``resume_from``
+continues from the newest CRC-valid checkpoint that
+``callback.checkpoint_callback`` wrote (the JAX package's
+engine.py:97-180; its gang-manifest branch waits for the distributed
+learners, ROADMAP A13). ``tpu_fallback_to_cpu`` is refused: the port
+does not fall back from the card.
 """
 from __future__ import annotations
 
@@ -47,10 +50,7 @@ def _pop_callable_objective(params: Dict[str, Any]) -> Optional[Callable]:
     return obj
 
 
-def _refuse_unported(params: Dict[str, Any], resume_from) -> None:
-    if resume_from is not None:
-        log.fatal("resume_from (checkpoint resume) is not ported yet "
-                  "(ROADMAP A12.7)")
+def _refuse_unported(params: Dict[str, Any]) -> None:
     if str(params.get("tpu_fallback_to_cpu", "")).lower() in \
             ("1", "true", "yes", "on"):
         log.fatal("tpu_fallback_to_cpu: the port does not fall back from "
@@ -85,10 +85,20 @@ def train(params: Dict[str, Any], train_set: Dataset,
           keep_training_booster: bool = False,
           callbacks: Optional[List[Callable]] = None,
           resume_from: Optional[str] = None) -> Booster:
-    """Train one model; returns the Booster (ref: engine.py:109)."""
+    """Train one model; returns the Booster (ref: engine.py:109).
+
+    ``resume_from``: a directory of checkpoints written by
+    ``callback.checkpoint_callback``. The newest CRC-valid checkpoint is
+    loaded (corrupt or partial files are skipped with a warning) and
+    wins over ``init_model``; training continues from its iteration,
+    with its samplers' RNG states, so the run equals an uninterrupted
+    one. ``num_boost_round`` is the TOTAL round target, so the same
+    call can be re-run verbatim after a crash; a checkpoint already at
+    it returns at once. With no valid checkpoint, training starts
+    fresh."""
     params = copy.deepcopy(params) if params else {}
     fobj = _pop_callable_objective(params)
-    _refuse_unported(params, resume_from)
+    _refuse_unported(params)
     for alias in _ConfigAliases.get("num_iterations"):
         if alias in params:
             num_boost_round = int(params.pop(alias))
@@ -100,6 +110,23 @@ def train(params: Dict[str, Any], train_set: Dataset,
         raise ValueError("num_boost_round must be greater than 0")
     if not isinstance(train_set, Dataset):
         raise TypeError("train() only accepts Dataset object")
+
+    resumed_state = None
+    if resume_from:
+        from .robustness.checkpoint import latest_valid_checkpoint
+        found = latest_valid_checkpoint(resume_from)
+        if found is not None:
+            ckpt_path, resumed_state = found
+            if init_model is not None:
+                log.warning("resume_from checkpoint found; ignoring "
+                            "init_model")
+            init_model = Booster(params=params,
+                                 model_str=resumed_state["model"])
+            log.info(f"Resuming from checkpoint {ckpt_path} "
+                     f"(iteration {resumed_state['iteration']})")
+        else:
+            log.info(f"resume_from={resume_from!r}: no valid "
+                     "checkpoint; starting fresh")
 
     train_set._update_params(params).construct()
     if isinstance(init_model, str):
@@ -126,6 +153,25 @@ def train(params: Dict[str, Any], train_set: Dataset,
     for alias in _ConfigAliases.get("verbosity"):
         if params.get(alias) is not None:
             verbosity = int(params[alias])
+    if resumed_state is not None:
+        from .robustness.checkpoint import restore_into_booster
+        restore_into_booster(booster, resumed_state)
+        done = int(resumed_state.get("iteration",
+                                     booster.current_iteration()))
+        # hand the persisted eval history back to the checkpoint
+        # callback, so later checkpoints carry the whole run's history
+        for cb in callbacks or []:
+            seed = getattr(cb, "_ckpt_seed_state", None)
+            if seed is not None:
+                seed(resumed_state)
+        if num_boost_round - done <= 0:
+            log.info(f"checkpoint already at iteration {done} >= "
+                     f"num_boost_round={num_boost_round}; nothing to "
+                     "train")
+            if not keep_training_booster:
+                booster.free_dataset()
+            return booster
+        num_boost_round -= done
     callbacks_before, callbacks_after = _sorted_callbacks(
         callbacks, early_stopping_round, params, verbose=verbosity >= 1)
 
@@ -309,7 +355,7 @@ def cv(params: Dict[str, Any], train_set: Dataset,
     if not isinstance(train_set, Dataset):
         raise TypeError("cv() only accepts Dataset object")
     fobj = _pop_callable_objective(params)
-    _refuse_unported(params, None)
+    _refuse_unported(params)
     for alias in _ConfigAliases.get("num_iterations"):
         if alias in params:
             num_boost_round = int(params.pop(alias))

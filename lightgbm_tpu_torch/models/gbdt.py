@@ -1,10 +1,10 @@
 """Gradient boosting engine, serial path.
 
 Port of ``lightgbm_tpu/models/gbdt.py`` ``GBDT`` (ref:
-src/boosting/gbdt.h:28, gbdt.cpp:353 TrainOneIter): a serial,
-synchronous run, no guards or fault sites. An iteration grows K trees, one per
-class (K = 1 but for the multiclass objectives and a custom objective
-with ``num_class`` > 1), each through the same grower, from gradients
+src/boosting/gbdt.h:28, gbdt.cpp:353 TrainOneIter), serial. An
+iteration grows K trees, one per class (K = 1 but for the multiclass
+objectives and a custom objective with ``num_class`` > 1), each through
+the same grower, from gradients
 computed once over the whole ``[K, N]`` score before any of them is
 added; the L1, quantile and MAPE objectives then refit each tree's leaves
 on the host. The grower is the compact leaf-wise one
@@ -32,6 +32,19 @@ physical rows. Column sampling (``feature_fraction``, per tree, and
 ``feature_fraction_bynode``, per node) masks features out of the split
 scan. ``models/dart.py`` and ``models/rf.py`` subclass the engine;
 ``models/__init__.create_boosting`` picks one by ``boosting``.
+
+``tpu_async_boosting`` (``_async_on``; auto is on for the card) draws
+GOSS on the device from a stateless threefry chain, so no ``[K, N]``
+gradient reaches the host; the grower returns host trees either way, so
+nothing else differs from the synchronous path. Each iteration runs in
+a liveness shell (``robustness/``): the ``rank_kill`` site, a heartbeat
+(``tpu_heartbeat_file`` or ``LGBM_TPU_HEARTBEAT``; phase ``compiling``
+until the first iteration, which builds the kernels, ends) and the stall
+watchdog (``tpu_stall_sec``). Under ``tpu_integrity_numeric_guard`` the
+gradients' sums are checked before any tree grows (the ``nan_grad``
+site poisons them) and each tree's leaves before it is appended.
+``rng_snapshot`` / ``restore_rng`` carry the host samplers' states
+through a checkpoint.
 
 Prediction on the device (``predict_device``) goes through the
 packed-forest engine of ``ops/forest.py``; the model list bumps a
@@ -78,6 +91,7 @@ from ..ops.forest import (BinnedTreeArrays, DeviceRouteUnavailable,
 from ..ops.hist_cuda import device_bins, feature_major_bins
 from ..ops.predict import depth_steps, forest_leaf_bins
 from ..ops.split import K_EPSILON, FeatureMeta, SplitHyperParams
+from ..robustness import faults, heartbeat, integrity
 from ..utils import log, prng
 from .sample_strategy import SampleStrategy
 
@@ -197,6 +211,16 @@ class GBDT:
                                        if objective is not None
                                        else int(config.num_class))
         self.device: Optional[torch.device] = None
+        # tpu_async_boosting, resolved at the first iteration
+        # (_async_on), and whether a GOSS draw came from the device chain
+        self._async_mode: Optional[bool] = None
+        self._goss_dev_used = False
+        # liveness: the first iteration is the compiling phase (the
+        # kernels build at their first launch); the stall policy and the
+        # numeric guard are set up with the training data
+        self._hb_warm = False
+        self._hb_policy = None
+        self._nguard: Optional[integrity.NumericHealthGuard] = None
         if train_set is not None:
             self._setup_train(train_set)
 
@@ -223,6 +247,7 @@ class GBDT:
             log.fatal("the port does not implement these settings yet: "
                       + ", ".join(bad))
         dev = self.device = resolve_device(cfg)
+        self._setup_liveness()
         self.num_data = train.num_data
         self.max_feature_idx = train.num_total_features - 1
         self.feature_names = list(train.feature_names)
@@ -363,6 +388,26 @@ class GBDT:
         self._setup_cegb(train)
         self._grow = (self._make_grower()
                       if self.feature_meta is not None else None)
+
+    def _setup_liveness(self) -> None:
+        """The process heartbeat from ``tpu_heartbeat_file`` or, without
+        it, ``LGBM_TPU_HEARTBEAT``, and the stall policy from the
+        environment with ``tpu_stall_sec`` over every phase (ref: the
+        JAX package's models/gbdt.py:670-696). The port trains one rank,
+        so the file is the base path itself."""
+        import os
+        cfg = self.config
+        hb_path = str(cfg.tpu_heartbeat_file) or \
+            (os.environ.get(heartbeat.ENV_HEARTBEAT) or "").strip()
+        if hb_path:
+            heartbeat.install(hb_path)
+        policy = heartbeat.StallPolicy.from_env()
+        if float(cfg.tpu_stall_sec or 0.0) > 0.0:
+            s = float(cfg.tpu_stall_sec)
+            policy = dataclasses.replace(
+                policy, stall_sec={p: s for p in policy.stall_sec},
+                default_stall=s)
+        self._hb_policy = policy
 
     def _constraint_meta(self, train: BinnedDataset):
         """``(monotone, mc_method, feature_contri)``: the monotone
@@ -784,15 +829,67 @@ class GBDT:
         grad, hess = obj.get_gradients(self.score)
         return init_scores, grad, hess
 
-    def _row_sample(self, grad: torch.Tensor, hess: torch.Tensor
+    def _async_on(self) -> bool:
+        """Whether ``tpu_async_boosting`` applies, resolved once with the
+        JAX package's conditions word for word (ref: models/gbdt.py
+        357-396): plain GBDT with an objective, no linear leaves, no
+        CEGB, no quantized or objective leaf renewal, no position bias,
+        a sampler that reads no gradients or draws on the device (GOSS's
+        ``sample_dev``), and every class trained. ``auto`` is on when the
+        training device is CUDA.
+
+        The JAX package's asynchronous loop keeps grown trees on the
+        device and materializes them later; the port's grower already
+        returns host trees, so asynchronous here means what changes the
+        model and what saves a read: GOSS draws on the device from the
+        stateless chain ``fold_in(PRNGKey(bagging_seed), iter)``, and no
+        ``[K, N]`` gradient reaches the host. Every other result is the
+        synchronous path's."""
+        if self._async_mode is None:
+            mode = str(self.config.tpu_async_boosting).lower()
+            want = (self.device is not None and self.device.type == "cuda"
+                    if mode == "auto"
+                    else mode in ("true", "1", "yes", "on"))
+            obj = self.objective
+            self._async_mode = bool(
+                want and self.NAME == "gbdt"
+                and self._grow is not None
+                and obj is not None
+                and not self._linear
+                and not self._cegb_enabled
+                and not (self.grower_cfg.quantized and
+                         self.config.quant_train_renew_leaf)
+                and not obj.is_renew_tree_output()
+                and not getattr(obj, "uses_position_bias", False)
+                and (not self.sample_strategy.needs_grad or
+                     hasattr(self.sample_strategy, "sample_dev"))
+                and all(self.class_need_train))
+            if want and not self._async_mode:
+                log.info("tpu_async_boosting: falling back to the "
+                         "synchronous path (a per-iteration host step is "
+                         "required by the active features)")
+        return self._async_mode
+
+    def _row_sample(self, grad: torch.Tensor, hess: torch.Tensor,
+                    on_device: bool = False
                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """This iteration's ``(bag, weight)`` as f32 ``[N]`` on the
         training device, or None (ref: the JAX package's models/gbdt.py
-        2251-2290, its sync path). Only GOSS reads the gradients (one
-        ``[K, N]`` read to the host); ``tpu_device_bagging`` draws on the
-        device; the other samplers draw on the host and the mask is
-        uploaded once (bagging returns one array as both)."""
+        2251-2290 and 589-611). GOSS draws on the device under
+        asynchronous boosting (``on_device``), and so does every later
+        iteration once it has (a synchronous iteration re-derives the
+        same stateless draw); else it reads the ``[K, N]`` gradients to
+        the host once. ``tpu_device_bagging`` draws on the device; the
+        other samplers draw on the host and the mask is uploaded once
+        (bagging returns one array as both)."""
         strat = self.sample_strategy
+        if strat.needs_grad and (on_device or self._goss_dev_used):
+            pair = strat.sample_dev(
+                self.iter, grad, hess, prng.fold_in(self._bag_key,
+                                                    self.iter))
+            if pair is not None:
+                self._goss_dev_used = True
+            return pair
         if strat.needs_grad:
             pair = strat.sample(self.iter, grad.cpu().numpy(),
                                 hess.cpu().numpy())
@@ -865,13 +962,112 @@ class GBDT:
 
     def train_one_iter(self, gradients: Optional[np.ndarray] = None,
                        hessians: Optional[np.ndarray] = None) -> bool:
-        """One boosting iteration (ref: gbdt.cpp:353 TrainOneIter): K
-        trees, one per class, each through the same grower, from one row
-        sample. Returns True when training should stop (no more valid
-        splits)."""
+        """One boosting iteration (ref: gbdt.cpp:353 TrainOneIter).
+        Returns True when training should stop (no more valid splits).
+
+        The liveness shell around the body (ref: the JAX package's
+        models/gbdt.py:2164-2200): the ``rank_kill`` site, a beat, and
+        the stall watchdog armed while the iteration is in flight, so a
+        Python-level wait that never ends surfaces as
+        ``DeviceStallError`` (the watchdog's interrupt arrives as a
+        ``KeyboardInterrupt``, which is mapped to it; a real Ctrl-C with
+        no stall armed propagates untouched)."""
+        faults.maybe_kill_rank(0)
+        wd = self._hb_iter_begin()
+        try:
+            done = self._train_one_iter_body(
+                gradients, hessians,
+                gradients is None and hessians is None and self._async_on())
+            self._hb_warm = True
+            return done
+        except KeyboardInterrupt:
+            if wd is not None:
+                wd.check()
+            raise
+        finally:
+            if wd is not None:
+                wd.end()
+
+    def _hb_iter_begin(self):
+        """Beat the process heartbeat and arm the stall watchdog for one
+        iteration (ref: the JAX package's models/gbdt.py:2067-2082). The
+        phase is ``compiling`` until the first iteration completed (the
+        kernels build at their first launch, inside it), then ``iter``
+        with the iteration counter. Returns the armed watchdog, None
+        when unsupervised."""
+        hb = heartbeat.current()
+        if hb is None:
+            return None
+        wd = heartbeat.training_watchdog(self._hb_policy)
+        wd.check()                  # a stall armed while we were away
+        wd.begin()
+        self._hb_sync_beat()
+        return wd
+
+    def _hb_sync_beat(self) -> None:
+        """Beat right before a blocking device read, so the beat age a
+        watchdog or supervisor measures starts at the read."""
+        hb = heartbeat.current()
+        if hb is not None:
+            hb.beat(heartbeat.PHASE_ITER if self._hb_warm
+                    else heartbeat.PHASE_COMPILING, self.iter)
+
+    def _numeric_guard(self) -> Optional[integrity.NumericHealthGuard]:
+        """The numeric-health guard under ``tpu_integrity_numeric_guard``
+        (off by default), built at first use with
+        ``tpu_integrity_loss_spike_factor`` (ref: the JAX package's
+        models/gbdt.py:2094-2113)."""
+        if not self.config.tpu_integrity_numeric_guard:
+            return None
+        if self._nguard is None:
+            self._nguard = integrity.NumericHealthGuard(
+                spike_factor=float(
+                    self.config.tpu_integrity_loss_spike_factor),
+                what="training")
+        return self._nguard
+
+    def _guard_sums(self, grad: torch.Tensor, hess: torch.Tensor
+                    ) -> Tuple[float, float, float]:
+        """(sum g, sum h, mean |g|) over ``[K, N]``: one reduction over
+        the three stacked and one copy of three f32 scalars to the host,
+        the guard's whole device cost (ref: the JAX package's
+        models/gbdt.py:2115-2125). mean |g| is the loss proxy the spike
+        check watches."""
+        sums = torch.stack((grad, hess, grad.abs())).sum(dim=(1, 2))
+        gs, hs, ga = sums.cpu().tolist()
+        return gs, hs, ga / grad.numel()
+
+    def _check_gradients(self, grad: torch.Tensor, hess: torch.Tensor
+                         ) -> torch.Tensor:
+        """The ``nan_grad`` site and the guard, before any tree grows
+        (ref: the JAX package's models/gbdt.py:2229-2245): the site
+        poisons one gradient with NaN; the armed guard refuses
+        non-finite sums and a spike of the loss proxy."""
+        if faults.check("nan_grad"):
+            log.warning("fault injection: poisoning this iteration's "
+                        "gradient stream with NaN (silent data "
+                        "corruption)")
+            grad = grad.clone()
+            grad[0, 0] = float("nan")
+        guard = self._numeric_guard()
+        if guard is not None:
+            self._hb_sync_beat()
+            gsum, hsum, gabs = self._guard_sums(grad, hess)
+            guard.check_gradients(gsum, hsum, self.iter)
+            guard.observe_loss(gabs, self.iter, what="loss proxy")
+        return grad
+
+    def _train_one_iter_body(self, gradients: Optional[np.ndarray],
+                             hessians: Optional[np.ndarray],
+                             on_device: bool) -> bool:
+        """The boosting iteration: K trees, one per class, each through
+        the same grower, from one row sample (GOSS drawn on the device
+        when ``on_device``)."""
         K = self.num_tree_per_iteration
         init_scores, grad, hess = self._gradients(gradients, hessians)
-        sample = self._row_sample(grad, hess)
+        grad = self._check_gradients(grad, hess)
+        sample = self._row_sample(grad, hess, on_device)
+        guard = self._numeric_guard()
         should_continue = False
         for k in range(K):
             if not self.class_need_train[k] or self._grow is None:
@@ -952,6 +1148,9 @@ class GBDT:
                                                   vd.dataset.raw)
             if abs(init_scores[k]) > K_EPSILON:
                 host.add_bias(init_scores[k])
+            if guard is not None:
+                guard.check_leaves(host.leaf_value[:host.num_leaves],
+                                   self.iter)
             self.models.append(host)
 
         if not should_continue:
@@ -1287,6 +1486,33 @@ class GBDT:
 
     def current_iteration(self) -> int:
         return len(self.models) // max(self.num_tree_per_iteration, 1)
+
+    def rng_snapshot(self) -> dict:
+        """JSON-serializable states of the host generators that advance
+        per iteration or tree, the row sampler's and the column
+        sampler's (ref: the JAX package's models/gbdt.py:2609-2622).
+        Restored before the next iteration (``restore_rng``), a resumed
+        run draws the masks an uninterrupted run would have; the device
+        draws (GOSS under asynchronous boosting, ``tpu_device_bagging``)
+        are stateless ``fold_in(key, iter)`` chains and need none."""
+        samp = getattr(self.sample_strategy, "rng", None)
+        col = getattr(self, "_col_rng", None)
+        return {
+            "sampler": samp.bit_generator.state if samp is not None
+            else None,
+            "col": col.bit_generator.state if col is not None else None,
+        }
+
+    def restore_rng(self, snapshot: dict) -> None:
+        """Inverse of ``rng_snapshot``; missing entries are left alone."""
+        if not snapshot:
+            return
+        samp = getattr(self.sample_strategy, "rng", None)
+        if samp is not None and snapshot.get("sampler"):
+            samp.bit_generator.state = snapshot["sampler"]
+        if snapshot.get("col") and getattr(self, "_col_rng", None) \
+                is not None:
+            self._col_rng.bit_generator.state = snapshot["col"]
 
 
 def sampled_gh(g: torch.Tensor, h: torch.Tensor,

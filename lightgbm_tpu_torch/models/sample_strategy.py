@@ -16,7 +16,9 @@ The host samplers draw with numpy's ``default_rng(bagging_seed)`` in the
 JAX package's order, so a run on the card draws the masks a CPU run (and
 the JAX package) draws. ``BaggingStrategy.sample_dev`` is the sync-path
 half of ``tpu_device_bagging``: per-row uniforms from the threefry chain
-of ``utils/prng.py``, drawn on the training device.
+of ``utils/prng.py``, drawn on the training device. ``GOSSStrategy.
+sample_dev`` is asynchronous boosting's GOSS draw, all of it on the
+training device from the same chain.
 """
 from __future__ import annotations
 
@@ -152,8 +154,9 @@ class GOSSStrategy(SampleStrategy):
     """Gradient-based one-side sampling (ref: goss.hpp:19): keep the top
     ``top_rate`` rows by sum_k |g_k * h_k|, randomly keep ``other_rate`` of
     the rest with g/h amplified by (n - top_k)/other_k. Starts after
-    1/learning_rate iterations (ref: goss.hpp:33). The JAX package's
-    device draw serves only its asynchronous boosting (ROADMAP A12.7)."""
+    1/learning_rate iterations (ref: goss.hpp:33). ``sample`` draws on
+    the host; ``sample_dev`` on the device, under asynchronous
+    boosting."""
 
     needs_grad = True
 
@@ -171,7 +174,7 @@ class GOSSStrategy(SampleStrategy):
 
     def _policy(self, it):
         """(top_k, other_k, multiply), or None during the 1/learning_rate
-        warm-up (ref: goss.hpp:19-45)."""
+        warm-up (ref: goss.hpp:19-45): the one policy of both draws."""
         cfg = self.config
         if it < int(1.0 / cfg.learning_rate):
             return None
@@ -179,6 +182,42 @@ class GOSSStrategy(SampleStrategy):
         top_k = max(1, int(n * cfg.top_rate))
         other_k = max(1, int(n * cfg.other_rate))
         return top_k, other_k, (n - top_k) / other_k
+
+    def sample_dev(self, it: int, grad: torch.Tensor, hess: torch.Tensor,
+                   key) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """GOSS on the gradients' device, the JAX package's ``sample_dev``
+        bit for bit (ref: models/sample_strategy.py:185-223): ``sum_k
+        |g h|`` in f32, the classes added in order; the threshold is the
+        top_k-th largest value (``lax.top_k(g, top_k)[0][-1]``); the
+        rest are kept where the threefry uniforms of ``key`` fall under
+        the f32 ``min(1, other_k / n_rest)``, and weighted by the f32
+        ``multiply``. A stateless draw, not the host generator's: a
+        GOSS model under asynchronous boosting differs from the
+        synchronous one, as in the JAX package. Nothing is read to the
+        host. Returns f32 ``(selected, weight)`` ``[N]``, or None in the
+        warm-up."""
+        pol = self._policy(it)
+        if pol is None:
+            return None
+        top_k, other_k, multiply = pol
+        dev = grad.device
+        prod = torch.abs(grad * hess)                    # [K, N]
+        g = prod[0]
+        for k in range(1, prod.shape[0]):
+            g = g + prod[k]
+        threshold = torch.topk(g, top_k).values[-1]
+        is_top = g >= threshold
+        rest = ~is_top
+        n_rest = rest.sum().clamp_min(1).to(torch.float32)
+        keep_prob = torch.clamp(
+            torch.tensor(other_k, dtype=torch.float32, device=dev) / n_rest,
+            max=1.0)
+        sampled = rest & (prng.uniform(key, g.shape[0], dev) < keep_prob)
+        sel = (is_top | sampled).to(torch.float32)
+        weight = torch.where(
+            sampled, torch.tensor(multiply, dtype=torch.float32, device=dev),
+            torch.tensor(1.0, dtype=torch.float32, device=dev)) * sel
+        return sel, weight
 
     def sample(self, it, grad=None, hess=None):
         pol = self._policy(it)

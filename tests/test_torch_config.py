@@ -4,7 +4,8 @@ with the ROADMAP item that ports them; the settings the port has ported
 every ``tpu_hist_kernel`` value, DART, random forests, bagging, GOSS,
 column sampling, categorical features, monotone and interaction
 constraints, CEGB, forced splits and bins, ``feature_contri``,
-extra_trees and linear trees) train."""
+extra_trees and linear trees, asynchronous boosting, the heartbeat file,
+the stall budget and the numeric guard) train."""
 import json
 
 import numpy as np
@@ -18,8 +19,6 @@ REFUSED = [
     ("tree_learner", "voting", "A13"),
     ("tree_learner", "data", "A13"),
     ("two_round", True, "A15"),
-    ("tpu_integrity_numeric_guard", True, "A12.7"),
-    ("tpu_heartbeat_file", "heartbeat.json", "A12.7"),
 ]
 
 
@@ -84,6 +83,36 @@ def test_a12_6_settings_train(name, value, tmp_path):
     bst = lgt.train(params, lgt.Dataset(X, label=y, params=params),
                     num_boost_round=2)
     assert np.isfinite(bst.predict(X)).all()
+
+
+# the settings A12.7 ported, once refused (the heartbeat file is made
+# under the test's own directory)
+PORTED_A12_7 = [
+    ("tpu_integrity_numeric_guard", True),
+    ("tpu_heartbeat_file", "heartbeat.json"),
+]
+
+
+@pytest.mark.parametrize("name,value", PORTED_A12_7,
+                         ids=[f"{n}={v}" for n, v in PORTED_A12_7])
+def test_a12_7_settings_train(name, value, tmp_path):
+    from lightgbm_tpu_torch.robustness import heartbeat
+    X, y = _data()
+    if name == "tpu_heartbeat_file":
+        value = str(tmp_path / value)
+    params = {"objective": "binary", "device_type": "cpu", "verbosity": -1,
+              "num_leaves": 7, "tpu_stall_sec": 120.0,
+              "tpu_integrity_loss_spike_factor": 50.0, name: value}
+    assert lgt.Config(params).unsupported_settings() == []
+    try:
+        bst = lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=2)
+    finally:
+        heartbeat.uninstall()
+    assert np.isfinite(bst.predict(X)).all()
+    if name == "tpu_heartbeat_file":
+        assert heartbeat.read(value).phase == "iter"
+    else:
+        assert bst._engine._nguard.spike_factor == 50.0
 
 
 @pytest.mark.parametrize("extra", [

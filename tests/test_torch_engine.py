@@ -395,7 +395,7 @@ def test_device_auc_equals_host_auc_with_ties(rng, weighted):
     assert float(dev) == 1.0
 
 
-@pytest.mark.parametrize("what", ["ranking_objective", "resume_from",
+@pytest.mark.parametrize("what", ["ranking_objective",
                                   "tpu_fallback_to_cpu", "reset_parameter",
                                   "valid_without_reference"])
 def test_unported_training_api_is_refused(rng, what):
@@ -405,14 +405,11 @@ def test_unported_training_api_is_refused(rng, what):
     kw = {}
     # ranking without query data (Dataset(group=)) is refused
     match = {"ranking_objective": "require query information",
-             "resume_from": "A12.7",
              "tpu_fallback_to_cpu": "does not fall back",
              "reset_parameter": "tree_learner.*A13",
              "valid_without_reference": "reference="}[what]
     if what == "ranking_objective":
         params["objective"] = "lambdarank"
-    elif what == "resume_from":
-        kw["resume_from"] = "checkpoints"
     elif what == "tpu_fallback_to_cpu":
         params["tpu_fallback_to_cpu"] = True
     elif what == "valid_without_reference":
@@ -433,6 +430,27 @@ def test_train_on_cuda_without_a_card_raises_for_init_model(rng,
         lgt.train({"objective": "regression", "verbosity": -1},
                   lgt.Dataset(X, label=y), num_boost_round=1,
                   init_model=os.path.join(GOLDEN_DIR, "reg_model.txt"))
+
+
+def test_resume_from_finishes_the_run_as_the_jax_package(rng, tmp_path):
+    """``resume_from`` (once refused, ROADMAP A12.7): a run that stopped
+    after 3 checkpointed rounds, resumed to 5, gives the JAX package's
+    resumed L2 model and the port's own uninterrupted one, string for
+    string."""
+    X, y = _data(rng, "regression")
+    out = {}
+    for pkg in (lgb, lgt):
+        ckdir = str(tmp_path / pkg.__name__)
+        params = _params("regression")
+        pkg.train(params, pkg.Dataset(X, label=y), num_boost_round=3,
+                  callbacks=[pkg.checkpoint_callback(ckdir)])
+        out[pkg] = pkg.train(params, pkg.Dataset(X, label=y),
+                             num_boost_round=5, resume_from=ckdir)
+    full = lgt.train(_params("regression"), lgt.Dataset(X, label=y),
+                     num_boost_round=5)
+    assert out[lgt].current_iteration() == 5
+    assert _trees(out[lgt].model_to_string()) == \
+        _trees(out[lgb].model_to_string()) == _trees(full.model_to_string())
 
 
 def test_dropped_booster_frees_its_engine_without_the_cyclic_collector(rng):

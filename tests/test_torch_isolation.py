@@ -41,8 +41,9 @@ def _imported_modules(path):
 # modules copied from the JAX package that need nothing but numpy, the
 # port's config and its log: each may import only these
 LEAF_MODULES = {
+    # checkpoint_callback writes through the port's robustness package
     "lightgbm_tpu_torch/callback.py": {"__future__", "collections",
-                                       "typing", ".utils"},
+                                       "typing", ".utils", ".robustness"},
     "lightgbm_tpu_torch/io/file_loader.py": {"__future__", "os", "typing",
                                              "numpy", "..config",
                                              "..utils"},
@@ -80,6 +81,50 @@ SPARSE_MODULES = {
                                           ".dataset_core"},
 }
 COPIED_MODULES.update(SPARSE_MODULES)
+
+
+# the training-side robustness modules, copied from the JAX package's
+# robustness/ (jax-free there): the only imports each may have. None
+# imports torch at module level; retry.probe_device imports it when it
+# is called
+ROBUSTNESS_MODULES = {
+    "lightgbm_tpu_torch/robustness/__init__.py": {
+        ".checkpoint", ".faults", ".heartbeat", ".integrity", ".retry",
+        ".supervisor"},
+    "lightgbm_tpu_torch/robustness/faults.py": {
+        "__future__", "os", "random", "threading", "typing", "..utils",
+        "errno", "time", "sys"},
+    "lightgbm_tpu_torch/robustness/checkpoint.py": {
+        "__future__", "errno", "json", "os", "re", "zlib", "typing",
+        "..utils", "."},
+    "lightgbm_tpu_torch/robustness/retry.py": {
+        "__future__", "dataclasses", "random", "time", "typing", "..utils",
+        ".", "torch"},
+    "lightgbm_tpu_torch/robustness/heartbeat.py": {
+        "__future__", "dataclasses", "json", "os", "threading", "time",
+        "typing", "..utils", ".", "_thread"},
+    "lightgbm_tpu_torch/robustness/supervisor.py": {
+        "__future__", "os", "subprocess", "time", "typing", "..utils",
+        ".heartbeat"},
+    "lightgbm_tpu_torch/robustness/integrity.py": {
+        "__future__", "typing", "numpy", "."},
+}
+COPIED_MODULES.update(ROBUSTNESS_MODULES)
+
+
+def test_robustness_imports_no_torch_at_module_level():
+    """A supervisor imports the robustness package and must not touch
+    the device it supervises: no module of it imports torch at its top
+    level."""
+    for rel in ROBUSTNESS_MODULES:
+        with open(os.path.join(REPO, rel)) as fh:
+            tree = ast.parse(fh.read(), filename=rel)
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            assert "torch" not in names, rel
 
 
 def test_sources_exist():
