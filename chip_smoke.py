@@ -2,6 +2,9 @@
 
     python3 chip_smoke.py [--profile]
 
+(``--dist-worker PLAN`` runs one rank of phase 17's gang; phase 17
+starts those itself.)
+
 Phases, each reported on its own line:
 
 1. environment: torch and CUDA versions, the card's name and power limit,
@@ -58,10 +61,10 @@ Phases, each reported on its own line:
    numbering follows the JAX package's e-ranking), and full+quantized's
    first tree must equal the quantized one; then the same eight paths on
    the same rows binned at max_bin=1023 (uint16 bins through K1, K2 and
-   B2), each run's launch counts showing its u16 kernel mode, and each
-   path profiled for one more iteration (K1's, K2's and B2's device
-   time; the full paths must have run B2's wide kernels and not its
-   grouped ones); the quantized run logs the device time of one tree's threefry
+   B2), each run's launch counts showing its u16 kernel mode, and the
+   compact, level and full paths profiled for one more iteration (K1's,
+   K2's and B2's device time; the full paths must have run B2's wide
+   kernels and not its grouped ones); the quantized run logs the device time of one tree's threefry
    draws; with ``--profile``, two more iterations of the compact, level
    and full paths under ``torch.profiler`` show where an iteration's
    time goes (device busy share, K1's, K2's and B2's device time per
@@ -150,13 +153,13 @@ Phases, each reported on its own line:
 12. the sampling and boosting variants on phase 4's rows (run after
    phase 11) through ``Booster``: phase 4's configuration again as the
    phase's baseline, bagging 0.5 every iteration on the compact path
-   (1 + 3 iterations), on the hybrid (K2) and the full (B2) paths,
+   (1 + 2 iterations), on the hybrid (K2) and the full (B2) paths,
    balanced bagging (0.5 / 0.3) and ``tpu_device_bagging`` (1 + 1 each),
-   column sampling 0.8 a tree and 0.8 a node (1 + 3), GOSS at rate 0.5
-   drawn on the host (``tpu_async_boosting=false``; 1 + 3: it samples
+   column sampling 0.8 a tree and 0.8 a node (1 + 2), GOSS at rate 0.5
+   drawn on the host (``tpu_async_boosting=false``; 1 + 2: it samples
    from iteration 2), DART (drop rate 0.3, no skip;
    1 + 5) and a random forest (bagging 0.632, column sampling 0.8;
-   1 + 3); each run launching its kernel mode and learning (its
+   1 + 2); each run launching its kernel mode and learning (its
    training logloss falls; a forest's stays under the prior's), with its
    s/iteration beside phase 4's, the host ms of its sampling, the rows
    K1 reads an iteration, its peak bytes and its logloss after each
@@ -197,14 +200,14 @@ Phases, each reported on its own line:
    validation set (run after phase 13, its data freed): the compact (K1
    over the group columns), quantized, hybrid (K2 then K1), full (B2
    over [G, R]) and multi-value (``tpu_sparse_storage=multival``, its
-   own Dataset: the plain torch scatter over [R, K]) runs, 1 + 2
+   own Dataset: the plain torch scatter over [R, K]) runs, 1 + 1
    iterations each, each launching its kernel mode exactly (multi-value:
    none) and learning (the held-out logloss falling, and under the
    prior's), with its s/iteration beside phase 4's and its peak bytes;
    the multi-value root histogram's device ms beside K1's over the
    groups; the held-out CSR in row blocks by the binned device route
    within 1e-5 of the host walk (rows/s); then cuda against the CPU on
-   20,000 rows, 2 rounds (compact, quantized, level at depth 4, full,
+   20,000 rows, 1 round (compact, quantized, level at depth 4, full,
    multi-value: the same BundleInfo, each leaf holding the same rows,
    logloss within rtol 1e-4). On phase 4's rows (after phase 12): a
    bounded LRU histogram pool and no pool (``histogram_pool_size`` 5 and
@@ -257,7 +260,26 @@ Phases, each reported on its own line:
    within its 5 s budget of its last beat; (f) cuda against the CPU on
    20,000 rows: GOSS drawn on the device chain on both (the same bags)
    and a run killed at its second checkpoint and resumed, trees to the
-   binary standard.
+   binary standard;
+17. the distributed learners at phase 4's width (after phase 16, on its
+   rows): (a) two ranks share the card over gloo (NCCL refuses two ranks
+   on one device), started by one ``distributed.launch_local`` of this
+   script (``--dist-worker PLAN``; each rank loads phase 4's binned rows
+   from a binary file the phase writes and trains every run in one
+   process start): data parallel f32 by
+   all-reduce (1 + 2 iterations), quantized with deterministic rounding,
+   by reduce-scatter, voting (``top_k=5``), feature parallel and data
+   parallel under full scheduling (1 + 1 each); both ranks' texts equal,
+   the quantized text the serial quantized model's (trained here) string
+   for string, the others matching phase 4's model (phase 5's full one)
+   to the binary standard with the nodes paired by position (near-tied
+   leaves may be split in another order), each rank's K1 (B2) launched
+   once a leaf; logged: s/iteration beside phase 4's, each collective's
+   ms and calls a tree by kind, the bytes of a histogram reduction, the
+   ``leaf_id`` all-gather, the launches per rank and the gang's start-up
+   seconds; (b) a one-rank NCCL world in this process: quantized data
+   parallel by all-reduce and by reduce-scatter (NCCL's collectives on
+   the card, 1 + 1 each), each text the serial quantized one.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -296,6 +318,12 @@ WIDEST_ROWS = 5_000
 TIMED_ITERS = 5
 MODE_ITERS = 1
 U16_ITERS = 1
+# the u16 paths profiled for one more iteration (K1's, K2's and B2's
+# device time; the full paths must run B2's wide kernels only). The
+# quantized and bf16 variants of compact and level lost theirs in PR 18
+# to pay for phase 17
+U16_PROFILED = ("compact_u16", "level_u16", "full_u16",
+                "full_quantized_u16")
 KERNEL_SHAPES = (1_000_000, 65_536, 4_097, 1)
 # leaf sizes of the u16 and the skewed cases (B2's u16 leaves also at
 # 65,536 rows, a mid-size leaf of a million rows)
@@ -319,7 +347,7 @@ PREDICT_ROWS = 200_000
 # phase 8: validation rows (another seed), rounds with the validation set,
 # and rounds of the continued training
 VALID_ROWS = 200_000
-API_ROUNDS = 10
+API_ROUNDS = 6
 CONTINUE_ROUNDS = 3
 # pairs of iterations with and without the validation set, in turns
 VALID_AB_PAIRS = 4
@@ -1424,7 +1452,7 @@ def phase_paths(ds, X, compact_first):
             draw_ms = threefry_draw_ms(bst)
             log(f"phase 5 path={name} threefry_draws_device_ms_per_tree="
                 f"{draw_ms!r} rows={N_ROWS}")
-        if u16:
+        if name in U16_PROFILED:
             # one more iteration, profiled: K1's, K2's and B2's device
             # time on u16 bins (after the launch counts were read and the
             # trees checked)
@@ -2613,7 +2641,7 @@ def phase_user_surface_cross_check(launches):
 BAG = dict(bagging_fraction=0.5, bagging_freq=1)
 SAMPLING_RUNS = {
     "none": ({}, 1, "hist_rowmajor_f32"),
-    "bagging": (BAG, 3, "hist_rowmajor_f32"),
+    "bagging": (BAG, 2, "hist_rowmajor_f32"),
     "bagging_hybrid": (dict(BAG, tpu_row_scheduling="level"), 1,
                        "hist_level_f32"),
     "bagging_full": (dict(BAG, tpu_row_scheduling="full"), 1,
@@ -2623,17 +2651,17 @@ SAMPLING_RUNS = {
     "device_bagging": (dict(BAG, tpu_device_bagging=True), 1,
                        "hist_rowmajor_f32"),
     "column_sampling": (dict(feature_fraction=0.8,
-                             feature_fraction_bynode=0.8), 3,
+                             feature_fraction_bynode=0.8), 2,
                         "hist_rowmajor_f32"),
     # at learning rate 0.5 GOSS samples from iteration int(1 / 0.5) = 2:
-    # two of the three timed iterations; drawn on the host (synchronous:
-    # auto would draw on the card, which phase 16 holds)
+    # the second of the two timed iterations; drawn on the host
+    # (synchronous: auto would draw on the card, which phase 16 holds)
     "goss": (dict(data_sample_strategy="goss", learning_rate=0.5,
-                  tpu_async_boosting="false"), 3, "hist_rowmajor_f32"),
+                  tpu_async_boosting="false"), 2, "hist_rowmajor_f32"),
     "dart": (dict(boosting="dart", drop_rate=0.3, skip_drop=0.0), 5,
              "hist_rowmajor_f32"),
     "rf": (dict(boosting="rf", bagging_fraction=0.632, bagging_freq=1,
-                feature_fraction=0.8), 3, "hist_rowmajor_f32"),
+                feature_fraction=0.8), 2, "hist_rowmajor_f32"),
 }
 # the cross-check of phase 12 on cuda and on the CPU: every run above
 # but the baseline, 20,000 rows, 31 leaves, 3 rounds
@@ -2740,6 +2768,101 @@ def assert_trees_to_binary_standard(a, b, X, bags, rate, g_max, h_max,
                   - b.predict(Xb, raw_score=True))
     assert (diff <= tol).all(), (what, float(diff.max()),
                                  float((diff / tol).max()))
+
+
+def paired_nodes(p, q):
+    """The internal nodes and the leaves of two host trees paired by
+    walking both from the root in step; an AssertionError where their
+    shapes differ."""
+    nodes, leaves, stack = [], [], [(0, 0)]
+    while stack:
+        i, j = stack.pop()
+        if i < 0 or j < 0:
+            assert i < 0 and j < 0, (i, j)
+            leaves.append((~i, ~j))
+            continue
+        nodes.append((i, j))
+        stack += [(int(p.left_child[i]), int(q.left_child[j])),
+                  (int(p.right_child[i]), int(q.right_child[j]))]
+    ni, nj = (np.asarray(v, np.int64) for v in zip(*nodes))
+    li, lj = (np.asarray(v, np.int64) for v in zip(*leaves))
+    return ni, nj, li, lj
+
+
+def node_rows(t, X, j):
+    """Boolean mask of the rows of X at internal node ``j`` of a host
+    tree, by the path from the root (``rows_at_nodes`` for one node)."""
+    parent = {}
+    for i in range(t.num_leaves - 1):
+        for child, left in ((t.left_child[i], True),
+                            (t.right_child[i], False)):
+            if child >= 0:
+                parent[int(child)] = (i, left)
+    mask = np.ones(len(X), bool)
+    while j in parent:
+        i, left = parent[j]
+        x = X[:, t.split_feature[i]]
+        go_left = np.where(np.isnan(x), (t.decision_type[i] & 2) != 0,
+                           np.nan_to_num(x) <= t.threshold_real[i])
+        mask &= go_left if left else ~go_left
+        j = i
+    return mask
+
+
+def assert_trees_in_any_order(a, b, X, rate, g_max, h_max, what,
+                              check_rows=200_000):
+    """``assert_trees_to_binary_standard`` (every row in the bag) with the
+    nodes paired by position instead of by number: the order a tree's
+    splits were taken in may differ. Best-first growth splits the leaf
+    of largest gain next, and two leaves whose gains lie an ulp apart
+    swap places when a histogram is summed in another order (two
+    ranks' halves added, against one pass): the same splits, numbered
+    otherwise. Each paired node has the same feature, count and
+    direction rule, a threshold that differs only where no training row
+    of the node lies between the two; each paired leaf the same count,
+    its hessian sum and value within the binary standard's bounds (N the
+    training rows); on the first ``check_rows`` rows each row the paired
+    leaf, and its raw score within the sum of its leaves' bounds.
+    Returns how many trees were numbered otherwise."""
+    n = len(X)
+    ta, tb = a._engine.models, b._engine.models
+    assert len(ta) == len(tb), what
+    Xc = X[:check_rows]
+    la, lb = a.predict(Xc, pred_leaf=True), b.predict(Xc, pred_leaf=True)
+    renumbered = 0
+    tol = np.zeros(len(Xc))
+    for t, (p, q) in enumerate(zip(ta, tb)):
+        assert p.num_leaves == q.num_leaves > 1, (what, t)
+        ni, nj, li, lj = paired_nodes(p, q)
+        renumbered += int((ni != nj).any())
+        for f in ("split_feature", "internal_count"):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(p, f))[ni], np.asarray(getattr(q, f))[nj],
+                err_msg=f"{what} tree {t} {f}")
+        np.testing.assert_array_equal(p.decision_type[ni] & ~2,
+                                      q.decision_type[nj] & ~2)
+        for i, j in zip(ni, nj):
+            if p.threshold_real[i] != q.threshold_real[j]:
+                x = X[node_rows(q, X, int(j)), q.split_feature[j]]
+                lo, hi = sorted((p.threshold_real[i], q.threshold_real[j]))
+                assert not ((x > lo) & (x <= hi)).any(), (what, t, j, lo, hi)
+        np.testing.assert_array_equal(p.leaf_count[li], q.leaf_count[lj])
+        wa, wb = p.leaf_weight[li], q.leaf_weight[lj]
+        assert (np.abs(wa - wb) < 1e-6 * n * h_max).all(), (what, t)
+        assert (np.abs(p.leaf_value[li] - q.leaf_value[lj])
+                < 1e-6 * rate * n * g_max / np.maximum(wa, 1e-12)).all(), \
+            (what, t)
+        image = np.full(q.num_leaves, -1, np.int64)
+        image[lj] = li
+        np.testing.assert_array_equal(image[lb[:, t]], la[:, t],
+                                      err_msg=f"{what} tree {t} leaves")
+        tol += 1e-6 * rate * n * g_max / np.maximum(
+            q.leaf_weight[lb[:, t]], 1e-12)
+    diff = np.abs(a.predict(Xc, raw_score=True)
+                  - b.predict(Xc, raw_score=True))
+    assert (diff <= tol).all(), (what, float(diff.max()),
+                                 float((diff / tol).max()))
+    return renumbered
 
 
 def nonzero(counts):
@@ -3379,23 +3502,23 @@ ALLSTATE_STORAGE = {"groups": {"max_conflict_rate": ALLSTATE_CONFLICT_RATE},
 # the run must launch (None: multi-value storage, no histogram kernel),
 # storage)
 ALLSTATE_RUNS = {
-    "compact": ({}, 2, "hist_rowmajor_f32", "groups"),
-    "quantized": (dict(use_quantized_grad=True), 2, "hist_rowmajor_int8",
+    "compact": ({}, 1, "hist_rowmajor_f32", "groups"),
+    "quantized": (dict(use_quantized_grad=True), 1, "hist_rowmajor_int8",
                   "groups"),
-    "hybrid": (dict(tpu_row_scheduling="level"), 2, "hist_level_f32",
+    "hybrid": (dict(tpu_row_scheduling="level"), 1, "hist_level_f32",
                "groups"),
-    "full": (dict(tpu_row_scheduling="full"), 2, "hist_featmajor_f32",
+    "full": (dict(tpu_row_scheduling="full"), 1, "hist_featmajor_f32",
              "groups"),
-    "multival": ({}, 2, None, "multival"),
+    "multival": ({}, 1, None, "multival"),
 }
 # histogram_pool_size (MB) of the pool runs on phase 4's rows: at
 # 28 x 255 x 3 x 4 B a slot, about 61 LRU slots, and no pool
 POOL_RUNS = {"bounded": 5.0, "none": 0.1}
 SEQUENCE_BATCH = 65_536
 # the cross-check of phase 14 on cuda and on the CPU: 20,000 rows of the
-# Allstate shape, 31 leaves, 2 rounds
+# Allstate shape, 31 leaves, 1 round (2 until PR 18)
 ALLSTATE_SMALL_ROWS = 20_000
-ALLSTATE_SMALL_ROUNDS = 2
+ALLSTATE_SMALL_ROUNDS = 1
 _GROUPS = ALLSTATE_STORAGE["groups"]
 ALLSTATE_CHECKS = {
     "compact": (dict(_GROUPS), "hist_rowmajor_f32"),
@@ -4516,6 +4639,268 @@ def phase_robustness_cross_check():
     return counts
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: the distributed learners on the card
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 600
+# name -> (params, timed iterations after one warm-up); every run trains
+# phase 4's configuration on phase 4's rows
+DIST_RUNS = {
+    "data": (dict(tree_learner="data"), 2),
+    "data_quantized": (dict(tree_learner="data", use_quantized_grad=True,
+                            stochastic_rounding=False), 1),
+    "data_reduce_scatter": (dict(tree_learner="data",
+                                 tpu_hist_reduce="reduce_scatter"), 1),
+    "voting": (dict(tree_learner="voting", top_k=5), 1),
+    "feature": (dict(tree_learner="feature"), 1),
+    "data_full": (dict(tree_learner="data", tpu_row_scheduling="full"), 1),
+}
+# the one-rank NCCL world in this process: its all-reduce and its
+# reduce-scatter on the card
+NCCL_RUNS = {
+    "data_quantized": DIST_RUNS["data_quantized"],
+    "data_quantized_reduce_scatter": (
+        dict(DIST_RUNS["data_quantized"][0],
+             tpu_hist_reduce="reduce_scatter"), 1),
+}
+# the serial reference of each gang run's standard (phase 4's model cut
+# to the run's rounds, phase 5's full model, the serial quantized text)
+DIST_SERIAL = {"data": "f32", "data_reduce_scatter": "f32", "voting": "f32",
+               "feature": "f32", "data_full": "full"}
+
+
+def no_params(text):
+    return text[:text.index("\nparameters:")]
+
+
+def dist_run(ds, ds_params, params, iters):
+    """One run of a distributed learner through ``Booster``: a warm-up and
+    ``iters`` timed iterations, the launch counts zeroed before and read
+    after, the world's collectives counted over the timed iterations
+    only: each call's host seconds, which under gloo include the staging
+    copy's wait for the device work queued before it and the wait for
+    the peer rank. The Dataset's parameters are ``ds_params`` again
+    first (a Booster merges its own into them)."""
+    import lightgbm_tpu_torch as lgt
+    ds.params = dict(ds_params)
+    reset_counts()
+    bst = lgt.Booster(params, ds)
+    eng = bst._engine
+    comm = eng._comm
+    t = time.perf_counter()
+    assert not bst.update()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    first = dict((m, v) for _, m, v, _ in bst.eval_train())
+    comm.reset_stats()
+    iter_s = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        assert not bst.update()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t)
+    stats = {k: list(v) for k, v in comm.stats.items()}
+    last = dict((m, v) for _, m, v, _ in bst.eval_train())
+    return dict(text=bst.model_to_string(), warm_s=warm_s, iter_s=iter_s,
+                stats=stats, timed_trees=iters, counts=nonzero(read_counts()),
+                leaves=[t.num_leaves for t in eng.models],
+                learner=eng._tree_learner, hist_reduce=eng._hist_reduce,
+                backend=comm.backend, first=first, last=last)
+
+
+def dist_worker(plan_path):
+    """One rank of phase 17's gang (``--dist-worker PLAN``): joins the
+    world from the launcher's variables, loads phase 4's binned rows
+    from the binary file ``PLAN["data"]`` and trains every DIST_RUNS
+    configuration in this one process start, writing its results to
+    ``PLAN["out"]/rank<r>.json``."""
+    import os
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import distributed
+    with open(plan_path) as fh:
+        plan = json.load(fh)
+    rank = distributed.init_from_env()
+    ds = lgt.Dataset(plan["data"]).construct()
+    ds_params = dict(ds.params)
+    res = {"rank": rank, "ready_wall": time.time(), "runs": {},
+           "device": str(torch.cuda.current_device())}
+    for name, (extra, iters) in DIST_RUNS.items():
+        res["runs"][name] = dist_run(ds, ds_params, bench_params(**extra),
+                                     iters)
+    with open(os.path.join(plan["out"], f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    distributed.shutdown_distributed()
+
+
+def dist_summary(run, phase4_iter_s):
+    """The logged numbers of one run: s/iteration beside phase 4's,
+    collective ms and calls a tree by kind, bytes a histogram reduction,
+    the kernels' launches."""
+    trees = run["timed_trees"]
+    med = statistics.median(run["iter_s"])
+    per_tree = {k: {"ms": v[2] * 1e3 / trees, "calls": v[0] / trees}
+                for k, v in run["stats"].items()}
+    hist_bytes = {k: v[1] / v[0] for k, v in run["stats"].items()
+                  if k.startswith("hist_") and v[0]}
+    return {"learner": run["learner"], "hist_reduce": run["hist_reduce"],
+            "backend": run["backend"], "median_iter_s": med,
+            "vs_phase4": med / phase4_iter_s, "warm_s": run["warm_s"],
+            "collective_ms_per_tree": per_tree,
+            "bytes_per_hist_reduction": hist_bytes,
+            "collective_ms_per_tree_total": sum(
+                v["ms"] for v in per_tree.values()),
+            "launches": run["counts"], "leaves": run["leaves"],
+            "logloss": [run["first"]["binary_logloss"],
+                        run["last"]["binary_logloss"]]}
+
+
+def check_dist_launches(run, params, what):
+    """K1 once a leaf of every tree on a compact run, B2 on a full one,
+    and nothing else: the rank's histograms went through its kernel."""
+    key = ("hist_featmajor_f32"
+           if params.get("tpu_row_scheduling") == "full" else
+           "hist_rowmajor_int8" if params.get("use_quantized_grad") else
+           "hist_rowmajor_f32")
+    n = run["counts"].get(key, 0)
+    assert n > 0 and n == sum(run["leaves"]), (what, run["counts"],
+                                              run["leaves"])
+    assert sum(run["counts"].values()) == n, (what, run["counts"])
+
+
+def phase_distributed(base_bst, ds, X, full_text, phase4_iter_s):
+    """Phase 17: the distributed learners at phase 4's width.
+
+    (a) Two ranks share the card over gloo (NCCL refuses two ranks on one
+    device), started by one ``launch_local`` of this script: each trains
+    DIST_RUNS; both ranks' texts must be equal, the quantized
+    data-parallel text must equal the serial quantized text trained here
+    string for string (exact int32 sums), and the f32 runs must match
+    the serial model (phase 4's cut to their rounds; phase 5's full
+    model for ``data_full``) to the binary standard; each rank's K1 (B2)
+    launches are one a leaf. (b) A world of one rank over NCCL in this
+    process: quantized data parallel by all-reduce and by reduce-scatter
+    (NCCL's collectives on the card), each text equal to the serial
+    quantized one. Returns (launches by run, this process's launch
+    totals)."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+    import threading
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import distributed
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    plan_path = os.path.join(tmp, "plan.json")
+    data_path = os.path.join(tmp, "phase4.bin")
+    ds.save_binary(data_path)
+    with open(plan_path, "w") as fh:
+        json.dump({"out": tmp, "data": data_path}, fh)
+    box = {}
+
+    def gang():
+        try:
+            box["runs"] = distributed.launch_local(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 plan_path], DIST_WORLD, timeout=DIST_TIMEOUT_S,
+                backend="gloo")
+        except BaseException as e:   # noqa: BLE001 - re-raised below
+            box["error"] = e
+    launched = time.time()
+    th = threading.Thread(target=gang)
+    th.start()
+    # the serial quantized reference, trained while the ranks start
+    ds_params = dict(ds.params)
+    q_params = bench_params(**{k: v for k, v in
+                               DIST_RUNS["data_quantized"][0].items()
+                               if k != "tree_learner"})
+    ref_q = no_params(lgt.train(q_params, ds,
+                                num_boost_round=2).model_to_string())
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    for r, (rc, out) in enumerate(box["runs"]):
+        assert rc == 0, (r, out[-6000:])
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    gang_s = time.perf_counter() - t0
+    startup = [rk["ready_wall"] - launched for rk in ranks]
+    shutil.rmtree(tmp)
+    log(f"phase 17 (a) gang of {DIST_WORLD} gloo ranks on one card: "
+        f"start-up_s (launch to phase 4's binned rows loaded, by rank)="
+        f"{startup!r} "
+        f"gang_s={gang_s!r} devices={[rk['device'] for rk in ranks]}")
+    launches = {}
+    for name in DIST_RUNS:
+        r0, r1 = (rk["runs"][name] for rk in ranks)
+        assert r0["text"] == r1["text"], name
+        assert r0["learner"] == DIST_RUNS[name][0]["tree_learner"], r0
+        for r, run in enumerate((r0, r1)):
+            check_dist_launches(run, DIST_RUNS[name][0], name)
+            assert run["last"]["binary_logloss"] < \
+                run["first"]["binary_logloss"], (name, r)
+        launches[name] = [r0["counts"], r1["counts"]]
+        log(f"phase 17 (a) {name}: " + json.dumps(
+            {"rank0": dist_summary(r0, phase4_iter_s),
+             "rank1_median_iter_s": statistics.median(r1["iter_s"]),
+             "rank1_launches": r1["counts"]}))
+    assert ranks[0]["runs"]["data_reduce_scatter"]["hist_reduce"] == \
+        "reduce_scatter"
+    assert no_params(ranks[0]["runs"]["data_quantized"]["text"]) == ref_q
+    log("phase 17 (a) quantized data parallel equals the serial quantized "
+        "model string for string")
+    tb = time.perf_counter()
+    renumbered = {}
+    for name, ref_kind in DIST_SERIAL.items():
+        run = ranks[0]["runs"][name]
+        rounds = 1 + DIST_RUNS[name][1]
+        ref_text = (full_text if ref_kind == "full" else
+                    base_bst.model_to_string(num_iteration=rounds))
+        ref = lgt.Booster(model_str=ref_text, params={"device_type": "cuda"})
+        got = lgt.Booster(model_str=run["text"],
+                          params={"device_type": "cuda"})
+        renumbered[name] = assert_trees_in_any_order(
+            ref, got, X, 0.1, 1.0, 0.25, f"phase 17 {name}")
+    log(f"phase 17 (a) f32, reduce_scatter, voting, feature and full runs "
+        f"match the serial models to the binary standard, nodes paired by "
+        f"position (trees whose split order differs: {renumbered}; "
+        f"check_s={time.perf_counter() - tb!r})")
+    # (b) NCCL, one rank, in this process
+    tn = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    distributed.init_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    totals = {}
+    try:
+        for name, (extra, iters) in NCCL_RUNS.items():
+            run = dist_run(ds, ds_params, bench_params(**extra), iters)
+            check_dist_launches(run, extra, name)
+            assert run["backend"] == "nccl", run["backend"]
+            kind = ("hist_reduce_scatter" if "reduce_scatter" in name
+                    else "hist_allreduce")
+            assert run["stats"][kind][0] > 0, run["stats"]
+            assert no_params(run["text"]) == ref_q, name
+            for k, v in run["counts"].items():
+                totals[k] = totals.get(k, 0) + v
+            launches[f"nccl_{name}"] = run["counts"]
+            log(f"phase 17 (b) nccl world of 1 {name}: "
+                + json.dumps(dist_summary(run, phase4_iter_s)))
+    finally:
+        distributed.shutdown_distributed()
+        ds.params = ds_params
+    log(f"phase 17 (b) NCCL all-reduce and reduce-scatter runs equal the "
+        f"serial quantized model string for string "
+        f"(nccl_s={time.perf_counter() - tn!r}); phase 17 "
+        f"{time.perf_counter() - t0!r} s")
+    return launches, totals
+
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
@@ -4558,6 +4943,9 @@ def kernel_entry(name, mode, launches, row):
 
 
 def main():
+    if "--dist-worker" in sys.argv[1:]:
+        dist_worker(sys.argv[sys.argv.index("--dist-worker") + 1])
+        return
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -4605,6 +4993,7 @@ def main():
     for name, (_, must) in PATHS.items():
         runs[must] = paths[name][0]
     bst_u16 = paths["compact_u16"][1]
+    full_text = paths["full"][1].model_to_string()
     del paths
     phase_predict(bst, ds, X)
     phase_predict(bst_u16, ds_u16, X, label="u16")
@@ -4627,6 +5016,9 @@ def main():
     robust_launches, robust_totals = phase_robustness(
         ds, X, main_run["median_iter_s"], sampling_medians["goss"])
     log(f"phase 16 done at {time.perf_counter() - t:.1f} s")
+    dist_launches, dist_totals = phase_distributed(
+        bst, ds, X, full_text, main_run["median_iter_s"])
+    log(f"phase 17 done at {time.perf_counter() - t:.1f} s")
     del bst, ds, X
     gc.collect()
     cat_runs, cat_totals = phase_categorical(main_run["median_iter_s"])
@@ -4638,8 +5030,10 @@ def main():
         sparse_totals[key] = sparse_totals.get(key, 0) + v
     later = {k: cat_totals.get(k, 0) + sparse_totals.get(k, 0)
              + constraint_totals.get(k, 0) + robust_totals.get(k, 0)
+             + dist_totals.get(k, 0)
              for k in set(cat_totals) | set(sparse_totals)
-             | set(constraint_totals) | set(robust_totals)}
+             | set(constraint_totals) | set(robust_totals)
+             | set(dist_totals)}
     rank_runs = phase_ranking()
     log(f"phase 10 done at {time.perf_counter() - t:.1f} s")
     phase_cross_check()
@@ -4686,6 +5080,8 @@ def main():
         + " by mode: " + json.dumps(nonzero(constraint_totals)))
     log("phase 16 launches by run: " + json.dumps(robust_launches)
         + " by mode: " + json.dumps(nonzero(robust_totals)))
+    log("phase 17 launches by run (gang: rank 0, rank 1): "
+        + json.dumps(dist_launches))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -645,10 +645,12 @@ class Booster:
         """Change parameters between iterations (ref: Booster::ResetConfig,
         c_api.cpp): ``learning_rate`` and the row sampler's settings are
         read by the next iteration. Settings the port does not implement
-        yet are refused."""
+        yet, or that the world it trains in refuses, are refused."""
+        from .distributed import num_processes
         trial = self.config.copy()
         trial.update(params)
-        bad = trial.unsupported_settings()
+        bad = trial.unsupported_settings() + trial.distributed_refusals(
+            num_processes())
         if bad and self.train_set is not None:
             log.fatal("the port does not implement these settings yet: "
                       + ", ".join(bad))

@@ -16,8 +16,12 @@ registered so one params dict drives both packages. The port reads
 GOSS draws on the device, the JAX package's asynchronous draw, so a GOSS
 model under it differs from the synchronous one, as in the JAX package;
 every other model is the synchronous one), ``tpu_heartbeat_file``,
-``tpu_stall_sec``, ``tpu_integrity_numeric_guard`` and
-``tpu_integrity_loss_spike_factor``; it accepts and
+``tpu_stall_sec``, ``tpu_integrity_numeric_guard``,
+``tpu_integrity_loss_spike_factor``, and for the distributed learners
+``tree_learner``, ``top_k``, ``tpu_hist_reduce`` (auto is allreduce),
+``tpu_num_devices`` (0 or the world size: one process is one device),
+``tpu_gang_collective_timeout_s`` and ``tpu_integrity_digest_every``;
+it accepts and
 ignores ``tpu_hist_kernel``, ``tpu_use_pallas`` and ``tpu_rows_per_block``
 (every value runs the port's hand kernels) and ``tpu_predict_buckets``
 (it pads no request; see models/gbdt.py), and refuses the settings it cannot honour yet (see
@@ -470,12 +474,13 @@ def _parse_list(value: Any, elem_type: Any) -> List[Any]:
 # row sampling, per-tree and per-node column sampling, monotone
 # constraints (``monotone_constraints_method`` basic, intermediate and
 # advanced, ``monotone_penalty``), interaction constraints, CEGB,
-# forced splits and forced bins, ``feature_contri``, extra_trees and
-# linear trees. A setting that needs anything else maps to a predicate
-# that is True for the unsupported value and to the ROADMAP item that
-# ports it; training refuses it instead of ignoring it.
+# forced splits and forced bins, ``feature_contri``, extra_trees,
+# linear trees, and the data, voting and feature learners over a
+# ``torch.distributed`` world (``distributed_refusals`` lists what those
+# refuse). A setting that needs anything else maps to a predicate that
+# is True for the unsupported value and to the ROADMAP item that ports
+# it; training refuses it instead of ignoring it.
 _UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {
-    "tree_learner": (lambda v: str(v).lower() != "serial", "A13"),
     # the JAX package loads such a file through its two-round loader,
     # whose sample gives other bin bounds than the in-memory load
     "two_round": (bool, "A15"),
@@ -582,6 +587,28 @@ class Config:
                 v = ",".join(str(x) for x in v)
             lines.append(f"[{name}: {v}]")
         return "\n".join(lines)
+
+    def distributed_refusals(self, world: int) -> List[str]:
+        """What training refuses in a ``torch.distributed`` world of
+        ``world`` processes: sharded ingestion (``pre_partition``,
+        ``tpu_ingest=sharded``) in a world of more than one, which would
+        otherwise train replicated without a word (ROADMAP A13b), and a
+        ``tpu_num_devices`` other than the world size (0 or less: every
+        rank; one process is one device)."""
+        v = self._values
+        out = []
+        if world > 1 and v["pre_partition"]:
+            out.append("pre_partition=True in a world of "
+                       f"{world} processes (ROADMAP A13b)")
+        if world > 1 and str(v["tpu_ingest"]).lower() == "sharded":
+            out.append("tpu_ingest='sharded' in a world of "
+                       f"{world} processes (ROADMAP A13b)")
+        n = int(v["tpu_num_devices"])
+        if n > 0 and n != world:
+            out.append(f"tpu_num_devices={n} in a world of {world} "
+                       "processes (one process is one device: set it to "
+                       "the world size or 0)")
+        return out
 
     def unsupported_settings(self) -> List[str]:
         """``name=value (ROADMAP item)`` for every setting the port cannot

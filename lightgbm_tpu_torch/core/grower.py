@@ -55,6 +55,11 @@ Histogram modes (``hist_inputs``), as in the JAX grower:
   ``hist_dtype`` on the compact path alone, so full scheduling builds f32
   histograms under it.
 
+The distributed learners (``parallel/``) run this grower on every rank
+with ``GrowerHooks``: the reductions of its histograms, root sums and
+quantization scales, the windowed or voted scan and the cross-rank
+winner, and the partition column of a feature another rank holds.
+
 ``grow.resume`` is the counterpart of the JAX grower's ``init=(state,
 k0)`` seam: it continues the split loop at step ``k0`` from a
 ``GrowState`` that another phase (the hybrid grower's level phase)
@@ -160,7 +165,8 @@ N_FEAT, N_THR, N_DL, N_GAIN, N_IVAL, N_IWT, N_ICNT, N_LC, N_RC, \
 NN = 10
 
 
-def quantize_gradients(gh: torch.Tensor, quant_bins: int, ug, uh
+def quantize_gradients(gh: torch.Tensor, quant_bins: int, ug, uh,
+                       reduce_max: Optional[Callable] = None
                        ) -> Tuple[torch.Tensor, Callable]:
     """int8 gradient discretization (ref: GradientDiscretizer::
     DiscretizeGradients, gradient_discretizer.cpp:71-162; port of the JAX
@@ -171,11 +177,19 @@ def quantize_gradients(gh: torch.Tensor, quant_bins: int, ug, uh
     ``ug`` and ``uh`` are the uniform [0, 1) draws of stochastic rounding
     (f32 tensors [R]), or 0.5 each for round-to-nearest. Returns
     ``(gh_int8 [R, 3], conv)``; ``conv`` maps raw int32 sums back to f32
-    through the per-tree scales ``(g_scale, h_scale, 1)``."""
+    through the per-tree scales ``(g_scale, h_scale, 1)``. Under row
+    sharding ``reduce_max`` makes the scales global (the max over every
+    rank's rows), so the int32 histogram sums stay exact (the JAX
+    package's core/grower.py:246-251)."""
     g, h, m = gh[:, 0], gh[:, 1], gh[:, 2]
     kq = max(quant_bins // 2, 1)
-    g_scale = torch.clamp(g.abs().max(), min=1e-30) / kq
-    h_scale = torch.clamp(h.max(), min=1e-30) / quant_bins
+    if reduce_max is None:
+        reduce_max = lambda x: x
+    # the max of an empty shard is 0 (every gradient magnitude is >= 0)
+    amax = lambda x: x.max() if x.numel() else torch.zeros(
+        (), dtype=x.dtype, device=x.device)
+    g_scale = torch.clamp(reduce_max(amax(g.abs())), min=1e-30) / kq
+    h_scale = torch.clamp(reduce_max(amax(h)), min=1e-30) / quant_bins
     ug = torch.as_tensor(ug, dtype=torch.float32, device=gh.device)
     uh = torch.as_tensor(uh, dtype=torch.float32, device=gh.device)
     gq = torch.trunc(g / g_scale + torch.where(g >= 0, ug, -ug))
@@ -185,7 +199,8 @@ def quantize_gradients(gh: torch.Tensor, quant_bins: int, ug, uh
     return gh_q, (lambda hh: hh.to(torch.float32) * scale3)
 
 
-def hist_inputs(cfg: GrowerConfig, gh: torch.Tensor, uniforms=None
+def hist_inputs(cfg: GrowerConfig, gh: torch.Tensor, uniforms=None,
+                reduce_max: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, Callable]:
     """The histogram kernels' gh for one tree and the ``conv`` that turns
     their raw sums into the split scan's f32: int8 when quantized (with
@@ -193,19 +208,28 @@ def hist_inputs(cfg: GrowerConfig, gh: torch.Tensor, uniforms=None
     bf16 in the bf16 mode, else ``gh`` itself."""
     if cfg.quantized:
         ug, uh = (uniforms if cfg.stochastic_rounding else (0.5, 0.5))
-        return quantize_gradients(gh, cfg.quant_bins, ug, uh)
+        return quantize_gradients(gh, cfg.quant_bins, ug, uh, reduce_max)
     if cfg.hist_dtype in ("bfloat16", "bf16") and cfg.row_sched != "full":
         return gh.to(torch.bfloat16), (lambda hh: hh)
     return gh, (lambda hh: hh)
+
+
+def local_sums(cfg: GrowerConfig, gh: torch.Tensor,
+               gh_hist: torch.Tensor) -> torch.Tensor:
+    """[3] (grad, hess, count) of this shard's rows, before any
+    reduction: int32 sums of the int8 rows under quantization, else the
+    f32 gh summed in XLA's CPU order on the CPU (``column_sum``)."""
+    if cfg.quantized:
+        return gh_hist.sum(dim=0, dtype=torch.int32)
+    return column_sum(gh)
 
 
 def root_sums(cfg: GrowerConfig, gh: torch.Tensor, gh_hist: torch.Tensor,
               conv: Callable) -> torch.Tensor:
     """f32 [3] (grad, hess, count) of all rows: from the int8 rows under
     quantization (exact int32, converted), else from the f32 gh."""
-    if cfg.quantized:
-        return conv(gh_hist.sum(dim=0, dtype=torch.int32))
-    return column_sum(gh)
+    s = local_sums(cfg, gh, gh_hist)
+    return conv(s) if cfg.quantized else s
 
 
 @dataclasses.dataclass
@@ -247,6 +271,8 @@ class GrowState:
     leaf_min: Optional[np.ndarray] = None
     leaf_max: Optional[np.ndarray] = None
     leaf_nrow: Optional[np.ndarray] = None
+    # the local-sums channel (voting): each leaf's local raw sums [L, 3]
+    lsum: Optional[torch.Tensor] = None
 
 
 def cat_table(cat_bins: torch.Tensor, num_bin: int) -> torch.Tensor:
@@ -294,9 +320,60 @@ def node_mask(feature_mask: Optional[torch.Tensor], rows: List[int]
     return feature_mask[[min(r, last) for r in rows]]
 
 
+@dataclasses.dataclass
+class GrowerHooks:
+    """The distributed learners' hooks (the JAX package's
+    ``make_tree_grower`` contract, core/grower.py:320-390), each a plain
+    call of the eager grower, made in one fixed order on every rank:
+
+    - ``reduce_hist(h)``: applied to each freshly built raw histogram
+      (the root's, the smaller child's; both children's without a pool),
+      ``[G, B, 3]`` or ``[N, G, B, 3]``, before it enters the pool.
+      Data-parallel all-reduces (the pool holds global sums) or
+      reduce-scatters (each rank keeps a feature window); voting keeps
+      it the identity (the pool stays local). With it set the smaller
+      child is picked by the split record's global counts, the same on
+      every rank, not by the local rows;
+    - ``reduce_sums(s)``: the root's ``[3]`` local sums -> global;
+    - ``reduce_max(x)``: a quantization scale's local max -> global;
+    - ``prepare_split_hist(hh, ctx, fm) -> (hh', extra_mask)``: before
+      the scan of N leaves' logical f32 histograms ``hh`` [N, F, B, 3]
+      (voting's vote and selective all-reduce); ``ctx`` is a dict of
+      [N] tensors: ``sg``, ``sh``, ``cnt``, ``out`` (global) and
+      ``lsg``, ``lsh``, ``lcnt`` (the leaves' local sums, with
+      ``local_pool``);
+    - ``scan_window(hh, ctx, fm, gp, rand) -> (hh_w, meta_w, fids, fm_w,
+      gp_w, rand_w)``: the scan of a feature window instead
+      (reduce-scatter): ``fids`` [N, Fw] are the window's global feature
+      ids, ``meta_w`` one FeatureMeta for every leaf or a list, one a
+      leaf; the winners' ids are mapped through ``fids`` and merged by
+      ``select_best``;
+    - ``select_best(rows, cat) -> (rows, cat)``: the packed best rows
+      [N, NB] (and category sets) merged across ranks (≡
+      SyncUpGlobalBestSplit);
+    - ``fetch_bin_column(bins, rows, f)``: feature f's logical bins over
+      ``rows`` (compact) or every row (full, ``rows`` None), for the
+      partition: feature-parallel's owner broadcast;
+    - ``partition_meta``: the global FeatureMeta of the partition and the
+      monotone bounds when ``meta`` is a rank's feature slice;
+    - ``local_pool``: the pool holds local histograms, and each leaf's
+      local sums ride beside them (voting's local-sums channel).
+    """
+    reduce_hist: Optional[Callable] = None
+    reduce_sums: Optional[Callable] = None
+    reduce_max: Optional[Callable] = None
+    prepare_split_hist: Optional[Callable] = None
+    scan_window: Optional[Callable] = None
+    select_best: Optional[Callable] = None
+    fetch_bin_column: Optional[Callable] = None
+    partition_meta: Optional[FeatureMeta] = None
+    local_pool: bool = False
+
+
 def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                      hist_fn: Optional[Callable] = None, layout=None,
-                     forced: Optional[tuple] = None):
+                     forced: Optional[tuple] = None,
+                     hooks: Optional[GrowerHooks] = None):
     """Build ``grow(bins, gh, uniforms=None, feature_mask=None, cegb=None,
     et_key=None) -> (TreeArrays, leaf_id)``.
 
@@ -336,6 +413,10 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
     constraints of ``cfg`` and ``meta`` are described in the module
     docstring. Forced splits and the refined monotone modes need the
     full histogram pool.
+
+    ``hooks`` (:class:`GrowerHooks`) make the grower one rank of a
+    distributed learner (``parallel/``); ``grow`` then also takes the
+    ``reduce_max`` of quantization from them.
     """
     from .layout import DenseLayout
     hp = cfg.hparams
@@ -349,20 +430,39 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         raise ValueError(f"hist_pool={pool!r}: 'full', 'bounded' or 'none'")
     if pool != "full" and full:
         raise ValueError(f"hist_pool={pool!r} requires row_sched='compact'")
+    hk = hooks if hooks is not None else GrowerHooks()
+    distributed = hk.reduce_hist is not None
+    if pool == "bounded" and hooks is not None:
+        # the LRU cap is a one-machine memory concern (ref: the JAX
+        # package's core/grower.py:483-491)
+        raise ValueError("hist_pool='bounded' supports the serial learner "
+                         "only")
+    if hk.scan_window is not None and hk.select_best is None:
+        raise ValueError("scan_window needs a select_best combine (the "
+                         "per-rank winners must be merged)")
+    reduce_hist = hk.reduce_hist or (lambda h: h)
+    local_pool = hk.local_pool
+    # the global meta: partition rules, monotone bounds, category sets
+    pmeta = hk.partition_meta if hk.partition_meta is not None else meta
     P = max(int(cfg.pool_slots), 2) if pool == "bounded" else L
-    has_cat = meta.has_cat
+    has_cat = pmeta.has_cat
     MAXK = max_cat_width(hp, B) if has_cat else 0
     if hist_fn is None:
         hist_fn = hist_cuda_fm if full else hist_cuda_rm
-    nbin_h = meta.num_bin.tolist()
-    miss_h = meta.missing_type.tolist()
-    dflt_h = meta.default_bin.tolist()
+    nbin_h = pmeta.num_bin.tolist()
+    miss_h = pmeta.missing_type.tolist()
+    dflt_h = pmeta.default_bin.tolist()
     counts = {"hits": 0, "misses": 0}
     F = len(nbin_h)
-    use_mc = meta.monotone is not None
+    # the scan's features: a rank's slice under feature-parallel
+    F_scan = int(meta.num_bin.shape[0])
+    use_mc = pmeta.monotone is not None
     use_inter = use_mc and cfg.mc_method in ("intermediate", "advanced")
     use_adv = use_mc and cfg.mc_method == "advanced"
-    mono_h = np.asarray(meta.monotone.tolist(), np.int64) if use_mc else None
+    mono_h = (np.asarray(pmeta.monotone.tolist(), np.int64) if use_mc
+              else None)
+    column = (hk.fetch_bin_column if hk.fetch_bin_column is not None
+              else layout.column)
     if forced is not None and pool != "full":
         raise ValueError("forced splits need the full histogram pool; use "
                          "hist_pool='full'")
@@ -402,9 +502,10 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         return allowed if fm is None else fm & allowed
 
     def uniforms_of(keys) -> np.ndarray:
-        """extra_trees: one uniform a feature from each key, f32 [N, F]
-        on the host."""
-        return np.stack([prng.uniform_host(k, F) for k in keys])
+        """extra_trees: one uniform a scanned feature from each key, f32
+        [N, F] on the host (a rank's slice draws its own width, as the
+        JAX package's feature-parallel grower does)."""
+        return np.stack([prng.uniform_host(k, F_scan) for k in keys])
 
     def upload(blocks, dev):
         """The host arrays a split hands the device, [N, *] each, in one
@@ -415,16 +516,67 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             blocks, axis=1))).to(dev)
         return torch.split(buf, widths, dim=1)
 
-    def scan_leaves(hh, rows, fm, cegb, rand_u):
-        """Best splits of N leaves from their logical f32 histograms
-        ``hh`` and their stats rows ``rows`` [N, NS] (totals, output,
-        bounds, depth)."""
+    def scan_leaves(raw, rows, fm, cegb, rand_u, conv, lsum=None):
+        """Best splits of N leaves from their raw histograms ``raw`` (the
+        pool's) and their stats rows ``rows`` [N, NS] (totals, output,
+        bounds, depth): the packed rows [N, NB] and, with categorical
+        features, the category sets [N, MAXK]. ``lsum`` [N, 3] are the
+        leaves' local raw sums (``local_pool``): a local pool's
+        histograms are fixed with them. The distributed hooks run here,
+        in a fixed order: the prepare hook or the window, the scan, the
+        combine."""
         cnt = rows[:, S_CNT]
+        totals = rows[:, S_SG:S_CNT + 1]
+        ltot = conv(lsum) if lsum is not None else totals
+        hh = scan_hists(conv, raw, ltot)
         gp = None if cegb is None else cegb[0] + cegb[1] * cnt[:, None]
-        return best_split_for_leaf(
+        lr = (rows[:, S_LMIN], rows[:, S_LMAX])
+        ctx = None
+        if hk.prepare_split_hist is not None or hk.scan_window is not None:
+            ctx = dict(sg=rows[:, S_SG], sh=rows[:, S_SH], cnt=cnt,
+                       out=rows[:, S_VAL], lsg=ltot[:, 0], lsh=ltot[:, 1],
+                       lcnt=ltot[:, 2])
+        if hk.scan_window is not None:
+            hh_w, meta_w, fids, fm_w, gp_w, rand_w = hk.scan_window(
+                hh, ctx, fm, gp, rand_u)
+            metas = meta_w if isinstance(meta_w, list) else None
+            if metas is None:
+                rec = best_split_for_leaf(
+                    hh_w, rows[:, S_SG], rows[:, S_SH], cnt, rows[:, S_VAL],
+                    meta_w, hp, fm_w, leaf_range=lr,
+                    leaf_depth=rows[:, S_DEPTH], gain_penalty=gp_w,
+                    rand_u=rand_w)
+                packed = pack_record_rows(rec)
+            else:
+                one = lambda a, n: None if a is None else a[n:n + 1]
+                packed = torch.cat([pack_record_rows(best_split_for_leaf(
+                    hh_w[n:n + 1], rows[n:n + 1, S_SG], rows[n:n + 1, S_SH],
+                    cnt[n:n + 1], rows[n:n + 1, S_VAL], m, hp, one(fm_w, n),
+                    leaf_range=(lr[0][n:n + 1], lr[1][n:n + 1]),
+                    leaf_depth=rows[n:n + 1, S_DEPTH],
+                    gain_penalty=one(gp_w, n), rand_u=one(rand_w, n)))
+                    for n, m in enumerate(metas)])
+            f_loc = packed[:, B_FEAT].long()
+            fid = fids.gather(1, f_loc.clamp(min=0)[:, None])[:, 0]
+            packed[:, B_FEAT] = torch.where(f_loc >= 0, fid,
+                                            -1).to(torch.float32)
+            return hk.select_best(packed, None)
+        if hk.prepare_split_hist is not None:
+            hh, extra = hk.prepare_split_hist(hh, ctx, fm)
+            if extra is not None:
+                fm = extra if fm is None else fm & extra
+        rec = best_split_for_leaf(
             hh, rows[:, S_SG], rows[:, S_SH], cnt, rows[:, S_VAL], meta, hp,
-            fm, leaf_range=(rows[:, S_LMIN], rows[:, S_LMAX]),
-            leaf_depth=rows[:, S_DEPTH], gain_penalty=gp, rand_u=rand_u)
+            fm, leaf_range=lr, leaf_depth=rows[:, S_DEPTH], gain_penalty=gp,
+            rand_u=rand_u)
+        packed, cat = pack_record_rows(rec), rec.cat_bins
+        if has_cat and cat is None:
+            # a rank's feature slice without a categorical feature
+            cat = torch.full((packed.shape[0], MAXK), -1, dtype=torch.int64,
+                             device=packed.device)
+        if hk.select_best is not None:
+            packed, cat = hk.select_best(packed, cat)
+        return packed, cat
 
     def child_bounds(st, l, srow, brow, num_leaves):
         """f32 (l_min, l_max, r_min, r_max) of the two children of leaf
@@ -499,12 +651,17 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         dev = gh.device
         R = gh.shape[0]
         f32 = dict(dtype=torch.float32, device=dev)
-        sums = root_sums(cfg, gh, gh_hist, conv)
+        # each rank's sums, then their sum: the JAX package's psum of
+        # per-shard sums
+        lroot = local_sums(cfg, gh, gh_hist)
+        sums = lroot if hk.reduce_sums is None else hk.reduce_sums(lroot)
+        if cfg.quantized:
+            sums = conv(sums)
         root_g, root_h, root_c = sums[0], sums[1], sums[2]
         root_out = calculate_splitted_leaf_output(
             root_g, root_h + 2 * K_EPSILON, hp, root_c,
             torch.zeros((), **f32))
-        hist_root = hist_fn(bins, gh_hist, B)
+        hist_root = reduce_hist(hist_fn(bins, gh_hist, B))
         root_row = torch.zeros((1, NS), **f32)
         root_row[0, S_SG:S_VAL + 1] = torch.stack([root_g, root_h, root_c,
                                                   root_out])
@@ -517,9 +674,10 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         if et_key is not None:
             rand0 = torch.as_tensor(uniforms_of(
                 [prng.fold_in(et_key, 2 ** 20)]), device=dev)
-        best_root = scan_leaves(
-            scan_hists(conv, hist_root, sums)[None], root_row,
-            masks(feature_mask, [0], allowed0), cegb, rand0)
+        lsum = lroot[None] if local_pool else None
+        best_root, cat_root = scan_leaves(
+            hist_root[None], root_row, masks(feature_mask, [0], allowed0),
+            cegb, rand0, conv, lsum)
 
         hist = None
         if pool != "none":
@@ -536,12 +694,12 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         best[:, B_GAIN] = K_MIN_SCORE
         best[:, B_FEAT] = -1.0
         best[:, B_DL] = 1.0
-        best[0] = pack_record_rows(best_root)[0]
+        best[0] = best_root[0]
         best_cat = tree_cat = None
         if has_cat:
             best_cat = torch.full((L, MAXK), -1, dtype=torch.int64,
                                   device=dev)
-            best_cat[0] = best_root.cat_bins[0]
+            best_cat[0] = cat_root[0]
             tree_cat = np.full((max(L - 1, 0), MAXK), -1, np.int32)
         seg_rows = [0] * L
         seg_rows[0] = R
@@ -553,6 +711,9 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             leaf_id=(torch.zeros(R, dtype=torch.int64, device=dev)
                      if full else None),
             best_cat=best_cat, tree_cat=tree_cat, path=path0)
+        if local_pool:
+            st.lsum = torch.zeros((L, 3), dtype=lroot.dtype, device=dev)
+            st.lsum[0] = lroot
         if use_inter:
             st.leaf_flo = np.zeros((L, F), np.int64)
             st.leaf_fhi = np.tile(np.asarray(nbin_h, np.int64) - 1, (L, 1))
@@ -573,7 +734,7 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         order, seg_start, seg_rows = st.order, st.seg_start, st.seg_rows
         start, rows = seg_start[l], seg_rows[l]
         seg = order[start:start + rows]
-        go_left = _go_left(layout.column(bins_rm, seg, f), thr, dl,
+        go_left = _go_left(column(bins_rm, seg, f), thr, dl,
                            nbin_h[f], miss_h[f], dflt_h[f], cat_set)
         n_left = int(go_left.sum())
         order[start:start + rows] = torch.cat([seg[go_left],
@@ -583,17 +744,27 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         seg_start[new_leaf], seg_rows[new_leaf] = start + n_left, n_right
         return n_left, n_right
 
-    def segment_hist(bins_rm, gh_hist, st, leaf):
-        """The histogram of a leaf's segment, from its gathered rows."""
+    def segment_hist(bins_rm, gh_hist, st, leaf, sums=None):
+        """The histogram of a leaf's segment, from its gathered rows (and,
+        into ``sums[leaf]``, the segment's local raw sums)."""
         start, rows = st.seg_start[leaf], st.seg_rows[leaf]
         idx = st.order[start:start + rows]
-        return hist_fn(bins_rm.index_select(0, idx),
-                       gh_hist.index_select(0, idx), B)
+        ghs = gh_hist.index_select(0, idx)
+        if sums is not None:
+            sums[leaf] = (ghs.sum(dim=0, dtype=torch.int32) if cfg.quantized
+                          else column_sum(ghs.to(torch.float32)))
+        return hist_fn(bins_rm.index_select(0, idx), ghs, B)
 
-    def children_compact(bins_rm, gh_hist, st, l, new_leaf, i):
+    def children_compact(bins_rm, gh_hist, st, l, new_leaf, i, brow):
         """The raw histograms of leaf ``l``'s two children after its
-        partition, under the pool policy, and the pool's update."""
-        left_smaller = st.seg_rows[l] <= st.seg_rows[new_leaf]
+        partition, under the pool policy, and the pool's update (and the
+        children's local sums under ``local_pool``). Under a distributed
+        learner the smaller child is the one the split record counts
+        smaller, which every rank agrees on (the JAX package's
+        core/grower.py:1186-1200)."""
+        left_smaller = (bool(brow[B_LC] <= brow[B_RC]) if distributed
+                        else st.seg_rows[l] <= st.seg_rows[new_leaf])
+        lsums = {} if local_pool else None
         sp = -1
         if pool == "full":
             sp = l
@@ -601,14 +772,21 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             sp = st.slot_map[l]
         if sp >= 0:
             counts["hits"] += 1
-            small = segment_hist(bins_rm, gh_hist, st,
-                                 l if left_smaller else new_leaf)
+            s_leaf = l if left_smaller else new_leaf
+            small = reduce_hist(segment_hist(bins_rm, gh_hist, st, s_leaf,
+                                             lsums))
             large = st.hist[sp] - small
             hl, hr = (small, large) if left_smaller else (large, small)
+            if local_pool:
+                b_leaf = new_leaf if left_smaller else l
+                lsums[b_leaf] = st.lsum[l] - lsums[s_leaf]
         else:
             counts["misses"] += 1
-            hl = segment_hist(bins_rm, gh_hist, st, l)
-            hr = segment_hist(bins_rm, gh_hist, st, new_leaf)
+            hl, hr = reduce_hist(torch.stack([
+                segment_hist(bins_rm, gh_hist, st, l, lsums),
+                segment_hist(bins_rm, gh_hist, st, new_leaf, lsums)]))
+        if local_pool:
+            st.lsum[l], st.lsum[new_leaf] = lsums[l], lsums[new_leaf]
         if pool == "full":
             st.hist[l], st.hist[new_leaf] = hl, hr
         elif pool == "bounded":
@@ -637,12 +815,21 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         core/grower.py:1045-1060); the smaller child's histogram is one
         pass over all rows that adds the child's (``leaf_hist``,
         :601-603, the mask fused into the kernel). Returns hist_small."""
-        go_left = _go_left(layout.column(bins_fm, None, f), thr, dl,
+        go_left = _go_left(column(bins_fm, None, f), thr, dl,
                            nbin_h[f], miss_h[f], dflt_h[f], cat_set)
         st.leaf_id = torch.where((st.leaf_id == l) & ~go_left, new_leaf,
                                  st.leaf_id)
-        return hist_fn(bins_fm, gh_hist, B, leaf_id=st.leaf_id,
-                       leaf=l if left_smaller else new_leaf)
+        small = hist_fn(bins_fm, gh_hist, B, leaf_id=st.leaf_id,
+                        leaf=l if left_smaller else new_leaf)
+        if local_pool:
+            # full scheduling is dense: any feature's bins sum to the
+            # child's local raw totals (the JAX package's
+            # core/grower.py:1262-1265)
+            s_sum = small[0].sum(dim=0)
+            b_sum = st.lsum[l] - s_sum
+            st.lsum[l], st.lsum[new_leaf] = ((s_sum, b_sum) if left_smaller
+                                             else (b_sum, s_sum))
+        return reduce_hist(small)
 
     def refine_bounds(st, conv, l, new_leaf, brow, gains_h, bounds,
                       feature_mask, cegb, i):
@@ -688,14 +875,14 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
         st.stats[idx_t, S_LMIN] = parts[0][:, 1].float()
         st.stats[idx_t, S_LMAX] = parts[0][:, 2].float()
         rows = st.stats[idx_t]
-        rec = scan_leaves(
-            scan_hists(conv, st.hist[idx_t], rows[:, S_SG:S_CNT + 1]), rows,
+        packed, cat = scan_leaves(
+            st.hist[idx_t], rows,
             masks(feature_mask, st.leaf_nrow[idx].tolist(),
                   parts[1] > 0.5 if st.path is not None else None), cegb,
-            None)
-        st.best[idx_t] = pack_record_rows(rec)
+            None, conv, st.lsum[idx_t] if local_pool else None)
+        st.best[idx_t] = packed
         if has_cat:
-            st.best_cat[idx_t] = rec.cat_bins
+            st.best_cat[idx_t] = cat
 
     def resume(bins, gh_hist: torch.Tensor, conv: Callable,
                st: GrowState, k0: int,
@@ -793,7 +980,8 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
                 raw2 = hist[[l, new_leaf]]
             else:
                 partition_compact(bins, st, l, new_leaf, f, thr, dl, cat_set)
-                raw2 = children_compact(bins, gh_hist, st, l, new_leaf, i)
+                raw2 = children_compact(bins, gh_hist, st, l, new_leaf, i,
+                                        brow)
 
             # ---- children stats and best splits --------------------------
             depth = srow[S_DEPTH] + 1.0
@@ -824,13 +1012,13 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
             allowed2 = parts.pop(0) > 0.5 if st.path is not None else None
             rand2 = parts.pop(0) if et_key is not None else None
             stats[pair] = child
-            rec2 = scan_leaves(
-                scan_hists(conv, raw2, child[:, S_SG:S_CNT + 1]), child,
+            packed2, cat2 = scan_leaves(
+                raw2, child,
                 masks(feature_mask, [2 * i + 1, 2 * i + 2], allowed2),
-                cegb, rand2)
-            best[pair] = pack_record_rows(rec2)
+                cegb, rand2, conv, st.lsum[pair] if local_pool else None)
+            best[pair] = packed2
             if has_cat:
-                st.best_cat[pair] = rec2.cat_bins
+                st.best_cat[pair] = cat2
             num_leaves = new_leaf + 1
             if use_inter:
                 refine_bounds(st, conv, l, new_leaf, brow, gains_h,
@@ -874,7 +1062,7 @@ def make_tree_grower(cfg: GrowerConfig, meta: FeatureMeta,
              feature_mask: Optional[torch.Tensor] = None,
              cegb: Optional[tuple] = None, et_key=None
              ) -> Tuple[TreeArrays, torch.Tensor]:
-        gh_hist, conv = hist_inputs(cfg, gh, uniforms)
+        gh_hist, conv = hist_inputs(cfg, gh, uniforms, hk.reduce_max)
         state = root_state(bins, gh, gh_hist, conv, feature_mask, cegb,
                            et_key)
         return resume(bins, gh_hist, conv, state, 0, feature_mask, cegb,

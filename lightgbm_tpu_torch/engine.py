@@ -15,8 +15,8 @@ standard deviation over the folds each round. A callable
 iteration's gradients (``Booster.update(fobj=)``). ``resume_from``
 continues from the newest CRC-valid checkpoint that
 ``callback.checkpoint_callback`` wrote (the JAX package's
-engine.py:97-180; its gang-manifest branch waits for the distributed
-learners, ROADMAP A13). ``tpu_fallback_to_cpu`` is refused: the port
+engine.py:97-180; its gang-manifest branch waits for the supervised
+gang, ROADMAP A13b). ``tpu_fallback_to_cpu`` is refused: the port
 does not fall back from the card.
 """
 from __future__ import annotations

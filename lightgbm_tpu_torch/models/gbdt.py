@@ -78,12 +78,13 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..core.grower import GrowerConfig, make_tree_grower
+from ..core.grower import GrowerConfig, GrowerHooks, make_tree_grower
 from ..core.hybrid_grower import make_hybrid_grower, resolve_handoff_depth
 from ..core.level_grower import MAX_LEVEL_DEPTH, make_level_grower
 from ..core.metrics import Metric
 from ..core.objective import ObjectiveFunction
 from ..core.tree import HostTree
+from ..distributed import make_injected_hooks
 from ..io.dataset_core import BinnedDataset
 from ..ops.forest import (BinnedTreeArrays, DeviceRouteUnavailable,
                           ServingEngine, mapper_arrays, pack_binned_tree,
@@ -121,6 +122,16 @@ def resolve_device(config: Config) -> torch.device:
         log.fatal("device_type='cuda' but torch.cuda.is_available() is "
                   "False; pass device_type='cpu' to run on the CPU")
     return torch.device(dev)
+
+
+def resolve_hist_reduce(requested: str) -> str:
+    """``tpu_hist_reduce`` for the row-sharded learners (ref: the JAX
+    package's models/gbdt.py:220-241): explicit values pass through (the
+    learner gates eligibility, attributably); ``auto`` is ``allreduce``,
+    the JAX package's incumbent (it flips only by a TPU-tuned cache,
+    which has no counterpart here)."""
+    requested = str(requested).lower()
+    return "allreduce" if requested == "auto" else requested
 
 
 class _ValidData:
@@ -221,6 +232,12 @@ class GBDT:
         self._hb_warm = False
         self._hb_policy = None
         self._nguard: Optional[integrity.NumericHealthGuard] = None
+        # the learner and its world (_select_learner), serial by default;
+        # _hist_reduce attributes the histogram collective
+        self._tree_learner = "serial"
+        self._comm = self._dist = self._inj = None
+        self._hist_reduce = "n/a"
+        self._process_rank = 0
         if train_set is not None:
             self._setup_train(train_set)
 
@@ -242,7 +259,9 @@ class GBDT:
 
     def _setup_train(self, train: BinnedDataset) -> None:
         cfg = self.config
-        bad = cfg.unsupported_settings()
+        from ..distributed import num_processes
+        bad = cfg.unsupported_settings() + cfg.distributed_refusals(
+            num_processes())
         if bad:
             log.fatal("the port does not implement these settings yet: "
                       + ", ".join(bad))
@@ -280,7 +299,14 @@ class GBDT:
         self._linear = bool(cfg.linear_tree)
         if self._linear:
             self._check_linear(train)
+        self._select_learner()
         self._forced = self._load_forced_splits(train)
+        if self._forced is not None and self._tree_learner in ("voting",
+                                                               "feature"):
+            log.warning("forcedsplits_filename is not supported with "
+                        f"tree_learner={self._tree_learner}; ignoring "
+                        "forced splits")
+            self._forced = None
         bins_host = self._setup_bundles(train)
         # the logical feature-major bins of the traversal replays, made
         # on first use when the stored columns are physical
@@ -289,7 +315,9 @@ class GBDT:
         # growers row-major only (ref: gbdt.py:942, 1033-1072); u16 bins
         # are held as int16 with the same bits (ops/histogram.bin_ids);
         # multi-value storage is its [R, K] pairs
-        if self._multival:
+        if self._tree_learner != "serial":
+            self.bins = self._learner_bins(train, bins_host)
+        elif self._multival:
             from ..ops.hist_multival import SparseBins
             self.bins = SparseBins(torch.from_numpy(train.bins_mv[0]).to(dev),
                                    torch.from_numpy(train.bins_mv[1]).to(dev),
@@ -393,14 +421,25 @@ class GBDT:
         """The process heartbeat from ``tpu_heartbeat_file`` or, without
         it, ``LGBM_TPU_HEARTBEAT``, and the stall policy from the
         environment with ``tpu_stall_sec`` over every phase (ref: the
-        JAX package's models/gbdt.py:670-696). The port trains one rank,
-        so the file is the base path itself."""
+        JAX package's models/gbdt.py:664-696). In a world of more than
+        one process each rank writes its own file
+        (``heartbeat.rank_path``, the gang's read convention), and the
+        ``rank_kill`` site knows the rank; ``tpu_gang_collective_timeout_s``
+        pins the collective deadline."""
         import os
+
+        from ..distributed import (num_processes, process_index,
+                                   set_collective_timeout)
         cfg = self.config
+        self._process_rank = process_index()
         hb_path = str(cfg.tpu_heartbeat_file) or \
             (os.environ.get(heartbeat.ENV_HEARTBEAT) or "").strip()
         if hb_path:
+            if num_processes() > 1:
+                hb_path = heartbeat.rank_path(hb_path, self._process_rank)
             heartbeat.install(hb_path)
+        if float(cfg.tpu_gang_collective_timeout_s or 0.0) > 0.0:
+            set_collective_timeout(float(cfg.tpu_gang_collective_timeout_s))
         policy = heartbeat.StallPolicy.from_env()
         if float(cfg.tpu_stall_sec or 0.0) > 0.0:
             s = float(cfg.tpu_stall_sec)
@@ -408,6 +447,160 @@ class GBDT:
                 policy, stall_sec={p: s for p in policy.stall_sec},
                 default_stall=s)
         self._hb_policy = policy
+
+    def _select_learner(self) -> None:
+        """``tree_learner`` (ref: tree_learner.cpp:17; the JAX package's
+        models/gbdt.py:844-935, 1137-1162): ``data``, ``voting`` and
+        ``feature`` train over the ``torch.distributed`` world this
+        process joined (``distributed.init_distributed``), one rank a
+        process, with the whole boosting loop around them; outside a
+        world they run serial, with the JAX package's warning. Linear
+        trees are serial; multi-value storage serves the serial, data
+        and voting learners. The serial learner takes the injected
+        collectives, if any, snapshotted here so several workers can be
+        set up one after another in one process."""
+        from ..distributed import injected_collectives
+        from ..parallel.mesh import current_comm
+        cfg = self.config
+        tl = str(cfg.tree_learner).lower()
+        if self._linear and tl != "serial":
+            log.warning("Linear tree learner must be serial")
+            tl = "serial"
+        if tl in ("data", "voting", "feature"):
+            comm = current_comm(self.device)
+            if comm is not None:
+                self._tree_learner, self._comm = tl, comm
+            else:
+                log.warning(f"tree_learner={tl} requested but only 1 "
+                            "device(s) visible; running serial")
+        if self._multival and self._tree_learner == "feature":
+            log.warning("multi-value sparse storage supports the serial, "
+                        "data and voting learners (consider "
+                        "tree_learner=data); overriding: "
+                        "tree_learner=feature")
+            self._tree_learner, self._comm = "serial", None
+        if (self._tree_learner not in ("data", "voting") and
+                str(cfg.tpu_hist_reduce).lower() == "reduce_scatter"):
+            log.info("tpu_hist_reduce=reduce_scatter applies to the "
+                     "row-sharded learners (tree_learner=data/voting); "
+                     f"tree_learner={self._tree_learner!r} keeps its "
+                     "existing collective contract")
+        if self._tree_learner == "serial":
+            self._inj = injected_collectives()
+            return
+        if (self._tree_learner == "voting" and self._multival and
+                self.row_sched == "full"):
+            # a full pass's local sums come from a feature's bins, which
+            # miss the default-bin mass multi-value storage does not store
+            log.fatal("tree_learner=voting with multi-value sparse storage "
+                      "requires tpu_row_scheduling='compact'")
+        if self._tree_learner == "feature" and cfg.interaction_constraints:
+            log.fatal("interaction_constraints are not supported with "
+                      "tree_learner=feature")
+
+    def _resolve_hist_reduce_mode(self) -> str:
+        """The histogram collective of the row-sharded learners, with the
+        JAX package's eligibility ladder and its attribution string in
+        ``self._hist_reduce`` (ref: models/gbdt.py:1288-1333): the
+        reduce-scatter windows scan dense numerical features only, so EFB,
+        multi-value storage, forced splits (data), categorical and
+        monotone features resolve to allreduce, logged with the
+        reason."""
+        cfg = self.config
+        tl = self._tree_learner
+        mode = resolve_hist_reduce(cfg.tpu_hist_reduce)
+        if tl not in ("data", "voting"):
+            self._hist_reduce = "n/a"
+            return "allreduce"
+        if mode != "reduce_scatter":
+            self._hist_reduce = "allreduce"
+            return "allreduce"
+        reasons = []
+        if self._bundle is not None:
+            reasons.append("efb")
+        if self._multival:
+            reasons.append("multival")
+        if self._forced is not None and tl == "data":
+            reasons.append("forced-splits")
+        if self.feature_meta.has_cat:
+            reasons.append("categorical")
+        if self.feature_meta.monotone is not None:
+            reasons.append("monotone")
+        if reasons:
+            why = "+".join(reasons)
+            log.info(f"tpu_hist_reduce={cfg.tpu_hist_reduce} resolves to "
+                     "allreduce: reduce_scatter is not yet eligible with "
+                     f"{why} (feature windows carry dense numerical scan "
+                     "state only)")
+            self._hist_reduce = f"allreduce(fallback:{why})"
+            return "allreduce"
+        self._hist_reduce = "reduce_scatter"
+        return "reduce_scatter"
+
+    def _learner_bins(self, train: BinnedDataset, bins_host):
+        """This rank's stored columns on the device (ref: the JAX
+        package's models/gbdt.py:1336-1560): under data and voting its
+        block of rows (``RowShards``; pad rows are zero bins, multi-value
+        pad rows hold no entry), under feature every row of its feature
+        slice, or of its EFB groups' slice (pad columns zero bins)."""
+        from ..parallel.data_parallel import RowShards
+        from ..parallel.feature_parallel import (feature_window,
+                                                 host_feature_slice)
+        dev = self.device
+        full = self.row_sched == "full"
+        if self._tree_learner == "feature":
+            # the features' slice, or under EFB the groups' (shard_bundle)
+            n = (self.num_used_features if self._bundle is None
+                 else self._bundle.num_groups)
+            lo, Fd = feature_window(n, self._comm)
+            local = host_feature_slice(bins_host, lo, Fd)
+        else:
+            self._shards = RowShards(self.num_data, self._comm)
+            if self._multival:
+                from ..ops.hist_multival import SparseBins
+                idx, binv = train.bins_mv
+                return SparseBins(
+                    torch.from_numpy(self._shards.host_rows(idx, -1)).to(dev),
+                    torch.from_numpy(self._shards.host_rows(binv)).to(dev),
+                    self.num_used_features)
+            local = self._shards.host_rows(bins_host)
+        return (feature_major_bins(local, dev) if full
+                else device_bins(local, dev))
+
+    def _make_learner(self, hist_fn):
+        """The grower of this rank of the distributed learner, and the
+        engine's wrapper around it (``self._dist``)."""
+        from ..parallel import (FeatureShardedLearner, RowShardedLearner,
+                                make_data_parallel_grower,
+                                make_feature_parallel_grower,
+                                make_voting_parallel_grower)
+        gcfg, meta, layout = self.grower_cfg, self.feature_meta, self._layout
+        tl, comm = self._tree_learner, self._comm
+        mode = self._resolve_hist_reduce_mode()
+        if tl == "feature":
+            if (self._bundle is not None and meta.monotone is not None and
+                    gcfg.mc_method in ("intermediate", "advanced")):
+                # the JAX package's refusal (core/grower.py:634-647): its
+                # box geometry cannot follow the group layout
+                log.fatal("refined monotone constraints do not compose with "
+                          "tree_learner=feature + EFB bundling; use "
+                          "monotone_constraints_method='basic'")
+            grow = make_feature_parallel_grower(gcfg, meta, comm,
+                                                hist_fn=hist_fn, layout=layout,
+                                                bundle=self._bundle)
+            self._dist = FeatureShardedLearner(grow, self.bins)
+            return grow
+        if tl == "data":
+            grow = make_data_parallel_grower(gcfg, meta, comm, hist_fn=hist_fn,
+                                             layout=layout,
+                                             forced=self._forced,
+                                             hist_reduce=mode)
+        else:
+            grow = make_voting_parallel_grower(
+                gcfg, meta, comm, top_k=int(self.config.top_k),
+                hist_fn=hist_fn, layout=layout, hist_reduce=mode)
+        self._dist = RowShardedLearner(grow, self.bins, self._shards)
+        return grow
 
     def _constraint_meta(self, train: BinnedDataset):
         """``(monotone, mc_method, feature_contri)``: the monotone
@@ -674,8 +867,17 @@ class GBDT:
             if self._multival:
                 from ..core.layout import multival_hist
                 hist_fn = multival_hist
+            if self._tree_learner != "serial":
+                return self._make_learner(hist_fn)
+            hooks = None
+            inj = make_injected_hooks(self._inj)
+            if inj is not None:
+                hooks = GrowerHooks(reduce_hist=inj["reduce_hist"],
+                                    reduce_sums=inj["reduce_sums"],
+                                    reduce_max=inj["reduce_max"])
             return make_tree_grower(gcfg, meta, hist_fn=hist_fn,
-                                    layout=layout, forced=self._forced)
+                                    layout=layout, forced=self._forced,
+                                    hooks=hooks)
         if 1 <= gcfg.max_depth <= MAX_LEVEL_DEPTH:
             return make_level_grower(gcfg, meta, layout=layout)
         d0 = int(self.config.tpu_level_handoff_depth)
@@ -720,7 +922,8 @@ class GBDT:
             log.warning("histogram pool exceeds the budget but "
                         "monotone_constraints_method=intermediate re-scans "
                         "from it; keeping the full pool")
-        elif n_slots >= 2 and not self._multival:
+        elif (n_slots >= 2 and not self._multival and
+              self._tree_learner == "serial" and self._inj is None):
             self.grower_cfg = dataclasses.replace(
                 self.grower_cfg, hist_pool="bounded", pool_slots=n_slots)
             log.info(f"histogram pool ({pool_bytes >> 20} MB) exceeds the "
@@ -736,7 +939,9 @@ class GBDT:
     def _level_ineligibility(self) -> List[str]:
         """Reasons level scheduling cannot serve this config, in the JAX
         package's words (ref: gbdt.py:1747-1810), for what the port
-        accepts: the settings whose sequential, step-by-step state feeds
+        accepts: a distributed learner or injected collectives (another
+        learner's layout), the settings whose sequential, step-by-step
+        state feeds
         later split decisions (monotone and interaction constraints,
         CEGB, forced splits, extra_trees' per-split draws, linear trees),
         per-node column sampling (one mask a level there), and memory:
@@ -747,6 +952,10 @@ class GBDT:
         logical features)."""
         cfg = self.config
         reasons = []
+        if self._tree_learner != "serial":
+            reasons.append(f"tree_learner={self._tree_learner!r}")
+        if self._inj is not None:
+            reasons.append("injected collectives")
         if self.grower_cfg.hparams.monotone_penalty > 0 or (
                 self.feature_meta is not None and
                 self.feature_meta.monotone is not None):
@@ -790,6 +999,16 @@ class GBDT:
                 (self.config.boost_from_average or
                  self.num_used_features == 0)):
             init_score = float(self.objective.boost_from_score(k))
+            inj = self._inj
+            if inj is not None and inj["num_machines"] > 1:
+                # each worker's rows give its own score: the mean over
+                # machines (ref: gbdt.cpp:322 GlobalSyncUpByMean; the JAX
+                # package's models/gbdt.py:1890-1903)
+                from ..distributed import retried_collective
+                tot = retried_collective(
+                    inj["reduce_sum"], np.asarray([init_score], np.float64),
+                    what="init-score sync")
+                init_score = float(tot[0]) / inj["num_machines"]
             if abs(init_score) > K_EPSILON:
                 self.score[k] += init_score
                 for vd in self.valid_sets:
@@ -943,20 +1162,28 @@ class GBDT:
         gradient_discretizer.cpp random_values_use_start), split into
         stochastic rounding's two draws and folded with 7919 into
         extra_trees' key."""
-        uniforms = et_key = None
+        uniforms = et_key = key_u = None
         if self._rng_key is not None:
             tree_key = prng.fold_in(
                 self._rng_key, self.iter * self.num_tree_per_iteration + k)
             gcfg = self.grower_cfg
             if gcfg.quantized and gcfg.stochastic_rounding:
-                uniforms = tuple(prng.uniform(key, self.num_data,
-                                              self.device)
-                                 for key in prng.split(tree_key))
+                key_u = tree_key
             if gcfg.extra_trees:
                 et_key = prng.fold_in(tree_key, 7919)
         # the level growers take neither: those settings leave them
         extras = {k: v for k, v in (("cegb", self._cegb_penalty()),
                                     ("et_key", et_key)) if v is not None}
+        if self._dist is not None:
+            # the learner draws each rank's own uniforms from key_u
+            return self._dist.grow(gh, key_u, self._feature_mask(), **extras)
+        if key_u is not None:
+            if self._inj is not None:
+                # each worker rounds its own rows with its own noise (the
+                # JAX package's localize_key, distributed.py:614-617)
+                key_u = prng.fold_in(key_u, self._inj["rank"])
+            uniforms = tuple(prng.uniform(key, self.num_data, self.device)
+                             for key in prng.split(key_u))
         return self._grow(self.bins, gh, uniforms, self._feature_mask(),
                           **extras)
 
@@ -972,13 +1199,15 @@ class GBDT:
         ``DeviceStallError`` (the watchdog's interrupt arrives as a
         ``KeyboardInterrupt``, which is mapped to it; a real Ctrl-C with
         no stall armed propagates untouched)."""
-        faults.maybe_kill_rank(0)
+        faults.maybe_kill_rank(self._process_rank)
         wd = self._hb_iter_begin()
         try:
             done = self._train_one_iter_body(
                 gradients, hessians,
                 gradients is None and hessians is None and self._async_on())
             self._hb_warm = True
+            if not done:
+                self._gang_digest_check()
             return done
         except KeyboardInterrupt:
             if wd is not None:
@@ -987,6 +1216,41 @@ class GBDT:
         finally:
             if wd is not None:
                 wd.end()
+
+    def _gang_digest_check(self) -> None:
+        """The gang's agreement check (ref: the JAX package's
+        models/gbdt.py:2136-2165): every ``tpu_integrity_digest_every``
+        iterations the ranks all-reduce a CRC digest of the iteration's
+        trees, encoded so the sum alone decides agreement
+        (``integrity.check_digest_reduction``), over the injected
+        ``reduce_sum`` or the learner's world; a disagreement raises
+        ``GangDivergence`` on every rank. ``bitflip:where=digest`` makes
+        this rank's digest lie. A no-op in a world of one."""
+        every = int(self.config.tpu_integrity_digest_every or 0)
+        inj, comm = self._inj, self._comm
+        world = (int(inj["num_machines"]) if inj is not None
+                 else comm.world if comm is not None else 1)
+        if every <= 0 or world <= 1 or self.iter % every != 0:
+            return
+        from ..distributed import retried_collective
+        K = self.num_tree_per_iteration
+        digest = integrity.iteration_digest(self.models[-K:])
+        if faults.check("bitflip", where="digest"):
+            log.warning("fault injection: bit-flipped this rank's tree "
+                        "digest before the gang agreement sync")
+            digest ^= 0x1
+        enc = integrity.digest_reduction(digest)
+        if inj is not None:
+            rank = int(inj["rank"])
+            total = np.asarray(retried_collective(
+                inj["reduce_sum"], enc, what="integrity tree-digest sync"))
+        else:
+            rank = comm.rank
+            total = comm.all_reduce_sum(
+                torch.as_tensor(enc, device=comm.device),
+                kind="digest").cpu().numpy()
+        integrity.check_digest_reduction(total, world, digest, self.iter,
+                                         rank=rank, what="gang")
 
     def _hb_iter_begin(self):
         """Beat the process heartbeat and arm the stall watchdog for one
@@ -1334,7 +1598,8 @@ class GBDT:
         """The training bins as a feature-major logical ``[F, N]`` view.
         Over EFB groups or multi-value pairs the logical bins are decoded
         once (``ensure_logical_bins``; ref: gbdt.py:1256-1264)."""
-        if self._bundle is None and not self._multival:
+        if (self._bundle is None and not self._multival and
+                self._tree_learner == "serial"):
             return self.bins if self.row_sched == "full" else self.bins.T
         if self._logical_fm is None:
             if self.train_set.bins is None:

@@ -51,12 +51,17 @@ Every site of the JAX package parses. The port consults these:
   at an iteration boundary, via :func:`maybe_kill_rank` at the top of
   the boosting iteration; ``rank=R`` selects the rank (default: any
   rank that consults) and ``after=N`` skips that rank's first N
-  iterations. The port trains one rank (rank 0) until the distributed
-  learners land (ROADMAP A13).
+  iterations. The engine consults it with its rank in the
+  ``torch.distributed`` world (0 outside one).
+- ``collective`` — one collective's request is lost before it is issued
+  (raises :class:`FaultInjected`; retried under
+  ``retry.COLLECTIVE_POLICY``), and ``collective_delay`` — a collective
+  stalls ``sec`` seconds inside its deadline: consulted by every
+  collective of the distributed learners (``parallel/mesh.Comm``) and
+  of injected transport (``distributed.retried_collective``).
 
-These parse and wait for the modules that consult them: ``collective``
-and ``collective_delay`` (the distributed learners' collectives,
-ROADMAP A13); ``probe_timeout`` (a device probe:
+These parse and wait for the modules that consult them:
+``probe_timeout`` (a device probe:
 :func:`.retry.probe_device` consults it, which nothing in the training
 path calls); ``dispatch_error``, ``slow_dispatch``, ``publish_fail`` and
 ``oom`` (the serving tier, ROADMAP A14). ``oom`` raises

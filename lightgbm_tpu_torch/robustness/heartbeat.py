@@ -71,8 +71,8 @@ PHASE_ITER = "iter"
 def rank_path(path: str, rank: int) -> str:
     """Per-rank heartbeat file for a multi-process world: the supervisor
     exports ONE base path (``LGBM_TPU_HEARTBEAT``) and every rank writes
-    ``base.r<rank>``, the JAX package's convention. The port trains one
-    rank until the distributed learners land (ROADMAP A13)."""
+    ``base.r<rank>``, the JAX package's convention: the engine does so
+    in a ``torch.distributed`` world of more than one process."""
     return f"{path}.r{int(rank)}"
 
 # exit code of a self-watchdogged child: the supervisor maps it to the

@@ -13,13 +13,18 @@ transient — retrying the same poisoned iteration is futile). The fault
 sites ``nan_grad`` and ``loss_spike`` (``faults.py``) inject exactly
 these signatures.
 
-The serving canaries, the host pack fingerprints and the gang digests
-of the JAX module wait for the serving tier and the distributed
-learners (ROADMAP A14, A13).
+The gang digests (``iteration_digest``, ``digest_reduction``,
+``check_digest_reduction``): every rank of a distributed learner
+all-reduces a CRC of the iteration's trees, encoded so the sum alone
+decides agreement, and a disagreement raises :class:`GangDivergence`
+(``models/gbdt.py`` ``_gang_digest_check``). The serving canaries and
+the host pack fingerprints of the JAX module wait for the serving tier
+(ROADMAP A14).
 """
 from __future__ import annotations
 
-from typing import List
+import zlib
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -117,3 +122,75 @@ class NumericHealthGuard:
         hist.append(float(loss))
         if len(hist) > 4 * self.window:
             del hist[:-self.window]
+
+
+class GangDivergence(IntegrityError):
+    """Ranks disagree on the post-reduce tree digest: at least one rank
+    reduced different bits. Relaunch from the manifest; do not commit."""
+
+
+def iteration_digest(host_trees) -> int:
+    """CRC32 of one iteration's trees: split features, thresholds, bins,
+    children and leaf outputs, pure functions of the reduced histograms,
+    so ranks whose reductions diverged differ here one iteration before
+    the committed models fork (the JAX package's
+    robustness/integrity.py:243-261)."""
+    crc = 0
+    for t in host_trees:
+        n = int(t.num_leaves)
+        for name in ("split_feature", "threshold", "threshold_bin",
+                     "left_child", "right_child", "leaf_value"):
+            a = getattr(t, name, None)
+            if a is None:
+                continue
+            a = np.ascontiguousarray(np.asarray(a)[:max(n - 1, 0)]
+                                     if name != "leaf_value"
+                                     else np.asarray(a)[:n])
+            crc = zlib.crc32(a.tobytes(), crc)
+    return crc & 0xFFFFFFFF
+
+
+def check_gang_digests(digests: Sequence[int], iteration: int,
+                       rank: Optional[int] = None,
+                       what: str = "gang") -> None:
+    """Every rank must report the same digest; :class:`GangDivergence`
+    (listing each rank's) otherwise."""
+    vals = [int(d) & 0xFFFFFFFF for d in digests]
+    if len(set(vals)) <= 1:
+        return
+    who = f" (this rank: {rank})" if rank is not None else ""
+    listing = ", ".join(f"r{i}={v:08x}" for i, v in enumerate(vals))
+    raise GangDivergence(
+        f"{what} iteration {iteration}: post-reduce tree digests "
+        f"diverged across ranks{who}: {listing} — at least one rank "
+        "reduced different bits; refusing to commit a forked model "
+        "(relaunch from the newest committed manifest)")
+
+
+def digest_reduction(digest: int) -> np.ndarray:
+    """One rank's digest encoded for an all-reduce SUM: the two 16-bit
+    halves and their squares ``[hi, lo, hi^2, lo^2]`` f64, exact in any
+    real world's sum."""
+    d = int(digest) & 0xFFFFFFFF
+    hi, lo = float(d >> 16), float(d & 0xFFFF)
+    return np.asarray([hi, lo, hi * hi, lo * lo], np.float64)
+
+
+def check_digest_reduction(total: np.ndarray, world: int, digest: int,
+                           iteration: int, rank: Optional[int] = None,
+                           what: str = "gang") -> None:
+    """Agreement from the summed :func:`digest_reduction`: per half,
+    ``world * sum(d^2) == sum(d)^2`` holds iff every rank sent the same
+    value (Cauchy-Schwarz equality); :class:`GangDivergence` otherwise,
+    the same verdict on every rank."""
+    t = np.asarray(total, np.float64).reshape(-1)
+    w = max(int(world), 1)
+    if w * t[2] == t[0] * t[0] and w * t[3] == t[1] * t[1]:
+        return
+    who = (f" (this rank: {rank}, digest {int(digest):08x})"
+           if rank is not None else "")
+    raise GangDivergence(
+        f"{what} iteration {iteration}: post-reduce tree digests "
+        f"diverged across {w} ranks{who} — at least one rank reduced "
+        "different bits; refusing to commit a forked model (relaunch "
+        "from the newest committed manifest)")

@@ -233,6 +233,32 @@ class RetryPolicy:
         hi = max(self.base_delay, prev_delay * 3.0)
         return min(self.max_delay, rng.uniform(self.base_delay, hi))
 
+    def from_env_overrides(self, env) -> "RetryPolicy":
+        """LGBM_TPU_RETRY_* env knobs override individual fields
+        (ATTEMPTS / BASE_DELAY / MAX_DELAY / DEADLINE)."""
+        kw = {}
+        if env.get("LGBM_TPU_RETRY_ATTEMPTS"):
+            kw["max_attempts"] = int(env["LGBM_TPU_RETRY_ATTEMPTS"])
+        if env.get("LGBM_TPU_RETRY_BASE_DELAY"):
+            kw["base_delay"] = float(env["LGBM_TPU_RETRY_BASE_DELAY"])
+        if env.get("LGBM_TPU_RETRY_MAX_DELAY"):
+            kw["max_delay"] = float(env["LGBM_TPU_RETRY_MAX_DELAY"])
+        if env.get("LGBM_TPU_RETRY_DEADLINE"):
+            kw["deadline"] = float(env["LGBM_TPU_RETRY_DEADLINE"])
+        return dataclasses.replace(self, **kw) if kw else self
+
+
+# Policy of the in-band training call sites (collectives, the
+# distributed world's start): short sleeps, a training step waits on
+# them, but enough attempts to ride out a p=0.2 injected failure rate
+# (ref: the JAX package's robustness/retry.py:258-263)
+COLLECTIVE_POLICY = RetryPolicy(max_attempts=5, base_delay=0.05,
+                                max_delay=2.0, deadline=120.0)
+
+# Policy of device acquisition and of joining the world: patient
+DEVICE_POLICY = RetryPolicy(max_attempts=6, base_delay=2.0,
+                            max_delay=60.0, deadline=900.0)
+
 
 def retry_call(fn: Callable, *args,
                policy: RetryPolicy = RetryPolicy(),

@@ -15,9 +15,12 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.config import _UNSUPPORTED_WHEN
 
 F = 4
+# a case whose item is None was refused once and trains since its item
+# was ported: tree_learner since A13a (outside a torch.distributed world
+# it runs serial, with the JAX package's warning)
 REFUSED = [
-    ("tree_learner", "voting", "A13"),
-    ("tree_learner", "data", "A13"),
+    ("tree_learner", "voting", None),
+    ("tree_learner", "data", None),
     ("two_round", True, "A15"),
 ]
 
@@ -29,7 +32,8 @@ def _data():
 
 
 def test_every_refusal_is_covered():
-    assert {name for name, _, _ in REFUSED} == set(_UNSUPPORTED_WHEN)
+    assert {name for name, _, item in REFUSED if item} == \
+        set(_UNSUPPORTED_WHEN)
 
 
 @pytest.mark.parametrize("name,value,item", REFUSED,
@@ -39,6 +43,12 @@ def test_unported_setting_is_refused_with_its_roadmap_item(name, value,
     X, y = _data()
     params = {"objective": "binary", "device_type": "cpu", "verbosity": -1,
               name: value}
+    if item is None:
+        assert not any(s.startswith(f"{name}=")
+                       for s in lgt.Config(params).unsupported_settings())
+        bst = lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=1)
+        assert bst._engine._tree_learner == "serial"
+        return
     assert any(s.startswith(f"{name}=") and s.endswith(f"(ROADMAP {item})")
                for s in lgt.Config(params).unsupported_settings())
     with pytest.raises(lgt.basic.LightGBMError,
@@ -142,3 +152,38 @@ def test_ported_settings_train(extra):
     assert lgt.Config(params).unsupported_settings() == []
     bst = lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=2)
     assert np.isfinite(bst.predict(X)).all()
+
+
+@pytest.mark.parametrize("name,value", [("pre_partition", True),
+                                        ("tpu_ingest", "sharded")])
+def test_sharded_ingestion_in_a_world_of_two_is_refused(name, value):
+    """Sharded ingestion is ROADMAP A13b: in a world of more than one
+    process it is refused rather than trained replicated; in a world of
+    one there is nothing to shard."""
+    cfg = lgt.Config({"objective": "binary", name: value})
+    refused = cfg.distributed_refusals(2)
+    assert len(refused) == 1 and refused[0].startswith(f"{name}=")
+    assert refused[0].endswith("(ROADMAP A13b)")
+    assert cfg.distributed_refusals(1) == []
+
+
+def test_tpu_num_devices_other_than_the_world_is_refused():
+    X, y = _data()
+    params = {"objective": "binary", "device_type": "cpu", "verbosity": -1,
+              "tree_learner": "data", "tpu_num_devices": 2}
+    with pytest.raises(lgt.basic.LightGBMError,
+                       match="tpu_num_devices=2 in a world of 1"):
+        lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=1)
+    for n in (0, 1):
+        lgt.train({**params, "tpu_num_devices": n},
+                  lgt.Dataset(X, label=y), num_boost_round=1)
+
+
+def test_launcher_refuses_what_it_cannot_do():
+    from lightgbm_tpu_torch import distributed as dist
+    with pytest.raises(NotImplementedError, match="A13b"):
+        dist.launch_local(["true"], 2, supervised=True)
+    with pytest.raises(ValueError, match="one process per device"):
+        dist.worker_env("localhost:1", 2, 0, cpu_devices_per_process=2)
+    with pytest.raises(ValueError, match="one process per device"):
+        dist.launch_local(["true"], 2, cpu_devices_per_process=4)

@@ -406,7 +406,7 @@ def test_unported_training_api_is_refused(rng, what):
     # ranking without query data (Dataset(group=)) is refused
     match = {"ranking_objective": "require query information",
              "tpu_fallback_to_cpu": "does not fall back",
-             "reset_parameter": "tree_learner.*A13",
+             "reset_parameter": "tpu_num_devices=2 in a world of 1",
              "valid_without_reference": "reference="}[what]
     if what == "ranking_objective":
         params["objective"] = "lambdarank"
@@ -417,7 +417,8 @@ def test_unported_training_api_is_refused(rng, what):
     with pytest.raises(LightGBMError, match=match):
         if what == "reset_parameter":
             b = lgt.Booster(params, tr)
-            b.reset_parameter({"tree_learner": "voting"})
+            b.reset_parameter({"tree_learner": "voting",
+                               "tpu_num_devices": 2})
         else:
             lgt.train(params, tr, num_boost_round=2, **kw)
 

@@ -107,7 +107,7 @@ ROBUSTNESS_MODULES = {
         "__future__", "os", "subprocess", "time", "typing", "..utils",
         ".heartbeat"},
     "lightgbm_tpu_torch/robustness/integrity.py": {
-        "__future__", "typing", "numpy", "."},
+        "__future__", "typing", "numpy", ".", "zlib"},
 }
 COPIED_MODULES.update(ROBUSTNESS_MODULES)
 
