@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py [--profile]
 
-(``--dist-worker PLAN`` runs one rank of phase 17's gang; phase 17
-starts those itself.)
+(``--dist-worker PLAN`` runs one rank of phase 17's gang, and
+``--gang-worker PLAN`` one rank of phase 18's supervised gang; the
+phases start those themselves.)
 
 Phases, each reported on its own line:
 
@@ -62,13 +63,13 @@ Phases, each reported on its own line:
    first tree must equal the quantized one; then the same eight paths on
    the same rows binned at max_bin=1023 (uint16 bins through K1, K2 and
    B2), each run's launch counts showing its u16 kernel mode, and the
-   compact, level and full paths profiled for one more iteration (K1's,
-   K2's and B2's device time; the full paths must have run B2's wide
-   kernels and not its grouped ones); the quantized run logs the device time of one tree's threefry
-   draws; with ``--profile``, two more iterations of the compact, level
-   and full paths under ``torch.profiler`` show where an iteration's
-   time goes (device busy share, K1's, K2's and B2's device time per
-   iteration, top ops, launches and device-to-host reads);
+   compact and full paths profiled for one more iteration (K1's and
+   B2's device time; the full paths must have run B2's wide kernels and
+   not its grouped ones); the quantized run logs the device time of one
+   tree's threefry draws; with ``--profile``, two more iterations of the
+   compact, level and full paths under ``torch.profiler`` show where an
+   iteration's time goes (device busy share, K1's, K2's and B2's device
+   time per iteration, top ops, launches and device-to-host reads);
 6. small trainings on cuda and on the CPU (plain versions), compact,
    quantized (stochastic rounding on: both draw the same threefry bits),
    level and full, in u8 and in u16 bins, which must agree;
@@ -190,9 +191,9 @@ Phases, each reported on its own line:
    hybrid's level phase), each leaf holding the same rows, values to
    the binary standard widened for sums over large category bins;
 14. wide sparse data at the shape of the Allstate claims data (LightGBM's
-   docs/Experiments.rst, the EFB benchmark: 13,200,000 rows of 4,228
-   one-hot features from 32 raw categorical columns, made as
-   scripts/scale_proof.py makes them) through ``Dataset`` over the CSR
+   docs/Experiments.rst, the EFB benchmark: its 13,200,000 rows cut to
+   8,000,000, of 4,228 one-hot features from 32 raw categorical columns,
+   made as scripts/scale_proof.py makes them) through ``Dataset`` over the CSR
    rows, which the auto rule packs straight into EFB groups at
    ``max_conflict_rate=0.01`` (at 0 it finds about 300 groups, more than
    8 K_max, and stores them multi-value; ingest seconds by stage, G,
@@ -205,9 +206,9 @@ Phases, each reported on its own line:
    none) and learning (the held-out logloss falling, and under the
    prior's), with its s/iteration beside phase 4's and its peak bytes;
    the multi-value root histogram's device ms beside K1's over the
-   groups; the held-out CSR in row blocks by the binned device route
-   within 1e-5 of the host walk (rows/s); then cuda against the CPU on
-   20,000 rows, 1 round (compact, quantized, level at depth 4, full,
+   groups; 50,000 held-out CSR rows in row blocks by the binned device
+   route within 1e-5 of the host walk (rows/s); then cuda against the
+   CPU on 20,000 rows, 1 round (compact, quantized, level at depth 4, full,
    multi-value: the same BundleInfo, each leaf holding the same rows,
    logloss within rtol 1e-4). On phase 4's rows (after phase 12): a
    bounded LRU histogram pool and no pool (``histogram_pool_size`` 5 and
@@ -279,7 +280,32 @@ Phases, each reported on its own line:
    ``leaf_id`` all-gather, the launches per rank and the gang's start-up
    seconds; (b) a one-rank NCCL world in this process: quantized data
    parallel by all-reduce and by reduce-scatter (NCCL's collectives on
-   the card, 1 + 1 each), each text the serial quantized one.
+   the card, 1 + 1 each), each text the serial quantized one;
+18. sharded ingestion and the supervised gang at phase 4's width (after
+   phase 17): (a) on phase 17's gang, each rank synthesizes phase 4's
+   table and keeps its block only (499,001 and 500,999 rows), built with
+   ``pre_partition`` (distributed bin finding over the default sample),
+   then data parallel f32 by all-reduce (1 + 2) and quantized with
+   deterministic rounding (1 + 1): both ranks' mappers and texts equal,
+   each rank's binned table its rows only, K1 once a leaf on each rank,
+   and the f32 model's logloss on 200,000 held-out rows within 1%
+   (relative) of phase 17's data-parallel f32 model of the same three
+   trees; logged: each rank's ingest seconds by step, the summary and
+   mapper bytes on the wire, the binned table's bytes against the
+   replicated table's, s/iteration beside phase 4's and phase 17's;
+   (b) on the same gang, a 200,000-row table, each rank writing its rows
+   (99,000 and 101,000) to its own CSV file and loading it through the
+   file route (``part{rank}.csv``), quantized data parallel, 4 rounds of
+   ``train``, rank 0 writing a checkpoint and its gang manifest every
+   iteration: the text equals, outside its parameters, the serial
+   quantized model of the 200,000 rows trained here; (c) (b) again
+   through ``launch_local(supervised=True)`` (``--gang-worker PLAN``)
+   with ``rank_kill:rank=1:after=2`` in its first attempt: the
+   supervisor ends the attempt (SIGTERM, no SIGKILL) and relaunches the
+   gang once, both ranks resume from the newest valid manifest and end
+   on (b)'s text string for string; logged: the first attempt's exit
+   codes and the seconds from SIGTERM to its last exit, the relaunch's
+   start-up seconds and the resumed iteration.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -318,12 +344,11 @@ WIDEST_ROWS = 5_000
 TIMED_ITERS = 5
 MODE_ITERS = 1
 U16_ITERS = 1
-# the u16 paths profiled for one more iteration (K1's, K2's and B2's
-# device time; the full paths must run B2's wide kernels only). The
-# quantized and bf16 variants of compact and level lost theirs in PR 18
-# to pay for phase 17
-U16_PROFILED = ("compact_u16", "level_u16", "full_u16",
-                "full_quantized_u16")
+# the u16 paths profiled for one more iteration (K1's and B2's device
+# time; the full paths must run B2's wide kernels only). The quantized
+# and bf16 variants of compact and level lost theirs to pay for phase
+# 17, level itself (K2's device time) for phase 18
+U16_PROFILED = ("compact_u16", "full_u16", "full_quantized_u16")
 KERNEL_SHAPES = (1_000_000, 65_536, 4_097, 1)
 # leaf sizes of the u16 and the skewed cases (B2's u16 leaves also at
 # 65,536 rows, a mid-size leaf of a million rows)
@@ -1453,8 +1478,8 @@ def phase_paths(ds, X, compact_first):
             log(f"phase 5 path={name} threefry_draws_device_ms_per_tree="
                 f"{draw_ms!r} rows={N_ROWS}")
         if name in U16_PROFILED:
-            # one more iteration, profiled: K1's, K2's and B2's device
-            # time on u16 bins (after the launch counts were read and the
+            # one more iteration, profiled: K1's and B2's device time on
+            # u16 bins (after the launch counts were read and the
             # trees checked)
             times, names = kernel_ms_per_iter(bst)
             log(f"phase 5 path={name} one more iteration, device ms: "
@@ -2086,10 +2111,10 @@ def phase_objectives(X, ds):
     labels = {"real": t, "positive": np.exp(0.5 * t),
               "unit": 1.0 / (1.0 + np.exp(-t))}
     t0 = time.perf_counter()
-    sets = {kind: lgt.Dataset(X, label=v, reference=ds).construct()
-            for kind, v in labels.items()}
-    log(f"phase 9 objectives: three label sets binned with phase 4's "
-        f"mappers in {time.perf_counter() - t0!r} s")
+    # one Dataset binned with phase 4's mappers, its label set in turn
+    data = lgt.Dataset(X, label=labels["real"], reference=ds).construct()
+    log(f"phase 9 objectives: phase 4's rows binned with its mappers in "
+        f"{time.perf_counter() - t0!r} s, the three label sets set in turn")
     for name in POINTWISE:
         kind = ("positive" if name in ("poisson", "gamma", "tweedie") else
                 "unit" if name.startswith("cross_entropy") else "real")
@@ -2097,8 +2122,9 @@ def phase_objectives(X, ds):
         metric = LEARNING_METRIC.get(name, default)
         params = bench_params(objective=name,
                               metric=list(dict.fromkeys([metric, default])))
+        data.set_label(labels[kind])
         reset_counts()
-        bst = lgt.Booster(params, sets[kind])
+        bst = lgt.Booster(params, data)
         renew_s = [0.0]
         if bst._engine.objective.is_renew_tree_output():
             _timed_renewal(bst._engine.objective, renew_s)
@@ -3479,12 +3505,17 @@ def phase_categorical_cross_check(launches):
 # phase 14: wide sparse data
 # ---------------------------------------------------------------------------
 # Allstate claims (LightGBM's docs/Experiments.rst, the EFB benchmark):
-# 13.2M rows of 4,228 one-hot features, made as scripts/scale_proof.py
-# makes them: 32 raw categorical columns one-hot expanded, one active
-# column per raw column per row, seed 1, the label from raw columns 0-2;
-# 200,000 held-out rows from the draws after them
-ALLSTATE_ROWS = 13_200_000
+# 4,228 one-hot features, made as scripts/scale_proof.py makes them: 32
+# raw categorical columns one-hot expanded, one active column per raw
+# column per row, seed 1, the label from raw columns 0-2; 200,000
+# held-out rows from the draws after them. Its 13.2M rows are cut to
+# 8M, as far as the script's time limit forces once phase 18 runs
+ALLSTATE_ROWS = 8_000_000
 ALLSTATE_HOLDOUT = 200_000
+# the held-out rows predicted by both routes (the binned route reads
+# about 7,500-12,500 rows/s at 4,228 columns, so all 200,000 would cost
+# 18-29 s more)
+ALLSTATE_PREDICT_ROWS = 50_000
 ALLSTATE_RAW, ALLSTATE_FEATURES = 32, 4228
 # At the default max_conflict_rate=0 the auto rule's 20,000-row probe
 # bundles the 4,228 features into about 300 groups: two features of
@@ -3718,7 +3749,7 @@ def phase_sparse(phase4_iter_s):
             totals[k] = totals.get(k, 0) + v
         if name == "compact":
             compact = bst
-            phase_sparse_predict(bst, Xv)
+            phase_sparse_predict(bst, Xv[:ALLSTATE_PREDICT_ROWS])
         if name == "multival":
             phase_sparse_root_hist(compact._engine, eng)
         del bst
@@ -3843,15 +3874,23 @@ def phase_sparse_cross_check(launches):
     import lightgbm_tpu_torch as lgt
     X, y = synth_allstate(ALLSTATE_SMALL_ROWS, seed=7)
     Xd = X.toarray().astype(np.float64)
+    # one Dataset (host bins) a storage, for both devices and every run
+    # of it
+    datasets = {}
     for name, (extra, must) in ALLSTATE_CHECKS.items():
         tc = time.perf_counter()
         out = {}
-        # one Dataset (host bins) for both devices
-        ds = lgt.Dataset(X, label=y, params=bench_params(**extra))
-        ds.construct()
+        storage = {k: v for k, v in extra.items()
+                   if k in ("max_conflict_rate", "tpu_sparse_storage")}
+        key = json.dumps(storage, sort_keys=True)
+        if key not in datasets:
+            ds = lgt.Dataset(X, label=y, params=bench_params(**storage))
+            datasets[key] = (ds.construct(), dict(ds.params))
+        ds, ds_params = datasets[key]
         for dev in ("cuda", "cpu"):
             params = bench_params(num_leaves=31, device_type=dev, **extra)
             reset_counts()
+            ds.params = dict(ds_params)
             bst = lgt.Booster(params, ds)
             for _ in range(ALLSTATE_SMALL_ROUNDS):
                 assert not bst.update(), (name, dev)
@@ -4058,9 +4097,11 @@ def phase_constraints(base_bst, ds, X, phase4_iter_s):
         data = ds
         if kind == "linear":
             t = time.perf_counter()
-            ds_linear = lgt.Dataset(X, label=ds.label,
+            # binned with phase 4's mappers
+            ds_linear = lgt.Dataset(X, label=ds.label, reference=ds,
                                     params={"linear_tree": True}).construct()
-            log(f"phase 15 run=linear Dataset rebuilt with linear_tree "
+            log(f"phase 15 run=linear Dataset rebuilt with linear_tree and "
+                f"phase 4's mappers "
                 f"binning_s={time.perf_counter() - t!r} raw_bytes="
                 f"{ds_linear.binned.raw.nbytes}")
             data = ds_linear
@@ -4716,7 +4757,8 @@ def dist_worker(plan_path):
     world from the launcher's variables, loads phase 4's binned rows
     from the binary file ``PLAN["data"]`` and trains every DIST_RUNS
     configuration in this one process start, writing its results to
-    ``PLAN["out"]/rank<r>.json``."""
+    ``PLAN["out"]/rank<r>.json``; then phase 18's (a) and (b)
+    (``sharded_worker_runs``)."""
     import os
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import distributed
@@ -4730,6 +4772,9 @@ def dist_worker(plan_path):
     for name, (extra, iters) in DIST_RUNS.items():
         res["runs"][name] = dist_run(ds, ds_params, bench_params(**extra),
                                      iters)
+    del ds
+    gc.collect()
+    res["sharded"] = sharded_worker_runs(plan, rank)
     with open(os.path.join(plan["out"], f"rank{rank}.json"), "w") as fh:
         json.dump(res, fh)
     distributed.shutdown_distributed()
@@ -4784,9 +4829,9 @@ def phase_distributed(base_bst, ds, X, full_text, phase4_iter_s):
     process: quantized data parallel by all-reduce and by reduce-scatter
     (NCCL's collectives on the card), each text equal to the serial
     quantized one. Returns (launches by run, this process's launch
-    totals)."""
+    totals, the gang's rank results and its directory, which phase 18
+    reads and removes)."""
     import os
-    import shutil
     import socket
     import tempfile
     import threading
@@ -4830,11 +4875,11 @@ def phase_distributed(base_bst, ds, X, full_text, phase4_iter_s):
             ranks.append(json.load(fh))
     gang_s = time.perf_counter() - t0
     startup = [rk["ready_wall"] - launched for rk in ranks]
-    shutil.rmtree(tmp)
+    sharded_s = max(rk["sharded"]["sharded_s"] for rk in ranks)
     log(f"phase 17 (a) gang of {DIST_WORLD} gloo ranks on one card: "
         f"start-up_s (launch to phase 4's binned rows loaded, by rank)="
-        f"{startup!r} "
-        f"gang_s={gang_s!r} devices={[rk['device'] for rk in ranks]}")
+        f"{startup!r} gang_s={gang_s!r} (of it phase 18 (a) and (b): "
+        f"{sharded_s!r}) devices={[rk['device'] for rk in ranks]}")
     launches = {}
     for name in DIST_RUNS:
         r0, r1 = (rk["runs"][name] for rk in ranks)
@@ -4897,7 +4942,306 @@ def phase_distributed(base_bst, ds, X, full_text, phase4_iter_s):
     log(f"phase 17 (b) NCCL all-reduce and reduce-scatter runs equal the "
         f"serial quantized model string for string "
         f"(nccl_s={time.perf_counter() - tn!r}); phase 17 "
-        f"{time.perf_counter() - t0!r} s")
+        f"{time.perf_counter() - t0 - sharded_s!r} s without phase 18's "
+        "share of the gang")
+    return launches, totals, ranks, tmp
+
+
+# ---------------------------------------------------------------------------
+# phase 18: sharded ingestion and the supervised gang on the card
+# ---------------------------------------------------------------------------
+
+# (a) phase 4's table cut over the two ranks of phase 17's gang, each
+# rank holding its block only (uneven, so the regions carry pad rows);
+# name -> (params, timed iterations after one warm-up)
+SHARD_ROWS = (499_001, 500_999)
+SHARD_RUNS = {
+    "data": (dict(tree_learner="data"), 2),
+    "data_quantized": (dict(tree_learner="data", use_quantized_grad=True,
+                            stochastic_rounding=False), 1),
+}
+# the held-out rows the sharded f32 model and phase 17's data-parallel f32
+# model of the same three trees are held to, relative logloss
+HOLDOUT_SEED = 3
+LOGLOSS_RTOL = 0.01
+# (b) and (c): a 200,000-row table, each rank's rows in its own CSV file
+# (the default bin_construct_sample_cnt covers every row), quantized data
+# parallel with deterministic rounding, a checkpoint and its gang
+# manifest every iteration on rank 0
+FILE_ROWS = (99_000, 101_000)
+FILE_SEED = 2
+FILE_ROUNDS = 4
+GANG_KILL = "rank_kill:rank=1:after=2"
+GANG_TIMEOUT_S = 300
+# the survivor's grace after SIGTERM; no SIGKILL follows it
+GANG_TERM_GRACE_S = 30.0
+
+
+def file_params():
+    return bench_params(tree_learner="data", use_quantized_grad=True,
+                        stochastic_rounding=False, pre_partition=True)
+
+
+def shard_block(a, sizes, rank):
+    lo = sum(sizes[:rank])
+    return a[lo:lo + sizes[rank]]
+
+
+def file_table():
+    X, y = synth_higgs(sum(FILE_ROWS), N_FEATURES, seed=FILE_SEED)
+    return X.astype(np.float64), y.astype(np.float64)
+
+
+def train_file_shard(path, ckpt, rank, resume):
+    """(b)/(c) on one rank: its CSV through the file route, FILE_ROUNDS
+    rounds of ``train``, rank 0 checkpointing each iteration; the launch
+    counts of this call and the leaves of the trees it trained."""
+    import lightgbm_tpu_torch as lgt
+    t = time.perf_counter()
+    ds = lgt.Dataset(path, params=file_params()).construct()
+    load_s = time.perf_counter() - t
+    cbs = ([lgt.checkpoint_callback(ckpt, every_n=1, keep_last=FILE_ROUNDS)]
+           if rank == 0 else [])
+    reset_counts()
+    t = time.perf_counter()
+    bst = lgt.train(file_params(), ds, num_boost_round=FILE_ROUNDS,
+                    callbacks=cbs, resume_from=ckpt if resume else None)
+    torch.cuda.synchronize()
+    eng = bst._engine
+    return {"text": bst.model_to_string(), "load_s": load_s,
+            "train_s": time.perf_counter() - t,
+            "counts": nonzero(read_counts()),
+            "resumed_from": eng.num_init_iteration,
+            "leaves": [t.num_leaves for t in
+                       eng.models[eng.num_init_iteration:]],
+            "bins_shape": list(eng.train_set.bins.shape),
+            "row_counts": eng.train_set.shard.row_counts.tolist()}
+
+
+def sharded_worker_runs(plan, rank):
+    """Phase 18 (a) and (b) on one rank of phase 17's gang (after its
+    DIST_RUNS, the world already joined)."""
+    import os
+    import zlib
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import distributed
+    from lightgbm_tpu_torch.io.binning import serialize_bin_mappers
+    t0 = time.perf_counter()
+    out = {}
+    X, y = synth_higgs(N_ROWS, N_FEATURES)
+    Xs = shard_block(X, SHARD_ROWS, rank).copy()
+    ys = shard_block(y, SHARD_ROWS, rank).copy()
+    del X, y
+    synth_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    ds = lgt.Dataset(Xs, label=ys,
+                     params=bench_params(pre_partition=True)).construct()
+    b = ds._binned
+    out["ingest"] = {
+        "synth_s": synth_s, "construct_s": time.perf_counter() - t,
+        "stages": b.ingest_stats, "bins_shape": list(b.bins.shape),
+        "bins_bytes": int(b.bins.nbytes),
+        "row_counts": b.shard.row_counts.tolist(),
+        "mappers_crc": zlib.crc32(serialize_bin_mappers(b.bin_mappers))}
+    del Xs
+    ds_params = dict(ds.params)
+    out["runs"] = {
+        name: dist_run(ds, ds_params, bench_params(pre_partition=True,
+                                                   **extra), iters)
+        for name, (extra, iters) in SHARD_RUNS.items()}
+    del ds, b
+    gc.collect()
+    # (b): this rank's rows of the 200,000-row table as its CSV file
+    t = time.perf_counter()
+    Xf, yf = file_table()
+    rows = np.column_stack([shard_block(yf, FILE_ROWS, rank),
+                            shard_block(Xf, FILE_ROWS, rank)])
+    np.savetxt(os.path.join(plan["out"], f"part{rank}.csv"), rows,
+               delimiter=",", fmt="%.17g")
+    write_s = time.perf_counter() - t
+    ckpt = os.path.join(plan["out"], "ckpt_b")
+    out["file"] = train_file_shard(
+        os.path.join(plan["out"], "part{rank}.csv"), ckpt, rank, False)
+    out["file"]["write_s"] = write_s
+    distributed.allgather_bytes(b"")        # rank 0's last commit landed
+    from lightgbm_tpu_torch.robustness.gang import list_manifests
+    out["file"]["manifests"] = [it for it, _ in list_manifests(ckpt)]
+    out["sharded_s"] = time.perf_counter() - t0
+    return out
+
+
+def gang_worker(plan_path):
+    """One rank of phase 18 (c)'s supervised gang (``--gang-worker
+    PLAN``): run (b) again, resuming from the newest valid gang
+    manifest of ``PLAN["ckpt"]``."""
+    import os
+    from lightgbm_tpu_torch import distributed
+    with open(plan_path) as fh:
+        plan = json.load(fh)
+    rank = distributed.init_from_env()
+    ready = time.time()
+    res = train_file_shard(os.path.join(plan["dir"], "part{rank}.csv"),
+                           plan["ckpt"], rank, True)
+    res["ready_wall"] = ready
+    with open(os.path.join(plan["dir"], f"gang{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    distributed.shutdown_distributed()
+
+
+def phase_sharded(ranks, tmp, phase4_iter_s):
+    """Phase 18: sharded ingestion and the supervised gang at phase 4's
+    width. (a) and (b) ran on phase 17's gang (``sharded_worker_runs``);
+    (c) launches (b) again under ``launch_local(supervised=True)`` with
+    rank 1 killed in its first attempt. Returns (launches by run, the
+    launch totals over both ranks)."""
+    import os
+    import shutil
+    import threading
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import distributed
+    from lightgbm_tpu_torch.robustness.gang import list_manifests
+    t0 = time.perf_counter()
+    sh = [rk["sharded"] for rk in ranks]
+    phase17_iter_s = statistics.median(ranks[0]["runs"]["data"]["iter_s"])
+    launches, totals = {}, {}
+
+    def count(name, runs):
+        launches[name] = [r["counts"] for r in runs]
+        for r in runs:
+            for k, v in r["counts"].items():
+                totals[k] = totals.get(k, 0) + v
+
+    # (a) the ingest, the runs and their gates
+    for r, s in enumerate(sh):
+        ing = s["ingest"]
+        assert ing["row_counts"] == list(SHARD_ROWS), ing["row_counts"]
+        assert ing["bins_shape"] == [SHARD_ROWS[r], N_FEATURES], ing
+        log(f"phase 18 (a) rank {r} ingest of its {SHARD_ROWS[r]} rows: "
+            f"synth_s={ing['synth_s']!r} construct_s="
+            f"{ing['construct_s']!r} stages={json.dumps(ing['stages'])} "
+            f"binned table bytes={ing['bins_bytes']} (replicated "
+            f"{N_ROWS * N_FEATURES}) sharded_s={s['sharded_s']!r}")
+    assert sh[0]["ingest"]["mappers_crc"] == sh[1]["ingest"]["mappers_crc"]
+    for name in SHARD_RUNS:
+        r0, r1 = (s["runs"][name] for s in sh)
+        assert r0["text"] == r1["text"], name
+        for r, run in enumerate((r0, r1)):
+            check_dist_launches(run, SHARD_RUNS[name][0],
+                                f"phase 18 (a) {name} rank {r}")
+            assert run["last"]["binary_logloss"] < \
+                run["first"]["binary_logloss"], (name, r)
+        count(f"sharded_{name}", (r0, r1))
+        med = statistics.median(r0["iter_s"])
+        log(f"phase 18 (a) {name}: " + json.dumps(
+            {"rank0": dist_summary(r0, phase4_iter_s),
+             "vs_phase17_data": med / phase17_iter_s,
+             "rank1_median_iter_s": statistics.median(r1["iter_s"]),
+             "rank1_launches": r1["counts"]}))
+    Xh, yh = synth_higgs(VALID_ROWS, N_FEATURES, seed=HOLDOUT_SEED)
+    losses = {}
+    for key, text in (("sharded", sh[0]["runs"]["data"]["text"]),
+                      ("phase17", ranks[0]["runs"]["data"]["text"])):
+        bst = lgt.Booster(model_str=text, params={"device_type": "cuda"})
+        assert bst.num_trees() == 1 + SHARD_RUNS["data"][1]
+        losses[key] = binary_logloss(yh, bst.predict(Xh))
+    gap = abs(losses["sharded"] - losses["phase17"]) / losses["phase17"]
+    log(f"phase 18 (a) held-out logloss on {VALID_ROWS} rows, 3 trees: "
+        f"sharded={losses['sharded']!r} phase17_data={losses['phase17']!r}"
+        f" relative_gap={gap!r} (limit {LOGLOSS_RTOL})")
+    assert gap <= LOGLOSS_RTOL, losses
+
+    # (b) the file route, bit for bit: the serial quantized reference of
+    # the whole table is trained here while (c)'s gang runs
+    fb = [s["file"] for s in sh]
+    assert fb[0]["text"] == fb[1]["text"]
+    assert fb[0]["manifests"] == list(range(FILE_ROUNDS, 0, -1)), \
+        fb[0]["manifests"]
+    for r, f in enumerate(fb):
+        assert f["row_counts"] == list(FILE_ROWS), f
+        assert f["bins_shape"] == [FILE_ROWS[r], N_FEATURES], f
+        check_dist_launches(f, file_params(), f"phase 18 (b) rank {r}")
+    count("file_route", fb)
+    log(f"phase 18 (b) file route {FILE_ROWS} rows, {FILE_ROUNDS} rounds: "
+        + json.dumps([{k: f[k] for k in ("write_s", "load_s", "train_s",
+                                         "counts")} for f in fb]))
+
+    # (c) the chaos round trip
+    ckpt = os.path.join(tmp, "ckpt_c")
+    plan_path = os.path.join(tmp, "gang_plan.json")
+    with open(plan_path, "w") as fh:
+        json.dump({"dir": tmp, "ckpt": ckpt}, fh)
+    seen, sups, box = [], [], {}
+
+    def attempt_env(i):
+        newest = [it for it, _ in list_manifests(ckpt)]
+        seen.append({"attempt": i, "wall": time.time(),
+                     "newest_manifest": newest[0] if newest else None})
+        return {"LGBM_TPU_FAULTS": GANG_KILL if i == 0 else "off"}
+
+    def gang():
+        try:
+            box["runs"] = distributed.launch_local(
+                [sys.executable, os.path.abspath(__file__), "--gang-worker",
+                 plan_path], DIST_WORLD, timeout=GANG_TIMEOUT_S,
+                supervised=True, backend="gloo", attempts=2,
+                attempt_env=attempt_env, poll=0.1,
+                term_grace=GANG_TERM_GRACE_S, escalate_kill=False,
+                supervisors=sups, label="phase 18 gang")
+        except BaseException as e:   # noqa: BLE001 - re-raised below
+            box["error"] = e
+    tc = time.perf_counter()
+    th = threading.Thread(target=gang)
+    th.start()
+    Xf, yf = file_table()
+    serial = {k: v for k, v in file_params().items()
+              if k not in ("tree_learner", "pre_partition")}
+    ref = no_params(lgt.train(serial, lgt.Dataset(Xf, label=yf),
+                              num_boost_round=FILE_ROUNDS).model_to_string())
+    th.join()
+    chaos_s = time.perf_counter() - tc
+    # every process of the killed attempt ended: none outlived SIGTERM
+    first = sups[0]
+    left = [p.pid for p in first.procs if p.poll() is None]
+    for p in first.procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    assert not left, f"phase 18 (c) ranks {left} outlived SIGTERM"
+    if "error" in box:
+        raise box["error"]
+    assert no_params(fb[0]["text"]) == ref
+    log("phase 18 (b) the file route's sharded quantized text equals the "
+        f"serial quantized model of the {sum(FILE_ROWS)} rows string for "
+        "string")
+    gangs = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(tmp, f"gang{r}.json")) as fh:
+            gangs.append(json.load(fh))
+    assert [rc for rc, _ in box["runs"]] == [0, 0]
+    assert len(seen) == 2 and len(sups) == 2, seen
+    resumed = seen[1]["newest_manifest"]
+    assert resumed is not None and 1 <= resumed < FILE_ROUNDS, seen
+    for r, g in enumerate(gangs):
+        assert g["text"] == fb[0]["text"], r
+        assert g["resumed_from"] == resumed, (r, g["resumed_from"])
+        check_dist_launches(g, file_params(), f"phase 18 (c) rank {r}")
+    count("chaos_relaunch", gangs)
+    rcs = [p.returncode for p in first.procs]
+    assert rcs[1] == 87, rcs            # faults.EXIT_RANK_KILLED
+    log(f"phase 18 (c) supervised gang: attempts={len(seen)} first attempt "
+        f"exit codes={rcs} (rank 0 ended by "
+        f"{'SIGTERM' if rcs[0] == -15 else 'itself'}) "
+        f"SIGTERM_to_all_exited_s="
+        f"{first.drained_at - first.terminated_at!r} (poll 0.1 s, grace "
+        f"{GANG_TERM_GRACE_S}) relaunch_start_up_s="
+        f"{[g['ready_wall'] - seen[1]['wall'] for g in gangs]!r} "
+        f"resumed_iteration={resumed} relaunch_launches="
+        f"{[g['counts'] for g in gangs]} replay_bytes_per_tree="
+        f"{sum(FILE_ROWS) * 4} chaos_s={chaos_s!r}; the final text equals "
+        "(b)'s string for string")
+    shutil.rmtree(tmp)
+    log(f"phase 18 seconds in this process={time.perf_counter() - t0!r} "
+        f"(a)+(b) on the gang={max(s['sharded_s'] for s in sh)!r}")
     return launches, totals
 
 
@@ -4945,6 +5289,9 @@ def kernel_entry(name, mode, launches, row):
 def main():
     if "--dist-worker" in sys.argv[1:]:
         dist_worker(sys.argv[sys.argv.index("--dist-worker") + 1])
+        return
+    if "--gang-worker" in sys.argv[1:]:
+        gang_worker(sys.argv[sys.argv.index("--gang-worker") + 1])
         return
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -5016,9 +5363,13 @@ def main():
     robust_launches, robust_totals = phase_robustness(
         ds, X, main_run["median_iter_s"], sampling_medians["goss"])
     log(f"phase 16 done at {time.perf_counter() - t:.1f} s")
-    dist_launches, dist_totals = phase_distributed(
+    dist_launches, dist_totals, gang_ranks, gang_tmp = phase_distributed(
         bst, ds, X, full_text, main_run["median_iter_s"])
     log(f"phase 17 done at {time.perf_counter() - t:.1f} s")
+    shard_launches, shard_totals = phase_sharded(
+        gang_ranks, gang_tmp, main_run["median_iter_s"])
+    del gang_ranks
+    log(f"phase 18 done at {time.perf_counter() - t:.1f} s")
     del bst, ds, X
     gc.collect()
     cat_runs, cat_totals = phase_categorical(main_run["median_iter_s"])
@@ -5030,10 +5381,10 @@ def main():
         sparse_totals[key] = sparse_totals.get(key, 0) + v
     later = {k: cat_totals.get(k, 0) + sparse_totals.get(k, 0)
              + constraint_totals.get(k, 0) + robust_totals.get(k, 0)
-             + dist_totals.get(k, 0)
+             + dist_totals.get(k, 0) + shard_totals.get(k, 0)
              for k in set(cat_totals) | set(sparse_totals)
              | set(constraint_totals) | set(robust_totals)
-             | set(dist_totals)}
+             | set(dist_totals) | set(shard_totals)}
     rank_runs = phase_ranking()
     log(f"phase 10 done at {time.perf_counter() - t:.1f} s")
     phase_cross_check()
@@ -5082,6 +5433,8 @@ def main():
         + " by mode: " + json.dumps(nonzero(robust_totals)))
     log("phase 17 launches by run (gang: rank 0, rank 1): "
         + json.dumps(dist_launches))
+    log("phase 18 launches by run (rank 0, rank 1; chaos: the relaunch): "
+        + json.dumps(shard_launches))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

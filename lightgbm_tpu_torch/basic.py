@@ -229,13 +229,29 @@ class Dataset:
         cfg = Config(self.params)
         if isinstance(self.data, (str, Path)):
             from .io.binary_io import is_binary_dataset_file, load_binary
-            from .io.file_loader import load_position_file, load_svm_or_csv
+            from .io.dataset_core import _resolve_shard_world
+            from .io.file_loader import load_svm_or_csv
             path = str(self.data)
+            # only the training table is sharded: a set built with
+            # reference= (a validation set) loads replicated on every rank
+            sw = _resolve_shard_world(cfg) if ref is None else None
             if is_binary_dataset_file(path):
+                if sw is not None:
+                    log.fatal(
+                        "binary dataset files cannot be shard-ingested "
+                        "(pre_partition=true / tpu_ingest='sharded'): a "
+                        ".bin file is already binned with its own global "
+                        "mappers, so distributed bin finding cannot run "
+                        "and per-host .bin files at the same path would "
+                        "desync the SPMD program — load the raw data "
+                        "with per-rank files ('...{rank}...'), or set "
+                        "tpu_ingest='replicated'")
                 # already binned, with its own bin mappers
                 self._binned = load_binary(path)
                 return self._apply_fields()
-            X, y, w, group = load_svm_or_csv(path, cfg)
+            rank, world = sw if sw is not None else (None, None)
+            X, y, w, group = load_svm_or_csv(path, cfg, rank=rank,
+                                             world=world)
             self.data = X
             if self.label is None:
                 self.label = y
@@ -244,7 +260,8 @@ class Dataset:
             if self.group is None:
                 self.group = group
             if self.position is None:
-                self.position = load_position_file(path)
+                self.position = self._load_position(path, rank, world,
+                                                    len(X))
         if _is_sequence_input(self.data):
             return self._construct_from_sequences(cfg, ref)
         from .io.dataset_core import ArrowColumns, DenseColumns, SparseColumns
@@ -267,11 +284,41 @@ class Dataset:
                 self.categorical_feature, cfg, names))
         return self
 
+    @staticmethod
+    def _load_position(path: str, rank: Optional[int],
+                       world: Optional[int], n_rows: int
+                       ) -> Optional[np.ndarray]:
+        """The ``.position`` sidecar of a data file (of this rank's file
+        under a ``{rank}`` placeholder). Row-slicing a shared file, a
+        full-length sidecar gives this rank's slice, cut as the rows are;
+        any other length is fatal (the JAX package's basic.py:266-303)."""
+        from .distributed import row_slice
+        from .io.file_loader import load_position_file, resolve_rank_path
+        ppath, per_rank = resolve_rank_path(path, rank)
+        position = load_position_file(ppath)
+        if (position is None or world is None or per_rank
+                or len(position) == n_rows):
+            return position
+        lo, hi = row_slice(len(position), rank, world)
+        if hi - lo != n_rows:
+            log.fatal(f"{ppath}: position sidecar has {len(position)} "
+                      f"entries but the data file's rank {rank}/{world} "
+                      f"row slice holds {n_rows} rows — the sidecar must "
+                      "have exactly one entry per data-file row")
+        return position[lo:hi]
+
     def _construct_from_sequences(self, cfg: Config,
                                   ref: Optional[BinnedDataset]) -> "Dataset":
         """Bin ``Sequence`` input by random-access sampling and batched
         range reads (the JAX package's basic.py __init_from_seqs)."""
+        from .io.dataset_core import _resolve_shard_world
         from .io.sequence import build_from_sequences
+        if ref is None and _resolve_shard_world(cfg) is not None:
+            # no silent replicated load where sharding was asked for
+            log.fatal("Sequence input cannot be shard-ingested "
+                      "(pre_partition=true / tpu_ingest='sharded'); pass "
+                      "each rank's rows as a matrix or a '...{rank}...' "
+                      "file, or set tpu_ingest='replicated'")
         seqs = (list(self.data) if isinstance(self.data, (list, tuple))
                 else [self.data])
         self._binned = build_from_sequences(
@@ -415,6 +462,10 @@ class Dataset:
         """Write the binned Dataset to a binary file that ``Dataset(path)``
         of either package loads (ref: Dataset::SaveBinaryFile)."""
         from .io.binary_io import save_binary
+        if self.binned.shard is not None:
+            log.fatal("a sharded-ingest Dataset holds one rank's rows; it "
+                      "cannot be saved as a binary dataset file (save each "
+                      "rank's raw rows, '...{rank}...', instead)")
         self.binned.ensure_logical_bins()
         save_binary(self.binned, str(filename))
         return self

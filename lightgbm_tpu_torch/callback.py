@@ -254,6 +254,9 @@ def checkpoint_callback(directory: str, every_n: int = 1,
     early_stopping callback re-initializes at the resume point, so a
     resumed run may stop later than the uninterrupted one when a crash
     lands inside the patience window. ``cv`` folds are not checkpointed.
+    Over a sharded-ingest train set a gang manifest commits each
+    checkpoint (``robustness/gang.py``); in a gang one rank writes, the
+    training state being the same on every rank.
     """
     if every_n <= 0:
         raise ValueError("every_n must be greater than zero")
@@ -282,6 +285,19 @@ def checkpoint_callback(directory: str, every_n: int = 1,
         # keep_last lets a full disk prune and retry once, as the
         # retention below would prune anyway
         path = _ckpt.write_checkpoint(directory, state, keep_last=keep_last)
+        # in a sharded world the gang manifest, written after its
+        # checkpoint, commits it (world size, each rank's shard digest):
+        # a resume refuses another sharding and restarts at the newest
+        # committed iteration (the JAX package's callback.py:172-195)
+        eng = getattr(env.model, "_engine", None)
+        shard = getattr(getattr(eng, "train_set", None), "shard", None)
+        if shard is not None and getattr(shard, "digests", None) and \
+                bool(getattr(getattr(eng, "config", None),
+                             "tpu_gang_manifest", True)):
+            from .robustness import gang
+            gang.write_manifest(directory, it, _ckpt.checkpoint_name(it),
+                                shard)
+            gang.prune_manifests(directory, keep_last)
         _ckpt.prune_checkpoints(directory, keep_last)
         log.debug(f"checkpoint written: {path}")
 

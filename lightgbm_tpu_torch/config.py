@@ -20,8 +20,9 @@ every other model is the synchronous one), ``tpu_heartbeat_file``,
 ``tpu_integrity_loss_spike_factor``, and for the distributed learners
 ``tree_learner``, ``top_k``, ``tpu_hist_reduce`` (auto is allreduce),
 ``tpu_num_devices`` (0 or the world size: one process is one device),
-``tpu_gang_collective_timeout_s`` and ``tpu_integrity_digest_every``;
-it accepts and
+``tpu_gang_collective_timeout_s`` and ``tpu_integrity_digest_every``,
+sharded ingestion's ``pre_partition`` and ``tpu_ingest`` and the gang's
+``tpu_gang_manifest``; it accepts and
 ignores ``tpu_hist_kernel``, ``tpu_use_pallas`` and ``tpu_rows_per_block``
 (every value runs the port's hand kernels) and ``tpu_predict_buckets``
 (it pads no request; see models/gbdt.py), and refuses the settings it cannot honour yet (see
@@ -590,25 +591,14 @@ class Config:
 
     def distributed_refusals(self, world: int) -> List[str]:
         """What training refuses in a ``torch.distributed`` world of
-        ``world`` processes: sharded ingestion (``pre_partition``,
-        ``tpu_ingest=sharded``) in a world of more than one, which would
-        otherwise train replicated without a word (ROADMAP A13b), and a
-        ``tpu_num_devices`` other than the world size (0 or less: every
-        rank; one process is one device)."""
-        v = self._values
-        out = []
-        if world > 1 and v["pre_partition"]:
-            out.append("pre_partition=True in a world of "
-                       f"{world} processes (ROADMAP A13b)")
-        if world > 1 and str(v["tpu_ingest"]).lower() == "sharded":
-            out.append("tpu_ingest='sharded' in a world of "
-                       f"{world} processes (ROADMAP A13b)")
-        n = int(v["tpu_num_devices"])
+        ``world`` processes: a ``tpu_num_devices`` other than the world
+        size (0 or less: every rank; one process is one device)."""
+        n = int(self._values["tpu_num_devices"])
         if n > 0 and n != world:
-            out.append(f"tpu_num_devices={n} in a world of {world} "
-                       "processes (one process is one device: set it to "
-                       "the world size or 0)")
-        return out
+            return [f"tpu_num_devices={n} in a world of {world} "
+                    "processes (one process is one device: set it to "
+                    "the world size or 0)"]
+        return []
 
     def unsupported_settings(self) -> List[str]:
         """``name=value (ROADMAP item)`` for every setting the port cannot

@@ -342,53 +342,41 @@ def spawn_local(argv: Sequence[str], num_processes: int,
     return procs
 
 
-class GangTimeout(subprocess.TimeoutExpired):
-    """The unsupervised gang outlived its timeout; ``diagnosis`` holds
-    each rank's exit code and last heartbeat."""
-
-    def __init__(self, cmd, timeout, diagnosis: str = ""):
-        super().__init__(cmd, timeout)
-        self.diagnosis = diagnosis
-
-    def __str__(self):
-        return super().__str__() + ("\n" + self.diagnosis
-                                    if self.diagnosis else "")
-
-
-def _rank_diagnosis(hb_base: str, rcs: list) -> str:
-    from .robustness import heartbeat
-    lines = []
-    for r, rc in enumerate(rcs):
-        rec = heartbeat.read(heartbeat.rank_path(hb_base, r))
-        beat = ("no heartbeat" if rec is None else
-                f"last beat phase={rec.phase} progress={rec.progress}")
-        lines.append(f"  rank {r}: rc={rc}, {beat}")
-    return "\n".join(lines)
-
-
 def launch_local(argv: Sequence[str], num_processes: int,
                  coordinator_port: Optional[int] = None,
                  cpu_devices_per_process: int = 0,
                  timeout: float = 600.0,
                  env_extra: Optional[dict] = None,
                  supervised: bool = False,
-                 backend: Optional[str] = None) -> list:
+                 backend: Optional[str] = None,
+                 **gang_kw) -> list:
     """Run ``num_processes`` copies of ``argv`` on this machine as one
     world; ``[(returncode, output), ...]`` in rank order.
 
-    Each rank writes its own heartbeat (``LGBM_TPU_HEARTBEAT`` is
-    exported as a base path; ``heartbeat.rank_path``), so a gang that
-    outlives ``timeout`` is killed and :class:`GangTimeout` says where
-    each rank was. ``supervised=True`` (the supervised, relaunching gang
-    of the JAX package's robustness/gang.py) is ROADMAP A13b."""
+    ``supervised=True`` runs the gang under
+    ``robustness.gang.run_supervised`` (the extra keywords go there):
+    each rank's heartbeat is watched under the shared stall policy, a
+    rank's death SIGTERMs the survivors instead of leaving them blocked
+    in a collective, and the whole gang is relaunched under a bounded
+    retry policy, each rank resuming from the newest valid gang
+    manifest. Unsupervised, each rank still writes its own heartbeat
+    (``LGBM_TPU_HEARTBEAT`` is exported as a base path), so a gang that
+    outlives ``timeout`` is killed and ``robustness.gang.GangTimeout``
+    says where each rank was."""
     if supervised:
-        raise NotImplementedError(
-            "launch_local(supervised=True): the supervised gang "
-            "(robustness/gang.py, run_supervised and the gang manifest) "
-            "is not ported yet (ROADMAP A13b)")
+        from .robustness.gang import run_supervised
+        return run_supervised(
+            argv, num_processes, coordinator_port=coordinator_port,
+            cpu_devices_per_process=cpu_devices_per_process,
+            timeout=timeout, env_extra=env_extra, backend=backend,
+            **gang_kw)
+    if gang_kw:
+        raise TypeError(f"unexpected arguments {sorted(gang_kw)} "
+                        "(supervised=True options)")
     import shutil
     import tempfile
 
+    from .robustness.gang import GangTimeout, gang_hb_paths, rank_diagnosis
     from .robustness.heartbeat import ENV_HEARTBEAT
 
     extra = dict(env_extra or {})
@@ -410,7 +398,7 @@ def launch_local(argv: Sequence[str], num_processes: int,
         return results
     except subprocess.TimeoutExpired:
         rcs = [p.poll() for p in procs]
-        diag = _rank_diagnosis(hb_base, rcs)
+        diag = rank_diagnosis(gang_hb_paths(hb_base, num_processes), rcs)
         raise GangTimeout(list(argv), timeout,
                           diagnosis="Per-rank diagnosis at the timeout:\n"
                           + diag)

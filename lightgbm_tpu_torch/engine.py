@@ -15,8 +15,10 @@ standard deviation over the folds each round. A callable
 iteration's gradients (``Booster.update(fobj=)``). ``resume_from``
 continues from the newest CRC-valid checkpoint that
 ``callback.checkpoint_callback`` wrote (the JAX package's
-engine.py:97-180; its gang-manifest branch waits for the supervised
-gang, ROADMAP A13b). ``tpu_fallback_to_cpu`` is refused: the port
+engine.py:97-180); over a sharded-ingest train set it continues from
+the newest checkpoint a gang manifest commits, refusing a checkpoint set
+of another world or sharding (``tpu_gang_manifest``,
+``robustness/gang.py``). ``tpu_fallback_to_cpu`` is refused: the port
 does not fall back from the card.
 """
 from __future__ import annotations
@@ -129,6 +131,21 @@ def train(params: Dict[str, Any], train_set: Dataset,
                      "checkpoint; starting fresh")
 
     train_set._update_params(params).construct()
+    # gang-coordinated resume (the JAX package's engine.py:117-135): in a
+    # sharded world the checkpoint set must belong to this sharding, and
+    # the restart is the newest COMMITTED (manifested) iteration, the
+    # same on every rank and every relaunch
+    if resume_from and Config(params).tpu_gang_manifest:
+        shard = train_set.binned.shard
+        if shard is not None:
+            from .robustness.gang import validate_and_select_resume
+            anchored = validate_and_select_resume(resume_from, shard,
+                                                  resumed_state)
+            if anchored is not resumed_state:
+                resumed_state = anchored
+                init_model = (Booster(params=params,
+                                      model_str=anchored["model"])
+                              if anchored is not None else None)
     if isinstance(init_model, str):
         predictor = Booster(params=params, model_file=init_model)
     else:

@@ -19,6 +19,7 @@ the device. Semantics follow the reference:
 from __future__ import annotations
 
 import math
+import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -125,6 +126,39 @@ class FeatureSampleSummary:
                    zero_cnt=len(non_na) - len(nz),
                    na_cnt=int(nan_mask.sum()), n_rows=len(vals))
 
+    @classmethod
+    def merge(cls, summaries: Sequence["FeatureSampleSummary"]
+              ) -> "FeatureSampleSummary":
+        """Exact multiset union (the JAX package's io/binning.py:136-148):
+        merging per-shard summaries gives the summary of the
+        concatenated sample, so bin finding over it is bin finding over
+        the world's sample."""
+        if not summaries:
+            return cls(np.zeros(0, np.float64), 0, 0, 0)
+        vals = np.sort(np.concatenate([s.values for s in summaries]),
+                       kind="stable")
+        return cls(vals,
+                   zero_cnt=sum(s.zero_cnt for s in summaries),
+                   na_cnt=sum(s.na_cnt for s in summaries),
+                   n_rows=sum(s.n_rows for s in summaries))
+
+    def sorted_non_na(self) -> np.ndarray:
+        """Ascending non-NaN sample values with the zero run restored."""
+        if not self.zero_cnt:
+            return self.values
+        cut = int(np.searchsorted(self.values, 0.0, side="left"))
+        return np.concatenate([self.values[:cut],
+                               np.zeros(self.zero_cnt, np.float64),
+                               self.values[cut:]])
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, FeatureSampleSummary):
+            return NotImplemented
+        return (self.zero_cnt == other.zero_cnt and
+                self.na_cnt == other.na_cnt and
+                self.n_rows == other.n_rows and
+                np.array_equal(self.values, other.values))
+
     def distinct_non_na(self) -> Tuple[np.ndarray, np.ndarray]:
         """The distinct ascending non-NaN sample values, the zero run
         restored, and how many times each occurs: the run-length form of
@@ -140,6 +174,43 @@ class FeatureSampleSummary:
             vals = np.insert(vals, cut, 0.0)
             cnts = np.insert(cnts, cut, self.zero_cnt)
         return vals, cnts
+
+
+_SUMMARY_MAGIC = b"LGSS"     # + u16 version
+
+
+def serialize_summaries(summaries: Sequence[FeatureSampleSummary]
+                        ) -> bytes:
+    """A rank's per-feature summaries on the wire of distributed bin
+    finding: the JAX package's bytes (io/binning.py:167-179), explicit
+    little-endian binary, f64-exact, so a blob written by one package
+    reads in the other."""
+    parts = [_SUMMARY_MAGIC, struct.pack("<HI", 1, len(summaries))]
+    for s in summaries:
+        parts.append(struct.pack("<qqqq", len(s.values), s.zero_cnt,
+                                 s.na_cnt, s.n_rows))
+        parts.append(np.ascontiguousarray(s.values, np.float64)
+                     .tobytes())
+    return b"".join(parts)
+
+
+def deserialize_summaries(blob: bytes) -> List[FeatureSampleSummary]:
+    if blob[:4] != _SUMMARY_MAGIC:
+        raise ValueError("bad sample-summary wire blob (magic mismatch)")
+    ver, n = struct.unpack_from("<HI", blob, 4)
+    if ver != 1:
+        raise ValueError(f"unsupported sample-summary wire version {ver}")
+    off = 10
+    out = []
+    for _ in range(n):
+        n_vals, zero_cnt, na_cnt, n_rows = struct.unpack_from(
+            "<qqqq", blob, off)
+        off += 32
+        vals = np.frombuffer(blob, np.float64, count=n_vals,
+                             offset=off).copy()
+        off += 8 * n_vals
+        out.append(FeatureSampleSummary(vals, zero_cnt, na_cnt, n_rows))
+    return out
 
 
 def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
@@ -533,3 +604,86 @@ class BinMapper:
             cats = sorted(c for c in self.bin_2_categorical if c >= 0)
             return "[" + ":".join(str(c) for c in cats) + "]"
         return f"[{self.min_val:g}:{self.max_val:g}]"
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, BinMapper):
+            return NotImplemented
+        return (self.num_bin == other.num_bin and
+                self.missing_type == other.missing_type and
+                self.bin_type == other.bin_type and
+                np.array_equal(self.bin_upper_bound, other.bin_upper_bound,
+                               equal_nan=True) and
+                self.bin_2_categorical == other.bin_2_categorical)
+
+    # the payload of distributed bin finding's mapper all-gather
+    # (≡ BinMapper::CopyTo/CopyFrom over Network::Allgather, ref:
+    # dataset_loader.cpp:1221-1260): the JAX package's explicit versioned
+    # binary (io/binning.py:624-666), f64-exact, never pickle
+    _WIRE_HEAD = "<iBBBiidddqq"
+
+    def to_wire(self) -> bytes:
+        bub = np.ascontiguousarray(self.bin_upper_bound, np.float64)
+        cats = np.asarray(self.bin_2_categorical, np.int64)
+        head = struct.pack(
+            self._WIRE_HEAD, self.num_bin, _MISSING_CODE[self.missing_type],
+            _BIN_TYPE_CODE[self.bin_type], int(self.is_trivial),
+            self.default_bin, self.most_freq_bin, float(self.sparse_rate),
+            float(self.min_val), float(self.max_val), len(bub), len(cats))
+        return head + bub.tobytes() + cats.tobytes()
+
+    @classmethod
+    def from_wire(cls, blob: bytes, offset: int = 0
+                  ) -> Tuple["BinMapper", int]:
+        """One mapper decoded from ``offset``: (mapper, offset past it)."""
+        (num_bin, miss, btype, trivial, default_bin, most_freq,
+         sparse_rate, min_val, max_val, n_bub, n_cat) = \
+            struct.unpack_from(cls._WIRE_HEAD, blob, offset)
+        offset += struct.calcsize(cls._WIRE_HEAD)
+        self = cls()
+        self.num_bin = num_bin
+        self.missing_type = _MISSING_FROM_CODE[miss]
+        self.bin_type = _BIN_TYPE_FROM_CODE[btype]
+        self.is_trivial = bool(trivial)
+        self.default_bin = default_bin
+        self.most_freq_bin = most_freq
+        self.sparse_rate = sparse_rate
+        self.min_val = min_val
+        self.max_val = max_val
+        self.bin_upper_bound = np.frombuffer(
+            blob, np.float64, count=n_bub, offset=offset).copy()
+        offset += 8 * n_bub
+        cats = np.frombuffer(blob, np.int64, count=n_cat, offset=offset)
+        offset += 8 * n_cat
+        self.bin_2_categorical = [int(c) for c in cats]
+        self.categorical_2_bin = {c: b for b, c in
+                                  enumerate(self.bin_2_categorical)}
+        return self, offset
+
+
+_MISSING_CODE = {MISSING_NONE: 0, MISSING_ZERO: 1, MISSING_NAN: 2}
+_MISSING_FROM_CODE = {v: k for k, v in _MISSING_CODE.items()}
+_BIN_TYPE_CODE = {BIN_NUMERICAL: 0, BIN_CATEGORICAL: 1}
+_BIN_TYPE_FROM_CODE = {v: k for k, v in _BIN_TYPE_CODE.items()}
+
+_MAPPER_MAGIC = b"LGBM"      # + u16 version
+
+
+def serialize_bin_mappers(mappers: Sequence[BinMapper]) -> bytes:
+    """One rank's feature-slice mappers as a wire blob."""
+    parts = [_MAPPER_MAGIC, struct.pack("<HI", 1, len(mappers))]
+    parts.extend(m.to_wire() for m in mappers)
+    return b"".join(parts)
+
+
+def deserialize_bin_mappers(blob: bytes) -> List[BinMapper]:
+    if blob[:4] != _MAPPER_MAGIC:
+        raise ValueError("bad BinMapper wire blob (magic mismatch)")
+    ver, n = struct.unpack_from("<HI", blob, 4)
+    if ver != 1:
+        raise ValueError(f"unsupported BinMapper wire version {ver}")
+    off = 10
+    out = []
+    for _ in range(n):
+        m, off = BinMapper.from_wire(blob, off)
+        out.append(m)
+    return out

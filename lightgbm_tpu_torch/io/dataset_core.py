@@ -23,19 +23,135 @@ straight into EFB group columns (``bins_grouped`` ``[R, G]`` and
 ``[R, K]`` feature ids and bins (``bins_mv``;
 ``ops/hist_multival.py``). ``bins`` is None then, until a consumer that
 needs the logical bins calls ``ensure_logical_bins``.
+
+Sharded ingestion (``pre_partition=true`` or ``tpu_ingest=sharded`` in a
+``torch.distributed`` world of more than one; the JAX package's
+io/dataset_core.py:31-200, 564-818): each rank passes only its own rows,
+the ranks agree on the bin mappers through mergeable sample summaries
+all-gathered over ``distributed.allgather_bytes``, and each rank bins
+its rows only, so ``bins`` is ``[local_rows, F_used]`` while
+``num_data`` and the metadata describe the global table, the rank-order
+concatenation of the shards (``ShardInfo``). Without it, in a world,
+each rank finds the bins of its feature slice only and the mappers are
+all-gathered (the reference's distributed bin finding).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import dataclasses
+import zlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..config import Config
 from ..utils import log
-from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
+from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper,
+                      FeatureSampleSummary, deserialize_bin_mappers,
+                      deserialize_summaries, serialize_bin_mappers,
+                      serialize_summaries)
 
 # the most bins a feature may have: bins are stored in at most 16 bits
 MAX_NUM_BIN = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardInfo:
+    """Row-shard topology of a sharded-ingest BinnedDataset (the JAX
+    package's io/dataset_core.py:31-56): ``row_counts[r]`` rows on rank
+    r; the global table is the rank-order concatenation of the shards.
+    ``digests`` holds every rank's shard-content digest, all-gathered at
+    construction: the gang manifest's fingerprint
+    (``robustness/gang.py``), so a resume refuses a different sharding
+    of the data."""
+
+    rank: int
+    world: int
+    row_counts: np.ndarray        # int64 [world]
+    digests: Optional[Tuple[int, ...]] = None
+
+    @property
+    def local_num_data(self) -> int:
+        return int(self.row_counts[self.rank])
+
+    @property
+    def row_offset(self) -> int:
+        """Global index of this shard's first row."""
+        return int(self.row_counts[:self.rank].sum())
+
+
+def _shard_content_digest(bins: np.ndarray) -> int:
+    """Sampled CRC32 of one rank's binned shard, the JAX package's
+    ``_shard_content_digest`` (io/dataset_core.py:59-72) over the same
+    bytes: it hashes the shape and dtype of the feature-major ``[F, R]``
+    matrix and ~64 evenly spaced columns of it, and a column of that
+    matrix is a row of the port's row-major ``[R, F]`` bins. A
+    different cut, permuted rows or different data change it."""
+    rows, feats = int(bins.shape[0]), int(bins.shape[1])
+    h = zlib.crc32(f"{bins.dtype}:{(feats, rows)}".encode())
+    step = max(1, rows // 64)
+    for i in range(0, rows, step):
+        h = zlib.crc32(np.ascontiguousarray(bins[i]).tobytes(), h)
+    return h & 0xffffffff
+
+
+_SHARD_RESOLVE_LOGGED: set = set()
+
+
+def _log_once(key: str, emit) -> None:
+    """The file route resolves the shard world in ``basic.py`` and again
+    in ``from_columns``: the same answer, logged once a process."""
+    if key not in _SHARD_RESOLVE_LOGGED:
+        _SHARD_RESOLVE_LOGGED.add(key)
+        emit()
+
+
+def _resolve_shard_world(config: Config) -> Optional[Tuple[int, int]]:
+    """(rank, world) when sharded ingestion engages, else None (the JAX
+    package's io/dataset_core.py:85-125 over the ``torch.distributed``
+    world): ``tpu_ingest=sharded``, or ``pre_partition=true`` under the
+    default ``auto``, in a world of more than one process. Asked for in
+    a world of one it loads replicated, with an info log."""
+    from ..distributed import num_processes, process_index
+    ingest = str(config.tpu_ingest).lower()
+    if ingest == "replicated":
+        return None
+    if ingest == "auto" and not config.pre_partition:
+        return None
+    world = num_processes()
+    if world <= 1:
+        if ingest == "sharded":
+            _log_once("sharded-world1", lambda: log.info(
+                "tpu_ingest='sharded' requested but the process "
+                "world has size 1; loading replicated"))
+        return None
+    if ingest == "auto":
+        _log_once("auto-engaged", lambda: log.warning(
+            "pre_partition=true now engages SHARDED ingestion: each "
+            "process must pass ONLY ITS OWN row shard (the training "
+            "table is the rank-order concatenation). If every rank "
+            "still loads the global table, set pre_partition=false "
+            "(or tpu_ingest='replicated') — otherwise rows would be "
+            f"duplicated {world}x"))
+    return process_index(), world
+
+
+def _allgather_rows(arr: Optional[np.ndarray], dtype,
+                    what: str) -> Optional[np.ndarray]:
+    """An optional per-row array of every rank, concatenated in rank
+    order (a collective: every rank calls it). None everywhere stays
+    None; present on some ranks only is fatal."""
+    from ..distributed import allgather_bytes
+    blob = (np.ascontiguousarray(arr, dtype).tobytes()
+            if arr is not None else b"")
+    parts = allgather_bytes(blob, what=what)
+    present = [len(p) > 0 for p in parts]
+    if not any(present):
+        return None
+    if not all(present):
+        log.fatal(f"{what}: some ranks passed this metadata and some "
+                  "did not — sharded ingestion needs it on every rank "
+                  "(and every shard must be non-empty)")
+    return np.concatenate([np.frombuffer(p, dtype) for p in parts])
 
 
 class ColumnSource:
@@ -233,6 +349,9 @@ class BinnedDataset:
 
     def __init__(self) -> None:
         self.bins: Optional[np.ndarray] = None
+        self.shard: Optional[ShardInfo] = None
+        # sharded ingestion's host seconds by step and bytes on the wire
+        self.ingest_stats: Optional[Dict[str, float]] = None
         self.bins_grouped: Optional[np.ndarray] = None
         self.efb_info = None
         self.bins_mv: Optional[tuple] = None
@@ -273,7 +392,17 @@ class BinnedDataset:
         ``group`` holds query sizes and ``position`` each row's position
         id (ranking); ``categorical_features`` the indices of the
         features binned as categories. Names come from ``feature_names``,
-        else the source's columns, else ``Column_i``."""
+        else the source's columns, else ``Column_i``. Sharded ingestion
+        takes ``_from_columns_sharded``; a set with a ``reference``
+        always loads replicated."""
+        if reference is None:
+            shard_world = _resolve_shard_world(config)
+            if shard_world is not None:
+                return cls._from_columns_sharded(
+                    source, config, *shard_world, label=label,
+                    weight=weight, group=group, init_score=init_score,
+                    position=position, feature_names=feature_names,
+                    categorical_features=categorical_features)
         num_data, num_features = source.num_data, source.num_features
         self = cls()
         self.num_data = num_data
@@ -314,6 +443,233 @@ class BinnedDataset:
         meta.set_position(position)
         self.metadata = meta
         return self
+
+    @classmethod
+    def _from_columns_sharded(cls, source: ColumnSource, config: Config,
+                              rank: int, world: int, label=None,
+                              weight=None, group=None, init_score=None,
+                              position=None,
+                              feature_names: Optional[List[str]] = None,
+                              categorical_features: Sequence[int] = (),
+                              ) -> "BinnedDataset":
+        """Sharded ingestion: ``source`` holds only this rank's rows (the
+        reference's pre_partition, dataset_loader.cpp:1175-1260; the JAX
+        package's io/dataset_core.py:564-707). Every step is a
+        collective, beaten under ``heartbeat.PHASE_INGEST``:
+
+        0. all-gather the ranks' row and feature counts: the global
+           layout;
+        1. sample the local rows, summarize each feature, all-gather the
+           summaries, find the bins of this rank's feature slice over
+           the merged summaries, all-gather the mappers;
+        2. bin this rank's rows only: ``bins`` is ``[local_rows,
+           F_used]``, dense;
+        3. all-gather the shards' content digests;
+        4. all-gather the per-row metadata (O(rows) scalars).
+
+        Host memory for the table is O(rows / world x features).
+        ``ingest_stats`` keeps each step's host seconds and the bytes
+        the summaries and the mappers took on the wire (every rank's
+        blob, as each rank receives them)."""
+        import os
+        import time
+
+        from .. import distributed
+        from ..distributed import allgather_bytes
+        from ..robustness import heartbeat
+
+        num_data, num_features = source.num_data, source.num_features
+        if float(config.tpu_gang_collective_timeout_s or 0.0) > 0.0:
+            distributed.set_collective_timeout(
+                float(config.tpu_gang_collective_timeout_s))
+        # liveness from the first collective: a gang supervisor sees
+        # beats during ingestion, not only once training starts
+        hb_env = (os.environ.get(heartbeat.ENV_HEARTBEAT) or "").strip()
+        if hb_env:
+            heartbeat.install(heartbeat.rank_path(hb_env, rank))
+
+        def beat(step: int) -> None:
+            heartbeat.beat(heartbeat.PHASE_INGEST, step)
+
+        beat(0)
+        counts = allgather_bytes(
+            np.asarray([num_data, num_features], np.int64).tobytes(),
+            what="sharded ingest: row counts")
+        pairs = np.stack([np.frombuffer(b, np.int64) for b in counts])
+        row_counts = np.ascontiguousarray(pairs[:, 0])
+        if not np.all(pairs[:, 1] == num_features):
+            log.fatal(
+                "sharded ingest: feature counts disagree across ranks "
+                f"({pairs[:, 1].tolist()}) — every shard must carry the "
+                "same columns")
+        if np.any(row_counts <= 0):
+            log.fatal("sharded ingest: every process must hold at least "
+                      f"one row (row counts: {row_counts.tolist()})")
+        self = cls()
+        self.shard = ShardInfo(rank=rank, world=world,
+                               row_counts=row_counts)
+        self.num_data = int(row_counts.sum())
+        self.num_total_features = num_features
+        self.max_bin = int(config.max_bin)
+        src_names = source.column_names()
+        self.feature_names = (
+            list(feature_names) if feature_names else
+            src_names if src_names else
+            [f"Column_{i}" for i in range(num_features)])
+        log.info(f"sharded ingest: rank {rank}/{world} holds "
+                 f"{num_data}/{self.num_data} rows")
+        if config.linear_tree:
+            log.fatal("linear_tree requires the full raw feature table "
+                      "on every host; it is not supported with sharded "
+                      "ingestion (tpu_ingest='sharded'/pre_partition)")
+
+        stats: Dict[str, float] = {}
+        beat(1)
+        self.bin_mappers = cls._find_bin_mappers_sharded(
+            source, config, categorical_features, rank, world, row_counts,
+            stats)
+        self.used_feature_map = np.asarray(
+            [i for i, m in enumerate(self.bin_mappers)
+             if not m.is_trivial], dtype=np.int32)
+        n_trivial = num_features - len(self.used_feature_map)
+        if n_trivial:
+            log.info(f"{n_trivial} trivial feature(s) removed")
+
+        beat(2)
+        t = time.perf_counter()
+        self.bins = _quantize_rowmajor(source, self.bin_mappers,
+                                       self.used_feature_map)
+        stats["quantize_s"] = time.perf_counter() - t
+
+        beat(3)
+        t = time.perf_counter()
+        got = allgather_bytes(
+            int(_shard_content_digest(self.bins)).to_bytes(4, "big"),
+            what="sharded ingest: shard digests")
+        self.shard = dataclasses.replace(
+            self.shard,
+            digests=tuple(int.from_bytes(b, "big") for b in got))
+
+        stats["digest_s"] = time.perf_counter() - t
+
+        beat(4)
+        t = time.perf_counter()
+        meta = Metadata(self.num_data)
+        lab = _allgather_rows(label, np.float32, "sharded ingest: label")
+        if lab is not None:
+            meta.set_label(lab)
+        meta.set_weight(_allgather_rows(weight, np.float32,
+                                        "sharded ingest: weight"))
+        meta.set_position(_allgather_rows(position, np.int32,
+                                          "sharded ingest: position"))
+        # queries are local to a shard (never span two), as the
+        # reference's pre-partitioned query files
+        meta.set_query(_allgather_rows(group, np.int64,
+                                       "sharded ingest: group"))
+        isc_local = None
+        if init_score is not None:
+            isc_local = np.ascontiguousarray(init_score,
+                                             np.float64).reshape(-1)
+            if num_data and len(isc_local) % num_data != 0:
+                log.fatal("Length of init_score must be a multiple of "
+                          "the local shard's num_data")
+        flat = _allgather_rows(isc_local, np.float64,
+                               "sharded ingest: init_score")
+        isc = None
+        if flat is not None:
+            # each rank's block is class-major over its rows: restitch to
+            # class-major over the global table
+            k = len(flat) // max(self.num_data, 1)
+            offs = np.concatenate([[0], np.cumsum(row_counts * k)])
+            isc = np.concatenate(
+                [flat[offs[r]:offs[r + 1]].reshape(k, -1)
+                 for r in range(world)], axis=1).reshape(-1)
+        meta.set_init_score(isc)
+        self.metadata = meta
+        stats["metadata_s"] = time.perf_counter() - t
+        self.ingest_stats = stats
+        beat(5)
+        return self
+
+    @staticmethod
+    def _find_bin_mappers_sharded(source: ColumnSource, config: Config,
+                                  categorical_features: Sequence[int],
+                                  rank: int, world: int,
+                                  row_counts: np.ndarray,
+                                  stats: Optional[Dict[str, float]] = None
+                                  ) -> List[BinMapper]:
+        """Distributed bin finding over row shards (ref:
+        dataset_loader.cpp:1175-1260; the JAX package's
+        io/dataset_core.py:742-818, draw for draw): each rank samples
+        its share of ``bin_construct_sample_cnt``, proportional to its
+        rows, from ``default_rng(data_random_seed + rank)``; the world's
+        summaries are all-gathered; each rank finds the bins of its
+        feature slice over the merged summaries; the mappers are
+        all-gathered. When the sample covers every row the mappers are
+        serial binning's bit for bit. ``stats`` receives each step's
+        host seconds and the wire bytes."""
+        import time
+
+        from ..distributed import allgather_bytes, feature_slice
+        stats = {} if stats is None else stats
+        t = time.perf_counter()
+        num_data, num_features = source.num_data, source.num_features
+        total_rows = int(row_counts.sum())
+        want = min(config.bin_construct_sample_cnt, total_rows)
+        if want >= total_rows:
+            sample_indices = np.arange(num_data)
+        else:
+            cnt_r = min(num_data,
+                        max(1, int(round(want * num_data
+                                         / max(total_rows, 1)))))
+            rng = np.random.default_rng(config.data_random_seed + rank)
+            sample_indices = np.sort(rng.choice(
+                num_data, size=cnt_r, replace=False))
+        summaries = [FeatureSampleSummary.from_sample(
+            source.get_col_sample(f, sample_indices))
+            for f in range(num_features)]
+        blob = serialize_summaries(summaries)
+        stats["sample_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        world_blobs = allgather_bytes(
+            blob, what="sharded bin finding: sample summaries")
+        stats["summary_gather_s"] = time.perf_counter() - t
+        stats["summary_bytes"] = sum(len(b) for b in world_blobs)
+        t = time.perf_counter()
+        world_summaries = [deserialize_summaries(b) for b in world_blobs]
+        total_sample = (sum(ws[0].n_rows for ws in world_summaries)
+                        if num_features else len(sample_indices))
+        cat_set = set(int(c) for c in categorical_features)
+        forced_bounds = _load_forced_bounds(config)
+        filter_cnt = int(max(
+            config.min_data_in_leaf * total_sample / max(total_rows, 1),
+            config.min_data_in_bin))
+        max_bin_by_feature = config.max_bin_by_feature
+        f_lo, f_hi = feature_slice(num_features, rank, world)
+        local = []
+        for f in range(f_lo, f_hi):
+            merged = FeatureSampleSummary.merge(
+                [ws[f] for ws in world_summaries])
+            mb = (max_bin_by_feature[f] if f < len(max_bin_by_feature)
+                  else config.max_bin)
+            local.append(BinMapper.find_bin_from_summary(
+                merged, total_sample, mb, config.min_data_in_bin,
+                filter_cnt, pre_filter=config.feature_pre_filter,
+                bin_type=(BIN_CATEGORICAL if f in cat_set
+                          else BIN_NUMERICAL),
+                use_missing=config.use_missing,
+                zero_as_missing=config.zero_as_missing,
+                forced_upper_bounds=forced_bounds.get(f, ())))
+        blob = serialize_bin_mappers(local)
+        stats["find_bin_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        blobs = allgather_bytes(
+            blob, what="sharded bin finding: BinMapper allgather")
+        stats["mapper_gather_s"] = time.perf_counter() - t
+        stats["mapper_bytes"] = sum(len(b) for b in blobs)
+        mappers = [m for b in blobs for m in deserialize_bin_mappers(b)]
+        assert len(mappers) == num_features
+        return mappers
 
     def _store(self, source: ColumnSource, config: Config,
                own_mappers: bool) -> None:
@@ -436,8 +792,19 @@ class BinnedDataset:
         max_bin_by_feature = config.max_bin_by_feature
         cat_set = set(int(c) for c in categorical_features)
         forced_bounds = _load_forced_bounds(config)
+        # distributed bin finding (ref: dataset_loader.cpp:1175-1219; the
+        # JAX package's io/dataset_core.py:850-870): in a world, without
+        # pre_partition, each rank bins its feature slice of the same
+        # sample and the mappers are all-gathered, so each feature is
+        # binned once in the world and the mappers are serial binning's
+        from ..distributed import (allgather_bytes, feature_slice,
+                                   num_processes, process_index)
+        rank, world = 0, 1
+        if not config.pre_partition:
+            rank, world = process_index(), num_processes()
+        f_lo, f_hi = feature_slice(num_features, rank, world)
         mappers = []
-        for f in range(num_features):
+        for f in range(f_lo, f_hi):
             col = source.get_col_sample(f, sample_indices)
             mb = (max_bin_by_feature[f] if f < len(max_bin_by_feature)
                   else config.max_bin)
@@ -448,6 +815,12 @@ class BinnedDataset:
                 use_missing=config.use_missing,
                 zero_as_missing=config.zero_as_missing,
                 forced_upper_bounds=forced_bounds.get(f, ())))
+        if world > 1:
+            blobs = allgather_bytes(
+                serialize_bin_mappers(mappers),
+                what="distributed bin finding: BinMapper allgather")
+            mappers = [m for b in blobs for m in deserialize_bin_mappers(b)]
+            assert len(mappers) == num_features
         n_trivial = sum(m.is_trivial for m in mappers)
         if n_trivial:
             log.info(f"{n_trivial} trivial feature(s) removed")
@@ -462,6 +835,10 @@ class BinnedDataset:
         bins, label, weight and class-major ``init_score``; query
         boundaries are rebuilt from the rows' query ids. ``position`` is
         not carried, as in the JAX package."""
+        if self.shard is not None:
+            log.fatal("subsets (Dataset.subset, cv folds) of a "
+                      "sharded-ingest dataset are not supported: it holds "
+                      "one rank's rows of the table")
         row_indices = np.asarray(row_indices, dtype=np.int64)
         out = BinnedDataset()
         if self.bins is not None:

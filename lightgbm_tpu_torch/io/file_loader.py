@@ -3,12 +3,16 @@
 Copy of the dense path of ``lightgbm_tpu/io/file_loader.py`` (ref:
 src/io/parser.cpp:319 CSVParser/TSVParser/LibSVMParser with GetDataType
 auto-detection; label/weight/group columns as config.h label_column
-etc.; side files as metadata.cpp Metadata::Init). One process reads the
-whole file: sharded ingestion and parser plugins are not ported.
+etc.; side files as metadata.cpp Metadata::Init), with its parser
+plugins (``register_parser``) and the rank slices of sharded ingestion:
+a ``{rank}`` placeholder names each rank's own file, else each rank
+parses its contiguous slice of one shared file (the JAX package's
+io/file_loader.py:44-233).
 """
 from __future__ import annotations
 
 import os
+import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -42,14 +46,73 @@ def _parse_column_spec(spec: str, header_names: Optional[List[str]]) -> int:
     return int(spec)
 
 
-def load_svm_or_csv(path: str, config: Config
+# Custom parser plugins (≡ ParserReflector, ref:
+# include/LightGBM/dataset.h:468): a plugin claims a file by its path or
+# first lines and parses it itself. register_parser(detect, parse) with
+# detect(path, sample_lines) -> bool and parse(lines) -> (X [n, f]
+# float, label [n] or None).
+_PARSER_PLUGINS: List[Tuple] = []
+
+
+def register_parser(detect, parse) -> None:
+    _PARSER_PLUGINS.append((detect, parse))
+
+
+def resolve_rank_path(path: str, rank: Optional[int]
+                      ) -> Tuple[str, bool]:
+    """Per-rank files of sharded ingestion: a ``{rank}`` placeholder in
+    the path names each process's own shard file (≡ the reference's
+    pre-partitioned per-machine files, docs/Parallel-Learning-Guide.rst).
+    Returns the resolved path and whether it was substituted."""
+    if rank is not None and "{rank}" in path:
+        return path.replace("{rank}", str(rank)), True
+    return path, False
+
+
+def _agree_shared_file(path: str, lines: List[str], start: int) -> None:
+    """Row-slicing needs one identical file on every rank: the ranks
+    all-gather a sampled CRC32 of its data lines (the JAX package's
+    io/file_loader.py:120-145, the same digest) and die loudly when they
+    differ, as per-machine files at one path would."""
+    from ..distributed import allgather_bytes
+    n_all_rows = len(lines) - start
+    digest = zlib.crc32(str(n_all_rows).encode())
+    step = max(1, n_all_rows // 64)
+    for i in range(0, n_all_rows, step):
+        digest = zlib.crc32(lines[start + i].encode(), digest)
+    got = allgather_bytes(digest.to_bytes(4, "big"),
+                          what="shared-file content agreement")
+    if any(b != got[0] for b in got):
+        log.fatal(
+            f"{path}: file contents differ across ranks — this looks "
+            "like per-machine pre-partitioned files at the same path. "
+            "Row-slice sharding requires one IDENTICAL shared file on "
+            "every rank; for per-host files use the '{rank}' placeholder "
+            "('data_{rank}.csv') so each process loads its own shard "
+            "whole")
+
+
+def load_svm_or_csv(path: str, config: Config,
+                    rank: Optional[int] = None,
+                    world: Optional[int] = None,
                     ) -> Tuple[np.ndarray, Optional[np.ndarray],
                                Optional[np.ndarray], Optional[np.ndarray]]:
     """Load a data file -> (X, label, weight, group).
 
     Also reads LightGBM-convention side files: ``<file>.weight`` and
     ``<file>.query`` / ``<file>.group`` (ref: metadata.cpp
-    Metadata::Init)."""
+    Metadata::Init).
+
+    Sharded ingestion (``rank`` and ``world`` given): with a ``{rank}``
+    placeholder in ``path`` each rank loads its own file; without one
+    each rank parses its contiguous slice of the shared file's data
+    rows, after the ranks agree on its contents; the column count is
+    agreed over the whole file, and a ``.weight`` sidecar must hold one
+    entry a data-file row (this rank's are taken). LibSVM files, query
+    metadata and parser plugins cannot be row-sliced."""
+    path, per_rank_file = resolve_rank_path(path, rank)
+    slice_shard = (not per_rank_file and rank is not None
+                   and world is not None and world > 1)
     if not os.path.exists(path):
         log.fatal(f"Data file {path} does not exist")
     with open(path) as f:
@@ -58,6 +121,18 @@ def load_svm_or_csv(path: str, config: Config
     if not lines:
         log.fatal(f"Data file {path} is empty")
 
+    for detect, parse in _PARSER_PLUGINS:
+        if detect(path, lines[:20]):
+            if slice_shard:
+                log.fatal("parser plugins do not support row-slice "
+                          "sharding; use per-rank files "
+                          "('...{rank}...') instead")
+            X, y = parse(lines)
+            X = np.asarray(X, np.float64)
+            y = None if y is None else np.asarray(y, np.float64)
+            weight, group = load_side_files(path, None, None)
+            return X, y, weight, group
+
     fmt = _detect_format(lines[:20])
     header_names: Optional[List[str]] = None
     start = 0
@@ -65,6 +140,25 @@ def load_svm_or_csv(path: str, config: Config
         sep = "," if fmt == "csv" else "\t"
         header_names = [t.strip() for t in lines[0].split(sep)]
         start = 1
+
+    slice_rows: Optional[Tuple[int, int]] = None
+    ncol_floor = 0
+    n_all_rows = len(lines) - start
+    if slice_shard:
+        from ..distributed import row_slice
+        _agree_shared_file(path, lines, start)
+        lo, hi = row_slice(n_all_rows, rank, world)
+        slice_rows = (lo, hi)
+        if fmt == "libsvm":
+            # a slice's largest feature index is not the file's
+            log.fatal("LibSVM files cannot be row-slice sharded (the "
+                      "feature count is inferred per slice); use "
+                      "per-rank files ('...{rank}...') or CSV/TSV")
+        # ragged rows: the column count is agreed over the whole file,
+        # not the slice, so the ranks agree on num_features
+        sep = "," if fmt == "csv" else "\t"
+        ncol_floor = max(ln.count(sep) for ln in lines[start:]) + 1
+        lines = lines[:start] + lines[start + lo:start + hi]
 
     label_spec = config.label_column or "0"
     weight_col = (_parse_column_spec(config.weight_column, header_names)
@@ -85,17 +179,8 @@ def load_svm_or_csv(path: str, config: Config
     else:
         sep = "," if fmt == "csv" else "\t"
         rows = [ln.split(sep) for ln in lines[start:]]
-        ncol = max(len(r) for r in rows)
-        mat = np.full((len(rows), ncol), np.nan)
-        for i, r in enumerate(rows):
-            for j, tok in enumerate(r):
-                tok = tok.strip()
-                if tok == "" or tok.lower() in ("na", "nan", "null"):
-                    continue
-                try:
-                    mat[i, j] = float(tok)
-                except ValueError:
-                    mat[i, j] = np.nan
+        ncol = max([ncol_floor] + [len(r) for r in rows])
+        mat = _parse_rows(rows, ncol)
         label_col = _parse_column_spec(label_spec, header_names)
         y = mat[:, label_col].copy()
         drop = {label_col} | ignore_cols
@@ -108,8 +193,51 @@ def load_svm_or_csv(path: str, config: Config
         keep = [j for j in range(ncol) if j not in drop]
         X = mat[:, keep]
 
+    inline_weight = weight is not None
     weight, group = load_side_files(path, weight, group_raw)
+    if slice_rows is not None:
+        lo, hi = slice_rows
+        if weight is not None and not inline_weight:
+            # a full-length sidecar gives this shard's rows; any other
+            # length would hand every rank the same weights for other rows
+            if len(weight) != n_all_rows:
+                log.fatal(
+                    f"{path}.weight: sidecar has {len(weight)} entries "
+                    f"but the shared data file has {n_all_rows} rows — "
+                    "in row-slice sharded mode the sidecar must hold "
+                    "exactly one entry per data-file row; for per-shard "
+                    "sidecars use per-rank files ('...{rank}...')")
+            weight = weight[lo:hi]
+        if group is not None:
+            log.fatal("query/group metadata cannot be row-slice sharded "
+                      "(queries would straddle shard boundaries); use "
+                      "per-rank files ('...{rank}...') with per-rank "
+                      ".query sidecars")
     return X, y, weight, group
+
+
+def _parse_rows(rows: List[List[str]], ncol: int) -> np.ndarray:
+    """The float matrix of split text rows: an empty, ``na``, ``nan`` or
+    ``null`` field, an unparseable one and a missing trailing one are
+    NaN. When every row is full and every field a number, one ``float``
+    call a field in C gives the same values."""
+    if all(len(r) == ncol for r in rows):
+        try:
+            return np.array(list(map(float, [t for r in rows for t in r])),
+                            np.float64).reshape(len(rows), ncol)
+        except ValueError:
+            pass
+    mat = np.full((len(rows), ncol), np.nan)
+    for i, r in enumerate(rows):
+        for j, tok in enumerate(r):
+            tok = tok.strip()
+            if tok == "" or tok.lower() in ("na", "nan", "null"):
+                continue
+            try:
+                mat[i, j] = float(tok)
+            except ValueError:
+                mat[i, j] = np.nan
+    return mat
 
 
 def load_position_file(path: str) -> Optional[np.ndarray]:

@@ -299,6 +299,9 @@ class GBDT:
         self._linear = bool(cfg.linear_tree)
         if self._linear:
             self._check_linear(train)
+        # sharded ingestion: train.bins holds this rank's rows only, never
+        # the whole table (ref: gbdt.py:743-747)
+        self._sharded_ingest = train.shard is not None
         self._select_learner()
         self._forced = self._load_forced_splits(train)
         if self._forced is not None and self._tree_learner in ("voting",
@@ -485,6 +488,15 @@ class GBDT:
                      "row-sharded learners (tree_learner=data/voting); "
                      f"tree_learner={self._tree_learner!r} keeps its "
                      "existing collective contract")
+        if self._sharded_ingest and self._tree_learner not in ("data",
+                                                               "voting"):
+            n_dev = self._comm.world if self._comm is not None else 1
+            log.fatal(
+                "sharded ingestion (pre_partition/tpu_ingest='sharded') "
+                "requires the row-sharded learners: set "
+                "tree_learner=data (or voting) with more than one "
+                f"device — got tree_learner={self._tree_learner!r} over "
+                f"{n_dev} device(s)")
         if self._tree_learner == "serial":
             self._inj = injected_collectives()
             return
@@ -541,8 +553,10 @@ class GBDT:
         """This rank's stored columns on the device (ref: the JAX
         package's models/gbdt.py:1336-1560): under data and voting its
         block of rows (``RowShards``; pad rows are zero bins, multi-value
-        pad rows hold no entry), under feature every row of its feature
-        slice, or of its EFB groups' slice (pad columns zero bins)."""
+        pad rows hold no entry), under sharded ingestion the rows it
+        loaded, padded to the world's region; under feature every row
+        of its feature slice, or of its EFB groups' slice (pad columns
+        zero bins)."""
         from ..parallel.data_parallel import RowShards
         from ..parallel.feature_parallel import (feature_window,
                                                  host_feature_slice)
@@ -554,6 +568,10 @@ class GBDT:
                  else self._bundle.num_groups)
             lo, Fd = feature_window(n, self._comm)
             local = host_feature_slice(bins_host, lo, Fd)
+        elif self._sharded_ingest:
+            self._shards = RowShards(self.num_data, self._comm,
+                                     row_counts=train.shard.row_counts)
+            local = self._shards.pad_local(bins_host)
         else:
             self._shards = RowShards(self.num_data, self._comm)
             if self._multival:
@@ -824,6 +842,13 @@ class GBDT:
                             "multi-value sparse storage; ignoring")
                 self._forced = None
             return None
+        if cfg.enable_bundle and self._forced is None and \
+                self._sharded_ingest:
+            # a conflict scan over one rank's rows would bundle
+            # differently on each rank (ref: gbdt.py:954-959)
+            log.info("EFB bundling is disabled under sharded ingestion "
+                     "(conflict scans need the global table)")
+            return train.bins
         if (cfg.enable_bundle and self._forced is None and
                 self.num_used_features > 1 and
                 (train.bins is not None or train.bins_grouped is not None)):
@@ -1577,6 +1602,10 @@ class GBDT:
         """Register a validation set binned with the training mappers and
         replay the existing trees onto its score (ref: the JAX package's
         models/gbdt.py:1604 add_valid_data)."""
+        if valid.shard is not None:
+            log.fatal("validation sets must be replicated: construct them "
+                      "with reference=<train Dataset> (sharded ingestion "
+                      "applies to the training table only)")
         if valid.bin_mappers is not self.train_set.bin_mappers:
             log.fatal(f"validation set {name!r} must be binned with the "
                       "training set's bin mappers: construct it with "
@@ -1597,7 +1626,15 @@ class GBDT:
     def _train_bins_fm(self) -> torch.Tensor:
         """The training bins as a feature-major logical ``[F, N]`` view.
         Over EFB groups or multi-value pairs the logical bins are decoded
-        once (``ensure_logical_bins``; ref: gbdt.py:1256-1264)."""
+        once (``ensure_logical_bins``; ref: gbdt.py:1256-1264). A
+        sharded-ingest train set has no such table on any rank: its
+        consumers (rollback, DART) are refused (ref: gbdt.py:1248-1253)."""
+        if self._sharded_ingest:
+            log.fatal(
+                "this operation needs the full [F, N] training table, "
+                "which sharded ingestion never materializes on one host "
+                "— rollback/DART/refit over a sharded train set are not "
+                "supported (use tpu_ingest='replicated' for them)")
         if (self._bundle is None and not self._multival and
                 self._tree_learner == "serial"):
             return self.bins if self.row_sched == "full" else self.bins.T
@@ -1697,11 +1734,29 @@ class GBDT:
                 t.cat_count_inner[i] = len(bins)
             t.from_text = False
         self.models = models
-        bins_fm = self._train_bins_fm()
+        if self._sharded_ingest:
+            # each rank replays a tree over its own rows and the per-row
+            # outputs are all-gathered into the global order, one
+            # all-gather a tree, each added to the score as the
+            # replicated replay adds it: the same score bit for bit
+            # (ref: gbdt.py:2679-2703)
+            from ..distributed import allgather_bytes
+            bins_fm = feature_major_bins(self.train_set.bins, self.device)
+        else:
+            bins_fm = self._train_bins_fm()
         for i, t in enumerate(self.models):
             k = i % K
-            self.score[k] += self._tree_outputs(t, bins_fm,
-                                                self.train_set.raw)
+            if self._sharded_ingest:
+                local = self._tree_outputs(t, bins_fm).cpu().numpy()
+                parts = allgather_bytes(
+                    local.tobytes(),
+                    what="sharded ingest: continued-training replay")
+                self.score[k] += torch.as_tensor(np.concatenate(
+                    [np.frombuffer(p, np.float32) for p in parts]),
+                    device=self.device)
+            else:
+                self.score[k] += self._tree_outputs(t, bins_fm,
+                                                    self.train_set.raw)
             for vd in self.valid_sets:
                 vd.score[k] += self._tree_outputs(t, vd.bins, vd.dataset.raw)
 

@@ -22,10 +22,12 @@ block of rows:
 - the split scan runs on global histograms, so every rank finds the
   same split; each partitions its own rows.
 
-:class:`RowShards` is the engine's side of the layout: rows padded to a
-multiple of the world (the pad rows carry gh = 0, exactly zero in the
-count channel), rank r holding ``[r R_pad / W, (r + 1) R_pad / W)``, and
-the leaf ids all-gathered after each tree.
+:class:`RowShards` is the engine's side of the layout: one region of
+rows a rank, its rows then pad rows (the pad rows carry gh = 0, exactly
+zero in the count channel), and the leaf ids all-gathered after each
+tree. Without sharded ingestion the region is ``ceil(N / W)`` and rank r
+holds the global rows ``[r region, (r + 1) region)``; under it rank r
+holds the rows it loaded and the region is the largest shard.
 """
 from __future__ import annotations
 
@@ -142,45 +144,85 @@ def make_data_parallel_grower(cfg: GrowerConfig, meta: FeatureMeta,
 
 
 class RowShards:
-    """The row layout of the row-sharded learners (data, voting): the
-    ``num_data`` rows padded to ``padded_rows(num_data, W)``, rank r
-    holding the contiguous block ``[lo, lo + rows)`` of the padded order,
-    of which ``[lo, hi)`` are real rows (the JAX package's
-    parallel/mesh.py:46-74 and models/gbdt.py:1563-1600)."""
+    """The row layout of the row-sharded learners (data, voting): rank r
+    holds one ``region`` of ``rows`` rows, its ``count_r`` rows of the
+    global order ``[lo, hi)`` first, then pad rows (the JAX package's
+    parallel/mesh.py:46-74 and models/gbdt.py:1451-1521, 1563-1600).
+    Rank r's rows are the global rows from the sum of the earlier ranks'
+    counts on. ``row_counts`` gives each rank's count under sharded
+    ingestion, where the region is the largest count; without it the
+    ``num_data`` rows are cut ``ceil(num_data / W)`` a rank, the last
+    taking the rest, which is the same layout with those counts.
 
-    def __init__(self, num_data: int, comm: Comm):
+    The leaf ids come back to the global order through the inverse of
+    the row map (each padded slot's global row, -1 for a pad)."""
+
+    def __init__(self, num_data: int, comm: Comm,
+                 row_counts: Optional[np.ndarray] = None):
         self.comm = comm
         self.num_data = int(num_data)
-        self.padded = padded_rows(self.num_data, comm.world)
-        self.rows = self.padded // comm.world
-        self.lo = min(comm.rank * self.rows, self.num_data)
-        self.hi = min(self.lo + self.rows, self.num_data)
+        W = comm.world
+        if row_counts is None:
+            rows = padded_rows(self.num_data, W) // W
+            counts = np.clip(self.num_data - rows * np.arange(W), 0, rows)
+        else:
+            counts = np.asarray(row_counts, np.int64)
+            if int(counts.sum()) != self.num_data or len(counts) != W:
+                raise ValueError(f"row counts {counts.tolist()} do not "
+                                 f"cover {self.num_data} rows over {W} "
+                                 "ranks")
+            rows = int(counts.max())
+        self.rows = int(rows)
+        self.row_counts = counts
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        self.lo = int(offsets[comm.rank])
+        self.hi = self.lo + int(counts[comm.rank])
         self.pad = self.rows - (self.hi - self.lo)
+        # the leaf ids' gather: the slots of the real rows in global
+        # order, or None when they are the padded order's first num_data
+        # (every region full but the last)
+        self._inv = None
+        if np.any(counts[:-1] != self.rows):
+            row_map = np.full(W * self.rows, -1, np.int64)
+            for p in range(W):
+                c = int(counts[p])
+                row_map[p * self.rows:p * self.rows + c] = \
+                    offsets[p] + np.arange(c)
+            self._inv = torch.from_numpy(np.flatnonzero(row_map >= 0))
+
+    def pad_local(self, a: np.ndarray, fill=0) -> np.ndarray:
+        """This rank's rows ``[count_r, ...]`` padded to the region."""
+        return pad_rows_np(a, self.rows, 0, fill)
 
     def host_rows(self, a: np.ndarray, fill=0) -> np.ndarray:
-        """This rank's rows of a host array ``[N, ...]``, padded."""
-        return pad_rows_np(a[self.lo:self.hi], self.rows, 0, fill)
+        """This rank's rows of a global host array ``[N, ...]``, padded."""
+        return self.pad_local(a[self.lo:self.hi], fill)
 
     def local_gh(self, gh: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of the global ``[N, 3]`` gh, the pad rows
-        exact zeros (the count channel too)."""
+        """This rank's rows of the global ``[N, 3]`` gh (its block of
+        ``row_map``), the pad rows exact zeros (the count channel
+        too)."""
         g = gh[self.lo:self.hi]
         if self.pad:
             g = torch.cat([g, g.new_zeros((self.pad, g.shape[1]))])
         return g
 
     def uniforms(self, key, device):
-        """Stochastic rounding's draws of this rank's rows: the JAX
+        """Stochastic rounding's draws of this rank's region: the JAX
         package's ``split(fold_in(tree_key, axis_index))`` over the
-        shard (core/grower.py:253-257)."""
+        shard's ``rows`` slots (core/grower.py:253-257)."""
         return tuple(prng.uniform(k, self.rows, device)
                      for k in prng.split(prng.fold_in(key, self.comm.rank)))
 
     def gather_leaf(self, leaf_id: torch.Tensor) -> torch.Tensor:
-        """Every row's leaf ``[N]``: the ranks' blocks all-gathered once a
-        tree, the pad rows dropped."""
-        return self.comm.all_gather(leaf_id, kind="leaf_id").reshape(
-            -1)[:self.num_data]
+        """Every row's leaf ``[N]`` in the global order: the ranks'
+        regions all-gathered once a tree, the pad slots dropped."""
+        flat = self.comm.all_gather(leaf_id, kind="leaf_id").reshape(-1)
+        if self._inv is None:
+            return flat[:self.num_data]
+        if self._inv.device != flat.device:
+            self._inv = self._inv.to(flat.device)
+        return flat[self._inv]
 
 
 class RowShardedLearner:

@@ -25,6 +25,9 @@ so one environment drives both packages:
   an in-training watchdog raises instead of waiting forever.
 - :mod:`.integrity` — the numeric-health guard of the boosting loop
   (:class:`NumericHealthError`, ``DATA_CORRUPTION``).
+- :mod:`.gang` — the supervised gang: per-rank heartbeat supervision,
+  the whole gang relaunched on a rank's death (:func:`run_supervised`),
+  and the gang manifests that commit a sharded world's checkpoints.
 
 Nothing here imports torch at module import or touches a device.
 """
@@ -41,8 +44,12 @@ from .integrity import (IntegrityError, NumericHealthError,
 from .retry import (RetryError, RetryPolicy, classify_error,
                     is_transient_error, retry_call)
 from .supervisor import StillAlive, watch_child
+from .gang import (GangError, GangSupervisor, GangTimeout,
+                   latest_valid_manifest, run_supervised, write_manifest)
 
 __all__ = [
+    "GangError", "GangSupervisor", "GangTimeout", "run_supervised",
+    "write_manifest", "latest_valid_manifest",
     "RetryPolicy", "RetryError", "retry_call", "is_transient_error",
     "classify_error",
     "CheckpointError", "atomic_write_text", "write_checkpoint",

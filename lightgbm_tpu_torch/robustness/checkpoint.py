@@ -274,9 +274,12 @@ def latest_valid_checkpoint(directory: str
 _TMP_RE = re.compile(r"^(.*)\.tmp\.\d+$")
 
 
-def prune_checkpoints(directory: str, keep_last: int) -> int:
-    """Delete all but the newest ``keep_last`` checkpoints, and any tmp
-    litter of killed writes. Returns how many files were removed."""
+def prune_numbered(directory: str, pattern, keep_last: int) -> int:
+    """The retention sweep of checkpoints and gang manifests: keep the
+    newest ``keep_last`` files whose name matches ``pattern`` (a compiled
+    regex, group 1 the ordering number), delete the older ones and any
+    tmp litter of killed writes of such a name. Returns how many files
+    were removed."""
     removed = 0
     try:
         names = os.listdir(directory)
@@ -286,14 +289,14 @@ def prune_checkpoints(directory: str, keep_last: int) -> int:
     for name in names:
         tm = _TMP_RE.match(name)
         if tm is not None:
-            if _CKPT_RE.match(tm.group(1)):
+            if pattern.match(tm.group(1)):
                 try:
                     os.remove(os.path.join(directory, name))
                     removed += 1
                 except OSError:
                     pass
             continue
-        m = _CKPT_RE.match(name)
+        m = pattern.match(name)
         if m:
             kept.append((int(m.group(1)), name))
     if keep_last >= 1:
@@ -305,6 +308,12 @@ def prune_checkpoints(directory: str, keep_last: int) -> int:
             except OSError:
                 pass
     return removed
+
+
+def prune_checkpoints(directory: str, keep_last: int) -> int:
+    """Delete all but the newest ``keep_last`` checkpoints, and any tmp
+    litter of killed writes. Returns how many files were removed."""
+    return prune_numbered(directory, _CKPT_RE, keep_last)
 
 
 # ---------------------------------------------------------------------------

@@ -66,6 +66,11 @@ PHASE_COMPILING = "compiling"
 PHASE_WARMUP = "warmup"
 PHASE_MEASURING = "measuring"
 PHASE_ITER = "iter"
+# sharded-ingest construction (io/dataset_core._from_columns_sharded),
+# beaten per protocol step (counts, summaries, mappers, binning,
+# metadata), so a gang supervisor can tell a rank grinding through a big
+# all-gather from one wedged on a dead peer
+PHASE_INGEST = "ingest"
 
 
 def rank_path(path: str, rank: int) -> str:
@@ -358,6 +363,9 @@ DEFAULT_STALL: Dict[str, float] = {
     PHASE_WARMUP: 420.0,
     PHASE_MEASURING: 300.0,
     PHASE_ITER: 300.0,
+    # one sharded-ingest protocol step (a collective round or a local
+    # binning pass)
+    PHASE_INGEST: 600.0,
 }
 DEFAULT_STALL_FALLBACK = 420.0
 # keepalives come every ~5 s; 60 s of file silence means even the

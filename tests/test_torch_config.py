@@ -157,14 +157,17 @@ def test_ported_settings_train(extra):
 @pytest.mark.parametrize("name,value", [("pre_partition", True),
                                         ("tpu_ingest", "sharded")])
 def test_sharded_ingestion_in_a_world_of_two_is_refused(name, value):
-    """Sharded ingestion is ROADMAP A13b: in a world of more than one
-    process it is refused rather than trained replicated; in a world of
-    one there is nothing to shard."""
+    """Sharded ingestion is ported: in a world of two it is no longer
+    refused (nor in a world of one, which has nothing to shard), while a
+    ``tpu_num_devices`` other than the world still is."""
     cfg = lgt.Config({"objective": "binary", name: value})
-    refused = cfg.distributed_refusals(2)
-    assert len(refused) == 1 and refused[0].startswith(f"{name}=")
-    assert refused[0].endswith("(ROADMAP A13b)")
+    assert cfg.distributed_refusals(2) == []
     assert cfg.distributed_refusals(1) == []
+    cfg = lgt.Config({"objective": "binary", name: value,
+                      "tpu_num_devices": 4})
+    refused = cfg.distributed_refusals(2)
+    assert len(refused) == 1
+    assert refused[0].startswith("tpu_num_devices=4 in a world of 2")
 
 
 def test_tpu_num_devices_other_than_the_world_is_refused():
@@ -181,8 +184,9 @@ def test_tpu_num_devices_other_than_the_world_is_refused():
 
 def test_launcher_refuses_what_it_cannot_do():
     from lightgbm_tpu_torch import distributed as dist
-    with pytest.raises(NotImplementedError, match="A13b"):
-        dist.launch_local(["true"], 2, supervised=True)
+    # supervised=True launches now: a gang of two that exits 0 returns
+    assert [rc for rc, _ in dist.launch_local(
+        ["true"], 2, supervised=True, timeout=30, poll=0.05)] == [0, 0]
     with pytest.raises(ValueError, match="one process per device"):
         dist.worker_env("localhost:1", 2, 0, cpu_devices_per_process=2)
     with pytest.raises(ValueError, match="one process per device"):

@@ -33,8 +33,8 @@ a pad feature. Standards:
 - the ranks' texts are equal, the learner and the histogram reduction
   are attributed, a collective delay inside the deadline changes
   nothing, the digest agreement passes and a bit-flipped digest raises
-  ``GangDivergence`` on both ranks, ``pre_partition`` is refused naming
-  A13b, ``allgather_bytes`` returns every rank's blob, each rank writes
+  ``GangDivergence`` on both ranks, ``pre_partition`` trains (sharded
+  ingestion, each rank's rows its own), ``allgather_bytes`` returns every rank's blob, each rank writes
   its own heartbeat, and ``rank_kill:rank=1`` kills rank 1 alone.
 """
 import contextlib
@@ -216,9 +216,13 @@ def _worker(out_dir: str) -> None:
     except integrity.GangDivergence as e:
         res["bitflip"] = str(e)
     try:
-        train("F10", {**data, "pre_partition": True}, rounds=1)
+        # every rank passes the whole table: sharded ingestion trains on
+        # the rank-order concatenation, each row twice
+        shard = train("F10", {**data, "pre_partition": True},
+                      rounds=1)._engine.train_set.shard
         res["pre_partition"] = "trained"
-    except Exception as e:  # noqa: BLE001 — the refusal is the result
+        res["pre_partition_rows"] = shard.row_counts.tolist()
+    except Exception as e:  # noqa: BLE001 — a refusal is the result
         res["pre_partition"] = str(e)
     res["allgather"] = [b.decode() for b in dist.allgather_bytes(
         f"rank{rank};".encode() * (rank + 1))]
@@ -364,9 +368,11 @@ def test_digest_agreement_and_its_bitflip(gang):
 
 
 def test_sharded_ingestion_in_a_world_of_two_is_refused(gang):
+    """No longer refused: ``pre_partition`` trains in the gang, each rank
+    holding the rows it passed."""
     for r in gang["ranks"]:
-        assert "pre_partition=True" in r["pre_partition"]
-        assert "A13b" in r["pre_partition"]
+        assert r["pre_partition"] == "trained", r["pre_partition"]
+        assert r["pre_partition_rows"] == [N, N]
 
 
 def test_allgather_bytes_and_rank_heartbeats(gang):

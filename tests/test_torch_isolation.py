@@ -44,9 +44,12 @@ LEAF_MODULES = {
     # checkpoint_callback writes through the port's robustness package
     "lightgbm_tpu_torch/callback.py": {"__future__", "collections",
                                        "typing", ".utils", ".robustness"},
+    # the rank slice of a shared file agrees on a CRC32 of its lines over
+    # the world's all-gather
     "lightgbm_tpu_torch/io/file_loader.py": {"__future__", "os", "typing",
                                              "numpy", "..config",
-                                             "..utils"},
+                                             "..utils", "zlib",
+                                             "..distributed"},
 }
 
 
@@ -90,7 +93,13 @@ COPIED_MODULES.update(SPARSE_MODULES)
 ROBUSTNESS_MODULES = {
     "lightgbm_tpu_torch/robustness/__init__.py": {
         ".checkpoint", ".faults", ".heartbeat", ".integrity", ".retry",
-        ".supervisor"},
+        ".supervisor", ".gang"},
+    # the supervised gang spawns its ranks through distributed.spawn_local
+    # (imported when it launches, and torch-free at module level)
+    "lightgbm_tpu_torch/robustness/gang.py": {
+        "__future__", "json", "os", "re", "shutil", "subprocess",
+        "tempfile", "threading", "time", "typing", "..utils", ".",
+        ".heartbeat", ".retry", "..distributed"},
     "lightgbm_tpu_torch/robustness/faults.py": {
         "__future__", "os", "random", "threading", "typing", "..utils",
         "errno", "time", "sys"},

@@ -25,6 +25,10 @@
   engine's jit traces ``RankXENDCG._iter`` once, so from the second
   iteration on it reuses the first iteration's noise, where the port
   draws fresh noise each iteration as the objective's code states).
+- Lambdarank f32 and quantized (both roundings), 3 rounds, handed the
+  JAX objective's gradients: the JAX text string for string (ROADMAP
+  C15: without the handover the last ulps of C1(a) move the quantized
+  gradients, and the texts differ).
 - A JAX-trained lambdarank model's text loads in the port and predicts
   the JAX package's host walk bit for bit.
 """
@@ -335,6 +339,46 @@ def test_lambdarank_trains_like_jax(trained, path):
         np.testing.assert_allclose(trec[name], jrec[name], rtol=1e-6,
                                    err_msg=name)
     assert trec["ndcg@10"][-1] > trec["ndcg@10"][0]
+
+
+QUANT_CASES = {
+    "f32": {},
+    "quantized": {"use_quantized_grad": True, "stochastic_rounding": False},
+    "quantized_stochastic": {"use_quantized_grad": True},
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUANT_CASES))
+def test_lambdarank_on_the_jax_gradients_gives_the_jax_text(monkeypatch,
+                                                           case):
+    """ROADMAP C15: the port's lambdarank, quantized or not, handed the
+    JAX objective's gradients (its own within the C1(a) tolerance of
+    them: ``log2`` and the logistic function differ in the last ulps),
+    gives the JAX package's text string for string. Quantization turns
+    those ulps into other integer gradients, so without the handover the
+    quantized trees may split a near-tie on another feature."""
+    from test_torch_model_io import _no_params
+    X, y, sizes, _ = _ranking_data(np.random.default_rng(14), n_queries=30)
+    params = {**_train_params(), **QUANT_CASES[case]}
+    params.pop("metric")
+    jo, _ = _objectives(params, sizes, y)
+    jax_grad = jax.jit(jo.get_gradients)
+    own = tobj.LambdarankNDCG.get_gradients
+
+    def jax_gradients(self, score, pos_biases=None):
+        tg, th = own(self, score, pos_biases)
+        jg, jh = (np.array(a) for a in jax_grad(jnp.asarray(score)))
+        np.testing.assert_allclose(tg.numpy(), jg, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(th.numpy(), jh, rtol=1e-5, atol=1e-6)
+        return torch.as_tensor(jg), torch.as_tensor(jh)
+    monkeypatch.setattr(tobj.LambdarankNDCG, "get_gradients", jax_gradients)
+    jb = lgb.train(params, lgb.Dataset(X, label=y, group=sizes),
+                   num_boost_round=3)
+    tb = lgt.train({**params, "device_type": "cpu"},
+                   lgt.Dataset(X, label=y, group=sizes), num_boost_round=3)
+    assert tb.num_trees() == 3
+    assert _no_params(tb.model_to_string()) == \
+        _no_params(jb.model_to_string())
 
 
 def test_ranking_metrics_on_the_same_scores_bit_for_bit(trained):
