@@ -110,7 +110,8 @@ Phases, each reported on its own line:
    the columns whose |score| stays under 1, probabilities absolute), the
    device metrics within 1e-5 of the host's, the text round trip bit for
    bit; cuda against the CPU on 20,000 rows of 3 classes on the compact,
-   hybrid and full paths; then the ten pointwise objectives (L1, Huber,
+   hybrid and full paths (all in the side process, below); and, in this
+   process after phase 8, the ten pointwise objectives (L1, Huber,
    Fair, Poisson, quantile, MAPE, Gamma, Tweedie and the two
    cross-entropies) on phase 4's rows, 1 + 1 iterations each, each
    default metric falling (Gamma's deviance, its default ``gamma`` logged
@@ -131,7 +132,8 @@ Phases, each reported on its own line:
    bytes of each run; then cuda against the CPU on 20,000 rows in 200
    queries on the compact, hybrid and full paths (root splits equal,
    ``ndcg@10`` within rtol 1e-6);
-11. the user surface on phase 4's rows and model (run after phase 9):
+11. the user surface on phase 4's rows and model (run after phase 9's
+   objectives):
    ``cv`` with 5 stratified folds and 2 rounds (every fold through K1, the
    mean logloss falling every round, fold 0's ``eval`` on its held-out
    subset within 1e-6 of the host walk's logloss, the five Boosters' peak
@@ -177,7 +179,8 @@ Phases, each reported on its own line:
    DayOfWeek, UniqueCarrier, Origin and Dest categorical, the airports
    Zipf-skewed; DepTime and Distance numerical; about one positive in
    five) through ``Booster`` with 200,000 held-out rows as a validation
-   set (run after phase 12, its data freed): the compact path (1 + 1
+   set (in the side process, after phase 9's multiclass part): the
+   compact path (1 + 1
    iterations), quantized, hybrid (K2), full (B2) and compact at
    max_bin=1023 (Origin and Dest of 301 bins: K1 over u16 bins; 1 + 1
    each), and the compact path with the codes as numbers (1 + 1); each
@@ -198,7 +201,8 @@ Phases, each reported on its own line:
    ``max_conflict_rate=0.01`` (at 0 it finds about 300 groups, more than
    8 K_max, and stores them multi-value; ingest seconds by stage, G,
    K_max and the groups' bytes), with 200,000 held-out rows as a
-   validation set (run after phase 13, its data freed): the compact (K1
+   validation set (in the side process, after phase 13, its data
+   freed): the compact (K1
    over the group columns), quantized, hybrid (K2 then K1), full (B2
    over [G, R]) and multi-value (``tpu_sparse_storage=multival``, its
    own Dataset: the plain torch scatter over [R, K]) runs, 1 + 1
@@ -305,7 +309,40 @@ Phases, each reported on its own line:
    gang once, both ranks resume from the newest valid manifest and end
    on (b)'s text string for string; logged: the first attempt's exit
    codes and the seconds from SIGTERM to its last exit, the relaunch's
-   start-up seconds and the resumed iteration.
+   start-up seconds and the resumed iteration;
+19. the model server and device TreeSHAP on phase 4's booster and phase
+   7's 200,000 rows (after phase 18): (a) ``Booster.serve(linger_ms=2,
+   raw_score=True)`` under 8 closed-loop client threads sending 2,000
+   requests of log-uniform sizes over 1 to 4,096 rows; (b) meanwhile,
+   from the half-way point, a trainer thread's two ``update()`` +
+   ``publish()`` (K1 once a leaf): every response equals the same rows
+   of one ``predict(device=True, raw_score=True)`` of the generation it
+   names bit for bit, versions monotonic per client, no degraded or
+   failed batch; logged: requests/s, rows/s, p50/p99 ms of the steady
+   window and of all, batches and the coalesced requests and rows, each
+   publish's ms and the p99 during the swaps; (c)
+   ``predict(pred_contrib=True, device=True)`` of 20,000 rows within
+   rtol 1e-4 / atol 1e-5 of the host TreeSHAP on 2,000 of them, additive
+   to the device raw scores within 1e-5, a second call equal bit for
+   bit (rows/s beside the host's; the kernels and device ms of one
+   2,000-row call under ``torch.profiler``), then ``ModelServer.explain``
+   from 4 clients with no host fallback; (d) under ``faults.inject``:
+   ``dispatch_error`` twice (retried, bit-equal), ``oom`` once (bisected,
+   bit-equal, not degraded), ``publish_fail`` (the old generation serves
+   on at its version), the retry budget exhausted (degraded, host-walk
+   answers equal the host predict bit for bit, the recovery probe
+   un-degrades: seconds), ``bitflip:where=dev`` with the canary every
+   0.2 s (detection, repair and un-quarantine: seconds; the pre-rot
+   answers after); (e) a ``booster_from_arrays`` copy of the trees
+   served by the raw route (rows/s; its ``predict(device=True)`` bit for
+   bit).
+
+Phases 9's multiclass part, 13, 14, 10 and 6 (in that order) need
+nothing of phase 4's rows or model: they run in a second process
+(``--side-worker PLAN``), started after phase 5 and run beside phases 7
+to 19 of this one (the card and the host shared), which prints its
+lines when it ends; each process counts its own launches. Past 1,140 s
+the script prints every thread's stack and exits 3.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's name and power limit, one JSON object describing every kernel
@@ -369,6 +406,9 @@ GH_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 MODES = ("f32", "int8", "bf16")
 FM_MODES = ("f32", "int8")       # B2: the full path builds no bf16 hists
 PREDICT_ROWS = 200_000
+# past this, the script prints every thread's stack and exits (the
+# driver's limit is 1,200 s)
+WATCHDOG_S = 1_140
 # phase 8: validation rows (another seed), rounds with the validation set,
 # and rounds of the continued training
 VALID_ROWS = 200_000
@@ -1925,12 +1965,13 @@ def train_multiclass(ds, params, iters, prior_error):
                      counts=counts, peak_bytes=peak, first=first, last=last)
 
 
-def phase_multiclass(X_higgs, ds_higgs):
-    """Phase 9: multiclass (softmax, then one-vs-all) at the Covertype
-    shape through ``Booster`` on the card, on the compact, hybrid and full
-    paths; its predictions by the host walk and both device routes, its
-    device metrics and its text; a small cuda/cpu cross-check; then the
-    ten pointwise objectives on phase 4's rows."""
+def phase_multiclass():
+    """Phase 9's multiclass part (softmax, then one-vs-all) at the
+    Covertype shape through ``Booster`` on the card, on the compact,
+    hybrid and full paths; its predictions by the host walk and both
+    device routes, its device metrics and its text; a small cuda/cpu
+    cross-check. The ten pointwise objectives on phase 4's rows are
+    ``phase_objectives``."""
     import lightgbm_tpu_torch as lgt
     t_phase = time.perf_counter()
     X, y = synth_covtype()
@@ -1980,8 +2021,7 @@ def phase_multiclass(X_higgs, ds_higgs):
         del b
     del bst, ds, X
     phase_multiclass_cross_check()
-    phase_objectives(X_higgs, ds_higgs)
-    log(f"phase 9 seconds={time.perf_counter() - t_phase!r}")
+    log(f"phase 9 multiclass seconds={time.perf_counter() - t_phase!r}")
     return runs
 
 
@@ -2110,7 +2150,7 @@ def phase_objectives(X, ds):
          + 0.3 * rng.normal(size=len(X64)))
     labels = {"real": t, "positive": np.exp(0.5 * t),
               "unit": 1.0 / (1.0 + np.exp(-t))}
-    t0 = time.perf_counter()
+    t0 = t_phase = time.perf_counter()
     # one Dataset binned with phase 4's mappers, its label set in turn
     data = lgt.Dataset(X, label=labels["real"], reference=ds).construct()
     log(f"phase 9 objectives: phase 4's rows binned with its mappers in "
@@ -2150,6 +2190,7 @@ def phase_objectives(X, ds):
             f"iter_s={iter_s[1:]!r} {readings}"
             f" K1_launches={counts['hist_rowmajor_f32']}{renewal}")
         del bst
+    log(f"phase 9 objectives seconds={time.perf_counter() - t_phase!r}")
 
 
 def mslr_query_sizes(n_rows, n_queries, rng, max_len=MSLR_MAX_QUERY,
@@ -5245,6 +5286,487 @@ def phase_sharded(ranks, tmp, phase4_iter_s):
     return launches, totals
 
 
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 2_000          # (a): at least this many requests in all
+SERVE_MAX_ROWS = 4_096
+SERVE_LINGER_MS = 2.0
+SERVE_SWAPS = 2                 # (b): update() + publish() under load
+SERVE_TAIL = 3                  # requests a client sends after the swaps
+SHAP_ROWS = 20_000
+SHAP_HOST_ROWS = 2_000
+SHAP_PROFILE_ROWS = 2_000
+SHAP_RTOL, SHAP_ATOL = 1e-4, 1e-5
+EXPLAIN_CLIENTS = 4
+EXPLAIN_REQUESTS = 8            # each client's
+EXPLAIN_ROWS = 256
+FAULT_ROWS = 1_000
+INTEGRITY_INTERVAL_S = 0.2
+SERVE_PROBE_S = 0.05
+
+
+def serve_threads(fn, n):
+    """Run ``fn(i)`` on ``n`` threads; re-raise the first failure."""
+    import threading
+    errors = []
+
+    def run(i):
+        try:
+            fn(i)
+        except BaseException as e:    # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    assert not any(th.is_alive() for th in threads), "a client hung"
+    if errors:
+        raise errors[0]
+
+
+def assert_clean(srv, what):
+    st = srv.stats()
+    assert st["degraded_batches"] == st["dispatch_failures"] == 0, (what,
+                                                                    st)
+    assert not st["degraded"], (what, st)
+    return st
+
+
+def serving_traffic(bst, Xp):
+    """(a) and (b): ``SERVE_CLIENTS`` closed-loop clients send requests of
+    log-uniform sizes over 1..``SERVE_MAX_ROWS`` rows (each a random slice
+    of ``Xp``) while a trainer thread runs ``SERVE_SWAPS`` update() +
+    publish(). Every response must equal the same rows of one
+    ``predict(device=True, raw_score=True)`` of the generation it names."""
+    import threading
+    from lightgbm_tpu_torch.serving import latency_summary_ms
+    k = max(bst._engine.num_tree_per_iteration, 1)
+    refs = {}
+    srv = bst.serve(linger_ms=SERVE_LINGER_MS, raw_score=True)
+    try:
+        refs[srv.generation.version] = bst.predict(Xp, device=True,
+                                                   raw_score=True)
+        sizes = []
+        dispatch = srv._batcher.dispatch
+
+        def counted(Xb):
+            sizes.append(len(Xb))
+            return dispatch(Xb)
+
+        srv._batcher.dispatch = counted
+        swapped = threading.Event()
+        steady = threading.Event()
+        swaps = []
+        records = [[] for _ in range(SERVE_CLIENTS)]
+        n_each = -(-SERVE_REQUESTS // SERVE_CLIENTS)
+
+        def trainer():
+            # half the traffic first, unswapped: (a)'s steady window
+            steady.wait(300)
+            for _ in range(SERVE_SWAPS):
+                t = time.perf_counter()
+                assert not bst.update()
+                tp = time.perf_counter()
+                info = srv.publish()
+                swaps.append(dict(start=t, end=time.perf_counter(),
+                                  update_s=tp - t,
+                                  publish_ms=(time.perf_counter() - tp)
+                                  * 1e3, version=info.version,
+                                  num_trees=info.num_trees))
+            swapped.set()
+
+        def client(ci):
+            rng = np.random.default_rng(1900 + ci)
+            done = tail = 0
+            while done < n_each or tail < SERVE_TAIL:
+                n = int(np.exp(rng.uniform(0, np.log(SERVE_MAX_ROWS))))
+                s = int(rng.integers(0, len(Xp) - n + 1))
+                after = swapped.is_set()
+                f = srv.submit(Xp[s:s + n])
+                v = f.result(300)
+                records[ci].append((s, n, f.generation, v, f.t_enq,
+                                    f.t_done))
+                done += 1
+                tail += after
+                if sum(map(len, records)) >= SERVE_REQUESTS // 2:
+                    steady.set()
+                assert done < 50 * n_each, "the swaps never finished"
+
+        tr = threading.Thread(target=trainer, daemon=True)
+        t = time.perf_counter()
+        tr.start()
+        serve_threads(client, SERVE_CLIENTS)
+        tr.join(600)
+        wall_s = time.perf_counter() - t
+        assert swapped.is_set() and len(swaps) == SERVE_SWAPS, swaps
+        st = assert_clean(srv, "traffic")
+    finally:
+        srv.close()
+    gens = {}
+    for recs in records:
+        versions = [g.version for _, _, g, _, _, _ in recs]
+        assert versions == sorted(versions), versions
+        for _, _, g, _, _, _ in recs:
+            gens[g.version] = g
+    assert max(gens) == 1 + SERVE_SWAPS, sorted(gens)
+    for v, g in sorted(gens.items()):
+        if v not in refs:
+            refs[v] = bst.predict(Xp, device=True, raw_score=True,
+                                  num_iteration=g.num_trees // k)
+    n_req = sum(len(r) for r in records)
+    n_rows = sum(n for recs in records for _, n, _, _, _, _ in recs)
+    by_gen = {v: 0 for v in gens}
+    for recs in records:
+        for s, n, g, v, _, _ in recs:
+            by_gen[g.version] += 1
+            np.testing.assert_array_equal(
+                v, refs[g.version][s:s + n],
+                err_msg=f"a response of generation {g.version} is not its "
+                "predict(device=True) bit for bit")
+    lat = [td - te for recs in records for *_, te, td in recs]
+    during = [td - te for recs in records for *_, te, td in recs
+              if any(te < w["end"] and td > w["start"] for w in swaps)]
+    # the steady window: from the first request to the first swap
+    t_first = min(te for recs in records for *_, te, _ in recs)
+    calm = [(n, td - te) for recs in records for _, n, _, _, te, td in recs
+            if td < swaps[0]["start"]]
+    calm_s = swaps[0]["start"] - t_first
+    calm_lat = latency_summary_ms([x for _, x in calm])
+    log(f"phase 19 (a) steady traffic (before the first swap): requests="
+        f"{len(calm)} rows={sum(n for n, _ in calm)} wall_s={calm_s!r} "
+        f"requests_per_s={len(calm) / calm_s!r} rows_per_s="
+        f"{sum(n for n, _ in calm) / calm_s!r} p50_ms="
+        f"{calm_lat['p50_ms']!r} p99_ms={calm_lat['p99_ms']!r}")
+    summ = latency_summary_ms(lat)
+    log(f"phase 19 (a) traffic: clients={SERVE_CLIENTS} requests={n_req} "
+        f"rows={n_rows} wall_s={wall_s!r} requests_per_s={n_req / wall_s!r} "
+        f"rows_per_s={n_rows / wall_s!r} p50_ms={summ['p50_ms']!r} "
+        f"p99_ms={summ['p99_ms']!r} max_ms={summ['max_ms']!r} "
+        f"batches={st['batches']} mean_rows_per_batch="
+        f"{st.get('mean_rows_per_batch')!r} mean_requests_per_batch="
+        f"{st.get('mean_requests_per_batch')!r} max_coalesced_requests="
+        f"{st['max_coalesced']} max_coalesced_rows={max(sizes)} "
+        f"linger_ms={SERVE_LINGER_MS}; every response equals its "
+        f"generation's predict(device=True) bit for bit; degraded_batches="
+        f"dispatch_failures=0")
+    log(f"phase 19 (b) hot-swap: {SERVE_SWAPS} update()+publish() under "
+        f"load: swaps={[{k2: v2 for k2, v2 in w.items() if k2 not in ('start', 'end')} for w in swaps]} "
+        f"responses_by_generation={by_gen} "
+        f"p99_ms_during_swaps={latency_summary_ms(during)['p99_ms']!r} "
+        f"(of {len(during)} requests); versions monotonic per client")
+    return refs
+
+
+def shap_profile(bst, Xs):
+    """Device kernels and their device ms in one explanation of ``Xs``,
+    under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bst.predict(Xs, pred_contrib=True, device=True)
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in on_device),
+            sum(e.self_device_time_total for e in on_device) / 1e3)
+
+
+def serving_shap(bst, Xp):
+    """(c): ``predict(pred_contrib=True, device=True)`` against the host
+    walk, additivity, a replay, then ``ModelServer.explain`` from
+    ``EXPLAIN_CLIENTS`` clients."""
+    from lightgbm_tpu_torch.ops import shap_pack
+    eng = bst._engine
+    F1 = eng.max_feature_idx + 2
+    Xs = Xp[:SHAP_ROWS]
+    bst.predict(Xs[:100], pred_contrib=True, device=True)     # packs
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    phi = bst.predict(Xs, pred_contrib=True, device=True)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t
+    pack = eng._serving.shap_pack
+    assert pack is not None and pack.count == len(eng.models), \
+        "the device route did not explain"
+    assert phi.shape == (SHAP_ROWS, F1) and np.isfinite(phi).all()
+    t = time.perf_counter()
+    host = bst.predict(Xs[:SHAP_HOST_ROWS], pred_contrib=True)
+    host_s = time.perf_counter() - t
+    err = np.abs(phi[:SHAP_HOST_ROWS] - host)
+    np.testing.assert_allclose(phi[:SHAP_HOST_ROWS], host, rtol=SHAP_RTOL,
+                               atol=SHAP_ATOL)
+    raw = bst.predict(Xs, device=True, raw_score=True)
+    add = np.abs(phi.sum(axis=1) - raw)
+    np.testing.assert_allclose(phi.sum(axis=1), raw, rtol=1e-5, atol=1e-5)
+    again = bst.predict(Xs, pred_contrib=True, device=True)
+    np.testing.assert_array_equal(again, phi, err_msg="explanation replay")
+    launches, dev_ms = shap_profile(bst, Xs[:SHAP_PROFILE_ROWS])
+    win = pack.window(0, pack.count)[0]
+    paths = sum(min(t.num_leaves, pack.max_leaves) for t in eng.models
+                if t.num_leaves > 1)
+    log(f"phase 19 (c) device TreeSHAP: rows={SHAP_ROWS} trees="
+        f"{pack.count} paths={paths} depth_cap={win.zf.shape[2]} "
+        f"elements={max(pack.n_elems)} seconds={dev_s!r} rows_per_s="
+        f"{SHAP_ROWS / dev_s!r}; host TreeSHAP rows={SHAP_HOST_ROWS} "
+        f"seconds={host_s!r} rows_per_s={SHAP_HOST_ROWS / host_s!r}; "
+        f"max_abs_diff_vs_host={float(err.max())!r} (rtol {SHAP_RTOL} / "
+        f"atol {SHAP_ATOL}), additivity max_abs_diff={float(add.max())!r} "
+        f"(within 1e-5), a replay equal bit for bit; profiled "
+        f"{SHAP_PROFILE_ROWS} rows: device_kernels={launches} "
+        f"device_ms={dev_ms!r} SHAP_ELEMS={shap_pack.SHAP_ELEMS}")
+    with bst.serve(linger_ms=SERVE_LINGER_MS) as srv:
+        def client(ci):
+            rng = np.random.default_rng(1950 + ci)
+            for _ in range(EXPLAIN_REQUESTS):
+                s = int(rng.integers(0, SHAP_ROWS - EXPLAIN_ROWS + 1))
+                got = srv.explain(Xs[s:s + EXPLAIN_ROWS], timeout=300)
+                np.testing.assert_allclose(got, phi[s:s + EXPLAIN_ROWS],
+                                           rtol=SHAP_RTOL, atol=SHAP_ATOL)
+
+        t = time.perf_counter()
+        serve_threads(client, EXPLAIN_CLIENTS)
+        wall_s = time.perf_counter() - t
+        st = assert_clean(srv, "explain")
+        n = EXPLAIN_CLIENTS * EXPLAIN_REQUESTS
+        assert srv.counters.get("explain_requests") == n, st
+        assert srv.counters.get("explain_degraded") == 0, st
+        log(f"phase 19 (c) ModelServer.explain: clients={EXPLAIN_CLIENTS} "
+            f"requests={n} rows={n * EXPLAIN_ROWS} wall_s={wall_s!r} "
+            f"explained_rows_per_s={n * EXPLAIN_ROWS / wall_s!r} "
+            f"batches={st['explain']['batches']} p50_ms="
+            f"{st['explain']['p50_ms']!r} p99_ms={st['explain']['p99_ms']!r}"
+            "; explain_degraded=0, answers within tolerance of predict")
+
+
+def wait_for(cond, limit_s, what):
+    t = time.perf_counter()
+    while not cond():
+        assert time.perf_counter() - t < limit_s, f"{what}: timed out"
+        time.sleep(0.005)
+    return time.perf_counter() - t
+
+
+def serving_faults(bst, Xp):
+    """(d): the failure path under ``faults.inject`` on the card."""
+    from lightgbm_tpu_torch.robustness import faults
+    from lightgbm_tpu_torch.robustness.retry import RetryPolicy
+    rows = Xp[:FAULT_ROWS]
+    want = bst.predict(rows, device=True, raw_score=True)
+    host = bst.predict(rows, raw_score=True)
+    out = {}
+    with bst.serve(linger_ms=1.0, raw_score=True,
+                   probe_interval_s=SERVE_PROBE_S) as srv:
+        with faults.inject("dispatch_error:p=1:n=2"):
+            np.testing.assert_array_equal(srv.predict(rows, timeout=60),
+                                          want)
+        assert srv.counters.get("dispatch_retries") == 2
+        with faults.inject("oom:n=1"):
+            np.testing.assert_array_equal(srv.predict(rows, timeout=60),
+                                          want)
+        out["oom_bisects"] = srv.counters.get("oom_bisects")
+        assert out["oom_bisects"] >= 1
+        v0 = srv.generation.version
+        with faults.inject("publish_fail"):
+            try:
+                srv.publish()
+                raise AssertionError("publish_fail did not fail the publish")
+            except faults.FaultInjected:
+                pass
+        assert srv.generation.version == v0
+        assert srv.counters.get("publish_failures") == 1
+        np.testing.assert_array_equal(srv.predict(rows, timeout=60), want)
+        assert_clean(srv, "dispatch_error, oom and publish_fail")
+    policy = RetryPolicy(max_attempts=2, base_delay=0.001, max_delay=0.01,
+                         deadline=2.0)
+    with bst.serve(linger_ms=1.0, raw_score=True, retry_policy=policy,
+                   probe_interval_s=SERVE_PROBE_S) as srv:
+        t = time.perf_counter()
+        with faults.inject("dispatch_error:p=1:n=2"):
+            got = srv.predict(rows, timeout=60)
+        np.testing.assert_array_equal(got, host)
+        assert srv.counters.get("dispatch_failures") == 1
+        assert srv.counters.get("degraded_batches") == 1
+        wait_for(lambda: srv.counters.get("recoveries") == 1, 30,
+                 "recovery")
+        out["recover_s"] = time.perf_counter() - t
+        np.testing.assert_array_equal(srv.predict(rows, timeout=60), want)
+    bst.config.set("tpu_integrity_probe_interval_s", INTEGRITY_INTERVAL_S)
+    try:
+        with bst.serve(linger_ms=1.0, raw_score=True,
+                       probe_interval_s=SERVE_PROBE_S) as srv:
+            y0 = srv.predict(rows, timeout=60)
+            np.testing.assert_array_equal(y0, want)
+            t = time.perf_counter()
+            with faults.inject("bitflip:p=1:where=dev"):
+                v1 = srv.publish().version
+            out["detect_s"] = wait_for(
+                lambda: srv.counters.get("integrity_mismatches") >= 1, 30,
+                "detection")
+            out["repair_s"] = out["detect_s"] + wait_for(
+                lambda: srv.generation.version > v1, 30, "repair")
+            wait_for(lambda: srv.counters.get("repairs") >= 1
+                     and not srv.stats()["degraded"], 30, "un-quarantine")
+            out["unquarantine_s"] = time.perf_counter() - t
+            snap = srv.counters.snapshot()
+            assert snap["integrity_mismatches"] == 1, snap
+            assert snap["quarantines"] == 1 and snap["repairs"] == 1, snap
+            np.testing.assert_array_equal(srv.predict(rows, timeout=60), y0)
+    finally:
+        bst.config.set("tpu_integrity_probe_interval_s", 0.0)
+    log(f"phase 19 (d) failure path: dispatch_error x2 retried (answers "
+        f"bit-equal); oom x1 bisected (oom_bisects={out['oom_bisects']}, "
+        "bit-equal, not degraded); publish_fail: the old generation kept "
+        "serving at the same version; retry budget exhausted: degraded, "
+        f"host-walk answers equal the host predict bit for bit, recovered "
+        f"after recover_s={out['recover_s']!r} (probe every "
+        f"{SERVE_PROBE_S} s); bitflip:where=dev with the canary every "
+        f"{INTEGRITY_INTERVAL_S} s: detect_s={out['detect_s']!r} "
+        f"repair_s={out['repair_s']!r} "
+        f"unquarantine_s={out['unquarantine_s']!r}, then the pre-rot "
+        "answers bit for bit")
+
+
+def serving_raw_route(bst, ds, Xp):
+    """(e): a ``booster_from_arrays`` copy of the same trees (no bin
+    mappers: the raw route), served."""
+    from lightgbm_tpu_torch.convert import TREE_FIELDS as CARRY, \
+        booster_from_arrays
+    raw_bst = booster_from_arrays(
+        bench_params(), [{f: getattr(t, f) for f in CARRY}
+                         for t in bst._engine.models],
+        ds.binned.bin_mappers, ds.binned.used_feature_map)
+    want = raw_bst.predict(Xp, device=True, raw_score=True)
+    assert raw_bst._engine._serving.raw_pack.count == len(
+        raw_bst._engine.models)
+    with raw_bst.serve(linger_ms=SERVE_LINGER_MS, raw_score=True) as srv:
+        assert srv._raw_route
+        srv.predict(Xp[:SERVE_MAX_ROWS], timeout=60)          # warm
+        starts = list(range(0, len(Xp), SERVE_MAX_ROWS))
+        t = time.perf_counter()
+        futs = [srv.submit(Xp[s:s + SERVE_MAX_ROWS]) for s in starts]
+        got = [f.result(300) for f in futs]
+        wall_s = time.perf_counter() - t
+        for s, g in zip(starts, got):
+            np.testing.assert_array_equal(g, want[s:s + SERVE_MAX_ROWS])
+        st = assert_clean(srv, "raw route")
+    log(f"phase 19 (e) raw route: rows={len(Xp)} requests={len(starts)} "
+        f"wall_s={wall_s!r} rows_per_s={len(Xp) / wall_s!r} "
+        f"batches={st['batches']}; answers equal its predict(device=True) "
+        "bit for bit")
+
+
+def phase_serving(bst, ds, X):
+    """Phase 19: the model server and device TreeSHAP on phase 4's booster
+    and phase 7's rows. Returns the launch counts of the run (K1 from the
+    hot-swap's updates)."""
+    t0 = time.perf_counter()
+    Xp = np.asarray(X[:PREDICT_ROWS], np.float64)
+    n_trees = len(bst._engine.models)
+    reset_counts()
+    serving_traffic(bst, Xp)
+    counts = read_counts()
+    new = bst._engine.models[n_trees:]
+    assert len(new) == SERVE_SWAPS, len(new)
+    assert counts["hist_rowmajor_f32"] == sum(t.num_leaves for t in new), \
+        counts
+    assert sum(counts.values()) == counts["hist_rowmajor_f32"], counts
+    log(f"phase 19 (a)+(b) done at {time.perf_counter() - t0:.1f} s; "
+        f"launches={nonzero(counts)}")
+    serving_shap(bst, Xp)
+    log(f"phase 19 (c) done at {time.perf_counter() - t0:.1f} s")
+    serving_faults(bst, Xp)
+    log(f"phase 19 (d) done at {time.perf_counter() - t0:.1f} s")
+    serving_raw_route(bst, ds, Xp)
+    log(f"phase 19 seconds={time.perf_counter() - t0!r}")
+    return counts
+
+
+def side_worker(plan_path):
+    """The side process (``--side-worker PLAN``): the phases that need
+    nothing of phase 4's rows or model (9's multiclass part, 13, 14, 10
+    and 6), run in turn; their launch counts go to ``PLAN["out"]``. Each
+    resets and reads this process's own counts, so the launches of the
+    two processes never mix."""
+    with open(plan_path) as fh:
+        plan = json.load(fh)
+
+    def done(label):
+        log(f"{label} done at {time.time() - plan['t0_wall']:.1f} s "
+            "(side process)")
+    iter_s = plan["phase4_iter_s"]
+    res = {"mc_runs": phase_multiclass()}
+    done("phase 9 multiclass")
+    res["cat_runs"], res["cat_totals"] = phase_categorical(iter_s)
+    done("phase 13")
+    res["sparse_runs"], res["sparse_totals"] = phase_sparse(iter_s)
+    done("phase 14")
+    res["rank_runs"] = phase_ranking()
+    done("phase 10")
+    phase_cross_check()
+    done("phase 6")
+    with open(plan["out"], "w") as fh:
+        json.dump(res, fh)
+
+
+def start_side(phase4_iter_s, t0_wall):
+    """Start the side process; its output goes to a file that
+    ``finish_side`` prints."""
+    import os
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_side_")
+    plan = {"out": os.path.join(tmp, "side.json"),
+            "phase4_iter_s": phase4_iter_s, "t0_wall": t0_wall}
+    plan_path = os.path.join(tmp, "plan.json")
+    with open(plan_path, "w") as fh:
+        json.dump(plan, fh)
+    with open(os.path.join(tmp, "side.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--side-worker",
+             plan_path] + [a for a in sys.argv[1:] if a == "--profile"],
+            stdout=out, stderr=subprocess.STDOUT)
+    return proc, plan, tmp
+
+
+def finish_side(side):
+    """Wait for the side process (the watchdog bounds the wait), print
+    its lines, and return its results; fail if it failed."""
+    import os
+    import shutil
+    proc, plan, tmp = side
+    rc = proc.wait()
+    try:
+        with open(os.path.join(tmp, "side.log")) as fh:
+            for line in fh:
+                log(line.rstrip("\n"))
+        assert rc == 0, f"the side process exited {rc}"
+        with open(plan["out"]) as fh:
+            return json.load(fh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def arm_watchdog(limit_s, procs):
+    """Past ``limit_s`` seconds, print every thread's stack, kill the
+    side process and exit 3, so that a run that would be cut says
+    where it was."""
+    import faulthandler
+    import os
+    import threading
+
+    def fire():
+        print(f"chip_smoke: still running after {limit_s} s; every "
+              "thread's stack follows", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        for p in procs:
+            p.kill()
+        os._exit(3)
+    timer = threading.Timer(limit_s, fire)
+    timer.daemon = True
+    timer.start()
+
+
 SOURCES = {
     "hist_rowmajor": ("lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:52"),
@@ -5293,6 +5815,9 @@ def main():
     if "--gang-worker" in sys.argv[1:]:
         gang_worker(sys.argv[sys.argv.index("--gang-worker") + 1])
         return
+    if "--side-worker" in sys.argv[1:]:
+        side_worker(sys.argv[sys.argv.index("--side-worker") + 1])
+        return
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -5306,6 +5831,9 @@ def main():
         "holds u16 bins as int16 and needs none of these)")
 
     t = time.perf_counter()
+    t0_wall = time.time()
+    side_procs = []
+    arm_watchdog(WATCHDOG_S, side_procs)
     names = _build.kernel_names()
     _build.build_all(names)
     log(f"phase 2 built {names} in {time.perf_counter() - t!r} s")
@@ -5342,53 +5870,64 @@ def main():
     bst_u16 = paths["compact_u16"][1]
     full_text = paths["full"][1].model_to_string()
     del paths
-    phase_predict(bst, ds, X)
-    phase_predict(bst_u16, ds_u16, X, label="u16")
-    log(f"phase 7 done at {time.perf_counter() - t:.1f} s")
-    del bst_u16, ds_u16
-    phase_training_api(ds, X, main_run["median_iter_s"])
-    log(f"phase 8 done at {time.perf_counter() - t:.1f} s")
-    mc_runs = phase_multiclass(X, ds)
-    log(f"phase 9 done at {time.perf_counter() - t:.1f} s")
-    surface_runs = phase_user_surface(bst, ds, X, main_run["binning_s"])
-    log(f"phase 11 done at {time.perf_counter() - t:.1f} s")
-    sampling_runs, sampling_medians = phase_sampling(
-        ds, X, main_run["median_iter_s"])
-    log(f"phase 12 done at {time.perf_counter() - t:.1f} s")
-    pool_runs = phase_sparse_on_phase4_rows(ds, X, main_run["median_iter_s"])
-    log(f"phase 14 on phase 4's rows done at {time.perf_counter() - t:.1f} s")
-    constraint_launches, constraint_totals = phase_constraints(
-        bst, ds, X, main_run["median_iter_s"])
-    log(f"phase 15 done at {time.perf_counter() - t:.1f} s")
-    robust_launches, robust_totals = phase_robustness(
-        ds, X, main_run["median_iter_s"], sampling_medians["goss"])
-    log(f"phase 16 done at {time.perf_counter() - t:.1f} s")
-    dist_launches, dist_totals, gang_ranks, gang_tmp = phase_distributed(
-        bst, ds, X, full_text, main_run["median_iter_s"])
-    log(f"phase 17 done at {time.perf_counter() - t:.1f} s")
-    shard_launches, shard_totals = phase_sharded(
-        gang_ranks, gang_tmp, main_run["median_iter_s"])
-    del gang_ranks
-    log(f"phase 18 done at {time.perf_counter() - t:.1f} s")
-    del bst, ds, X
-    gc.collect()
-    cat_runs, cat_totals = phase_categorical(main_run["median_iter_s"])
-    log(f"phase 13 done at {time.perf_counter() - t:.1f} s")
-    sparse_runs, sparse_totals = phase_sparse(main_run["median_iter_s"])
-    log(f"phase 14 done at {time.perf_counter() - t:.1f} s")
+    # phases 9 (multiclass), 13, 14, 10 and 6 in the side process, beside
+    # phases 7 to 19 here
+    side = start_side(main_run["median_iter_s"], t0_wall)
+    side_procs.append(side[0])
+    try:
+        phase_predict(bst, ds, X)
+        phase_predict(bst_u16, ds_u16, X, label="u16")
+        log(f"phase 7 done at {time.perf_counter() - t:.1f} s")
+        del bst_u16, ds_u16
+        phase_training_api(ds, X, main_run["median_iter_s"])
+        log(f"phase 8 done at {time.perf_counter() - t:.1f} s")
+        phase_objectives(X, ds)
+        log(f"phase 9 objectives done at {time.perf_counter() - t:.1f} s")
+        surface_runs = phase_user_surface(bst, ds, X, main_run["binning_s"])
+        log(f"phase 11 done at {time.perf_counter() - t:.1f} s")
+        sampling_runs, sampling_medians = phase_sampling(
+            ds, X, main_run["median_iter_s"])
+        log(f"phase 12 done at {time.perf_counter() - t:.1f} s")
+        pool_runs = phase_sparse_on_phase4_rows(ds, X,
+                                                main_run["median_iter_s"])
+        log(f"phase 14 on phase 4's rows done at "
+            f"{time.perf_counter() - t:.1f} s")
+        constraint_launches, constraint_totals = phase_constraints(
+            bst, ds, X, main_run["median_iter_s"])
+        log(f"phase 15 done at {time.perf_counter() - t:.1f} s")
+        robust_launches, robust_totals = phase_robustness(
+            ds, X, main_run["median_iter_s"], sampling_medians["goss"])
+        log(f"phase 16 done at {time.perf_counter() - t:.1f} s")
+        dist_launches, dist_totals, gang_ranks, gang_tmp = \
+            phase_distributed(bst, ds, X, full_text,
+                              main_run["median_iter_s"])
+        log(f"phase 17 done at {time.perf_counter() - t:.1f} s")
+        shard_launches, shard_totals = phase_sharded(
+            gang_ranks, gang_tmp, main_run["median_iter_s"])
+        del gang_ranks
+        log(f"phase 18 done at {time.perf_counter() - t:.1f} s")
+        serve_totals = phase_serving(bst, ds, X)
+        log(f"phase 19 done at {time.perf_counter() - t:.1f} s")
+        del bst, ds, X
+        gc.collect()
+        res = finish_side(side)
+    finally:
+        side[0].kill()
+        side[0].wait()
+    log(f"side process joined at {time.perf_counter() - t:.1f} s")
+    mc_runs, rank_runs = res["mc_runs"], res["rank_runs"]
+    cat_runs, cat_totals = res["cat_runs"], res["cat_totals"]
+    sparse_runs, sparse_totals = res["sparse_runs"], res["sparse_totals"]
     for k, v in pool_runs.items():
         key = k.split("_", 2)[2]
         sparse_totals[key] = sparse_totals.get(key, 0) + v
     later = {k: cat_totals.get(k, 0) + sparse_totals.get(k, 0)
              + constraint_totals.get(k, 0) + robust_totals.get(k, 0)
              + dist_totals.get(k, 0) + shard_totals.get(k, 0)
+             + serve_totals.get(k, 0)
              for k in set(cat_totals) | set(sparse_totals)
              | set(constraint_totals) | set(robust_totals)
-             | set(dist_totals) | set(shard_totals)}
-    rank_runs = phase_ranking()
-    log(f"phase 10 done at {time.perf_counter() - t:.1f} s")
-    phase_cross_check()
-    log(f"phase 6 done at {time.perf_counter() - t:.1f} s")
+             | set(dist_totals) | set(shard_totals) | set(serve_totals)}
 
     kernels = []
     level = f"skewed n={LEVEL_NODES[-1]}"
@@ -5435,6 +5974,8 @@ def main():
         + json.dumps(dist_launches))
     log("phase 18 launches by run (rank 0, rank 1; chaos: the relaunch): "
         + json.dumps(shard_launches))
+    log("phase 19 launches (the hot-swap's updates): "
+        + json.dumps(nonzero(serve_totals)))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

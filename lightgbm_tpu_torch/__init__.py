@@ -9,6 +9,11 @@ on the CPU each kernel's plain PyTorch version runs instead. A model
 loaded from a file or string, or unpickled, predicts on the device its
 ``params`` name, by the same rule.
 
+``Booster.serve()`` starts a model server (``serving/``, loaded on first
+use; ``lightgbm_tpu_torch.ModelServer``), and
+``predict(pred_contrib=True, device=True)`` explains on the device
+(``ops/shap_pack.py``).
+
 ``LGBM_TPU_FAULTS`` installs its fault plan at import, as in the JAX
 package (``robustness/faults.py``); ``LGBM_TPU_HEARTBEAT`` is read when a
 Booster sets up training (``robustness/heartbeat.py``).
@@ -31,3 +36,13 @@ __all__ = ["Booster", "CVBooster", "Config", "Dataset", "LGBMClassifier",
 # opt-in fault injection for any importing process (children that
 # inherit the variable included)
 robustness.faults.install_from_env()
+
+
+def __getattr__(name):
+    # the serving tier loads on first use (ref: the JAX package's
+    # __init__.py:77-80, its solo names)
+    if name == "ModelServer":
+        from .serving import ModelServer
+        return ModelServer
+    raise AttributeError(
+        f"module 'lightgbm_tpu_torch' has no attribute {name!r}")

@@ -692,6 +692,50 @@ class Booster:
         self._engine.rollback_one_iter()
         return self
 
+    def serve(self, fleet=None, tenant=None, **kwargs):
+        """Start a concurrent model server over this booster on its
+        device (``serving/server.py``): a dynamic micro-batcher coalesces
+        concurrent ``submit()`` requests into the packed-forest engine,
+        ``ModelServer.publish()`` hot-swaps newly trained trees into the
+        live server with zero downtime, and ``explain()`` serves device
+        TreeSHAP contributions. The failure path is built in: per-request
+        deadlines, fail-fast admission control (``OVERLOADED``),
+        retry-then-degrade dispatch that falls back to the host walk and
+        probes the device in the background, OOM bisection, publish
+        rollback and (``tpu_integrity_probe_interval_s`` > 0) canary
+        probes. Knobs default from the ``tpu_serving_*`` params; kwargs
+        (``max_batch``, ``linger_ms``, ``num_devices``, ``devices``,
+        ``queue_depth``, ``raw_score``, ``bucket``, ``deadline_ms``,
+        ``max_queue_rows``, ``retry_policy``, ``probe_interval_s``)
+        override (ref: the JAX package's basic.py:822-876).
+
+        A booster has at most ONE live server: calling ``serve()`` again
+        while one is open returns it (no kwargs) or refuses loudly (a
+        kwarg'd call cannot be honored without a second dispatcher over
+        the same pack). A closed server is replaced. ``fleet=`` (the
+        multi-tenant fleet) is not ported yet (ROADMAP A14b)."""
+        if fleet is not None or tenant is not None:
+            raise LightGBMError(
+                "multi-tenant fleet serving (serve(fleet=...)) is not "
+                "ported yet (ROADMAP A14b); serve() without fleet= starts "
+                "this Booster's own ModelServer")
+        live = getattr(self, "_live_server", None)
+        if live is not None and not live.closed:
+            if kwargs:
+                raise LightGBMError(
+                    "this Booster already has a live ModelServer; a "
+                    "second serve() with different knobs would spawn a "
+                    "second dispatcher thread over the same pack. Use "
+                    "the existing server (serve() with no kwargs "
+                    "returns it) or close() it first.")
+            log.warning("serve(): returning this Booster's live "
+                        "ModelServer (one dispatcher per booster)")
+            return live
+        from .serving import ModelServer
+        srv = ModelServer(self, **kwargs)
+        self._live_server = srv
+        return srv
+
     def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
         """Change parameters between iterations (ref: Booster::ResetConfig,
         c_api.cpp): ``learning_rate`` and the row sampler's settings are
@@ -988,7 +1032,10 @@ class Booster:
         ``data`` may be the path of a CSV/TSV/LibSVM file, parsed with
         the training schema (``data_has_header=True`` skips a header) and
         padded with zero columns to the model's features.
-        ``pred_contrib`` gives the host TreeSHAP ``[N, (F + 1) * K]``.
+        ``pred_contrib`` gives TreeSHAP ``[N, (F + 1) * K]``: the host
+        walk, or with ``device=True`` the packed path tensors on the
+        device (``ops/shap_pack.py``; linear and categorical models take
+        the host walk, said once).
         A scipy sparse matrix is predicted in row blocks, each densified
         and predicted by the route asked for; its ``pred_contrib`` is a
         CSR matrix.
@@ -1053,10 +1100,18 @@ class Booster:
                       else device)
         if pred_contrib:
             if use_device:
-                raise LightGBMError(
-                    "pred_contrib on the device (the packed SHAP path) is "
-                    "not ported yet (ROADMAP A14); pass device=False for "
-                    "the host TreeSHAP")
+                # the packed SHAP path tensors (ops/shap_pack.py): f32
+                # path algebra on the device, within f32 accumulation of
+                # the f64 host walk. A model it does not cover (linear
+                # trees, categorical splits) and f64-only values on the
+                # raw route raise DeviceRouteUnavailable and take the
+                # host walk, said once; anything else raises
+                try:
+                    return eng.explain_device(X, start_iteration,
+                                              end_iteration)
+                except DeviceRouteUnavailable as e:
+                    log.info_once(f"device explanation unavailable ({e}); "
+                                  "using the host predict_contrib walk")
             from .core.shap import predict_contrib
             return predict_contrib(eng, X, start_iteration, end_iteration)
         raw = None
@@ -1138,7 +1193,7 @@ class Booster:
     # name.
     def __getstate__(self):
         state = self.__dict__.copy()
-        for heavy in ("_engine", "train_set", "valid_sets"):
+        for heavy in ("_engine", "train_set", "valid_sets", "_live_server"):
             state.pop(heavy, None)
         state["_model_str"] = (self.model_to_string()
                                if self._engine is not None else None)

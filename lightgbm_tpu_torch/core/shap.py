@@ -5,8 +5,9 @@ include/LightGBM/tree.h ExpectedValue/TreeSHAP, src/io/tree.cpp TreeSHAP:
 Lundberg and Lee's exact polynomial-time recursion over decision paths;
 c_api.cpp PredictType kPredictContrib), on the host in f64. The JAX
 package's row-parallel C++ kernel (``lightgbm_tpu/native``) is not
-ported (ROADMAP A16), nor is the device explanation (A14): this is the
-path the JAX package falls back to without its native library.
+ported (ROADMAP A16): this is the path the JAX package falls back to
+without its native library. The device explanation is
+``ops/shap_pack.py``, held to this walk.
 
 The recursion runs once per tree, vectorized over rows: its branch
 structure, cover ratios and feature dedup depend only on the tree, while

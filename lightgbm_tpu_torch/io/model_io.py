@@ -268,18 +268,40 @@ class _LoadedEngine:
         device ``config.device_type`` names; raises without a card unless
         that is ``cpu``. ``DeviceRouteUnavailable`` for an empty range or
         a categorical node (bitset membership stays on the host walk)."""
-        from ..models.gbdt import resolve_device
-        from ..ops.forest import RawForestPack, ServingEngine
+        from ..ops.forest import RawForestPack
         K = max(self.num_tree_per_iteration, 1)
         lo, hi = start_iteration * K, end_iteration * K
-        dev = resolve_device(self.config)
+        srv = self._serving_engine()
         RawForestPack.check_servable(self.models[lo:hi])
+        out = srv.predict_raw(self.models, self._model_gen, X, lo, hi)
+        return out.T
+
+    def _serving_engine(self):
+        """The packed-forest engine on the device ``config.device_type``
+        names (made anew when that changes)."""
+        from ..models.gbdt import resolve_device
+        from ..ops.forest import ServingEngine
+        dev = resolve_device(self.config)
         if self._serving is None or self._serving.device != dev:
             cap = max([t.num_leaves for t in self.models] + [2])
-            self._serving = ServingEngine(cap, K, dev)
-        out = self._serving.predict_raw(self.models, self._model_gen, X,
-                                        lo, hi)
-        return out.T
+            self._serving = ServingEngine(
+                cap, max(self.num_tree_per_iteration, 1), dev)
+        return self._serving
+
+    def explain_device(self, X: np.ndarray, start_iteration: int,
+                       end_iteration: int) -> np.ndarray:
+        """[R, (F+1)*K] device SHAP contributions by the raw route (ref:
+        the JAX package's io/model_io.py:294-315); a linear or categorical
+        model raises ``DeviceRouteUnavailable``."""
+        K = max(self.num_tree_per_iteration, 1)
+        return self._serving_engine().explain_raw(
+            self.models, self._model_gen, X, start_iteration * K,
+            end_iteration * K, self.max_feature_idx + 1)
+
+    def serving_state(self):
+        """A model server's source (serving/server.py): a loaded model has
+        no bin mappers, so it serves and explains by the raw route."""
+        return list(self.models), self._model_gen, None, None
 
     def eval_train(self) -> List:
         return []

@@ -1579,22 +1579,56 @@ class GBDT:
             "prediction scores each batch at its own row count whatever it "
             "says; row buckets bound the shapes the JAX package compiles, "
             "and this package compiles nothing")
-        srv = self._serving
-        if srv is None:
+        srv = self._serving_engine()
+        _, gen, mappers, used = self.serving_state()
+        if mappers is not None:
+            out = srv.predict_binned(models, gen, X, lo, hi, mappers, used)
+        else:
+            out = srv.predict_raw(models, gen, X, lo, hi)
+        return out.T
+
+    def _serving_engine(self) -> ServingEngine:
+        """The engine's own packed-forest engine on its device."""
+        if self._serving is None:
             dev = self.device if self.device is not None else \
                 resolve_device(self.config)
-            srv = self._serving = ServingEngine(self.config.num_leaves, K,
-                                                dev)
+            self._serving = ServingEngine(self.config.num_leaves,
+                                          self.num_tree_per_iteration, dev)
+        return self._serving
+
+    def explain_device(self, X: np.ndarray, start_iteration: int,
+                       end_iteration: int) -> np.ndarray:
+        """[R, (F+1)*K] f64 SHAP contributions of iterations [start,
+        end) through the packed path tensors (ops/shap_pack.py; ref: the
+        JAX package's GBDT.explain_device, models/gbdt.py:2016-2044), in
+        ``core.shap.predict_contrib``'s layout (per class a block of F+1,
+        bias last). The route is ``predict_device``'s; the SHAP pack rides
+        the same serving engine, so it grows with training. Linear trees
+        and categorical splits raise ``DeviceRouteUnavailable``."""
+        K = self.num_tree_per_iteration
+        lo, hi = start_iteration * K, end_iteration * K
+        models, gen, mappers, used = self.serving_state()
+        srv = self._serving_engine()
+        n_features = self.max_feature_idx + 1
+        if mappers is not None:
+            return srv.explain_binned(models, gen, X, lo, hi, mappers,
+                                      used, n_features)
+        return srv.explain_raw(models, gen, X, lo, hi, n_features)
+
+    def serving_state(self):
+        """``(models, generation, mappers, used_feature_map)`` for a model
+        server (serving/server.py): a COPY of the model list, so trees the
+        training loop appends afterwards reach the server only at its next
+        publish, and the one pinned mapper list (the binner and pack
+        caches key on its identity); mappers None for the raw route."""
+        models = list(self.models)
         if self.train_set is not None and self.train_set.bin_mappers:
             if self._serving_mappers is None:
                 # pin one list so the binner and pack caches hold
                 self._serving_mappers = self.train_set.used_bin_mappers()
-            out = srv.predict_binned(
-                models, self._model_gen, X, lo, hi,
-                self._serving_mappers, self.train_set.used_feature_map)
-        else:
-            out = srv.predict_raw(models, self._model_gen, X, lo, hi)
-        return out.T
+            return (models, self._model_gen, self._serving_mappers,
+                    self.train_set.used_feature_map)
+        return models, self._model_gen, None, None
 
     # -- validation sets, rollback, continued training ------------------
     def add_valid_data(self, valid: BinnedDataset, metrics: List[Metric],

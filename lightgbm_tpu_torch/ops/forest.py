@@ -23,6 +23,13 @@ walk).
 Scores accumulate in f32 per (row, output) sequentially in iteration
 order, from exact zeros (``_accumulate_iters``), so they are the JAX
 package's device scores bit for bit when the leaves and leaf values are.
+
+The serving tier (``serving/``) freezes snapshots of a window
+(``ServingEngine.snapshot``), optionally copied to every device of a
+serving mesh (``place_window``, a :class:`Replicas`), and scores a
+batch's rows split over those devices (``snapshot_scores(place=)``).
+Device TreeSHAP packs and explains through the same engine
+(``snapshot_shap``, ``ops/shap_pack.py``).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from ..core.tree import HostTree
+from ..robustness import faults
 from .predict import (BinnedTreeArrays, RawTreeArrays, _leaf_raw_t,
                       depth_steps, forest_leaf_bins)
 from .split import MISSING_ENUM
@@ -210,8 +218,10 @@ class _IncrementalPack:
 
     def _append(self, models: List[HostTree], tail_stacked,
                 tail: List[HostTree]) -> None:
-        # build everything first, then assign: a failure on the way
-        # leaves the pack as it was
+        # build everything first, then assign: a failure on the way (the
+        # injected publish_fail site, a real allocation failure) leaves
+        # the pack as it was, so a publish that dies here rolls back
+        faults.maybe_fail("publish_fail")
         stacked = _concat(self.stacked, tail_stacked)
         depths = self.depths + [min(t.max_depth, self.max_leaves - 1)
                                 for t in tail]
@@ -418,12 +428,19 @@ def _forest_scores_raw(num_steps: int, k_trees: int,
     return acc
 
 
+class Replicas(tuple):
+    """One copy of a window per device of a serving mesh
+    (``serving/mesh.replicate``), in the mesh's order."""
+
+
 class ForestSnapshot(NamedTuple):
     """Serving state frozen for one request: the sliced device forest,
     its traversal bound and the binner, with no reference back to the
-    mutable packs."""
+    mutable packs, so a dispatcher can keep serving one snapshot while a
+    publisher builds the next (a response is attributable to exactly one
+    snapshot, never a torn pack)."""
     kind: str                     # "binned" | "raw"
-    win: object                   # stacked [T, ...] window (device)
+    win: object                   # stacked [T, ...] window, or Replicas
     steps: int                    # traversal step bound
     k: int                        # trees per iteration (output channels)
     n_trees: int                  # trees inside the window
@@ -431,23 +448,54 @@ class ForestSnapshot(NamedTuple):
     device: torch.device
 
 
-def snapshot_scores(snap: ForestSnapshot, X: np.ndarray) -> np.ndarray:
-    """[K, R] f64 raw scores (f32 sums) for one frozen snapshot."""
+def raw_request(X: np.ndarray, what: str = "serving") -> np.ndarray:
+    """A request as f32 for the raw route; ``DeviceRouteUnavailable``
+    when a value only f64 holds (it could cross a split threshold under
+    f32 rounding)."""
+    x = X.astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        f32_ok = (x.astype(np.float64) == X) | np.isnan(X)
+    if not f32_ok.all():
+        raise DeviceRouteUnavailable(
+            f"raw device {what} needs float32-representable requests "
+            f"({int((~f32_ok).sum())} value(s) are f64-only and could "
+            "cross a split threshold under f32 rounding)")
+    return x
+
+
+def placed_parts(operand: torch.Tensor, rows_axis: int, win, place):
+    """``[(window, operand part)]``: the whole operand against the
+    window without ``place``; with it, the parts ``place(operand,
+    rows_axis)`` splits the rows into, each against the window copy of
+    its device (the same window for every part when it is not a
+    :class:`Replicas`)."""
+    if place is None:
+        return [(win, operand)]
+    parts = place(operand, rows_axis)
+    wins = list(win) if isinstance(win, Replicas) else [win] * len(parts)
+    return list(zip(wins, parts))
+
+
+def snapshot_scores(snap: ForestSnapshot, X: np.ndarray,
+                    place=None) -> np.ndarray:
+    """[K, R] f64 raw scores (f32 sums) for one frozen snapshot.
+
+    Touches no engine or pack state, so it is safe beside
+    ``ServingEngine.snapshot`` building the next snapshot. ``place``
+    (optional ``f(tensor, rows_axis) -> [tensor, ...]``, the serving
+    mesh's ``shard_rows``) splits the request's rows over the devices;
+    each part is scored against its device's window copy and the scores
+    are concatenated in row order."""
     if snap.kind == "binned":
-        bins = snap.binner.bins(X)
-        out = _forest_scores_binned(snap.steps, snap.k, snap.win, bins)
+        operand, axis = snap.binner.bins(X), 1
+        score = _forest_scores_binned
     else:
-        x = X.astype(np.float32)
-        with np.errstate(invalid="ignore"):
-            f32_ok = (x.astype(np.float64) == X) | np.isnan(X)
-        if not f32_ok.all():
-            raise DeviceRouteUnavailable(
-                "raw device serving needs float32-representable requests "
-                f"({int((~f32_ok).sum())} value(s) are f64-only and could "
-                "cross a split threshold under f32 rounding)")
-        out = _forest_scores_raw(snap.steps, snap.k, snap.win,
-                                 torch.as_tensor(x, device=snap.device))
-    return out.cpu().numpy().astype(np.float64)
+        operand = torch.as_tensor(raw_request(X), device=snap.device)
+        axis, score = 0, _forest_scores_raw
+    outs = [score(snap.steps, snap.k, w, part).cpu().numpy()
+            for w, part in placed_parts(operand, axis, snap.win, place)]
+    out = outs[0] if len(outs) == 1 else np.concatenate(outs, axis=1)
+    return out.astype(np.float64)
 
 
 def snapshot_leaves(snap: ForestSnapshot, X: np.ndarray) -> np.ndarray:
@@ -466,7 +514,8 @@ def snapshot_leaves(snap: ForestSnapshot, X: np.ndarray) -> np.ndarray:
 class ServingEngine:
     """Per-model serving state: the device binner and the packed forests,
     keyed by the model-generation counter of the owning engine
-    (models/gbdt.py)."""
+    (models/gbdt.py), and the device TreeSHAP path packs, made at the
+    first explanation (predict-only use never pays for them)."""
 
     def __init__(self, max_leaves: int, k_per_iter: int, device):
         self.k = max(int(k_per_iter), 1)
@@ -475,11 +524,25 @@ class ServingEngine:
         self.raw_pack = RawForestPack(max_leaves, self.device)
         self.binner: Optional[DeviceBinner] = None
         self._binner_src = None
+        self.shap_pack = None
+        self.raw_shap_pack = None
+
+    def _binner_for(self, mappers, used_feature_map) -> DeviceBinner:
+        if self.binner is None or self._binner_src is not mappers:
+            self.binner = DeviceBinner(mappers, used_feature_map,
+                                       self.device)
+            self._binner_src = mappers
+        return self.binner
 
     def snapshot(self, models, gen, lo: int, hi: int, mappers=None,
-                 used_feature_map=None) -> ForestSnapshot:
+                 used_feature_map=None,
+                 place_window=None) -> ForestSnapshot:
         """Sync the right pack and freeze the [lo, hi) window: with
-        ``mappers`` the binned route, without them the raw route."""
+        ``mappers`` the binned route, without them the raw route.
+        ``place_window`` (optional ``f(window) -> window``) copies the
+        window to a serving mesh's devices. Callers serialize
+        ``snapshot`` (it changes pack state); ``snapshot_scores`` on its
+        result needs no lock."""
         if not models[lo:hi]:
             raise DeviceRouteUnavailable("serving snapshot needs a "
                                          "non-empty tree range")
@@ -489,18 +552,66 @@ class ServingEngine:
             raise DeviceRouteUnavailable(LINEAR_TREES_ON_HOST)
         if mappers is not None:
             self.pack.sync(models, gen, mappers)
-            if self.binner is None or self._binner_src is not mappers:
-                self.binner = DeviceBinner(mappers, used_feature_map,
-                                           self.device)
-                self._binner_src = mappers
+            binner = self._binner_for(mappers, used_feature_map)
             win, steps = self.pack.window(lo, hi)
-            kind, binner = "binned", self.binner
+            kind = "binned"
         else:
             self.raw_pack.sync(models, gen)
             win, steps = self.raw_pack.window(lo, hi)
             kind, binner = "raw", None
+        if place_window is not None:
+            win = place_window(win)
         return ForestSnapshot(kind, win, steps, self.k, hi - lo, binner,
                               self.device)
+
+    def snapshot_shap(self, models, gen, lo: int, hi: int,
+                      n_features: int, mappers=None, used_feature_map=None,
+                      place_window=None):
+        """Sync the right SHAP path pack and freeze an explanation
+        snapshot of the [lo, hi) window (``ops/shap_pack.py``), with the
+        route and thread contract of ``snapshot``. A model with linear
+        trees or categorical splits raises ``DeviceRouteUnavailable``:
+        its explanation is the host walk's."""
+        from . import shap_pack as _sp
+        if not models[lo:hi]:
+            raise DeviceRouteUnavailable("explanation snapshot needs a "
+                                         "non-empty tree range")
+        if mappers is not None:
+            pack = self.shap_pack
+            if pack is None or pack.n_features != n_features:
+                pack = _sp.ShapForestPack(self.pack.max_leaves, n_features,
+                                          self.device)
+            pack.sync(models, gen, mappers)   # may refuse (eligibility)
+            self.shap_pack = pack             # ... so assign after
+            binner = self._binner_for(mappers, used_feature_map)
+            kind = "binned"
+        else:
+            pack = self.raw_shap_pack
+            if pack is None or pack.n_features != n_features:
+                pack = _sp.RawShapPack(self.raw_pack.max_leaves, n_features,
+                                       self.device)
+            pack.sync(models, gen)
+            self.raw_shap_pack = pack
+            kind, binner = "raw", None
+        return pack.snapshot(lo, hi, kind, self.k, binner, place_window)
+
+    def explain_binned(self, models, gen, X: np.ndarray, lo: int, hi: int,
+                       mappers, used_feature_map,
+                       n_features: int) -> np.ndarray:
+        """[R, (F+1)*K] f64 contributions (f32 path algebra) over the
+        binned route."""
+        from . import shap_pack as _sp
+        return _sp.shap_snapshot_scores(
+            self.snapshot_shap(models, gen, lo, hi, n_features, mappers,
+                               used_feature_map), X)
+
+    def explain_raw(self, models, gen, X: np.ndarray, lo: int, hi: int,
+                    n_features: int) -> np.ndarray:
+        """The raw-route counterpart of ``explain_binned``, with the same
+        refusal of f64-only request values as ``predict_raw``."""
+        from . import shap_pack as _sp
+        return _sp.shap_snapshot_scores(
+            self.snapshot_shap(models, gen, lo, hi, n_features), X)
 
     def predict_binned(self, models, gen, X: np.ndarray, lo: int, hi: int,
                        mappers, used_feature_map) -> np.ndarray:

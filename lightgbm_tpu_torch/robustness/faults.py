@@ -60,13 +60,23 @@ Every site of the JAX package parses. The port consults these:
   collective of the distributed learners (``parallel/mesh.Comm``) and
   of injected transport (``distributed.retried_collective``).
 
-These parse and wait for the modules that consult them:
-``probe_timeout`` (a device probe:
-:func:`.retry.probe_device` consults it, which nothing in the training
-path calls); ``dispatch_error``, ``slow_dispatch``, ``publish_fail`` and
-``oom`` (the serving tier, ROADMAP A14). ``oom`` raises
-:class:`OOMInjected`, whose message carries ``RESOURCE_EXHAUSTED`` so the
-retry classifier files it as non-transient.
+The serving tier (``serving/server.py``) consults these:
+
+- ``dispatch_error`` — one device dispatch (score or explanation) fails
+  transiently before it is issued (retried under
+  ``retry.SERVING_POLICY``; exhaustion degrades the server to the host
+  walk), and ``slow_dispatch`` stalls one ``sec`` seconds first.
+- ``oom`` — one dispatch fails out of memory: :class:`OOMInjected`,
+  whose message carries ``RESOURCE_EXHAUSTED`` so the retry classifier
+  files it as non-transient and the server bisects the batch.
+- ``publish_fail`` — a hot-swap dies at the server's publish site or,
+  at its next consult, inside the pack append (``ops/forest.py``); the
+  old generation keeps serving.
+- ``bitflip`` with ``where=dev`` — the published device pack's slot-0
+  leaf outputs are sign-flipped after the canary golden is recorded.
+- ``probe_timeout`` — a device probe fails: the degraded server's
+  recovery probe (``serving/mesh.probe``) and
+  :func:`.retry.probe_device`.
 
 Options per spec:
 

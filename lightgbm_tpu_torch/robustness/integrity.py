@@ -17,16 +17,25 @@ The gang digests (``iteration_digest``, ``digest_reduction``,
 ``check_digest_reduction``): every rank of a distributed learner
 all-reduces a CRC of the iteration's trees, encoded so the sum alone
 decides agreement, and a disagreement raises :class:`GangDivergence`
-(``models/gbdt.py`` ``_gang_digest_check``). The serving canaries and
-the host pack fingerprints of the JAX module wait for the serving tier
-(ROADMAP A14).
+(``models/gbdt.py`` ``_gang_digest_check``).
+
+The serving half: :func:`canary_batch` (fixed canary rows a publish
+scores as its golden), :func:`crc32_fingerprint` over a pack's arrays
+(device tensors are read back to the host for it), :func:`corrupt_pack`
+(the ``bitflip:where=dev`` payload: slot-0 leaf outputs sign-flipped on
+a device copy), :class:`IntegrityProbe` (the background canary replay)
+and :func:`parity_equal` (the bit-for-bit acceptance predicate);
+``serving/server.py`` quarantines, repairs and accounts.
 """
 from __future__ import annotations
 
+import threading
 import zlib
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+from ..utils import log
 
 #: substring every integrity exception carries — retry.classify_error
 #: files anything with this marker under the DATA_CORRUPTION class.
@@ -49,6 +58,140 @@ class NumericHealthError(IntegrityError):
     """A boosting iteration produced non-finite or wildly spiked
     numerics (NaN/Inf grad/hess/leaf outputs, loss spike). Retrying the
     same iteration is futile; the caller must roll back."""
+
+
+class CanaryMismatch(IntegrityError):
+    """A device route returned canary scores that differ bit-wise from
+    the publish-time golden (or disagree with the host-walk anchor at
+    publish) — the pack is corrupt."""
+
+
+# ---------------------------------------------------------------------------
+# Fingerprints + canaries (the serving half)
+# ---------------------------------------------------------------------------
+
+def _is_tensor(obj) -> bool:
+    # duck-typed: this module never imports torch
+    return hasattr(obj, "detach") and hasattr(obj, "cpu")
+
+
+def _walk_arrays(obj):
+    """Yield every array of a pack as host numpy: tuples (NamedTuples
+    included), lists, dicts, scalars, numpy arrays, and torch tensors on
+    any device (read back to the host)."""
+    if obj is None:
+        return
+    if isinstance(obj, np.ndarray):
+        yield obj
+        return
+    if _is_tensor(obj):
+        yield obj.detach().cpu().numpy()
+        return
+    if isinstance(obj, dict):
+        for k in sorted(obj):
+            yield from _walk_arrays(obj[k])
+        return
+    if isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from _walk_arrays(v)
+        return
+    if isinstance(obj, (int, float, bool, np.generic)):
+        yield np.asarray(obj)
+
+
+def crc32_fingerprint(tree) -> int:
+    """CRC32 over every array's dtype, shape and bytes in ``tree``.
+
+    Structure-sensitive (an array moved between leaves changes the
+    digest) and cheap: one pass over host memory (a device pack is read
+    back once). Two packs with the same fingerprint hold the same bits."""
+    crc = 0
+    for a in _walk_arrays(tree):
+        crc = zlib.crc32(str((a.dtype.str, a.shape)).encode(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+    return crc & 0xFFFFFFFF
+
+
+def canary_batch(n_features: int, rows: int = 16,
+                 seed: int = 0) -> np.ndarray:
+    """Deterministic canary rows for one feature width: f64 values that
+    are exactly f32-representable (the raw device route demands it),
+    derived from ``(seed, n_features)`` alone so every process —
+    publisher, prober, a test — regenerates identical bits (the JAX
+    package's robustness/integrity.py:121-133, the same draw)."""
+    rng = np.random.default_rng(1_000_003 * (seed + 1) + n_features)
+    x = rng.standard_normal((int(rows), int(n_features)))
+    return x.astype(np.float32).astype(np.float64)
+
+
+def _negated_slot0(a):
+    """A copy of ``a`` (numpy or a tensor, on its own device) with the
+    sign of every element of slot 0 flipped."""
+    out = a.clone() if _is_tensor(a) else np.array(a, copy=True)
+    out[0] = -out[0]
+    return out
+
+
+def corrupt_pack(win):
+    """A copy of a serving window with the sign bit of every leaf output
+    of the FIRST tree slot flipped — the ``bitflip`` fault's payload.
+    Slot 0 is always a real tree, so the corruption is deterministic and
+    a canary replay is guaranteed to see it. Device tensors are corrupted
+    on a copy on their own device; a tuple of replicas (a serving mesh)
+    has each copy corrupted. Works on the binned and the raw window
+    (``leaf_value`` at the top level, or under ``.tree``)."""
+    if hasattr(win, "leaf_value"):
+        return win._replace(leaf_value=_negated_slot0(win.leaf_value))
+    inner = getattr(win, "tree", None)
+    if inner is not None:
+        return win._replace(tree=corrupt_pack(inner))
+    return type(win)(corrupt_pack(w) for w in win)
+
+
+def parity_equal(a, b) -> bool:
+    """Bit-for-bit score comparison (NaN-safe, shape-strict) — the
+    canary acceptance predicate."""
+    a = np.asarray(a)
+    b = np.asarray(b)
+    return a.shape == b.shape and bool(
+        np.array_equal(a, b, equal_nan=True))
+
+
+class IntegrityProbe:
+    """Always-on background canary prober (the steady-state sibling of
+    the server's degraded-mode recovery probe, which only runs while
+    degraded).
+
+    Runs ``fn()`` every ``interval_s`` seconds until closed; ``fn`` owns
+    detection, quarantine and repair. An escaped exception is logged and
+    the cadence continues: a broken prober must not take serving down."""
+
+    def __init__(self, fn: Callable[[], None], interval_s: float,
+                 what: str = "serving"):
+        self._fn = fn
+        self._interval = float(interval_s)
+        self._close_evt = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._what = what
+        if self._interval > 0:
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True,
+                name=f"lgbm-{what}-integrity-probe")
+            self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._close_evt.wait(self._interval):
+            try:
+                self._fn()
+            except Exception as e:  # noqa: BLE001 — keep probing
+                log.warning(f"{self._what} integrity probe error "
+                            f"(probing continues): {e!r}")
+
+    def close(self) -> None:
+        self._close_evt.set()
+        t = self._thread
+        if t is not None:
+            t.join(2.0)
 
 
 class NumericHealthGuard:

@@ -31,7 +31,7 @@ sync):
   RESOURCE_EXHAUSTED). Retrying the SAME allocation is futile, so the
   classifier returns non-transient and :func:`retry_call` propagates
   immediately; the call site must ADAPT the request instead (the
-  serving tier's batch bisection and pack eviction, ROADMAP A14).
+  serving tier's batch bisection, ``serving/server.py``).
   Markers: :data:`OOM_MARKERS` / :data:`OOM_TYPES`.
 - ``DATA_CORRUPTION`` — the call RAN but produced wrong bits
   (NaN-poisoned gradients: the :mod:`.integrity` exception family).
@@ -258,6 +258,14 @@ COLLECTIVE_POLICY = RetryPolicy(max_attempts=5, base_delay=0.05,
 # Policy of device acquisition and of joining the world: patient
 DEVICE_POLICY = RetryPolicy(max_attempts=6, base_delay=2.0,
                             max_delay=60.0, deadline=900.0)
+
+# Policy for the serving dispatcher (serving/server.py): very short
+# sleeps — every queued request is stalled while a batch retries — and a
+# tight deadline: past it the server flips to the degraded host-walk
+# route instead of holding its whole client population hostage to one
+# wedged device.
+SERVING_POLICY = RetryPolicy(max_attempts=3, base_delay=0.02,
+                             max_delay=0.5, deadline=5.0)
 
 
 def retry_call(fn: Callable, *args,

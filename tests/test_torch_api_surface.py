@@ -371,8 +371,14 @@ def test_pred_contrib_matches_jax(models, name):
     np.testing.assert_allclose(
         part, jb.predict(X, pred_contrib=True, start_iteration=1,
                          num_iteration=2), rtol=0, atol=1e-9)
-    with pytest.raises(LightGBMError, match="A14"):
-        tb.predict(X, pred_contrib=True, device=True)
+    # on the device (the loaded model's raw route, which needs f32
+    # values): the JAX package's device explanation within its tolerance
+    X32 = X.astype(np.float32).astype(np.float64)
+    dev = tb.predict(X32, pred_contrib=True, device=True)
+    assert tb._engine._serving.raw_shap_pack is not None
+    np.testing.assert_allclose(
+        dev, jb.predict(X32, pred_contrib=True, device=True),
+        rtol=1e-4, atol=1e-5)
 
 
 def test_pred_contrib_multiclass_matches_jax():

@@ -115,10 +115,25 @@ ROBUSTNESS_MODULES = {
     "lightgbm_tpu_torch/robustness/supervisor.py": {
         "__future__", "os", "subprocess", "time", "typing", "..utils",
         ".heartbeat"},
+    # the serving half's background canary probe runs on a thread and
+    # logs what it catches
     "lightgbm_tpu_torch/robustness/integrity.py": {
-        "__future__", "typing", "numpy", ".", "zlib"},
+        "__future__", "typing", "numpy", ".", "zlib", "threading",
+        "..utils"},
 }
 COPIED_MODULES.update(ROBUSTNESS_MODULES)
+
+
+# the serving tier's modules copied from the JAX package's serving/
+# (jax-free there): the only imports each may have
+SERVING_MODULES = {
+    "lightgbm_tpu_torch/serving/metrics.py": {
+        "__future__", "math", "threading", "typing"},
+    "lightgbm_tpu_torch/serving/batcher.py": {
+        "__future__", "queue", "threading", "time", "typing", "numpy",
+        ".metrics", "..utils"},
+}
+COPIED_MODULES.update(SERVING_MODULES)
 
 
 def test_robustness_imports_no_torch_at_module_level():
