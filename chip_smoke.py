@@ -335,9 +335,34 @@ Phases, each reported on its own line:
    0.2 s (detection, repair and un-quarantine: seconds; the pre-rot
    answers after); (e) a ``booster_from_arrays`` copy of the trees
    served by the raw route (rows/s; its ``predict(device=True)`` bit for
-   bit).
+   bit);
+20. the multi-tenant fleet (in the side process, after phase 6) at the
+   JAX package's ``scripts/serving_load.py --fleet 100``: 100 binary
+   tenants over its four (leaves, trees, F) archetypes on 3,000 rows each,
+   20 trained on the card and 80 more over their Datasets (cut: the
+   JAX benchmark trains all 100), 4 loaded models (the raw route) and a
+   categorical tenant sharing a bucket with a numeric one, served by one
+   ``lgt.serve_fleet``: (a) 8 closed-loop clients send 2,000 requests of
+   32 rows, each to a uniformly drawn tenant (linger 2 ms, raw scores),
+   and (b) from the half-way point one tenant's two ``update()`` +
+   ``publish()``: every response equals its tenant's
+   ``predict(device=True, raw_score=True)`` of the generation it names
+   bit for bit, versions monotonic, no other tenant's answer changed;
+   logged: requests/s, rows/s, p50/p99 ms, buckets, pack bytes, and the
+   device kernels and ms of one coalesced batch of one bucket under
+   ``torch.profiler`` (one scorer call); (c) a fleet under a memory
+   budget of half its pack bytes: evictions and rebuilds, every answer
+   bit-equal; (d) ``fleet.explain`` of two tenants equal to their own
+   device ``pred_contrib`` array for array; (e) ``publish_fail`` (the old
+   generation serves on), ``oom`` once on a coalesced pair (bisected,
+   bit-equal, not degraded), and with the canary armed
+   ``bitflip:where=dev`` (only that tenant quarantined, then repaired:
+   seconds), the kept host pack rotted (caught by its CRC and rebuilt)
+   and ``bitflip:where=host`` at a publish (refused by the anchor); (f)
+   ``tpu_serving_fleet_shard=model`` over a two-entry mesh of the one
+   card: the same bits.
 
-Phases 9's multiclass part, 13, 14, 10 and 6 (in that order) need
+Phases 9's multiclass part, 13, 14, 10, 6 and 20 (in that order) need
 nothing of phase 4's rows or model: they run in a second process
 (``--side-worker PLAN``), started after phase 5 and run beside phases 7
 to 19 of this one (the card and the host shared), which prints its
@@ -5473,6 +5498,19 @@ def shap_profile(bst, Xs):
             sum(e.self_device_time_total for e in on_device) / 1e3)
 
 
+def shap_bound(paths, depth, F1, rows):
+    """The least time of one explanation of ``rows`` rows over ``paths``
+    live paths of ``depth`` elements, F1 - 1 features, one class: the
+    bytes (int32 bins, each path element's 33 bytes of fields, the leaf
+    values, f64 phi) or the f32 operations of the recursion, 2D(D+1)
+    a path and row to extend, 8D^2 to unwind, 3D for the products."""
+    D = depth
+    flops = paths * rows * (2 * D * (D + 1) + 8 * D * D + 3 * D)
+    nbytes = ((F1 - 1) * rows * 4 + paths * D * 33 + paths * 4
+              + F1 * rows * 8)
+    return bound(nbytes, flops)
+
+
 def serving_shap(bst, Xp):
     """(c): ``predict(pred_contrib=True, device=True)`` against the host
     walk, additivity, a replay, then ``ModelServer.explain`` from
@@ -5506,6 +5544,8 @@ def serving_shap(bst, Xp):
     win = pack.window(0, pack.count)[0]
     paths = sum(min(t.num_leaves, pack.max_leaves) for t in eng.models
                 if t.num_leaves > 1)
+    bound_ms, bound_by = shap_bound(paths, max(pack.n_elems), F1,
+                                    SHAP_PROFILE_ROWS)
     log(f"phase 19 (c) device TreeSHAP: rows={SHAP_ROWS} trees="
         f"{pack.count} paths={paths} depth_cap={win.zf.shape[2]} "
         f"elements={max(pack.n_elems)} seconds={dev_s!r} rows_per_s="
@@ -5515,7 +5555,8 @@ def serving_shap(bst, Xp):
         f"atol {SHAP_ATOL}), additivity max_abs_diff={float(add.max())!r} "
         f"(within 1e-5), a replay equal bit for bit; profiled "
         f"{SHAP_PROFILE_ROWS} rows: device_kernels={launches} "
-        f"device_ms={dev_ms!r} SHAP_ELEMS={shap_pack.SHAP_ELEMS}")
+        f"device_ms={dev_ms!r} bound_ms={bound_ms!r} ({bound_by}) "
+        f"SHAP_ELEMS={shap_pack.SHAP_ELEMS}")
     with bst.serve(linger_ms=SERVE_LINGER_MS) as srv:
         def client(ci):
             rng = np.random.default_rng(1950 + ci)
@@ -5683,10 +5724,486 @@ def phase_serving(bst, ds, X):
     return counts
 
 
+# phase 20: the multi-tenant fleet at the JAX package's own fleet
+# benchmark (scripts/serving_load.py --fleet 100): binary tenants over four
+# (leaves, trees, F) archetypes, each trained on 3,000 rows by the label
+# rule of serving_load.py:530-533. FLEET_TRAINED of them are trained on the
+# card; the others are boosters of their own over a trained tenant's
+# Dataset (its bin mappers) and a copy of its tree list.
+FLEET_TENANTS = 100
+FLEET_ARCHETYPES = ((31, 20, 28), (15, 12, 12), (63, 16, 20), (15, 24, 12))
+FLEET_ROWS = 3_000
+FLEET_TRAINED = 20
+FLEET_CLIENTS = 8
+FLEET_REQUESTS = 2_000          # (a): requests in all
+FLEET_REQ_ROWS = 32             # serving_load.py's rows_per_request
+FLEET_LINGER_MS = 2.0
+FLEET_SWAPS = 2                 # (b): update() + publish() of one tenant
+FLEET_SWAP_TENANT = "t001"
+FLEET_BUDGET_SHARE = 0.5        # (c): the memory budget / the pack bytes
+FLEET_BUDGET_REQUESTS = 400
+FLEET_PROFILE_REQUESTS = 8      # one coalesced batch of one bucket
+FLEET_PROBE_S = 0.1             # (e): the canary's interval
+
+
+def fleet_params(leaves=None, **extra):
+    """A tenant's params (a loaded tenant's: its device alone)."""
+    p = {"device_type": bench_params()["device_type"]}
+    if leaves is not None:
+        p.update(objective="binary", num_leaves=leaves, verbose=-1)
+    return dict(p, **extra)
+
+
+def fleet_label(X, i):
+    """serving_load.py:530-533's label of tenant ``i``."""
+    return (X[:, 0] * (1 + 0.1 * (i % 7)) + 0.5 * X[:, 1] ** 2
+            > 0.4).astype(np.float32)
+
+
+def fleet_tenants():
+    """``(tenants, pools)``: every tenant's booster and its request pool
+    (its training rows): FLEET_TRAINED trained, the rest of the
+    FLEET_TENANTS over their Datasets, one loaded model a archetype
+    (``raw<a>``, the raw route), and an in-memory categorical tenant
+    (``cat``) beside the numeric one it shares a bucket with (``num``):
+    archetype 1 at ``max_depth=4`` on the same rows, column 11 read as
+    categories by ``cat`` only."""
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.default_rng(0)
+    by_f = {f: np.ascontiguousarray(rng.normal(size=(FLEET_ROWS, f))
+                                    .astype(np.float32).astype(np.float64))
+            for f in sorted({a[2] for a in FLEET_ARCHETYPES})}
+    tenants, pools = {}, {}
+    t = time.perf_counter()
+    for i in range(FLEET_TRAINED):
+        leaves, trees, f = FLEET_ARCHETYPES[i % len(FLEET_ARCHETYPES)]
+        tenants[f"t{i:03d}"] = lgt.train(
+            fleet_params(leaves),
+            lgt.Dataset(by_f[f], label=fleet_label(by_f[f], i)),
+            num_boost_round=trees, keep_training_booster=True)
+        pools[f"t{i:03d}"] = by_f[f]
+    train_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for i in range(FLEET_TRAINED, FLEET_TENANTS):
+        src = f"t{i % FLEET_TRAINED:03d}"
+        leaves = FLEET_ARCHETYPES[i % len(FLEET_ARCHETYPES)][0]
+        c = lgt.Booster(fleet_params(leaves), tenants[src].train_set)
+        c._engine.models = list(tenants[src]._engine.models)
+        tenants[f"t{i:03d}"], pools[f"t{i:03d}"] = c, pools[src]
+    copy_s = time.perf_counter() - t
+    for a in range(len(FLEET_ARCHETYPES)):
+        tenants[f"raw{a}"] = lgt.Booster(
+            fleet_params(), model_str=tenants[f"t{a:03d}"].model_to_string())
+        pools[f"raw{a}"] = pools[f"t{a:03d}"]
+    leaves, trees, f = FLEET_ARCHETYPES[1]
+    Xc = by_f[f].copy()
+    Xc[:, f - 1] = rng.integers(0, 8, size=FLEET_ROWS)
+    y = fleet_label(Xc, 1) + (Xc[:, f - 1] % 3 == 1)
+    y = (y > 0).astype(np.float32)
+    for name, cat in (("cat", [f - 1]), ("num", "auto")):
+        tenants[name] = lgt.train(
+            fleet_params(leaves, max_depth=4),
+            lgt.Dataset(Xc, label=y, categorical_feature=cat),
+            num_boost_round=trees, keep_training_booster=True)
+        pools[name] = Xc
+    assert any(t.num_cat > 0 for t in tenants["cat"]._engine.models)
+    log(f"phase 20 tenants: {len(tenants)} ({FLEET_TRAINED} trained on the "
+        f"card in {train_s!r} s, {FLEET_TENANTS - FLEET_TRAINED} over their "
+        f"Datasets in {copy_s!r} s (cut: the JAX benchmark trains all "
+        f"{FLEET_TENANTS}), {len(FLEET_ARCHETYPES)} loaded (raw route), one "
+        "categorical and its numeric bucket-mate)")
+    return tenants, pools
+
+
+def fleet_refs(tenants, pools):
+    """Each tenant's ``predict(device=True, raw_score=True)`` of its
+    whole pool (generation 1)."""
+    return {k: b.predict(pools[k], device=True, raw_score=True)
+            for k, b in tenants.items()}
+
+
+def fleet_clients(fleet, pools, names, n_requests, seed, on_half=None):
+    """``FLEET_CLIENTS`` closed-loop clients sending ``n_requests`` of
+    ``FLEET_REQ_ROWS`` rows in all, each to a uniformly drawn tenant of
+    ``names``; returns each client's ``(name, start, generation, values,
+    t_enq, t_done)`` records. ``on_half`` is set once half of them are
+    answered."""
+    records = [[] for _ in range(FLEET_CLIENTS)]
+    n_each = -(-n_requests // FLEET_CLIENTS)
+
+    def client(ci):
+        rng = np.random.default_rng(seed + ci)
+        for _ in range(n_each):
+            name = names[int(rng.integers(len(names)))]
+            s = int(rng.integers(0, FLEET_ROWS - FLEET_REQ_ROWS + 1))
+            f = fleet.submit(name, pools[name][s:s + FLEET_REQ_ROWS])
+            v = f.result(300)
+            records[ci].append((name, s, f.generation, v, f.t_enq,
+                                f.t_done))
+            if on_half is not None and \
+                    sum(map(len, records)) >= n_requests // 2:
+                on_half.set()
+
+    serve_threads(client, FLEET_CLIENTS)
+    return records
+
+
+def check_fleet_records(records, refs, swap_refs=None, swap=None):
+    """Every response equals its tenant's ``predict(device=True)`` of the
+    generation it names, bit for bit; versions monotonic per client."""
+    for recs in records:
+        versions = [g.version for name, _, g, _, _, _ in recs
+                    if name == swap]
+        assert versions == sorted(versions), versions
+        for name, s, g, v, _, _ in recs:
+            if name == swap:
+                ref = swap_refs[g.version]
+            else:
+                assert g.version == 1, (name, g)
+                ref = refs[name]
+            np.testing.assert_array_equal(
+                v, ref[s:s + FLEET_REQ_ROWS],
+                err_msg=f"tenant {name} generation {g.version}")
+
+
+def fleet_profile(fleet, pools):
+    """Device kernels and device ms of one coalesced batch of one bucket
+    (the bucket with the most tenants, FLEET_PROFILE_REQUESTS requests of
+    as many of its tenants) under ``torch.profiler``, and the host ms of
+    the call; one scorer call serves it."""
+    from torch.profiler import ProfilerActivity, profile
+    from lightgbm_tpu_torch.ops import forest
+    from lightgbm_tpu_torch.serving.fleet import _CanaryReq
+    state = fleet._state
+    b = max(state.buckets.values(), key=lambda x: len(x.members))
+    items = []
+    for j in range(FLEET_PROFILE_REQUESTS):
+        m = b.members[j % len(b.members)]
+        X = pools[m][j * FLEET_REQ_ROWS:(j + 1) * FLEET_REQ_ROWS]
+        items.append((j, _CanaryReq(len(X), X, m), state.routes[m]))
+    fleet._group_scores(b, items)                      # warm
+    calls = []
+    run = {"binned": "_fleet_scores_binned", "raw": "_fleet_scores_raw"}[
+        b.key.kind]
+    scorer = getattr(forest, run)
+
+    def counted(*a):
+        calls.append(1)
+        return scorer(*a)
+    setattr(forest, run, counted)
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fleet._group_scores(b, items)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fleet._group_scores(b, items)
+            torch.cuda.synchronize()
+    finally:
+        setattr(forest, run, scorer)
+    assert len(calls) == 2, calls
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the bytes: each requested tenant's window read once, the operand
+    # (int32 bins or f32 values), lo and n_live, the f32 scores written
+    windows = {r.tenant for _, r, _ in items}
+    per_slot = forest.pytree_nbytes(b.host) // (b.slot_cap * b.key.win_slots)
+    R = sum(r.n for _, r, _ in items)
+    nbytes = (len(windows) * b.key.win_slots * per_slot
+              + R * (b.key.feat_cap * 4 + 16 + b.key.k * 4))
+    bound_ms, bound_by = bound(nbytes, R * b.key.win_slots * b.key.steps)
+    return dict(members=len(b.members),
+                tenants=len({r.tenant for _, r, _ in items}),
+                kind=b.key.kind, win_slots=b.key.win_slots,
+                steps=b.key.steps, host_ms=host_ms,
+                kernels=sum(e.count for e in on_device),
+                device_ms=sum(e.self_device_time_total
+                              for e in on_device) / 1e3,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def fleet_traffic(fleet, tenants, pools, refs):
+    """(a) and (b): the traffic, with FLEET_SWAPS update() + publish() of
+    FLEET_SWAP_TENANT from the half-way point."""
+    import threading
+    from lightgbm_tpu_torch.serving import latency_summary_ms
+    half, swapped = threading.Event(), threading.Event()
+    swaps = []
+    bst = tenants[FLEET_SWAP_TENANT]
+
+    def trainer():
+        half.wait(300)
+        for _ in range(FLEET_SWAPS):
+            t = time.perf_counter()
+            assert not bst.update()
+            tp = time.perf_counter()
+            info = fleet.publish(FLEET_SWAP_TENANT)
+            swaps.append(dict(start=t, end=time.perf_counter(),
+                              update_s=tp - t,
+                              publish_ms=(time.perf_counter() - tp) * 1e3,
+                              version=info.version,
+                              num_trees=info.num_trees))
+        swapped.set()
+
+    tr = threading.Thread(target=trainer, daemon=True)
+    tr.start()
+    t = time.perf_counter()
+    records = fleet_clients(fleet, pools, sorted(tenants), FLEET_REQUESTS,
+                            2000, on_half=half)
+    wall_s = time.perf_counter() - t
+    tr.join(300)
+    assert swapped.is_set() and len(swaps) == FLEET_SWAPS, swaps
+    st = assert_clean(fleet, "fleet traffic")
+    gens = {g.version: g for recs in records
+            for name, _, g, _, _, _ in recs if name == FLEET_SWAP_TENANT}
+    swap_refs = {v: bst.predict(pools[FLEET_SWAP_TENANT], device=True,
+                                raw_score=True, num_iteration=g.num_trees)
+                 for v, g in gens.items()}
+    check_fleet_records(records, refs, swap_refs, FLEET_SWAP_TENANT)
+    lat = [td - te for recs in records for *_, te, td in recs]
+    during = [td - te for recs in records for *_, te, td in recs
+              if any(te < w["end"] and td > w["start"] for w in swaps)]
+    calm = [td - te for recs in records for *_, te, td in recs
+            if td < swaps[0]["start"]]
+    t_first = min(te for recs in records for *_, te, _ in recs)
+    calm_s = swaps[0]["start"] - t_first
+    n_req = sum(len(r) for r in records)
+    summ, calm_lat = latency_summary_ms(lat), latency_summary_ms(calm)
+    log(f"phase 20 (a) fleet traffic: tenants={st['n_tenants']} buckets="
+        f"{st['n_buckets']} pack_bytes={st['pack_bytes']} clients="
+        f"{FLEET_CLIENTS} requests={n_req} rows={n_req * FLEET_REQ_ROWS} "
+        f"wall_s={wall_s!r} requests_per_s={n_req / wall_s!r} rows_per_s="
+        f"{n_req * FLEET_REQ_ROWS / wall_s!r} p50_ms={summ['p50_ms']!r} "
+        f"p99_ms={summ['p99_ms']!r} max_ms={summ['max_ms']!r}; steady "
+        f"(before the first swap): requests={len(calm)} requests_per_s="
+        f"{len(calm) / calm_s!r} p50_ms={calm_lat['p50_ms']!r} p99_ms="
+        f"{calm_lat['p99_ms']!r}; batches={st['batches']} "
+        f"mean_requests_per_batch={st.get('mean_requests_per_batch')!r} "
+        f"max_coalesced={st['max_coalesced']} linger_ms={FLEET_LINGER_MS}; "
+        "every response equals its tenant's predict(device=True) of its "
+        "generation bit for bit")
+    log(f"phase 20 (b) hot-swap of {FLEET_SWAP_TENANT}: swaps="
+        f"{[{k: v for k, v in w.items() if k not in ('start', 'end')} for w in swaps]} "
+        f"p99_ms_during_swaps={latency_summary_ms(during)['p99_ms']!r} (of "
+        f"{len(during)}); versions monotonic, every other tenant at "
+        "generation 1 with its answers unchanged")
+
+
+def fleet_budget(tenants, pools, refs, pack_bytes):
+    """(c): the same tenants under a memory budget of FLEET_BUDGET_SHARE
+    of their pack bytes: evictions and rebuilds, every answer bit-equal."""
+    import lightgbm_tpu_torch as lgt
+    budget_mb = pack_bytes * FLEET_BUDGET_SHARE / 1e6
+    names = sorted(tenants)
+    with lgt.serve_fleet(tenants, raw_score=True, linger_ms=FLEET_LINGER_MS,
+                         mem_budget_mb=budget_mb) as fleet:
+        t = time.perf_counter()
+        records = fleet_clients(fleet, pools, names, FLEET_BUDGET_REQUESTS,
+                                2100)
+        wall_s = time.perf_counter() - t
+        check_fleet_records(records, refs)
+        st = assert_clean(fleet, "memory budget")
+        assert st["evictions"] >= 1 and st["rebuilds"] >= 1, st
+        assert st["resident_pack_bytes"] <= budget_mb * 1e6, st
+    log(f"phase 20 (c) memory budget {budget_mb!r} MB ({FLEET_BUDGET_SHARE} "
+        f"of {pack_bytes} pack bytes): requests={FLEET_BUDGET_REQUESTS} "
+        f"requests_per_s={FLEET_BUDGET_REQUESTS / wall_s!r} evictions="
+        f"{st['evictions']} rebuilds={st['rebuilds']} resident_pack_bytes="
+        f"{st['resident_pack_bytes']} p99_ms={st['p99_ms']!r}; every answer "
+        "bit-equal")
+
+
+def fleet_explain(fleet, tenants, pools, names):
+    """(d): ``fleet.explain`` of two tenants against their own device
+    ``pred_contrib``: the first explain of a bucket packs every member's
+    paths, a second one finds them packed."""
+    out = {}
+    for name in names:
+        X = pools[name][:4 * FLEET_REQ_ROWS]
+        want = tenants[name].predict(X, pred_contrib=True, device=True)
+        for call in ("first_ms", "packed_ms"):
+            t = time.perf_counter()
+            got = fleet.explain(name, X, timeout=300)
+            out[(name, call)] = (time.perf_counter() - t) * 1e3
+            np.testing.assert_array_equal(
+                got, want, err_msg=f"fleet explain of {name}")
+    assert fleet.counters.get("explain_degraded") == 0
+    log(f"phase 20 (d) explain: {len(X)} rows of {names} (members of "
+        f"their buckets: {[len(fleet._state.buckets[fleet._state.routes[n].key].members) for n in names]}), "
+        f"ms={ {f'{n} {c}': v for (n, c), v in out.items()} }; each equals "
+        "its own predict(pred_contrib=True, device=True) array for array")
+
+
+def fleet_faults(fleet, tenants, pools, refs):
+    """(e): ``publish_fail`` and ``oom`` on the traffic's fleet, then the
+    canaries on a fleet of two tenants of one bucket."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.robustness import faults, integrity
+    name = "t005"
+    X = pools[name][:FLEET_REQ_ROWS]
+    v0 = fleet.tenant_stats(name)["generation"]
+    with faults.inject("publish_fail"):
+        try:
+            fleet.publish(name)
+            raise AssertionError("publish_fail did not fail the publish")
+        except faults.FaultInjected:
+            pass
+    assert fleet.tenant_stats(name)["generation"] == v0
+    np.testing.assert_array_equal(fleet.predict(name, X, timeout=60),
+                                  refs[name][:FLEET_REQ_ROWS])
+    # oom once on a coalesced pair of one bucket (a tenant and its copy),
+    # queued behind a wedged dispatch
+    a, b = "t006", f"t{6 + FLEET_TRAINED:03d}"
+    assert fleet._state.routes[a].key == fleet._state.routes[b].key
+    bisects = fleet.counters.get("oom_bisects")
+    with faults.inject("slow_dispatch:sec=0.3:n=1,oom:after=1:n=1"):
+        wedge = fleet.submit("t007", pools["t007"][:FLEET_REQ_ROWS])
+        wait_for(lambda: fleet.stats()["queued_rows"] == 0, 30, "wedge")
+        time.sleep(0.05)
+        fa = fleet.submit(a, pools[a][:FLEET_REQ_ROWS])
+        fb = fleet.submit(b, pools[b][FLEET_REQ_ROWS:2 * FLEET_REQ_ROWS])
+        wedge.result(60)
+        np.testing.assert_array_equal(fa.result(60),
+                                      refs[a][:FLEET_REQ_ROWS])
+        np.testing.assert_array_equal(
+            fb.result(60), refs[b][FLEET_REQ_ROWS:2 * FLEET_REQ_ROWS])
+    assert fleet.counters.get("oom_bisects") == bisects + 1
+    assert_clean(fleet, "publish_fail and oom")
+    out = {}
+    # the canaries: "a" is the bucket's slot 0, where bitflip rots
+    a, b = "t004", f"t{4 + FLEET_TRAINED:03d}"
+    cfg = tenants[a].config.copy()
+    cfg.set("tpu_integrity_probe_interval_s", FLEET_PROBE_S)
+    Xa, Xb = pools[a][:FLEET_REQ_ROWS], pools[b][:FLEET_REQ_ROWS]
+    with lgt.serve_fleet({"a": tenants[a], "b": tenants[b]}, raw_score=True,
+                         config=cfg, linger_ms=1.0) as ifleet:
+        ya0 = ifleet.predict("a", Xa, timeout=60)
+        np.testing.assert_array_equal(ya0, refs[a][:FLEET_REQ_ROWS])
+        assert ifleet.evict("a")
+        t = time.perf_counter()
+        with faults.inject("bitflip:p=1:where=dev"):
+            np.testing.assert_allclose(ifleet.predict("a", Xa, timeout=60),
+                                       ya0, rtol=1e-5, atol=1e-6)
+            np.testing.assert_array_equal(ifleet.predict("b", Xb,
+                                                         timeout=60),
+                                          refs[b][:FLEET_REQ_ROWS])
+        # the counts only grow, so the probe's repair cannot race them
+        assert ifleet.counters.get_tenant("a", "quarantines") == 1
+        assert ifleet.counters.get("quarantines") == 1
+        wait_for(lambda: ifleet.counters.get("repairs") >= 1
+                 and "quarantined" not in ifleet.stats(), 30, "repair")
+        out["dev_repair_s"] = time.perf_counter() - t
+        np.testing.assert_array_equal(ifleet.predict("a", Xa, timeout=60),
+                                      ya0)
+        assert ifleet.counters.get_tenant("b", "quarantines") == 0
+        # host rot: the kept host pack rots in place; the rebuild after an
+        # eviction finds its CRC changed and rebuilds from the windows
+        bucket = ifleet._state.buckets[ifleet._state.routes["a"].key]
+        bucket.host.leaf_value[0] = -bucket.host.leaf_value[0]
+        mism = ifleet.counters.get("integrity_mismatches")
+        assert ifleet.evict("a")
+        t = time.perf_counter()
+        np.testing.assert_array_equal(ifleet.predict("a", Xa, timeout=60),
+                                      ya0)
+        out["host_rebuild_s"] = time.perf_counter() - t
+        assert ifleet.counters.get("integrity_mismatches") == mism + 1
+        assert ifleet.counters.get("quarantines") == 1
+        # bitflip:where=host at a publish: the anchor refuses the pack
+        tenants[a].update()
+        with faults.inject("bitflip:p=1:where=host"):
+            try:
+                ifleet.publish("a")
+                raise AssertionError("a corrupt publish was not refused")
+            except integrity.CanaryMismatch:
+                pass
+        assert ifleet.tenant_stats("a")["generation"] == 1
+        np.testing.assert_array_equal(ifleet.predict("a", Xa, timeout=60),
+                                      ya0)
+        assert ifleet.publish("a").version == 2
+        np.testing.assert_array_equal(
+            ifleet.predict("a", Xa, timeout=60),
+            tenants[a].predict(Xa, device=True, raw_score=True))
+        snap = ifleet.counters.snapshot()
+    log(f"phase 20 (e) faults: publish_fail on {name}: still generation "
+        f"{v0}, answers bit-equal; oom once on a coalesced pair: bisected, "
+        "bit-equal, not degraded; bitflip:where=dev with the canary every "
+        f"{FLEET_PROBE_S} s: only tenant a quarantined, repaired and "
+        f"un-quarantined after dev_repair_s={out['dev_repair_s']!r}; host "
+        f"rot caught by the host pack's CRC and rebuilt in host_rebuild_s="
+        f"{out['host_rebuild_s']!r}; bitflip:where=host at a publish refused "
+        f"by the anchor, generation 1 served on; counters={snap}")
+
+
+def fleet_model_shard(tenants, pools, refs):
+    """(f): ``tpu_serving_fleet_shard=model`` over a two-entry mesh of the
+    one card: every bucket on one owner, the same bits."""
+    import lightgbm_tpu_torch as lgt
+    dev = torch.device(bench_params()["device_type"])
+    names = [f"t{i:03d}" for i in range(FLEET_TRAINED)] + \
+        ["raw0", "cat", "num"]
+    with lgt.serve_fleet({k: tenants[k] for k in names}, raw_score=True,
+                         devices=[dev, dev], fleet_shard="model",
+                         linger_ms=FLEET_LINGER_MS) as fleet:
+        st = fleet.stats()
+        assert st["fleet_shard"] == "model", st
+        owners = {b.owner for b in fleet._state.buckets.values()}
+        assert owners == {0, 1}, owners
+        futs = {k: fleet.submit(k, pools[k][:FLEET_REQ_ROWS]) for k in names}
+        for k, f in futs.items():
+            np.testing.assert_array_equal(f.result(60),
+                                          refs[k][:FLEET_REQ_ROWS])
+    log(f"phase 20 (f) model shard: {len(names)} tenants in "
+        f"{st['n_buckets']} buckets over owners {sorted(owners)} of a "
+        "two-entry mesh of the one card; every answer bit-equal")
+
+
+def phase_fleet():
+    """Phase 20: the multi-tenant fleet (``lgt.serve_fleet``). Returns the
+    launch counts of the phase (K1: the tenants' training and the
+    hot-swap's updates)."""
+    import lightgbm_tpu_torch as lgt
+    t0 = time.perf_counter()
+    reset_counts()
+    tenants, pools = fleet_tenants()
+    refs = fleet_refs(tenants, pools)
+    log(f"phase 20 tenants and references ready at "
+        f"{time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    fleet = lgt.serve_fleet(tenants, raw_score=True,
+                            linger_ms=FLEET_LINGER_MS)
+    try:
+        build_s = time.perf_counter() - t
+        routes = fleet._state.routes
+        assert routes["cat"].key == routes["num"].key, \
+            (routes["cat"].key, routes["num"].key)
+        assert routes["raw0"].key.kind == "raw"
+        prof = fleet_profile(fleet, pools)
+        log(f"phase 20 fleet built in {build_s!r} s; one coalesced batch of "
+            f"one bucket: {prof} (one scorer call)")
+        fleet_traffic(fleet, tenants, pools, refs)
+        fleet_explain(fleet, tenants, pools, ["t000", "t002"])
+        fleet_faults(fleet, tenants, pools, refs)
+        pack_bytes = fleet.stats()["pack_bytes"]
+    finally:
+        fleet.close()
+    # (b) and (e) trained these two further
+    refs.update(fleet_refs({k: tenants[k] for k in (FLEET_SWAP_TENANT,
+                                                     "t004")}, pools))
+    log(f"phase 20 (a)-(b), (d)-(e) done at {time.perf_counter() - t0:.1f} s")
+    fleet_budget(tenants, pools, refs, pack_bytes)
+    fleet_model_shard(tenants, pools, refs)
+    counts = read_counts()
+    assert counts["hist_rowmajor_f32"] > 0, counts
+    log(f"phase 20 seconds={time.perf_counter() - t0!r}; launches="
+        f"{nonzero(counts)}")
+    return counts
+
+
 def side_worker(plan_path):
     """The side process (``--side-worker PLAN``): the phases that need
-    nothing of phase 4's rows or model (9's multiclass part, 13, 14, 10
-    and 6), run in turn; their launch counts go to ``PLAN["out"]``. Each
+    nothing of phase 4's rows or model (9's multiclass part, 13, 14, 10,
+    6 and 20), run in turn; their launch counts go to ``PLAN["out"]``. Each
     resets and reads this process's own counts, so the launches of the
     two processes never mix."""
     with open(plan_path) as fh:
@@ -5706,6 +6223,8 @@ def side_worker(plan_path):
     done("phase 10")
     phase_cross_check()
     done("phase 6")
+    res["fleet_totals"] = phase_fleet()
+    done("phase 20")
     with open(plan["out"], "w") as fh:
         json.dump(res, fh)
 
@@ -5918,16 +6437,18 @@ def main():
     mc_runs, rank_runs = res["mc_runs"], res["rank_runs"]
     cat_runs, cat_totals = res["cat_runs"], res["cat_totals"]
     sparse_runs, sparse_totals = res["sparse_runs"], res["sparse_totals"]
+    fleet_totals = res["fleet_totals"]
     for k, v in pool_runs.items():
         key = k.split("_", 2)[2]
         sparse_totals[key] = sparse_totals.get(key, 0) + v
     later = {k: cat_totals.get(k, 0) + sparse_totals.get(k, 0)
              + constraint_totals.get(k, 0) + robust_totals.get(k, 0)
              + dist_totals.get(k, 0) + shard_totals.get(k, 0)
-             + serve_totals.get(k, 0)
+             + serve_totals.get(k, 0) + fleet_totals.get(k, 0)
              for k in set(cat_totals) | set(sparse_totals)
              | set(constraint_totals) | set(robust_totals)
-             | set(dist_totals) | set(shard_totals) | set(serve_totals)}
+             | set(dist_totals) | set(shard_totals) | set(serve_totals)
+             | set(fleet_totals)}
 
     kernels = []
     level = f"skewed n={LEVEL_NODES[-1]}"
@@ -5976,6 +6497,8 @@ def main():
         + json.dumps(shard_launches))
     log("phase 19 launches (the hot-swap's updates): "
         + json.dumps(nonzero(serve_totals)))
+    log("phase 20 launches (the tenants' training and the updates of (b) "
+        "and (e)): " + json.dumps(nonzero(fleet_totals)))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ loaded from a file or string, or unpickled, predicts on the device its
 ``params`` name, by the same rule.
 
 ``Booster.serve()`` starts a model server (``serving/``, loaded on first
-use; ``lightgbm_tpu_torch.ModelServer``), and
+use; ``lightgbm_tpu_torch.ModelServer``), ``serve_fleet({name: booster})``
+a multi-tenant ``FleetServer`` (``Booster.serve(fleet=, tenant=)`` adds a
+tenant to one), and
 ``predict(pred_contrib=True, device=True)`` explains on the device
 (``ops/shap_pack.py``).
 
@@ -40,9 +42,10 @@ robustness.faults.install_from_env()
 
 def __getattr__(name):
     # the serving tier loads on first use (ref: the JAX package's
-    # __init__.py:77-80, its solo names)
-    if name == "ModelServer":
-        from .serving import ModelServer
-        return ModelServer
+    # __init__.py:77-80)
+    if name in ("FleetServer", "ModelServer", "TenantHandle",
+                "serve_fleet"):
+        from . import serving
+        return getattr(serving, name)
     raise AttributeError(
         f"module 'lightgbm_tpu_torch' has no attribute {name!r}")

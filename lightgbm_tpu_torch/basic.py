@@ -709,16 +709,27 @@ class Booster:
         ``max_queue_rows``, ``retry_policy``, ``probe_interval_s``)
         override (ref: the JAX package's basic.py:822-876).
 
-        A booster has at most ONE live server: calling ``serve()`` again
-        while one is open returns it (no kwargs) or refuses loudly (a
-        kwarg'd call cannot be honored without a second dispatcher over
-        the same pack). A closed server is replaced. ``fleet=`` (the
-        multi-tenant fleet) is not ported yet (ROADMAP A14b)."""
-        if fleet is not None or tenant is not None:
-            raise LightGBMError(
-                "multi-tenant fleet serving (serve(fleet=...)) is not "
-                "ported yet (ROADMAP A14b); serve() without fleet= starts "
-                "this Booster's own ModelServer")
+        ``serve(fleet=server)`` instead registers this booster as one
+        TENANT of an existing multi-tenant ``FleetServer``
+        (``serving/fleet.py``; ``tenant=`` names it, by default the first
+        free ``tenant<N>``) and returns its ``TenantHandle``: one
+        dispatcher and one device arena for the whole fleet. Per-tenant
+        kwargs there: ``deadline_ms``, ``quota_rows``, ``raw_score``
+        (ref: the JAX package's basic.py:836-861).
+
+        A booster has at most ONE live solo server: calling ``serve()``
+        again while one is open returns it (no kwargs) or refuses loudly
+        (a kwarg'd call cannot be honored without a second dispatcher
+        over the same pack). A closed server is replaced."""
+        if fleet is not None:
+            if tenant is None:
+                # probe for a free name: len() alone collides once any
+                # tenant was removed
+                i = len(fleet.tenants)
+                while f"tenant{i}" in fleet.tenants:
+                    i += 1
+                tenant = f"tenant{i}"
+            return fleet.add_tenant(tenant, self, **kwargs)
         live = getattr(self, "_live_server", None)
         if live is not None and not live.closed:
             if kwargs:

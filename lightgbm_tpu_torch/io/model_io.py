@@ -268,11 +268,9 @@ class _LoadedEngine:
         device ``config.device_type`` names; raises without a card unless
         that is ``cpu``. ``DeviceRouteUnavailable`` for an empty range or
         a categorical node (bitset membership stays on the host walk)."""
-        from ..ops.forest import RawForestPack
         K = max(self.num_tree_per_iteration, 1)
         lo, hi = start_iteration * K, end_iteration * K
         srv = self._serving_engine()
-        RawForestPack.check_servable(self.models[lo:hi])
         out = srv.predict_raw(self.models, self._model_gen, X, lo, hi)
         return out.T
 

@@ -30,6 +30,13 @@ serving mesh (``place_window``, a :class:`Replicas`), and scores a
 batch's rows split over those devices (``snapshot_scores(place=)``).
 Device TreeSHAP packs and explains through the same engine
 (``snapshot_shap``, ``ops/shap_pack.py``).
+
+The multi-tenant fleet (``serving/fleet.py``) packs each tenant's window
+on the host (``pack_window_binned``/``_raw``), stacks the windows of one
+shape bucket (``TenantShape``) into a mega-pack uploaded once
+(``upload_window``) and scores a coalesced batch of the bucket in one
+call (``_fleet_scores_binned``/``_raw``), each row over its own tenant's
+window, with ``_accumulate_iters``' sequence of f32 adds.
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ import torch
 from ..core.tree import HostTree
 from ..robustness import faults
 from .predict import (BinnedTreeArrays, RawTreeArrays, _leaf_raw_t,
-                      depth_steps, forest_leaf_bins)
+                      depth_steps, fleet_leaf_bins, fleet_leaf_raw,
+                      forest_leaf_bins)
 from .split import MISSING_ENUM
 
 ROW_BUCKET_MIN = 256
@@ -164,13 +172,28 @@ def _pad(a, n: int, dtype, fill=0) -> np.ndarray:
     return out
 
 
-def upload_trees(cls, per_tree: List[dict], device) -> NamedTuple:
-    """Stack per-tree host arrays (``pack_binned_tree`` dicts for
+def _stack(cls, per_tree: List[dict]):
+    """Per-tree host arrays (``pack_binned_tree`` dicts for
     ``BinnedTreeArrays``, ``_host_tree_to_raw`` ones for
-    ``RawTreeArrays``) on a leading axis, one upload a field."""
-    return cls(**{k: torch.as_tensor(np.stack([t[k] for t in per_tree]),
-                                     device=device)
-                  for k in per_tree[0]})
+    ``RawTreeArrays``) stacked on a leading axis as a host ``cls``."""
+    return cls(**{f: np.stack([t[f] for t in per_tree]) for f in cls._fields})
+
+
+def to_device(tree, device):
+    """A host pack (NamedTuples and tuples of numpy arrays, None kept)
+    as tensors on ``device``."""
+    if tree is None:
+        return None
+    if isinstance(tree, np.ndarray):
+        return torch.as_tensor(tree, device=device)
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[to_device(x, device) for x in tree])
+    return tuple(to_device(x, device) for x in tree)
+
+
+def upload_trees(cls, per_tree: List[dict], device) -> NamedTuple:
+    """Stack per-tree host arrays on a leading axis, one upload a field."""
+    return to_device(_stack(cls, per_tree), device)
 
 
 def _concat(a, b):
@@ -556,6 +579,10 @@ class ServingEngine:
             win, steps = self.pack.window(lo, hi)
             kind = "binned"
         else:
+            # a categorical node's bitset is over raw categories, which
+            # the raw walk cannot test (ref: the JAX package's
+            # ops/forest.py:738)
+            RawForestPack.check_servable(models[lo:hi])
             self.raw_pack.sync(models, gen)
             win, steps = self.raw_pack.window(lo, hi)
             kind, binner = "raw", None
@@ -624,3 +651,194 @@ class ServingEngine:
         """[K, R] f32-accumulated raw scores over the raw-threshold route;
         f64-only request values are refused (DeviceRouteUnavailable)."""
         return snapshot_scores(self.snapshot(models, gen, lo, hi), X)
+
+
+# ---------------------------------------------------------------------------
+# the fleet layer (ref: the JAX package's ops/forest.py:443-694): tenants
+# are grouped into shape buckets, so a hundred mixed-shape models never
+# all pad to the largest one. Each bucket holds one stacked mega-pack, in
+# which every tenant owns a fixed window of ``win_slots`` tree slots (the
+# slots past its trees hold zero trees); a coalesced batch of one bucket
+# is scored by one call, each row walking its own tenant's window.
+# ---------------------------------------------------------------------------
+
+def pow2_cap(n: int, lo: int = 1) -> int:
+    """Smallest power of two >= max(n, lo): the capacity rule of leaf
+    caps, feature caps and window slots."""
+    m = max(int(n), int(lo), 1)
+    return 1 << (m - 1).bit_length()
+
+
+class TenantShape(NamedTuple):
+    """The bucket key of one tenant's model: tenants with equal keys share
+    one mega-pack. Every field is a capacity, so near-equal shapes
+    across a fleet collapse onto a few buckets."""
+    kind: str       # "binned" | "raw"
+    k: int          # trees per iteration (output channels)
+    steps: int      # traversal bound (depth_steps, a multiple of 4)
+    leaf_cap: int   # pow2 cap of num_leaves
+    feat_cap: int   # pow2 cap of the feature axis (used features for
+    #                 binned, original columns for raw)
+    win_slots: int  # the tenant's window in tree slots (k * pow2)
+
+
+def tenant_shape(models: List[HostTree], k: int, n_features: int,
+                 kind: str) -> TenantShape:
+    """The bucket of one tenant's model list; ``n_features`` is the
+    length of the feature axis its requests are laid out on (used
+    features for the binned route, original columns for raw)."""
+    leaf_cap = pow2_cap(max([int(t.num_leaves) for t in models] + [2]), 4)
+    max_d = max(min(int(t.max_depth), leaf_cap - 1) for t in models)
+    steps = max(depth_steps(max_d, leaf_cap), 4)
+    k = max(int(k), 1)
+    iters = -(-len(models) // k)
+    return TenantShape(kind=kind, k=k, steps=steps, leaf_cap=leaf_cap,
+                       feat_cap=pow2_cap(n_features, 4),
+                       win_slots=k * pow2_cap(iters, 1))
+
+
+def pad_window(stacked, win_slots: int):
+    """A host-stacked ``[T, ...]`` window padded to ``win_slots`` slots
+    with zero trees (0 leaves: inactive, and the fleet scorers mask the
+    dead slots out of the sums anyway)."""
+    t = stacked[0].shape[0]
+    if t > win_slots:
+        raise ValueError(f"window of {t} trees exceeds its capacity "
+                         f"bucket ({win_slots} slots)")
+    if t == win_slots:
+        return stacked
+    return type(stacked)(*[
+        np.concatenate([a, np.zeros((win_slots - t,) + a.shape[1:],
+                                    a.dtype)]) for a in stacked])
+
+
+def _refuse_linear(models: List[HostTree]) -> None:
+    if any(t.is_linear for t in models):
+        raise DeviceRouteUnavailable(LINEAR_TREES_ON_HOST)
+
+
+def pack_window_binned(models: List[HostTree], mappers,
+                       shape: TenantShape) -> BinnedTreeArrays:
+    """One tenant's binned window as a host ``BinnedTreeArrays``
+    ``[win_slots, ...]`` at the bucket's leaf cap, each categorical
+    node's bitset in the words its own mappers need."""
+    _refuse_linear(models)
+    feat = mapper_arrays(mappers)
+    return pad_window(_stack(BinnedTreeArrays, [
+        pack_binned_tree(t, shape.leaf_cap, *feat) for t in models]),
+        shape.win_slots)
+
+
+def pack_window_raw(models: List[HostTree],
+                    shape: TenantShape) -> RawTreeArrays:
+    """One tenant's raw window as a host ``RawTreeArrays``
+    ``[win_slots, ...]``; a linear or categorical model is refused
+    (``DeviceRouteUnavailable``)."""
+    _refuse_linear(models)
+    RawForestPack.check_servable(models)
+    return pad_window(_stack(RawTreeArrays, [
+        _host_tree_to_raw(t, shape.leaf_cap) for t in models]),
+        shape.win_slots)
+
+
+def window_cat_width(win) -> int:
+    """Bitset words a categorical node of a binned window holds (0
+    without a categorical feature)."""
+    return int(win.cat_words.shape[2])
+
+
+def widen_window(win: BinnedTreeArrays, width: int) -> BinnedTreeArrays:
+    """A host binned window with its bitsets widened to ``width`` words
+    (zero words: bins past a tenant's own words are in no set, as
+    before), so the windows of one bucket stack (the JAX package's
+    serving/fleet.py ``_widen_window_np``)."""
+    have = window_cat_width(win)
+    if have >= width:
+        return win
+    w = win.cat_words
+    pad = np.zeros(w.shape[:2] + (width - have,), w.dtype)
+    return win._replace(cat_words=np.concatenate([w, pad], axis=2))
+
+
+def _arrays(tree):
+    if tree is None:
+        return
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
+        yield tree
+        return
+    for x in tree:
+        yield from _arrays(x)
+
+
+def pytree_nbytes(tree) -> int:
+    """Bytes of every array of a pack (numpy or tensors; tuples nest):
+    the replicate-or-shard decision's input and the ledger the memory
+    budget (``tpu_serving_mem_budget_mb``) is held against."""
+    return int(sum(a.nbytes if isinstance(a, np.ndarray)
+                   else a.numel() * a.element_size() for a in _arrays(tree)))
+
+
+def upload_window(host, device):
+    """ONE upload of a host-assembled bucket pack: the fleet's upload
+    point at publish and at the lazy rebuild of an evicted bucket. The
+    ``oom`` site is consulted just before the transfer (a fired fault
+    means nothing reached the device); ``bitflip:where=dev`` corrupts the
+    device copy after it (the sign bits of slot 0's leaf outputs), the
+    host pack staying intact, so a repair from it restores good bits."""
+    faults.maybe_fail("oom")
+    dev = to_device(host, device)
+    if faults.check("bitflip", where="dev"):
+        from ..robustness import integrity
+        from ..utils import log
+        dev = integrity.corrupt_pack(dev)
+        log.warning("injected bitflip: device pack corrupted (slot-0 "
+                    "leaf-output sign bits)")
+    return dev
+
+
+def _fleet_scores(walk, num_steps: int, k_trees: int, win_slots: int,
+                  packed, lo: torch.Tensor, n_live: torch.Tensor,
+                  cols: torch.Tensor) -> torch.Tensor:
+    """[k, R] f32 scores of one coalesced batch of a bucket: row r sums
+    the trees of its window ``lo[r] .. lo[r] + n_live[r]`` in slot order,
+    each added as ``torch.where(slot < n_live, acc + v, acc)`` so a dead
+    slot leaves the sum untouched (no ``+0.0`` that could turn -0.0).
+    That is ``_accumulate_iters``' sequence of f32 adds for the tenant's
+    own window, so a tenant's fleet scores are its own device scores bit
+    for bit. The slots are walked together as a ``[W, R]`` node matrix,
+    in chunks of at most ``WALK_ELEMS`` elements."""
+    R = cols.shape[1]
+    L = packed.leaf_value.shape[1]
+    leaf_values = packed.leaf_value.reshape(-1)
+    acc = torch.zeros((k_trees, R), dtype=torch.float32, device=cols.device)
+    for s0, s1 in _chunks(win_slots, R):
+        slots = torch.arange(s0, s1, device=cols.device)[:, None]
+        tid = lo[None, :] + slots                             # [W, R]
+        leaf = walk(packed, tid, cols, num_steps)
+        v = leaf_values[tid * L + leaf]
+        live = slots < n_live[None, :]
+        for i in range(s1 - s0):
+            c = (s0 + i) % k_trees
+            acc[c] = torch.where(live[i], acc[c] + v[i], acc[c])
+    return acc
+
+
+def _fleet_scores_binned(num_steps: int, k_trees: int, win_slots: int,
+                         packed: BinnedTreeArrays, lo: torch.Tensor,
+                         n_live: torch.Tensor,
+                         bins_t: torch.Tensor) -> torch.Tensor:
+    """[k, R] f32 raw scores of one coalesced multi-tenant batch (the JAX
+    package's ops/forest.py:455): ``packed`` the bucket's mega-pack,
+    ``lo``/``n_live`` int64 [R] each row's window start and live trees,
+    ``bins_t`` [F, R] bins in each row's own tenant layout."""
+    return _fleet_scores(fleet_leaf_bins, num_steps, k_trees, win_slots,
+                         packed, lo, n_live, bins_t)
+
+
+def _fleet_scores_raw(num_steps: int, k_trees: int, win_slots: int,
+                      stacked: RawTreeArrays, lo: torch.Tensor,
+                      n_live: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The raw-route ``_fleet_scores_binned`` (the JAX package's
+    ops/forest.py:480) over f32 values ``x`` [R, C]."""
+    return _fleet_scores(fleet_leaf_raw, num_steps, k_trees, win_slots,
+                         stacked, lo, n_live, x.T.contiguous())

@@ -21,6 +21,11 @@ of every row, ``[R]`` or ``[T, R]``. Two entry points:
   the training bin mappers), missing handling resolved per node from its
   ``decision_type``.
 
+Each has a fleet form (``fleet_leaf_bins``, ``fleet_leaf_raw``) over a
+shape bucket's stacked mega-pack of many tenants' trees, in which each
+row walks the trees of its own tenant (``tid``); a node's fields are read
+from the flattened ``[T * (L-1)]`` arrays at ``tid * (L-1) + node``.
+
 Plain PyTorch: the JAX package has no Pallas kernel here either.
 """
 from __future__ import annotations
@@ -105,36 +110,40 @@ class RawTreeArrays(NamedTuple):
         return self.leaf_value.shape[-1]
 
 
-def _walk(tree, cols: torch.Tensor, steps: int, go_left_fn) -> torch.Tensor:
+def _walk(tree, cols: torch.Tensor, steps: int, go_left_fn,
+          tid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The lockstep walk shared by both routes: ``cols`` is the
-    feature-major ``[F, R]`` row matrix, ``go_left_fn(x, node, single)``
-    the direction at each row's node given its value ``x`` ([T, R])."""
+    feature-major ``[F, R]`` row matrix, ``go_left_fn(x, idx)`` the
+    direction at each row's node given its value ``x`` and the node's
+    index ``idx`` into the flattened ``[T * (L-1)]`` node arrays. Without
+    ``tid`` tree t of a stack walks every row (``[T, R]``); with it
+    (``[W, R]``, the fleet) row r walks tree ``tid[w, r]`` in slot w."""
     single = tree.left_child.dim() == 1
-    lc = tree.left_child[None] if single else tree.left_child
-    rc = tree.right_child[None] if single else tree.right_child
-    feat = tree.split_feature[None] if single else tree.split_feature
-    n_leaves = tree.num_leaves.reshape(-1)
-    T, R = lc.shape[0], cols.shape[1]
-    dev = cols.device
-    node = torch.zeros((T, R), dtype=torch.int64, device=dev)
-    leaf = torch.zeros((T, R), dtype=torch.int64, device=dev)
-    active = (n_leaves > 1)[:, None].expand(T, R).clone()
+    li = tree.left_child.shape[-1]
+    lc = tree.left_child.reshape(-1)
+    rc = tree.right_child.reshape(-1)
+    feat = tree.split_feature.reshape(-1)
+    R, dev = cols.shape[1], cols.device
+    if tid is None:
+        T = 1 if single else tree.left_child.shape[0]
+        tid = torch.arange(T, device=dev)[:, None].expand(T, R)
+    base = tid * li
+    node = torch.zeros_like(base)
+    leaf = torch.zeros_like(base)
+    active = tree.num_leaves.reshape(-1)[tid] > 1
     for _ in range(steps):
-        x = cols.gather(0, feat.gather(1, node))
-        go_left = go_left_fn(x, node, single)
-        child = torch.where(go_left, lc.gather(1, node), rc.gather(1, node))
+        idx = base + node
+        x = cols.gather(0, feat[idx])
+        child = torch.where(go_left_fn(x, idx), lc[idx], rc[idx])
         leaf = torch.where(active & (child < 0), -(child + 1), leaf)
         active = active & (child >= 0)
         node = torch.where(active, child.clamp(min=0), node)
     return leaf[0] if single else leaf
 
 
-def _at(a: torch.Tensor, node: torch.Tensor, single: bool) -> torch.Tensor:
-    return (a[None] if single else a).gather(1, node)
-
-
 def forest_leaf_bins(tree: BinnedTreeArrays, bins_t: torch.Tensor,
-                     num_steps: Optional[int] = None) -> torch.Tensor:
+                     num_steps: Optional[int] = None,
+                     tid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Leaf index per row (int64) over binned rows ``bins_t`` ``[F, R]``.
 
     The per-feature missing routing (the NaN bin of nan-missing features,
@@ -145,27 +154,38 @@ def forest_leaf_bins(tree: BinnedTreeArrays, bins_t: torch.Tensor,
     compare (-1 when none) and ``tree.flip`` says whether it does. A
     categorical node sends left the bins its bitset holds (bit ``b % 32``
     of word ``b // 32``; bins past the words are not in it), so bin 0,
-    NaN and unseen categories, goes right."""
+    NaN and unseen categories, goes right. ``tid``: see ``_walk``."""
     steps = _resolve_steps(num_steps, tree.max_leaves)
     W = tree.cat_words.shape[-1]
+    thr, special, flip, words, is_cat = (
+        a.reshape(-1) for a in (tree.threshold_bin, tree.special,
+                                tree.flip, tree.cat_words, tree.is_cat))
 
-    def go_left(b, node, single):
+    def go_left(b, idx):
         # u16 bins are held as int16 (ops/histogram.bin_ids): the 16 bits
         # read as unsigned
         b = (b.to(torch.int32) & 0xFFFF if b.dtype == torch.int16
              else b.to(torch.int32))
-        left = (b <= _at(tree.threshold_bin, node, single)) ^ (
-            (b == _at(tree.special, node, single))
-            & _at(tree.flip, node, single))
+        left = (b <= thr[idx]) ^ ((b == special[idx]) & flip[idx])
         if W:
-            words = tree.cat_words.reshape(*tree.is_cat.shape[:-1], -1)
             w = b >> 5
-            word = _at(words, node * W + w.clamp(max=W - 1), single)
+            word = words[idx * W + w.clamp(max=W - 1)]
             in_set = (w < W) & (((word >> (b & 31)) & 1) != 0)
-            left = torch.where(_at(tree.is_cat, node, single), in_set, left)
+            left = torch.where(is_cat[idx], in_set, left)
         return left
 
-    return _walk(tree, bins_t, steps, go_left)
+    return _walk(tree, bins_t, steps, go_left, tid)
+
+
+def fleet_leaf_bins(trees: BinnedTreeArrays, tid: torch.Tensor,
+                    bins_t: torch.Tensor,
+                    num_steps: Optional[int] = None) -> torch.Tensor:
+    """``[W, R]`` leaves of a fleet batch (the JAX package's
+    ops/predict.py:180): ``trees`` is a bucket's stacked mega-pack, and
+    row r walks tree ``tid[w, r]`` in slot w, over ``bins_t`` ``[F, R]``
+    laid out in each row's own tenant's used-feature order. Each row's
+    leaf is ``forest_leaf_bins`` of its one tree."""
+    return forest_leaf_bins(trees, bins_t, num_steps, tid)
 
 
 def tree_leaf_raw(tree: RawTreeArrays, X: torch.Tensor,
@@ -179,20 +199,32 @@ def tree_leaf_raw(tree: RawTreeArrays, X: torch.Tensor,
 
 
 def _leaf_raw_t(tree: RawTreeArrays, x_t: torch.Tensor,
-                num_steps: Optional[int] = None) -> torch.Tensor:
-    """``tree_leaf_raw`` over feature-major ``x_t`` ``[C, R]``."""
+                num_steps: Optional[int] = None,
+                tid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``tree_leaf_raw`` over feature-major ``x_t`` ``[C, R]``; ``tid``:
+    see ``_walk``."""
     steps = _resolve_steps(num_steps, tree.max_leaves)
     zt = torch.tensor(K_ZERO_THRESHOLD_F32, dtype=torch.float32,
                       device=x_t.device)
+    mtype, dflt, thr = (a.reshape(-1) for a in (
+        tree.missing_type, tree.default_left, tree.threshold))
 
-    def go_left(x, node, single):
-        miss = _at(tree.missing_type, node, single)
+    def go_left(x, idx):
+        miss = mtype[idx]
         isnan = torch.isnan(x)
         x0 = torch.where(isnan, torch.zeros_like(x), x)
         is_missing = torch.where(
             miss == MISSING_ENUM["nan"], isnan,
             (miss == MISSING_ENUM["zero"]) & (x0.abs() <= zt))
-        return torch.where(is_missing, _at(tree.default_left, node, single),
-                           x0 <= _at(tree.threshold, node, single))
+        return torch.where(is_missing, dflt[idx], x0 <= thr[idx])
 
-    return _walk(tree, x_t, steps, go_left)
+    return _walk(tree, x_t, steps, go_left, tid)
+
+
+def fleet_leaf_raw(trees: RawTreeArrays, tid: torch.Tensor,
+                   x_t: torch.Tensor,
+                   num_steps: Optional[int] = None) -> torch.Tensor:
+    """The raw-route ``fleet_leaf_bins`` (the JAX package's
+    ops/predict.py:294) over feature-major f32 values ``x_t`` ``[C, R]``,
+    each row's columns in its own tenant's original layout."""
+    return _leaf_raw_t(trees, x_t, num_steps, tid)

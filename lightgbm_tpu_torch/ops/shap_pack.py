@@ -396,14 +396,18 @@ class _ShapPackBase(_IncrementalPack):
                             min(max(self.n_elems[lo:hi] + [1]), steps))
         if place_window is not None:
             paths = place_window(paths)
-        # each class's expected values, added tree by tree in f32 as the
-        # JAX package's kernel adds them into the bias slot
-        expv = win.expv.cpu().numpy()
-        bias = np.zeros(k, np.float32)
-        for i, v in enumerate(expv):
-            bias[i % k] = bias[i % k] + v
-        return ShapSnapshot(kind, win, paths, bias.astype(np.float64), k,
+        return ShapSnapshot(kind, win, paths,
+                            _class_bias(win.expv.cpu().numpy(), k), k,
                             hi - lo, self.n_features, binner, self.device)
+
+
+def _class_bias(expv: np.ndarray, k: int) -> np.ndarray:
+    """f64 [k]: each class's expected values, added tree by tree in f32
+    as the JAX package's kernel adds them into the bias slot."""
+    bias = np.zeros(k, np.float32)
+    for i, v in enumerate(expv):
+        bias[i % k] = bias[i % k] + v
+    return bias.astype(np.float64)
 
 
 def _flat_paths(win, kind: str, k: int, n_features: int,
@@ -568,24 +572,85 @@ def _explain_part(paths: ShapFlatPaths, kind: str, operand: torch.Tensor,
     return out
 
 
+def contrib_rows(paths, kind: str, operand: torch.Tensor, k: int,
+                 n_features: int, bias: np.ndarray,
+                 place=None) -> np.ndarray:
+    """[R, (F+1)*k] f64 contributions of the rows of ``operand`` ([F, R]
+    bins or [C, R] values) over ``paths`` (``ShapFlatPaths``, or its
+    ``Replicas``), in the reference's pred_contrib layout (per class a
+    block of F+1, bias last). ``place`` splits the rows over a serving
+    mesh as in ``forest.snapshot_scores``."""
+    r = operand.shape[1]
+    F1 = n_features + 1
+    outs = [_explain_part(p, kind, part, k * F1).cpu().numpy()
+            for p, part in placed_parts(operand, 1, paths, place)]
+    phi = outs[0] if len(outs) == 1 else np.concatenate(outs, axis=1)
+    phi = phi.reshape(k, F1, r)
+    phi[:, F1 - 1, :] += bias[:, None]
+    return np.ascontiguousarray(phi.transpose(2, 0, 1)).reshape(r, -1)
+
+
 def shap_snapshot_scores(snap: ShapSnapshot, X: np.ndarray,
                          place=None) -> np.ndarray:
-    """[R, (F+1)*k] f64 contributions for one frozen snapshot, in the
-    reference's pred_contrib layout (per class a block of F+1, bias
-    last). Touches no pack state; ``place`` splits the rows over a
-    serving mesh as in ``forest.snapshot_scores``."""
-    r = X.shape[0]
-    F1 = snap.n_features + 1
+    """[R, (F+1)*k] f64 contributions for one frozen snapshot. Touches no
+    pack state; ``place`` splits the rows over a serving mesh."""
     if snap.kind == "binned":
         operand = snap.binner.bins(X)
     else:
         operand = torch.as_tensor(
             np.ascontiguousarray(raw_request(X, "explanation").T),
             device=snap.device)
-    outs = [_explain_part(paths, snap.kind, part, snap.k * F1)
-            .cpu().numpy()
-            for paths, part in placed_parts(operand, 1, snap.paths, place)]
-    phi = outs[0] if len(outs) == 1 else np.concatenate(outs, axis=1)
-    phi = phi.reshape(snap.k, F1, r)
-    phi[:, F1 - 1, :] += snap.bias[:, None]
-    return np.ascontiguousarray(phi.transpose(2, 0, 1)).reshape(r, -1)
+    return contrib_rows(snap.paths, snap.kind, operand, snap.k,
+                        snap.n_features, snap.bias, place)
+
+
+# ---------------------------------------------------------------------------
+# the fleet (ref: the JAX package's ops/shap_pack.py:538-669): each tenant
+# of a shape bucket has its window's live paths flattened as the solo
+# snapshot flattens them, and a request is explained over its own
+# tenant's paths by the solo recursion. The one-hot product that adds
+# each element into its phi row sums in an order that depends on the
+# operand's shape, so a tenant's contributions are its own
+# ``predict(pred_contrib=True, device=True)`` array for array only when a
+# request is explained alone, at its own row count.
+# ---------------------------------------------------------------------------
+
+class TenantShapPaths(NamedTuple):
+    """One tenant's window for the fleet explain: its live paths
+    (``ShapFlatPaths``, host or device) and each class's bias."""
+    paths: ShapFlatPaths
+    bias: np.ndarray      # f64 [k]
+
+
+def _pack_window_shap(kind: str, packed: list, models: List[HostTree],
+                      shape, n_features: int) -> TenantShapPaths:
+    cls = type(packed[0])
+    win = cls(*[torch.as_tensor(np.stack([getattr(p, f) for p in packed]))
+                for f in cls._fields])
+    n_elems = [int((p.pfeat != n_features).sum(1).max()) for p in packed]
+    paths = _flat_paths(win, kind, shape.k, n_features,
+                        [int(t.num_leaves) for t in models],
+                        min(max(n_elems + [1]), shape.steps))
+    return TenantShapPaths(ShapFlatPaths(*[a.numpy() for a in paths]),
+                           _class_bias(win.expv.numpy(), shape.k))
+
+
+def pack_window_shap_binned(models: List[HostTree], mappers, shape,
+                            n_features: int) -> TenantShapPaths:
+    """A binned tenant's fleet explain window (host arrays), packed at
+    the bucket's leaf cap and step bound."""
+    check_explainable(models)
+    feat = mapper_arrays(mappers)[:3]
+    return _pack_window_shap("binned", [
+        _pack_tree_shap_binned(t, shape.leaf_cap, shape.steps, n_features,
+                               *feat) for t in models], models, shape,
+        n_features)
+
+
+def pack_window_shap_raw(models: List[HostTree], shape,
+                         n_features: int) -> TenantShapPaths:
+    """The raw route's ``pack_window_shap_binned``."""
+    check_explainable(models)
+    return _pack_window_shap("raw", [
+        _pack_tree_shap_raw(t, shape.leaf_cap, shape.steps, n_features)
+        for t in models], models, shape, n_features)

@@ -7,20 +7,23 @@ failure path: request deadlines, fail-fast admission control,
 retry-then-degrade dispatch with background recovery, OOM bisection,
 publish rollback and integrity canaries.
 
-Entry point: ``Booster.serve(...)`` -> :class:`ModelServer`. The
-multi-tenant fleet of the JAX package (``serving/fleet.py``,
-``serve_fleet``) is not ported yet (ROADMAP A14b).
+Entry points: ``Booster.serve(...)`` -> :class:`ModelServer`, and the
+multi-tenant fleet (``fleet.py``): ``serve_fleet({name: booster, ...})``
+-> :class:`FleetServer`, ``Booster.serve(fleet=, tenant=)`` ->
+:class:`TenantHandle`.
 """
 from .batcher import (DeadlineExceeded, MicroBatcher, Overloaded,
                       PendingRequest, ShutdownError)
+from .fleet import FleetServer, TenantHandle, serve_fleet
 from .mesh import probe, serving_mesh, shard_rows
 from .metrics import (LatencyRecorder, ServingCounters,
                       latency_summary_ms, percentile)
 from .server import DegradeControl, Generation, ModelServer
 
 __all__ = [
-    "DeadlineExceeded", "DegradeControl", "Generation", "LatencyRecorder",
-    "MicroBatcher", "ModelServer", "Overloaded", "PendingRequest",
-    "ServingCounters", "ShutdownError", "latency_summary_ms", "percentile",
-    "probe", "serving_mesh", "shard_rows",
+    "DeadlineExceeded", "DegradeControl", "FleetServer", "Generation",
+    "LatencyRecorder", "MicroBatcher", "ModelServer", "Overloaded",
+    "PendingRequest", "ServingCounters", "ShutdownError", "TenantHandle",
+    "latency_summary_ms", "percentile", "probe", "serve_fleet",
+    "serving_mesh", "shard_rows",
 ]

@@ -8,7 +8,9 @@ copy a device, a ``forest.Replicas``); a request batch's rows are split
 over the devices in order (``shard_rows``), each device walks its part,
 and the scores are concatenated in row order. Every function takes the
 device list, so a test on the CPU can build a two-entry mesh
-``[cpu, cpu]``.
+``[cpu, cpu]``. The fleet (``fleet.py``) either replicates each shape
+bucket's pack so, or shards the MODEL axis: each bucket on one owner
+device (``place_on``, ``assign_owners``).
 
 No function here selects a current device (``torch.cuda.set_device``):
 every tensor is created on the device it names, so serving threads can
@@ -62,6 +64,8 @@ def _to(tree, device):
         return tree.to(device)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*[_to(x, device) for x in tree])
+    if type(tree) is tuple:
+        return tuple(_to(x, device) for x in tree)
     return tree
 
 
@@ -71,6 +75,32 @@ def replicate(tree, mesh: Mesh):
     if mesh is None:
         return tree
     return Replicas(_to(tree, d) for d in mesh)
+
+
+def place_on(tree, device):
+    """A pack moved to ONE owner device: the fleet's model-shard
+    placement (ref: the JAX package's serving/mesh.py:96). Each shape
+    bucket's mega-pack lives on one device of the mesh and that bucket's
+    batches are scored there, whole: fleets whose packs outgrow one
+    device's budget trade the row split for fitting at all."""
+    return _to(tree, device)
+
+
+def assign_owners(sized_keys, devices) -> dict:
+    """Balanced model-shard owners (ref: the JAX package's
+    serving/mesh.py:108): buckets (``(key, nbytes)`` pairs), largest
+    first, each on the least-loaded device. Owners are INDICES into
+    ``devices``, so a mesh listing one device twice (``[cpu, cpu]``)
+    still has two owners; ties break by the key's repr, so a rebuilt
+    fleet moves buckets only when their sizes change."""
+    load = [0] * len(devices)
+    owners = {}
+    for key, nbytes in sorted(sized_keys,
+                              key=lambda kv: (-kv[1], repr(kv[0]))):
+        i = min(range(len(devices)), key=lambda j: (load[j], j))
+        owners[key] = i
+        load[i] += nbytes
+    return owners
 
 
 def shard_rows(x: torch.Tensor, rows_axis: int,

@@ -1,10 +1,14 @@
 """The serving half of the integrity defense in the PyTorch port
 (``robustness/integrity.py`` and ``serving/server.py``), the port's
-counterpart of the solo cases of ``tests/test_integrity.py``: the canary
-batch equal to the JAX package's bit for bit, the CRC fingerprint
+counterpart of the serving cases of ``tests/test_integrity.py``: the
+canary batch equal to the JAX package's bit for bit, the CRC fingerprint
 catching pack rot (device tensors read back to the host), the solo
 canary round trip quarantine -> repair -> un-quarantine with exact
-counters, and the publish anchor refusing a corrupt pack."""
+counters, the publish anchor refusing a corrupt pack; and in the fleet
+(``serving/fleet.py``) device rot quarantining only the afflicted
+tenant until the probe repairs it, host rot caught by the host pack's
+CRC and rebuilt from the tenants' windows, and the fleet's publish
+anchor."""
 import time
 
 import numpy as np
@@ -164,3 +168,116 @@ def test_integrity_probe_survives_a_broken_check():
         probe.close()
     assert len(calls) >= 3
     assert integrity.IntegrityProbe(check, 0.0)._thread is None
+
+
+# ---------------------------------------------------------------------------
+# fleet canary: rot diagnosis, blast radius, repair
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def fleet_pair(model):
+    """Two binary tenants of one shape (one shared mega-pack): the
+    module's model and a second one on its rows."""
+    b1, X = model
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(np.float64)
+    b2 = lgt.train(dict(PARAMS, seed=11), lgt.Dataset(X, label=y),
+                   num_boost_round=5)
+    return X, b1, b2
+
+
+def _fleet_config(bst, interval_s):
+    cfg = bst.config.copy()
+    cfg.set("tpu_integrity_probe_interval_s", interval_s)
+    return cfg
+
+
+def test_fleet_device_rot_quarantines_only_afflicted_tenant(fleet_pair):
+    """Tenant a's evicted pack is rebuilt under ``bitflip:where=dev``: the
+    canary check before install catches it, ONLY a goes to the host walk
+    (b's clean window serves device bits), and the probe's repair
+    re-uploads the CRC-clean host pack and un-quarantines a. The probe
+    interval is long and the cycle is run here, so no background repair
+    races the asserts."""
+    X, b1, b2 = fleet_pair
+    fleet = lgt.serve_fleet({"a": b1, "b": b2},
+                            config=_fleet_config(b1, 600.0))
+    try:
+        assert fleet.stats()["n_buckets"] == 1   # shared mega-pack
+        ya0, yb0 = fleet.predict("a", X), fleet.predict("b", X)
+        np.testing.assert_array_equal(ya0, b1.predict(X, device=True))
+        assert fleet.evict("a")
+        with faults.inject("bitflip:p=1:where=dev"):
+            ya1 = fleet.predict("a", X)
+            yb1 = fleet.predict("b", X)
+        np.testing.assert_array_equal(ya1, b1.predict(X))     # host walk
+        np.testing.assert_allclose(ya1, ya0, rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(yb1, yb0)
+        snap = fleet.counters.snapshot()
+        assert snap["integrity_mismatches"] == 1, snap
+        assert snap["quarantines"] == 1, snap
+        assert fleet.tenant_stats("a")["quarantined"] is True
+        assert fleet.tenant_stats("b")["quarantined"] is False
+        assert fleet.stats()["quarantined"] == ["a"]
+        np.testing.assert_array_equal(fleet.predict("a", X), ya1)
+        fleet._integrity_check()                 # one probe cycle
+        snap = fleet.counters.snapshot()
+        assert snap["repairs"] == 1, snap
+        assert snap["integrity_mismatches"] == 1, snap   # no recount
+        assert "quarantined" not in fleet.stats()
+        np.testing.assert_array_equal(fleet.predict("a", X), ya0)
+        np.testing.assert_array_equal(fleet.predict("b", X), yb0)
+        ts = fleet.tenant_stats("a")
+        assert ts["integrity_mismatches"] == 1 \
+            and ts["quarantines"] == 1 and ts["repairs"] == 1, ts
+        assert fleet.tenant_stats("b")["integrity_mismatches"] == 0
+    finally:
+        fleet.close()
+
+
+def test_fleet_host_rot_diagnosed_by_crc_and_rebuilt(fleet_pair):
+    """The KEPT host mega-pack rots in place: the rebuild after an
+    eviction finds its CRC changed, rebuilds from the tenants' windows
+    and serves clean bits; nobody is quarantined."""
+    X, b1, b2 = fleet_pair
+    fleet = lgt.serve_fleet({"a": b1, "b": b2},
+                            config=_fleet_config(b1, 600.0))
+    try:
+        ya0, yb0 = fleet.predict("a", X), fleet.predict("b", X)
+        b = list(fleet._state.buckets.values())[0]
+        b.host.leaf_value[0] = -b.host.leaf_value[0]
+        assert fleet.evict("a")
+        ya1, yb1 = fleet.predict("a", X), fleet.predict("b", X)
+        np.testing.assert_array_equal(ya1, ya0)
+        np.testing.assert_array_equal(yb1, yb0)
+        snap = fleet.counters.snapshot()
+        assert snap["integrity_mismatches"] == 1, snap
+        assert snap["quarantines"] == 0, snap
+        assert snap["rebuilds"] == 1, snap
+        assert not fleet.tenant_stats("a")["quarantined"]
+    finally:
+        fleet.close()
+
+
+def test_fleet_publish_anchor_refuses_corrupt_pack(fleet_pair):
+    """A publish whose host pack rots before its upload
+    (``bitflip:where=host``) fails its canary anchor: the old generation
+    keeps serving untorn, then a clean publish succeeds."""
+    X, b1, _b2 = fleet_pair
+    fleet = lgt.serve_fleet({"a": b1})
+    try:
+        ya0 = fleet.predict("a", X)
+        gen0 = fleet._state.routes["a"].generation.version
+        b1.update()
+        with faults.inject("bitflip:p=1:where=host"):
+            with pytest.raises(integrity.CanaryMismatch):
+                fleet.publish("a")
+        assert fleet._state.routes["a"].generation.version == gen0
+        assert fleet.counters.get_tenant("a", "publish_failures") == 1
+        np.testing.assert_array_equal(fleet.predict("a", X), ya0)
+        fleet.publish("a")
+        assert fleet._state.routes["a"].generation.version == gen0 + 1
+        np.testing.assert_array_equal(fleet.predict("a", X),
+                                      b1.predict(X, device=True))
+    finally:
+        fleet.close()
+        b1.rollback_one_iter()

@@ -4,7 +4,9 @@ micro-batcher's coalescing, oversize, drain, deadline, overload, close
 and late-dispatch cases; the server's answers equal to
 ``predict(device=True)`` bit for bit, converted outputs, hot-swap never
 torn, publish after a rollback, a loaded model's raw route, knobs from
-params, timeout slot reclaim; the failure path (``publish_fail``
+params, timeout slot reclaim, a loaded categorical model refused and an
+in-memory one served by the binned route, a booster added to a fleet by
+``serve(fleet=)``; the failure path (``publish_fail``
 rollback, degraded answers equal to the host walk, retry exhaustion,
 transient retry, non-transient failure, the OOM bisection, the recovery
 probe under ``probe_timeout``); a ``[cpu, cpu]`` mesh equal to no mesh;
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 
 import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch.ops.forest import DeviceRouteUnavailable
 from lightgbm_tpu_torch.robustness import faults
 from lightgbm_tpu_torch.robustness.retry import RetryPolicy
 from lightgbm_tpu_torch.serving import (DeadlineExceeded, Generation,
@@ -447,6 +450,50 @@ def test_server_loaded_model_raw_route(booster):
             srv.submit(Xf + 1e-12)
 
 
+@pytest.fixture(scope="module")
+def categorical_booster():
+    """A model that splits on its categorical column."""
+    rng, X = _data(11, 1000, 6)
+    X[:, 5] = rng.integers(0, 6, size=len(X))
+    y = X[:, 0] + (X[:, 5] % 3) * 1.5
+    bst = lgt.train(dict(PARAMS, num_leaves=7),
+                    lgt.Dataset(X, label=y, categorical_feature=[5]),
+                    num_boost_round=3)
+    assert any(t.num_cat > 0 for t in bst._engine.models)
+    return bst, X
+
+
+def test_loaded_categorical_model_server_refused(categorical_booster):
+    """A loaded model's route is the raw one, and the raw walk cannot test
+    a categorical node's bitset of raw categories: ``serve()`` refuses at
+    construction (``DeviceRouteUnavailable``), as the JAX package's
+    ``Booster(model_str=...).serve()`` does (``ValueError``); its
+    ``predict(device=True)`` answers by the host walk."""
+    import lightgbm_tpu as lgb
+    bst, X = categorical_booster
+    text = bst.model_to_string()
+    with pytest.raises(ValueError, match="categorical"):
+        lgb.Booster(model_str=text).serve()
+    loaded = lgt.Booster(params=CPU, model_str=text)
+    with pytest.raises(DeviceRouteUnavailable, match="categorical"):
+        loaded.serve()
+    np.testing.assert_array_equal(
+        loaded.predict(X[:64], device=True, raw_score=True),
+        bst.predict(X[:64], raw_score=True))
+
+
+def test_in_memory_categorical_model_serves_binned(categorical_booster):
+    """The booster that trained the categorical model keeps its bin
+    mappers: it serves by the binned route (bitsets over bins), bit for
+    bit its ``predict(device=True)``."""
+    bst, X = categorical_booster
+    with bst.serve(linger_ms=1.0, raw_score=True) as srv:
+        assert not srv._raw_route
+        np.testing.assert_array_equal(
+            srv.predict(X[:200], timeout=60),
+            bst.predict(X[:200], device=True, raw_score=True))
+
+
 def test_server_knobs_resolve_from_params():
     _, X = _data(11, 500, 4)
     bst = lgt.train(dict(PARAMS, num_leaves=7, tpu_serving_max_batch=512,
@@ -522,10 +569,28 @@ def test_second_serve_returns_live_server_no_second_dispatcher(booster):
     assert lgt.ModelServer is ModelServer
 
 
-def test_serve_fleet_is_refused(booster):
-    bst, _, _ = booster
-    with pytest.raises(LightGBMError, match="A14b"):
-        bst.serve(fleet=object())
+def test_serve_fleet_kwarg_returns_tenant_handle(booster, training_booster):
+    """``serve(fleet=, tenant=)`` adds the booster to a live fleet as a
+    tenant and returns its ``TenantHandle``; a taken name is refused, and
+    without ``tenant=`` the booster gets a free ``tenant<N>``."""
+    bst, X, _ = booster
+    other, Xo, _ = training_booster
+    with lgt.serve_fleet({"t0": bst}, raw_score=True) as fleet:
+        h = other.serve(fleet=fleet, tenant="newbie", raw_score=True)
+        assert isinstance(h, lgt.TenantHandle)
+        assert "newbie" in fleet.tenants
+        np.testing.assert_array_equal(
+            h.predict(Xo[:16], timeout=60),
+            other.predict(Xo[:16], device=True, raw_score=True))
+        assert h.stats()["generation"] == 1
+        with pytest.raises(ValueError, match="already served"):
+            other.serve(fleet=fleet, tenant="newbie")
+        h2 = lgt.Booster(params=CPU, model_str=bst.model_to_string()) \
+            .serve(fleet=fleet)
+        assert h2.name == "tenant2" and h2.name in fleet.tenants
+        np.testing.assert_array_equal(fleet.predict("t0", X[:8], timeout=60),
+                                      h2.predict(X[:8], timeout=60))
+    assert lgt.FleetServer is type(fleet)
 
 
 def test_unconstructed_booster_and_bad_requests_refused(booster):

@@ -12,7 +12,8 @@ host walk and of the JAX package's device explanation, on the
 missing-value adversarial batch, in multiclass blocks, by the loaded
 model's raw route and over iteration windows; additive to the raw score;
 the same bits on a replay and after an incremental append as after a
-full repack. Linear and categorical models answer by the host walk, said
+full repack; a fleet tenant's explanation equal to its own array for
+array, also after its explain pack is evicted and rebuilt. Linear and categorical models answer by the host walk, said
 once.
 """
 import numpy as np
@@ -183,6 +184,29 @@ def eight_rounds():
     y = np.nan_to_num(X[:, 0]) + 0.5 * np.nan_to_num(X[:, 1])
     bst = lgt.train(TPARAMS, lgt.Dataset(X, label=y), num_boost_round=8)
     return bst, X
+
+
+def test_fleet_shap_eviction_rebuild_bit_identity(eight_rounds):
+    """A fleet tenant's explanation is its own device ``pred_contrib``
+    array for array; evicting the resident explain pack and rebuilding
+    it at the next explain gives the same bits, and the eviction and
+    rebuild are counted."""
+    bst, X = eight_rounds
+    with lgt.serve_fleet({"t0": bst}, linger_ms=2.0) as fleet:
+        before = fleet.explain("t0", X[:40], timeout=60)
+        np.testing.assert_array_equal(
+            before, bst.predict(X[:40], pred_contrib=True, device=True))
+        with fleet._publish_lock:
+            freed = fleet._evict_shap(1 << 60)
+        assert freed > 0
+        assert all(sb.dev is None for sb in fleet._shap_cache.values())
+        assert fleet.stats()["resident_shap_bytes"] == 0
+        np.testing.assert_array_equal(fleet.explain("t0", X[:40],
+                                                    timeout=60), before)
+        assert fleet.counters.get("evictions") >= 1
+        assert fleet.counters.get("rebuilds") >= 1
+        assert fleet.stats()["resident_shap_bytes"] > 0
+        assert fleet.counters.get("explain_degraded") == 0
 
 
 @pytest.mark.parametrize("start,num", [(0, 3), (2, 4), (5, 3)])
