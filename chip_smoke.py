@@ -360,9 +360,35 @@ Phases, each reported on its own line:
    seconds), the kept host pack rotted (caught by its CRC and rebuilt)
    and ``bitflip:where=host`` at a publish (refused by the anchor); (f)
    ``tpu_serving_fleet_shard=model`` over a two-entry mesh of the one
-   card: the same bits.
+   card: the same bits;
+21. the continual service (in the side process, after phase 20) on the
+   bench params at the Higgs width: (a) ``Dataset(path, params=
+   {"two_round": True})`` of a 200,000-row CSV (each round's host
+   seconds and rows/s; the bins equal the rows binned in memory with the
+   loader's mappers), 1 + 2 iterations (logloss falls; s/iteration
+   beside phase 4's), and a 20,000-row two-round file trained on the
+   card and on the CPU to the same trees by the binary standard; (b) the
+   JAX package's ``scripts/serving_load.py --live`` topology:
+   ``serve_continual`` with a supervised child trainer on the card
+   (window 8,192, 2 iterations a cycle, a publish every 2) over a stream
+   of 4,096 rows that a producer grows by 400 rows every 0.15 s,
+   ``rank_kill:rank=0:after=5`` on the child's attempt 0, 16 open-loop
+   Poisson clients at 200 requests/s of 32 rows (npy f64) for 20 s, then
+   up to 60 s for two generations after the relaunch: no torn response
+   (each equals its generation's checkpointed model by the device route
+   or the host walk), generations monotone per client with a watermark
+   each, at most half unverifiable, a relaunch and two generations after
+   it, no publish error or client error; logged: requests/s, p50/p99/
+   p999 ms, staleness p50/p99/max ms, boot and relaunch seconds,
+   publishes and the trainer's seconds a cycle; (c) the same service with
+   its trainer on a thread here for 3 publishes under 4 closed-loop
+   clients (its K1 launches counted); (d) two of phase 20's archetypes
+   behind the front door's fleet routes: bit for bit each tenant's
+   ``predict(device=True)``, 400, 404, 413, 429 and 504 as the tests
+   expect, ``/readyz`` 503 while a tenant is quarantined by
+   ``bitflip:where=dev`` and ``/healthz`` 200.
 
-Phases 9's multiclass part, 13, 14, 10, 6 and 20 (in that order) need
+Phases 9's multiclass part, 13, 14, 10, 6, 20 and 21 (in that order) need
 nothing of phase 4's rows or model: they run in a second process
 (``--side-worker PLAN``), started after phase 5 and run beside phases 7
 to 19 of this one (the card and the host shared), which prints its
@@ -6029,10 +6055,22 @@ def fleet_explain(fleet, tenants, pools, names):
             np.testing.assert_array_equal(
                 got, want, err_msg=f"fleet explain of {name}")
     assert fleet.counters.get("explain_degraded") == 0
+    # the bound of one explain of len(X) rows over the bucket's paths
+    # (every member's, packed together), as shap_bound counts them
+    bounds = {}
+    for name in names:
+        packed = [m.paths for m in
+                  fleet._shap_cache[fleet._state.routes[name].key].host
+                  if m is not None]
+        paths = sum(int(p.gfeat.shape[0]) for p in packed)
+        depth = max(int(p.gfeat.shape[1]) for p in packed)
+        bounds[name] = (paths, depth) + shap_bound(
+            paths, depth, fleet._tenants[name].n_features + 1, len(X))
     log(f"phase 20 (d) explain: {len(X)} rows of {names} (members of "
         f"their buckets: {[len(fleet._state.buckets[fleet._state.routes[n].key].members) for n in names]}), "
         f"ms={ {f'{n} {c}': v for (n, c), v in out.items()} }; each equals "
-        "its own predict(pred_contrib=True, device=True) array for array")
+        "its own predict(pred_contrib=True, device=True) array for array; "
+        f"(bucket paths, depth, bound_ms, bound_by)={bounds}")
 
 
 def fleet_faults(fleet, tenants, pools, refs):
@@ -6200,10 +6238,604 @@ def phase_fleet():
     return counts
 
 
+# phase 21: the continual service at the Higgs width, on the bench params.
+# (a) two-round loading: LIVE_FILE_ROWS rows to a CSV; LIVE_CROSS_ROWS
+# rows to another for the cuda-against-cpu cross-check
+LIVE_FILE_ROWS = 200_000
+LIVE_CROSS_ROWS = 20_000
+LIVE_DECIMALS = 4               # the stream's text: exact doubles back
+LIVE_TWO_ROUND_ITERS = 2        # timed, after one warm-up
+# (b) the JAX package's scripts/serving_load.py --live topology: a
+# supervised child trainer on a growing stream, one injected crash
+LIVE_STREAM_ROWS = 4_096
+LIVE_WINDOW = 8_192             # tpu_service_window_rows' default
+LIVE_MIN_ROWS = 2_048
+LIVE_ITERS_PER_CYCLE = 2
+LIVE_PUBLISH_EVERY = 2
+LIVE_KEEP_LAST = 256            # nothing a response names is pruned
+LIVE_POLL_S = 0.1
+LIVE_APPEND_ROWS = 400          # the producer: this many rows ...
+LIVE_APPEND_EVERY_S = 0.15      # ... this often
+LIVE_KILL = "rank_kill:rank=0:after=5"
+LIVE_CLIENTS = 16               # open-loop Poisson clients ...
+LIVE_RATE = 200.0               # ... at this many requests/s in all
+LIVE_REQ_ROWS = 32              # rows a request, npy f64 on the wire
+LIVE_DURATION_S = 20.0
+LIVE_AFTER_RELAUNCH_S = 60.0    # the wait for 2 generations after it
+LIVE_BOOT_S = 600.0
+# (c) the same service, its trainer on a thread of this process
+LIVE_THREAD_PUBLISHES = 3
+LIVE_THREAD_CLIENTS = 4
+LIVE_THREAD_LIMIT_S = 120.0
+
+
+def live_rows(n, seed):
+    """``[n, 1 + N_FEATURES]`` rows ``label, features`` of synth_higgs's
+    distribution, rounded to LIVE_DECIMALS places: the text written with
+    as many decimals parses back to the same doubles."""
+    X, y = synth_higgs(n, N_FEATURES, seed=seed)
+    return np.round(np.column_stack([y, X]).astype(np.float64),
+                    LIVE_DECIMALS)
+
+
+def live_probe(seed):
+    """A request's LIVE_REQ_ROWS rows: f32 values held as f64, as the
+    raw route of a loaded model takes them."""
+    return synth_higgs(LIVE_REQ_ROWS, N_FEATURES, seed=seed)[0].astype(
+        np.float64)
+
+
+def write_rows(path, block, mode="a"):
+    """Whole lines in one write (the stream follower's contract)."""
+    import io
+    buf = io.StringIO()
+    np.savetxt(buf, block, delimiter=",", fmt=f"%.{LIVE_DECIMALS}f")
+    with open(path, mode) as fh:
+        fh.write(buf.getvalue())
+
+
+def live_two_round(tmp, phase4_iter_s):
+    """(a): ``Dataset(path, params={"two_round": True})`` of a
+    LIVE_FILE_ROWS-row CSV: each round's host seconds; the bins equal the
+    rows binned in memory with the loader's mappers; 1 + 2 iterations
+    (logloss falls); a LIVE_CROSS_ROWS-row two-round file trained on the
+    card and on the CPU gives the same trees to the binary standard."""
+    import os
+    import lightgbm_tpu_torch as lgt
+    block = live_rows(LIVE_FILE_ROWS, seed=21)
+    path = os.path.join(tmp, "higgs.csv")
+    t = time.perf_counter()
+    write_rows(path, block, "w")
+    write_s = time.perf_counter() - t
+    params = bench_params(two_round=True)
+    t = time.perf_counter()
+    ds = lgt.Dataset(path, params=params).construct()
+    load_s = time.perf_counter() - t
+    b, st = ds.binned, ds.binned.ingest_stats
+    n = LIVE_FILE_ROWS
+    log(f"phase 21 (a) two-round load of {n} x {N_FEATURES} "
+        f"({os.path.getsize(path)} bytes, written in {write_s!r} s): "
+        f"{load_s!r} s in all; round 1 {st['round1_s']!r} s "
+        f"({n / st['round1_s']!r} rows/s), bin finding "
+        f"{st['find_bins_s']!r} s, round 2 {st['round2_s']!r} s "
+        f"({n / st['round2_s']!r} rows/s)")
+    X = block[:, 1:]
+    assert b.num_data == n and b.bins.shape == (n, len(b.used_feature_map))
+    for i, f in enumerate(b.used_feature_map):
+        np.testing.assert_array_equal(
+            b.bins[:, i], b.bin_mappers[f].value_to_bin(X[:, f]),
+            err_msg=f"phase 21 (a) feature {f}")
+    np.testing.assert_array_equal(b.metadata.label,
+                                  block[:, 0].astype(np.float32))
+    bst = lgt.Booster(params, ds)
+    assert not bst.update()
+    first = dict((m, v) for _, m, v, _ in bst.eval_train())
+    iter_s = []
+    for _ in range(LIVE_TWO_ROUND_ITERS):
+        t = time.perf_counter()
+        assert not bst.update()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t)
+    last = dict((m, v) for _, m, v, _ in bst.eval_train())
+    assert last["binary_logloss"] < first["binary_logloss"], (first, last)
+    log(f"phase 21 (a) bins equal the in-memory rows binned with the "
+        f"loader's mappers; iter_s={iter_s!r} (phase 4: "
+        f"{phase4_iter_s!r} s at {N_ROWS} rows) logloss "
+        f"{first['binary_logloss']!r} -> {last['binary_logloss']!r}")
+    del bst, ds, b
+    small = live_rows(LIVE_CROSS_ROWS, seed=22)
+    spath = os.path.join(tmp, "higgs_small.csv")
+    write_rows(spath, small, "w")
+    out = {}
+    t = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        p = bench_params(two_round=True, device_type=dev)
+        out[dev] = lgt.train(p, lgt.Dataset(spath, params=p),
+                             num_boost_round=2)
+    assert_trees_to_binary_standard(
+        out["cuda"], out["cpu"], small[:, 1:],
+        [np.ones(LIVE_CROSS_ROWS, bool)] * 2, 0.1, 1.0, 0.25,
+        "phase 21 (a) two-round cross-check")
+    log(f"phase 21 (a) {LIVE_CROSS_ROWS}-row two-round file: cuda and cpu "
+        f"trees to the binary standard ({time.perf_counter() - t!r} s)")
+
+
+class LiveProducer:
+    """Appends LIVE_APPEND_ROWS rows to the stream every
+    LIVE_APPEND_EVERY_S seconds on a thread, from a pool made up front."""
+
+    def __init__(self, path, seed):
+        import threading
+        self.path = path
+        self.pool = live_rows(LIVE_APPEND_ROWS * 64, seed=seed)
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        i = 0
+        while not self.stop.wait(LIVE_APPEND_EVERY_S):
+            lo = (i % 64) * LIVE_APPEND_ROWS
+            write_rows(self.path, self.pool[lo:lo + LIVE_APPEND_ROWS])
+            i += 1
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(10)
+
+
+def live_post(url, payload):
+    """One npy request: ``(generation, scores, staleness_ms)``; the
+    staleness is None where the gateway knows no watermark."""
+    import io
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=payload, headers={"Content-Type": "application/x-npy"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        out = np.load(io.BytesIO(resp.read()), allow_pickle=False)
+        stale = resp.headers.get("X-Staleness-Ms")
+        return (int(resp.headers["X-Model-Generation"]), out,
+                None if stale is None else float(stale))
+
+
+def server_side(stats):
+    """The server's own view of a run: its batches, the requests a batch
+    coalesced and its latency from ``submit`` to the answer (the HTTP
+    layer's time is outside it)."""
+    return (f"server side: batches={stats['batches']} "
+            f"mean_requests_per_batch={stats.get('mean_requests_per_batch')}"
+            f" max_coalesced={stats['max_coalesced']} "
+            f"p50_ms={stats.get('p50_ms')!r} p99_ms={stats.get('p99_ms')!r}")
+
+
+def live_verify(svc, probe, responses, failures):
+    """The JAX package's scripts/_service_gate.verify_responses on the
+    port: every ``(client, generation, scores, staleness_ms)`` response
+    equals its generation's checkpointed model by ``predict(device=True,
+    raw_score=True)`` or by the host walk, generations monotone per
+    client, staleness not negative; a response whose checkpoint is gone
+    is unverifiable. Returns ``(torn, unverifiable)``."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.robustness.checkpoint import (list_checkpoints,
+                                                          read_checkpoint)
+    by_iter = {it: read_checkpoint(p)["model"]
+               for it, p in list_checkpoints(svc.ckpt_dir)}
+    expected, last = {}, {}
+    torn = unverifiable = 0
+    for ci, v, out, stale in responses:
+        if v < last.get(ci, 0):
+            failures.append(f"client {ci} saw generations move backwards")
+        last[ci] = max(last.get(ci, 0), v)
+        if stale is None or stale < 0:
+            failures.append(f"a response's staleness is {stale}")
+        mark = svc.freshness(v)
+        model = by_iter.get(mark["iteration"]) if mark else None
+        if model is None:
+            unverifiable += 1
+            continue
+        if v not in expected:
+            # loaded on the bench device
+            b = lgt.Booster(params=fleet_params(), model_str=model)
+            expected[v] = (b.predict(probe, device=True, raw_score=True),
+                           b.predict(probe, raw_score=True))
+        dev, host = expected[v]
+        if not (np.array_equal(out, dev) or np.array_equal(out, host)):
+            torn += 1
+    if torn:
+        failures.append(f"{torn} torn response(s)")
+    return torn, unverifiable
+
+
+def checkpoint_gaps(ckpt_dir):
+    """Seconds between consecutive checkpoints (one a cycle), by their
+    files' times."""
+    import os
+    from lightgbm_tpu_torch.robustness.checkpoint import list_checkpoints
+    times = sorted(os.path.getmtime(p) for _, p in
+                   list_checkpoints(ckpt_dir))
+    return [b - a for a, b in zip(times, times[1:])]
+
+
+def live_service(tmp, stream, mode, **kw):
+    import os
+    import lightgbm_tpu_torch as lgt
+    write_rows(stream, live_rows(LIVE_STREAM_ROWS, seed=23), "w")
+    return lgt.serve_continual(
+        bench_params(), stream, os.path.join(tmp, f"ck_{mode}"),
+        trainer_mode=mode, window_rows=LIVE_WINDOW, min_rows=LIVE_MIN_ROWS,
+        iters_per_cycle=LIVE_ITERS_PER_CYCLE,
+        publish_every_iters=LIVE_PUBLISH_EVERY, target_iterations=0,
+        raw_score=True, boot_timeout_s=LIVE_BOOT_S, poll_sec=LIVE_POLL_S,
+        keep_last=LIVE_KEEP_LAST, **kw)
+
+
+def live_supervised(tmp, smi):
+    """(b): serve_continual with a supervised child trainer on the card,
+    LIVE_KILL on its attempt 0, a producer and LIVE_CLIENTS open-loop
+    Poisson clients for LIVE_DURATION_S; then up to LIVE_AFTER_RELAUNCH_S
+    for two generations after the relaunch. Returns the latencies' p99
+    ms."""
+    import io
+    import os
+    import random
+    import threading
+    from lightgbm_tpu_torch.serving.metrics import (latency_summary_ms,
+                                                    percentile)
+    stream = os.path.join(tmp, "stream_b.csv")
+    t = time.perf_counter()
+    svc = live_service(tmp, stream, "process", attempt_env=lambda i: (
+        {"LGBM_TPU_FAULTS": LIVE_KILL} if i == 0
+        else {"LGBM_TPU_FAULTS": ""}))
+    boot_s = time.perf_counter() - t
+    producer = LiveProducer(stream, seed=24)
+    try:
+        url = svc.frontdoor.address + "/v1/predict"
+        probe = live_probe(seed=25)
+        buf = io.BytesIO()
+        np.save(buf, probe, allow_pickle=False)
+        payload = buf.getvalue()
+        lock = threading.Lock()
+        responses, hard = [], []
+
+        def client(ci):
+            r = random.Random(500 + ci)
+            rate = LIVE_RATE / LIVE_CLIENTS
+            t0 = next_t = time.perf_counter()
+            while True:
+                next_t += r.expovariate(rate)
+                if next_t - t0 > LIVE_DURATION_S:
+                    return
+                now = time.perf_counter()
+                if next_t > now:
+                    time.sleep(next_t - now)
+                try:
+                    v, out, stale = live_post(url, payload)
+                    with lock:
+                        responses.append((ci, v, out, stale,
+                                          time.perf_counter() - next_t))
+                except Exception as e:   # noqa: BLE001 - a gate below
+                    with lock:
+                        hard.append(repr(e))
+
+        clients = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(LIVE_CLIENTS)]
+        seen_at = seen_gen = first_after = None
+        t_wall = time.perf_counter()
+        for c in clients:
+            c.start()
+
+        def watch():
+            nonlocal seen_at, seen_gen, first_after
+            v = svc.generation.version
+            if seen_at is None and svc.trainer.relaunches:
+                seen_at, seen_gen = time.perf_counter(), v
+            if seen_at is not None and first_after is None and \
+                    v > seen_gen:
+                first_after = time.perf_counter()
+        while any(c.is_alive() for c in clients):
+            watch()
+            time.sleep(0.05)
+        wall = time.perf_counter() - t_wall
+        t_end = time.perf_counter() + LIVE_AFTER_RELAUNCH_S
+        while time.perf_counter() < t_end:
+            watch()
+            if seen_gen is not None and \
+                    svc.generation.version >= seen_gen + 2:
+                break
+            time.sleep(0.05)
+        stats = svc.stats()
+        final_gen = svc.generation.version
+        trainer = svc.trainer.describe()
+        failures = []
+        torn, unverifiable = live_verify(
+            svc, probe, [r[:4] for r in responses], failures)
+        served = sorted({r[1] for r in responses})
+        if hard:
+            failures.append(f"{len(hard)} hard client error(s): "
+                            f"{hard[:2]}")
+        if not responses:
+            failures.append("no responses")
+        if unverifiable > len(responses) // 2:
+            failures.append(f"{unverifiable}/{len(responses)} "
+                            "unverifiable")
+        if not all(1 <= v <= final_gen and svc.freshness(v) is not None
+                   for v in served):
+            failures.append(f"served versions {served} outside "
+                            f"1..{final_gen} or without a watermark")
+        if trainer.get("relaunches", 0) < 1:
+            failures.append(f"the injected crash never relaunched: "
+                            f"{trainer}")
+        if seen_gen is None or final_gen < seen_gen + 2:
+            failures.append(f"fewer than 2 generations after the "
+                            f"relaunch (at it v{seen_gen}, final "
+                            f"v{final_gen})")
+        if stats["service"]["publish_errors"]:
+            failures.append(f"{stats['service']['publish_errors']} "
+                            "publish error(s)")
+        lat = latency_summary_ms([r[4] for r in responses])
+        stale = [r[3] for r in responses if r[3] is not None]
+        gaps = checkpoint_gaps(svc.ckpt_dir)
+        relaunch_s = None if first_after is None else first_after - seen_at
+        cycle_s = statistics.median(gaps) if gaps else None
+        log(f"phase 21 (b) supervised child trainer on the card: "
+            f"boot_s={boot_s!r} requests={len(responses)} "
+            f"requests_per_s={len(responses) / wall!r} "
+            f"p50_ms={lat['p50_ms']!r} p99_ms={lat['p99_ms']!r} "
+            f"p999_ms={lat['p999_ms']!r} "
+            f"staleness_p50_ms={percentile(stale, 50)!r} "
+            f"staleness_p99_ms={percentile(stale, 99)!r} "
+            f"staleness_max_ms={max(stale, default=float('nan'))!r} "
+            f"relaunch_s={relaunch_s!r} "
+            f"(the supervisor's sight of the death to the first publish "
+            f"after it) publishes={stats['service']['publishes']} "
+            f"generations_served={served[:1]}..{served[-1:]} "
+            f"final_generation={final_gen} "
+            f"served_iteration={stats['service']['served_iteration']} "
+            f"trainer_s_per_cycle={cycle_s!r} "
+            f"(median of {len(gaps)} checkpoint gaps) torn={torn} "
+            f"unverifiable={unverifiable} trainer={trainer}; "
+            f"{server_side(stats)} card={smi}")
+        assert not failures, failures
+        return lat["p99_ms"]
+    finally:
+        producer.close()
+        svc.close()
+
+
+def live_thread(tmp, p99_b, smi):
+    """(c): the same service with its trainer on a thread of this
+    process, for LIVE_THREAD_PUBLISHES publishes after the boot, under
+    LIVE_THREAD_CLIENTS closed-loop clients; every response verified."""
+    import io
+    import os
+    import threading
+    from lightgbm_tpu_torch.serving.metrics import latency_summary_ms
+    stream = os.path.join(tmp, "stream_c.csv")
+    t = time.perf_counter()
+    svc = live_service(tmp, stream, "thread")
+    boot_s = time.perf_counter() - t
+    producer = LiveProducer(stream, seed=26)
+    try:
+        url = svc.frontdoor.address + "/v1/predict"
+        probe = live_probe(seed=27)
+        buf = io.BytesIO()
+        np.save(buf, probe, allow_pickle=False)
+        payload = buf.getvalue()
+        target = svc.stats()["service"]["publishes"] + LIVE_THREAD_PUBLISHES
+        done = threading.Event()
+        lock = threading.Lock()
+        responses, lat, hard = [], [], []
+
+        def client(ci):
+            try:
+                while not done.is_set():
+                    t0 = time.perf_counter()
+                    v, out, stale = live_post(url, payload)
+                    with lock:
+                        lat.append(time.perf_counter() - t0)
+                        responses.append((ci, v, out, stale))
+            except Exception as e:      # noqa: BLE001 - a gate below
+                hard.append(repr(e))
+        clients = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(LIVE_THREAD_CLIENTS)]
+        t_wall = time.perf_counter()
+        for c in clients:
+            c.start()
+        wait_for(lambda: svc.stats()["service"]["publishes"] >= target
+                 or svc.trainer.error is not None or bool(hard),
+                 LIVE_THREAD_LIMIT_S, "phase 21 (c) publishes")
+        done.set()
+        for c in clients:
+            c.join(60)
+        wall = time.perf_counter() - t_wall
+        assert svc.trainer.error is None, svc.trainer.describe()
+        assert not hard, hard
+        failures = []
+        torn, unverifiable = live_verify(svc, probe, responses, failures)
+        s = latency_summary_ms(lat)
+        log(f"phase 21 (c) thread trainer: boot_s={boot_s!r} "
+            f"requests={len(responses)} "
+            f"requests_per_s={len(responses) / wall!r} "
+            f"p50_ms={s['p50_ms']!r} p99_ms={s['p99_ms']!r} (closed "
+            f"loop; (b)'s open-loop p99 {p99_b!r} ms: the trainer shares "
+            f"this process's GIL here) "
+            f"publishes={svc.stats()['service']['publishes']} "
+            f"served_iteration={svc.stats()['service']['served_iteration']}"
+            f" torn={torn} unverifiable={unverifiable}; "
+            f"{server_side(svc.stats())} card={smi}")
+        assert not failures and unverifiable == 0, failures
+        assert svc.generation.model_gen == 0, svc.generation
+    finally:
+        producer.close()
+        svc.close()
+
+
+def live_expect(url, code, body, headers, what, seen):
+    """POST ``body``; the answer must be HTTP ``code`` (added to
+    ``seen``). Returns the error response."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body, headers=headers)
+    try:
+        urllib.request.urlopen(req, timeout=60)
+    except urllib.error.HTTPError as e:
+        assert e.code == code, (what, e.code, e.read())
+        seen.append(code)
+        return e
+    raise AssertionError(f"phase 21 (d) {what}: expected HTTP {code}")
+
+
+def live_frontdoor(smi):
+    """(d): two of phase 20's archetypes, trained small, behind
+    ``ServerGateway(None, fleet=...)``: tenant routes bit for bit each
+    tenant's ``predict(device=True)``; 400, 404, 413, 429 and 504 as the
+    tests expect; ``/readyz`` 503 while a tenant is quarantined by
+    ``bitflip:p=1:where=dev``, ``/healthz`` 200."""
+    import io
+    import json
+    import urllib.error
+    import urllib.request
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.robustness import faults
+    from lightgbm_tpu_torch.service import FrontDoor, ServerGateway
+    rng = np.random.default_rng(28)
+    tenants, pools = {}, {}
+    for a in (0, 1):
+        leaves, trees, f = FLEET_ARCHETYPES[a]
+        X = rng.normal(size=(FLEET_ROWS, f)).astype(np.float32).astype(
+            np.float64)
+        tenants[f"a{a}"] = lgt.train(
+            fleet_params(leaves), lgt.Dataset(X, label=fleet_label(X, a)),
+            num_boost_round=trees)
+        pools[f"a{a}"] = X
+    cfg = tenants["a0"].config.copy()
+    cfg.set("tpu_integrity_probe_interval_s", 600.0)
+    fleet = lgt.serve_fleet(tenants, raw_score=True, config=cfg,
+                            linger_ms=FLEET_LINGER_MS)
+    door = FrontDoor(ServerGateway(None, fleet=fleet), chunk_rows=64,
+                     max_body_mb=1.0)
+    codes = []
+
+    def npy(X):
+        buf = io.BytesIO()
+        np.save(buf, X, allow_pickle=False)
+        return buf.getvalue()
+    try:
+        base = door.address + "/v1/tenants/"
+        for name, bst in tenants.items():
+            X = pools[name][:200]                  # chunked: > 64 rows
+            _, out, _ = live_post(base + f"{name}/predict", npy(X))
+            np.testing.assert_array_equal(
+                out, bst.predict(X, device=True, raw_score=True),
+                err_msg=f"phase 21 (d) tenant {name}")
+        X8 = pools["a0"][:8]
+        npy_h = {"Content-Type": "application/x-npy"}
+        live_expect(base + "a0/predict", 400, b"{not json",
+                    {"Content-Type": "application/json"}, "bad JSON", codes)
+        live_expect(base + "a0/predict", 400, npy(pools["a1"][:4]), npy_h,
+                    "wrong width", codes)
+        live_expect(base + "nope/predict", 404, npy(X8), npy_h,
+                    "unknown tenant", codes)
+        live_expect(door.address + "/v1/predict", 404, npy(X8), npy_h,
+                    "no solo server", codes)
+        big = b"x" * (door.max_body_bytes + 1)
+        live_expect(base + "a0/predict", 413, big, npy_h, "oversize", codes)
+        # 504: the dispatcher wedged, the deadline passes in the queue
+        with faults.inject("slow_dispatch:sec=0.6:n=1"):
+            slow = fleet.submit("a0", X8)
+            wait_for(lambda: not fleet.stats()["queued_rows"], 5,
+                     "phase 21 (d) wedge")
+            time.sleep(0.05)
+            e = live_expect(base + "a0/predict", 504, npy(X8),
+                            dict(npy_h, **{"X-Deadline-Ms": "40"}),
+                            "deadline", codes)
+            assert "DEADLINE_EXCEEDED" in json.loads(e.read())["error"]
+            slow.result(60)
+        # 429: the dispatcher wedged and the queue full
+        orig = fleet._batcher.max_queue_rows
+        fleet._batcher.max_queue_rows = len(X8)
+        try:
+            with faults.inject("slow_dispatch:sec=0.5:n=1"):
+                slow = fleet.submit("a0", X8)
+                wait_for(lambda: not fleet.stats()["queued_rows"], 5,
+                         "phase 21 (d) wedge")
+                time.sleep(0.05)
+                backlog = fleet.submit("a0", X8)
+                e = live_expect(base + "a0/predict", 429, npy(X8), npy_h,
+                                "overload", codes)
+                assert e.headers.get("Retry-After") is not None
+                slow.result(60)
+                backlog.result(60)
+        finally:
+            fleet._batcher.max_queue_rows = orig
+        r = urllib.request.urlopen(door.address + "/readyz", timeout=30)
+        assert json.loads(r.read()) == {"ready": True, "status": "ok"}
+        assert fleet.evict("a0")
+        with faults.inject("bitflip:p=1:where=dev"):
+            fleet.predict("a0", pools["a0"][:32])
+        assert fleet.tenant_stats("a0")["quarantined"]
+        e = None
+        try:
+            urllib.request.urlopen(door.address + "/readyz", timeout=30)
+        except urllib.error.HTTPError as err:
+            e = err
+        assert e is not None and e.code == 503, "phase 21 (d) readyz"
+        assert json.loads(e.read()) == {"ready": False,
+                                        "status": "quarantined",
+                                        "quarantined": ["a0"]}
+        r = urllib.request.urlopen(door.address + "/healthz", timeout=30)
+        assert r.status == 200
+        log(f"phase 21 (d) front door over a two-tenant fleet on the card: "
+            f"tenant routes bit for bit predict(device=True); failure map "
+            f"{sorted(codes)}; /readyz 503 while a0 is quarantined, "
+            f"/healthz 200; card={smi}")
+    finally:
+        door.close()
+        fleet.close()
+
+
+def phase_live(phase4_iter_s):
+    """Phase 21: the continual service (``lgt.serve_continual``), (a)-(d).
+    Returns the launch counts of the phases run in this process ((a)'s
+    training, (c)'s thread trainer and (d)'s tenants); (b)'s child
+    trainer launches K1 in its own process (logged, not counted)."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_live_")
+    totals = {}
+
+    def add(counts, what):
+        log(f"phase 21 {what} launches={nonzero(counts)} at "
+            f"{time.perf_counter() - t0:.1f} s")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    try:
+        reset_counts()
+        live_two_round(tmp, phase4_iter_s)
+        add(read_counts(), "(a)")
+        reset_counts()
+        p99_b = live_supervised(tmp, smi)
+        add(read_counts(), "(b) (this process: serving only)")
+        reset_counts()
+        live_thread(tmp, p99_b, smi)
+        c = read_counts()
+        assert c["hist_rowmajor_f32"] > 0, c
+        add(c, "(c)")
+        reset_counts()
+        live_frontdoor(smi)
+        add(read_counts(), "(d)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 21 seconds={time.perf_counter() - t0!r}")
+    return totals
+
+
 def side_worker(plan_path):
     """The side process (``--side-worker PLAN``): the phases that need
     nothing of phase 4's rows or model (9's multiclass part, 13, 14, 10,
-    6 and 20), run in turn; their launch counts go to ``PLAN["out"]``. Each
+    6, 20 and 21), run in turn; their launch counts go to ``PLAN["out"]``. Each
     resets and reads this process's own counts, so the launches of the
     two processes never mix."""
     with open(plan_path) as fh:
@@ -6225,6 +6857,8 @@ def side_worker(plan_path):
     done("phase 6")
     res["fleet_totals"] = phase_fleet()
     done("phase 20")
+    res["live_totals"] = phase_live(iter_s)
+    done("phase 21")
     with open(plan["out"], "w") as fh:
         json.dump(res, fh)
 
@@ -6389,8 +7023,8 @@ def main():
     bst_u16 = paths["compact_u16"][1]
     full_text = paths["full"][1].model_to_string()
     del paths
-    # phases 9 (multiclass), 13, 14, 10 and 6 in the side process, beside
-    # phases 7 to 19 here
+    # phases 9 (multiclass), 13, 14, 10, 6, 20 and 21 in the side process,
+    # beside phases 7 to 19 here
     side = start_side(main_run["median_iter_s"], t0_wall)
     side_procs.append(side[0])
     try:
@@ -6438,6 +7072,7 @@ def main():
     cat_runs, cat_totals = res["cat_runs"], res["cat_totals"]
     sparse_runs, sparse_totals = res["sparse_runs"], res["sparse_totals"]
     fleet_totals = res["fleet_totals"]
+    live_totals = res["live_totals"]
     for k, v in pool_runs.items():
         key = k.split("_", 2)[2]
         sparse_totals[key] = sparse_totals.get(key, 0) + v
@@ -6445,10 +7080,11 @@ def main():
              + constraint_totals.get(k, 0) + robust_totals.get(k, 0)
              + dist_totals.get(k, 0) + shard_totals.get(k, 0)
              + serve_totals.get(k, 0) + fleet_totals.get(k, 0)
+             + live_totals.get(k, 0)
              for k in set(cat_totals) | set(sparse_totals)
              | set(constraint_totals) | set(robust_totals)
              | set(dist_totals) | set(shard_totals) | set(serve_totals)
-             | set(fleet_totals)}
+             | set(fleet_totals) | set(live_totals)}
 
     kernels = []
     level = f"skewed n={LEVEL_NODES[-1]}"
@@ -6499,6 +7135,9 @@ def main():
         + json.dumps(nonzero(serve_totals)))
     log("phase 20 launches (the tenants' training and the updates of (b) "
         "and (e)): " + json.dumps(nonzero(fleet_totals)))
+    log("phase 21 launches ((a)'s training, (c)'s thread trainer and (d)'s "
+        "tenants; (b)'s child trainer runs K1 in its own process): "
+        + json.dumps(nonzero(live_totals)))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,11 @@ use; ``lightgbm_tpu_torch.ModelServer``), ``serve_fleet({name: booster})``
 a multi-tenant ``FleetServer`` (``Booster.serve(fleet=, tenant=)`` adds a
 tenant to one), and
 ``predict(pred_contrib=True, device=True)`` explains on the device
-(``ops/shap_pack.py``).
+(``ops/shap_pack.py``). ``serve_continual(params, stream_path, ckpt_dir)``
+boots the continual service (``service/``, loaded on first use): a
+resident trainer on a growing CSV, a publish pump into a live server and
+an HTTP front door (``FrontDoor`` / ``ServerGateway`` mount any server or
+fleet behind one).
 
 ``LGBM_TPU_FAULTS`` installs its fault plan at import, as in the JAX
 package (``robustness/faults.py``); ``LGBM_TPU_HEARTBEAT`` is read when a
@@ -47,5 +51,10 @@ def __getattr__(name):
                 "serve_fleet"):
         from . import serving
         return getattr(serving, name)
+    # the continual service (ref: the JAX package's __init__.py:81-82)
+    if name in ("ContinualService", "FrontDoor", "ServerGateway",
+                "serve_continual"):
+        from . import service
+        return getattr(service, name)
     raise AttributeError(
         f"module 'lightgbm_tpu_torch' has no attribute {name!r}")

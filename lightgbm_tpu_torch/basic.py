@@ -32,7 +32,7 @@ import torch
 from .config import Config
 from .core.metrics import metrics_for_config
 from .core.objective import create_objective
-from .io.dataset_core import BinnedDataset
+from .io.dataset_core import BinnedDataset, categorical_indices
 from .models import create_boosting
 from .models.gbdt import GBDT
 from .ops.forest import LINEAR_TREES_ON_HOST, DeviceRouteUnavailable
@@ -104,26 +104,6 @@ def _to_2d_numpy(data) -> np.ndarray:
     if X.dtype.kind not in "fiub":
         X = X.astype(np.float64)
     return X
-
-
-def _categorical_indices(categorical_feature, cfg: Config,
-                         names: Optional[List[str]]) -> List[int]:
-    """The categorical features' indices (ref: the JAX package's
-    basic.py:338-348): a list of indices or of feature names, or else
-    the params' comma-separated index string (``categorical_feature``);
-    names that are not features are ignored."""
-    if isinstance(categorical_feature, (list, tuple)):
-        cats = []
-        for c in categorical_feature:
-            if isinstance(c, (int, np.integer)):
-                cats.append(int(c))
-            elif names and c in names:
-                cats.append(names.index(c))
-        return cats
-    if cfg.categorical_feature:
-        return [int(c) for c in str(cfg.categorical_feature).split(",")
-                if c.strip() != ""]
-    return []
 
 
 def _node_index(tree_idx: int, child: int) -> str:
@@ -249,6 +229,24 @@ class Dataset:
                 # already binned, with its own bin mappers
                 self._binned = load_binary(path)
                 return self._apply_fields()
+            if cfg.two_round:
+                if sw is not None:
+                    log.fatal(
+                        "two_round=true is incompatible with sharded "
+                        "ingestion (pre_partition=true / "
+                        "tpu_ingest='sharded'): the two-pass streaming "
+                        "loader reads the GLOBAL file on every rank, so "
+                        "the O(rows/world) host-memory contract would "
+                        "not hold — use per-rank files "
+                        "('...{rank}...') without two_round, or set "
+                        "tpu_ingest='replicated'")
+                # streaming two-pass load: bounded memory, binned in
+                # place (ref: dataset_loader.cpp:266 two_round branch)
+                from .io.stream_loader import load_binned_two_round
+                self._binned = load_binned_two_round(
+                    path, cfg, categorical_feature=self.categorical_feature,
+                    reference=ref)
+                return self._apply_fields()
             rank, world = sw if sw is not None else (None, None)
             X, y, w, group = load_svm_or_csv(path, cfg, rank=rank,
                                              world=world)
@@ -280,7 +278,7 @@ class Dataset:
             source, cfg, label=self.label, weight=self.weight,
             init_score=self.init_score, feature_names=names,
             reference=ref, group=self.group, position=self.position,
-            categorical_features=_categorical_indices(
+            categorical_features=categorical_indices(
                 self.categorical_feature, cfg, names))
         return self
 
@@ -322,8 +320,8 @@ class Dataset:
         seqs = (list(self.data) if isinstance(self.data, (list, tuple))
                 else [self.data])
         self._binned = build_from_sequences(
-            seqs, cfg, _categorical_indices(self.categorical_feature, cfg,
-                                            self.feature_name),
+            seqs, cfg, categorical_indices(self.categorical_feature, cfg,
+                                           self.feature_name),
             reference=ref, feature_names=self.feature_name)
         return self._apply_fields()
 

@@ -476,16 +476,13 @@ def _parse_list(value: Any, elem_type: Any) -> List[Any]:
 # constraints (``monotone_constraints_method`` basic, intermediate and
 # advanced, ``monotone_penalty``), interaction constraints, CEGB,
 # forced splits and forced bins, ``feature_contri``, extra_trees,
-# linear trees, and the data, voting and feature learners over a
+# linear trees, two-round file loading (``two_round``,
+# io/stream_loader.py), and the data, voting and feature learners over a
 # ``torch.distributed`` world (``distributed_refusals`` lists what those
 # refuse). A setting that needs anything else maps to a predicate that
 # is True for the unsupported value and to the ROADMAP item that ports
-# it; training refuses it instead of ignoring it.
-_UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {
-    # the JAX package loads such a file through its two-round loader,
-    # whose sample gives other bin bounds than the in-memory load
-    "two_round": (bool, "A15"),
-}
+# it; training refuses it instead of ignoring it. None is left.
+_UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {}
 
 
 class Config:

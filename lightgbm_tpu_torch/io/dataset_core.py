@@ -54,6 +54,26 @@ from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper,
 MAX_NUM_BIN = 1 << 16
 
 
+def categorical_indices(categorical_feature, cfg: Config,
+                        names: Optional[List[str]]) -> List[int]:
+    """The categorical features' indices (ref: the JAX package's
+    basic.py:338-348): a list of indices or of feature names, or else
+    the params' comma-separated index string (``categorical_feature``);
+    names that are not features are ignored."""
+    if isinstance(categorical_feature, (list, tuple)):
+        cats = []
+        for c in categorical_feature:
+            if isinstance(c, (int, np.integer)):
+                cats.append(int(c))
+            elif names and c in names:
+                cats.append(names.index(c))
+        return cats
+    if cfg.categorical_feature:
+        return [int(c) for c in str(cfg.categorical_feature).split(",")
+                if c.strip() != ""]
+    return []
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardInfo:
     """Row-shard topology of a sharded-ingest BinnedDataset (the JAX
@@ -350,7 +370,8 @@ class BinnedDataset:
     def __init__(self) -> None:
         self.bins: Optional[np.ndarray] = None
         self.shard: Optional[ShardInfo] = None
-        # sharded ingestion's host seconds by step and bytes on the wire
+        # sharded ingestion's host seconds by step and bytes on the wire,
+        # or the two-round loader's seconds by round
         self.ingest_stats: Optional[Dict[str, float]] = None
         self.bins_grouped: Optional[np.ndarray] = None
         self.efb_info = None

@@ -136,6 +136,50 @@ SERVING_MODULES = {
 COPIED_MODULES.update(SERVING_MODULES)
 
 
+# the continual service's modules copied from the JAX package's
+# native/__init__.py (its numpy parsers), io/stream_loader.py and
+# service/ (jax-free there): the only imports each may have. The front
+# door reaches the serving tier only through its exceptions and its
+# latency recorder; the trainer trains through the port's own API
+SERVICE_MODULES = {
+    "lightgbm_tpu_torch/native/__init__.py": {
+        "__future__", "typing", "numpy"},
+    "lightgbm_tpu_torch/io/stream_loader.py": {
+        "__future__", "os", "time", "typing", "numpy", "scipy.sparse",
+        "..config", "..native", "..utils", "..ops.hist_multival",
+        ".dataset_core", ".file_loader"},
+    "lightgbm_tpu_torch/service/trainer.py": {
+        "__future__", "dataclasses", "json", "os", "subprocess", "sys",
+        "threading", "time", "typing", "numpy", "..utils", "..basic",
+        "..engine", "..io.stream_loader", "..robustness",
+        "..robustness.heartbeat", "..robustness.retry",
+        "..robustness.supervisor"},
+    "lightgbm_tpu_torch/service/frontdoor.py": {
+        "__future__", "io", "json", "threading", "time", "typing",
+        "http.server", "numpy", "..serving.batcher", "..serving.metrics",
+        "..utils"},
+    "lightgbm_tpu_torch/service/__init__.py": {
+        "__future__", "os", "threading", "time", "typing", "numpy",
+        ".frontdoor", ".trainer", "..basic", "..config", "..serving",
+        "..serving.metrics", "..robustness.checkpoint", "..utils"},
+}
+COPIED_MODULES.update(SERVICE_MODULES)
+
+
+def test_service_modules_import_no_torch_at_module_level():
+    """The parsers, the stream loader, the trainer loop and the front door
+    are host code: none imports torch at its top level."""
+    for rel in SERVICE_MODULES:
+        with open(os.path.join(REPO, rel)) as fh:
+            tree = ast.parse(fh.read(), filename=rel)
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            assert "torch" not in names, rel
+
+
 def test_robustness_imports_no_torch_at_module_level():
     """A supervisor imports the robustness package and must not touch
     the device it supervises: no module of it imports torch at its top

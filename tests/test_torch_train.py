@@ -247,7 +247,6 @@ def test_cuda_without_a_card_raises(rng, monkeypatch):
 def test_unported_settings_are_refused(rng):
     X, y = _data(rng, "regression")
     for extra in ({"tree_learner": "voting", "tpu_num_devices": 2},
-                  {"two_round": True},
                   {"objective": "lambdarank"}):
         params = {"objective": "regression", "device_type": "cpu",
                   "verbosity": -1, **extra}
