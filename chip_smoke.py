@@ -386,12 +386,34 @@ Phases, each reported on its own line:
    behind the front door's fleet routes: bit for bit each tenant's
    ``predict(device=True)``, 400, 404, 413, 429 and 504 as the tests
    expect, ``/readyz`` 503 while a tenant is quarantined by
-   ``bitflip:where=dev`` and ``/healthz`` 200.
+   ``bitflip:where=dev`` and ``/healthz`` 200;
+22. shell and tooling (after phase 19) on phase 4's first 200,000 rows
+   written as a CSV: (a) ``cli.run(["task=train", ...])`` with a 20,000-row
+   valid file, ``metric_freq=1`` and ``snapshot_freq=2``, 5 iterations
+   (s/iteration beside phase 4's, K1 launches; the trees equal
+   ``lgt.train``'s on the same file and params, the snapshots pruned);
+   (b) ``python -m lightgbm_tpu_torch config=...`` in children that name
+   no device, train then predict (the result file the parent's predict
+   written ``%g``); (c) ``task=convert_model`` of (a)'s model compiled with
+   ``g++`` (raw scores within 1e-12 of the host walk); (d) the native
+   library loads; its C++ parser against the numpy body (equal on a
+   20,000-row slice; rows/s of each, and of the two-round loader's
+   rounds); (e) a C host compiled with ``gcc`` against the library, which
+   embeds the interpreter and trains 100,000 x 28, 255 leaves, on the
+   card, then serves the saved model through the interpreter-free ABI
+   (within 1e-12 of the training handle's host walk); (f) TreeSHAP of
+   (a)'s model by the C++ kernel against the device's (rtol 1e-4 / atol
+   1e-5); (g) where pyarrow is installed, the Arrow ABI in this process:
+   a 20,000-row record batch trained 2 iterations on the card,
+   ``PredictForArrow`` equal to ``PredictForMat``. (b)'s children and
+   (e)'s host run beside (a), (c), (d), (f) and (g). Plotting draws on
+   the host and is held on the CPU only (no matplotlib on the card's
+   machine).
 
 Phases 9's multiclass part, 13, 14, 10, 6, 20 and 21 (in that order) need
 nothing of phase 4's rows or model: they run in a second process
 (``--side-worker PLAN``), started after phase 5 and run beside phases 7
-to 19 of this one (the card and the host shared), which prints its
+to 19 and 22 of this one (the card and the host shared), which prints its
 lines when it ends; each process counts its own launches. Past 1,140 s
 the script prints every thread's stack and exits 3.
 
@@ -6832,6 +6854,554 @@ def phase_live(phase4_iter_s):
     return totals
 
 
+SHELL_ROWS = 200_000            # phase 4's first rows, at its 28 features
+SHELL_VALID_ROWS = 20_000       # (a)'s valid file: the rows after them
+SHELL_ITERS = 5
+SHELL_CHILD_ITERS = 2
+SHELL_CODEGEN_ROWS = 20_000
+SHELL_NUMPY_ROWS = 20_000
+SHELL_C_ROWS = 100_000
+SHELL_C_ITERS = 3
+SHELL_SHAP_ROWS = 2_000
+SHELL_ARROW_ROWS = 20_000
+# phase 21 (a)'s numpy parser, round 2 and round 1 (PR 22's runs), and PR
+# 12's numpy TreeSHAP: what (d) and (f) print beside their own
+PR22_NUMPY_ROWS_S = (84_096, 115_669)
+PR12_SHAP_ROWS_S = (2_300, 2_550)
+# where every entry point of phase 22 trains without being told: the card
+SHELL_DEVICE = "cuda"
+
+# (e): a C host of the training ABI. It builds a SHELL_C_ROWS x
+# N_FEATURES matrix, trains on the device its parameters name (none: the
+# card), saves the model, and holds the training handle's scores (the
+# host walk, f64) against the serving ABI's over the saved file
+_C_HOST_SRC = r"""
+#include <math.h>
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <time.h>
+#include "lgbm_c_api.h"
+
+#define CHECK(call) do { if ((call) != 0) { \
+  fprintf(stderr, "FAIL %s: %s\n", #call, LGBM_GetLastError()); \
+  return 1; } } while (0)
+
+static double now(void) {
+  struct timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return t.tv_sec + 1e-9 * t.tv_nsec;
+}
+
+static uint64_t state = 88172645463325252ULL;
+static double uniform(void) {
+  state ^= state << 13; state ^= state >> 7; state ^= state << 17;
+  return (state >> 11) * (1.0 / 9007199254740992.0);
+}
+
+int main(int argc, char** argv) {
+  const int n = atoi(argv[1]), f = atoi(argv[2]), iters = atoi(argv[3]);
+  const char* model = argv[4];
+  double* X = malloc(sizeof(double) * (size_t)n * f);
+  float* y = malloc(sizeof(float) * n);
+  for (int i = 0; i < n; ++i) {
+    double* row = X + (size_t)i * f;
+    for (int j = 0; j < f; ++j)
+      row[j] = uniform() + uniform() + uniform() - 1.5;
+    y[i] = row[0] - 0.5 * row[1] * row[2] + 0.25 * row[3] * row[3] +
+           0.1 * (uniform() - 0.5) > 0.05 ? 1.0f : 0.0f;
+  }
+  void* ds = NULL;
+  CHECK(LGBM_DatasetCreateFromMat(X, 1, n, f, 1, "max_bin=255", NULL, &ds));
+  CHECK(LGBM_DatasetSetField(ds, "label", y, n, 0));
+  void* bst = NULL;
+  CHECK(LGBM_BoosterCreate(ds, "objective=binary num_leaves=255 "
+                           "learning_rate=0.1 min_data_in_leaf=20 "
+                           "verbosity=-1", &bst));
+  int finished = 0;
+  for (int it = 0; it < iters; ++it) {
+    double t = now();
+    CHECK(LGBM_BoosterUpdateOneIter(bst, &finished));
+    printf("C-HOST iter %d s=%.6f\n", it, now() - t);
+  }
+  CHECK(LGBM_BoosterSaveModel(bst, 0, -1, 0, model));
+  int64_t len = 0;
+  double* p_train = malloc(sizeof(double) * n);
+  double* p_serve = malloc(sizeof(double) * n);
+  CHECK(LGBM_BoosterPredictForMat(bst, X, 1, n, f, 1, 1, 0, -1, "", &len,
+                                  p_train));
+  void* srv = NULL;
+  int n_iter = 0;
+  CHECK(LGBM_BoosterCreateFromModelfile(model, &n_iter, &srv));
+  CHECK(LGBM_BoosterPredictForMat(srv, X, 1, n, f, 1, 1, 0, -1, "", &len,
+                                  p_serve));
+  double worst = 0.0, spread = 0.0;
+  for (int i = 0; i < n; ++i) {
+    double d = fabs(p_train[i] - p_serve[i]) / (1.0 + fabs(p_serve[i]));
+    if (d > worst) worst = d;
+    spread += fabs(p_serve[i]);
+  }
+  printf("C-HOST iterations=%d rows=%lld max_rel_diff=%.3g "
+         "mean_abs_score=%.6f\n", n_iter, (long long)len, worst,
+         spread / n);
+  if (n_iter != iters || len != n || worst > 1e-12 || !(spread > 0)) {
+    fprintf(stderr, "FAIL serving scores\n");
+    return 1;
+  }
+  CHECK(LGBM_BoosterFree(srv));
+  CHECK(LGBM_BoosterFree(bst));
+  CHECK(LGBM_DatasetFree(ds));
+  printf("C-HOST-OK\n");
+  fflush(stdout);
+  return 0;
+}
+"""
+
+
+def shell_params():
+    """Phase 4's bench parameters as CLI ``key=value`` arguments, with no
+    ``device_type``: the CLI's default, the card."""
+    return ["objective=binary", f"num_leaves={NUM_LEAVES}",
+            f"max_bin={MAX_BIN}", "learning_rate=0.1", "min_data_in_leaf=20",
+            "metric=binary_logloss,auc"]
+
+
+def shell_cli_train(path, vpath, tmp, phase4_iter_s):
+    """(a): ``cli.run`` trains SHELL_ITERS iterations on the file with a
+    valid file, ``metric_freq=1`` and ``snapshot_freq=2``; ``lgt.train``
+    on the same file and params gives the same trees."""
+    import os
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import cli
+    model = os.path.join(tmp, "model.txt")
+    stamps = []
+    lgt.register_logger(lambda m: stamps.append((time.perf_counter(), m)))
+    t = time.perf_counter()
+    try:
+        rc = cli.run(["task=train", f"data={path}", f"valid={vpath}",
+                      *shell_params(), f"num_iterations={SHELL_ITERS}",
+                      "metric_freq=1", "snapshot_freq=2",
+                      "snapshot_keep_last=1", "verbosity=1",
+                      f"output_model={model}"])
+        torch.cuda.synchronize()
+    finally:
+        lgt.register_logger(None)
+    cli_s = time.perf_counter() - t
+    counts = read_counts()
+    assert rc == 0, [m for _, m in stamps][-5:]
+    ends = [s for s, m in stamps if m.split("\t", 1)[0].endswith("]")
+            and "valid_1's binary_logloss" in m]
+    assert len(ends) == SHELL_ITERS, [m for _, m in stamps]
+    iter_s = [float(d) for d in np.diff(ends)]
+    snaps = sorted(f for f in os.listdir(tmp) if ".snapshot_iter_" in f)
+    assert snaps == [f"model.txt.snapshot_iter_{SHELL_ITERS - 1}"], snaps
+    launches = counts["hist_rowmajor_f32"]
+    assert launches > 0 and sum(counts.values()) == launches, counts
+
+    # the same file and params through the Python API, in this process
+    params = {"objective": "binary", "num_leaves": NUM_LEAVES,
+              "max_bin": MAX_BIN, "learning_rate": 0.1,
+              "min_data_in_leaf": 20, "verbose": -1}
+    t = time.perf_counter()
+    ds = lgt.Dataset(path, params=params).construct()
+    load_bin_s = time.perf_counter() - t
+    ref = lgt.train(params, ds, num_boost_round=SHELL_ITERS)
+    got = lgt.Booster(model_file=model)
+    want = lgt.Booster(model_str=ref.model_to_string())
+    assert len(got._engine.models) == len(want._engine.models) == \
+        SHELL_ITERS
+    for i, (a, b) in enumerate(zip(got._engine.models,
+                                   want._engine.models)):
+        np.testing.assert_array_equal(a.split_feature, b.split_feature,
+                                      err_msg=f"phase 22 (a) tree {i}")
+        np.testing.assert_array_equal(a.threshold_real, b.threshold_real,
+                                      err_msg=f"phase 22 (a) tree {i}")
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5,
+                                   err_msg=f"phase 22 (a) tree {i}")
+    with open(model) as fh:
+        assert f"[device_type: {SHELL_DEVICE}]" in fh.read()
+    log(f"phase 22 (a) cli.run task=train {SHELL_ROWS} x {N_FEATURES} "
+        f"with a {SHELL_VALID_ROWS}-row valid file: {cli_s!r} s in all; "
+        f"iter_s={iter_s!r} (median "
+        f"{statistics.median(iter_s)!r}; phase 4: {phase4_iter_s!r} s at "
+        f"{N_ROWS} rows, no valid set); file load + binning "
+        f"{load_bin_s!r} s; K1 launches {launches}; snapshots {snaps} "
+        "(pruned to the last); trees equal lgt.train's on the same file "
+        "(splits and thresholds exactly, leaf values within rtol 1e-5)")
+    return model, ref
+
+
+def spawn(argv, tmp, name, **kw):
+    """Start a child with its output in files under ``tmp``."""
+    import os
+    files = [open(os.path.join(tmp, f"{name}.{s}"), "w")
+             for s in ("out", "err")]
+    return {"proc": subprocess.Popen(argv, stdout=files[0],
+                                     stderr=files[1], **kw),
+            "t0": time.perf_counter(), "files": files}
+
+
+def reap(child, timeout=300):
+    """Wait for a child: ``(returncode, stdout, stderr, wall seconds)``
+    from its start."""
+    rc = child["proc"].wait(timeout)
+    wall = time.perf_counter() - child["t0"]
+    texts = []
+    for fh in child["files"]:
+        fh.close()
+        with open(fh.name) as r:
+            texts.append(r.read())
+    return rc, texts[0], texts[1], wall
+
+
+def shell_conf(tmp, task, lines):
+    """A conf file of ``key = value`` lines, as the R shim writes them."""
+    import os
+    conf = os.path.join(tmp, f"{task}.conf")
+    with open(conf, "w") as fh:
+        fh.write("".join(ln.replace("=", " = ", 1) + "\n"
+                         for ln in [f"task={task}", *lines, "verbosity=1"]))
+    return conf
+
+
+def shell_module_child(tmp, conf, name):
+    """``python -m lightgbm_tpu_torch config=...``: no ``device_type``."""
+    import os
+    return spawn([sys.executable, "-m", "lightgbm_tpu_torch",
+                  f"config={conf}"], tmp, name,
+                 cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def shell_module_check(walls, warnings, model, result, X_file):
+    """(b)'s gates: the child's model names the card and has its trees;
+    the result file is the parent's ``Booster.predict`` written ``%g``,
+    line for line."""
+    import lightgbm_tpu_torch as lgt
+    with open(model) as fh:
+        assert f"[device_type: {SHELL_DEVICE}]" in fh.read()
+    bst = lgt.Booster(model_file=model)
+    assert bst.num_trees() == SHELL_CHILD_ITERS
+    pred = bst.predict(X_file)
+    with open(result) as fh:
+        assert fh.read() == "".join(f"{v:g}\n" for v in pred), \
+            "phase 22 (b) result file"
+    log(f"phase 22 (b) python -m lightgbm_tpu_torch config=...: train "
+        f"({SHELL_CHILD_ITERS} iterations, no device_type: the model says "
+        f"[device_type: {SHELL_DEVICE}]) {walls['train']!r} s wall, "
+        f"predict {walls['predict']!r} s wall (each beside (a) and the "
+        f"other children); the result file is the parent's predict "
+        f"written %g, line for line ({len(pred)} lines); the children's "
+        f"warnings: {warnings[:3]}")
+
+
+def shell_convert_model(model, tmp, X_file):
+    """(c): ``task=convert_model`` of (a)'s model compiles with ``g++``
+    and gives the host walk's raw scores within 1e-12."""
+    import os
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import cli
+    src = os.path.join(tmp, "model.cpp")
+    assert cli.run(["task=convert_model", f"input_model={model}",
+                    f"convert_model={src}", "verbosity=-1"]) == 0
+    main_src = os.path.join(tmp, "model_main.cpp")
+    with open(main_src, "w") as fh:
+        fh.write('#include <cstdio>\n#include "model.cpp"\n'
+                 "int main() {\n"
+                 f"  double row[{N_FEATURES}], out[1];\n"
+                 f"  while (fread(row, sizeof(double), {N_FEATURES}, "
+                 f"stdin) == {N_FEATURES}) {{\n"
+                 "    lightgbm_tpu_model::PredictRaw(row, out);\n"
+                 "    fwrite(out, sizeof(double), 1, stdout);\n"
+                 "  }\n  return 0;\n}\n")
+    exe = os.path.join(tmp, "model_exe")
+    t = time.perf_counter()
+    subprocess.run(["g++", "-O1", "-o", exe, main_src], check=True,
+                   capture_output=True, timeout=300, cwd=tmp)
+    compile_s = time.perf_counter() - t
+    Xc = np.ascontiguousarray(X_file[:SHELL_CODEGEN_ROWS], np.float64)
+    t = time.perf_counter()
+    out = subprocess.run([exe], input=Xc.tobytes(), capture_output=True,
+                         timeout=300, check=True).stdout
+    run_s = time.perf_counter() - t
+    got = np.frombuffer(out, np.float64)
+    want = lgt.Booster(model_file=model).predict(Xc, raw_score=True,
+                                                 device=False)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    log(f"phase 22 (c) convert_model: {os.path.getsize(src)} bytes of C++ "
+        f"for {SHELL_ITERS} trees, g++ -O1 {compile_s!r} s; "
+        f"{SHELL_CODEGEN_ROWS} rows in {run_s!r} s; raw scores equal the "
+        "host walk within 1e-12")
+
+
+def shell_parser(path):
+    """(d): the C++ parser over the whole file, the numpy body over a
+    slice (equal arrays there), then the two-round loader's rounds.
+    Returns the file's features as parsed."""
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.stream_loader import load_binned_two_round
+    with open(path, "rb") as fh:
+        data = fh.read()
+    n_cols = native.count_cols(data, ",")
+    assert n_cols == 1 + N_FEATURES, n_cols
+    t = time.perf_counter()
+    full = native.parse_dense_chunk(data, ",", n_cols)
+    cpp_s = time.perf_counter() - t
+    assert full.shape == (SHELL_ROWS, n_cols)
+    cut = 0
+    for _ in range(SHELL_NUMPY_ROWS):
+        cut = data.index(b"\n", cut) + 1
+    t = time.perf_counter()
+    part = native.parse_dense_numpy(data[:cut], ",", n_cols)
+    np_s = time.perf_counter() - t
+    np.testing.assert_array_equal(
+        native.parse_dense_chunk(data[:cut], ",", n_cols), part)
+    np.testing.assert_array_equal(full[:SHELL_NUMPY_ROWS], part)
+    params = bench_params(two_round=True)
+    t = time.perf_counter()
+    b = load_binned_two_round(path, Config(params))
+    load_s = time.perf_counter() - t
+    st = b.ingest_stats
+    assert b.num_data == SHELL_ROWS
+    r1, r2 = SHELL_ROWS / st["round1_s"], SHELL_ROWS / st["round2_s"]
+    log(f"phase 22 (d) native parser ({len(data)} bytes): C++ "
+        f"{SHELL_ROWS / cpp_s!r} rows/s, numpy {SHELL_NUMPY_ROWS / np_s!r} "
+        f"rows/s on a {SHELL_NUMPY_ROWS}-row slice (equal arrays, NaNs in "
+        f"the same places); two-round load {load_s!r} s: round 1 {r1!r} "
+        f"rows/s, bin finding {st['find_bins_s']!r} s, round 2 {r2!r} "
+        f"rows/s (phase 21 (a) with the numpy parser, PR 22: "
+        f"{PR22_NUMPY_ROWS_S[0]:,}-{PR22_NUMPY_ROWS_S[1]:,})")
+    return full[:, 1:]
+
+
+def shell_c_host_start(tmp):
+    """(e): the C host above, compiled with ``gcc`` against the port's
+    library and started; it embeds the interpreter and trains on the
+    card."""
+    import os
+    import sysconfig
+    from lightgbm_tpu_torch import native
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(tmp, "c_host.c")
+    with open(src, "w") as fh:
+        fh.write(_C_HOST_SRC)
+    exe = os.path.join(tmp, "c_host")
+    subprocess.run(["gcc", "-O1", "-I",
+                    os.path.join(here, "lightgbm_tpu_torch", "native"), src,
+                    native.library_path(), "-lm", "-o", exe], check=True,
+                   capture_output=True, timeout=120)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (sysconfig.get_paths()["purelib"],
+                    env.get("PYTHONPATH", "")) if p)
+    env["LGBM_TPU_LIBPYTHON"] = os.path.join(
+        sysconfig.get_config_var("LIBDIR") or "",
+        sysconfig.get_config_var("LDLIBRARY") or "")
+    model = os.path.join(tmp, "c_host_model.txt")
+    return spawn([exe, str(SHELL_C_ROWS), str(N_FEATURES),
+                  str(SHELL_C_ITERS), model], tmp, "c_host", env=env), \
+        model, env["LGBM_TPU_LIBPYTHON"]
+
+
+def shell_c_host_check(child, model, libpython):
+    rc, out, err, wall = reap(child)
+    assert rc == 0 and "C-HOST-OK" in out, (rc, out[-2000:], err[-3000:])
+    iter_s = [float(ln.split("s=")[1]) for ln in out.splitlines()
+              if ln.startswith("C-HOST iter ")]
+    with open(model) as fh:
+        assert f"[device_type: {SHELL_DEVICE}]" in fh.read()
+    summary = [ln for ln in out.splitlines()
+               if ln.startswith("C-HOST iterations")][0]
+    log(f"phase 22 (e) a C host (gcc, LGBM_TPU_LIBPYTHON={libpython}) "
+        f"trained {SHELL_C_ROWS} x {N_FEATURES}, {NUM_LEAVES} leaves on "
+        f"the card: iter_s={iter_s!r} (the first builds the booster's "
+        f"state), {wall!r} s wall (beside the in-process parts); the "
+        f"training handle's "
+        f"host walk against the serving ABI over the saved file: "
+        f"{summary[len('C-HOST '):]} (its K1 launches are its own "
+        "process's, not counted)")
+
+
+def shell_tree_shap(model, ref, X_file):
+    """(f): ``pred_contrib`` of (a)'s model through the C++ kernel against
+    the device TreeSHAP of the same trees."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import native
+    Xs = np.ascontiguousarray(X_file[:SHELL_SHAP_ROWS], np.float64)
+    bst = lgt.Booster(model_file=model)
+    bst.predict(Xs[:10], pred_contrib=True)
+    t = time.perf_counter()
+    cpp = bst.predict(Xs, pred_contrib=True)
+    cpp_s = time.perf_counter() - t
+    assert native.get_lib() is not None
+    ref.predict(Xs[:10], pred_contrib=True, device=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dev = ref.predict(Xs, pred_contrib=True, device=True)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t
+    assert ref._engine._serving.shap_pack is not None, "no device TreeSHAP"
+    np.testing.assert_allclose(cpp, dev, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(cpp.sum(axis=1),
+                               bst.predict(Xs, raw_score=True), rtol=1e-9,
+                               atol=1e-9)
+    log(f"phase 22 (f) TreeSHAP of {SHELL_SHAP_ROWS} rows, {SHELL_ITERS} "
+        f"trees: the C++ kernel {SHELL_SHAP_ROWS / cpp_s!r} rows/s, the "
+        f"device {SHELL_SHAP_ROWS / dev_s!r} rows/s (PR 12's numpy walk "
+        f"{PR12_SHAP_ROWS_S[0]:,}-{PR12_SHAP_ROWS_S[1]:,}); within rtol "
+        "1e-4 / atol 1e-5 of each other")
+
+
+def shell_arrow(X_file, y):
+    """(g): the Arrow ABI in this process: a table of SHELL_ARROW_ROWS
+    rows through ``LGBM_DatasetCreateFromArrow`` and
+    ``LGBM_DatasetSetFieldFromArrow``, 2 iterations on the card (no
+    ``device_type``), ``LGBM_BoosterPredictForArrow`` against
+    ``LGBM_BoosterPredictForMat`` on the same handle."""
+    import ctypes
+    import pyarrow as pa
+    from lightgbm_tpu_torch import native
+    lib = native.get_lib()
+    n = SHELL_ARROW_ROWS
+    Xa = np.ascontiguousarray(X_file[:n])
+
+    def export(batch):
+        # ArrowArray 88 B, ArrowSchema 72 B on LP64; pyarrow fills them
+        arr, sch = (ctypes.create_string_buffer(k) for k in (88, 72))
+        batch._export_to_c(ctypes.addressof(arr), ctypes.addressof(sch))
+        return arr, sch
+
+    lib.LGBM_GetLastError.restype = ctypes.c_char_p
+
+    def ok(rc, what):
+        assert rc == 0, (what, lib.LGBM_GetLastError())
+    t = time.perf_counter()
+    arr, sch = export(pa.record_batch(
+        [pa.array(Xa[:, j]) for j in range(Xa.shape[1])],
+        names=[f"f{j}" for j in range(Xa.shape[1])]))
+    ds, bst = ctypes.c_void_p(), ctypes.c_void_p()
+    ok(lib.LGBM_DatasetCreateFromArrow(
+        ctypes.c_int64(1), ctypes.c_void_p(ctypes.addressof(arr)),
+        ctypes.c_void_p(ctypes.addressof(sch)), f"max_bin={MAX_BIN}".encode(),
+        None, ctypes.byref(ds)), "DatasetCreateFromArrow")
+    la, ls = export(pa.record_batch([pa.array(y[:n].astype(np.float32))],
+                                    names=["y"]))
+    ok(lib.LGBM_DatasetSetFieldFromArrow(
+        ds, b"label", ctypes.c_int64(1), ctypes.c_void_p(ctypes.addressof(la)),
+        ctypes.c_void_p(ctypes.addressof(ls))), "SetFieldFromArrow")
+    ok(lib.LGBM_BoosterCreate(
+        ds, " ".join([p for p in shell_params() if "metric" not in p]
+                     + ["verbosity=-1"]).encode(),
+        ctypes.byref(bst)), "BoosterCreate")
+    fin = ctypes.c_int(0)
+    for _ in range(SHELL_CHILD_ITERS):
+        ok(lib.LGBM_BoosterUpdateOneIter(bst, ctypes.byref(fin)), "Update")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    out_len = ctypes.c_int64(0)
+    by_mat, by_arrow = np.zeros(n), np.zeros(n)
+    ok(lib.LGBM_BoosterPredictForMat(
+        bst, Xa.ctypes.data_as(ctypes.c_void_p), 1, n, Xa.shape[1], 1, 1, 0,
+        -1, b"", ctypes.byref(out_len),
+        by_mat.ctypes.data_as(ctypes.POINTER(ctypes.c_double))), "ForMat")
+    ok(lib.LGBM_BoosterPredictForArrow(
+        bst, ctypes.c_int64(1), ctypes.c_void_p(ctypes.addressof(arr)),
+        ctypes.c_void_p(ctypes.addressof(sch)), 1, 0, -1, b"",
+        ctypes.byref(out_len),
+        by_arrow.ctypes.data_as(ctypes.POINTER(ctypes.c_double))),
+        "ForArrow")
+    np.testing.assert_array_equal(by_arrow, by_mat)
+    assert np.isfinite(by_mat).all() and by_mat.std() > 0
+    buf_len = ctypes.c_int64(0)
+    text = ctypes.create_string_buffer(1 << 22)
+    ok(lib.LGBM_BoosterSaveModelToString(
+        bst, 0, -1, 0, ctypes.c_int64(len(text)), ctypes.byref(buf_len),
+        text), "SaveModelToString")
+    assert f"[device_type: {SHELL_DEVICE}]" in text.value.decode()
+    ok(lib.LGBM_BoosterFree(bst), "BoosterFree")
+    ok(lib.LGBM_DatasetFree(ds), "DatasetFree")
+    log(f"phase 22 (g) the Arrow ABI in this process: {n} x "
+        f"{Xa.shape[1]} from a record batch, {SHELL_CHILD_ITERS} "
+        f"iterations on the card (no device_type) in {train_s!r} s; "
+        "PredictForArrow equals PredictForMat on the same handle")
+
+
+def phase_shell(X, y, phase4_iter_s):
+    """Phase 22: the CLI, ``python -m lightgbm_tpu_torch``, convert_model,
+    the native parser, a C host of the training ABI, native TreeSHAP and
+    the Arrow ABI,
+    at phase 4's width on its first SHELL_ROWS rows written as a CSV.
+    (b)'s children and (e)'s C host run beside the in-process parts.
+    Returns the K1 launches of this process."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    from lightgbm_tpu_torch import native
+    t0 = time.perf_counter()
+    assert native.get_lib() is not None, \
+        f"phase 22: the native library did not load: {native.build_error}"
+    log(f"phase 22 built or found the native library in "
+        f"{time.perf_counter() - t0!r} s: {native.library_path()}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shell_")
+    children = []
+    try:
+        path = os.path.join(tmp, "higgs.csv")
+        vpath = os.path.join(tmp, "higgs_valid.csv")
+        n, nv = SHELL_ROWS, SHELL_VALID_ROWS
+        write_rows(path, np.column_stack([y[:n], X[:n]]), "w")
+        write_rows(vpath, np.column_stack([y[n:n + nv], X[n:n + nv]]), "w")
+        log(f"phase 22 wrote {n} + {nv} rows as CSV in "
+            f"{time.perf_counter() - t0!r} s")
+        child_model = os.path.join(tmp, "child_model.txt")
+        result = os.path.join(tmp, "child_pred.txt")
+        train_conf = shell_conf(tmp, "train", [
+            f"data={path}", *shell_params(),
+            f"num_iterations={SHELL_CHILD_ITERS}",
+            f"output_model={child_model}"])
+        predict_conf = shell_conf(tmp, "predict", [
+            f"data={path}", f"input_model={child_model}",
+            f"output_result={result}"])
+        children.append(shell_module_child(tmp, train_conf, "train"))
+        c_host, c_model, libpython = shell_c_host_start(tmp)
+        children.append(c_host)
+        reset_counts()
+        model, ref = shell_cli_train(path, vpath, tmp, phase4_iter_s)
+        walls, warnings = {}, []
+
+        def reap_ok(child, task):
+            rc, _, err, walls[task] = reap(child)
+            assert rc == 0, (task, err[-3000:])
+            warnings.extend(ln for ln in err.splitlines()
+                            if "[Warning]" in ln)
+        reap_ok(children[0], "train")
+        children.append(shell_module_child(tmp, predict_conf, "predict"))
+        X_file = shell_parser(path)
+        shell_convert_model(model, tmp, X_file)
+        shell_tree_shap(model, ref, X_file)
+        if importlib.util.find_spec("pyarrow") is not None:
+            shell_arrow(X_file, y)
+        else:
+            log("phase 22 (g) skips the Arrow ABI: pyarrow is not "
+                "installed on this machine (held on the CPU by "
+                "tests/test_torch_native.py)")
+        reap_ok(children[-1], "predict")
+        shell_module_check(walls, warnings, child_model, result, X_file)
+        shell_c_host_check(c_host, c_model, libpython)
+        log("phase 22 skips plotting: it draws on the host, held on the "
+            "CPU by tests/test_torch_codegen_plotting.py (matplotlib is "
+            + ("not " if importlib.util.find_spec("matplotlib") is None
+               else "") + "installed on this machine)")
+        counts = read_counts()
+    finally:
+        for child in children:
+            child["proc"].kill()
+            child["proc"].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 22 took {time.perf_counter() - t0!r} s")
+    return counts
+
+
 def side_worker(plan_path):
     """The side process (``--side-worker PLAN``): the phases that need
     nothing of phase 4's rows or model (9's multiclass part, 13, 14, 10,
@@ -7061,6 +7631,9 @@ def main():
         log(f"phase 18 done at {time.perf_counter() - t:.1f} s")
         serve_totals = phase_serving(bst, ds, X)
         log(f"phase 19 done at {time.perf_counter() - t:.1f} s")
+        shell_totals = phase_shell(X, ds.get_label(),
+                                   main_run["median_iter_s"])
+        log(f"phase 22 done at {time.perf_counter() - t:.1f} s")
         del bst, ds, X
         gc.collect()
         res = finish_side(side)
@@ -7080,11 +7653,11 @@ def main():
              + constraint_totals.get(k, 0) + robust_totals.get(k, 0)
              + dist_totals.get(k, 0) + shard_totals.get(k, 0)
              + serve_totals.get(k, 0) + fleet_totals.get(k, 0)
-             + live_totals.get(k, 0)
+             + live_totals.get(k, 0) + shell_totals.get(k, 0)
              for k in set(cat_totals) | set(sparse_totals)
              | set(constraint_totals) | set(robust_totals)
              | set(dist_totals) | set(shard_totals) | set(serve_totals)
-             | set(fleet_totals) | set(live_totals)}
+             | set(fleet_totals) | set(live_totals) | set(shell_totals)}
 
     kernels = []
     level = f"skewed n={LEVEL_NODES[-1]}"
@@ -7138,6 +7711,9 @@ def main():
     log("phase 21 launches ((a)'s training, (c)'s thread trainer and (d)'s "
         "tenants; (b)'s child trainer runs K1 in its own process): "
         + json.dumps(nonzero(live_totals)))
+    log("phase 22 launches ((a)'s CLI and its lgt.train reference; the "
+        "children of (b) and (e) run K1 in their own processes): "
+        + json.dumps(nonzero(shell_totals)))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -20,23 +20,31 @@ resident trainer on a growing CSV, a publish pump into a live server and
 an HTTP front door (``FrontDoor`` / ``ServerGateway`` mount any server or
 fleet behind one).
 
+``python -m lightgbm_tpu_torch config=train.conf`` is the command-line
+application (``cli.py``); ``native/`` builds the C++ parser, TreeSHAP and
+the C ABIs with ``g++`` at first use (``native.get_lib()``).
+``LIGHTGBM_TPU_PLATFORM=cpu`` at import makes the CPU the default device.
+
 ``LGBM_TPU_FAULTS`` installs its fault plan at import, as in the JAX
 package (``robustness/faults.py``); ``LGBM_TPU_HEARTBEAT`` is read when a
 Booster sets up training (``robustness/heartbeat.py``).
 """
 from . import callback, robustness
 from .basic import Booster, Dataset
-from .callback import (checkpoint_callback, early_stopping, log_evaluation,
-                       record_evaluation, reset_parameter)
+from .callback import (EarlyStopException, checkpoint_callback,
+                       early_stopping, log_evaluation, record_evaluation,
+                       reset_parameter)
 from .config import Config
 from .engine import CVBooster, cv, train
 from .io.sequence import Sequence
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
+from .utils.log import LightGBMError, register_logger
 
-__all__ = ["Booster", "CVBooster", "Config", "Dataset", "LGBMClassifier",
-           "LGBMModel", "LGBMRanker", "LGBMRegressor", "callback",
-           "checkpoint_callback", "cv", "early_stopping", "log_evaluation",
-           "record_evaluation", "reset_parameter", "robustness", "Sequence",
+__all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
+           "LGBMClassifier", "LGBMModel", "LGBMRanker", "LGBMRegressor",
+           "LightGBMError", "callback", "checkpoint_callback", "cv",
+           "early_stopping", "log_evaluation", "record_evaluation",
+           "register_logger", "reset_parameter", "robustness", "Sequence",
            "train"]
 
 # opt-in fault injection for any importing process (children that
@@ -56,5 +64,11 @@ def __getattr__(name):
                 "serve_continual"):
         from . import service
         return getattr(service, name)
+    # plotting (ref: the JAX package's __init__.py:85-87); matplotlib and
+    # graphviz are imported when a chart is drawn
+    if name in ("plot_importance", "plot_metric", "plot_tree",
+                "create_tree_digraph", "plot_split_value_histogram"):
+        from . import plotting
+        return getattr(plotting, name)
     raise AttributeError(
         f"module 'lightgbm_tpu_torch' has no attribute {name!r}")

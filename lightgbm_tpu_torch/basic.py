@@ -1187,12 +1187,15 @@ class Booster:
 
     def save_model(self, filename, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,
-                   importance_type: str = "split") -> "Booster":
+                   importance_type: str = "split",
+                   atomic: bool = False) -> "Booster":
+        """``atomic=True`` writes through the crash-safe writer (tmp +
+        fsync + rename)."""
         from .io.model_io import save_model_file
         save_model_file(self._engine, self.config, str(filename),
                         num_iteration=num_iteration,
                         start_iteration=start_iteration,
-                        importance_type=importance_type)
+                        importance_type=importance_type, atomic=atomic)
         return self
 
     # -- copies (ref: basic.py Booster.__getstate__ / __setstate__) --------

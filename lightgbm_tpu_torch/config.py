@@ -8,7 +8,8 @@ format); ref: include/LightGBM/config.h:41 struct Config,
 src/io/config.cpp, python-package lightgbm/basic.py:513 _ConfigAliases.
 
 Differences from the JAX package's copy: ``device_type`` defaults to
-``"cuda"`` and accepts ``"cuda"`` or ``"cpu"``; the ``tpu_*`` names stay
+``"cuda"`` (``"cpu"`` when ``LIGHTGBM_TPU_PLATFORM=cpu`` is set at
+import) and accepts ``"cuda"`` or ``"cpu"``; the ``tpu_*`` names stay
 registered so one params dict drives both packages. The port reads
 ``tpu_row_scheduling`` (compact, full, leaf or level), ``tpu_hist_dtype``,
 ``tpu_level_handoff_depth``, ``tpu_device_bagging``,
@@ -41,6 +42,7 @@ and profiler).
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 from .utils import log
@@ -95,7 +97,13 @@ _reg("num_leaves", int, 31, ("num_leaf", "max_leaves", "max_leaf", "max_leaf_nod
      (1, 131072, False, True))
 _reg("tree_learner", str, "serial", ("tree", "tree_type", "tree_learner_type"))
 _reg("num_threads", int, 0, ("num_thread", "nthread", "nthreads", "n_jobs"))
-_reg("device_type", str, "cuda", ("device",))
+# LIGHTGBM_TPU_PLATFORM=cpu, read once at import, makes the CPU the
+# default device: the JAX package's pin of its backend (its __init__.py
+# :1-5), the way a C host or the R shim asks for the CPU without naming
+# device_type in every parameter string
+_reg("device_type", str,
+     "cpu" if os.environ.get("LIGHTGBM_TPU_PLATFORM", "").lower() == "cpu"
+     else "cuda", ("device",))
 _reg("seed", int, None, ("random_seed", "random_state"))
 _reg("deterministic", bool, False, ())
 

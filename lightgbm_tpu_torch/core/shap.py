@@ -3,11 +3,12 @@
 Copy of the numpy path of ``lightgbm_tpu/core/shap.py`` (ref:
 include/LightGBM/tree.h ExpectedValue/TreeSHAP, src/io/tree.cpp TreeSHAP:
 Lundberg and Lee's exact polynomial-time recursion over decision paths;
-c_api.cpp PredictType kPredictContrib), on the host in f64. The JAX
-package's row-parallel C++ kernel (``lightgbm_tpu/native``) is not
-ported (ROADMAP A16): this is the path the JAX package falls back to
-without its native library. The device explanation is
-``ops/shap_pack.py``, held to this walk.
+c_api.cpp PredictType kPredictContrib), on the host in f64, and the
+dispatch to the row-parallel C++ kernel (``native/shap.cpp``) where the
+native library loads, as the JAX package's ``predict_contrib`` does
+(its core/shap.py:329-410); trees the kernel declines (linear) take the
+numpy walk. The device explanation is ``ops/shap_pack.py``, held to this
+walk.
 
 The recursion runs once per tree, vectorized over rows: its branch
 structure, cover ratios and feature dedup depend only on the tree, while
@@ -160,22 +161,85 @@ def shap_tree_batch(t: HostTree, X: np.ndarray,
     return phi
 
 
+def _native_tree_shap(t: HostTree, X64: np.ndarray, out: np.ndarray,
+                      base: int, lib) -> bool:
+    """Accumulate one tree's contributions via the C++ kernel
+    (native/shap.cpp — the reference's OMP-predictor architecture,
+    predictor.hpp:31). Returns False if the tree shape can't go native
+    (caller falls back to the numpy batch)."""
+    import ctypes
+    n_int = len(t.split_feature)
+    if n_int == 0:
+        return False
+    if getattr(t, "is_linear", False):
+        return False  # keep whatever the python path does for linear
+    c_i32 = ctypes.POINTER(ctypes.c_int32)
+    c_f64 = ctypes.POINTER(ctypes.c_double)
+    c_u32 = ctypes.POINTER(ctypes.c_uint32)
+    as_ = lambda a, dt: np.ascontiguousarray(a, dtype=dt)
+    sf = as_(t.split_feature, np.int32)
+    th = as_(t.threshold_real, np.float64)
+    dt_ = as_(t.decision_type, np.int32)
+    lc = as_(t.left_child, np.int32)
+    rc = as_(t.right_child, np.int32)
+    lv = as_(t.leaf_value, np.float64)
+    lcnt = as_(t.leaf_count, np.float64)
+    icnt = as_(t.internal_count, np.float64)
+    num_cat = int(getattr(t, "num_cat", 0) or 0)
+    if num_cat > 0:
+        cb = as_(t.cat_boundaries, np.int32)
+        ct = as_(t.cat_threshold, np.uint32)
+        n_words = len(ct)
+        cb_p = cb.ctypes.data_as(c_i32)
+        ct_p = ct.ctypes.data_as(c_u32)
+    else:
+        cb = ct = None
+        n_words = 0
+        cb_p = ctypes.cast(None, c_i32)
+        ct_p = ctypes.cast(None, c_u32)
+    # bias column excluded: out_stride walks full rows, base offsets the
+    # class block; the expected value is added by the caller
+    sub = out[:, base:]
+    rc_code = lib.lgbm_tree_shap_batch(
+        sf.ctypes.data_as(c_i32), th.ctypes.data_as(c_f64),
+        dt_.ctypes.data_as(c_i32), lc.ctypes.data_as(c_i32),
+        rc.ctypes.data_as(c_i32), lv.ctypes.data_as(c_f64),
+        lcnt.ctypes.data_as(c_f64), icnt.ctypes.data_as(c_f64),
+        np.int32(n_int), cb_p, ct_p, np.int32(num_cat),
+        np.int32(n_words), X64.ctypes.data_as(c_f64),
+        np.int64(X64.shape[0]), np.int32(X64.shape[1]),
+        sub.ctypes.data_as(c_f64), np.int64(out.strides[0] // 8),
+        np.int32(0))
+    return rc_code == 0
+
+
 def predict_contrib(engine, X: np.ndarray, start_iteration: int,
-                    end_iteration: int, row_chunk: int = 16384) -> np.ndarray:
+                    end_iteration: int, row_chunk: int = 16384
+                    ) -> np.ndarray:
     """SHAP contributions ``[N, (F + 1) * K]`` of iterations
     [start, end): per class a block of F feature columns and the expected
-    value (ref: PredictType kPredictContrib). Rows go in chunks: the path
-    copies hold O(depth^2 * chunk) floats."""
+    value (ref: PredictType kPredictContrib). The C++ row-parallel kernel
+    answers where the native library loads, else the numpy walk, its rows
+    in chunks (the path copies hold O(depth^2 * chunk) floats). Both
+    reproduce the scalar recursion in f64."""
     K = engine.num_tree_per_iteration
     F = engine.max_feature_idx + 1
     N = X.shape[0]
     out = np.zeros((N, (F + 1) * K))
+    from ..native import get_lib
+    lib = get_lib()
+    X64 = np.ascontiguousarray(X, dtype=np.float64) if lib is not None \
+        else None
     for it in range(start_iteration, end_iteration):
         for k in range(K):
             t = engine.models[it * K + k]
             base = k * (F + 1)
             if t.num_leaves <= 1:
                 out[:, base + F] += float(t.leaf_value[0])
+                continue
+            if lib is not None and _native_tree_shap(t, X64, out, base,
+                                                     lib):
+                out[:, base + F] += _expected_value(t, 0)
                 continue
             for lo in range(0, N, row_chunk):
                 hi = min(lo + row_chunk, N)

@@ -136,10 +136,20 @@ def model_to_string(engine, config: Config,
 def save_model_file(engine, config: Config, filename: str,
                     num_iteration: Optional[int] = None,
                     start_iteration: int = 0,
-                    importance_type: str = "split") -> None:
+                    importance_type: str = "split",
+                    atomic: bool = False) -> None:
+    """``atomic=True``: crash-safe write via tmp + fsync + rename
+    (``robustness/checkpoint.py``), as the CLI's snapshots are written, so
+    a kill mid-write cannot leave a torn model file (ref: the JAX
+    package's io/model_io.py:138)."""
+    text = model_to_string(engine, config, num_iteration,
+                           start_iteration, importance_type)
+    if atomic:
+        from ..robustness.checkpoint import atomic_write_text
+        atomic_write_text(filename, text)
+        return
     with open(filename, "w") as f:
-        f.write(model_to_string(engine, config, num_iteration,
-                                start_iteration, importance_type))
+        f.write(text)
 
 
 # ---------------------------------------------------------------------------

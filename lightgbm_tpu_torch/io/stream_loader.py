@@ -9,7 +9,8 @@ streams again and quantizes each chunk straight into the port's
 row-major ``[R, F_used]`` bin matrix. Peak memory is O(chunk + sample +
 bins): the raw float matrix is never materialized, and the LibSVM path
 works from (row, col, value) triplets without densifying a chunk to full
-feature width. The chunks parse through ``native/`` (numpy).
+feature width. The chunks parse through ``native/``: its C++ parser
+where the native library loads, else its numpy body.
 
 ``StreamFollower`` tail-follows a growing CSV for the resident trainer
 (``service/trainer.py``).

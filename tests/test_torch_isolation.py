@@ -1,9 +1,12 @@
 """The PyTorch port stands apart from the JAX package: no file of
 ``lightgbm_tpu_torch/`` and not ``chip_smoke.py`` imports jax, jaxlib or
-``lightgbm_tpu`` (a static scan), and importing the port loads none of
-them (a fresh interpreter)."""
+``lightgbm_tpu`` (a static scan), no C or C++ source of the port's native
+library names either (the Python its training ABI embeds included), and
+importing the port loads none of them (a fresh interpreter). The port's
+top level has every name of the JAX package's."""
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -58,7 +61,8 @@ LEAF_MODULES = {
 # native kernel, the binary dataset format, and the estimators with their
 # stand-ins for a machine without scikit-learn
 COPIED_MODULES = {
-    "lightgbm_tpu_torch/core/shap.py": {"__future__", "numpy", ".tree"},
+    "lightgbm_tpu_torch/core/shap.py": {"__future__", "numpy", ".tree",
+                                        "ctypes", "..native"},
     "lightgbm_tpu_torch/io/binary_io.py": {"__future__", "json", "math",
                                            "numpy", "..utils", ".binning",
                                            ".dataset_core"},
@@ -143,7 +147,8 @@ COPIED_MODULES.update(SERVING_MODULES)
 # latency recorder; the trainer trains through the port's own API
 SERVICE_MODULES = {
     "lightgbm_tpu_torch/native/__init__.py": {
-        "__future__", "typing", "numpy"},
+        "__future__", "typing", "numpy", "ctypes", "fcntl", "hashlib", "os",
+        "shutil", "subprocess", "tempfile", "threading", "..utils"},
     "lightgbm_tpu_torch/io/stream_loader.py": {
         "__future__", "os", "time", "typing", "numpy", "scipy.sparse",
         "..config", "..native", "..utils", "..ops.hist_multival",
@@ -164,6 +169,75 @@ SERVICE_MODULES = {
         "..serving.metrics", "..robustness.checkpoint", "..utils"},
 }
 COPIED_MODULES.update(SERVICE_MODULES)
+
+
+# the shell and tooling copied from the JAX package (the CLI, the codegen,
+# plotting and the native library's ctypes wrapper): the only imports
+# each may have. matplotlib and graphviz load when a chart is drawn
+SHELL_MODULES = {
+    "lightgbm_tpu_torch/cli.py": {
+        "__future__", "os", "re", "sys", "typing", "numpy", ".basic",
+        ".config", ".engine", ".utils", ".utils.log", ".callback",
+        ".robustness.checkpoint", ".io.file_loader", ".io.codegen"},
+    "lightgbm_tpu_torch/__main__.py": {".cli"},
+    "lightgbm_tpu_torch/io/codegen.py": {"__future__", "typing"},
+    "lightgbm_tpu_torch/plotting.py": {
+        "__future__", "copy", "typing", "numpy", ".basic", ".sklearn",
+        "matplotlib.pyplot", "matplotlib.ticker", "matplotlib.image",
+        "graphviz", "io"},
+    "lightgbm_tpu_torch/native/capi.py": {
+        "__future__", "ctypes", "typing", "numpy", "."},
+}
+COPIED_MODULES.update(SHELL_MODULES)
+
+
+def _native_sources():
+    base = os.path.join(REPO, "lightgbm_tpu_torch", "native")
+    return sorted(os.path.join(base, f) for f in os.listdir(base)
+                  if f.endswith((".c", ".cpp", ".h")))
+
+
+def test_native_sources_exist():
+    names = {os.path.basename(p) for p in _native_sources()}
+    assert {"parser.cpp", "shap.cpp", "c_api.cpp", "c_api_train.cpp",
+            "arrow_ingest.cpp", "lgbm_c_api.h"} <= names
+
+
+@pytest.mark.parametrize("path", _native_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_native_source_names_neither_jax_nor_the_jax_package(path):
+    """No line of a native source, the Python that ``c_api_train.cpp``
+    embeds included, names ``lightgbm_tpu`` without ``_torch`` or jax."""
+    with open(path) as fh:
+        text = fh.read()
+    assert not re.findall(r"lightgbm_tpu(?!_torch)", text), path
+    assert not re.findall(r"\bjax(lib)?\b", text, re.IGNORECASE), path
+
+
+def test_embedded_interpreter_imports_the_port():
+    with open(os.path.join(REPO, "lightgbm_tpu_torch", "native",
+                           "c_api_train.cpp")) as fh:
+        text = fh.read()
+    imports = re.findall(r"(?:import|from) (lightgbm_tpu\w*)", text)
+    assert imports and set(imports) == {"lightgbm_tpu_torch"}, imports
+
+
+def test_top_level_names_match_the_jax_package():
+    """Every name of ``lightgbm_tpu.__all__`` and the five plotting names
+    it resolves lazily resolve on the port's top level."""
+    import lightgbm_tpu
+
+    import lightgbm_tpu_torch
+    lazy = ("plot_importance", "plot_metric", "plot_tree",
+            "create_tree_digraph", "plot_split_value_histogram")
+    missing = [n for n in (*lightgbm_tpu.__all__, *lazy)
+               if not hasattr(lightgbm_tpu_torch, n)]
+    assert not missing, missing
+    for name in ("LightGBMError", "EarlyStopException", "register_logger"):
+        assert name in lightgbm_tpu_torch.__all__, name
+    assert issubclass(lightgbm_tpu_torch.LightGBMError, Exception)
+    assert lightgbm_tpu_torch.plot_importance.__module__ == \
+        "lightgbm_tpu_torch.plotting"
 
 
 def test_service_modules_import_no_torch_at_module_level():

@@ -2,8 +2,9 @@
 loader (``lightgbm_tpu_torch/native``, ``io/stream_loader.py``) against
 the JAX package's on the same numpy-seeded inputs.
 
-The JAX side runs its numpy parser (``LIGHTGBM_TPU_NO_NATIVE=1``, its
-library handle reset), the port's only one: the parsers give the same
+Both packages run their numpy parsers (``LIGHTGBM_TPU_NO_NATIVE=1``,
+each library handle reset; the C++ bodies are held to each other on the
+same corpus by ``tests/test_torch_native.py``): the parsers give the same
 arrays (NaN where NaN) on a corpus of NaN tokens, blanks, junk, blank
 lines, LibSVM ``qid:`` and duplicate ids; two followers fed the same
 appended bytes (torn tails, ragged and unparseable lines, the skip
@@ -41,11 +42,12 @@ CPU = {"device_type": "cpu"}
 
 @pytest.fixture(autouse=True)
 def jax_numpy_parser(monkeypatch):
-    """The JAX package's numpy parser, whatever another test of this
-    process built: its library handle reset and the build refused."""
+    """Both packages' numpy parsers, whatever another test of this
+    process built: each library handle reset and the build refused."""
     monkeypatch.setenv("LIGHTGBM_TPU_NO_NATIVE", "1")
-    monkeypatch.setattr(jnative, "_lib", None)
-    monkeypatch.setattr(jnative, "_tried", True)
+    for mod in (jnative, tnative):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_tried", True)
 
 
 def _same(a, b):
