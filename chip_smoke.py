@@ -408,12 +408,29 @@ Phases, each reported on its own line:
    ``PredictForArrow`` equal to ``PredictForMat``. (b)'s children and
    (e)'s host run beside (a), (c), (d), (f) and (g). Plotting draws on
    the host and is held on the CPU only (no matplotlib on the card's
-   machine).
+   machine);
+23. tracing and the lock-order tracker (after phase 22): (a) ``lgt.train``
+   of phase 4's params on phase 4's Dataset, 2 iterations with
+   ``global_timer`` on, then 2 more with ``tpu_profile_dir`` set too:
+   each run's trees equal phase 4's first two string for string, its
+   section table names the JAX package's five sections (each counted
+   once a tree; their shares of the loop's wall time logged), and the
+   trace file names K1's kernels (at most one a counted launch); logged:
+   each iteration's seconds beside phase 4's, the profiler's cost an
+   iteration, the trace's export seconds and bytes; (b) a ``ModelServer``
+   over phase 4's booster, 4 clients sending 100 requests of log-uniform
+   1..256 rows with one ``update()`` published when half are answered,
+   in turns without and under ``lockorder.tracking()``: every answer its
+   generation's ``predict(device=True)`` bit for bit, versions monotone a
+   client, the tracked run with its locks tracked and no violation
+   (requests/s and p50/p99 ms of each); a seeded inversion raises at the
+   attempt; (c) conlint over the port's threaded modules: no new
+   finding, every baseline entry reasoned.
 
 Phases 9's multiclass part, 13, 14, 10, 6, 20 and 21 (in that order) need
 nothing of phase 4's rows or model: they run in a second process
 (``--side-worker PLAN``), started after phase 5 and run beside phases 7
-to 19 and 22 of this one (the card and the host shared), which prints its
+to 19, 22 and 23 of this one (the card and the host shared), which prints its
 lines when it ends; each process counts its own launches. Past 1,140 s
 the script prints every thread's stack and exits 3.
 
@@ -4375,6 +4392,13 @@ def tree_text(bst):
     return s[s.index("Tree=0"):s.index("end of trees")]
 
 
+def first_trees(bst, n):
+    """The text of ``bst``'s first ``n`` trees, as ``tree_text`` gives a
+    booster of ``n`` trees."""
+    s = bst.model_to_string(num_iteration=n)
+    return s[s.index("Tree=0"):s.index("end of trees")]
+
+
 def run_updates(ds, params, iters, prepare=None, each=None):
     """A Booster on ``ds`` with ``params``: ``prepare(bst)`` first, then
     1 + ``iters`` updates (the launch counts zeroed just before and read
@@ -7402,6 +7426,284 @@ def phase_shell(X, y, phase4_iter_s):
     return counts
 
 
+TRACE_ITERS = 2                 # (a): lgt.train iterations, each run
+TRACE_CLIENTS = 4               # (b): closed-loop clients ...
+TRACE_REQUESTS = 100            # ... sending this many requests in all
+TRACE_MAX_ROWS = 256            # ... of log-uniform 1..this many rows
+TRACE_POOL_ROWS = 20_000        # the rows a request slices
+K1_KERNELS = dict(KERNEL_KEYS)["K1"]
+
+
+def traced_train(ds, profile_dir):
+    """``lgt.train`` of phase 4's params on phase 4's Dataset for
+    TRACE_ITERS iterations with ``global_timer`` on (and the profiler
+    when ``profile_dir``): the booster, each iteration's seconds (card
+    synced), the seconds from the last iteration to ``train``'s return
+    (the trace's export), the section table and its totals, and the K1
+    launches."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.utils.timer import global_timer
+    stamps = []
+
+    def before(env):
+        torch.cuda.synchronize()
+        stamps.append(("start", time.perf_counter()))
+    before.before_iteration = True
+
+    def after(env):
+        torch.cuda.synchronize()
+        stamps.append(("end", time.perf_counter()))
+    params = dict(ds.params)
+    global_timer.reset()
+    global_timer.enabled = True
+    reset_counts()
+    try:
+        extra = {"tpu_profile_dir": profile_dir} if profile_dir else {}
+        bst = lgt.train(bench_params(**extra), ds,
+                        num_boost_round=TRACE_ITERS,
+                        callbacks=[before, after],
+                        keep_training_booster=True)
+        torch.cuda.synchronize()
+        done = time.perf_counter()
+    finally:
+        global_timer.enabled = False
+        ds.params = params
+    counts = read_counts()
+    starts = [t for k, t in stamps if k == "start"]
+    ends = [t for k, t in stamps if k == "end"]
+    iter_s = [e - b for b, e in zip(starts, ends)]
+    assert len(iter_s) == TRACE_ITERS, stamps
+    table, totals = global_timer.table(), global_timer.totals()
+    global_timer.reset()
+    return dict(bst=bst, iter_s=iter_s, tail_s=done - ends[-1],
+                loop_s=ends[-1] - starts[0], table=table, totals=totals,
+                counts=counts)
+
+
+def tracing_sections(r, label):
+    """Log a run's section table and each section's share of the
+    loop's wall time; gate the names and counts."""
+    for line in r["table"].splitlines():
+        log(f"phase 23 (a) {label} | {line}")
+    shares = {k: t / r["loop_s"] for k, (t, _) in r["totals"].items()}
+    log(f"phase 23 (a) {label} share of the loop's {r['loop_s']!r} s: "
+        + json.dumps(shares))
+    names = {"GBDT::Boosting", "TreeLearner::Train", "Tree::ToHost",
+             "GBDT::UpdateScore", "GBDT::UpdateValidScore"}
+    assert set(r["totals"]) == names, r["totals"]
+    assert all(c == TRACE_ITERS for _, c in r["totals"].values()), \
+        r["totals"]
+
+
+def tracing_trace(profile_dir):
+    """The trace file (a): exists, and names K1's kernels; returns its
+    path, bytes, the K1 kernel events by name and the seconds to parse
+    it."""
+    import os
+    files = [os.path.join(profile_dir, f) for f in os.listdir(profile_dir)
+             if f.endswith(".pt.trace.json")]
+    assert len(files) == 1, files
+    t = time.perf_counter()
+    with open(files[0], encoding="utf-8") as fh:
+        events = json.load(fh)["traceEvents"]
+    parse_s = time.perf_counter() - t
+    k1 = {}
+    kernels = 0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        kernels += 1
+        for key in K1_KERNELS:
+            if key in e.get("name", ""):
+                k1[key] = k1.get(key, 0) + 1
+    return files[0], os.path.getsize(files[0]), kernels, k1, parse_s
+
+
+def tracing_serve(bst, Xp, seed, tracked):
+    """(b): a ModelServer over ``bst`` (update() first, published when
+    half the requests are answered), TRACE_CLIENTS clients sending
+    TRACE_REQUESTS requests of log-uniform 1..TRACE_MAX_ROWS rows; under
+    ``lockorder.tracking()`` when ``tracked``. Every answer must be its
+    generation's ``predict(device=True)``, versions monotone a client."""
+    import contextlib
+    import threading
+    from lightgbm_tpu_torch.analysis import lockorder
+    guard = lockorder.tracking() if tracked else contextlib.nullcontext()
+    records = [[] for _ in range(TRACE_CLIENTS)]
+    with guard as tracker:
+        srv = bst.serve(linger_ms=SERVE_LINGER_MS, raw_score=True)
+        try:
+            expected = {srv.generation.version: bst.predict(
+                Xp, device=True, raw_score=True)}
+            assert not bst.update()
+            nxt = bst.predict(Xp, device=True, raw_score=True)
+            answered = [0]
+            half = threading.Event()
+            lock = threading.Lock()
+            per_client = TRACE_REQUESTS // TRACE_CLIENTS
+
+            def client(ci):
+                rng = np.random.default_rng(seed + ci)
+                for _ in range(per_client):
+                    n = int(np.exp(rng.uniform(0, np.log(TRACE_MAX_ROWS))))
+                    lo = int(rng.integers(0, len(Xp) - n + 1))
+                    t = time.perf_counter()
+                    f = srv.submit(Xp[lo:lo + n])
+                    out = f.result(120)
+                    records[ci].append((lo, n, f.generation.version, out,
+                                        time.perf_counter() - t))
+                    with lock:
+                        answered[0] += 1
+                        if answered[0] >= TRACE_REQUESTS // 2:
+                            half.set()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,),
+                                        daemon=True)
+                       for i in range(TRACE_CLIENTS)]
+            for th in threads:
+                th.start()
+            assert half.wait(120), "phase 23 (b): traffic stalled"
+            tp = time.perf_counter()
+            info = srv.publish()
+            publish_ms = (time.perf_counter() - tp) * 1e3
+            expected[info.version] = nxt
+            for th in threads:
+                th.join(300)
+            assert not any(th.is_alive() for th in threads), "client hung"
+            wall = time.perf_counter() - t0
+            st = assert_clean(srv, "phase 23 (b)")
+        finally:
+            srv.close(timeout=60)
+        n_tracked = tracker.n_tracked if tracked else 0
+        violations = list(tracker.violations) if tracked else []
+    flat = [r for rs in records for r in rs]
+    assert len(flat) == per_client * TRACE_CLIENTS, len(flat)
+    for rs in records:
+        vs = [r[2] for r in rs]
+        assert vs == sorted(vs), vs
+    for lo, n, v, out, _ in flat:
+        assert v in expected, (v, list(expected))
+        assert np.array_equal(out, expected[v][lo:lo + n]), \
+            f"phase 23 (b): a response of generation {v} is not its model"
+    lat = np.array([r[4] for r in flat]) * 1e3
+    return dict(req_s=len(flat) / wall, rows_s=sum(r[1] for r in flat)
+                / wall, p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)), wall_s=wall,
+                publish_ms=publish_ms, batches=st["batches"],
+                versions=sorted({r[2] for r in flat}), n_tracked=n_tracked,
+                violations=violations)
+
+
+def tracing_seeded_inversion():
+    """A seeded lock-order inversion raises at the attempt."""
+    import threading
+    from lightgbm_tpu_torch.analysis import lockorder
+    priv = lockorder.LockOrderTracker()
+    a = lockorder.wrap(threading.Lock(), "seed-A", priv)
+    b = lockorder.wrap(threading.Lock(), "seed-B", priv)
+    with a:
+        with b:
+            pass
+    tripped = []
+
+    def inverted():
+        try:
+            with b:
+                with a:
+                    pass
+        except lockorder.LockOrderViolation as e:
+            tripped.append(e)
+    th = threading.Thread(target=inverted, daemon=True)
+    th.start()
+    th.join(30)
+    assert not th.is_alive() and len(tripped) == 1, tripped
+    assert {"seed-A", "seed-B"} <= set(tripped[0].cycle), tripped[0].cycle
+    return tripped[0].cycle
+
+
+def phase_tracing(bst, ds, X, phase4_trees, phase4_iter_s):
+    """Phase 23: (a) the section timer and ``tpu_profile_dir`` over
+    TRACE_ITERS iterations of phase 4's configuration on its Dataset
+    (the trees phase 4's first ones, string for string; the trace names
+    K1's kernels), beside the same run with the timer alone; (b) a
+    ModelServer over phase 4's booster with a publish under load, in
+    turns without and with the lock-order tracker; (c) conlint over the
+    port's threaded modules. Returns the K1 launches of (a) and of (b)'s
+    updates."""
+    import os
+    import shutil
+    import tempfile
+    from lightgbm_tpu_torch.analysis import concurrency
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        plain = traced_train(ds, None)
+        traced = traced_train(ds, os.path.join(tmp, "trace"))
+        for r, label in ((plain, "timer"), (traced, "timer+profiler")):
+            tracing_sections(r, label)
+            got = tree_text(r.pop("bst"))
+            assert got == phase4_trees, \
+                f"phase 23 (a) {label}: trees differ from phase 4's"
+            k1 = r["counts"]["hist_rowmajor_f32"]
+            assert k1 > 0 and sum(r["counts"].values()) == k1, r["counts"]
+        path, nbytes, kernels, k1_events, parse_s = tracing_trace(
+            os.path.join(tmp, "trace"))
+        launches = traced["counts"]["hist_rowmajor_f32"]
+        # one of K1's kernels a counted launch; CUPTI may drop an event
+        # from a trace of ~70,000 kernels, so the trace holds at most that
+        assert 0 < sum(k1_events.values()) <= launches, (k1_events,
+                                                         launches)
+        log(f"phase 23 (a) {TRACE_ITERS} iterations of phase 4's params: "
+            f"timer iter_s={plain['iter_s']!r}, timer+profiler "
+            f"iter_s={traced['iter_s']!r} (phase 4 median, timer off: "
+            f"{phase4_iter_s!r}); profiler overhead per iteration "
+            f"{(sum(traced['iter_s']) - sum(plain['iter_s'])) / TRACE_ITERS!r}"
+            f" s; the trace's export {traced['tail_s']!r} s (timer alone: "
+            f"{plain['tail_s']!r}); trace {nbytes} bytes, {kernels} device "
+            f"kernels, K1 {k1_events} against {launches} K1 launches "
+            f"counted, parsed in {parse_s!r} s; trees equal phase 4's "
+            "first two string for string in both runs")
+        counts = {"hist_rowmajor_f32": plain["counts"]["hist_rowmajor_f32"]
+                  + launches}
+        Xp = np.ascontiguousarray(X[:TRACE_POOL_ROWS])
+        reset_counts()
+        free = tracing_serve(bst, Xp, 2300, tracked=False)
+        guarded = tracing_serve(bst, Xp, 2300, tracked=True)
+        served = read_counts()
+        assert guarded["n_tracked"] > 0, guarded
+        assert not guarded["violations"], guarded["violations"]
+        cycle = tracing_seeded_inversion()
+        for r, label in ((free, "untracked"), (guarded, "tracked")):
+            log(f"phase 23 (b) {label}: {TRACE_CLIENTS} clients, "
+                f"{TRACE_REQUESTS} requests of 1..{TRACE_MAX_ROWS} rows, "
+                f"one publish under load: req_s={r['req_s']!r} "
+                f"rows_s={r['rows_s']!r} p50_ms={r['p50_ms']!r} "
+                f"p99_ms={r['p99_ms']!r} wall_s={r['wall_s']!r} "
+                f"publish_ms={r['publish_ms']!r} batches={r['batches']} "
+                f"generations={r['versions']} tracked_locks="
+                f"{r['n_tracked']} violations={len(r['violations'])}")
+        log(f"phase 23 (b) every answer its generation's "
+            "predict(device=True) bit for bit, versions monotone per "
+            f"client; tracked/untracked req_s "
+            f"{guarded['req_s'] / free['req_s']!r}; the seeded inversion "
+            f"raised at the attempt: {' -> '.join(cycle)}")
+        counts["hist_rowmajor_f32"] += served.get("hist_rowmajor_f32", 0)
+        root = os.path.dirname(os.path.abspath(__file__))
+        t = time.perf_counter()
+        rc = concurrency.main([], root=root)
+        records = concurrency.load_baseline_records(
+            concurrency.default_baseline_path(root))
+        assert rc == 0 and records and \
+            not concurrency.reasonless_entries(records), rc
+        log(f"phase 23 (c) conlint over {len(concurrency.TARGET_MODULES)} "
+            f"modules: no new finding, {len(records)} reasoned baseline "
+            f"entries, {time.perf_counter() - t!r} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 23 took {time.perf_counter() - t0!r} s")
+    return counts
+
+
 def side_worker(plan_path):
     """The side process (``--side-worker PLAN``): the phases that need
     nothing of phase 4's rows or model (9's multiclass part, 13, 14, 10,
@@ -7579,6 +7881,8 @@ def main():
     del flush
     main_run, bst, ds, X = phase_main_path()
     compact_counts = main_run["counts"]
+    # phase 4's first trees, which phase 23 trains again under the tracer
+    phase4_trees = first_trees(bst, TRACE_ITERS)
     log(f"phase 4 done at {time.perf_counter() - t:.1f} s")
     paths, ds_u16 = phase_paths(ds, X, bst._engine.models[0])
     log(f"phase 5 done at {time.perf_counter() - t:.1f} s")
@@ -7634,6 +7938,9 @@ def main():
         shell_totals = phase_shell(X, ds.get_label(),
                                    main_run["median_iter_s"])
         log(f"phase 22 done at {time.perf_counter() - t:.1f} s")
+        trace_totals = phase_tracing(bst, ds, X, phase4_trees,
+                                     main_run["median_iter_s"])
+        log(f"phase 23 done at {time.perf_counter() - t:.1f} s")
         del bst, ds, X
         gc.collect()
         res = finish_side(side)
@@ -7654,10 +7961,12 @@ def main():
              + dist_totals.get(k, 0) + shard_totals.get(k, 0)
              + serve_totals.get(k, 0) + fleet_totals.get(k, 0)
              + live_totals.get(k, 0) + shell_totals.get(k, 0)
+             + trace_totals.get(k, 0)
              for k in set(cat_totals) | set(sparse_totals)
              | set(constraint_totals) | set(robust_totals)
              | set(dist_totals) | set(shard_totals) | set(serve_totals)
-             | set(fleet_totals) | set(live_totals) | set(shell_totals)}
+             | set(fleet_totals) | set(live_totals) | set(shell_totals)
+             | set(trace_totals)}
 
     kernels = []
     level = f"skewed n={LEVEL_NODES[-1]}"
@@ -7714,6 +8023,8 @@ def main():
     log("phase 22 launches ((a)'s CLI and its lgt.train reference; the "
         "children of (b) and (e) run K1 in their own processes): "
         + json.dumps(nonzero(shell_totals)))
+    log("phase 23 launches ((a)'s two traced trainings and (b)'s two "
+        "updates): " + json.dumps(nonzero(trace_totals)))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -28,8 +28,23 @@ the C ABIs with ``g++`` at first use (``native.get_lib()``).
 ``LGBM_TPU_FAULTS`` installs its fault plan at import, as in the JAX
 package (``robustness/faults.py``); ``LGBM_TPU_HEARTBEAT`` is read when a
 Booster sets up training (``robustness/heartbeat.py``).
+
+``LGBM_TPU_GUARDS=lockorder`` (alias ``LIGHTGBM_TPU_GUARDS``) installs the
+runtime lock-order tracker over the threaded modules
+(``analysis/lockorder.py``) before any of them creates a lock; the JAX
+package's other guard tokens have no counterpart and are logged.
+``python -m lightgbm_tpu_torch.analysis`` runs conlint over those
+modules. ``LIGHTGBM_TPU_TIMETAG`` turns on the section timer
+(``utils/timer.py``), and the ``tpu_profile_dir`` parameter records a
+``torch.profiler`` trace of ``train``'s boosting loop.
 """
-from . import callback, robustness
+# opt-in guards, read before any submodule below creates its locks, so
+# that module-level locks (native._lock) are tracked too
+from .analysis import install_guards_from_env as _install_guards
+
+_install_guards()
+
+from . import callback, robustness  # noqa: E402
 from .basic import Booster, Dataset
 from .callback import (EarlyStopException, checkpoint_callback,
                        early_stopping, log_evaluation, record_evaluation,

@@ -37,8 +37,9 @@ packing, the segment partition and its pow2 buckets),
 ``tpu_donate_state`` and ``tpu_stop_check_interval`` (buffer donation
 and the batched stop check of the JAX package's queue of device trees,
 which the port's grower, returning host trees, has no need of),
-``tpu_compile_cache_dir`` and ``tpu_profile_dir`` (XLA's compile cache
-and profiler).
+``tpu_compile_cache_dir`` (XLA's compile cache). ``tpu_profile_dir``
+records a ``torch.profiler`` trace of ``train``'s boosting loop
+(engine.py).
 """
 from __future__ import annotations
 

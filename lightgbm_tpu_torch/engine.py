@@ -26,6 +26,8 @@ from __future__ import annotations
 import collections
 import copy
 import json
+import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -197,34 +199,46 @@ def train(params: Dict[str, Any], train_set: Dataset,
     init_iteration = booster.current_iteration()
     end_iteration = init_iteration + num_boost_round
     evaluation_result_list: List = []
-    for i in range(init_iteration, end_iteration):
-        for cb in callbacks_before:
-            cb(CallbackEnv(model=booster, params=params, iteration=i,
-                           begin_iteration=init_iteration,
-                           end_iteration=end_iteration,
-                           evaluation_result_list=None))
-        finished = booster.update(fobj=fobj)
-
-        evaluation_result_list = []
-        if eval_train_name is not None or \
-                booster.config.is_provide_training_metric:
-            name = eval_train_name or "training"
-            evaluation_result_list.extend(
-                (name, n, v, h) for _, n, v, h in booster.eval_train(feval))
-        if booster.valid_sets:
-            evaluation_result_list.extend(booster.eval_valid(feval))
-        try:
-            for cb in callbacks_after:
+    profile_dir = str(booster.config.tpu_profile_dir or "")
+    # a trace of the whole boosting loop (ref: the JAX package's
+    # engine.py:211-250, jax.profiler there)
+    prof = _profile_start(booster) if profile_dir else None
+    try:
+        for i in range(init_iteration, end_iteration):
+            for cb in callbacks_before:
                 cb(CallbackEnv(model=booster, params=params, iteration=i,
                                begin_iteration=init_iteration,
                                end_iteration=end_iteration,
-                               evaluation_result_list=evaluation_result_list))
-        except EarlyStopException as stop:
-            booster.best_iteration = stop.best_iteration + 1
-            evaluation_result_list = stop.best_score
-            break
-        if finished:
-            break
+                               evaluation_result_list=None))
+            finished = booster.update(fobj=fobj)
+
+            evaluation_result_list = []
+            if eval_train_name is not None or \
+                    booster.config.is_provide_training_metric:
+                name = eval_train_name or "training"
+                evaluation_result_list.extend(
+                    (name, n, v, h)
+                    for _, n, v, h in booster.eval_train(feval))
+            if booster.valid_sets:
+                evaluation_result_list.extend(booster.eval_valid(feval))
+            try:
+                for cb in callbacks_after:
+                    cb(CallbackEnv(
+                        model=booster, params=params, iteration=i,
+                        begin_iteration=init_iteration,
+                        end_iteration=end_iteration,
+                        evaluation_result_list=evaluation_result_list))
+            except EarlyStopException as stop:
+                booster.best_iteration = stop.best_iteration + 1
+                evaluation_result_list = stop.best_score
+                break
+            if finished:
+                break
+    finally:
+        if prof is not None:
+            trace_path = _profile_stop(prof, profile_dir)
+    if prof is not None:
+        _check_trace(trace_path, booster)
 
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for data_name, metric, value, _ in evaluation_result_list:
@@ -232,6 +246,56 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if not keep_training_booster:
         booster.free_dataset()
     return booster
+
+
+def _on_card(booster: Booster) -> bool:
+    dev = getattr(booster._engine, "device", None)
+    return getattr(dev, "type", None) == "cuda"
+
+
+def _profile_start(booster: Booster):
+    """Start ``torch.profiler`` over the host's activity, and the
+    card's when the booster trains on one. Refuses, before any
+    iteration, a torch that cannot trace the card (no CUPTI): a trace
+    of host activity alone would pass for one of the card."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+    activities = [ProfilerActivity.CPU]
+    if _on_card(booster):
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError(
+                "tpu_profile_dir: this torch cannot trace CUDA activity "
+                "(no CUPTI); refusing to record the host's activity alone")
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _profile_stop(prof, profile_dir: str) -> str:
+    """Stop the profiler and export its Chrome trace into
+    ``profile_dir``; returns the file's path."""
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(
+        profile_dir, f"lightgbm_tpu_torch.{os.getpid()}."
+        f"{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log.info(f"boosting-loop trace written to {path}")
+    return path
+
+
+def _check_trace(path: str, booster: Booster) -> None:
+    """On the card the trace must hold the card's kernels: CUPTI can
+    be built in yet fail at run time, and the profiler then records the
+    host alone with only a warning."""
+    if not _on_card(booster):
+        return
+    with open(path, encoding="utf-8") as fh:
+        text = fh.read()
+    if '"cat": "kernel"' not in text and '"cat":"kernel"' not in text:
+        raise RuntimeError(
+            f"tpu_profile_dir: the trace {path} holds no CUDA kernel; "
+            "the profiler could not trace the card (CUPTI)")
 
 
 class CVBooster:

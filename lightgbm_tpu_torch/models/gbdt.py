@@ -94,6 +94,7 @@ from ..ops.predict import depth_steps, forest_leaf_bins
 from ..ops.split import K_EPSILON, FeatureMeta, SplitHyperParams
 from ..robustness import faults, heartbeat, integrity
 from ..utils import log, prng
+from ..utils.timer import global_timer
 from .sample_strategy import SampleStrategy
 
 
@@ -1353,7 +1354,11 @@ class GBDT:
         the same grower, from one row sample (GOSS drawn on the device
         when ``on_device``)."""
         K = self.num_tree_per_iteration
-        init_scores, grad, hess = self._gradients(gradients, hessians)
+        # the section table of LIGHTGBM_TPU_TIMETAG under the JAX
+        # package's names (ref: its models/gbdt.py:2214-2405); sync= waits
+        # for the card only while the timer is on
+        with global_timer.section("GBDT::Boosting", sync=lambda: grad):
+            init_scores, grad, hess = self._gradients(gradients, hessians)
         grad = self._check_gradients(grad, hess)
         sample = self._row_sample(grad, hess, on_device)
         guard = self._numeric_guard()
@@ -1363,8 +1368,14 @@ class GBDT:
                 self.models.append(HostTree.constant(init_scores[k]))
                 continue
             g, h = grad[k], hess[k]
-            tree, leaf_id = self._grow_tree(k, sampled_gh(g, h, sample))
-            host = HostTree(tree, self.train_set.used_feature_map)
+            with global_timer.section("TreeLearner::Train",
+                                      sync=lambda: leaf_id):
+                tree, leaf_id = self._grow_tree(k, sampled_gh(g, h, sample))
+            # the grower already returns host arrays, so this section
+            # holds only their conversion into a HostTree (the JAX
+            # package's also holds the device-to-host fetch)
+            with global_timer.section("Tree::ToHost"):
+                host = HostTree(tree, self.train_set.used_feature_map)
             if host.num_leaves <= 1:
                 # no valid split for this class this iteration
                 if len(self.models) < K:
@@ -1412,29 +1423,34 @@ class GBDT:
                     leaf_np = np.where(sample[0].cpu().numpy() > 0,
                                        leaf_np, -1)
                 self._renew_tree_output(host, k, leaf_np)
-            if host.is_linear:
-                # a linear tree shrinks first and adds its f64 linear
-                # outputs rounded to f32 (ref: gbdt.py:2387-2394)
-                host.shrink(self.shrinkage_rate)
-                self.score[k] += torch.as_tensor(
-                    host.linear_output(self.train_set.raw, leaf_np).astype(
-                        np.float32), device=self.device)
-            else:
-                # two roundings: the product, then the accumulate
-                lv = torch.as_tensor(
-                    host.leaf_value[:host.num_leaves].astype(np.float32),
-                    device=self.device)
-                delta = lv[leaf_id] * torch.tensor(
-                    self.shrinkage_rate, dtype=torch.float32,
-                    device=self.device)
-                self.score[k] += delta
-                host.shrink(self.shrinkage_rate)
+            with global_timer.section("GBDT::UpdateScore",
+                                      sync=lambda: self.score):
+                if host.is_linear:
+                    # a linear tree shrinks first and adds its f64 linear
+                    # outputs rounded to f32 (ref: gbdt.py:2387-2394)
+                    host.shrink(self.shrinkage_rate)
+                    self.score[k] += torch.as_tensor(
+                        host.linear_output(self.train_set.raw, leaf_np).astype(
+                            np.float32), device=self.device)
+                else:
+                    # two roundings: the product, then the accumulate
+                    lv = torch.as_tensor(
+                        host.leaf_value[:host.num_leaves].astype(np.float32),
+                        device=self.device)
+                    delta = lv[leaf_id] * torch.tensor(
+                        self.shrinkage_rate, dtype=torch.float32,
+                        device=self.device)
+                    self.score[k] += delta
+                    host.shrink(self.shrinkage_rate)
             # the shrunk leaf value is the f32 product added above: the
             # valid sets get it before the bias is folded in, as the
             # training score did (ref: gbdt.py:2406-2418)
-            for vd in self.valid_sets:
-                vd.score[k] += self._tree_outputs(host, vd.bins,
-                                                  vd.dataset.raw)
+            with global_timer.section(
+                    "GBDT::UpdateValidScore",
+                    sync=lambda: [vd.score for vd in self.valid_sets]):
+                for vd in self.valid_sets:
+                    vd.score[k] += self._tree_outputs(host, vd.bins,
+                                                      vd.dataset.raw)
             if abs(init_scores[k]) > K_EPSILON:
                 host.add_bias(init_scores[k])
             if guard is not None:

@@ -158,9 +158,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if gxx is None:
             build_error = "g++ not found"
             return None
-        # holding _lock across the g++ run is the point: every other
-        # thread needs the built library before it can use it
         try:
+            # conlint: disable=CL002 — deliberate: double-checked
+            # one-time build; holding _lock across the g++ run is the
+            # point (every other thread needs the built library first)
             path = build(gxx)
         except (OSError, RuntimeError) as e:
             build_error = str(e)

@@ -202,9 +202,9 @@ class Heartbeat:
             self.progress = int(progress)
             self.seq += 1
             self.last_beat = now
-            # deliberate: the lock serializes beat/touch writers so
-            # tmp+rename stays crash-consistent; the write is a few
-            # hundred bytes to a local file
+            # conlint: disable=CL002 — deliberate: the lock serializes
+            # beat/touch writers so tmp+rename stays crash-consistent;
+            # the write is a few hundred bytes to a local file
             self._write(t=now, ka=now)
         if phase == PHASE_COMPILING:
             # injected compile stretch: the phase sits still while the
@@ -218,7 +218,8 @@ class Heartbeat:
         with self._lock:
             if self._hung:
                 return
-            # same single-writer file-I/O serialization as beat()
+            # conlint: disable=CL002 — same single-writer file-I/O
+            # serialization as beat(); see above
             self._write(t=self.last_beat, ka=self.clock())
 
     # -- keepalive thread ----------------------------------------------

@@ -797,8 +797,10 @@ class FleetServer:
                 else:
                     nb = b._replace(dev=self._upload_pack(b))
             if self._integrity_interval > 0:
-                # the candidate is canary-verified atomically with its
-                # installation (a bounded 16-row replay per member)
+                # conlint: disable=CL002 — deliberate: the candidate
+                # is canary-verified atomically with its installation (a
+                # bounded 16-row replay per member); dropping the lock
+                # would race a publish
                 bad = self._verify_pack(cur.routes, nb,
                                         skip=self._quarantined)
                 if bad:
@@ -1487,6 +1489,9 @@ class FleetServer:
                     f"{b.members} ({e!r}); quarantined members stay on "
                     "the host walk until the next probe cycle")
                 return
+            # conlint: disable=CL002 — deliberate: verify-before-install
+            # must be atomic with the state swap (16-row canary replay,
+            # bounded hold)
             bad = self._verify_pack(cur.routes, nb)
             if bad:
                 for m in bad:

@@ -367,20 +367,25 @@ def test_server_hot_swap_under_load_never_torn(training_booster):
     expected = {srv.generation.version:
                 b.predict(probe, device=True, raw_score=True)}
     stop = threading.Event()
+    # each response with the time the dispatcher settled it: a client
+    # thread may lose the GIL between result() and append(), so the
+    # order of `seen` is not the order the server answered in
     seen, errors = [], []
+    own = [[] for _ in range(3)]    # each client's versions, its order
 
-    def client():
+    def client(mine):
         while not stop.is_set():
             try:
                 f = srv.submit(probe)
                 v = f.result(60)
-                seen.append((f.generation.version, v))
+                seen.append((f.t_done, f.generation.version, v))
+                mine.append(f.generation.version)
             except Exception as e:     # noqa: BLE001
                 errors.append(repr(e))
                 return
 
-    threads = [threading.Thread(target=client, daemon=True)
-               for _ in range(3)]
+    threads = [threading.Thread(target=client, args=(own[i],), daemon=True)
+               for i in range(3)]
     try:
         for t in threads:
             t.start()
@@ -403,12 +408,17 @@ def test_server_hot_swap_under_load_never_torn(training_booster):
             b.rollback_one_iter()
     assert not errors, errors
     assert seen
-    versions = [v for v, _ in seen]
-    for v, out in seen:
+    for _, v, out in seen:
         assert v in expected
         assert np.array_equal(out, expected[v]), \
             f"response from generation {v} matches no published model"
+    # the one dispatcher settles batch after batch, each against the
+    # snapshot live at its dispatch: in settle order the generations
+    # never go back, and neither do they in any one client's order
+    versions = [v for _, v, _ in sorted(seen, key=lambda r: r[0])]
     assert versions == sorted(versions)
+    for mine in own:
+        assert mine == sorted(mine)
     assert final.generation.version == 4
     assert np.array_equal(final_out, expected[4])
 
