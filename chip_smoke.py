@@ -7704,10 +7704,95 @@ def phase_tracing(bst, ds, X, phase4_trees, phase4_iter_s):
     return counts
 
 
+def rss_bytes():
+    """This process's resident set, from /proc/self/status."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def phase_free_raw_data(phase4_tree):
+    """Phase 24 (the side process): (a) phase 4's rows, as a float64
+    matrix that only the Dataset holds, binned once under the default
+    ``free_raw_data`` and once with ``free_raw_data=False``: ``get_data()``
+    is None and the matrix, the host's resident bytes after each
+    ``construct``, and each Dataset's first tree equals phase 4's; (b)
+    the freed Dataset trained again with ``machines``, ``num_threads`` and
+    ``gpu_device_id`` set: each warned
+    once, the tree unchanged, ``set_network``/``free_network`` return the
+    booster; (c) ``dump_model(importance_type="gain")`` equals
+    ``dump_model()``. Returns the K1 launches."""
+    import lightgbm_tpu_torch as lgt
+    t0 = time.perf_counter()
+    X, y = synth_higgs(N_ROWS, N_FEATURES)
+    reset_counts()
+    rss = {}
+    for free in (True, False):
+        gc.collect()
+        before = rss_bytes()
+        t = time.perf_counter()
+        ds = lgt.Dataset(X.astype(np.float64), label=y,
+                         free_raw_data=free).construct()
+        construct_s = time.perf_counter() - t
+        gc.collect()
+        rss[free] = (before, rss_bytes(), construct_s)
+        data = ds.get_data()
+        if free:
+            assert data is None
+            freed = ds
+        else:
+            assert data.dtype == np.float64 and np.array_equal(data, X)
+        del data
+        got = tree_text(lgt.train(bench_params(), ds, num_boost_round=1))
+        assert got == phase4_tree, \
+            f"phase 24 (a) free_raw_data={free}: tree differs from phase 4's"
+        del ds
+        gc.collect()
+    for free, (before, after, construct_s) in rss.items():
+        log(f"phase 24 (a) free_raw_data={free}: {N_ROWS} x {N_FEATURES} "
+            f"float64 ({X.size * 8} bytes) binned in {construct_s!r} s; "
+            f"resident bytes {before} before, {after} after construct "
+            f"(+{after - before}); get_data() "
+            f"{'None' if free else 'the matrix'}; the first tree equals "
+            "phase 4's")
+    log(f"phase 24 (a) kept minus freed resident growth: "
+        f"{(rss[False][1] - rss[False][0]) - (rss[True][1] - rss[True][0])}"
+        " bytes")
+    lines = []
+    lgt.register_logger(lines.append)
+    try:
+        bst = lgt.train(bench_params(
+            verbose=0, machines="127.0.0.1:12400,127.0.0.1:12401",
+            num_threads=4, gpu_device_id=0), freed, num_boost_round=1)
+        assert bst.set_network("127.0.0.1:12400,127.0.0.1:12401",
+                               num_machines=2) is bst
+        assert bst.free_network() is bst
+    finally:
+        lgt.register_logger(None)
+    warned = sorted(line.split("] ", 2)[-1].split(" has no effect")[0]
+                    for line in lines if " has no effect here: " in line)
+    assert warned == ["gpu_device_id", "machines", "num_threads"], lines
+    assert any("set_network: use lightgbm_tpu_torch.distributed" in line
+               for line in lines), lines
+    assert tree_text(bst) == phase4_tree, "phase 24 (b): tree differs"
+    log(f"phase 24 (b) on the freed Dataset, warned once each: {warned}; "
+        "the tree equals phase 4's; set_network and free_network return the booster")
+    assert bst.dump_model(importance_type="gain") == bst.dump_model()
+    log("phase 24 (c) dump_model(importance_type='gain') == dump_model()")
+    counts = read_counts()
+    assert counts["hist_rowmajor_f32"] > 0 and \
+        sum(counts.values()) == counts["hist_rowmajor_f32"], counts
+    log(f"phase 24 took {time.perf_counter() - t0!r} s")
+    return counts
+
+
 def side_worker(plan_path):
     """The side process (``--side-worker PLAN``): the phases that need
-    nothing of phase 4's rows or model (9's multiclass part, 13, 14, 10,
-    6, 20 and 21), run in turn; their launch counts go to ``PLAN["out"]``. Each
+    nothing of phase 4's model (9's multiclass part, 13, 14, 10, 6, 20,
+    21 and 24, which makes phase 4's rows again and holds its trees to
+    phase 4's first one), run in turn; their launch counts go to ``PLAN["out"]``. Each
     resets and reads this process's own counts, so the launches of the
     two processes never mix."""
     with open(plan_path) as fh:
@@ -7731,18 +7816,21 @@ def side_worker(plan_path):
     done("phase 20")
     res["live_totals"] = phase_live(iter_s)
     done("phase 21")
+    res["free_totals"] = phase_free_raw_data(plan["phase4_tree"])
+    done("phase 24")
     with open(plan["out"], "w") as fh:
         json.dump(res, fh)
 
 
-def start_side(phase4_iter_s, t0_wall):
+def start_side(phase4_iter_s, phase4_tree, t0_wall):
     """Start the side process; its output goes to a file that
     ``finish_side`` prints."""
     import os
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_side_")
     plan = {"out": os.path.join(tmp, "side.json"),
-            "phase4_iter_s": phase4_iter_s, "t0_wall": t0_wall}
+            "phase4_iter_s": phase4_iter_s, "phase4_tree": phase4_tree,
+            "t0_wall": t0_wall}
     plan_path = os.path.join(tmp, "plan.json")
     with open(plan_path, "w") as fh:
         json.dump(plan, fh)
@@ -7897,9 +7985,10 @@ def main():
     bst_u16 = paths["compact_u16"][1]
     full_text = paths["full"][1].model_to_string()
     del paths
-    # phases 9 (multiclass), 13, 14, 10, 6, 20 and 21 in the side process,
+    # phases 9 (multiclass), 13, 14, 10, 6, 20, 21 and 24 in the side process,
     # beside phases 7 to 19 here
-    side = start_side(main_run["median_iter_s"], t0_wall)
+    side = start_side(main_run["median_iter_s"], first_trees(bst, 1),
+                      t0_wall)
     side_procs.append(side[0])
     try:
         phase_predict(bst, ds, X)
@@ -7953,6 +8042,7 @@ def main():
     sparse_runs, sparse_totals = res["sparse_runs"], res["sparse_totals"]
     fleet_totals = res["fleet_totals"]
     live_totals = res["live_totals"]
+    free_totals = res["free_totals"]
     for k, v in pool_runs.items():
         key = k.split("_", 2)[2]
         sparse_totals[key] = sparse_totals.get(key, 0) + v
@@ -7961,12 +8051,12 @@ def main():
              + dist_totals.get(k, 0) + shard_totals.get(k, 0)
              + serve_totals.get(k, 0) + fleet_totals.get(k, 0)
              + live_totals.get(k, 0) + shell_totals.get(k, 0)
-             + trace_totals.get(k, 0)
+             + trace_totals.get(k, 0) + free_totals.get(k, 0)
              for k in set(cat_totals) | set(sparse_totals)
              | set(constraint_totals) | set(robust_totals)
              | set(dist_totals) | set(shard_totals) | set(serve_totals)
              | set(fleet_totals) | set(live_totals) | set(shell_totals)
-             | set(trace_totals)}
+             | set(trace_totals) | set(free_totals)}
 
     kernels = []
     level = f"skewed n={LEVEL_NODES[-1]}"
@@ -8025,6 +8115,8 @@ def main():
         + json.dumps(nonzero(shell_totals)))
     log("phase 23 launches ((a)'s two traced trainings and (b)'s two "
         "updates): " + json.dumps(nonzero(trace_totals)))
+    log("phase 24 launches (the three one-iteration trainings): "
+        + json.dumps(nonzero(free_totals)))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

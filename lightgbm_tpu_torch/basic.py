@@ -106,6 +106,28 @@ def _to_2d_numpy(data) -> np.ndarray:
     return X
 
 
+def _hstack_any(a, b):
+    """The column concatenation of two raw-data containers (dense, list,
+    pandas, scipy); None when no sensible merge exists (the JAX package's
+    basic.py:55)."""
+    if _is_sparse(a) or _is_sparse(b):
+        if _is_sparse(a) and _is_sparse(b):
+            import scipy.sparse as sp
+            return sp.hstack([a, b], format="csr")
+        return None
+    if _is_frame(a) and _is_frame(b):
+        import pandas as pd
+        return pd.concat([a.reset_index(drop=True),
+                          b.reset_index(drop=True)], axis=1)
+    try:
+        aa, bb = np.asarray(a), np.asarray(b)
+    except (TypeError, ValueError):
+        return None
+    if aa.ndim == 2 and bb.ndim == 2 and aa.shape[0] == bb.shape[0]:
+        return np.hstack([aa, bb])
+    return None
+
+
 def _node_index(tree_idx: int, child: int) -> str:
     return (f"{tree_idx}-S{child}" if child >= 0
             else f"{tree_idx}-L{~child}")
@@ -170,13 +192,11 @@ class Dataset:
                  group=None, init_score=None,
                  feature_name: Optional[Sequence[str]] = None,
                  categorical_feature="auto",
-                 params: Optional[Dict[str, Any]] = None, position=None):
-        # frames and Arrow input stay as given until construct
-        keep = (data is None or isinstance(data, (str, Path))
-                or _is_frame(data) or _is_arrow_table(data)
-                or _has_arrow_c_stream(data) or _is_sparse(data)
-                or _is_sequence_input(data))
-        self.data = data if keep else _to_2d_numpy(data)
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = True, position=None):
+        # the caller's object, as given, until construct
+        self.data = data
+        self.free_raw_data = free_raw_data
         self.categorical_feature = categorical_feature
         self.label = label
         self.reference = reference
@@ -198,8 +218,15 @@ class Dataset:
         return self
 
     def construct(self) -> "Dataset":
-        if self._binned is not None:
-            return self
+        """Bin the data; with ``free_raw_data`` (the default) the raw data
+        is dropped then (the JAX package's basic.py:195, :368)."""
+        if self._binned is None:
+            self._construct()
+            if self.free_raw_data:
+                self.data = None
+        return self
+
+    def _construct(self) -> "Dataset":
         if self.used_indices is not None:
             self._binned = self.reference.construct()._binned.subset(
                 self.used_indices)
@@ -333,10 +360,11 @@ class Dataset:
         if self.categorical_feature == categorical_feature:
             return self
         if self._binned is not None:
-            if self.data is None or self.used_indices is not None:
+            if self.data is None:
                 raise LightGBMError(
-                    "Cannot set categorical feature: this Dataset holds "
-                    "no raw data to bin again")
+                    "Cannot set categorical feature after freeing raw "
+                    "data; set free_raw_data=False when constructing "
+                    "the Dataset")
             log.warning("categorical_feature changed after construction; "
                         "the dataset will be re-binned")
             self._binned = None
@@ -412,7 +440,8 @@ class Dataset:
         its bins and metadata are gathered at ``construct``; query
         boundaries are rebuilt from the rows' queries, positions dropped
         (as in the JAX package)."""
-        ret = Dataset(None, reference=self, params=params or self.params)
+        ret = Dataset(None, reference=self, params=params or self.params,
+                      free_raw_data=self.free_raw_data)
         ret.used_indices = np.sort(np.asarray(used_indices, np.int64))
         return ret
 
@@ -445,13 +474,20 @@ class Dataset:
                        enumerate(b.feature_names)])
         a.feature_names = merged
         a.max_bin = max(a.max_bin, b.max_bin)
-        if isinstance(self.data, np.ndarray) and \
-                isinstance(other.data, np.ndarray):
-            self.data = np.hstack([self.data, other.data])
-        elif _is_sparse(self.data) and _is_sparse(other.data):
-            import scipy.sparse as sp
-            self.data = sp.hstack([self.data, other.data], format="csr")
-        else:
+        # the raw data merges too, or is dropped with a warning (the JAX
+        # package's basic.py:595-613)
+        if self.data is not None and other.data is not None:
+            self.data = _hstack_any(self.data, other.data)
+            if self.data is None:
+                log.warning("Cannot merge raw data of these input types "
+                            "after add_features_from; raw data dropped")
+            elif (_is_frame(self.data) and
+                  len(a.feature_names) == self.data.shape[1]):
+                self.data.columns = list(a.feature_names)
+        elif self.data is not None:
+            log.warning("Cannot keep raw data after add_features_from "
+                        "(the other dataset was constructed with "
+                        "free_raw_data=True)")
             self.data = None
         self.feature_name = list(a.feature_names)
         return self
@@ -769,6 +805,29 @@ class Booster:
     def free_dataset(self) -> "Booster":
         self.train_set = None
         self.valid_sets = []
+        return self
+
+    def set_network(self, machines, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        """The reference's socket network (basic.py set_network) has no
+        counterpart: a world is joined through torch.distributed, whose
+        rank a machine list alone does not give. Logs where to go
+        instead and configures nothing (the JAX package's
+        basic.py:1353-1372)."""
+        if num_machines <= 1:
+            log.warning("set_network with num_machines<=1 is a no-op")
+            return self
+        log.warning(
+            "set_network: use lightgbm_tpu_torch.distributed."
+            "init_distributed(coordinator_address=..., num_processes="
+            f"{num_machines}, process_id=<rank>) (torch.distributed, "
+            "gloo or NCCL) — the machine list alone cannot determine "
+            "this process' rank; no network was configured")
+        return self
+
+    def free_network(self) -> "Booster":
+        """Nothing to free: ``set_network`` configures no network."""
         return self
 
     def refit(self, data, label, decay_rate: float = 0.9, weight=None,
@@ -1179,11 +1238,14 @@ class Booster:
                                importance_type=importance_type)
 
     def dump_model(self, num_iteration: Optional[int] = None,
-                   start_iteration: int = 0) -> Dict[str, Any]:
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> Dict[str, Any]:
         """The model as a JSON-ready dict (ref: GBDT::DumpModel)."""
         from .io.model_io import dump_model_dict
-        return dump_model_dict(self._engine, num_iteration=num_iteration,
-                               start_iteration=start_iteration)
+        return dump_model_dict(self._engine, self.config,
+                               num_iteration=num_iteration,
+                               start_iteration=start_iteration,
+                               importance_type=importance_type)
 
     def save_model(self, filename, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,

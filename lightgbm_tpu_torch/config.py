@@ -493,6 +493,44 @@ def _parse_list(value: Any, elem_type: Any) -> List[Any]:
 # it; training refuses it instead of ignoring it. None is left.
 _UNSUPPORTED_WHEN: Dict[str, Tuple[Any, str]] = {}
 
+# Parameters of the reference that map to another mechanism here: set
+# explicitly, each is named with the port's counterpart instead of being
+# ignored without a word (the JAX package's config.py:713-740, the same
+# names)
+_REDIRECTED_PARAMS = {
+    "machines": "a world is joined through torch.distributed "
+                "(lightgbm_tpu_torch.distributed.init_distributed, gloo or "
+                "NCCL); no machine list is needed",
+    "machine_list_filename": "see lightgbm_tpu_torch.distributed."
+                             "init_distributed",
+    "num_machines": "the world size comes from torch.distributed "
+                    "(lightgbm_tpu_torch.distributed.init_distributed)",
+    "local_listen_port": "torch.distributed's TCP store at the "
+                         "coordinator address carries the transport",
+    "time_out": "collectives time out after "
+                "tpu_gang_collective_timeout_s",
+    "gpu_platform_id": "the port runs on CUDA through torch; the OpenCL "
+                       "backend does not exist",
+    "gpu_device_id": "the card is the current torch device "
+                     "(CUDA_VISIBLE_DEVICES, or init_distributed("
+                     "local_device_ids=...))",
+    "gpu_use_dp": "histogram precision is tpu_hist_dtype",
+    "num_gpu": "one process drives one card; more cards are more "
+               "torch.distributed ranks",
+    "num_threads": "host threading is torch's (torch.set_num_threads); "
+                   "the parameter has no effect on the card",
+    "force_col_wise": "the histogram layout is fixed by tpu_row_scheduling "
+                      "(compact = row-wise gathers, full = feature-major "
+                      "passes); there is no col/row-wise cost probe",
+    "force_row_wise": "see force_col_wise",
+    "is_enable_sparse": "sparse inputs (scipy) are detected and binned "
+                        "column-wise automatically; EFB handles bundling",
+    "precise_float_parser": "the native parser always uses full-precision "
+                            "strtod",
+    "parser_config_file": "parser plugins are not supported; CSV/TSV/"
+                          "LibSVM are auto-detected",
+}
+
 
 class Config:
     """Resolved parameter set with attribute access.
@@ -605,6 +643,16 @@ class Config:
                     "processes (one process is one device: set it to "
                     "the world size or 0)"]
         return []
+
+    def warn_unimplemented(self) -> None:
+        """Warn on each explicitly set parameter that the port serves by
+        another mechanism (``_REDIRECTED_PARAMS``; the JAX package's
+        config.py:844-866). A device this package does not run on is
+        refused by the registry, and ``cuda`` without a card by
+        ``models/gbdt.resolve_device``."""
+        for name, hint in _REDIRECTED_PARAMS.items():
+            if not self.is_default(name):
+                log.warning(f"{name} has no effect here: {hint}")
 
     def unsupported_settings(self) -> List[str]:
         """``name=value (ROADMAP item)`` for every setting the port cannot

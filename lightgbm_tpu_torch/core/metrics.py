@@ -65,6 +65,10 @@ class Metric:
                             if self.weight is not None else float(num_data))
         self._dev_cache = None
 
+    @property
+    def names(self) -> List[str]:
+        return [self.NAME]
+
     def eval(self, score: np.ndarray, objective=None) -> MetricResult:
         raise NotImplementedError
 

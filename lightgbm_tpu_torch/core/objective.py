@@ -142,6 +142,9 @@ class ObjectiveFunction:
     def num_predict_one_row(self) -> int:
         return 1
 
+    def is_constant_hessian(self) -> bool:
+        return False
+
     def is_renew_tree_output(self) -> bool:
         return False
 
@@ -191,6 +194,9 @@ class RegressionL2(ObjectiveFunction):
         grad = score - self._label_dev
         hess = torch.ones_like(score)
         return self._apply_weight(grad, hess)
+
+    def is_constant_hessian(self):
+        return self.weight is None
 
     def boost_from_score(self, class_id):
         if self.weight is not None:
@@ -289,6 +295,9 @@ class RegressionFair(RegressionL2):
         super().__init__(config)
         self.c = float(config.fair_c)
 
+    def is_constant_hessian(self):
+        return False
+
     def get_gradients(self, score):
         x = score - self._label_dev
         denom = torch.abs(x) + self.c
@@ -314,6 +323,9 @@ class RegressionPoisson(RegressionL2):
             log.fatal(f"[{self.NAME}]: at least one target label is negative")
         if np.sum(self.label) == 0.0:
             log.fatal(f"[{self.NAME}]: sum of labels is zero")
+
+    def is_constant_hessian(self):
+        return False
 
     def get_gradients(self, score):
         exp_score = torch.exp(score)
@@ -383,6 +395,9 @@ class RegressionMAPE(RegressionL1):
         self.label_weight = lw.astype(np.float32)
         self._label_weight_dev = torch.as_tensor(self.label_weight,
                                                  device=device)
+
+    def is_constant_hessian(self):
+        return True
 
     def get_gradients(self, score):
         grad = torch.sign(score - self._label_dev) * self._label_weight_dev

@@ -69,6 +69,15 @@ def _decisions_all(t: HostTree, X: np.ndarray) -> np.ndarray:
     return out
 
 
+def shap_one_tree(t: HostTree, x: np.ndarray, num_features: int
+                  ) -> np.ndarray:
+    """phi[num_features + 1] of one row ``x``; the last slot is the
+    expected value (the JAX package's per-row recursion, here the row
+    walk of ``shap_tree_batch``)."""
+    return shap_tree_batch(t, np.asarray(x, np.float64)[None, :],
+                           num_features)[0]
+
+
 def shap_tree_batch(t: HostTree, X: np.ndarray,
                     num_features: int) -> np.ndarray:
     """Exact TreeSHAP for all rows of X against one tree: [N, F+1]."""

@@ -74,6 +74,10 @@ class TreeArrays(NamedTuple):
     cat_count: Optional[np.ndarray] = None  # i32 [L-1]; 0 = numerical
     cat_bins: Optional[np.ndarray] = None   # i32 [L-1, MAXK], -1 padded
 
+    @property
+    def max_leaves(self) -> int:
+        return len(self.leaf_value)
+
 
 class HostTree:
     """Host-side (numpy) view of a trained tree for model IO and
@@ -191,6 +195,9 @@ class HostTree:
             self.internal_value.astype(np.float32) + np.float32(val))
         if self.is_linear:
             self.leaf_const = self.leaf_const + val
+
+    def add_output(self, delta: np.ndarray) -> None:
+        self.leaf_value = self.leaf_value + delta
 
     def linear_output(self, X: np.ndarray, leaf: np.ndarray) -> np.ndarray:
         """f64 output of a LINEAR tree at each row, given the rows' raw

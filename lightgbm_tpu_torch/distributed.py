@@ -49,8 +49,14 @@ def _store_address(coordinator_address: str) -> str:
     return addr if "://" in addr else f"tcp://{addr}"
 
 
-def _local_device_index(process_id: int) -> int:
+def _local_device_index(process_id: int,
+                        local_device_ids: Optional[Sequence[int]] = None
+                        ) -> int:
+    """The card this rank binds: the first of ``local_device_ids`` when
+    given, else ``LOCAL_RANK`` (or the rank) modulo the cards here."""
     import torch
+    if local_device_ids is not None and len(local_device_ids) > 0:
+        return int(local_device_ids[0])
     local = int(os.environ.get("LOCAL_RANK", process_id) or 0)
     return local % max(torch.cuda.device_count(), 1)
 
@@ -58,12 +64,16 @@ def _local_device_index(process_id: int) -> int:
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
+                     local_device_ids: Optional[Sequence[int]] = None,
                      backend: Optional[str] = None) -> int:
     """Join (or start) the world; returns this process's rank.
 
     ``coordinator_address`` (``host:port``) replaces the reference's
     machine list: every process dials the TCP store there, rank 0 serves
-    it. ``backend`` is ``"nccl"``, ``"gloo"`` or None (torch's default:
+    it. ``local_device_ids`` names the cards of this process (its first
+    is bound; the JAX package's argument of that name); without it a rank
+    binds ``LOCAL_RANK`` modulo the cards, and on a host without a card
+    it is ignored. ``backend`` is ``"nccl"``, ``"gloo"`` or None (torch's default:
     NCCL for CUDA tensors, gloo for host tensors). The group's timeout is
     ``collective_timeout()``. Joining is retried under
     ``retry.DEVICE_POLICY`` (the coordinator may not be up yet), with the
@@ -86,7 +96,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
                          "num_processes and process_id (or use "
                          "init_from_env)")
     if torch.cuda.is_available():
-        torch.cuda.set_device(_local_device_index(int(process_id)))
+        torch.cuda.set_device(_local_device_index(int(process_id),
+                                                  local_device_ids))
     timeout = collective_timeout()
 
     def _attempt():

@@ -595,6 +595,13 @@ class BinMapper:
             out[nan_mask] = self.num_bin - 1
         return out
 
+    def bin_to_value(self, bin_idx: int) -> float:
+        """Representative upper-bound value of a bin (the real-valued
+        split threshold of the model text)."""
+        if self.bin_type == BIN_CATEGORICAL:
+            return float(self.bin_2_categorical[bin_idx])
+        return float(self.bin_upper_bound[bin_idx])
+
     def feature_info(self) -> str:
         """String for the model header's feature_infos field
         (ref: dataset.cpp Dataset::GetFeatureInfos)."""

@@ -898,6 +898,14 @@ class BinnedDataset:
     def feature_infos(self) -> List[str]:
         return [m.feature_info() for m in self.bin_mappers]
 
+    @property
+    def num_used_features(self) -> int:
+        return len(self.used_feature_map)
+
+    def num_bins_per_feature(self) -> np.ndarray:
+        return np.asarray([self.bin_mappers[i].num_bin
+                           for i in self.used_feature_map], dtype=np.int32)
+
 
 def _load_forced_bounds(config: Config) -> Dict[int, List[float]]:
     """User-forced bin upper bounds by ORIGINAL feature (ref: config

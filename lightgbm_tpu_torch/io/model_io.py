@@ -423,9 +423,13 @@ def _node_to_dict(t: HostTree, node: int) -> Dict:
     }
 
 
-def dump_model_dict(engine, num_iteration: Optional[int] = None,
-                    start_iteration: int = 0) -> Dict:
-    """The model as a JSON-ready dict (ref: GBDT::DumpModel)."""
+def dump_model_dict(engine, config: Config,
+                    num_iteration: Optional[int] = None,
+                    start_iteration: int = 0,
+                    importance_type: str = "split") -> Dict:
+    """The model as a JSON-ready dict (ref: GBDT::DumpModel). ``config``
+    and ``importance_type`` are taken as the JAX package's are; the dict
+    holds no importance, so neither changes it."""
     K = engine.num_tree_per_iteration
     obj = engine.objective
     total_iteration = len(engine.models) // max(K, 1)

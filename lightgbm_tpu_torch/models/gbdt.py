@@ -260,6 +260,7 @@ class GBDT:
 
     def _setup_train(self, train: BinnedDataset) -> None:
         cfg = self.config
+        cfg.warn_unimplemented()
         from ..distributed import num_processes
         bad = cfg.unsupported_settings() + cfg.distributed_refusals(
             num_processes())
@@ -1853,6 +1854,10 @@ class GBDT:
     def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
         return [r for vd in self.valid_sets
                 for r in self._eval(vd.metrics, vd.score, vd.name)]
+
+    @property
+    def num_iterations_trained(self) -> int:
+        return self.iter
 
     def current_iteration(self) -> int:
         return len(self.models) // max(self.num_tree_per_iteration, 1)

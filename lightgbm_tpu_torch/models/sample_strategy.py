@@ -47,6 +47,11 @@ class SampleStrategy:
     def reset_config(self, config: Config) -> None:
         self.config = config
 
+    def is_hessian_change(self) -> bool:
+        """Whether the sample rescales the hessians (GOSS amplifies the
+        rows it keeps at random)."""
+        return False
+
     def sample(self, it: int, grad: Optional[np.ndarray] = None,
                hess: Optional[np.ndarray] = None
                ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
@@ -171,6 +176,9 @@ class GOSSStrategy(SampleStrategy):
             log.fatal("Cannot use bagging in GOSS")
         log.info("Using GOSS")
         self.rng = np.random.default_rng(config.bagging_seed)
+
+    def is_hessian_change(self):
+        return True
 
     def _policy(self, it):
         """(top_k, other_k, multiply), or None during the 1/learning_rate

@@ -48,8 +48,8 @@ import torch
 from ..core.tree import HostTree
 from ..robustness import faults
 from .predict import (BinnedTreeArrays, RawTreeArrays, _leaf_raw_t,
-                      depth_steps, fleet_leaf_bins, fleet_leaf_raw,
-                      forest_leaf_bins)
+                      cat_bitset, depth_steps, fleet_leaf_bins,
+                      fleet_leaf_raw, fold_missing, forest_leaf_bins)
 from .split import MISSING_ENUM
 
 ROW_BUCKET_MIN = 256
@@ -295,21 +295,13 @@ def pack_binned_tree(t: HostTree, max_leaves: int, feat_nbin: np.ndarray,
     words = np.zeros((li, cat_width), np.uint32)
     if ni and cat_width:
         is_cat[:ni] = (np.asarray(t.decision_type[:ni]) & 1) != 0
-        for i in np.flatnonzero(is_cat[:ni]):
-            b = t.cat_bins_inner[i, :t.cat_count_inner[i]].astype(np.int64)
-            np.bitwise_or.at(words[i], b >> 5,
-                             np.left_shift(np.uint32(1),
-                                           (b & 31).astype(np.uint32)))
+        words[:ni] = cat_bitset(t.cat_bins_inner, t.cat_count_inner,
+                                is_cat[:ni], cat_width)
     if ni:
-        f = np.asarray(t.split_feature_inner[:ni], np.int64)
-        miss = feat_miss[f]
-        sp = np.where(
-            miss == MISSING_ENUM["nan"], feat_nbin[f] - 1,
-            np.where(miss == MISSING_ENUM["zero"], feat_dflt[f], -1))
-        thr = np.asarray(t.threshold_bin[:ni], np.int64)
-        dl = np.asarray(t.default_left[:ni], bool)
-        special[:ni] = np.where(is_cat[:ni], -1, sp)
-        flip[:ni] = (special[:ni] >= 0) & (dl != (sp <= thr))
+        special[:ni], flip[:ni] = fold_missing(
+            t.split_feature_inner[:ni], t.threshold_bin[:ni],
+            t.default_left[:ni], is_cat[:ni], feat_nbin, feat_miss,
+            feat_dflt)
     return dict(
         split_feature=_pad(t.split_feature_inner[:ni], li, np.int64),
         threshold_bin=_pad(t.threshold_bin[:ni], li, np.int32),

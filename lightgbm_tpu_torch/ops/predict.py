@@ -141,6 +141,86 @@ def _walk(tree, cols: torch.Tensor, steps: int, go_left_fn,
     return leaf[0] if single else leaf
 
 
+def fold_missing(split_feature, threshold_bin, default_left, is_cat,
+                 feat_nbin, feat_miss, feat_dflt):
+    """``special`` (int32) and ``flip`` (bool) of each node for
+    ``forest_leaf_bins``: the one bin of the node's feature whose missing
+    routing may disagree with ``b <= threshold_bin`` (the NaN bin of a
+    nan-missing feature, the default bin of a zero-missing one, -1 for
+    none or a categorical node) and whether it does, from the per-feature
+    bin counts, missing types (``MISSING_ENUM``) and default bins."""
+    f = np.asarray(split_feature, np.int64)
+    miss = np.asarray(feat_miss)[f]
+    sp = np.where(miss == MISSING_ENUM["nan"], np.asarray(feat_nbin)[f] - 1,
+                  np.where(miss == MISSING_ENUM["zero"],
+                           np.asarray(feat_dflt)[f], -1))
+    special = np.where(is_cat, -1, sp).astype(np.int32)
+    flip = (special >= 0) & (np.asarray(default_left, bool) !=
+                             (sp <= np.asarray(threshold_bin, np.int64)))
+    return special, flip
+
+
+def cat_bitset(cat_bins, cat_count, is_cat, width: int) -> np.ndarray:
+    """uint32 ``[nodes, width]``: for each categorical node the bitset of
+    its first ``cat_count`` bins of ``cat_bins`` (bit ``b % 32`` of word
+    ``b // 32``)."""
+    words = np.zeros((len(is_cat), width), np.uint32)
+    for i in np.flatnonzero(is_cat):
+        b = np.asarray(cat_bins[i, :cat_count[i]], np.int64)
+        np.bitwise_or.at(words[i], b >> 5,
+                         np.left_shift(np.uint32(1),
+                                       (b & 31).astype(np.uint32)))
+    return words
+
+
+def tree_leaf_bins(tree, bins_t: torch.Tensor, feat_num_bin, feat_missing,
+                   feat_default_bin, num_steps: Optional[int] = None
+                   ) -> torch.Tensor:
+    """Leaf index per row (int64 ``[R]``) of one ``core/tree.TreeArrays``
+    over binned rows ``bins_t`` ``[F, R]`` (the JAX package's
+    ops/predict.py:88): the tree is packed as ``forest_leaf_bins`` walks
+    it, each node's missing routing folded by ``fold_missing`` from the
+    per-feature ``feat_num_bin``, ``feat_missing`` and
+    ``feat_default_bin``."""
+    li = tree.max_leaves - 1
+    count = (np.zeros(li, np.int64) if tree.cat_count is None
+             else np.asarray(tree.cat_count))
+    is_cat = count > 0
+    width = (int(np.asarray(tree.cat_bins)[is_cat].max()) >> 5) + 1 \
+        if is_cat.any() else 0
+    special, flip = fold_missing(tree.split_feature, tree.threshold_bin,
+                                 tree.default_left, is_cat, feat_num_bin,
+                                 feat_missing, feat_default_bin)
+    dev = bins_t.device
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    packed = BinnedTreeArrays(
+        split_feature=t(tree.split_feature, torch.int64),
+        threshold_bin=t(tree.threshold_bin, torch.int32),
+        special=t(special, torch.int32), flip=t(flip, torch.bool),
+        left_child=t(tree.left_child, torch.int64),
+        right_child=t(tree.right_child, torch.int64),
+        leaf_value=t(tree.leaf_value, torch.float32),
+        num_leaves=t(int(tree.num_leaves), torch.int64),
+        is_cat=t(is_cat, torch.bool),
+        cat_words=t(cat_bitset(tree.cat_bins, count, is_cat,
+                               width).view(np.int32), torch.int32))
+    return forest_leaf_bins(packed, bins_t, num_steps)
+
+
+def tree_output_bins(tree, bins_t: torch.Tensor, feat_num_bin, feat_missing,
+                     feat_default_bin, num_steps: Optional[int] = None
+                     ) -> torch.Tensor:
+    """Per-row output of one tree over binned rows (its leaf values hold
+    the shrinkage already)."""
+    leaf = tree_leaf_bins(tree, bins_t, feat_num_bin, feat_missing,
+                          feat_default_bin, num_steps=num_steps)
+    return torch.as_tensor(np.asarray(tree.leaf_value), dtype=torch.float32,
+                           device=bins_t.device)[leaf]
+
+
 def forest_leaf_bins(tree: BinnedTreeArrays, bins_t: torch.Tensor,
                      num_steps: Optional[int] = None,
                      tid: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -147,6 +147,11 @@ class SplitRecord(NamedTuple):
     cat_bins: Optional[torch.Tensor] = None  # [..., MAXK], -1 padded
 
 
+def meta_has_categorical(meta: FeatureMeta) -> bool:
+    """Whether any feature of ``meta`` is categorical."""
+    return meta.has_cat
+
+
 def pack_record_rows(rec: SplitRecord) -> torch.Tensor:
     """SplitRecord -> packed f32 [..., 13] rows in the grower's column
     layout: [gain, feature, threshold, default_left, left (g, h, count,

@@ -309,6 +309,15 @@ def training_watchdog(policy=None):
     return _watchdog
 
 
+def stall_pending() -> bool:
+    """True while a classified stall is armed and not yet consumed by
+    ``check()``: a top-level handler tells a watchdog's KeyboardInterrupt
+    from a user's Ctrl-C by it. The armed state is consumed when it
+    surfaces as DeviceStallError."""
+    wd = _watchdog
+    return wd is not None and wd.stalled is not None
+
+
 def install_from_env(env=None) -> Optional[Heartbeat]:
     """Install from ``LGBM_TPU_HEARTBEAT`` (no-op without it). Hooked by
     the instrumented entry points (the gbdt loop's training set-up, a

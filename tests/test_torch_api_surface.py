@@ -18,8 +18,10 @@ and multiclass models are taken by the port over the JAX package's trees
 package's, every row's contributions summing to its raw score within
 1e-9 of max(1, |score|).
 """
+import contextlib
 import copy
 import gc
+import importlib
 import pickle
 import weakref
 
@@ -28,6 +30,8 @@ import pytest
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
+from lightgbm_tpu import config as jax_config
+from lightgbm_tpu_torch import config as port_config
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
 N, F, ROUNDS = 1200, 6, 4
@@ -50,6 +54,26 @@ def _data(rng, n=N, f=F):
 def _tree_blocks(model_str):
     return model_str[model_str.index("Tree=0"):
                      model_str.index("end of trees")]
+
+
+@contextlib.contextmanager
+def _log_lines(pkg):
+    """The lines ``pkg``'s logger emits inside the block, at warning
+    level and above unless a Config sets another verbosity."""
+    log = importlib.import_module(pkg.__name__ + ".utils.log")
+    lines, level = [], log._level
+    log.register_logger(lines.append)
+    log.set_verbosity(log.WARNING)
+    try:
+        yield lines
+    finally:
+        log.register_logger(None)
+        log.set_verbosity(level)
+
+
+def _message(line):
+    """A log line without the package's ``[name] [Level]`` prefix."""
+    return line.split("] ", 2)[-1]
 
 
 @pytest.fixture(scope="module")
@@ -110,7 +134,8 @@ def test_fields_and_feature_helpers_equal_jax():
     X, y = _data(rng, n=300)
     names = [f"f{i}" for i in range(F)]
     sizes = np.asarray([100, 150, 50])
-    dss = {pkg: pkg.Dataset(X, label=y, group=sizes, feature_name=names)
+    dss = {pkg: pkg.Dataset(X, label=y, group=sizes, feature_name=names,
+                            free_raw_data=False)
            for pkg in (lgb, lgt)}
     with pytest.raises(LightGBMError, match="before construct"):
         dss[lgt].get_field("group")
@@ -152,9 +177,9 @@ def test_add_features_from_equals_jax():
     X, y = _data(rng, n=500)
     X2 = rng.normal(size=(500, 3))
     merged = {}
-    for pkg, kw in ((lgb, {"free_raw_data": False}), (lgt, {})):
-        a = pkg.Dataset(X, label=y, **kw).construct()
-        a.add_features_from(pkg.Dataset(X2, **kw).construct())
+    for pkg in (lgb, lgt):
+        a = pkg.Dataset(X, label=y, free_raw_data=False).construct()
+        a.add_features_from(pkg.Dataset(X2, free_raw_data=False).construct())
         merged[pkg] = a
     t, j = merged[lgt], merged[lgb]
     assert t.num_feature() == j.num_feature() == F + 3
@@ -169,6 +194,72 @@ def test_add_features_from_equals_jax():
         _tree_blocks(bst[lgb].model_to_string())
     with pytest.raises(LightGBMError, match="rows"):
         t.add_features_from(lgt.Dataset(X2[:10]))
+
+
+@pytest.mark.parametrize("free", [True, False])
+def test_free_raw_data_matches_jax(free):
+    """``free_raw_data``: ``construct`` drops the raw matrix (the default)
+    or keeps it in both packages; a subset carries the flag and trains the
+    same trees; ``set_categorical_feature`` after a freed construct raises
+    in both, after a kept one bins again at the next construct."""
+    rng = np.random.default_rng(5)
+    X, y = _data(rng, n=400)
+    trees = {}
+    for pkg in (lgb, lgt):
+        ds = pkg.Dataset(X, label=y, free_raw_data=free)
+        assert ds.free_raw_data is free and ds.get_data() is X
+        ds.construct()
+        if free:
+            assert ds.get_data() is None
+        else:
+            np.testing.assert_array_equal(ds.get_data(), X)
+        sub = ds.subset(np.arange(0, 400, 2))
+        assert sub.free_raw_data is free
+        trees[pkg] = _tree_blocks(pkg.train(
+            _params("regression"), sub, num_boost_round=2).model_to_string())
+        if free:
+            with pytest.raises(Exception, match="free_raw_data=False") as e:
+                ds.set_categorical_feature([1])
+            assert type(e.value).__name__ == "LightGBMError"
+        else:
+            ds.set_categorical_feature([1])
+            assert ds._binned is None and ds.get_data() is X
+    assert trees[lgt] == trees[lgb]
+
+
+def test_cv_of_a_freed_constructed_dataset_matches_jax():
+    """The folds of ``cv`` are subsets of the binned rows: a Dataset
+    constructed, and so freed, under the default trains them in both
+    packages, to the same L2 scores."""
+    rng = np.random.default_rng(6)
+    X, y = _data(rng, n=300)
+    res = {}
+    for pkg in (lgb, lgt):
+        ds = pkg.Dataset(X, label=y).construct()
+        assert ds.get_data() is None
+        res[pkg] = pkg.cv(_params("regression", metric="l2"), ds, nfold=3,
+                          num_boost_round=2, stratified=False, seed=1)
+    assert res[lgt].keys() == res[lgb].keys()
+    for key in res[lgb]:
+        np.testing.assert_allclose(res[lgt][key], res[lgb][key], rtol=1e-9)
+
+
+def test_add_features_from_a_freed_dataset_warns_and_drops():
+    """``add_features_from`` keeps the raw data only when both sides hold
+    it: with the other side freed both packages warn and drop it."""
+    rng = np.random.default_rng(8)
+    X, y = _data(rng, n=200)
+    X2 = rng.normal(size=(200, 2))
+    said = {}
+    for pkg in (lgb, lgt):
+        a = pkg.Dataset(X, label=y, free_raw_data=False).construct()
+        b = pkg.Dataset(X2).construct()
+        with _log_lines(pkg) as lines:
+            a.add_features_from(b)
+        assert a.get_data() is None and a.num_feature() == F + 2
+        said[pkg] = [_message(line) for line in lines]
+    assert said[lgt] == said[lgb]
+    assert len(said[lgt]) == 1 and "free_raw_data=True" in said[lgt][0]
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
@@ -417,6 +508,71 @@ def test_predict_from_file_equals_array(models, fmt, tmp_path):
     expect = tl.predict(X)
     np.testing.assert_array_equal(tl.predict(path), expect)
     np.testing.assert_array_equal(tl.predict(path), jl.predict(path))
+
+
+def test_set_network_and_free_network_match_jax(models):
+    """No socket network: ``set_network`` logs where a world is joined
+    instead and returns the booster, a no-op for one machine;
+    ``free_network`` returns the booster. The lines are the JAX
+    package's, with the port's distributed module named."""
+    said = {}
+    for pkg, bst in zip((lgb, lgt), models["l2"]):
+        with _log_lines(pkg) as lines:
+            assert bst.set_network("127.0.0.1:12400,127.0.0.1:12401",
+                                   num_machines=2) is bst
+            assert bst.set_network("127.0.0.1:12400") is bst
+            assert bst.free_network() is bst
+        said[pkg] = [_message(line) for line in lines]
+    assert len(said[lgt]) == len(said[lgb]) == 2
+    assert said[lgt][1] == said[lgb][1]
+    assert "lightgbm_tpu_torch.distributed.init_distributed(" in said[lgt][0]
+    assert "num_processes=2" in said[lgt][0] and \
+        "num_processes=2" in said[lgb][0]
+
+
+@pytest.mark.parametrize("importance_type", ["split", "gain"])
+def test_dump_model_importance_type_equals_jax(models, importance_type):
+    """``dump_model(importance_type=)`` is the JAX package's dict: the L2
+    model's as trained (bit for bit), the binary model's as both packages
+    load the JAX package's text; the keyword changes nothing."""
+    text = models["binary"][0].model_to_string()
+    for jb, tb in (models["l2"], (lgb.Booster(model_str=text),
+                                  lgt.Booster(params=CPU, model_str=text))):
+        got = tb.dump_model(importance_type=importance_type)
+        assert got == jb.dump_model(importance_type=importance_type)
+        assert got == tb.dump_model()
+
+
+# the JAX package's redirected parameters, each set to a value that
+# trains the same trees: a machine list, ports, threads, cards, layouts
+REDIRECTED = {"machines": "127.0.0.1:12400,127.0.0.1:12401",
+              "machine_list_filename": "mlist.txt", "num_machines": 2,
+              "local_listen_port": 12401, "time_out": 30,
+              "gpu_platform_id": 0, "gpu_device_id": 0,
+              "gpu_use_dp": True, "num_gpu": 1, "num_threads": 2,
+              "force_col_wise": True, "force_row_wise": False,
+              "is_enable_sparse": False, "precise_float_parser": True,
+              "parser_config_file": "parser.json"}
+
+
+def test_redirected_parameters_warn_as_in_jax(models):
+    """Each redirected parameter set explicitly is warned once an engine,
+    the same names by both packages, read from each package's logger;
+    the trees are those trained without them."""
+    assert set(port_config._REDIRECTED_PARAMS) == \
+        set(jax_config._REDIRECTED_PARAMS) == set(REDIRECTED)
+    X, y = models["X"], models["y"]
+    warned = {}
+    for pkg, plain in zip((lgb, lgt), models["l2"]):
+        with _log_lines(pkg) as lines:
+            bst = pkg.train(_params("regression", verbosity=0, **REDIRECTED),
+                            pkg.Dataset(X, label=y), num_boost_round=ROUNDS)
+        warned[pkg] = sorted(_message(line).split(" has no effect here")[0]
+                             for line in lines
+                             if " has no effect here: " in line)
+        assert _tree_blocks(bst.model_to_string()) == \
+            _tree_blocks(plain.model_to_string())
+    assert warned[lgt] == warned[lgb] == sorted(REDIRECTED)
 
 
 def test_predict_disable_shape_check_equals_jax(models):

@@ -132,7 +132,8 @@ def test_set_categorical_feature_rebins(data):
     """The ``set_categorical_feature`` half of the JAX checklist's
     ``test_booster_eval_and_histogram``: a constructed Dataset bins again
     at its next construct; an unchanged call does nothing."""
-    ds = lgt.Dataset(data["X"], label=data["y"]).construct()
+    ds = lgt.Dataset(data["X"], label=data["y"],
+                     free_raw_data=False).construct()
     binned = ds._binned
     ds.set_categorical_feature("auto")
     assert ds._binned is binned

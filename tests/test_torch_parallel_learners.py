@@ -19,6 +19,7 @@ JAX package's centralized model does within rtol 1e-6 (the init score is
 the mean of the workers' means). The collective-liveness cases are the
 JAX package's ``tests/test_gang.py:199-296``.
 """
+import inspect
 import logging
 import threading
 import time
@@ -422,3 +423,23 @@ def test_slices_and_launcher_env():
     # outside a world: a world of one, rank 0
     assert dist.num_processes() == 1 and dist.process_index() == 0
     assert dist.allgather_bytes(b"abc") == [b"abc"]
+
+
+def test_init_distributed_takes_local_device_ids():
+    """``local_device_ids`` as the JAX package's init_distributed takes it
+    (its first four parameters, in order): a rank binds the first id's
+    card; a world of one joins and leaves over gloo with None, which a
+    host without a card ignores."""
+    from lightgbm_tpu import distributed as jax_dist
+    ref = list(inspect.signature(jax_dist.init_distributed).parameters)
+    assert list(inspect.signature(dist.init_distributed).parameters)[
+        :len(ref)] == ref
+    assert dist._local_device_index(3, [1, 2]) == 1
+    assert dist._local_device_index(0, None) == 0
+    try:
+        assert dist.init_distributed(f"localhost:{dist._free_port()}", 1, 0,
+                                     None, backend="gloo") == 0
+        assert dist.num_processes() == 1
+    finally:
+        dist.shutdown_distributed()
+    assert not torch.distributed.is_initialized()

@@ -146,9 +146,8 @@ def test_add_features_from_sparse(data):
     X, y = data["X"], data["y"]
     res = {}
     for pkg in (lgt, lgb):
-        kw = {} if pkg is lgt else {"free_raw_data": False}
-        a = pkg.Dataset(X[:, :48], label=y, **kw)
-        b = pkg.Dataset(X[:, 48:], **kw)
+        a = pkg.Dataset(X[:, :48], label=y, free_raw_data=False)
+        b = pkg.Dataset(X[:, 48:], free_raw_data=False)
         a.construct()
         b.construct()
         a.add_features_from(b)
